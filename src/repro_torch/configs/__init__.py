@@ -1,0 +1,25 @@
+"""Architecture registry of the port: ``--arch <id>`` resolves here.
+
+Each architecture module holds the published configuration (CONFIG) and a
+reduced same-family smoke configuration (SMOKE).  The port holds the
+architectures it runs so far.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from ..models.config import ArchConfig
+
+_MODULES = {
+    "qwen2-1.5b": "qwen2_1_5b",
+}
+
+ARCH_NAMES = tuple(_MODULES)
+
+
+def get_config(name: str, smoke: bool = False) -> ArchConfig:
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; choose from {ARCH_NAMES}")
+    mod = importlib.import_module(f"{__name__}.{_MODULES[name]}")
+    return mod.SMOKE if smoke else mod.CONFIG

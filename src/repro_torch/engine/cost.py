@@ -1,0 +1,115 @@
+"""HopperModel: the ReDas decision surface on one H100 (the port of
+`repro/engine/cost.py::TPUModel._decide_gemm` and the primitives of
+`repro/core/tpu_model.py`).
+
+The search runs over the kernel's tile menu x {os, ws, is}.  A tile is
+legal when one block's shared memory fits the card's 227 KB; among the
+legal ones the model takes the least
+
+    t = max(padded FLOPs / peak, dataflow bytes / HBM bandwidth)
+
+with the dataflow traffic formula of `core/tpu_model.hbm_traffic` (OS
+refetches the streaming operands but writes each output once; WS keeps
+the weight tile resident per K chunk but streams f32 partial sums; IS is
+the transpose).  There is no MXU ramp term: nothing on this card fills
+and drains like a systolic array's pipeline.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+from ..kernels.redas_gemm import DATAFLOWS, SMEM_LIMIT, TILES, smem_bytes
+from .plan import KernelDecision, KernelRequest
+
+# H100 SXM data-sheet peaks (NVIDIA; dense, at the 700 W power limit).
+PEAK_FLOPS_BF16 = 989e12     # tensor cores, bf16
+PEAK_FLOPS_F32 = 67e12       # FP32 outside the tensor cores (no TF32)
+HBM_BW = 3.35e12             # bytes / s
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class TileConfig:
+    dataflow: str  # "os" | "ws" | "is"
+    bm: int
+    bk: int
+    bn: int
+
+
+def hbm_traffic(m: int, k: int, n: int, cfg: TileConfig,
+                in_bytes: int = 2, out_bytes: int = 2) -> float:
+    """Device-memory bytes the dataflow moves on padded dims (the formula
+    of `core/tpu_model.hbm_traffic`)."""
+    mp, kp, np_ = _round_up(m, cfg.bm), _round_up(k, cfg.bk), _round_up(n, cfg.bn)
+    gm, gk, gn = mp // cfg.bm, kp // cfg.bk, np_ // cfg.bn
+    a, b, o = mp * kp * in_bytes, kp * np_ * in_bytes, mp * np_ * out_bytes
+    if cfg.dataflow == "os":
+        return a * gn + b * gm + o
+    acc = mp * np_ * 4  # f32 partial-sum stream
+    if cfg.dataflow == "ws":
+        return a * gn + b + acc * (2 * gk - 1) + o
+    if cfg.dataflow == "is":
+        return a + b * gm + acc * (2 * gk - 1) + o
+    raise ValueError(cfg.dataflow)
+
+
+def peak_flops(in_bytes: int) -> float:
+    return PEAK_FLOPS_BF16 if in_bytes <= 2 else PEAK_FLOPS_F32
+
+
+def estimate(m: int, k: int, n: int, cfg: TileConfig, in_bytes: int = 2,
+             out_bytes: int = 2) -> tuple[float, float, float]:
+    """(seconds, hbm bytes, padding efficiency) of one call."""
+    mp, kp, np_ = _round_up(m, cfg.bm), _round_up(k, cfg.bk), _round_up(n, cfg.bn)
+    padded = 2.0 * mp * kp * np_
+    bytes_ = hbm_traffic(m, k, n, cfg, in_bytes, out_bytes)
+    seconds = max(padded / peak_flops(in_bytes), bytes_ / HBM_BW)
+    return seconds, bytes_, 2.0 * m * k * n / padded
+
+
+def choose_tile(m: int, k: int, n: int, in_bytes: int = 2,
+                out_bytes: int = 2, dataflows=DATAFLOWS) -> TileConfig:
+    """The least-time legal (dataflow, tile) for one GEMM shape."""
+    best, best_t = None, math.inf
+    for bm, bk, bn in TILES:
+        if smem_bytes(bm, bk, bn, in_bytes) > SMEM_LIMIT:
+            continue
+        for df in dataflows:
+            cfg = TileConfig(df, bm, bk, bn)
+            t = estimate(m, k, n, cfg, in_bytes, out_bytes)[0]
+            if t < best_t:
+                best, best_t = cfg, t
+    if best is None:
+        raise ValueError(f"no tile of {TILES} fits {SMEM_LIMIT} bytes of "
+                         f"shared memory at {in_bytes}-byte operands")
+    return best
+
+
+@dataclasses.dataclass
+class HopperModel:
+    """The decision surface as a cost model: `decide(request)` returns
+    the chosen dataflow and CTA tile for a `gemm` request."""
+
+    name: str = "hopper-h100"
+
+    def decide(self, request: KernelRequest) -> KernelDecision:
+        if request.op != "gemm":
+            raise ValueError(f"HopperModel plans gemm only, not {request.op!r}")
+        cfg = choose_tile(request.m, request.k, request.n, request.in_bytes,
+                          request.out_bytes)
+        seconds, bytes_, pad_eff = estimate(request.m, request.k, request.n,
+                                            cfg, request.in_bytes,
+                                            request.out_bytes)
+        return KernelDecision(
+            op=request.op, dataflow=cfg.dataflow,
+            bm=cfg.bm, bk=cfg.bk, bn=cfg.bn,
+            cost_model=self.name, seconds=seconds,
+            meta=tuple(sorted({
+                "hbm_bytes": bytes_, "padding_efficiency": pad_eff,
+                "smem_bytes": smem_bytes(cfg.bm, cfg.bk, cfg.bn,
+                                         request.in_bytes)}.items())))

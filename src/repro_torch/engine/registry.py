@@ -1,0 +1,45 @@
+"""KernelRegistry: named execution backends for planned decisions (the
+port of `repro/engine/registry.py`).
+
+A backend is a name mapping each op to a callable
+``fn(decision, *tensors, **kw) -> tensor``.  The port has two:
+
+  hopper     — the hand-written Hopper kernels: launched on CUDA
+               tensors; a CPU tensor gets the kernel's plain version.
+  torch-ref  — the plain PyTorch versions, on any device (the parity
+               reference).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+from . import backends
+
+#: the backends the default registry holds.
+BACKENDS = ("hopper", "torch-ref")
+
+
+class KernelRegistry:
+    """(backend, op) -> kernel dispatch table."""
+
+    def __init__(self):
+        self._kernels: dict[tuple[str, str], Callable] = {}
+
+    def register(self, backend: str, op: str, fn: Callable) -> None:
+        self._kernels[(backend, op)] = fn
+
+    def get(self, backend: str, op: str) -> Callable:
+        try:
+            return self._kernels[(backend, op)]
+        except KeyError:
+            raise KeyError(
+                f"no kernel registered for backend={backend!r} op={op!r}; "
+                f"have {sorted(self._kernels)}") from None
+
+
+def default_registry() -> KernelRegistry:
+    """A registry holding both backends."""
+    reg = KernelRegistry()
+    backends.register_into(reg)
+    return reg

@@ -1,0 +1,233 @@
+"""Core model layers on PyTorch tensors (the port of
+`repro/models/layers.py`, dense-decoder subset): params are plain dicts.
+
+Numerics follow the JAX package: RMSNorm scaling by `1 + scale`, rotary
+embeddings over interleaved pairs, grouped-query attention with optional
+QKV bias, SwiGLU MLPs.  Full-sequence attention is the chunked online
+softmax of `_flash_scan` (forward only), decode attention a plain masked
+softmax over the cache.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..engine import active_engine
+
+NEG_INF = -1e30
+
+
+# --------------------------------------------------------------------------
+# Param init
+# --------------------------------------------------------------------------
+
+
+def dense_init(generator: torch.Generator, d_in: int, d_out: int, *,
+               bias: bool = False, lead=(), device=None,
+               dtype=torch.float32) -> dict:
+    """N(0, 1/d_in) weights (d_in, d_out) and zero bias; `lead` prepends
+    axes (the stacked period axis)."""
+    # scaled in place: no second weight-sized temporary
+    p = {"w": torch.randn(*lead, d_in, d_out, generator=generator,
+                          device=device, dtype=dtype).div_(math.sqrt(d_in))}
+    if bias:
+        p["b"] = torch.zeros(*lead, d_out, device=device, dtype=dtype)
+    return p
+
+
+# --------------------------------------------------------------------------
+# Dense, norm, rotary
+# --------------------------------------------------------------------------
+
+
+def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """x @ w (+ b).  Inside a `use_engine` context the matmul routes
+    through the engine's planned kernel; outside it, plain `@`."""
+    w = p["w"].to(x.dtype)
+    x2d = x.reshape(-1, x.shape[-1]).contiguous()
+    eng = active_engine()
+    y2d = eng.matmul(x2d, w, out_dtype=x.dtype) if eng is not None else x2d @ w
+    y = y2d.reshape(*x.shape[:-1], w.shape[-1])
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6,
+             cast_early: bool = True) -> torch.Tensor:
+    x32 = x.float()
+    inv = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
+    if cast_early:
+        # cast to the compute dtype BEFORE the scale multiply, as the JAX
+        # package does (`layers.py:78`)
+        return (x32 * inv).to(x.dtype) * (1.0 + scale).to(x.dtype)
+    return (x32 * inv * (1.0 + scale.float())).to(x.dtype)
+
+
+def slot_update(cache: torch.Tensor, idx: torch.Tensor,
+                new: torch.Tensor) -> torch.Tensor:
+    """Write one row per batch slot at that slot's own clock position:
+    cache (B, S, ...), idx (B,), new (B, ...).  In place (the JAX
+    function returns a new array): the cache is the largest decode-time
+    tensor, and nothing keeps its old rows."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, idx.long()] = new.to(cache.dtype)
+    return cache
+
+
+def rotary(x: torch.Tensor, positions: torch.Tensor,
+           theta: float) -> torch.Tensor:
+    """x: (B, S, H, D), positions: (B, S) -> x with interleaved pairs
+    (x[..., ::2], x[..., 1::2]) rotated (not the NeoX half split)."""
+    d = x.shape[-1]
+    freq = theta ** (-torch.arange(0, d, 2, dtype=torch.float32,
+                                   device=x.device) / d)
+    angle = positions[..., None].float() * freq  # (B, S, D/2)
+    cos, sin = angle.cos()[:, :, None, :], angle.sin()[:, :, None, :]
+    x1, x2 = x[..., ::2].float(), x[..., 1::2].float()
+    out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Flash attention (chunked online softmax, forward)
+# --------------------------------------------------------------------------
+
+
+def _chunk_mask(q_pos, k_pos, kv_len, causal: bool, window: int):
+    """(B, Sq, C) boolean mask for one KV chunk. q_pos (B,Sq), k_pos (C,)."""
+    m = k_pos[None, None, :] < kv_len[:, None, None]
+    if causal:
+        m = m & (k_pos[None, None, :] <= q_pos[:, :, None])
+    if window > 0:
+        m = m & (q_pos[:, :, None] - k_pos[None, None, :] < window)
+    return m
+
+
+def flash_attention(q, k, v, q_pos, kv_len, causal: bool = True,
+                    window: int = 0, chunk: int = 512) -> torch.Tensor:
+    """Memory-efficient attention (the forward of `_flash_scan`).
+
+    q: (B, Sq, H, D); k, v: (B, Sk, KV, D) with H % KV == 0 (GQA).
+    q_pos: (B, Sq) absolute query positions; kv_len: (B,) valid KV length.
+    f32 inside; the last chunk is sliced short where the JAX scan pads it
+    (its padded keys are masked, so they add exact zeros)."""
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    qg = (q.reshape(b, sq, kv, g, d) * (1.0 / math.sqrt(d))).float()
+    acc = torch.zeros(b, kv, g, sq, d, dtype=torch.float32, device=q.device)
+    m_run = torch.full((b, kv, g, sq), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+    l_run = torch.zeros(b, kv, g, sq, dtype=torch.float32, device=q.device)
+    for c0 in range(0, sk, chunk):
+        k_ck = k[:, c0:c0 + chunk].float()
+        v_ck = v[:, c0:c0 + chunk].float()
+        k_pos = torch.arange(c0, c0 + k_ck.shape[1], device=q.device)
+        s = torch.einsum("bqkgd,bckd->bkgqc", qg, k_ck)
+        mask = _chunk_mask(q_pos, k_pos, kv_len, causal, window)
+        s = torch.where(mask[:, None, None], s, NEG_INF)
+        m_new = torch.maximum(m_run, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m_run - m_new)
+        l_run = l_run * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bkgqc,bckd->bkgqd", p, v_ck)
+        m_run = m_new
+    o = acc / l_run.clamp_min(1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# MLP
+# --------------------------------------------------------------------------
+
+
+def mlp_init(generator, d_model: int, d_ff: int, gated: bool, *, lead=(),
+             device=None, dtype=torch.float32) -> dict:
+    kw = {"lead": lead, "device": device, "dtype": dtype}
+    p = {"wi": dense_init(generator, d_model, d_ff, **kw)}
+    if gated:
+        p["wg"] = dense_init(generator, d_model, d_ff, **kw)
+    p["wo"] = dense_init(generator, d_ff, d_model, **kw)
+    return p
+
+
+def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    h = dense(p["wi"], x)
+    if "wg" in p:
+        h = F.silu(dense(p["wg"], x)) * h
+    else:
+        h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+    return dense(p["wo"], h)
+
+
+# --------------------------------------------------------------------------
+# GQA attention block
+# --------------------------------------------------------------------------
+
+
+def attn_init(generator, cfg, *, lead=(), device=None,
+              dtype=torch.float32) -> dict:
+    hd, nh, nkv = cfg.head_dim_, cfg.n_heads, cfg.n_kv
+    kw = {"lead": lead, "device": device, "dtype": dtype}
+    p = {
+        "wq": dense_init(generator, cfg.d_model, nh * hd, bias=cfg.qkv_bias, **kw),
+        "wk": dense_init(generator, cfg.d_model, nkv * hd, bias=cfg.qkv_bias, **kw),
+        "wv": dense_init(generator, cfg.d_model, nkv * hd, bias=cfg.qkv_bias, **kw),
+        "wo": dense_init(generator, nh * hd, cfg.d_model, **kw),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros(*lead, hd, device=device, dtype=dtype)
+        p["k_norm"] = torch.zeros(*lead, hd, device=device, dtype=dtype)
+    return p
+
+
+def attn_qkv(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
+    """Project + (qk-norm) + rotary.  Returns q (B,S,H,D), k/v (B,S,KV,D)."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim_
+    q = dense(p["wq"], x).reshape(b, s, cfg.n_heads, hd)
+    k = dense(p["wk"], x).reshape(b, s, cfg.n_kv, hd)
+    v = dense(p["wv"], x).reshape(b, s, cfg.n_kv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(p["q_norm"], q, cfg.norm_eps)
+        k = rms_norm(p["k_norm"], k, cfg.norm_eps)
+    return rotary(q, positions, cfg.rope_theta), rotary(k, positions, cfg.rope_theta), v
+
+
+def attention_block(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor, *,
+                    window: int = 0) -> torch.Tensor:
+    """Self-attention over the full sequence (forward path)."""
+    b, s, _ = x.shape
+    if window > 0 and cfg.is_causal:
+        raise NotImplementedError(
+            "sliding-window attention (layers.local_attention) is not "
+            "ported yet")
+    q, k, v = attn_qkv(p, cfg, x, positions)
+    kv_len = torch.full((b,), s, dtype=torch.int32, device=x.device)
+    o = flash_attention(q, k, v, positions, kv_len, cfg.is_causal, window,
+                        min(512, s))
+    return dense(p["wo"], o.reshape(b, s, cfg.n_heads * cfg.head_dim_))
+
+
+def cached_attention(p: dict, cfg, q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, q_pos: torch.Tensor,
+                     kv_len: torch.Tensor) -> torch.Tensor:
+    """Decode attention: q (B,Sq,H,D) over a float cache (B,Smax,KV,D)
+    whose rows at or past kv_len (B,) are masked; the caller has written
+    the new rows first.  Returns the `wo` projection."""
+    b, sq, h, d = q.shape
+    kv = k_cache.shape[2]
+    g = h // kv
+    qg = (q.reshape(b, sq, kv, g, d) / math.sqrt(d)).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache.float())
+    srange = torch.arange(k_cache.shape[1], device=q.device)
+    valid = srange[None, :] < kv_len[:, None]                   # (B, S)
+    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+    p_attn = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p_attn, v_cache.float())
+    o = o.reshape(b, sq, h, d).to(q.dtype)
+    return dense(p["wo"], o.reshape(b, sq, cfg.n_heads * cfg.head_dim_))

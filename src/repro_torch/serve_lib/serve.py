@@ -1,0 +1,138 @@
+"""Serving: batched prefill + greedy decode over the contiguous KV cache
+(the port of `repro/serve_lib/serve.py`, static one-batch mode).
+
+`generate` serves one batch end to end.  Kernel dispatch goes through the
+port's engine when `ServeConfig.kernel_backend` is set ("hopper" for the
+hand-written kernels, "torch-ref" for their plain versions); `None`
+means plain `@`, as the JAX package leaves the matmuls to XLA.
+`warm_start_engine` loads a saved `ExecutionPlan` so the first requests
+re-plan nothing.
+
+Entry points run on the card unless the caller asks for the CPU:
+`ServeConfig.device` defaults to "cuda", and without a CUDA device that
+raises rather than falling back.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import warnings
+
+import torch
+
+from ..engine import BACKENDS, Engine, ExecutionPlan, use_engine
+from ..models import transformer as T
+from ..models.config import ArchConfig
+
+#: cache dtypes the port's contiguous cache can hold (the int8 KV codec
+#: of the JAX package is not ported yet).
+SUPPORTED_CACHE_DTYPES = ("float32", "bfloat16", "float16")
+
+
+def _dtype(value) -> torch.dtype:
+    if isinstance(value, torch.dtype):
+        return value
+    dt = getattr(torch, str(value), None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"{value!r} is not a torch dtype")
+    return dt
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    max_seq: int
+    batch: int
+    compute_dtype: object = torch.bfloat16
+    cache_dtype: object = torch.bfloat16
+    # engine backend for every model matmul (None -> plain `@`).
+    kernel_backend: str | None = None
+    # optional ExecutionPlan JSON to warm-start the decision cache from.
+    plan_path: str | None = None
+    # where the cache lives and the model runs ("cuda" unless the caller
+    # asks for the CPU).
+    device: str = "cuda"
+
+    def __post_init__(self):
+        compute = _dtype(self.compute_dtype)
+        if not compute.is_floating_point:
+            raise ValueError(f"compute_dtype must be floating ({compute} given)")
+        cache = _dtype(self.cache_dtype)
+        if str(cache).removeprefix("torch.") not in SUPPORTED_CACHE_DTYPES:
+            raise ValueError(f"cache_dtype {cache} is not supported "
+                             f"(supported: {SUPPORTED_CACHE_DTYPES})")
+        if self.kernel_backend not in (None, *BACKENDS):
+            raise ValueError(f"kernel_backend {self.kernel_backend!r} is not "
+                             f"one of {BACKENDS} (or None)")
+        object.__setattr__(self, "compute_dtype", compute)
+        object.__setattr__(self, "cache_dtype", cache)
+        object.__setattr__(self, "device", str(torch.device(self.device)))
+
+
+def resolve_device(scfg: ServeConfig) -> torch.device:
+    """The serving device; raises when it is a CUDA device and there is
+    none (no silent fallback to the CPU)."""
+    dev = torch.device(scfg.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"ServeConfig.device={scfg.device!r} but no CUDA device is "
+            f"available; pass device='cpu' to serve on the CPU")
+    return dev
+
+
+def warm_start_engine(scfg: ServeConfig) -> Engine | None:
+    """The serving engine: `kernel_backend` selects the registry backend,
+    `plan_path` (an `ExecutionPlan.save` artifact) pre-fills the decision
+    cache so first-call planning drops to lookups."""
+    if scfg.kernel_backend is None:
+        return None
+    plan = None
+    if scfg.plan_path:
+        plan = ExecutionPlan.load(scfg.plan_path)
+        want = scfg.compute_dtype.itemsize
+        if len(plan) and not any(req.in_bytes == want for req, _ in plan):
+            warnings.warn(
+                f"warm-start plan {scfg.plan_path!r} holds no decisions for "
+                f"in_bytes={want} (compute_dtype={scfg.compute_dtype}); every "
+                f"lookup will miss", UserWarning, stacklevel=2)
+    return Engine(backend=scfg.kernel_backend, plan=plan)
+
+
+def init_cache(cfg: ArchConfig, scfg: ServeConfig) -> dict:
+    return T.init_cache(cfg, T.CacheSpec(scfg.max_seq, scfg.batch),
+                        dtype=scfg.cache_dtype, device=resolve_device(scfg))
+
+
+def generate(params, cfg: ArchConfig, scfg: ServeConfig, prompt,
+             n_tokens: int, *, engine: Engine | None = None) -> torch.Tensor:
+    """prompt (B, S_prompt) -> (B, n_tokens) greedy tokens.
+
+    The first token is the argmax of the prefill logits, so `n_tokens`
+    outputs cost `n_tokens - 1` decode steps.  Runs where `params` live,
+    which must be `scfg.device`.  `engine` overrides the
+    `ServeConfig`-derived one (pass a shared Engine to keep one decision
+    cache across calls)."""
+    if n_tokens < 1:
+        raise ValueError(f"n_tokens must be >= 1, got {n_tokens}")
+    dev = resolve_device(scfg)
+    if params["embed"].device.type != dev.type:
+        raise ValueError(f"params live on {params['embed'].device} but "
+                         f"ServeConfig.device is {scfg.device!r}")
+    prompt = torch.as_tensor(prompt, device=params["embed"].device)
+    if prompt.dim() != 2 or prompt.shape[0] != scfg.batch:
+        raise ValueError(f"prompt {tuple(prompt.shape)} is not "
+                         f"(batch={scfg.batch}, S)")
+    eng = engine if engine is not None else warm_start_engine(scfg)
+    scope = use_engine(eng) if eng is not None else contextlib.nullcontext()
+    with scope, torch.inference_mode():
+        cache = init_cache(cfg, scfg)
+        logits, cache = T.prefill(params, cfg, prompt, cache,
+                                  compute_dtype=scfg.compute_dtype)
+        tok = logits[:, -1].argmax(dim=-1, keepdim=True).to(torch.int32)
+        outs = [tok]
+        for _ in range(n_tokens - 1):
+            logits, cache = T.decode_step(params, cfg, cache, tok,
+                                          compute_dtype=scfg.compute_dtype)
+            tok = logits[:, -1].argmax(dim=-1, keepdim=True).to(torch.int32)
+            outs.append(tok)
+        return torch.cat(outs, dim=1)
