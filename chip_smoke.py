@@ -14,10 +14,12 @@ Phases (any failed check exits non-zero; nothing falls back):
   3. the main path: `repro_torch.launch.serve` serving full-width
      qwen2-1.5b (4 requests x 512 prompt + 16 new tokens, bf16, weights
      from a seed) on the `hopper` backend; the GEMM kernel must launch
-     7 x 28 x 16 = 3136 times;
+     7 x 28 x 16 = 3136 times.  The same entry point serving 1 token
+     gives the prefill time, and device traces of the served run's
+     `generate` the idle share;
   4. parity on the card: full-width prefill logits of `hopper` against
-     `torch-ref`, prefill and decode times with a device trace, and the
-     smoke configuration in f32 giving the same tokens on the card as the
+     `torch-ref` on the served run's weights and prompt, and the smoke
+     configuration in f32 giving the same tokens on the card as the
      plain versions on the CPU;
   5. the kernels line, then the result line.
 
@@ -138,14 +140,14 @@ def phase_setup() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    libs = _build.build(["redas_gemm"])
+    lib = _build.build("redas_gemm")
     seconds = time.perf_counter() - t0
     log = _build.log_path("redas_gemm").read_text()
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
     stores = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", log))
     loads = sum(int(s) for s in re.findall(r"(\d+) bytes spill loads", log))
     check(len(regs) > 0, "no kernel in the ptxas report")
-    print(f"build: {seconds:.1f} s ({libs['redas_gemm'].name}); ptxas: "
+    print(f"build: {seconds:.1f} s ({lib.name}); ptxas: "
           f"{len(regs)} kernels, registers {min(regs)}..{max(regs)}, spill "
           f"stores {stores} bytes and loads {loads} bytes in all")
     REPORT["setup"] = {"card": card_line(), "torch": torch.__version__,
@@ -216,52 +218,54 @@ def phase_kernels() -> list[dict]:
     return rows
 
 
-def main_path_inputs(cfg):
-    """The weights and prompt `launch.serve` draws from SEED."""
-    dev = torch.device("cuda")
-    params = T.init_params(cfg, generator=torch.Generator(dev).manual_seed(SEED),
-                           device=dev, dtype=torch.bfloat16)
-    prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT), device=dev,
-                           generator=torch.Generator(dev).manual_seed(SEED + 1),
-                           dtype=torch.int32)
-    return params, prompt
+def _serve(gen: int) -> dict:
+    """One run of the main path's entry point: weights and prompt drawn
+    from SEED, `gen` greedy tokens for each of the BATCH requests."""
+    return launch_serve.main(
+        ["--arch", ARCH, "--kernel-backend", "hopper", "--batch", str(BATCH),
+         "--prompt-len", str(PROMPT), "--seed", str(SEED), "--gen", str(gen)])
 
 
-def phase_main_path(cfg) -> tuple[dict, dict, torch.Tensor]:
-    argv = ["--arch", ARCH, "--kernel-backend", "hopper", "--batch", str(BATCH),
-            "--prompt-len", str(PROMPT), "--seed", str(SEED)]
-    launch_serve.main(argv + ["--gen", "2"])  # warm-up (allocator, first launches)
+def phase_main_path(cfg) -> dict:
+    _serve(2)  # warm-up (allocator, first launches)
+    # prefill and the first token alone: the prefill time of a served run
+    first = _serve(1)
+    first_tokens, prefill_ms = first["tokens"], first["seconds"] * 1e3
+    del first
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()  # what the script holds already
     redas_gemm.reset_launches()
-    out = launch_serve.main(argv + ["--gen", str(GEN)])
+    out = _serve(GEN)
     launches = dict(redas_gemm.launches)
     peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     expected = sum(LAYER_GEMMS.values()) * cfg.n_layers * GEN
     tokens = out["tokens"]
+    decode_ms = (out["seconds"] * 1e3 - prefill_ms) / (GEN - 1)
     mix = collections.Counter(dec.dataflow for _, dec in out["engine"].plan)
     print(f"main path: served {BATCH} requests x ({PROMPT} prompt + {GEN} new) "
-          f"in {out['seconds']:.3f} s, {out['tokens_per_s']:.1f} tok/s; max "
-          f"memory allocated by the run {peak:.2f} GiB (weights included); plan {out['engine_plan']}; "
-          f"dataflow mix of decisions {dict(mix)}; kernel launches {launches}")
+          f"in {out['seconds']:.3f} s, {out['tokens_per_s']:.1f} tok/s; prefill "
+          f"and first token {prefill_ms:.2f} ms (a served run of 1 token), "
+          f"decode {decode_ms:.3f} ms/step (the difference, over {GEN - 1} "
+          f"steps); max memory allocated by the run {peak:.2f} GiB (weights "
+          f"included); plan {out['engine_plan']}; dataflow mix of decisions "
+          f"{dict(mix)}; kernel launches {launches}")
     check(sum(launches.values()) == expected,
           f"GEMM kernel launched {sum(launches.values())} times, not {expected}")
     check(tuple(tokens.shape) == (BATCH, GEN), f"tokens {tuple(tokens.shape)}")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab)).all()), "token out of range")
+    check(torch.equal(first_tokens, tokens[:, :1]),
+          "the 1-token run's token differs from the served run's first token")
     check(out["engine_plan"]["misses"] == out["engine_plan"]["decisions"] == 8,
           f"plan {out['engine_plan']}: expected 8 decisions, each missed once")
-    params, prompt = main_path_inputs(cfg)
-    result = {"seconds": out["seconds"], "tokens_per_s": out["tokens_per_s"],
-              "max_memory_gib": peak, "plan": out["engine_plan"],
-              "decision_mix": dict(mix), "launches": launches,
-              "tokens": tokens.tolist(), **_time_pieces(cfg, params, prompt)}
-    # launch.serve drew the same weights and prompt, and the kernel is
-    # deterministic: its pieces run again give the served tokens
-    check(result.pop("piece_tokens") == result["tokens"],
-          "prefill + decode_step tokens differ from the served tokens")
-    REPORT["main_path"] = result
-    return result, params, prompt
+    REPORT["main_path"] = {
+        "seconds": out["seconds"], "tokens_per_s": out["tokens_per_s"],
+        "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+        "max_memory_gib": peak, "plan": out["engine_plan"],
+        "decision_mix": dict(mix), "launches": launches,
+        "tokens": tokens.tolist(),
+        **_traces(out, prefill_ms, decode_ms * (GEN - 1))}
+    return out
 
 
 def _logit_gap(got: torch.Tensor, ref: torch.Tensor) -> dict:
@@ -285,7 +289,7 @@ def _profile(fn) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        result = fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kernels = [(ev.self_device_time_total / 1e3, ev.count, ev.key)
@@ -293,59 +297,52 @@ def _profile(fn) -> dict:
                if ev.device_type == DeviceType.CUDA]
     kernels.sort(reverse=True)
     busy = sum(ms for ms, _, _ in kernels)
-    return {"wall_ms": wall, "device_busy_ms": busy,
+    return {"result": result, "wall_ms": wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall),
             "top": [{"ms": ms, "count": c, "name": name[:100]}
                     for ms, c, name in kernels[:6]]}
 
 
-def _time_pieces(cfg, params, prompt) -> dict:
-    """Prefill and per-step decode times of the main path's pieces on the
-    hopper backend (host clock around synchronised work), and a device
-    trace of one prefill and three decode steps."""
-    dev = prompt.device
-    spec = T.CacheSpec(PROMPT + GEN + 1, BATCH)
-    eng = Engine(backend="hopper")
-    with torch.inference_mode(), use_engine(eng):
-        cache = T.init_cache(cfg, spec, dtype=torch.bfloat16, device=dev)
-        T.prefill(params, cfg, prompt, cache)  # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, cache = T.prefill(params, cfg, prompt, cache)
-        torch.cuda.synchronize()
-        prefill_ms = (time.perf_counter() - t0) * 1e3
-        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
-        toks = [tok]
-        t0 = time.perf_counter()
-        for _ in range(GEN - 1):
-            logits, cache = T.decode_step(params, cfg, cache, tok)
-            tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
-            toks.append(tok)
-        torch.cuda.synchronize()
-        decode_ms = (time.perf_counter() - t0) * 1e3 / (GEN - 1)
-        cache = T.init_cache(cfg, spec, dtype=torch.bfloat16, device=dev)
-        prof_prefill = _profile(lambda: T.prefill(params, cfg, prompt, cache))
-        state = {"cache": cache, "tok": tok}
+def _traces(out: dict, prefill_ms: float, decode_ms: float) -> dict:
+    """Device traces of the served run's `generate`, on its own weights,
+    prompt, configuration and engine: one with the first token only
+    (prefill) and one with all GEN tokens; decode is their difference.
+    The profiler slows the host, so each idle share is given twice:
+    against the traced wall time and against the untraced served time
+    (`prefill_ms`, `decode_ms` for all decode steps)."""
+    def run(n):
+        return lambda: serve_lib.generate(out["params"], out["cfg"],
+                                          out["serve_config"], out["prompt"],
+                                          n, engine=out["engine"])
 
-        def decode3():
-            for _ in range(3):
-                lg, state["cache"] = T.decode_step(params, cfg, state["cache"],
-                                                   state["tok"])
-                state["tok"] = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
-        prof_decode = _profile(decode3)
-    print(f"prefill {prefill_ms:.2f} ms; decode {decode_ms:.3f} ms/step "
-          f"(host clock, synchronised)")
-    for name, prof in (("prefill", prof_prefill), ("decode x3", prof_decode)):
+    prefill = _profile(run(1))
+    whole = _profile(run(GEN))
+    check(torch.equal(whole.pop("result").cpu(), out["tokens"]),
+          "the traced run's tokens differ from the served run's")
+    prefill.pop("result")
+    wall = whole["wall_ms"] - prefill["wall_ms"]
+    busy = whole["device_busy_ms"] - prefill["device_busy_ms"]
+    decode = {"wall_ms": wall, "device_busy_ms": busy,
+              "idle_share": max(0.0, 1.0 - busy / wall)}
+    for prof, served in ((prefill, prefill_ms), (whole, prefill_ms + decode_ms),
+                         (decode, decode_ms)):
+        prof["served_ms"] = served
+        prof["idle_share_served"] = max(0.0, 1.0 - prof["device_busy_ms"] / served)
+    for name, prof in (("prefill", prefill), (f"whole serve ({GEN} tokens)", whole),
+                       (f"decode ({GEN - 1} steps, the difference)", decode)):
         print(f"trace {name}: wall {prof['wall_ms']:.2f} ms, device busy "
-              f"{prof['device_busy_ms']:.2f} ms, idle share {prof['idle_share']:.2f}")
-        for k in prof["top"]:
+              f"{prof['device_busy_ms']:.2f} ms, idle share {prof['idle_share']:.2f}; "
+              f"against the untraced {prof['served_ms']:.2f} ms served, idle "
+              f"share {prof['idle_share_served']:.2f}")
+        for k in prof.get("top", []):
             print(f"    {k['ms']:9.3f} ms {k['count']:5d} x {k['name']}")
-    return {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
-            "trace_prefill": prof_prefill, "trace_decode3": prof_decode,
-            "piece_tokens": torch.cat(toks, 1).tolist()}
+    return {"trace_prefill": prefill, "trace_serve": whole, "trace_decode": decode}
 
 
-def phase_parity(cfg, params, prompt) -> None:
+def phase_parity(cfg, served: dict) -> None:
+    """Prefill logits on the served run's own weights and prompt, and the
+    smoke configuration's tokens on the card against the CPU."""
+    params, prompt = served["params"], served["prompt"]
     dev = prompt.device
     spec = T.CacheSpec(PROMPT + GEN + 1, BATCH)
 
@@ -444,9 +441,9 @@ def main() -> int:
     phase_setup()
     rows = phase_kernels()
     cfg = get_config(ARCH)
-    main_path, params, prompt = phase_main_path(cfg)
-    phase_parity(cfg, params, prompt)
-    line = kernels_line(rows, main_path)
+    served = phase_main_path(cfg)
+    phase_parity(cfg, served)
+    line = kernels_line(rows, REPORT["main_path"])
     REPORT["kernels"] = [line]
     REPORT["seconds"] = time.perf_counter() - t0
     out_dir = ROOT / "runs"

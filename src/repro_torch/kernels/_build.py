@@ -5,8 +5,7 @@ for `sm_90a` into `build/repro_torch/lib<name>-<hash>.so` at the root of
 the checkout (the hash covers the source and the flags, so an edited
 source never loads a stale library) and loaded with `ctypes`.  Nothing
 runs when this module is imported: the first CUDA tensor that reaches a
-kernel builds it.  `build` compiles several sources at once, one `nvcc`
-process each, all started together.
+kernel builds it.
 """
 
 from __future__ import annotations
@@ -50,31 +49,24 @@ def log_path(name: str) -> Path:
     return library_path(name).with_suffix(".log")
 
 
-def build(names) -> dict[str, Path]:
-    """Compile every source in `names` that has no library yet, all in
-    parallel; raise with the compiler's output if any fails."""
+def build(name: str) -> Path:
+    """Compile `csrc/<name>.cu` unless its library exists; raise with the
+    compiler's output if `nvcc` fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = {n: library_path(n) for n in names}
-    procs = {}
-    for name, lib in todo.items():
-        if lib.exists():
-            continue
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        procs[name] = (tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for name, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        log_path(name).write_text(out)
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (exit {proc.returncode}):\n{out}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, todo[name])
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return todo
+    lib = library_path(name)
+    if lib.exists():
+        return lib
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    log_path(name).write_text(proc.stdout)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, lib)
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -82,6 +74,6 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build([name])[name]))
+            lib = ctypes.CDLL(str(build(name)))
             _LIBS[name] = lib
         return lib

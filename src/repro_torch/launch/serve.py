@@ -71,7 +71,8 @@ def main(argv=None) -> dict:
     print(tokens[0][:16].tolist())
     out = {"tokens_per_s": args.batch * args.gen / dt, "seconds": dt,
            "shape": tuple(tokens.shape), "tokens": tokens.cpu(),
-           "engine": engine}
+           "engine": engine, "cfg": cfg, "serve_config": scfg,
+           "params": params, "prompt": prompt}
     if engine is not None:
         print(f"engine plan: {engine.plan.stats}")
         out["engine_plan"] = engine.plan.stats

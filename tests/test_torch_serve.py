@@ -160,3 +160,7 @@ def test_cli_runs_on_cpu_smoke():
     assert out["shape"] == (2, 4)
     assert out["engine_plan"]["misses"] == out["engine_plan"]["decisions"]
     assert out["engine_plan"]["hits"] > 0
+    # it hands back what it served: `generate` on that gives the tokens again
+    again = serve.generate(out["params"], out["cfg"], out["serve_config"],
+                           out["prompt"], 4, engine=out["engine"])
+    assert torch.equal(again, out["tokens"])
