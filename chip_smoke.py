@@ -6,22 +6,39 @@
 Phases (any failed check exits non-zero; nothing falls back):
   1. card and set-up: the card's name and power limit, the torch and CUDA
      versions, the build of every kernel from the sources in this checkout
-     (seconds, registers and spills from `-Xptxas -v`);
-  2. kernel against plain: the ReDas GEMM in each dataflow at every GEMM
-     shape of the main path (bf16) and at two shapes in f32, held to its
+     (one nvcc per source, all started together; seconds, registers and
+     spills from `-Xptxas -v`);
+  2. GEMM against plain: the ReDas GEMM in each dataflow at every GEMM
+     shape of the static serve (bf16) and at two shapes in f32, held to its
      plain version, with the kernel's, the plain version's and
      torch.matmul's times beside the card's bound;
-  3. the main path: `repro_torch.launch.serve` serving full-width
-     qwen2-1.5b (4 requests x 512 prompt + 16 new tokens, bf16, weights
-     from a seed) on the `hopper` backend; the GEMM kernel must launch
-     7 x 28 x 16 = 3136 times.  The same entry point serving 1 token
-     gives the prefill time, and device traces of the served run's
-     `generate` the idle share;
-  4. parity on the card: full-width prefill logits of `hopper` against
-     `torch-ref` on the served run's weights and prompt, and the smoke
-     configuration in f32 giving the same tokens on the card as the
-     plain versions on the CPU;
-  5. the kernels line, then the result line.
+  3. attention kernels against plain: paged attention at the paged
+     serve's decode shape (8 slots, 12 heads over 2 KV heads, head dim 128,
+     pages of 16, a 51-page table with holes, kv_len 0, 1, a page edge and
+     ragged lengths) and flash attention at (4, 12, 512, 128) causal, one
+     window case, non-causal and a length `_legal_block` bends, in bf16
+     and f32; times of kernel, plain version and library yardstick beside
+     the bound; `Engine.attention` driven through the engine once;
+  4. the static serve (the first slice's path): `repro_torch.launch.serve`
+     serving full-width qwen2-1.5b (4 requests x 512 prompt + 16 new
+     tokens, bf16, weights from a seed) on the `hopper` backend; the GEMM
+     kernel must launch 7 x 28 x 16 = 3136 times.  The same entry point
+     serving 1 token gives the prefill time, and device traces of the
+     served run's `generate` the idle share;
+  5. the paged serve (this slice's path): the same entry point in trace
+     mode, 24 requests over 8 slots through the continuous-batching
+     Scheduler on the paged layout; paged-kernel launches must equal
+     28 x decode ticks and GEMM launches 7 x 28 x (decode ticks + prefill
+     calls).  A second pass through the same engine must plan nothing
+     new, and a device trace of 10 decode ticks gives the idle share;
+  6. prefix sharing: 12 requests with a common 256-token prefix through
+     the Scheduler, paged against contiguous;
+  7. parity on the card: full-width prefill logits and one paged decode
+     tick's logits of `hopper` against `torch-ref`; the smoke
+     configuration in f32 giving the same tokens on the card as the plain
+     versions on the CPU, static and through the Scheduler (paged and
+     contiguous, with a shared prefix);
+  8. the kernels line, then the result line.
 
 Every detail also goes to runs/chip_smoke.json.  Exits non-zero
 without a CUDA device, and outside a checkout of the repository.
@@ -30,6 +47,9 @@ without a CUDA device, and outside a checkout of the repository.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
+import dataclasses
+import functools
 import json
 import math
 import re
@@ -38,7 +58,9 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -47,10 +69,12 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.engine import Engine, KernelRequest, use_engine  # noqa: E402
 from repro_torch.engine.cost import (HBM_BW, PEAK_FLOPS_BF16,  # noqa: E402
                                      PEAK_FLOPS_F32, HopperModel, choose_tile)
-from repro_torch.kernels import _build, redas_gemm  # noqa: E402
+from repro_torch.kernels import (_build, flash_attention,  # noqa: E402
+                                  paged_attention, redas_gemm)
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve_lib import serve as serve_lib  # noqa: E402
+from repro_torch.serve_lib.scheduler import Request, Scheduler  # noqa: E402
 
 ARCH = "qwen2-1.5b"
 BATCH, PROMPT, GEN, SEED = 4, 512, 16, 0
@@ -59,6 +83,20 @@ LAYER_GEMMS = {(1536, 1536): 2, (1536, 256): 2, (1536, 8960): 2, (8960, 1536): 1
 L2_BYTES = 50 * 2**20
 BF16_ROW_TOL, F32_ROW_TOL = 1e-2, 1e-4
 LOGIT_LIMITS = {"rel_l2": 0.035, "rel_max": 0.035}
+KERNELS = ("redas_gemm", "paged_attention", "flash_attention")
+#: the paged serve: 24 requests over 8 slots (prompt x new tokens * count)
+SLOTS, PAGE, BUCKET = 8, 16, 16
+TRACE = "768x32*4,512x64*4,256x16*8,64x48*8"
+SERVE_ARGS = ["--arch", ARCH, "--kernel-backend", "hopper", "--batch",
+              str(SLOTS), "--cache-layout", "paged", "--page-size", str(PAGE),
+              "--prefill-bucket", str(BUCKET), "--seed", str(SEED),
+              "--trace", TRACE]
+#: the paged kernel's main-path shape: the serve's decode tick (max_seq
+#: 801 -> 51 pages a slot, 510 in the pool) at these kv_len
+PAGED_LENS = (800, 0, 1, 16, 17, 400, 783, 255)
+SLOT_PAGES = -(-(768 + 32 + 1) // PAGE)
+POOL_PAGES = SLOTS * SLOT_PAGES + 2 * SLOT_PAGES
+FLASH_SHAPE = (4, 12, 512, 128)
 REPORT = {}
 
 
@@ -140,20 +178,38 @@ def phase_setup() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    lib = _build.build("redas_gemm")
+    # one blocking nvcc per source, all started together
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        libs = dict(zip(KERNELS, pool.map(_build.build, KERNELS), strict=True))
     seconds = time.perf_counter() - t0
-    log = _build.log_path("redas_gemm").read_text()
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
-    stores = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", log))
-    loads = sum(int(s) for s in re.findall(r"(\d+) bytes spill loads", log))
-    check(len(regs) > 0, "no kernel in the ptxas report")
-    print(f"build: {seconds:.1f} s ({lib.name}); ptxas: "
-          f"{len(regs)} kernels, registers {min(regs)}..{max(regs)}, spill "
-          f"stores {stores} bytes and loads {loads} bytes in all")
     REPORT["setup"] = {"card": card_line(), "torch": torch.__version__,
-                       "cuda": torch.version.cuda, "build_s": seconds,
-                       "kernels": len(regs), "registers": [min(regs), max(regs)],
-                       "spill_store_bytes": stores, "spill_load_bytes": loads}
+                       "cuda": torch.version.cuda, "build_s": seconds}
+    print(f"build: {seconds:.1f} s for {len(KERNELS)} sources in parallel")
+    for name in KERNELS:
+        log = _build.log_path(name).read_text()
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        stores = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", log))
+        loads = sum(int(s) for s in re.findall(r"(\d+) bytes spill loads", log))
+        check(len(regs) > 0, f"no kernel of {name} in the ptxas report")
+        print(f"  {libs[name].name}: ptxas {len(regs)} kernels, registers "
+              f"{min(regs)}..{max(regs)}, spill stores {stores} bytes and "
+              f"loads {loads} bytes in all")
+        REPORT["setup"][name] = {"kernels": len(regs),
+                                 "registers": [min(regs), max(regs)],
+                                 "spill_store_bytes": stores,
+                                 "spill_load_bytes": loads}
+
+
+def reset_counts() -> None:
+    redas_gemm.reset_launches()
+    paged_attention.reset_launches()
+    flash_attention.reset_launches()
+
+
+def read_counts() -> dict:
+    return {"redas_gemm": sum(redas_gemm.launches.values()),
+            "paged_attention": paged_attention.launches,
+            "flash_attention": flash_attention.launches}
 
 
 def _operand_sets(m, k, n, dtype, gen):
@@ -218,6 +274,198 @@ def phase_kernels() -> list[dict]:
     return rows
 
 
+def _paged_sets(dtype, count: int, seed: int = 2) -> list[tuple]:
+    """`count` input sets of the paged serve's decode tick, each with its
+    own pools: q (8, 1, 12, 128), pools (510, 16, 2, 128), a 51-page
+    table per slot whose live pages are drawn from the pool and whose
+    other entries are holes (-1), kv_len = PAGED_LENS."""
+    gen = torch.Generator().manual_seed(seed)
+    lens = torch.tensor(PAGED_LENS, dtype=torch.int32)
+    sets = []
+    for _ in range(count):
+        q = torch.randn(SLOTS, 1, 12, 128, generator=gen)
+        kp, vp = (torch.randn(POOL_PAGES, PAGE, 2, 128, generator=gen)
+                  for _ in range(2))
+        perm = torch.randperm(POOL_PAGES, generator=gen).to(torch.int32)
+        bt = torch.full((SLOTS, SLOT_PAGES), -1, dtype=torch.int32)
+        ptr = 0
+        for i, n in enumerate(PAGED_LENS):
+            need = -(-n // PAGE)
+            bt[i, :need] = perm[ptr:ptr + need]
+            ptr += need
+        sets.append(tuple(t.to("cuda", dtype) for t in (q, kp, vp))
+                    + (bt.cuda(), lens.cuda()))
+    return sets
+
+
+def _paged_library(q, kp, vp, bt, lens):
+    """The library yardstick: gather the pages (`k_pages[bt]`), then
+    `F.scaled_dot_product_attention` with a length mask (two calls)."""
+    b, n_bt = bt.shape
+    page, kv, d = kp.shape[1:]
+    safe = bt.clamp(min=0).long()
+    k = kp[safe].reshape(b, n_bt * page, kv, d).transpose(1, 2)
+    v = vp[safe].reshape(b, n_bt * page, kv, d).transpose(1, 2)
+    mask = (torch.arange(n_bt * page, device=q.device)[None, :]
+            < lens[:, None])[:, None, None, :]
+    return F.scaled_dot_product_attention(q.transpose(1, 2), k, v,
+                                          attn_mask=mask, enable_gqa=True)
+
+
+def _peak(itemsize: int) -> float:
+    return PEAK_FLOPS_BF16 if itemsize == 2 else PEAK_FLOPS_F32
+
+
+def _bound_of(ops: float, bytes_: float, itemsize: int) -> tuple[float, str]:
+    ops_ms = ops / _peak(itemsize) * 1e3
+    bytes_ms = bytes_ / HBM_BW * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def paged_bound(itemsize: int) -> tuple[float, str]:
+    """q and o, each live K and V row read once, the table and lengths;
+    4 x H x D operations per live row (QK^T and PV)."""
+    live = sum(PAGED_LENS)
+    h, kv, d = 12, 2, 128
+    bytes_ = ((2 * SLOTS * h * d + 2 * live * kv * d) * itemsize
+              + SLOTS * SLOT_PAGES * 4 + SLOTS * 4)
+    return _bound_of(4.0 * h * live * d, bytes_, itemsize)
+
+
+def flash_bound(shape, causal: bool, itemsize: int) -> tuple[float, str]:
+    """q, k, v read once and o written once; 4 B H Sq Sk D operations,
+    halved for causal."""
+    b, h, s, d = shape
+    ops = 4.0 * b * h * s * s * d * (0.5 if causal else 1.0)
+    return _bound_of(ops, 4 * b * h * s * d * itemsize, itemsize)
+
+
+def _flash_sets(shape, dtype, count: int, seed: int = 3) -> list[tuple]:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [tuple(torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+                  for _ in range(3)) for _ in range(count)]
+
+
+def _flash_blocks(shape, itemsize: int) -> tuple[int, int]:
+    """The engine's (bq, bk) for this shape: HopperModel's decision bent
+    by `_legal_block`, as the hopper backend bends it."""
+    b, h, s, d = shape
+    dec = HopperModel().decide(KernelRequest(
+        "attention", s, d, s, groups=b * h, in_bytes=itemsize,
+        out_bytes=itemsize))
+    return (flash_attention._legal_block(s, dec.bm),
+            flash_attention._legal_block(s, dec.bn))
+
+
+def phase_attention_kernels() -> dict:
+    side = torch.cuda.Stream()
+    rows, failures = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = BF16_ROW_TOL if dtype == torch.bfloat16 else F32_ROW_TOL
+        name = str(dtype)[6:]
+        itemsize = torch.tensor([], dtype=dtype).element_size()
+        # paged attention at the paged serve's decode shape
+        live_bytes = 2 * sum(PAGED_LENS) * 2 * 128 * itemsize
+        sets = _paged_sets(dtype, max(2, min(64, math.ceil(2 * L2_BYTES
+                                                           / live_bytes))))
+        out = paged_attention.paged_attention(*sets[0])
+        ref = paged_attention.paged_attention_reference(*sets[0])
+        torch.cuda.synchronize()
+        dead = [i for i, n in enumerate(PAGED_LENS) if n == 0]
+        live = [i for i, n in enumerate(PAGED_LENS) if n > 0]
+        zeros = bool((out[dead] == 0).all())
+        rel = row_rel_l2(out[live], ref[live])
+        err = (out[live].float() - ref[live].float()).abs().max().item()
+        ms = device_ms(paged_attention.paged_attention, sets, side)
+        plain_ms = device_ms(paged_attention.paged_attention_reference, sets,
+                             side)
+        library_ms = device_ms(_paged_library, sets, side)
+        bound_ms, bound_by = paged_bound(itemsize)
+        row = {"kernel": "paged_attention", "dtype": name,
+               "shape": "q (8,1,12,128), pools (510,16,2,128), n_bt 51",
+               "kv_len": list(PAGED_LENS), "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "library": "k_pages[bt] gather + "
+               "scaled_dot_product_attention (two calls)",
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "max_abs_err": err, "row_rel_l2": rel, "tol": tol,
+               "kv_len_0_exact_zeros": zeros}
+        rows.append(row)
+        ok = math.isfinite(rel) and rel <= tol and zeros
+        print(f"paged_attention {name} {row['shape']}, kv_len {PAGED_LENS}: "
+              f"row rel-L2 {rel:.2e} (tol {tol:g}), max|diff| {err:.3e}, "
+              f"kv_len 0 rows {'exact zeros' if zeros else 'NOT ZERO'}; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, gather + SDPA "
+              f"(two calls) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}){'' if ok else '  FAILED'}")
+        if not ok:
+            failures.append(f"paged {name}: rel {rel:.2e}, zeros {zeros}")
+        del sets
+        # flash attention: the timed main case, then the other masks
+        cases = [(FLASH_SHAPE, True, 0, True), (FLASH_SHAPE, True, 128, False),
+                 (FLASH_SHAPE, False, 0, False), ((4, 12, 500, 128), True, 0,
+                                                  False)]
+        for shape, causal, window, timed in cases:
+            per = 4 * math.prod(shape) * itemsize
+            sets = _flash_sets(shape, dtype, max(2, min(64, math.ceil(
+                2 * L2_BYTES / per))) if timed else 1)
+            bq, bk = _flash_blocks(shape, itemsize)
+            run = functools.partial(flash_attention.flash_attention,
+                                    causal=causal, window=window, bq=bq, bk=bk)
+            plain = functools.partial(flash_attention.flash_attention_reference,
+                                      causal=causal, window=window, bk=bk)
+            out, ref = run(*sets[0]), plain(*sets[0])
+            torch.cuda.synchronize()
+            rel = row_rel_l2(out, ref)
+            err = (out.float() - ref.float()).abs().max().item()
+            row = {"kernel": "flash_attention", "dtype": name,
+                   "shape": list(shape), "causal": causal, "window": window,
+                   "bq": bq, "bk": bk, "max_abs_err": err, "row_rel_l2": rel,
+                   "tol": tol}
+            line = (f"flash_attention {name} {shape} causal={causal} "
+                    f"window={window} blocks ({bq}, {bk}): row rel-L2 "
+                    f"{rel:.2e} (tol {tol:g}), max|diff| {err:.3e}")
+            if timed:
+                row["ms"] = device_ms(run, sets, side)
+                row["plain_ms"] = device_ms(plain, sets, side)
+                row["library_ms"] = device_ms(
+                    functools.partial(F.scaled_dot_product_attention,
+                                      is_causal=causal), sets, side)
+                row["library"] = "scaled_dot_product_attention"
+                row["bound_ms"], row["bound_by"] = flash_bound(shape, causal,
+                                                               itemsize)
+                line += (f"; kernel {row['ms']:.4f} ms, plain "
+                         f"{row['plain_ms']:.4f} ms, SDPA "
+                         f"{row['library_ms']:.4f} ms, bound "
+                         f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+            rows.append(row)
+            ok = math.isfinite(rel) and rel <= tol
+            print(line + ("" if ok else "  FAILED"))
+            if not ok:
+                failures.append(f"flash {name} {shape} {causal} {window}: "
+                                f"{rel:.2e}")
+            del sets
+    # the engine entry point: Engine.attention plans once, then hits
+    q, k, v = _flash_sets(FLASH_SHAPE, torch.bfloat16, 1, seed=4)[0]
+    eng = Engine(backend="hopper")
+    flash_attention.reset_launches()
+    first = eng.attention(q, k, v, causal=True)
+    second = eng.attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    entry = {"launches": flash_attention.launches, "plan": eng.plan.stats,
+             "equal": bool(torch.equal(first, second))}
+    print(f"Engine.attention (hopper) twice at {FLASH_SHAPE}: flash kernel "
+          f"launches {entry['launches']}, plan {entry['plan']}, outputs "
+          f"{'equal' if entry['equal'] else 'DIFFER'}")
+    check(entry["launches"] == 2 and entry["equal"]
+          and eng.plan.stats["misses"] == 1 and eng.plan.stats["hits"] == 1,
+          f"Engine.attention entry point: {entry}")
+    REPORT["attention_kernels"] = rows
+    REPORT["engine_attention"] = entry
+    check(not failures, f"attention kernel disagrees with its plain version: "
+          f"{failures}")
+    return {"rows": rows, "entry": entry}
+
+
 def _serve(gen: int) -> dict:
     """One run of the main path's entry point: weights and prompt drawn
     from SEED, `gen` greedy tokens for each of the BATCH requests."""
@@ -235,8 +483,9 @@ def phase_main_path(cfg) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()  # what the script holds already
-    redas_gemm.reset_launches()
+    reset_counts()
     out = _serve(GEN)
+    counts = read_counts()
     launches = dict(redas_gemm.launches)
     peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     expected = sum(LAYER_GEMMS.values()) * cfg.n_layers * GEN
@@ -252,6 +501,8 @@ def phase_main_path(cfg) -> dict:
           f"{dict(mix)}; kernel launches {launches}")
     check(sum(launches.values()) == expected,
           f"GEMM kernel launched {sum(launches.values())} times, not {expected}")
+    check(counts["paged_attention"] == counts["flash_attention"] == 0,
+          f"attention kernels on the static path: {counts}")
     check(tuple(tokens.shape) == (BATCH, GEN), f"tokens {tuple(tokens.shape)}")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab)).all()), "token out of range")
     check(torch.equal(first_tokens, tokens[:, :1]),
@@ -262,10 +513,161 @@ def phase_main_path(cfg) -> dict:
         "seconds": out["seconds"], "tokens_per_s": out["tokens_per_s"],
         "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
         "max_memory_gib": peak, "plan": out["engine_plan"],
-        "decision_mix": dict(mix), "launches": launches,
+        "decision_mix": dict(mix), "launches": launches, "counts": counts,
         "tokens": tokens.tolist(),
         **_traces(out, prefill_ms, decode_ms * (GEN - 1))}
     return out
+
+
+def _untraced_ticks(sched, n: int) -> float:
+    """Host wall time (ms) of `n` scheduler ticks, each ending in the
+    host reading the tokens back."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        sched.step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_scheduler(cfg) -> dict:
+    """The paged serve through the entry point, then a second pass
+    through the same engine, then a device trace of 10 decode ticks."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counts()
+    out = launch_serve.main(SERVE_ARGS)
+    counts = read_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    sched, eng = out["scheduler"], out["engine"]
+    st = sched.stats
+    ticks, calls = st["decode_steps"], st["prefill_calls"]
+    tick_ms = sched.timings["decode_s"] * 1e3 / ticks
+    prefill_ms = sched.timings["prefill_s"] * 1e3
+    want_paged = cfg.n_layers * ticks
+    want_gemm = sum(LAYER_GEMMS.values()) * cfg.n_layers * (ticks + calls)
+    tokens = {u: c.tokens.tolist() for u, c in sched.completions.items()}
+    print(f"paged serve: {out['requests']} requests / {out['tokens']} tokens "
+          f"in {out['seconds']:.3f} s, {out['tokens_per_s']:.1f} tok/s over "
+          f"{SLOTS} slots; {ticks} decode ticks, {tick_ms:.3f} ms per tick "
+          f"(mean); {calls} prefill calls of widths "
+          f"{sorted(st['prefill_widths'])}, {prefill_ms:.2f} ms in all, "
+          f"{st['prefill_tokens']} prompt tokens; plan {eng.plan.stats}; "
+          f"kernel launches {counts}; peak memory above what the script "
+          f"held {peak:.3f} GiB")
+    check(out["requests"] == len(launch_serve.parse_trace(TRACE)),
+          f"served {out['requests']} requests")
+    check(counts["paged_attention"] == want_paged,
+          f"paged kernel launched {counts['paged_attention']} times, not "
+          f"28 x {ticks} = {want_paged}")
+    check(counts["redas_gemm"] == want_gemm,
+          f"GEMM kernel launched {counts['redas_gemm']} times, not 7 x 28 x "
+          f"({ticks} + {calls}) = {want_gemm}")
+    check(counts["flash_attention"] == 0, "flash kernel on the paged path")
+    for uid, toks in tokens.items():
+        check(len(toks) == out["trace"][uid][1]
+              and all(0 <= t < cfg.vocab for t in toks), f"request {uid}")
+    sched.paged.check_invariants()
+
+    # the same trace again through the same engine: nothing new to plan
+    misses = eng.plan.misses
+    again = Scheduler(out["params"], cfg, out["serve_config"], engine=eng,
+                      prefill_bucket=BUCKET)
+    again.run(launch_serve.trace_requests(cfg, out["trace"], SEED))
+    new_misses = eng.plan.misses - misses
+    same = {u: c.tokens.tolist() for u, c in again.completions.items()} == tokens
+    print(f"second pass through the same engine: {new_misses} new plan "
+          f"misses, tokens {'identical' if same else 'DIFFER'}")
+    check(new_misses == 0, f"{new_misses} new plan misses on the second pass")
+    check(same, "the second pass served other tokens")
+    del again
+
+    # 10 decode ticks untraced, then 10 traced (all 8 slots decoding: the
+    # first request finishes after 32 tokens)
+    probe = Scheduler(out["params"], cfg, out["serve_config"], engine=eng,
+                      prefill_bucket=BUCKET)
+    for r in launch_serve.trace_requests(cfg, out["trace"], SEED):
+        probe.submit(r)
+    probe.step()                                   # admit 8, first tick
+    untraced = _untraced_ticks(probe, 10)
+    trace = _profile(lambda: _untraced_ticks(probe, 10))
+    trace.pop("result")
+    trace["untraced_ms"] = untraced
+    trace["idle_share_untraced"] = max(0.0, 1.0 - trace["device_busy_ms"]
+                                       / untraced)
+    check(probe.stats["admitted"] == SLOTS and probe.stats["finished"] == 0,
+          f"the traced ticks were not pure decode: {probe.stats}")
+    print(f"trace of 10 decode ticks: wall {trace['wall_ms']:.2f} ms, device "
+          f"busy {trace['device_busy_ms']:.2f} ms, idle share "
+          f"{trace['idle_share']:.2f}; against the untraced {untraced:.2f} ms "
+          f"of the 10 ticks before, idle share "
+          f"{trace['idle_share_untraced']:.2f}")
+    for k in trace["top"]:
+        print(f"    {k['ms']:9.3f} ms {k['count']:5d} x {k['name']}")
+    del probe
+    REPORT["paged_serve"] = {
+        "trace": TRACE, "slots": SLOTS, "page_size": PAGE,
+        "prefill_bucket": BUCKET, "seconds": out["seconds"],
+        "tokens_per_s": out["tokens_per_s"], "requests": out["requests"],
+        "tokens": out["tokens"], "decode_ticks": ticks,
+        "decode_ms_per_tick": tick_ms, "prefill_calls": calls,
+        "prefill_widths": sorted(st["prefill_widths"]),
+        "prefill_ms": prefill_ms, "stats": {k: v for k, v in st.items()
+                                            if k != "prefill_widths"},
+        "plan": eng.plan.stats, "counts": counts, "max_memory_gib": peak,
+        "second_pass_new_misses": new_misses, "trace_10_ticks": trace}
+    return out
+
+
+def _shared_prefix_requests(cfg) -> list[Request]:
+    """12 requests: one 256-token prefix, then 16-128 private tokens each;
+    small budgets, so prefill dominates (the shape of the JAX package's
+    shared-prefix bench)."""
+    rng = np.random.default_rng(SEED)
+    prefix = rng.integers(0, cfg.vocab, 256)
+    gens = [3, 2, 4, 2, 3, 2, 4, 3, 2, 3, 2, 4]
+    return [Request(uid=i, max_new_tokens=g, prompt=np.concatenate(
+                [prefix, rng.integers(0, cfg.vocab, int(rng.integers(16, 129)))]
+            ).astype(np.int32)) for i, g in enumerate(gens)]
+
+
+def phase_shared_prefix(cfg, paged_out: dict) -> None:
+    reqs = _shared_prefix_requests(cfg)
+    max_seq = max(r.prompt.size + r.max_new_tokens for r in reqs) + 1
+    runs = {}
+    for layout in ("contiguous", "paged"):
+        scfg = serve_lib.ServeConfig(
+            max_seq=max_seq, batch=4, kernel_backend="hopper",
+            cache_layout=layout, page_size=PAGE)
+        sched = Scheduler(paged_out["params"], cfg, scfg,
+                          prefill_bucket=BUCKET)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = sched.run([dataclasses.replace(r) for r in reqs])
+        torch.cuda.synchronize()
+        runs[layout] = {"seconds": time.perf_counter() - t0,
+                        "tokens": {u: c.tokens.tolist() for u, c in done.items()},
+                        "stats": {k: v for k, v in sched.stats.items()
+                                  if k != "prefill_widths"},
+                        "prefill_ms": sched.timings["prefill_s"] * 1e3}
+        if sched.paged is not None:
+            sched.paged.check_invariants()
+        del sched
+    cont, paged = runs["contiguous"], runs["paged"]
+    agree = sum(cont["tokens"][u] == paged["tokens"][u] for u in cont["tokens"])
+    print(f"shared prefix, 12 requests x (256 + 16..128) over 4 slots: "
+          f"prefill tokens contiguous {cont['stats']['prefill_tokens']}, paged "
+          f"{paged['stats']['prefill_tokens']} (shared "
+          f"{paged['stats']['shared_prefix_tokens']}); prefill "
+          f"{cont['prefill_ms']:.2f} -> {paged['prefill_ms']:.2f} ms; served "
+          f"in {cont['seconds']:.3f} -> {paged['seconds']:.3f} s; tokens equal "
+          f"for {agree}/12 requests (bf16: the two layouts attend in other "
+          f"orders)")
+    check(paged["stats"]["shared_prefix_tokens"] > 0, "no prefix was shared")
+    check(paged["stats"]["prefill_tokens"] < cont["stats"]["prefill_tokens"],
+          "prefix sharing did not cut the prefilled tokens")
+    REPORT["shared_prefix"] = {**runs, "requests_with_equal_tokens": agree}
 
 
 def _logit_gap(got: torch.Tensor, ref: torch.Tensor) -> dict:
@@ -394,6 +796,78 @@ def phase_parity(cfg, served: dict) -> None:
                         "limits": LOGIT_LIMITS, "smoke_tokens_identical": same}
 
 
+def phase_paged_parity(cfg, paged_out: dict) -> None:
+    """One paged decode tick at full width, `hopper` against `torch-ref`
+    from the same state; then the smoke configuration in f32 through the
+    Scheduler: the card's tokens (paged and contiguous) against the plain
+    versions' on the CPU."""
+    params, scfg = paged_out["params"], paged_out["serve_config"]
+    sched = Scheduler(params, cfg, scfg, engine=paged_out["engine"],
+                      prefill_bucket=BUCKET)
+    for r in launch_serve.trace_requests(cfg, paged_out["trace"], SEED):
+        sched.submit(r)
+    sched.step()                                  # admit 8, first tick
+    for i, s in enumerate(sched.slots):
+        sched.paged.ensure_decode_page(i, s.req.prompt.size + len(s.emitted) - 1)
+    toks = torch.tensor([[s.last_token] for s in sched.slots],
+                        dtype=torch.int32, device="cuda")
+    active = torch.ones(SLOTS, dtype=torch.bool, device="cuda")
+    bt = torch.from_numpy(sched.paged.tables).cuda()
+    logits = {}
+    # both ticks start from the same state: decode_step writes only each
+    # slot's row at its clock (the second tick overwrites the first's) and
+    # returns the advanced clock in a new dict, leaving sched.cache as it was
+    for backend in ("torch-ref", "hopper"):
+        with torch.inference_mode(), use_engine(Engine(backend=backend)):
+            logits[backend] = T.decode_step(
+                params, cfg, sched.cache, toks, active=active,
+                block_tables=bt)[0]
+    gap = _logit_gap(logits["hopper"], logits["torch-ref"])
+    print(f"full-width paged decode tick logits (8 slots, kv_len "
+          f"{(sched.cache['t'] + 1).tolist()}), hopper vs torch-ref: rel-L2 "
+          f"{gap['rel_l2']:.4e}, max|diff|/max|ref| {gap['rel_max']:.4e}, "
+          f"argmax agreement {gap['argmax_agreement']:.2f} (limit rel-L2 "
+          f"{LOGIT_LIMITS['rel_l2']})")
+    check(math.isfinite(gap["rel_l2"]) and gap["rel_l2"] <= LOGIT_LIMITS["rel_l2"],
+          f"paged decode logit gap {gap}")
+    del sched, logits
+
+    smoke = get_config(ARCH, smoke=True)
+    cpu_params = T.init_params(smoke, generator=torch.Generator().manual_seed(SEED),
+                               dtype=torch.float32)
+    card_params = _to(cpu_params, "cuda")
+    rng = np.random.default_rng(SEED)
+    prefix = rng.integers(0, smoke.vocab, 24)
+    spec = [(uid, (np.concatenate([prefix, rng.integers(0, smoke.vocab, 3 + uid)])
+                   if uid % 2 else rng.integers(0, smoke.vocab, 5 + 3 * uid)
+                   ).astype(np.int32), 4 + uid % 5) for uid in range(8)]
+    tokens = {}
+    for device, backend, layout in (("cpu", "torch-ref", "paged"),
+                                    ("cpu", "torch-ref", "contiguous"),
+                                    ("cuda", "hopper", "paged"),
+                                    ("cuda", "hopper", "contiguous")):
+        sc = serve_lib.ServeConfig(max_seq=48, batch=3, compute_dtype="float32",
+                                   cache_dtype="float32", kernel_backend=backend,
+                                   device=device, cache_layout=layout,
+                                   page_size=8)
+        sched = Scheduler(cpu_params if device == "cpu" else card_params, smoke,
+                          sc)
+        done = sched.run([Request(uid=u, prompt=x, max_new_tokens=g)
+                          for u, x, g in spec])
+        tokens[(device, layout)] = {u: c.tokens.tolist() for u, c in done.items()}
+        if layout == "paged":
+            shared = sched.stats["shared_prefix_tokens"]
+            check(shared > 0, f"smoke trace shared no prefix on {device}")
+    want = tokens[("cpu", "paged")]
+    same = {f"{d} {l}": t == want for (d, l), t in tokens.items()}
+    print(f"smoke config f32 through the Scheduler, 8 requests over 3 slots "
+          f"with a shared 24-token prefix: tokens identical to the CPU's paged "
+          f"plain run: {same}")
+    check(all(same.values()), f"smoke scheduler tokens differ: {same}")
+    REPORT["paged_parity"] = {"decode_tick_logits": gap,
+                              "smoke_scheduler_tokens_identical": same}
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -402,9 +876,10 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-def kernels_line(rows: list[dict], main: dict) -> dict:
-    """The main path's GEMM work in one serve run: each shape's time at
-    its main-path decision, weighted by the launches the run makes."""
+def gemm_line(rows: list[dict], static: dict, paged: dict) -> dict:
+    """The static serve's GEMM work: each shape's time at its decision,
+    weighted by the launches that serve makes (the paged serve's count
+    stands beside it)."""
     cfg = get_config(ARCH)
     totals = dict.fromkeys(("ms", "plain_ms", "library_ms"), 0.0)
     ops_ms = bytes_ms = bound_ms = 0.0
@@ -423,12 +898,44 @@ def kernels_line(rows: list[dict], main: dict) -> dict:
     return {"name": "redas_gemm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/redas_gemm.cu",
             "replaces": "src/repro/kernels/redas_gemm.py:169",
-            "launches": sum(main["launches"].values()),
-            "launches_by_dataflow": main["launches"],
+            "launches": sum(static["launches"].values()),
+            "launches_by_dataflow": static["launches"],
+            "launches_by_path": {"static_serve": static["counts"]["redas_gemm"],
+                                 "paged_serve": paged["counts"]["redas_gemm"]},
+            "per": "the static serve's 3136 launches, summed",
             "max_abs_err": err, "ms": totals["ms"],
             "plain_ms": totals["plain_ms"], "bound_ms": bound_ms,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": totals["library_ms"]}
+
+
+def attention_lines(attn: dict, paged: dict) -> list[dict]:
+    """Per call at each kernel's main-path shape in bf16; launches from
+    the paged serve (flash sits behind Engine.attention, off the path)."""
+    def timed(kernel):
+        return next(r for r in attn["rows"] if r["kernel"] == kernel
+                    and r["dtype"] == "bfloat16" and "ms" in r)
+
+    def err(kernel):
+        return max(r["max_abs_err"] for r in attn["rows"]
+                   if r["kernel"] == kernel)
+
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library")
+    p, f = timed("paged_attention"), timed("flash_attention")
+    return [
+        {"name": "paged_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:195",
+         "launches": paged["counts"]["paged_attention"],
+         "per": f"call, bf16, {p['shape']}, kv_len {p['kv_len']}",
+         "max_abs_err": err("paged_attention"), **{k: p[k] for k in keys}},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:97",
+         "launches": paged["counts"]["flash_attention"],
+         "entry_point_launches": attn["entry"]["launches"],
+         "per": f"call, bf16, {list(FLASH_SHAPE)} causal",
+         "max_abs_err": err("flash_attention"), **{k: f[k] for k in keys}}]
 
 
 def main() -> int:
@@ -440,17 +947,24 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_setup()
     rows = phase_kernels()
+    attn = phase_attention_kernels()
     cfg = get_config(ARCH)
     served = phase_main_path(cfg)
     phase_parity(cfg, served)
-    line = kernels_line(rows, REPORT["main_path"])
-    REPORT["kernels"] = [line]
+    del served
+    paged = phase_scheduler(cfg)
+    phase_shared_prefix(cfg, paged)
+    phase_paged_parity(cfg, paged)
+    lines = [gemm_line(rows, REPORT["main_path"], REPORT["paged_serve"]),
+             *attention_lines(attn, REPORT["paged_serve"])]
+    REPORT["kernels"] = lines
     REPORT["seconds"] = time.perf_counter() - t0
     out_dir = ROOT / "runs"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1))
+    (out_dir / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1,
+                                                        default=str))
     print(f"chip_smoke: all phases passed in {REPORT['seconds']:.1f} s")
-    print(json.dumps({"kernels": [line]}))
+    print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

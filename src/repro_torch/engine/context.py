@@ -1,8 +1,9 @@
 """The Engine: decide (cost model + plan cache) then execute (registry),
 the port of `repro/engine/context.py`.
 
-Every `models.layers.dense` matmul inside a `use_engine` context routes
-through the engine:
+Every `models.layers.dense` matmul (and, on the paged layout, every
+decode attention) inside a `use_engine` context routes through the
+engine:
 
     with use_engine(backend="hopper") as eng:
         logits, _ = transformer.forward(params, cfg, tokens)
@@ -60,24 +61,64 @@ class Engine:
         self.plan.add(request, decision)
         return decision
 
+    def _resolve(self, key: tuple, op: str, m: int, k: int, n: int,
+                 groups: int, item_bytes: int) -> tuple:
+        """Miss path: full request -> decide -> registry, then memoize."""
+        req = KernelRequest(op, m, k, n, groups=groups, in_bytes=item_bytes,
+                            out_bytes=item_bytes)
+        dec = self.decide(req)
+        entry = self._memo[key] = (dec, self.registry.get(dec.backend, op))
+        return entry
+
+    def _lookup(self, key: tuple) -> tuple | None:
+        """Memo probe; a hit counts as a plan hit, as in the JAX engine."""
+        hit = self._memo.get(key)
+        if hit is not None:
+            self.plan.hits += 1
+        return hit
+
     def matmul(self, a, b, *, out_dtype=None):
         """(M, K) @ (K, N) through the planned schedule for this shape."""
         key = ("gemm", a.shape, a.dtype, b.shape, b.dtype)
-        hit = self._memo.get(key)
+        hit = self._lookup(key)
         if hit is None:
             m, k = a.shape
             k2, n = b.shape
             if k != k2:
                 raise ValueError(f"matmul dim mismatch {tuple(a.shape)} @ "
                                  f"{tuple(b.shape)}")
-            req = KernelRequest("gemm", m, k, n, in_bytes=a.element_size(),
-                                out_bytes=a.element_size())
-            dec = self.decide(req)
-            hit = self._memo[key] = (dec, self.registry.get(dec.backend, "gemm"))
-        else:
-            self.plan.hits += 1
+            hit = self._resolve(key, "gemm", m, k, n, 1, a.element_size())
         dec, fn = hit
         return fn(dec, a, b, out_dtype=out_dtype)
+
+    def attention(self, q, k, v, *, causal: bool = True, window: int = 0):
+        """q (B, H, Sq, D); k/v (B, H, Sk, D) (GQA heads pre-expanded)."""
+        key = ("attention", q.shape, q.dtype, k.shape, k.dtype, causal, window)
+        hit = self._lookup(key)
+        if hit is None:
+            b, h, sq, d = q.shape
+            hit = self._resolve(key, "attention", sq, d, k.shape[2], b * h,
+                                q.element_size())
+        dec, fn = hit
+        return fn(dec, q, k, v, causal=causal, window=window)
+
+    def paged_attention(self, q, k_pages, v_pages, block_tables, kv_len, *,
+                        k_scale=None, v_scale=None):
+        """Paged decode attention: q (B, 1, H, D) over pools (P, page, KV,
+        D) addressed through `block_tables` (B, n_bt).  Keyed like the
+        runtime shape it is: n = the page span the table can address
+        (n_bt * page), groups = B * H."""
+        key = ("paged_attention", q.shape, q.dtype, k_pages.shape,
+               k_pages.dtype, block_tables.shape)
+        hit = self._lookup(key)
+        if hit is None:
+            b, sq, h, d = q.shape
+            span = block_tables.shape[1] * k_pages.shape[1]
+            hit = self._resolve(key, "paged_attention", sq, d, span, b * h,
+                                q.element_size())
+        dec, fn = hit
+        return fn(dec, q, k_pages, v_pages, block_tables, kv_len,
+                  k_scale=k_scale, v_scale=v_scale)
 
 
 def active_engine() -> Engine | None:

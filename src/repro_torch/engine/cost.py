@@ -90,16 +90,42 @@ def choose_tile(m: int, k: int, n: int, in_bytes: int = 2,
     return best
 
 
+#: the flash kernel's tile: query rows and keys per step (`kQT`, `kKT`
+#: in csrc/flash_attention.cu)
+ATTENTION_BLOCK = 64
+
+
+def decide_attention(request: KernelRequest, name: str) -> KernelDecision:
+    """The flash roofline of `repro/engine/cost.py::_decide_attention`
+    with the H100's peaks: q/k/v/o traffic only (the online-softmax state
+    stays on chip).  m = Sq, n = Sk (or the page span), k = head dim,
+    groups = batch x heads.  The blocks are the kernel's own tile, cut
+    to the sequence; the wrapper bends them to divisors."""
+    sq, sk, d, bh = request.m, request.n, request.k, request.groups
+    flops = 4.0 * bh * sq * sk * d            # QK^T + PV
+    hbm = request.in_bytes * bh * d * (2 * sq + 2 * sk)
+    seconds = max(flops / peak_flops(request.in_bytes), hbm / HBM_BW)
+    return KernelDecision(
+        op=request.op, dataflow="os", bm=min(ATTENTION_BLOCK, sq), bk=d,
+        bn=min(ATTENTION_BLOCK, sk), cost_model=name, seconds=seconds,
+        meta=tuple(sorted({"hbm_bytes": float(hbm), "groups": bh}.items())))
+
+
 @dataclasses.dataclass
 class HopperModel:
     """The decision surface as a cost model: `decide(request)` returns
-    the chosen dataflow and CTA tile for a `gemm` request."""
+    the chosen dataflow and CTA tile for a `gemm` request, and the flash
+    blocks for an `attention` or `paged_attention` one."""
 
     name: str = "hopper-h100"
 
     def decide(self, request: KernelRequest) -> KernelDecision:
+        if request.op in ("attention", "paged_attention"):
+            # paged decode is the same roofline with n = the page span
+            return decide_attention(request, self.name)
         if request.op != "gemm":
-            raise ValueError(f"HopperModel plans gemm only, not {request.op!r}")
+            raise ValueError(f"HopperModel plans gemm and attention, not "
+                             f"{request.op!r}")
         cfg = choose_tile(request.m, request.k, request.n, request.in_bytes,
                           request.out_bytes)
         seconds, bytes_, pad_eff = estimate(request.m, request.k, request.n,

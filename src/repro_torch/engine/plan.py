@@ -24,20 +24,21 @@ from typing import Iterator
 PLAN_FORMAT = "redas-execution-plan-v1"
 
 #: ops the port plans and dispatches so far (the JAX package also plans
-#: grouped, attention, int8, paged and sparse ops; they come with later
-#: slices of the port).
-KNOWN_OPS = ("gemm",)
+#: grouped, int8 and sparse ops; they come with later slices of the port).
+KNOWN_OPS = ("gemm", "attention", "paged_attention")
 
 
 @dataclasses.dataclass(frozen=True)
 class KernelRequest:
     """One kernel invocation the engine must decide a schedule for.
 
-    `m, k, n` are the GEMM dims ((M, K) @ (K, N)).  `groups` and
-    `density` keep the JAX package's key and JSON schema (1 and 1.0 for
-    a dense GEMM).  `name` is a human label only — it is excluded from
-    the cache key so repeated shapes share one decision regardless of
-    which layer asked.
+    `m, k, n` are the GEMM dims ((M, K) @ (K, N)); for `attention` m is
+    the query length, n the key length and k the head dim, and for
+    `paged_attention` n is the page span the block table addresses.
+    `groups` (batch x heads for attention) and `density` keep the JAX
+    package's key and JSON schema (1 and 1.0 for a dense GEMM).  `name`
+    is a human label only — it is excluded from the cache key so
+    repeated shapes share one decision regardless of which layer asked.
     """
 
     op: str

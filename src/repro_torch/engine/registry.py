@@ -4,8 +4,9 @@ port of `repro/engine/registry.py`).
 A backend is a name mapping each op to a callable
 ``fn(decision, *tensors, **kw) -> tensor``.  The port has two:
 
-  hopper     — the hand-written Hopper kernels: launched on CUDA
-               tensors; a CPU tensor gets the kernel's plain version.
+  hopper     — the hand-written Hopper kernels (`gemm`, `attention`,
+               `paged_attention`): launched on CUDA tensors; a CPU
+               tensor gets the kernel's plain version.
   torch-ref  — the plain PyTorch versions, on any device (the parity
                reference).
 """
@@ -28,6 +29,9 @@ class KernelRegistry:
 
     def register(self, backend: str, op: str, fn: Callable) -> None:
         self._kernels[(backend, op)] = fn
+
+    def has(self, backend: str, op: str) -> bool:
+        return (backend, op) in self._kernels
 
     def get(self, backend: str, op: str) -> Callable:
         try:

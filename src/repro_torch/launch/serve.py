@@ -1,13 +1,24 @@
-"""Serving launcher of the port (static one-batch mode of
-`repro/launch/serve.py`): random weights from `--seed`, one batch of
-equal-length random prompts, one greedy `generate` call.
+"""Serving launcher of the port (the port of `repro/launch/serve.py`):
+random weights from `--seed`.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
+Static one-batch mode (every prompt the same length, one greedy
+`generate` call):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         --kernel-backend hopper --batch 4 --prompt-len 512 --gen 16
 
-runs on the card; `--device cpu --smoke` runs the reduced configuration
-on the CPU (there the "hopper" backend takes the kernels' plain
-versions).
+Request-trace mode (`--trace`): a mixed-length request list served by the
+continuous-batching `serve_lib.scheduler.Scheduler` over a pool of
+`--batch` slots, contiguous or paged.  Each item is PROMPTxGEN with an
+optional *COUNT repeat:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
+        --kernel-backend hopper --batch 8 --cache-layout paged \\
+        --trace "768x32*4,512x64*4,256x16*8,64x48*8"
+
+Both run on the card; `--device cpu --smoke` runs the reduced
+configuration on the CPU (there the "hopper" backend takes the kernels'
+plain versions).
 """
 
 from __future__ import annotations
@@ -15,12 +26,14 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from ..configs import ARCH_NAMES, get_config
 from ..engine import BACKENDS
 from ..models import transformer as T
 from ..serve_lib import serve as serve_lib
+from ..serve_lib.scheduler import Request, Scheduler
 
 
 def _sync(dev: torch.device) -> None:
@@ -28,14 +41,83 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def parse_trace(spec: str) -> list[tuple[int, int]]:
+    """"24x32,8x8*6" -> [(24, 32), (8, 8) x 6] (prompt_len, gen_len)."""
+    out: list[tuple[int, int]] = []
+    for item in spec.split(","):
+        item = item.strip()
+        if not item:
+            continue
+        count = 1
+        if "*" in item:
+            item, n = item.split("*")
+            count = int(n)
+        p, g = item.split("x")
+        out.extend([(int(p), int(g))] * count)
+    if not out:
+        raise ValueError(f"empty trace spec {spec!r}")
+    return out
+
+
+def trace_requests(cfg, trace, seed: int) -> list[Request]:
+    """The trace's requests, prompts drawn from `seed` as the JAX
+    package's launcher draws them."""
+    rng = np.random.default_rng(seed + 2)
+    return [Request(uid=uid,
+                    prompt=rng.integers(0, cfg.vocab, plen).astype(np.int32),
+                    max_new_tokens=gen)
+            for uid, (plen, gen) in enumerate(trace)]
+
+
+def _run_trace(params, cfg, scfg, args, trace) -> dict:
+    dev = serve_lib.resolve_device(scfg)
+    reqs = trace_requests(cfg, trace, args.seed)
+    sched = Scheduler(params, cfg, scfg, prefill_bucket=args.prefill_bucket)
+    _sync(dev)
+    t0 = time.perf_counter()
+    comps = sched.run(reqs)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    n_tok = sum(len(c.tokens) for c in comps.values())
+    print(f"served {len(comps)} requests / {n_tok} tokens in {dt:.2f}s "
+          f"({n_tok / dt:.1f} tok/s) over {scfg.batch} slots on {dev}")
+    print(f"scheduler: {sched.stats}")
+    for uid in sorted(comps)[:8]:
+        c = comps[uid]
+        print(f"  req {uid}: prompt {c.prompt_len} -> {len(c.tokens)} tokens "
+              f"({c.finish_reason}, steps {c.admit_step}..{c.finish_step})")
+    out = {"tokens_per_s": n_tok / dt, "seconds": dt, "tokens": n_tok,
+           "requests": len(comps), "decode_steps": sched.stats["decode_steps"],
+           "scheduler": sched, "engine": sched.engine, "cfg": cfg,
+           "serve_config": scfg, "params": params, "trace": trace}
+    if sched.engine is not None:
+        print(f"engine plan: {sched.engine.plan.stats}")
+        out["engine_plan"] = sched.engine.plan.stats
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_NAMES, required=True)
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=4,
+                    help="batch (static mode) / slot-pool size (--trace)")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", default=None,
+                    help="request trace 'PROMPTxGEN[*COUNT],...' served by "
+                         "the continuous-batching scheduler")
+    ap.add_argument("--prefill-bucket", type=int, default=8,
+                    help="round admit widths up to this multiple (trace "
+                         "mode; 1 = exact)")
+    ap.add_argument("--cache-layout", default="contiguous",
+                    choices=("contiguous", "paged"),
+                    help="KV-cache layout; 'paged' (trace mode only) pools "
+                         "fixed pages behind per-slot block tables and "
+                         "shares prefilled prompt pages across requests")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per page for --cache-layout paged")
     ap.add_argument("--kernel-backend", default=None, choices=BACKENDS,
                     help="engine backend for model matmuls (default: plain @)")
     ap.add_argument("--plan", default=None,
@@ -46,15 +128,24 @@ def main(argv=None) -> dict:
 
     cfg = get_config(args.arch, smoke=args.smoke)
     dtype = torch.float32 if args.smoke else torch.bfloat16
+    trace = parse_trace(args.trace) if args.trace else None
+    if args.cache_layout == "paged" and trace is None:
+        raise SystemExit("--cache-layout paged needs --trace (the block-table "
+                         "plane lives in the continuous-batching scheduler)")
+    max_seq = (max(p + g for p, g in trace) + 1 if trace
+               else args.prompt_len + args.gen + 1)
     scfg = serve_lib.ServeConfig(
-        max_seq=args.prompt_len + args.gen + 1, batch=args.batch,
+        max_seq=max_seq, batch=args.batch,
         compute_dtype=dtype, cache_dtype=dtype,
         kernel_backend=args.kernel_backend, plan_path=args.plan,
-        device=args.device)
+        device=args.device, cache_layout=args.cache_layout,
+        page_size=args.page_size)
     dev = serve_lib.resolve_device(scfg)
     params = T.init_params(
         cfg, generator=torch.Generator(device=dev).manual_seed(args.seed),
         device=dev, dtype=dtype)
+    if trace is not None:
+        return _run_trace(params, cfg, scfg, args, trace)
     prompt = torch.randint(
         0, cfg.vocab, (args.batch, args.prompt_len), device=dev,
         generator=torch.Generator(device=dev).manual_seed(args.seed + 1),

@@ -5,7 +5,8 @@ Numerics follow the JAX package: RMSNorm scaling by `1 + scale`, rotary
 embeddings over interleaved pairs, grouped-query attention with optional
 QKV bias, SwiGLU MLPs.  Full-sequence attention is the chunked online
 softmax of `_flash_scan` (forward only), decode attention a plain masked
-softmax over the cache.
+softmax over the cache, or over the paged pool through the engine's
+`paged_attention` kernel.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..engine import active_engine
+from ..kernels.paged_attention import paged_attention_reference
 
 NEG_INF = -1e30
 
@@ -67,15 +69,52 @@ def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6,
     return (x32 * inv * (1.0 + scale.float())).to(x.dtype)
 
 
-def slot_update(cache: torch.Tensor, idx: torch.Tensor,
-                new: torch.Tensor) -> torch.Tensor:
+def slot_update(cache: torch.Tensor, idx: torch.Tensor, new: torch.Tensor,
+                active: torch.Tensor | None = None) -> torch.Tensor:
     """Write one row per batch slot at that slot's own clock position:
-    cache (B, S, ...), idx (B,), new (B, ...).  In place (the JAX
+    cache (B, S, ...), idx (B,), new (B, ...).  `active` (B,) bool masks
+    the write: inactive slots keep their stored row.  In place (the JAX
     function returns a new array): the cache is the largest decode-time
     tensor, and nothing keeps its old rows."""
     rows = torch.arange(cache.shape[0], device=cache.device)
-    cache[rows, idx.long()] = new.to(cache.dtype)
+    idx = idx.long()
+    val = new.to(cache.dtype)
+    if active is not None:
+        keep = active.reshape((-1,) + (1,) * (val.dim() - 1))
+        val = torch.where(keep, val, cache[rows, idx])
+    cache[rows, idx] = val
     return cache
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-slot row gather: x (B, S, ...), idx (B,) -> (B, 1, ...)."""
+    rows = torch.arange(x.shape[0], device=x.device)
+    return x[rows, idx.long()][:, None]
+
+
+def paged_slot_update(pool: torch.Tensor, page_idx: torch.Tensor,
+                      offset: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """Write rows into the paged pool in place: pool (P, page, ...);
+    page_idx / offset (...) name each row's physical page and in-page
+    row; new (..., *pool.shape[2:]).
+
+    A page index outside [0, P) writes nowhere, as the JAX package's
+    `mode="drop"` scatter drops it.  torch has no drop mode, and a
+    clamped index would alias a live page, so those rows go to the sink
+    page that `transformer.init_cache` keeps in storage just past every
+    pool: it is never addressed by a block table and never read."""
+    n = pool.shape[0]
+    needed = pool.storage_offset() + (n + 1) * pool.stride(0)
+    if not pool.is_contiguous() or needed > pool.untyped_storage().nbytes() \
+            // pool.element_size():
+        raise ValueError("paged_slot_update needs a contiguous pool with a "
+                         "sink page past its end (build the cache with "
+                         "transformer.init_cache)")
+    with_sink = pool.as_strided((n + 1, *pool.shape[1:]), pool.stride(),
+                                pool.storage_offset())
+    dest = torch.where((page_idx >= 0) & (page_idx < n), page_idx, n)
+    with_sink[dest.long(), offset.long()] = new.to(pool.dtype)
+    return pool
 
 
 def rotary(x: torch.Tensor, positions: torch.Tensor,
@@ -230,4 +269,25 @@ def cached_attention(p: dict, cfg, q: torch.Tensor, k_cache: torch.Tensor,
     p_attn = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p_attn, v_cache.float())
     o = o.reshape(b, sq, h, d).to(q.dtype)
+    return dense(p["wo"], o.reshape(b, sq, cfg.n_heads * cfg.head_dim_))
+
+
+def paged_cached_attention(p: dict, cfg, q: torch.Tensor, c: dict,
+                           block_tables: torch.Tensor,
+                           kv_len: torch.Tensor) -> torch.Tensor:
+    """Decode attention over the paged pool: q (B, 1, H, D) against the
+    cache dict's `k_pages`/`v_pages` pools through `block_tables`
+    (B, n_bt).  Inside an engine whose backend registers the
+    `paged_attention` op the planned kernel runs; otherwise the plain
+    gather, which equals `cached_attention` on the same live rows.
+    Returns the `wo` projection."""
+    b, sq, h, d = q.shape
+    eng = active_engine()
+    if (eng is not None and sq == 1
+            and eng.registry.has(eng.backend, "paged_attention")):
+        o = eng.paged_attention(q, c["k_pages"], c["v_pages"], block_tables,
+                                kv_len)
+    else:
+        o = paged_attention_reference(q, c["k_pages"], c["v_pages"],
+                                      block_tables, kv_len)
     return dense(p["wo"], o.reshape(b, sq, cfg.n_heads * cfg.head_dim_))

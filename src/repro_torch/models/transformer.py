@@ -7,11 +7,14 @@ period, `embed` is (vocab, d_model) and `lm_head` (d_model, vocab).  The
 JAX `lax.scan` over periods is a Python loop over views of the stack.
 
   forward()       full-sequence logits
-  prefill()       forward + KV cache construction (non-ragged)
-  decode_step()   one token against the cache (vector clock `t`)
+  prefill()       forward + KV cache construction (ragged, paged)
+  decode_step()   one token against the cache (vector clock `t`, an
+                  `active` mask, block tables on the paged layout)
 
 `prefill` and `decode_step` write the cache tensors in place and return
-the cache dict with its new clock.
+the cache dict with its new clock.  Where the JAX package merges the old
+rows of masked slots back (`_merge_slot`, `mode="drop"` scatters), the
+port simply never writes them.
 """
 
 from __future__ import annotations
@@ -135,25 +138,44 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
 
 @dataclasses.dataclass(frozen=True)
 class CacheSpec:
-    """Static description of the contiguous per-slot KV cache."""
+    """Static description of the per-block KV cache.  `page_size` and
+    `n_pages` select the paged layout: KV moves from per-slot
+    `(B, max_seq, ...)` regions into one pool of `n_pages` fixed pages
+    addressed through per-slot block tables."""
     max_seq: int
     batch: int
+    page_size: int | None = None
+    n_pages: int | None = None
 
 
 def _slot_cache(cfg: ArchConfig, spec: CacheSpec, lead, dtype, device) -> dict:
-    shape = (*lead, spec.batch, spec.max_seq, cfg.n_kv, cfg.head_dim_)
+    kv, hd = cfg.n_kv, cfg.head_dim_
+    if spec.page_size:
+        if not spec.n_pages:
+            raise ValueError("paged CacheSpec needs n_pages")
+        # physical page p of every layer lives in that layer's own pool at
+        # row p: one block table addresses all layers.  Storage holds one
+        # page more per layer, the sink of `layers.paged_slot_update`;
+        # the pools are views that leave it out.
+        shape = (*lead, spec.n_pages + 1, spec.page_size, kv, hd)
+        cut = (slice(None),) * len(lead) + (slice(0, spec.n_pages),)
+        return {"k_pages": torch.zeros(shape, dtype=dtype, device=device)[cut],
+                "v_pages": torch.zeros(shape, dtype=dtype, device=device)[cut]}
+    shape = (*lead, spec.batch, spec.max_seq, kv, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def init_cache(cfg: ArchConfig, spec: CacheSpec, dtype=torch.bfloat16,
                device=None) -> dict:
-    """{"t": (B,) int32 per-slot clock, "slots": {"b{j}": {k, v}} with the
-    leading period axis, "tail": [...]}; k/v are (B, max_seq, KV, hd)."""
+    """{"t": (B,) int32 per-slot clock, "slots": {"b{j}": {...}} with the
+    leading period axis, "tail": [...]}.  Contiguous: k/v (B, max_seq,
+    KV, hd) per layer; paged: k_pages/v_pages (n_pages, page, KV, hd)."""
     _check_kinds(cfg)
     if not dtype.is_floating_point:
         raise NotImplementedError(
-            f"cache dtype {dtype}: the int8 KV codec is not ported yet")
+            f"cache dtype {dtype}: the int8 KV codec is not ported yet "
+            f"(ROADMAP.md queue 1 item 7)")
     n_periods, n_tail = _period_split(cfg)
     return {"t": torch.zeros(spec.batch, dtype=torch.int32, device=device),
             "slots": {f"b{j}": _slot_cache(cfg, spec, (n_periods,), dtype,
@@ -163,69 +185,221 @@ def init_cache(cfg: ArchConfig, spec: CacheSpec, dtype=torch.bfloat16,
                      for _ in range(n_tail)]}
 
 
-def _decode_block(p, cfg: ArchConfig, x, t, c: dict):
-    """One-token step for one block: writes the new KV row of every slot
-    at its own clock position, then attends its valid prefix."""
+def _decode_block(p, cfg: ArchConfig, x, t, c: dict, active=None,
+                  block_tables=None):
+    """One-token step for one block: writes the new KV row of every
+    active slot at its own clock position, then attends its valid
+    prefix.  Paged blocks (`"k_pages" in c`) resolve the write position
+    through `block_tables` (B, n_bt); inactive slots and table holes
+    write nowhere."""
     pos = t[:, None]
     q, k_new, v_new = layers.attn_qkv(p["attn"], cfg,
                                       rms_norm(p["norm1"], x, cfg.norm_eps), pos)
-    size = c["k"].shape[1]
-    idx = t % size
-    layers.slot_update(c["k"], idx, k_new[:, 0])
-    layers.slot_update(c["v"], idx, v_new[:, 0])
-    kv_len = torch.clamp(t + 1, max=size)
-    x = x + layers.cached_attention(p["attn"], cfg, q, c["k"], c["v"], pos,
+    if "k_pages" in c:
+        if block_tables is None:
+            raise ValueError("paged cache decode needs block_tables")
+        page = c["k_pages"].shape[1]
+        n_bt = block_tables.shape[1]
+        pidx = (t // page).long()
+        phys = block_tables.gather(1, pidx.clamp(max=n_bt - 1)[:, None])[:, 0]
+        write = pidx < n_bt
+        if active is not None:
+            write = write & active
+        phys = torch.where(write, phys, -1)
+        off = t % page
+        layers.paged_slot_update(c["k_pages"], phys, off, k_new[:, 0])
+        layers.paged_slot_update(c["v_pages"], phys, off, v_new[:, 0])
+        # full attention never wraps: the valid length is the clock
+        h = layers.paged_cached_attention(p["attn"], cfg, q, c, block_tables,
+                                          t + 1)
+    else:
+        size = c["k"].shape[1]
+        idx = t % size
+        layers.slot_update(c["k"], idx, k_new[:, 0], active)
+        layers.slot_update(c["v"], idx, v_new[:, 0], active)
+        kv_len = torch.clamp(t + 1, max=size)
+        h = layers.cached_attention(p["attn"], cfg, q, c["k"], c["v"], pos,
                                     kv_len)
+    x = x + h
     return x + mlp(p["mlp"], rms_norm(p["norm2"], x, cfg.norm_eps))
 
 
 def decode_step(params, cfg: ArchConfig, cache: dict, token: torch.Tensor, *,
-                compute_dtype=torch.bfloat16):
-    """token (B, 1) -> (logits (B, 1, V), cache with clock t + 1)."""
+                compute_dtype=torch.bfloat16, active=None, block_tables=None):
+    """token (B, 1) -> (logits (B, 1, V), cache with the clock advanced).
+
+    `active` (B,) bool masks which slots consume a token: inactive slots
+    keep their cache rows and clock, and their logits rows are garbage to
+    discard.  `block_tables` (B, n_bt) int32 addresses the paged pools
+    (required iff the cache is paged); every layer reads the same
+    table."""
     t = cache["t"]
     x = params["embed"].to(compute_dtype)[token.long()]
     n_periods, _ = _period_split(cfg)
     for i, pp in enumerate(_periods(params["stack"], n_periods)):
         cc = _index(cache["slots"], i)
         for j in range(len(cfg.layer_pattern)):
-            x = _decode_block(pp[f"b{j}"], cfg, x, t, cc[f"b{j}"])
+            x = _decode_block(pp[f"b{j}"], cfg, x, t, cc[f"b{j}"], active,
+                              block_tables)
     for p_tail, c_tail in zip(params["tail"], cache["tail"], strict=True):
-        x = _decode_block(p_tail, cfg, x, t, c_tail)
-    return _logits_out(params, cfg, x), {**cache, "t": t + 1}
+        x = _decode_block(p_tail, cfg, x, t, c_tail, active, block_tables)
+    new_t = t + 1 if active is None else torch.where(active, t + 1, t)
+    return _logits_out(params, cfg, x), {**cache, "t": new_t}
 
 
-def _prefill_block(p, cfg: ArchConfig, x, positions, c: dict):
+def _contiguous_prefill_write(c: dict, k, v, lengths, update_mask) -> None:
+    """Write the prompt rows into a contiguous cache, in place: rows
+    [0, S) when the cache holds them, else the last rows rolled to their
+    ring positions.  Slots outside `update_mask` are not written (the JAX
+    package merges their old rows back)."""
+    s = k.shape[1]
+    size = c["k"].shape[1]
+    if size < s and lengths is not None:
+        raise NotImplementedError(
+            f"a ragged prompt of width {s} longer than the cache ({size} "
+            f"rows) is not ported yet")
+    for name, val in (("k", k), ("v", v)):
+        dst = c[name]
+        if size >= s:
+            new, view = val, dst[:, :s]
+        else:  # ring: the last `size` rows, rolled to pos % size
+            new, view = torch.roll(val[:, -size:], s % size, dims=1), dst
+        if update_mask is not None:
+            keep = update_mask.reshape(-1, 1, 1, 1)
+            new = torch.where(keep, new.to(dst.dtype), view)
+        view.copy_(new)
+
+
+def _paged_prefill_attn(cfg: ArchConfig, q, k, v, c: dict, positions,
+                        lengths, update_mask, block_tables, hist_len,
+                        hist_pages: int):
+    """Paged prefill: scatter the suffix rows through the block table and
+    attend over (gathered history pages + suffix) with the plain scan.
+
+    The attention buffer is logical-row indexed — row r holds the token
+    at absolute position r — built from `hist_pages` gathered pages plus
+    the suffix at its absolute rows.  Rows past a slot's length and slots
+    outside `update_mask` write nowhere in the pool."""
+    b, s, kv, hd = k.shape
+    n_pool, page = c["k_pages"].shape[0], c["k_pages"].shape[1]
+    n_bt = block_tables.shape[1]
+    dev = k.device
+    ll = lengths.long()
+    hist0 = (torch.zeros((b,), device=dev) if hist_len is None
+             else hist_len).long()
+    j = torch.arange(s, device=dev)[None, :]
+    absp = hist0[:, None] + j                       # (B, S) absolute rows
+    valid = j < ll[:, None]
+    if update_mask is not None:
+        valid = valid & update_mask[:, None]
+    pidx = (absp // page).clamp(0, n_bt - 1)
+    phys = block_tables.gather(1, pidx)
+    phys = torch.where(valid, phys, -1)
+    off = absp % page
+    layers.paged_slot_update(c["k_pages"], phys, off, k)
+    layers.paged_slot_update(c["v_pages"], phys, off, v)
+
+    h0 = hist_pages * page
+    # one spare row past the buffer takes the rows that write nowhere
+    bufk = torch.zeros((b, h0 + s + 1, kv, hd), dtype=k.dtype, device=dev)
+    bufv = torch.zeros((b, h0 + s + 1, kv, hd), dtype=v.dtype, device=dev)
+    if h0:
+        idx = block_tables[:, :hist_pages].clamp(0, n_pool - 1).long()
+        bufk[:, :h0] = c["k_pages"][idx].reshape(b, h0, kv, hd).to(k.dtype)
+        bufv[:, :h0] = c["v_pages"][idx].reshape(b, h0, kv, hd).to(v.dtype)
+    rows = torch.where(valid, absp, h0 + s)
+    bidx = torch.arange(b, device=dev)[:, None]
+    bufk[bidx, rows] = k
+    bufv[bidx, rows] = v
+    return layers.flash_attention(q, bufk[:, :h0 + s], bufv[:, :h0 + s],
+                                  positions, hist0 + ll, cfg.is_causal, 0,
+                                  min(512, h0 + s))
+
+
+def _prefill_block(p, cfg: ArchConfig, x, positions, c: dict, lengths=None,
+                   update_mask=None, block_tables=None, hist_len=None,
+                   hist_pages: int = 0):
     b, s = x.shape[0], x.shape[1]
     xin = rms_norm(p["norm1"], x, cfg.norm_eps)
     q, k, v = layers.attn_qkv(p["attn"], cfg, xin, positions)
-    size = c["k"].shape[1]
-    for name, val in (("k", k), ("v", v)):
-        if size >= s:  # full cache: rows [0, s)
-            c[name][:, :s] = val.to(c[name].dtype)
-        else:          # ring: the last `size` rows, rolled to pos % size
-            c[name].copy_(torch.roll(val[:, -size:], s % size, dims=1))
-    kv_len = torch.full((b,), s, dtype=torch.int32, device=x.device)
-    o = layers.flash_attention(q, k, v, positions, kv_len, cfg.is_causal, 0,
-                               min(512, s))
+    if "k_pages" in c:
+        if block_tables is None:
+            raise ValueError("paged cache prefill needs block_tables")
+        o = _paged_prefill_attn(cfg, q, k, v, c, positions, lengths,
+                                update_mask, block_tables, hist_len,
+                                hist_pages)
+    else:
+        _contiguous_prefill_write(c, k, v, lengths, update_mask)
+        kv_len = (torch.full((b,), s, dtype=torch.int32, device=x.device)
+                  if lengths is None else lengths)
+        o = layers.flash_attention(q, k, v, positions, kv_len, cfg.is_causal,
+                                   0, min(512, s))
     x = x + dense(p["attn"]["wo"], o.reshape(b, s, cfg.n_heads * cfg.head_dim_))
     return x + mlp(p["mlp"], rms_norm(p["norm2"], x, cfg.norm_eps))
 
 
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, cache: dict, *,
-            compute_dtype=torch.bfloat16):
-    """Run the prompt (B, S), filling `cache`; returns (last-token logits
-    (B, 1, V), cache with clock S)."""
+            compute_dtype=torch.bfloat16, lengths=None, update_mask=None,
+            block_tables=None, hist_len=None, hist_pages: int = 0):
+    """Run the prompt (B, S), filling `cache` in place; returns (last-token
+    logits (B, 1, V), cache with its new clock).
+
+    Ragged mode: `lengths` (B,) marks each slot's valid prefix of a
+    right-padded `tokens` batch; logits come from each slot's own last
+    row and the clock is set to `lengths`.  `update_mask` (B,) restricts
+    which slots' rows and clocks are written at all, so a scheduler can
+    admit into free slots of a live cache.
+
+    Paged mode: `block_tables` (B, n_bt) addresses the pools.  `hist_len`
+    (B,) counts the prompt tokens already resident in each slot's shared
+    prefix pages: `tokens` then holds only the suffix, queries take
+    absolute positions `hist_len + i`, and the clock counts the history
+    too.  `hist_pages` bounds the history gather: max(hist_len) // page.
+    `hist_len` on the contiguous layout (chunked prefill) is not ported
+    yet."""
     _check_kinds(cfg)
+    if block_tables is not None and lengths is None:
+        raise NotImplementedError("paged prefill is ragged-only (pass lengths)")
+    if hist_len is not None and lengths is None:
+        raise NotImplementedError(
+            "hist_len (suffix continuation) is ragged-only (pass lengths)")
+    if hist_len is not None and block_tables is None:
+        raise NotImplementedError(
+            "hist_len on the contiguous layout is chunked prefill, which is "
+            "not ported yet (ROADMAP.md queue 1 item 9)")
+    if hist_pages and hist_len is None:
+        raise ValueError("hist_pages needs hist_len")
+    if hist_pages and block_tables is None:
+        raise ValueError("hist_pages needs block_tables (paged cache)")
+    if block_tables is not None and hist_pages > block_tables.shape[1]:
+        raise ValueError(f"hist_pages {hist_pages} exceeds block table "
+                         f"span {block_tables.shape[1]}")
     x = params["embed"].to(compute_dtype)[tokens.long()]
     b, s = tokens.shape
     positions = _positions(b, s, x.device)
+    if hist_len is not None:
+        positions = positions + hist_len[:, None].to(positions.dtype)
     n_periods, _ = _period_split(cfg)
+    kw = {"lengths": lengths, "update_mask": update_mask,
+          "block_tables": block_tables, "hist_len": hist_len,
+          "hist_pages": hist_pages}
     for i, pp in enumerate(_periods(params["stack"], n_periods)):
         cc = _index(cache["slots"], i)
         for j in range(len(cfg.layer_pattern)):
-            x = _prefill_block(pp[f"b{j}"], cfg, x, positions, cc[f"b{j}"])
+            x = _prefill_block(pp[f"b{j}"], cfg, x, positions, cc[f"b{j}"],
+                               **kw)
     for p_tail, c_tail in zip(params["tail"], cache["tail"], strict=True):
-        x = _prefill_block(p_tail, cfg, x, positions, c_tail)
-    logits = _logits_out(params, cfg, x[:, -1:])
-    t = torch.full((b,), s, dtype=torch.int32, device=x.device)
-    return logits, {**cache, "t": t}
+        x = _prefill_block(p_tail, cfg, x, positions, c_tail, **kw)
+    if lengths is None:
+        logits = _logits_out(params, cfg, x[:, -1:])
+        new_t = torch.full((b,), s, dtype=torch.int32, device=x.device)
+    else:
+        last = layers.gather_rows(x, torch.clamp(lengths, 1, s) - 1)
+        logits = _logits_out(params, cfg, last)
+        new_t = lengths.to(torch.int32)
+        if hist_len is not None:
+            # the clock counts ALL resident rows, shared prefix included
+            new_t = new_t + hist_len.to(torch.int32)
+    if update_mask is not None:
+        new_t = torch.where(update_mask, new_t, cache["t"])
+    return logits, {**cache, "t": new_t}

@@ -1,7 +1,9 @@
-"""Serving: batched prefill + greedy decode over the contiguous KV cache
-(the port of `repro/serve_lib/serve.py`, static one-batch mode).
+"""Serving: batched prefill + greedy decode over the KV cache (the port
+of `repro/serve_lib/serve.py`).
 
-`generate` serves one batch end to end.  Kernel dispatch goes through the
+`generate` serves one batch end to end over the contiguous cache; the
+paged layout (`cache_layout="paged"`) needs the block-table plane that
+the continuous-batching `scheduler.Scheduler` owns.  Kernel dispatch goes through the
 port's engine when `ServeConfig.kernel_backend` is set ("hopper" for the
 hand-written kernels, "torch-ref" for their plain versions); `None`
 means plain `@`, as the JAX package leaves the matmuls to XLA.
@@ -52,6 +54,18 @@ class ServeConfig:
     # where the cache lives and the model runs ("cuda" unless the caller
     # asks for the CPU).
     device: str = "cuda"
+    # KV layout: "paged" moves the KV into a pool of `n_pages` pages of
+    # `page_size` rows behind per-slot block tables (Scheduler only;
+    # enables cross-request prefix sharing).  "contiguous" is the per-slot
+    # layout and the parity oracle.
+    cache_layout: str = "contiguous"
+    page_size: int = 16
+    # pool size in pages; None -> batch * slot_pages + 2 * slot_pages
+    n_pages: int | None = None
+    # speculative decoding and chunked prefill: fields of the JAX
+    # package's configuration that the port does not serve yet
+    speculate_k: int = 0
+    prefill_chunk: int | None = None
 
     def __post_init__(self):
         compute = _dtype(self.compute_dtype)
@@ -60,13 +74,43 @@ class ServeConfig:
         cache = _dtype(self.cache_dtype)
         if str(cache).removeprefix("torch.") not in SUPPORTED_CACHE_DTYPES:
             raise ValueError(f"cache_dtype {cache} is not supported "
-                             f"(supported: {SUPPORTED_CACHE_DTYPES})")
+                             f"(supported: {SUPPORTED_CACHE_DTYPES}; the int8 "
+                             f"KV codec is ROADMAP.md queue 1 item 7)")
         if self.kernel_backend not in (None, *BACKENDS):
             raise ValueError(f"kernel_backend {self.kernel_backend!r} is not "
                              f"one of {BACKENDS} (or None)")
         object.__setattr__(self, "compute_dtype", compute)
         object.__setattr__(self, "cache_dtype", cache)
         object.__setattr__(self, "device", str(torch.device(self.device)))
+        if self.cache_layout not in ("contiguous", "paged"):
+            raise ValueError(f"cache_layout {self.cache_layout!r} is not one "
+                             f"of ('contiguous', 'paged')")
+        if self.cache_layout == "paged":
+            if self.page_size < 1:
+                raise ValueError(f"page_size must be >= 1: {self.page_size}")
+            if self.n_pages is not None and self.n_pages < self.slot_pages:
+                raise ValueError(
+                    f"n_pages={self.n_pages} cannot hold even one full slot "
+                    f"({self.slot_pages} pages for max_seq={self.max_seq} at "
+                    f"page_size={self.page_size})")
+        if self.speculate_k < 0:
+            raise ValueError(f"speculate_k must be >= 0: {self.speculate_k}")
+        if self.prefill_chunk is not None and self.prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1: {self.prefill_chunk}")
+
+    @property
+    def slot_pages(self) -> int:
+        """Block-table width: pages one slot needs for max_seq rows."""
+        return -(-self.max_seq // self.page_size)
+
+    @property
+    def resolved_n_pages(self) -> int:
+        """Pool size: explicit `n_pages`, or enough for every slot's worst
+        case plus two slots' worth of headroom for retained prefix
+        pages."""
+        if self.n_pages is not None:
+            return self.n_pages
+        return self.batch * self.slot_pages + 2 * self.slot_pages
 
 
 def resolve_device(scfg: ServeConfig) -> torch.device:
@@ -99,8 +143,12 @@ def warm_start_engine(scfg: ServeConfig) -> Engine | None:
 
 
 def init_cache(cfg: ArchConfig, scfg: ServeConfig) -> dict:
-    return T.init_cache(cfg, T.CacheSpec(scfg.max_seq, scfg.batch),
-                        dtype=scfg.cache_dtype, device=resolve_device(scfg))
+    paged = scfg.cache_layout == "paged"
+    spec = T.CacheSpec(scfg.max_seq, scfg.batch,
+                       page_size=scfg.page_size if paged else None,
+                       n_pages=scfg.resolved_n_pages if paged else None)
+    return T.init_cache(cfg, spec, dtype=scfg.cache_dtype,
+                        device=resolve_device(scfg))
 
 
 def generate(params, cfg: ArchConfig, scfg: ServeConfig, prompt,
@@ -114,6 +162,15 @@ def generate(params, cfg: ArchConfig, scfg: ServeConfig, prompt,
     cache across calls)."""
     if n_tokens < 1:
         raise ValueError(f"n_tokens must be >= 1, got {n_tokens}")
+    if scfg.cache_layout == "paged":
+        raise NotImplementedError(
+            "generate() serves the contiguous layout only; the paged layout "
+            "needs the block-table plane the continuous-batching Scheduler "
+            "owns (serve_lib.scheduler.Scheduler)")
+    if scfg.speculate_k or scfg.prefill_chunk is not None:
+        raise NotImplementedError(
+            "speculative decoding and chunked prefill are not ported yet "
+            "(ROADMAP.md queue 1 item 9)")
     dev = resolve_device(scfg)
     if params["embed"].device.type != dev.type:
         raise ValueError(f"params live on {params['embed'].device} but "

@@ -1,0 +1,245 @@
+"""The port's two attention kernels on the CPU: the plain versions of
+`kernels/flash_attention.py` and `kernels/paged_attention.py` against the
+JAX Pallas kernels (interpret mode) and the JAX plain versions, the CPU
+path of their wrappers, and the engine entry points `Engine.attention`
+and `Engine.paged_attention` (memo keys and plan counts as in the JAX
+engine).
+
+The CUDA kernels run only on the card: `chip_smoke.py` holds them
+against these plain versions there, as tests/test_torch_card.py does.
+Tolerances: flash rtol 1e-4 / atol 2e-5 (as tests/test_flash_kernel.py
+holds the TPU kernel to its oracle), paged rtol = atol = 2e-5 (as
+tests/test_paged.py holds it).
+"""
+
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import engine as jax_engine
+from repro.kernels import flash_attention as jfa
+from repro.kernels.paged_attention import (paged_attention_reference as
+                                           jax_paged_reference,
+                                           paged_attention_tpu)
+from repro_torch.engine import Engine, HopperModel, KernelRequest
+from repro_torch.kernels import flash_attention, paged_attention
+
+FLASH_TOL = {"rtol": 1e-4, "atol": 2e-5}
+PAGED_TOL = {"rtol": 2e-5, "atol": 2e-5}
+
+
+def _qkv(b, h, sq, sk, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, h, sq, d)).astype(np.float32),
+            rng.normal(size=(b, h, sk, d)).astype(np.float32),
+            rng.normal(size=(b, h, sk, d)).astype(np.float32))
+
+
+# --------------------------------------------------------------------------
+# flash attention
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("sq,sk,want,causal,window", [
+    (128, 128, 32, True, 0),      # causal
+    (128, 128, 64, False, 0),     # non-causal
+    (256, 256, 64, True, 64),     # causal sliding window
+    (128, 128, 32, False, 48),    # non-causal window
+    (100, 100, 64, True, 0),      # _legal_block bends 64 to 50
+    (64, 32, 32, True, 8),        # rows past Sk + window - 1 see no key
+])
+def test_flash_plain_version_matches_pallas_kernel(sq, sk, want, causal,
+                                                   window):
+    q, k, v = _qkv(2, 3, sq, sk, 32)
+    bq = flash_attention._legal_block(sq, want)
+    bk = flash_attention._legal_block(sk, want)
+    ref = jfa.flash_attention_tpu(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal=causal,
+                                  window=window, bq=bq, bk=bk, interpret=True)
+    got = flash_attention.flash_attention_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal, window=window, bk=bk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **FLASH_TOL)
+
+
+def test_legal_block_is_the_reference_rule():
+    for seq in (1, 7, 8, 50, 100, 128, 509, 512, 2048):
+        for want in (16, 64, 512):
+            assert (flash_attention._legal_block(seq, want)
+                    == jfa._legal_block(seq, want)), (seq, want)
+    with pytest.raises(ValueError, match="pad the sequence"):
+        flash_attention._legal_block(4099, 64)  # prime, past one block
+
+
+def test_flash_wrapper_on_cpu_takes_plain_version_without_counting():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 2, 64, 64, 32, seed=1))
+    flash_attention.reset_launches()
+    got = flash_attention.flash_attention(q, k, v, causal=True, bq=32, bk=16)
+    want = flash_attention.flash_attention_reference(q, k, v, causal=True,
+                                                     bk=16)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert flash_attention.launches == 0
+    with pytest.raises(ValueError, match="GQA"):
+        flash_attention.flash_attention(q, k[:, :1].contiguous(),
+                                        v[:, :1].contiguous(), bq=32, bk=32)
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention(q.double(), k.double(), v.double(),
+                                        bq=32, bk=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention(q.transpose(2, 3).contiguous()
+                                        .transpose(2, 3), k, v, bq=32, bk=32)
+
+
+def test_head_dims_match_the_cuda_source():
+    src = (flash_attention._build.CSRC / "flash_attention.cu").read_text()
+    line = next(ln for ln in src.splitlines()
+                if ln.startswith("#define FLASH_HEAD_DIMS"))
+    dims = tuple(int(x) for x in re.findall(r"X\((\d+)\)", line))
+    assert dims == flash_attention.HEAD_DIMS
+
+
+def test_engine_attention_memo_and_plan_as_in_jax_engine():
+    q, k, v = _qkv(1, 2, 64, 64, 32, seed=2)
+    q2, k2, v2 = _qkv(1, 2, 32, 32, 32, seed=3)
+    jeng = jax_engine.Engine(backend="pallas-interpret")
+    teng = Engine(backend="hopper")
+    calls = [(q, k, v, True), (q, k, v, True), (q2, k2, v2, True),
+             (q, k, v, False), (q2, k2, v2, True)]
+    for a, b, c, causal in calls:
+        want = jeng.attention(jnp.asarray(a), jnp.asarray(b), jnp.asarray(c),
+                              causal=causal)
+        got = teng.attention(torch.from_numpy(a), torch.from_numpy(b),
+                             torch.from_numpy(c), causal=causal)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **FLASH_TOL)
+    assert teng.plan.stats == jeng.plan.stats
+    # causality keys the memo, not the plan
+    assert teng.plan.stats["decisions"] == 2
+    assert teng.plan.hits == 3
+    ref = Engine(backend="torch-ref").attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    torch.testing.assert_close(
+        ref, teng.attention(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v)), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("op", ["attention", "paged_attention"])
+def test_hopper_model_attention_decision(op):
+    req = KernelRequest(op, 512, 128, 512, groups=48, in_bytes=2, out_bytes=2)
+    dec = HopperModel().decide(req)
+    assert (dec.bm, dec.bk, dec.bn) == (64, 128, 64)
+    flops = 4.0 * 48 * 512 * 512 * 128
+    hbm = 2 * 48 * 128 * (2 * 512 + 2 * 512)
+    assert dec.seconds == pytest.approx(max(flops / 989e12, hbm / 3.35e12))
+    small = HopperModel().decide(KernelRequest(op, 1, 128, 40, groups=96))
+    assert (small.bm, small.bn) == (1, 40)
+
+
+# --------------------------------------------------------------------------
+# paged attention
+# --------------------------------------------------------------------------
+
+
+def _paged_case(page, lens, seed=0, h=12, kv=2, d=16, spare=3):
+    """q, pools and a permuted, hole-riddled block table for `lens`."""
+    rng = np.random.default_rng(seed)
+    b = len(lens)
+    n_bt = max(-(-max(lens) // page), 1) + 1        # one hole column at least
+    n_pool = b * n_bt + spare
+    q = rng.normal(size=(b, 1, h, d)).astype(np.float32)
+    kp = rng.normal(size=(n_pool, page, kv, d)).astype(np.float32)
+    vp = rng.normal(size=(n_pool, page, kv, d)).astype(np.float32)
+    perm = rng.permutation(n_pool)
+    bt = np.full((b, n_bt), -1, np.int32)
+    ptr = 0
+    for i, n in enumerate(lens):
+        need = -(-n // page)
+        bt[i, :need] = perm[ptr:ptr + need]
+        ptr += need
+    return q, kp, vp, bt, np.asarray(lens, np.int32)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("page", [1, 6, 16])
+def test_paged_plain_version_matches_pallas_kernel(page):
+    """G = 6 (12 heads over 2 KV heads), a page-edge length, a one-row
+    slot, holes past every live span, and a slot with kv_len == 0 that
+    both kernels write as exact zeros."""
+    lens = [2 * page, 1, 2 * page + 1, 0]
+    q, kp, vp, bt, ln = _paged_case(page, lens)
+    got = paged_attention.paged_attention_reference(*_t(q, kp, vp, bt, ln))
+    ker = paged_attention_tpu(*(jnp.asarray(x) for x in (q, kp, vp, bt, ln)),
+                              interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ker), **PAGED_TOL)
+    np.testing.assert_array_equal(got.numpy()[3], 0.0)
+    np.testing.assert_array_equal(np.asarray(ker)[3], 0.0)
+    # live slots: the JAX plain version too (it averages at kv_len == 0)
+    ref = jax_paged_reference(*(jnp.asarray(x) for x in (q, kp, vp, bt, ln)))
+    np.testing.assert_allclose(got.numpy()[:3], np.asarray(ref)[:3],
+                               **PAGED_TOL)
+
+
+def test_pages_past_kv_len_add_exactly_zero():
+    """The CUDA kernel stops after ceil(kv_len / page) pages.  That is
+    exact: in the TPU kernel, filling the table past each live span with
+    real pages instead of holes leaves every output bit unchanged, and so
+    does cutting the table to the longest live span."""
+    page = 4
+    q, kp, vp, bt, ln = _paged_case(page, [5, 8, 1], seed=3, d=32)
+    rng = np.random.default_rng(4)
+    full = bt.copy()
+    full[full < 0] = rng.integers(0, kp.shape[0], (full < 0).sum())
+    args = [jnp.asarray(x) for x in (q, kp, vp)]
+    holes = paged_attention_tpu(*args, jnp.asarray(bt), jnp.asarray(ln),
+                                interpret=True)
+    filled = paged_attention_tpu(*args, jnp.asarray(full), jnp.asarray(ln),
+                                 interpret=True)
+    np.testing.assert_array_equal(np.asarray(holes), np.asarray(filled))
+    cut = bt[:, :2]                      # ceil(max kv_len / page) = 2 pages
+    short = paged_attention_tpu(*args, jnp.asarray(cut), jnp.asarray(ln),
+                                interpret=True)
+    np.testing.assert_array_equal(np.asarray(holes), np.asarray(short))
+    got = paged_attention.paged_attention_reference(*_t(q, kp, vp, full, ln))
+    np.testing.assert_allclose(got.numpy(), np.asarray(holes), **PAGED_TOL)
+
+
+def test_paged_wrapper_on_cpu_and_its_checks():
+    q, kp, vp, bt, ln = _t(*_paged_case(4, [5, 3]))
+    paged_attention.reset_launches()
+    got = paged_attention.paged_attention(q, kp, vp, bt, ln)
+    torch.testing.assert_close(
+        got, paged_attention.paged_attention_reference(q, kp, vp, bt, ln),
+        rtol=0, atol=0)
+    assert paged_attention.launches == 0
+    with pytest.raises(NotImplementedError, match="item 7"):
+        paged_attention.paged_attention(q, kp, vp, bt, ln,
+                                        k_scale=torch.ones(kp.shape[:3]))
+    with pytest.raises(TypeError, match="int32"):
+        paged_attention.paged_attention(q, kp, vp, bt.long(), ln)
+    with pytest.raises(ValueError, match=r"\(B, 1, H, D\)"):
+        paged_attention.paged_attention(q.expand(2, 2, 12, 16).contiguous(),
+                                        kp, vp, bt, ln)
+    # the kernel's shared memory at the main-path shape fits one block
+    assert paged_attention.smem_bytes(6, 128, 16, 2) <= paged_attention._SMEM_LIMIT
+
+
+def test_engine_paged_attention_memo_and_plan_as_in_jax_engine():
+    q, kp, vp, bt, ln = _paged_case(4, [5, 9], seed=5)
+    ln2 = np.asarray([7, 1], np.int32)
+    jeng = jax_engine.Engine(backend="xla-einsum")
+    teng = Engine(backend="hopper")
+    for lens in (ln, ln2, ln):      # kv_len is not in the key
+        want = jeng.paged_attention(*(jnp.asarray(x)
+                                      for x in (q, kp, vp, bt, lens)))
+        got = teng.paged_attention(*_t(q, kp, vp, bt, lens))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **PAGED_TOL)
+    assert teng.plan.stats == jeng.plan.stats
+    assert (teng.plan.stats["decisions"], teng.plan.hits) == (1, 2)
+    (req, dec), = teng.plan
+    assert (req.op, req.m, req.k, req.n, req.groups) == (
+        "paged_attention", 1, 16, bt.shape[1] * 4, 2 * 12)

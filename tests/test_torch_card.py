@@ -1,0 +1,126 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here needs a CUDA card and skips without one; on the card run
+
+    PYTHONPATH=src python -m pytest -q -m card tests/test_torch_card.py
+
+The file imports no JAX (the card's machine has none).  Tolerances are
+per output row, rel-L2 <= 1e-4 in f32 and <= 1e-2 in bf16 (PERF.md §2).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import flash_attention, paged_attention
+from repro_torch.models import transformer as T
+from repro_torch.serve_lib import serve
+from repro_torch.serve_lib.scheduler import Request, Scheduler
+
+DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels build and run only there)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _row_rel_l2(got, ref):
+    got, ref = got.float(), ref.float()
+    d = got.shape[-1]
+    num = (got - ref).reshape(-1, d).norm(dim=-1)
+    return (num / ref.reshape(-1, d).norm(dim=-1).clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("sq,sk,bq,bk,causal,window", [
+    (100, 100, 50, 50, True, 0),
+    (100, 100, 64, 64, False, 0),      # blocks that divide nothing
+    (256, 256, 64, 128, True, 32),
+    (128, 64, 64, 64, True, 8),        # rows with no live key average v
+])
+def test_flash_kernel_matches_plain_version(cuda, dtype, tol, sq, sk, bq, bk,
+                                            causal, window):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(2, 4, s, 128, generator=gen, device=cuda).to(dtype)
+               for s in (sq, sk, sk))
+    flash_attention.reset_launches()
+    got = flash_attention.flash_attention(q, k, v, causal=causal,
+                                          window=window, bq=bq, bk=bk)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == 1
+    ref = flash_attention.flash_attention_reference(q, k, v, causal=causal,
+                                                    window=window, bk=bk)
+    assert _row_rel_l2(got, ref) <= tol
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("page,d", [(1, 128), (16, 128), (5, 16)])
+def test_paged_kernel_matches_plain_version(cuda, dtype, tol, page, d):
+    rng = np.random.default_rng(page)
+    lens = [3 * page, 1, 0, 3 * page + 1, 2]
+    b, h, kv, n_bt = len(lens), 12, 2, 5
+    n_pool = b * n_bt + 3
+    perm = rng.permutation(n_pool)
+    bt = np.full((b, n_bt), -1, np.int32)
+    ptr = 0
+    for i, n in enumerate(lens):
+        need = -(-n // page)
+        bt[i, :need] = perm[ptr:ptr + need]
+        ptr += need
+    gen = torch.Generator(device=cuda).manual_seed(page)
+    q = torch.randn(b, 1, h, d, generator=gen, device=cuda).to(dtype)
+    kp, vp = (torch.randn(n_pool, page, kv, d, generator=gen,
+                          device=cuda).to(dtype) for _ in range(2))
+    bt_t = torch.from_numpy(bt).to(cuda)
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    paged_attention.reset_launches()
+    got = paged_attention.paged_attention(q, kp, vp, bt_t, ln)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == 1
+    ref = paged_attention.paged_attention_reference(q, kp, vp, bt_t, ln)
+    assert bool((got[2] == 0).all())
+    live = torch.tensor([0, 1, 3, 4], device=cuda)
+    assert _row_rel_l2(got[live], ref[live]) <= tol
+
+
+@pytest.mark.card
+def test_paged_scheduler_tokens_on_the_card_equal_the_cpu(cuda):
+    cfg = get_config("qwen2-1.5b", smoke=True)
+    params = T.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, cfg.vocab, 20)
+    spec = []  # odd uids share a 20-token prefix
+    for uid in range(6):
+        own = rng.integers(0, cfg.vocab, 3 + uid if uid % 2 else 5 + 2 * uid)
+        prompt = np.concatenate([prefix, own]) if uid % 2 else own
+        spec.append((uid, prompt.astype(np.int32), 4 + uid))
+
+    def run(device, backend, layout):
+        scfg = serve.ServeConfig(max_seq=48, batch=2, compute_dtype="float32",
+                                 cache_dtype="float32", kernel_backend=backend,
+                                 device=device, cache_layout=layout,
+                                 page_size=8)
+        done = Scheduler(_to(params, device), cfg, scfg).run(
+            [Request(uid=u, prompt=x, max_new_tokens=g) for u, x, g in spec])
+        return {u: c.tokens.tolist() for u, c in done.items()}
+
+    paged_attention.reset_launches()
+    card = run("cuda", "hopper", "paged")
+    assert paged_attention.launches > 0
+    assert card == run("cpu", "torch-ref", "paged")
+    assert card == run("cuda", "hopper", "contiguous")
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)

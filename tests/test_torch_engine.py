@@ -82,10 +82,17 @@ def test_traffic_formula_equals_jax_packages():
 
 def test_registry_holds_both_backends():
     reg = default_registry()
-    assert {b: reg.get(b, "gemm").__name__ for b in BACKENDS} == {
-        "hopper": "hopper_gemm", "torch-ref": "ref_gemm"}
+    ops = ("gemm", "attention", "paged_attention")
+    assert {(b, op): reg.get(b, op).__name__ for b in BACKENDS for op in ops} == {
+        ("hopper", "gemm"): "hopper_gemm", ("torch-ref", "gemm"): "ref_gemm",
+        ("hopper", "attention"): "hopper_attention",
+        ("torch-ref", "attention"): "ref_attention",
+        ("hopper", "paged_attention"): "hopper_paged_attention",
+        ("torch-ref", "paged_attention"): "ref_paged_attention"}
+    assert reg.has("hopper", "paged_attention")
+    assert not reg.has("hopper", "grouped_gemm")
     with pytest.raises(KeyError, match="no kernel"):
-        reg.get("hopper", "attention")
+        reg.get("hopper", "grouped_gemm")
 
 
 def test_engine_backends_agree_on_cpu():
