@@ -38,7 +38,26 @@ Phases (any failed check exits non-zero; nothing falls back):
      configuration in f32 giving the same tokens on the card as the plain
      versions on the CPU, static and through the Scheduler (paged and
      contiguous, with a shared prefix);
-  8. the kernels line, then the result line.
+  8. the grouped kernel against plain: granite's expert GEMMs at 8 slots
+     (decode (32, 32, 1024) @ (32, 1024, 512) and its wo mirror, the
+     prefill of the widest bucket at C = 8 x 240, a ragged C = 8 x 20), in
+     bf16 and f32; times of kernel, plain version and torch.bmm beside the
+     bound;
+  9. granite-moe-1b-a400m, sorted dispatch (`impl="sort"`, chosen in the
+     configuration as in the JAX package), full width, through the
+     Scheduler on the paged layout with the paged serve's trace; grouped
+     launches must equal 3 x 24 x (decode ticks + prefill calls), GEMM 4 x
+     24 x (ticks + calls), paged 24 x ticks; a second pass plans nothing
+     new; a device trace of 10 decode ticks;
+ 10. granite, default einsum dispatch, through the launcher's static mode
+     (8 x (256 + 16)): the grouped kernel must launch 0 times and the GEMM
+     4 x 24 x 16 times;
+ 11. granite parity: one full-width paged decode tick's logits, hopper
+     against torch-ref, with the count of (token, layer) top-k sets that
+     differ; the SMOKE configuration in f32 (cf 8.0 and the default cf,
+     both dispatches, paged and contiguous) giving the same tokens on the
+     card as the plain versions on the CPU;
+ 12. the kernels line, then the result line.
 
 Every detail also goes to runs/chip_smoke.json.  Exits non-zero
 without a CUDA device, and outside a checkout of the repository.
@@ -70,8 +89,9 @@ from repro_torch.engine import Engine, KernelRequest, use_engine  # noqa: E402
 from repro_torch.engine.cost import (HBM_BW, PEAK_FLOPS_BF16,  # noqa: E402
                                      PEAK_FLOPS_F32, HopperModel, choose_tile)
 from repro_torch.kernels import (_build, flash_attention,  # noqa: E402
-                                  paged_attention, redas_gemm)
+                                  grouped_gemm, paged_attention, redas_gemm)
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve_lib import serve as serve_lib  # noqa: E402
 from repro_torch.serve_lib.scheduler import Request, Scheduler  # noqa: E402
@@ -83,7 +103,7 @@ LAYER_GEMMS = {(1536, 1536): 2, (1536, 256): 2, (1536, 8960): 2, (8960, 1536): 1
 L2_BYTES = 50 * 2**20
 BF16_ROW_TOL, F32_ROW_TOL = 1e-2, 1e-4
 LOGIT_LIMITS = {"rel_l2": 0.035, "rel_max": 0.035}
-KERNELS = ("redas_gemm", "paged_attention", "flash_attention")
+KERNELS = ("redas_gemm", "paged_attention", "flash_attention", "grouped_gemm")
 #: the paged serve: 24 requests over 8 slots (prompt x new tokens * count)
 SLOTS, PAGE, BUCKET = 8, 16, 16
 TRACE = "768x32*4,512x64*4,256x16*8,64x48*8"
@@ -97,6 +117,17 @@ PAGED_LENS = (800, 0, 1, 16, 17, 400, 783, 255)
 SLOT_PAGES = -(-(768 + 32 + 1) // PAGE)
 POOL_PAGES = SLOTS * SLOT_PAGES + 2 * SLOT_PAGES
 FLASH_SHAPE = (4, 12, 512, 128)
+#: granite-moe-1b-a400m: the sorted serve (trace mode, paged) and the
+#: einsum serve (static: prompt 256, since the einsum dispatch holds a
+#: (B, S, E, C) one-hot per layer)
+GRANITE = "granite-moe-1b-a400m"
+EINSUM_PROMPT, EINSUM_GEN = 256, 16
+#: the grouped kernel's main-path shapes (E, C, D, F) at 8 slots: decode
+#: (C = 8 x 4) for wi/wg and wo, the widest prefill bucket (C = 8 x 240 at
+#: 768 tokens), a ragged one (C = 8 x 20 at 64 tokens)
+GROUPED_SHAPES = ((32, 32, 1024, 512), (32, 32, 512, 1024),
+                  (32, 1920, 1024, 512), (32, 1920, 512, 1024),
+                  (32, 160, 1024, 512))
 REPORT = {}
 
 
@@ -204,12 +235,14 @@ def reset_counts() -> None:
     redas_gemm.reset_launches()
     paged_attention.reset_launches()
     flash_attention.reset_launches()
+    grouped_gemm.reset_launches()
 
 
 def read_counts() -> dict:
     return {"redas_gemm": sum(redas_gemm.launches.values()),
             "paged_attention": paged_attention.launches,
-            "flash_attention": flash_attention.launches}
+            "flash_attention": flash_attention.launches,
+            "grouped_gemm": grouped_gemm.launches}
 
 
 def _operand_sets(m, k, n, dtype, gen):
@@ -501,8 +534,9 @@ def phase_main_path(cfg) -> dict:
           f"{dict(mix)}; kernel launches {launches}")
     check(sum(launches.values()) == expected,
           f"GEMM kernel launched {sum(launches.values())} times, not {expected}")
-    check(counts["paged_attention"] == counts["flash_attention"] == 0,
-          f"attention kernels on the static path: {counts}")
+    check(counts["paged_attention"] == counts["flash_attention"]
+          == counts["grouped_gemm"] == 0,
+          f"attention or grouped kernels on the static path: {counts}")
     check(tuple(tokens.shape) == (BATCH, GEN), f"tokens {tuple(tokens.shape)}")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab)).all()), "token out of range")
     check(torch.equal(first_tokens, tokens[:, :1]),
@@ -528,6 +562,45 @@ def _untraced_ticks(sched, n: int) -> float:
         sched.step()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3
+
+
+def _replay_and_trace(params, cfg, scfg, eng, trace, tokens: dict,
+                      label: str) -> tuple[int, dict]:
+    """The served trace again through the same engine (nothing new to
+    plan, the same tokens), then 10 decode ticks untraced and 10 traced
+    (all 8 slots decoding: the first request finishes after 32 tokens).
+    Returns the new plan misses and the trace's summary."""
+    misses = eng.plan.misses
+    again = Scheduler(params, cfg, scfg, engine=eng, prefill_bucket=BUCKET)
+    again.run(launch_serve.trace_requests(cfg, trace, SEED))
+    new_misses = eng.plan.misses - misses
+    same = {u: c.tokens.tolist() for u, c in again.completions.items()} == tokens
+    print(f"second pass through the same engine: {new_misses} new plan "
+          f"misses, tokens {'identical' if same else 'DIFFER'}")
+    check(new_misses == 0, f"{new_misses} new plan misses on the second pass")
+    check(same, "the second pass served other tokens")
+    del again
+
+    probe = Scheduler(params, cfg, scfg, engine=eng, prefill_bucket=BUCKET)
+    for r in launch_serve.trace_requests(cfg, trace, SEED):
+        probe.submit(r)
+    probe.step()                                   # admit 8, first tick
+    untraced = _untraced_ticks(probe, 10)
+    prof = _profile(lambda: _untraced_ticks(probe, 10))
+    prof.pop("result")
+    prof["untraced_ms"] = untraced
+    prof["idle_share_untraced"] = max(0.0, 1.0 - prof["device_busy_ms"]
+                                      / untraced)
+    check(probe.stats["admitted"] == SLOTS and probe.stats["finished"] == 0,
+          f"the traced ticks were not pure decode: {probe.stats}")
+    print(f"trace of 10 {label}decode ticks: wall {prof['wall_ms']:.2f} ms, "
+          f"device busy {prof['device_busy_ms']:.2f} ms, idle share "
+          f"{prof['idle_share']:.2f}; against the untraced {untraced:.2f} ms "
+          f"of the 10 ticks before, idle share "
+          f"{prof['idle_share_untraced']:.2f}")
+    for k in prof["top"]:
+        print(f"    {k['ms']:9.3f} ms {k['count']:5d} x {k['name']}")
+    return new_misses, prof
 
 
 def phase_scheduler(cfg) -> dict:
@@ -564,48 +637,16 @@ def phase_scheduler(cfg) -> dict:
     check(counts["redas_gemm"] == want_gemm,
           f"GEMM kernel launched {counts['redas_gemm']} times, not 7 x 28 x "
           f"({ticks} + {calls}) = {want_gemm}")
-    check(counts["flash_attention"] == 0, "flash kernel on the paged path")
+    check(counts["flash_attention"] == counts["grouped_gemm"] == 0,
+          f"flash or grouped kernel on the paged path: {counts}")
     for uid, toks in tokens.items():
         check(len(toks) == out["trace"][uid][1]
               and all(0 <= t < cfg.vocab for t in toks), f"request {uid}")
     sched.paged.check_invariants()
 
-    # the same trace again through the same engine: nothing new to plan
-    misses = eng.plan.misses
-    again = Scheduler(out["params"], cfg, out["serve_config"], engine=eng,
-                      prefill_bucket=BUCKET)
-    again.run(launch_serve.trace_requests(cfg, out["trace"], SEED))
-    new_misses = eng.plan.misses - misses
-    same = {u: c.tokens.tolist() for u, c in again.completions.items()} == tokens
-    print(f"second pass through the same engine: {new_misses} new plan "
-          f"misses, tokens {'identical' if same else 'DIFFER'}")
-    check(new_misses == 0, f"{new_misses} new plan misses on the second pass")
-    check(same, "the second pass served other tokens")
-    del again
-
-    # 10 decode ticks untraced, then 10 traced (all 8 slots decoding: the
-    # first request finishes after 32 tokens)
-    probe = Scheduler(out["params"], cfg, out["serve_config"], engine=eng,
-                      prefill_bucket=BUCKET)
-    for r in launch_serve.trace_requests(cfg, out["trace"], SEED):
-        probe.submit(r)
-    probe.step()                                   # admit 8, first tick
-    untraced = _untraced_ticks(probe, 10)
-    trace = _profile(lambda: _untraced_ticks(probe, 10))
-    trace.pop("result")
-    trace["untraced_ms"] = untraced
-    trace["idle_share_untraced"] = max(0.0, 1.0 - trace["device_busy_ms"]
-                                       / untraced)
-    check(probe.stats["admitted"] == SLOTS and probe.stats["finished"] == 0,
-          f"the traced ticks were not pure decode: {probe.stats}")
-    print(f"trace of 10 decode ticks: wall {trace['wall_ms']:.2f} ms, device "
-          f"busy {trace['device_busy_ms']:.2f} ms, idle share "
-          f"{trace['idle_share']:.2f}; against the untraced {untraced:.2f} ms "
-          f"of the 10 ticks before, idle share "
-          f"{trace['idle_share_untraced']:.2f}")
-    for k in trace["top"]:
-        print(f"    {k['ms']:9.3f} ms {k['count']:5d} x {k['name']}")
-    del probe
+    new_misses, trace = _replay_and_trace(out["params"], cfg,
+                                          out["serve_config"], eng,
+                                          out["trace"], tokens, "")
     REPORT["paged_serve"] = {
         "trace": TRACE, "slots": SLOTS, "page_size": PAGE,
         "prefill_bucket": BUCKET, "seconds": out["seconds"],
@@ -867,6 +908,292 @@ def phase_paged_parity(cfg, paged_out: dict) -> None:
     REPORT["paged_parity"] = {"decode_tick_logits": gap,
                               "smoke_scheduler_tokens_identical": same}
 
+# --------------------------------------------------------------------------
+# granite-moe-1b-a400m: the grouped kernel and the MoE serves
+# --------------------------------------------------------------------------
+
+
+def grouped_bound(e, c, d, f, itemsize: int) -> tuple[float, str]:
+    """x and w read once and y written once; 2 E C D F operations."""
+    return _bound_of(2.0 * e * c * d * f,
+                     e * (c * d + d * f + c * f) * itemsize, itemsize)
+
+
+def _grouped_sets(e, c, d, f, dtype, gen) -> list[tuple]:
+    per = e * (c * d + d * f) * torch.tensor([], dtype=dtype).element_size()
+    count = max(2, min(64, math.ceil(2 * L2_BYTES / per)))
+    return [(torch.randn(e, c, d, generator=gen, device="cuda").to(dtype),
+             (torch.randn(e, d, f, generator=gen, device="cuda")
+              / math.sqrt(d)).to(dtype)) for _ in range(count)]
+
+
+def phase_grouped_kernel() -> list[dict]:
+    """The grouped kernel at granite's expert shapes, at the tile the
+    engine decides, against its plain version; times of kernel, plain
+    version and torch.bmm (the one PyTorch call computing the same
+    function) beside the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    side = torch.cuda.Stream()
+    rows, failures = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = BF16_ROW_TOL if dtype == torch.bfloat16 else F32_ROW_TOL
+        name = str(dtype)[6:]
+        for e, c, d, f in GROUPED_SHAPES:
+            sets = _grouped_sets(e, c, d, f, dtype, gen)
+            x, w = sets[0]
+            size = x.element_size()
+            dec = HopperModel().decide(KernelRequest(
+                "grouped_gemm", c, d, f, groups=e, in_bytes=size,
+                out_bytes=size))
+            tile = (dec.bm, dec.bk, dec.bn)
+            run = functools.partial(grouped_gemm.grouped_matmul, tile=tile)
+            out, ref = run(x, w), grouped_gemm.grouped_matmul_reference(x, w)
+            torch.cuda.synchronize()
+            rel = row_rel_l2(out, ref)
+            err = (out.float() - ref.float()).abs().max().item()
+            row = {"shape": [e, c, d, f], "dtype": name, "tile": list(tile),
+                   "ms": device_ms(run, sets, side),
+                   "plain_ms": device_ms(grouped_gemm.grouped_matmul_reference,
+                                         sets, side),
+                   "library_ms": device_ms(torch.bmm, sets, side),
+                   "library": "torch.bmm",
+                   "max_abs_err": err, "row_rel_l2": rel, "tol": tol}
+            row["bound_ms"], row["bound_by"] = grouped_bound(e, c, d, f, size)
+            rows.append(row)
+            ok = math.isfinite(rel) and rel <= tol
+            print(f"grouped_gemm {name} ({e}, {c}, {d}) @ ({e}, {d}, {f}) tile "
+                  f"{tile}: row rel-L2 {rel:.2e} (tol {tol:g}), max|diff| "
+                  f"{err:.3e}; kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, torch.bmm "
+                  f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']}){'' if ok else '  FAILED'}")
+            if not ok:
+                failures.append(f"grouped {name} {(e, c, d, f)}: {rel:.2e}")
+            del sets, x, w, out, ref
+    REPORT["grouped_kernel"] = rows
+    check(not failures, f"grouped kernel disagrees with its plain version: "
+          f"{failures}")
+    return rows
+
+
+def _sorted(cfg):
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                            impl="sort"))
+
+
+def phase_granite_sorted() -> dict:
+    """Full-width granite with sorted dispatch through the Scheduler on
+    the paged layout: the paged serve's trace, launch counts, a second
+    pass through the same engine, and a device trace of 10 decode
+    ticks."""
+    cfg = _sorted(get_config(GRANITE))
+    trace = launch_serve.parse_trace(TRACE)
+    scfg = serve_lib.ServeConfig(
+        max_seq=max(p + g for p, g in trace) + 1, batch=SLOTS,
+        kernel_backend="hopper", cache_layout="paged", page_size=PAGE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    params = T.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(SEED), device="cuda", dtype=torch.bfloat16)
+    sched = Scheduler(params, cfg, scfg, prefill_bucket=BUCKET)
+    reqs = launch_serve.trace_requests(cfg, trace, SEED)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sched.run(reqs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    eng, st = sched.engine, sched.stats
+    ticks, calls = st["decode_steps"], st["prefill_calls"]
+    n_tok = sum(len(c.tokens) for c in sched.completions.values())
+    tick_ms = sched.timings["decode_s"] * 1e3 / ticks
+    prefill_ms = sched.timings["prefill_s"] * 1e3
+    layers = cfg.n_layers
+    want = {"grouped_gemm": 3 * layers * (ticks + calls),
+            "redas_gemm": 4 * layers * (ticks + calls),
+            "paged_attention": layers * ticks, "flash_attention": 0}
+    tokens = {u: c.tokens.tolist() for u, c in sched.completions.items()}
+    print(f"granite sorted serve (paged, full width, bf16): "
+          f"{len(sched.completions)} requests / {n_tok} tokens in "
+          f"{seconds:.3f} s, {n_tok / seconds:.1f} tok/s over {SLOTS} slots; "
+          f"{ticks} decode ticks, {tick_ms:.3f} ms per tick (mean); {calls} "
+          f"prefill calls of widths {sorted(st['prefill_widths'])}, "
+          f"{prefill_ms:.2f} ms in all; plan {eng.plan.stats}; kernel "
+          f"launches {counts} (want {want}); peak memory above what the "
+          f"script held {peak:.3f} GiB")
+    check(len(sched.completions) == len(trace), "granite served too few")
+    check(counts == want, f"granite sorted serve launches {counts}, not {want}")
+    for uid, toks in tokens.items():
+        check(len(toks) == trace[uid][1]
+              and all(0 <= t < cfg.vocab for t in toks), f"request {uid}")
+    sched.paged.check_invariants()
+
+    new_misses, prof = _replay_and_trace(params, cfg, scfg, eng, trace,
+                                         tokens, "granite ")
+    REPORT["granite_sorted"] = {
+        "trace": TRACE, "slots": SLOTS, "page_size": PAGE,
+        "prefill_bucket": BUCKET, "seconds": seconds,
+        "tokens_per_s": n_tok / seconds, "tokens": n_tok,
+        "decode_ticks": ticks, "decode_ms_per_tick": tick_ms,
+        "prefill_calls": calls, "prefill_widths": sorted(st["prefill_widths"]),
+        "prefill_ms": prefill_ms, "plan": eng.plan.stats, "counts": counts,
+        "max_memory_gib": peak, "second_pass_new_misses": new_misses,
+        "trace_10_ticks": prof}
+    return {"cfg": cfg, "scfg": scfg, "params": params, "engine": eng,
+            "trace": trace}
+
+
+def phase_granite_parity(run: dict) -> None:
+    """One full-width paged decode tick, hopper against torch-ref from the
+    same state, with the (token, layer) top-k sets of the two runs."""
+    cfg, params = run["cfg"], run["params"]
+    sched = Scheduler(params, cfg, run["scfg"], engine=run["engine"],
+                      prefill_bucket=BUCKET)
+    for r in launch_serve.trace_requests(cfg, run["trace"], SEED):
+        sched.submit(r)
+    sched.step()                                  # admit 8, first tick
+    for i, s in enumerate(sched.slots):
+        sched.paged.ensure_decode_page(i, s.req.prompt.size + len(s.emitted) - 1)
+    toks = torch.tensor([[s.last_token] for s in sched.slots],
+                        dtype=torch.int32, device="cuda")
+    active = torch.ones(SLOTS, dtype=torch.bool, device="cuda")
+    bt = torch.from_numpy(sched.paged.tables).cuda()
+    route = moe._route
+    logits, picks = {}, {}
+    try:
+        for backend in ("torch-ref", "hopper"):
+            picks[backend] = []
+
+            def recording(*args, _log=picks[backend]):
+                out = route(*args)
+                _log.append(out[1].sort(dim=-1).values)
+                return out
+
+            moe._route = recording
+            # both ticks start from the same state (see phase_paged_parity)
+            with torch.inference_mode(), use_engine(Engine(backend=backend)):
+                logits[backend] = T.decode_step(
+                    params, cfg, sched.cache, toks, active=active,
+                    block_tables=bt)[0]
+    finally:
+        moe._route = route
+    gap = _logit_gap(logits["hopper"], logits["torch-ref"])
+    flips = sum(int((a != b).any(dim=-1).sum()) for a, b in
+                zip(picks["hopper"], picks["torch-ref"], strict=True))
+    pairs = SLOTS * len(picks["hopper"])
+    print(f"granite full-width paged decode tick logits (8 slots), hopper vs "
+          f"torch-ref: rel-L2 {gap['rel_l2']:.4e}, max|diff|/max|ref| "
+          f"{gap['rel_max']:.4e}, argmax agreement "
+          f"{gap['argmax_agreement']:.2f} (limit rel-L2 "
+          f"{LOGIT_LIMITS['rel_l2']}); top-k sets that differ: {flips} of "
+          f"{pairs} (token, layer) pairs")
+    REPORT["granite_parity"] = {"decode_tick_logits": gap,
+                                "topk_sets_differing": flips,
+                                "token_layer_pairs": pairs}
+    check(math.isfinite(gap["rel_l2"]) and gap["rel_l2"] <= LOGIT_LIMITS["rel_l2"],
+          f"granite decode logit gap {gap}, {flips} top-k sets differ")
+
+
+def phase_granite_einsum() -> None:
+    """The default dispatch through the launcher's static mode: the expert
+    matmuls stay plain einsums, so the grouped kernel never launches."""
+    reset_counts()
+    out = launch_serve.main(["--arch", GRANITE, "--kernel-backend", "hopper",
+                             "--batch", str(SLOTS), "--prompt-len",
+                             str(EINSUM_PROMPT), "--gen", str(EINSUM_GEN),
+                             "--seed", str(SEED)])
+    counts = read_counts()
+    cfg = out["cfg"]
+    want = {"grouped_gemm": 0,
+            "redas_gemm": 4 * cfg.n_layers * EINSUM_GEN,
+            "paged_attention": 0, "flash_attention": 0}
+    tokens = out["tokens"]
+    print(f"granite einsum serve (static, {SLOTS} x ({EINSUM_PROMPT} + "
+          f"{EINSUM_GEN}), impl={cfg.moe.impl!r}): {out['seconds']:.3f} s, "
+          f"{out['tokens_per_s']:.1f} tok/s; plan {out['engine_plan']}; "
+          f"kernel launches {counts} (want {want})")
+    check(cfg.moe.impl == "einsum", f"the launcher served impl={cfg.moe.impl}")
+    check(counts == want, f"granite einsum serve launches {counts}, not {want}")
+    check(tuple(tokens.shape) == (SLOTS, EINSUM_GEN)
+          and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()),
+          f"einsum serve tokens {tuple(tokens.shape)}")
+    # the two dispatches compute one function (same capacity and
+    # priority): their prefill logits on the served weights and prompt
+    # differ by bf16 rounding alone
+    logits = {}
+    for impl in ("einsum", "sort"):
+        c = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                             impl=impl))
+        cache = T.init_cache(c, T.CacheSpec(EINSUM_PROMPT + EINSUM_GEN + 1,
+                                            SLOTS), device="cuda")
+        with torch.inference_mode(), use_engine(Engine(backend="hopper")):
+            logits[impl] = T.prefill(out["params"], c, out["prompt"], cache)[0]
+    gap = _logit_gap(logits["sort"], logits["einsum"])
+    first = logits["einsum"][:, -1].argmax(-1)
+    print(f"granite prefill logits on the served prompt, sorted vs einsum "
+          f"dispatch: rel-L2 {gap['rel_l2']:.4e}, max|diff|/max|ref| "
+          f"{gap['rel_max']:.4e}, argmax agreement {gap['argmax_agreement']:.2f}"
+          f" (limit rel-L2 {LOGIT_LIMITS['rel_l2']}); served first tokens "
+          f"{tokens[:, 0].tolist()}, einsum prefill argmax {first.tolist()}")
+    check(torch.equal(first.cpu(), tokens[:, 0].to(first.dtype)),
+          "the prefill argmax differs from the served first tokens")
+    check(math.isfinite(gap["rel_l2"]) and gap["rel_l2"] <= LOGIT_LIMITS["rel_l2"],
+          f"sorted vs einsum prefill logit gap {gap}")
+    REPORT["granite_einsum"] = {"seconds": out["seconds"],
+                                "tokens_per_s": out["tokens_per_s"],
+                                "plan": out["engine_plan"], "counts": counts,
+                                "sorted_vs_einsum_prefill_logits": gap}
+
+
+def phase_granite_smoke_parity() -> None:
+    """granite SMOKE in f32 through the Scheduler: the card's tokens equal
+    the plain versions' on the CPU, per uid, for both dispatches, paged
+    and contiguous, at cf 8.0 and at the default cf."""
+    base = get_config(GRANITE, smoke=True)
+    cpu_params = T.init_params(base, generator=torch.Generator().manual_seed(SEED),
+                               dtype=torch.float32)
+    card_params = _to(cpu_params, "cuda")
+    rng = np.random.default_rng(SEED)
+    prefix = rng.integers(0, base.vocab, 24)
+    spec = [(uid, (np.concatenate([prefix, rng.integers(0, base.vocab, 3 + uid)])
+                   if uid % 2 else rng.integers(0, base.vocab, 5 + 3 * uid)
+                   ).astype(np.int32), 4 + uid % 5) for uid in range(8)]
+    result = {}
+    for impl in ("sort", "einsum"):
+        for cf in (8.0, base.moe.capacity_factor):
+            cfg = dataclasses.replace(base, moe=dataclasses.replace(
+                base.moe, impl=impl, capacity_factor=cf))
+            tokens = {}
+            for device, backend, layout in (("cpu", "torch-ref", "paged"),
+                                            ("cuda", "hopper", "paged"),
+                                            ("cpu", "torch-ref", "contiguous"),
+                                            ("cuda", "hopper", "contiguous")):
+                sc = serve_lib.ServeConfig(
+                    max_seq=48, batch=3, compute_dtype="float32",
+                    cache_dtype="float32", kernel_backend=backend,
+                    device=device, cache_layout=layout, page_size=8)
+                grouped_gemm.reset_launches()
+                sched = Scheduler(cpu_params if device == "cpu"
+                                  else card_params, cfg, sc)
+                done = sched.run([Request(uid=u, prompt=x, max_new_tokens=g)
+                                  for u, x, g in spec])
+                check((grouped_gemm.launches > 0)
+                      == (impl == "sort" and device == "cuda"),
+                      f"smoke {impl} {device}: {grouped_gemm.launches} "
+                      f"grouped launches")
+                tokens[(device, layout)] = {u: c.tokens.tolist()
+                                            for u, c in done.items()}
+            for layout in ("paged", "contiguous"):
+                same = tokens[("cuda", layout)] == tokens[("cpu", layout)]
+                result[f"{impl} cf {cf} {layout}"] = same
+    print(f"granite SMOKE f32 through the Scheduler, 8 requests over 3 slots: "
+          f"card tokens identical to the CPU's plain run: {result}")
+    REPORT["granite_smoke_parity"] = result
+    check(all(result.values()), f"granite smoke tokens differ: {result}")
+
 
 def _to(tree, dev):
     if isinstance(tree, dict):
@@ -938,6 +1265,22 @@ def attention_lines(attn: dict, paged: dict) -> list[dict]:
          "max_abs_err": err("flash_attention"), **{k: f[k] for k in keys}}]
 
 
+def grouped_line(rows: list[dict], granite: dict) -> dict:
+    """Per call at the decode shape of wi/wg in bf16 (two of every three
+    grouped launches of a decode tick); launches from the sorted serve."""
+    main = next(r for r in rows if r["dtype"] == "bfloat16"
+                and r["shape"] == list(GROUPED_SHAPES[0]))
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library")
+    return {"name": "grouped_gemm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
+            "replaces": "src/repro/kernels/grouped_gemm.py:73",
+            "launches": granite["counts"]["grouped_gemm"],
+            "per": f"call, bf16, (E, C, D, F) = {tuple(main['shape'])}, tile "
+                   f"{tuple(main['tile'])}",
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{k: main[k] for k in keys}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -948,6 +1291,7 @@ def main() -> int:
     phase_setup()
     rows = phase_kernels()
     attn = phase_attention_kernels()
+    grouped_rows = phase_grouped_kernel()
     cfg = get_config(ARCH)
     served = phase_main_path(cfg)
     phase_parity(cfg, served)
@@ -955,8 +1299,17 @@ def main() -> int:
     paged = phase_scheduler(cfg)
     phase_shared_prefix(cfg, paged)
     phase_paged_parity(cfg, paged)
+    del paged                              # free qwen before granite
+    torch.cuda.empty_cache()
+    granite = phase_granite_sorted()
+    phase_granite_parity(granite)
+    del granite
+    torch.cuda.empty_cache()
+    phase_granite_einsum()
+    phase_granite_smoke_parity()
     lines = [gemm_line(rows, REPORT["main_path"], REPORT["paged_serve"]),
-             *attention_lines(attn, REPORT["paged_serve"])]
+             *attention_lines(attn, REPORT["paged_serve"]),
+             grouped_line(grouped_rows, REPORT["granite_sorted"])]
     REPORT["kernels"] = lines
     REPORT["seconds"] = time.perf_counter() - t0
     out_dir = ROOT / "runs"

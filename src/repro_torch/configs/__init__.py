@@ -13,6 +13,7 @@ from ..models.config import ArchConfig
 
 _MODULES = {
     "qwen2-1.5b": "qwen2_1_5b",
+    "granite-moe-1b-a400m": "granite_moe_1b",
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -1,6 +1,7 @@
 """Execution backends: decision -> kernel call (the port of
 `repro/engine/backends.py`'s `_gemm_backend` and `pallas_gemm`, and of
-the attention registrations of `repro/kernels/flash_attention.py` and
+the grouped and attention registrations of
+`repro/kernels/grouped_gemm.py`, `repro/kernels/flash_attention.py` and
 `repro/kernels/paged_attention.py`).
 
 The Hopper kernels mask ragged edges themselves, so the entries pass the
@@ -9,7 +10,8 @@ operands straight through: no padding copies, no slicing.
 
 from __future__ import annotations
 
-from ..kernels import flash_attention, paged_attention, redas_gemm
+from ..kernels import (flash_attention, grouped_gemm, paged_attention,
+                       redas_gemm)
 from .plan import KernelDecision
 
 
@@ -23,6 +25,20 @@ def hopper_gemm(decision: KernelDecision, a, b, *, out_dtype=None):
 def ref_gemm(decision: KernelDecision, a, b, *, out_dtype=None):
     """The kernel's plain version; the decision is planned but ignored."""
     return redas_gemm.gemm_reference(a, b, out_dtype)
+
+
+def hopper_grouped_gemm(decision: KernelDecision, x, w, *,
+                        out_dtype=None):
+    """The decision's per-expert OS tile on the grouped kernel."""
+    return grouped_gemm.grouped_matmul(
+        x, w, tile=(decision.bm, decision.bk, decision.bn),
+        out_dtype=out_dtype)
+
+
+def ref_grouped_gemm(decision: KernelDecision, x, w, *, out_dtype=None):
+    """The grouped kernel's plain version; the decision is planned but
+    ignored."""
+    return grouped_gemm.grouped_matmul_reference(x, w, out_dtype)
 
 
 def _blocks(decision: KernelDecision, q, k) -> tuple[int, int]:
@@ -62,7 +78,7 @@ def ref_paged_attention(decision: KernelDecision, q, k_pages, v_pages,
     """The paged kernel's plain version."""
     if k_scale is not None or v_scale is not None:
         raise NotImplementedError(
-            "int8 paged pools are not ported yet (ROADMAP.md queue 1 item 7)")
+            "int8 paged pools are not ported yet (ROADMAP.md queue 1 item 2)")
     return paged_attention.paged_attention_reference(q, k_pages, v_pages,
                                                      block_tables, kv_len)
 
@@ -70,6 +86,8 @@ def ref_paged_attention(decision: KernelDecision, q, k_pages, v_pages,
 def register_into(registry) -> None:
     registry.register("hopper", "gemm", hopper_gemm)
     registry.register("torch-ref", "gemm", ref_gemm)
+    registry.register("hopper", "grouped_gemm", hopper_grouped_gemm)
+    registry.register("torch-ref", "grouped_gemm", ref_grouped_gemm)
     registry.register("hopper", "attention", hopper_attention)
     registry.register("torch-ref", "attention", ref_attention)
     registry.register("hopper", "paged_attention", hopper_paged_attention)

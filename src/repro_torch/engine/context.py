@@ -2,8 +2,8 @@
 the port of `repro/engine/context.py`.
 
 Every `models.layers.dense` matmul (and, on the paged layout, every
-decode attention) inside a `use_engine` context routes through the
-engine:
+decode attention; under sorted MoE dispatch, every expert matmul) inside
+a `use_engine` context routes through the engine:
 
     with use_engine(backend="hopper") as eng:
         logits, _ = transformer.forward(params, cfg, tokens)
@@ -90,6 +90,21 @@ class Engine:
             hit = self._resolve(key, "gemm", m, k, n, 1, a.element_size())
         dec, fn = hit
         return fn(dec, a, b, out_dtype=out_dtype)
+
+    def grouped_matmul(self, x, w, *, out_dtype=None):
+        """x (E, C, D) @ w (E, D, F) -> (E, C, F), per expert."""
+        key = ("grouped_gemm", x.shape, x.dtype, w.shape, w.dtype)
+        hit = self._lookup(key)
+        if hit is None:
+            e, c, d = x.shape
+            e2, d2, f = w.shape
+            if (e, d) != (e2, d2):
+                raise ValueError(f"grouped dim mismatch {tuple(x.shape)} @ "
+                                 f"{tuple(w.shape)}")
+            hit = self._resolve(key, "grouped_gemm", c, d, f, e,
+                                x.element_size())
+        dec, fn = hit
+        return fn(dec, x, w, out_dtype=out_dtype)
 
     def attention(self, q, k, v, *, causal: bool = True, window: int = 0):
         """q (B, H, Sq, D); k/v (B, H, Sk, D) (GQA heads pre-expanded)."""

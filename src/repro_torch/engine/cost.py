@@ -20,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+from ..kernels import grouped_gemm
 from ..kernels.redas_gemm import DATAFLOWS, SMEM_LIMIT, TILES, smem_bytes
 from .plan import KernelDecision, KernelRequest
 
@@ -73,10 +74,12 @@ def estimate(m: int, k: int, n: int, cfg: TileConfig, in_bytes: int = 2,
 
 
 def choose_tile(m: int, k: int, n: int, in_bytes: int = 2,
-                out_bytes: int = 2, dataflows=DATAFLOWS) -> TileConfig:
-    """The least-time legal (dataflow, tile) for one GEMM shape."""
+                out_bytes: int = 2, dataflows=DATAFLOWS,
+                tiles=TILES) -> TileConfig:
+    """The least-time legal (dataflow, tile) for one GEMM shape among
+    `tiles` (the ReDas GEMM's menu unless given)."""
     best, best_t = None, math.inf
-    for bm, bk, bn in TILES:
+    for bm, bk, bn in tiles:
         if smem_bytes(bm, bk, bn, in_bytes) > SMEM_LIMIT:
             continue
         for df in dataflows:
@@ -85,7 +88,7 @@ def choose_tile(m: int, k: int, n: int, in_bytes: int = 2,
             if t < best_t:
                 best, best_t = cfg, t
     if best is None:
-        raise ValueError(f"no tile of {TILES} fits {SMEM_LIMIT} bytes of "
+        raise ValueError(f"no tile of {tiles} fits {SMEM_LIMIT} bytes of "
                          f"shared memory at {in_bytes}-byte operands")
     return best
 
@@ -111,11 +114,32 @@ def decide_attention(request: KernelRequest, name: str) -> KernelDecision:
         meta=tuple(sorted({"hbm_bytes": float(hbm), "groups": bh}.items())))
 
 
+def decide_grouped(request: KernelRequest, name: str) -> KernelDecision:
+    """The port of `TPUModel._decide_grouped`: the grouped kernel is OS
+    (the accumulator stays on chip over the D sweep), so the search is
+    pinned to OS over the grouped kernel's tile menu, gated by shared
+    memory, on one expert's (C, D, F) problem; the call costs that
+    expert's time x the expert count (`groups`)."""
+    cfg = choose_tile(request.m, request.k, request.n, request.in_bytes,
+                      request.out_bytes, dataflows=("os",),
+                      tiles=grouped_gemm.TILES)
+    seconds = estimate(request.m, request.k, request.n, cfg,
+                       request.in_bytes, request.out_bytes)[0]
+    return KernelDecision(
+        op=request.op, dataflow="os", bm=cfg.bm, bk=cfg.bk, bn=cfg.bn,
+        cost_model=name, seconds=seconds * request.groups,
+        meta=tuple(sorted({
+            "groups": request.groups,
+            "smem_bytes": grouped_gemm.smem_bytes(cfg.bm, cfg.bk, cfg.bn,
+                                                  request.in_bytes)}.items())))
+
+
 @dataclasses.dataclass
 class HopperModel:
     """The decision surface as a cost model: `decide(request)` returns
-    the chosen dataflow and CTA tile for a `gemm` request, and the flash
-    blocks for an `attention` or `paged_attention` one."""
+    the chosen dataflow and CTA tile for a `gemm` request, the per-expert
+    OS tile for a `grouped_gemm` one, and the flash blocks for an
+    `attention` or `paged_attention` one."""
 
     name: str = "hopper-h100"
 
@@ -123,9 +147,11 @@ class HopperModel:
         if request.op in ("attention", "paged_attention"):
             # paged decode is the same roofline with n = the page span
             return decide_attention(request, self.name)
+        if request.op == "grouped_gemm":
+            return decide_grouped(request, self.name)
         if request.op != "gemm":
-            raise ValueError(f"HopperModel plans gemm and attention, not "
-                             f"{request.op!r}")
+            raise ValueError(f"HopperModel plans gemm, grouped_gemm and "
+                             f"attention, not {request.op!r}")
         cfg = choose_tile(request.m, request.k, request.n, request.in_bytes,
                           request.out_bytes)
         seconds, bytes_, pad_eff = estimate(request.m, request.k, request.n,

@@ -24,15 +24,17 @@ from typing import Iterator
 PLAN_FORMAT = "redas-execution-plan-v1"
 
 #: ops the port plans and dispatches so far (the JAX package also plans
-#: grouped, int8 and sparse ops; they come with later slices of the port).
-KNOWN_OPS = ("gemm", "attention", "paged_attention")
+#: int8 and sparse ops; they come with later slices of the port).
+KNOWN_OPS = ("gemm", "grouped_gemm", "attention", "paged_attention")
 
 
 @dataclasses.dataclass(frozen=True)
 class KernelRequest:
     """One kernel invocation the engine must decide a schedule for.
 
-    `m, k, n` are the GEMM dims ((M, K) @ (K, N)); for `attention` m is
+    `m, k, n` are the GEMM dims ((M, K) @ (K, N)); for `grouped_gemm`
+    they are one expert's (C, D, F) and `groups` the expert count; for
+    `attention` m is
     the query length, n the key length and k the head dim, and for
     `paged_attention` n is the page span the block table addresses.
     `groups` (batch x heads for attention) and `density` keep the JAX

@@ -4,9 +4,9 @@ port of `repro/engine/registry.py`).
 A backend is a name mapping each op to a callable
 ``fn(decision, *tensors, **kw) -> tensor``.  The port has two:
 
-  hopper     — the hand-written Hopper kernels (`gemm`, `attention`,
-               `paged_attention`): launched on CUDA tensors; a CPU
-               tensor gets the kernel's plain version.
+  hopper     — the hand-written Hopper kernels (`gemm`, `grouped_gemm`,
+               `attention`, `paged_attention`): launched on CUDA
+               tensors; a CPU tensor gets the kernel's plain version.
   torch-ref  — the plain PyTorch versions, on any device (the parity
                reference).
 """

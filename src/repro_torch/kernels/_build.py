@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface.  It is compiled by `nvcc`
 for `sm_90a` into `build/repro_torch/lib<name>-<hash>.so` at the root of
-the checkout (the hash covers the source and the flags, so an edited
-source never loads a stale library) and loaded with `ctypes`.  Nothing
+the checkout (the hash covers the source, the shared `csrc/*.cuh`
+headers and the flags, so an edited source never loads a stale library)
+and loaded with `ctypes`.  Nothing
 runs when this module is imported: the first CUDA tensor that reaches a
 kernel builds it.
 """
@@ -38,7 +39,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library built from `csrc/<name>.cu` lives."""
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

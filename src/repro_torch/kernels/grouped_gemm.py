@@ -1,0 +1,128 @@
+"""The grouped (per-expert) GEMM on Hopper: wrapper, launch counter and
+plain version.
+
+`grouped_matmul` computes what `repro.kernels.grouped_gemm.grouped_matmul`
+computes — y[e] = x[e] @ w[e] for x (E, C, D) and w (E, D, F), with f32
+accumulation — through the CUDA kernel in `csrc/grouped_gemm.cu`: one
+block per (expert, C tile, F tile), the D sweep inside the block (OS).
+The decision's (bm, bk, bn) is the per-expert tile over (C, D, F), and it
+must be one of `TILES`, the menu the kernel is compiled for.  Ragged C, D
+and F are masked inside the kernel: nothing is padded or sliced here.
+
+On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
+tensor it returns the plain version `grouped_matmul_reference`, which is
+what the tests compare against the JAX reference.  `launches` counts
+kernel launches and nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+from .redas_gemm import SMEM_LIMIT, smem_bytes
+
+#: the per-expert tiles (bm, bk, bn) the kernel is compiled for, in both
+#: dtypes; `GROUPED_TILES` in csrc/grouped_gemm.cu is the same list.  A
+#: block of tile t uses `smem_bytes(*t, itemsize)` of shared memory (the
+#: ReDas GEMM's OS tile layout, csrc/gemm_tile.cuh), at most SMEM_LIMIT.
+TILES = ((16, 64, 64), (32, 64, 64), (64, 32, 64), (64, 64, 128),
+         (128, 32, 128), (64, 256, 64))
+
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+_GRID_LIMIT = 65535   # gridDim.y and gridDim.z
+
+#: kernel launches since the last reset (the CPU path and the plain version
+#: never count).
+launches = 0
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def grouped_matmul_reference(x: torch.Tensor, w: torch.Tensor,
+                             out_dtype: torch.dtype | None = None
+                             ) -> torch.Tensor:
+    """The plain version: each expert's (C, D) @ (D, F) in f32, cast to
+    the output dtype (`x`'s unless given)."""
+    return (x.float() @ w.float()).to(out_dtype or x.dtype)
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, tile: tuple[int, int, int],
+           out_dtype) -> None:
+    if x.dim() != 3 or w.dim() != 3:
+        raise ValueError(f"grouped_matmul takes (E, C, D) @ (E, D, F), got "
+                         f"{tuple(x.shape)} @ {tuple(w.shape)}")
+    if x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1]:
+        raise ValueError(f"grouped dim mismatch {tuple(x.shape)} @ "
+                         f"{tuple(w.shape)}")
+    if min(*x.shape, w.shape[2]) < 1:
+        raise ValueError(f"grouped_matmul of an empty operand "
+                         f"{tuple(x.shape)} @ {tuple(w.shape)}")
+    if x.dtype != w.dtype or x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"grouped_matmul takes two bf16 or two f32 operands, "
+                        f"got {x.dtype} and {w.dtype}")
+    if out_dtype not in (None, x.dtype):
+        raise TypeError(f"the kernel writes its operand dtype {x.dtype}, "
+                        f"not {out_dtype}")
+    if x.device != w.device:
+        raise ValueError(f"operands on {x.device} and {w.device}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("grouped_matmul takes contiguous operands")
+    if tile not in TILES:
+        raise ValueError(f"tile (bm, bk, bn) = {tile} is not on the "
+                         f"kernel's menu {TILES}")
+    if smem_bytes(*tile, x.element_size()) > SMEM_LIMIT:
+        raise ValueError(f"tile {tile} needs more than the {SMEM_LIMIT} "
+                         f"bytes of shared memory a block may use")
+    if max(x.shape[0], -(-x.shape[1] // tile[0])) > _GRID_LIMIT:
+        raise ValueError(f"{tuple(x.shape)} at tile {tile} exceeds the "
+                         f"grid limit {_GRID_LIMIT}")
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = _build.load("grouped_gemm")
+    lib.grouped_gemm_launch.argtypes = (
+        [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+        + [ctypes.c_void_p])
+    lib.grouped_gemm_launch.restype = ctypes.c_int
+    return lib
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
+                   tile: tuple[int, int, int],
+                   out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """x (E, C, D) @ w (E, D, F) -> (E, C, F) through the grouped kernel
+    with per-expert tile `tile` = (bm, bk, bn).
+
+    CUDA operands launch the kernel on the current stream; CPU operands
+    get `grouped_matmul_reference`.  Raises on anything the kernel does
+    not take."""
+    global launches
+    tile = tuple(tile)
+    _check(x, w, tile, out_dtype)
+    if x.device.type == "cpu":
+        return grouped_matmul_reference(x, w, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"grouped_matmul runs on CUDA or CPU tensors, not "
+                         f"{x.device}")
+    e, c, d = x.shape
+    f = w.shape[2]
+    out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        err = lib.grouped_gemm_launch(
+            _DTYPE_CODE[x.dtype], *tile, x.data_ptr(), w.data_ptr(),
+            out.data_ptr(), e, c, d, f,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"grouped_gemm {tile} launch failed: CUDA error "
+                           f"{err}")
+    launches += 1
+    return out

@@ -156,7 +156,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if k_scale is not None or v_scale is not None:
         raise NotImplementedError(
             "int8 paged pools (k_scale/v_scale) are not ported yet "
-            "(ROADMAP.md queue 1 item 7)")
+            "(ROADMAP.md queue 1 item 2)")
     _check(q, k_pages, v_pages, block_tables, kv_len)
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pages, v_pages, block_tables,

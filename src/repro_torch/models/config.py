@@ -4,13 +4,14 @@
 One dataclass describes every family; per-arch modules in
 `repro_torch.configs` instantiate it.  `layer_pattern` is the repeating
 block-kind period, e.g. ("attn",) for a homogeneous decoder.  The port
-runs the dense attention decoder so far; the MoE and SSM types are kept
-so that every field of a configuration has its type.
+runs attention decoders with a dense or a MoE feed-forward so far; the
+SSM type is kept so that every field of a configuration has its type.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Literal
 
 Kind = Literal["decoder", "encoder", "vlm"]
@@ -22,7 +23,17 @@ class MoEConfig:
     n_experts: int
     top_k: int
     capacity_factor: float = 1.25
+    # dispatch: "einsum" (GShard one-hot dispatch, plain tensor ops) or
+    # "sort" (argsort + scatter/gather; the expert matmuls go through the
+    # engine's grouped GEMM)
     impl: str = "einsum"
+
+    def capacity(self, seq: int) -> int:
+        """Per-expert buffer slots for a length-`seq` dispatch:
+        ceil(seq * top_k * cf / E), padded to a multiple of 4, at least 4."""
+        c = math.ceil(seq * self.top_k * self.capacity_factor
+                      / self.n_experts)
+        return max(4 * ((c + 3) // 4), 4)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,6 @@
-"""Model assembly for the dense attention decoder (the port of
-`repro/models/transformer.py`, block kind "attn").
+"""Model assembly for the attention decoder (the port of
+`repro/models/transformer.py`, block kind "attn", with a dense or a MoE
+feed-forward).
 
 Parameters keep the JAX pytree's layout: `stack["b{j}"]` leaves carry
 the leading period axis, `tail` is a list of blocks past the last whole
@@ -24,17 +25,24 @@ import math
 
 import torch
 
-from . import layers
+from . import layers, moe
 from .config import ArchConfig
 from .layers import dense, mlp, rms_norm
 
 
 def _check_kinds(cfg: ArchConfig) -> None:
-    if (set(cfg.layer_pattern) != {"attn"} or cfg.moe is not None
-            or cfg.embed_inputs or cfg.prefix_tokens):
+    if (set(cfg.layer_pattern) != {"attn"} or cfg.embed_inputs
+            or cfg.prefix_tokens):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs token-input decoders of dense 'attn' "
-            f"blocks only so far")
+            f"{cfg.name}: the port runs token-input decoders of 'attn' "
+            f"blocks (dense or MoE feed-forward) only so far")
+
+
+def _ffn(p, cfg: ArchConfig, x):
+    """The block's feed-forward: (output, MoE aux loss or None)."""
+    if cfg.moe is not None:
+        return moe.moe_block(p["moe"], cfg, x)
+    return mlp(p["mlp"], x), None
 
 
 def _period_split(cfg: ArchConfig) -> tuple[int, int]:
@@ -50,11 +58,15 @@ def _period_split(cfg: ArchConfig) -> tuple[int, int]:
 def _block_init(generator, cfg: ArchConfig, lead, device, dtype) -> dict:
     kw = {"lead": lead, "device": device, "dtype": dtype}
     zeros = lambda: torch.zeros(*lead, cfg.d_model, device=device, dtype=dtype)
-    return {"norm1": zeros(),
-            "attn": layers.attn_init(generator, cfg, **kw),
-            "norm2": zeros(),
-            "mlp": layers.mlp_init(generator, cfg.d_model, cfg.d_ff,
-                                   cfg.gated_mlp, **kw)}
+    p = {"norm1": zeros(),
+         "attn": layers.attn_init(generator, cfg, **kw),
+         "norm2": zeros()}
+    if cfg.moe is not None:
+        p["moe"] = moe.moe_init(generator, cfg, **kw)
+    else:
+        p["mlp"] = layers.mlp_init(generator, cfg.d_model, cfg.d_ff,
+                                   cfg.gated_mlp, **kw)
+    return p
 
 
 def init_params(cfg: ArchConfig, *, generator: torch.Generator, device=None,
@@ -97,11 +109,13 @@ def _periods(stack: dict, n_periods: int) -> list[dict]:
 
 
 def _block_apply(p, cfg: ArchConfig, x, positions):
+    """One block of the full-sequence path: (x, MoE aux loss or None)."""
     norm = lambda scale, h: rms_norm(scale, h, cfg.norm_eps,
                                      cast_early=cfg.norm_cast_early)
     x = x + layers.attention_block(p["attn"], cfg, norm(p["norm1"], x),
                                    positions)
-    return x + mlp(p["mlp"], norm(p["norm2"], x))
+    h, aux = _ffn(p, cfg, norm(p["norm2"], x))
+    return x + h, aux
 
 
 def _logits_out(params, cfg: ArchConfig, x):
@@ -116,19 +130,21 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
             compute_dtype=torch.bfloat16):
-    """tokens (B, S) -> (logits (B, S, V), aux scalar).  The aux loss is
-    the MoE balance term in the JAX package; a dense model returns 0."""
+    """tokens (B, S) -> (logits (B, S, V), aux scalar): the sum over
+    blocks of the MoE balance loss (0 for a dense model)."""
     _check_kinds(cfg)
     x = params["embed"].to(compute_dtype)[tokens.long()]
     b, s = tokens.shape
     positions = _positions(b, s, x.device)
     n_periods, _ = _period_split(cfg)
-    for pp in _periods(params["stack"], n_periods):
-        for j in range(len(cfg.layer_pattern)):
-            x = _block_apply(pp[f"b{j}"], cfg, x, positions)
-    for p_tail in params["tail"]:
-        x = _block_apply(p_tail, cfg, x, positions)
-    return _logits_out(params, cfg, x), torch.zeros((), device=x.device)
+    blocks = [pp[f"b{j}"] for pp in _periods(params["stack"], n_periods)
+              for j in range(len(cfg.layer_pattern))] + list(params["tail"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p in blocks:
+        x, a = _block_apply(p, cfg, x, positions)
+        if a is not None:
+            aux = aux + a
+    return _logits_out(params, cfg, x), aux
 
 
 # --------------------------------------------------------------------------
@@ -175,7 +191,7 @@ def init_cache(cfg: ArchConfig, spec: CacheSpec, dtype=torch.bfloat16,
     if not dtype.is_floating_point:
         raise NotImplementedError(
             f"cache dtype {dtype}: the int8 KV codec is not ported yet "
-            f"(ROADMAP.md queue 1 item 7)")
+            f"(ROADMAP.md queue 1 item 2)")
     n_periods, n_tail = _period_split(cfg)
     return {"t": torch.zeros(spec.batch, dtype=torch.int32, device=device),
             "slots": {f"b{j}": _slot_cache(cfg, spec, (n_periods,), dtype,
@@ -221,7 +237,7 @@ def _decode_block(p, cfg: ArchConfig, x, t, c: dict, active=None,
         h = layers.cached_attention(p["attn"], cfg, q, c["k"], c["v"], pos,
                                     kv_len)
     x = x + h
-    return x + mlp(p["mlp"], rms_norm(p["norm2"], x, cfg.norm_eps))
+    return x + _ffn(p, cfg, rms_norm(p["norm2"], x, cfg.norm_eps))[0]
 
 
 def decode_step(params, cfg: ArchConfig, cache: dict, token: torch.Tensor, *,
@@ -335,7 +351,7 @@ def _prefill_block(p, cfg: ArchConfig, x, positions, c: dict, lengths=None,
         o = layers.flash_attention(q, k, v, positions, kv_len, cfg.is_causal,
                                    0, min(512, s))
     x = x + dense(p["attn"]["wo"], o.reshape(b, s, cfg.n_heads * cfg.head_dim_))
-    return x + mlp(p["mlp"], rms_norm(p["norm2"], x, cfg.norm_eps))
+    return x + _ffn(p, cfg, rms_norm(p["norm2"], x, cfg.norm_eps))[0]
 
 
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, cache: dict, *,
@@ -366,7 +382,7 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, cache: dict, *,
     if hist_len is not None and block_tables is None:
         raise NotImplementedError(
             "hist_len on the contiguous layout is chunked prefill, which is "
-            "not ported yet (ROADMAP.md queue 1 item 9)")
+            "not ported yet (ROADMAP.md queue 1 item 5)")
     if hist_pages and hist_len is None:
         raise ValueError("hist_pages needs hist_len")
     if hist_pages and block_tables is None:

@@ -29,8 +29,8 @@ numpy, as in the JAX package; the tokens, masks and block tables go to
 the device once per call, and only the argmax tokens come back.
 
 Not ported yet: temperature sampling, speculative decoding, chunked
-prefill and `serve_async` (ROADMAP.md queue 1 item 9), and the int8 KV
-cache (item 7).  Each raises `NotImplementedError`.
+prefill and `serve_async` (ROADMAP.md queue 1 item 5), and the int8 KV
+cache (item 2).  Each raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -101,11 +101,11 @@ class Scheduler:
         if scfg.speculate_k:
             raise NotImplementedError(
                 "speculative decoding is not ported yet (ROADMAP.md queue 1 "
-                "item 9)")
+                "item 5)")
         if scfg.prefill_chunk is not None:
             raise NotImplementedError(
                 "chunked prefill is not ported yet (ROADMAP.md queue 1 "
-                "item 9)")
+                "item 5)")
         self.params = params
         self.cfg = cfg
         self.scfg = scfg
@@ -153,7 +153,7 @@ class Scheduler:
         if req.temperature > 0.0:
             raise NotImplementedError(
                 f"request {req.uid}: temperature sampling is not ported yet "
-                f"(ROADMAP.md queue 1 item 9); the port decodes greedily")
+                f"(ROADMAP.md queue 1 item 5); the port decodes greedily")
         if req.uid in self._live_uids:  # queued, in flight, or completed
             raise ValueError(f"duplicate request uid {req.uid}")
         self._live_uids.add(req.uid)
@@ -352,4 +352,4 @@ class Scheduler:
     def serve_async(self, **_):
         raise NotImplementedError(
             "serve_async (the async ingestion plane) is not ported yet "
-            "(ROADMAP.md queue 1 item 9)")
+            "(ROADMAP.md queue 1 item 5)")

@@ -75,7 +75,7 @@ class ServeConfig:
         if str(cache).removeprefix("torch.") not in SUPPORTED_CACHE_DTYPES:
             raise ValueError(f"cache_dtype {cache} is not supported "
                              f"(supported: {SUPPORTED_CACHE_DTYPES}; the int8 "
-                             f"KV codec is ROADMAP.md queue 1 item 7)")
+                             f"KV codec is ROADMAP.md queue 1 item 2)")
         if self.kernel_backend not in (None, *BACKENDS):
             raise ValueError(f"kernel_backend {self.kernel_backend!r} is not "
                              f"one of {BACKENDS} (or None)")
@@ -124,12 +124,22 @@ def resolve_device(scfg: ServeConfig) -> torch.device:
     return dev
 
 
+# One engine per ServeConfig (frozen, hashable, dtypes normalised):
+# repeated generate() calls and Schedulers built without `engine=` share
+# one decision memo instead of planning every shape again.
+_ENGINES: dict[ServeConfig, Engine] = {}
+
+
 def warm_start_engine(scfg: ServeConfig) -> Engine | None:
-    """The serving engine: `kernel_backend` selects the registry backend,
-    `plan_path` (an `ExecutionPlan.save` artifact) pre-fills the decision
-    cache so first-call planning drops to lookups."""
+    """The serving engine, built once per `ServeConfig`: `kernel_backend`
+    selects the registry backend, `plan_path` (an `ExecutionPlan.save`
+    artifact) pre-fills the decision cache so first-call planning drops
+    to lookups."""
     if scfg.kernel_backend is None:
         return None
+    cached = _ENGINES.get(scfg)
+    if cached is not None:
+        return cached
     plan = None
     if scfg.plan_path:
         plan = ExecutionPlan.load(scfg.plan_path)
@@ -139,7 +149,8 @@ def warm_start_engine(scfg: ServeConfig) -> Engine | None:
                 f"warm-start plan {scfg.plan_path!r} holds no decisions for "
                 f"in_bytes={want} (compute_dtype={scfg.compute_dtype}); every "
                 f"lookup will miss", UserWarning, stacklevel=2)
-    return Engine(backend=scfg.kernel_backend, plan=plan)
+    eng = _ENGINES[scfg] = Engine(backend=scfg.kernel_backend, plan=plan)
+    return eng
 
 
 def init_cache(cfg: ArchConfig, scfg: ServeConfig) -> dict:
@@ -170,7 +181,7 @@ def generate(params, cfg: ArchConfig, scfg: ServeConfig, prompt,
     if scfg.speculate_k or scfg.prefill_chunk is not None:
         raise NotImplementedError(
             "speculative decoding and chunked prefill are not ported yet "
-            "(ROADMAP.md queue 1 item 9)")
+            "(ROADMAP.md queue 1 item 5)")
     dev = resolve_device(scfg)
     if params["embed"].device.type != dev.type:
         raise ValueError(f"params live on {params['embed'].device} but "

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.kernels import flash_attention, paged_attention
+from repro_torch.kernels import flash_attention, grouped_gemm, paged_attention
 from repro_torch.models import transformer as T
 from repro_torch.serve_lib import serve
 from repro_torch.serve_lib.scheduler import Request, Scheduler
@@ -88,6 +88,28 @@ def test_paged_kernel_matches_plain_version(cuda, dtype, tol, page, d):
     assert bool((got[2] == 0).all())
     live = torch.tensor([0, 1, 3, 4], device=cuda)
     assert _row_rel_l2(got[live], ref[live]) <= tol
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype,tol,shape,tile", [
+    (torch.bfloat16, 1e-2, (32, 32, 1024, 512), (32, 64, 64)),
+    (torch.float32, 1e-4, (5, 20, 130, 70), (16, 64, 64)),   # ragged
+])
+def test_grouped_kernel_matches_plain_version(cuda, dtype, tol, shape, tile):
+    e, c, d, f = shape
+    gen = torch.Generator(device=cuda).manual_seed(c)
+    x = torch.randn(e, c, d, generator=gen, device=cuda)
+    x[:, c // 2:] = 0.0                      # capacity-padded rows
+    x = x.to(dtype)
+    w = (torch.randn(e, d, f, generator=gen, device=cuda) / d ** 0.5).to(dtype)
+    grouped_gemm.reset_launches()
+    got = grouped_gemm.grouped_matmul(x, w, tile=tile)
+    torch.cuda.synchronize()
+    assert grouped_gemm.launches == 1
+    ref = grouped_gemm.grouped_matmul_reference(x, w)
+    assert grouped_gemm.launches == 1        # the plain version never counts
+    assert bool((got[:, c // 2:] == 0).all())
+    assert _row_rel_l2(got[:, :c // 2], ref[:, :c // 2]) <= tol
 
 
 @pytest.mark.card

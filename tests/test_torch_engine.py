@@ -82,17 +82,19 @@ def test_traffic_formula_equals_jax_packages():
 
 def test_registry_holds_both_backends():
     reg = default_registry()
-    ops = ("gemm", "attention", "paged_attention")
+    ops = ("gemm", "grouped_gemm", "attention", "paged_attention")
     assert {(b, op): reg.get(b, op).__name__ for b in BACKENDS for op in ops} == {
         ("hopper", "gemm"): "hopper_gemm", ("torch-ref", "gemm"): "ref_gemm",
+        ("hopper", "grouped_gemm"): "hopper_grouped_gemm",
+        ("torch-ref", "grouped_gemm"): "ref_grouped_gemm",
         ("hopper", "attention"): "hopper_attention",
         ("torch-ref", "attention"): "ref_attention",
         ("hopper", "paged_attention"): "hopper_paged_attention",
         ("torch-ref", "paged_attention"): "ref_paged_attention"}
     assert reg.has("hopper", "paged_attention")
-    assert not reg.has("hopper", "grouped_gemm")
+    assert reg.has("hopper", "grouped_gemm")
     with pytest.raises(KeyError, match="no kernel"):
-        reg.get("hopper", "grouped_gemm")
+        reg.get("hopper", "gemm_w8")
 
 
 def test_engine_backends_agree_on_cpu():
@@ -107,3 +109,47 @@ def test_engine_backends_agree_on_cpu():
     with pytest.raises(ValueError, match="either"):
         with use_engine(hop, backend="hopper"):
             pass
+
+
+def test_warm_start_engine_cached_per_config(tmp_path):
+    """Repeated generate() calls share the decision memo (as the JAX
+    package's `_ENGINES` memo does)."""
+    from repro_torch.serve_lib import serve as serve_lib
+
+    p = tmp_path / "plan.json"
+    eng = Engine()
+    eng.decide(KernelRequest("gemm", 16, 64, 32, in_bytes=4, out_bytes=4))
+    eng.plan.save(p)
+    scfg = serve_lib.ServeConfig(max_seq=8, batch=1, compute_dtype="float32",
+                                 kernel_backend="hopper", plan_path=str(p),
+                                 device="cpu")
+    e1 = serve_lib.warm_start_engine(scfg)
+    e2 = serve_lib.warm_start_engine(scfg)
+    assert e1 is e2
+    assert len(e1.plan) == 1
+    other = serve_lib.warm_start_engine(
+        serve_lib.ServeConfig(max_seq=16, batch=1, compute_dtype="float32",
+                              kernel_backend="hopper", plan_path=str(p),
+                              device="cpu"))
+    assert other is not e1
+    assert serve_lib.warm_start_engine(
+        serve_lib.ServeConfig(max_seq=8, batch=1, device="cpu")) is None
+
+
+def test_serveconfig_normalizes_dtypes():
+    """"bfloat16" and torch.bfloat16 spell the SAME config, so the engine
+    memo holds one engine (one decision cache), not one per spelling."""
+    from repro_torch.serve_lib import serve as serve_lib
+
+    a = serve_lib.ServeConfig(max_seq=8, batch=1, compute_dtype="bfloat16",
+                              cache_dtype="bfloat16", kernel_backend="hopper",
+                              device="cpu")
+    b = serve_lib.ServeConfig(max_seq=8, batch=1,
+                              compute_dtype=torch.bfloat16,
+                              cache_dtype=torch.bfloat16,
+                              kernel_backend="hopper", device="cpu")
+    assert a == b and hash(a) == hash(b)
+    assert a.compute_dtype == torch.bfloat16
+    eng_a = serve_lib.warm_start_engine(a)
+    eng_b = serve_lib.warm_start_engine(b)
+    assert eng_a is eng_b, "dtype spelling built a duplicate engine"

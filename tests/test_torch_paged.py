@@ -305,7 +305,7 @@ def test_paged_prefill_rejections_as_in_reference(weights):
     with pytest.raises(NotImplementedError, match="ragged"):
         T.prefill(params, cfg, toks, cache, block_tables=bt)
     contiguous = T.init_cache(cfg, T.CacheSpec(32, 2), dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         T.prefill(params, cfg, toks, contiguous,
                   lengths=torch.full((2,), 8, dtype=torch.int32),
                   hist_len=torch.zeros(2, dtype=torch.int32))
@@ -435,15 +435,15 @@ def test_pool_that_cannot_hold_a_prompt_fails_with_intent(weights):
 def test_unported_features_raise(weights):
     _, _, cfg, params = weights
     sched = Scheduler(params, cfg, _scfg())
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         sched.submit(Request(uid=0, prompt=np.ones(4, np.int32),
                              max_new_tokens=2, temperature=0.7))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         sched.serve_async()
     for kw in ({"speculate_k": 2}, {"prefill_chunk": 8}):
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(NotImplementedError, match="item 5"):
             Scheduler(params, cfg, _scfg(**kw))
-    with pytest.raises(ValueError, match="item 7"):
+    with pytest.raises(ValueError, match="item 2"):
         serve.ServeConfig(max_seq=8, batch=1, cache_dtype="int8")
     with pytest.raises(ValueError, match="duplicate"):
         sched.submit(Request(uid=1, prompt=np.ones(4, np.int32),
