@@ -91,7 +91,6 @@ from repro_torch.engine.cost import (HBM_BW, PEAK_FLOPS_BF16,  # noqa: E402
 from repro_torch.kernels import (_build, flash_attention,  # noqa: E402
                                   grouped_gemm, paged_attention, redas_gemm)
 from repro_torch.launch import serve as launch_serve  # noqa: E402
-from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve_lib import serve as serve_lib  # noqa: E402
 from repro_torch.serve_lib.scheduler import Request, Scheduler  # noqa: E402
@@ -996,7 +995,11 @@ def phase_granite_sorted() -> dict:
     held = torch.cuda.memory_allocated()
     params = T.init_params(cfg, generator=torch.Generator(
         device="cuda").manual_seed(SEED), device="cuda", dtype=torch.bfloat16)
-    sched = Scheduler(params, cfg, scfg, prefill_bucket=BUCKET)
+    # an engine of its own: the per-ServeConfig memo would hand this serve
+    # the qwen paged serve's engine (the ServeConfigs are equal), and the
+    # plan stats printed below are granite's alone
+    sched = Scheduler(params, cfg, scfg, engine=Engine(backend="hopper"),
+                      prefill_bucket=BUCKET)
     reqs = launch_serve.trace_requests(cfg, trace, SEED)
     reset_counts()
     torch.cuda.synchronize()
@@ -1046,6 +1049,21 @@ def phase_granite_sorted() -> dict:
             "trace": trace}
 
 
+class _TopkSets(torch.overrides.TorchFunctionMode):
+    """Records the sorted index set of every `torch.topk` call inside it:
+    in a decode tick the only one is each MoE layer's router."""
+
+    def __enter__(self):
+        self.sets = []
+        return super().__enter__()
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func is torch.topk:
+            self.sets.append(out[1].sort(dim=-1).values)
+        return out
+
+
 def phase_granite_parity(run: dict) -> None:
     """One full-width paged decode tick, hopper against torch-ref from the
     same state, with the (token, layer) top-k sets of the two runs."""
@@ -1061,25 +1079,15 @@ def phase_granite_parity(run: dict) -> None:
                         dtype=torch.int32, device="cuda")
     active = torch.ones(SLOTS, dtype=torch.bool, device="cuda")
     bt = torch.from_numpy(sched.paged.tables).cuda()
-    route = moe._route
     logits, picks = {}, {}
-    try:
-        for backend in ("torch-ref", "hopper"):
-            picks[backend] = []
-
-            def recording(*args, _log=picks[backend]):
-                out = route(*args)
-                _log.append(out[1].sort(dim=-1).values)
-                return out
-
-            moe._route = recording
-            # both ticks start from the same state (see phase_paged_parity)
-            with torch.inference_mode(), use_engine(Engine(backend=backend)):
-                logits[backend] = T.decode_step(
-                    params, cfg, sched.cache, toks, active=active,
-                    block_tables=bt)[0]
-    finally:
-        moe._route = route
+    for backend in ("torch-ref", "hopper"):
+        # both ticks start from the same state (see phase_paged_parity)
+        with torch.inference_mode(), use_engine(Engine(backend=backend)), \
+                _TopkSets() as rec:
+            logits[backend] = T.decode_step(
+                params, cfg, sched.cache, toks, active=active,
+                block_tables=bt)[0]
+        picks[backend] = rec.sets
     gap = _logit_gap(logits["hopper"], logits["torch-ref"])
     flips = sum(int((a != b).any(dim=-1).sum()) for a, b in
                 zip(picks["hopper"], picks["torch-ref"], strict=True))

@@ -48,7 +48,9 @@ def moe_init(generator: torch.Generator, cfg, *, lead=(), device=None,
 
 
 def capacity(cfg, seq: int) -> int:
-    return cfg.moe.capacity(seq)  # formula lives on MoEConfig
+    """Expert capacity C at sequence length `seq`; the formula lives on
+    `MoEConfig.capacity`, and this mirrors the JAX package's `capacity`."""
+    return cfg.moe.capacity(seq)
 
 
 def moe_block(p, cfg, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
