@@ -57,7 +57,21 @@ Phases (any failed check exits non-zero; nothing falls back):
      differ; the SMOKE configuration in f32 (cf 8.0 and the default cf,
      both dispatches, paged and contiguous) giving the same tokens on the
      card as the plain versions on the CPU;
- 12. the kernels line, then the result line.
+ 12. the int8 kernel against plain: qwen's dense shapes at M = 4, 8 and
+     2048 and a ragged (5, 1000, 200), the int32 result bit for bit at
+     every menu tile; times of kernel, plain version and torch._int_mm
+     (decode M padded to 32, as it takes M > 16) beside the bound;
+ 13. qwen2-1.5b under quantize=True (int8 weights, float KV): the static
+     serve through `generate` (4 x (512 + 16), "hopper-int8"; the int8
+     kernel must launch 7 x 28 x 16 = 3136 times and the float GEMM 0
+     times; weight bytes against the bf16 tree; prefill logits bitwise
+     equal to "torch-ref-int8"), then the paged serve's trace through the
+     Scheduler (int8 launches 7 x 28 x (ticks + prefill calls), paged 28 x
+     ticks, 0 new plan misses on a second pass, a device trace of 10
+     decode ticks, one tick's logits against "torch-ref-int8" within
+     rel-L2 0.035), then SMOKE f32 card tokens against the CPU's (static,
+     Scheduler paged and contiguous);
+ 14. the kernels line, then the result line.
 
 Every detail also goes to runs/chip_smoke.json.  Exits non-zero
 without a CUDA device, and outside a checkout of the repository.
@@ -87,11 +101,14 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.engine import Engine, KernelRequest, use_engine  # noqa: E402
 from repro_torch.engine.cost import (HBM_BW, PEAK_FLOPS_BF16,  # noqa: E402
-                                     PEAK_FLOPS_F32, HopperModel, choose_tile)
+                                     PEAK_FLOPS_F32, PEAK_OPS_INT8,
+                                     HopperModel, choose_tile)
 from repro_torch.kernels import (_build, flash_attention,  # noqa: E402
-                                  grouped_gemm, paged_attention, redas_gemm)
+                                  grouped_gemm, paged_attention, quant_gemm,
+                                  redas_gemm)
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.quant import quantize_params, tree_bytes  # noqa: E402
 from repro_torch.serve_lib import serve as serve_lib  # noqa: E402
 from repro_torch.serve_lib.scheduler import Request, Scheduler  # noqa: E402
 
@@ -102,7 +119,8 @@ LAYER_GEMMS = {(1536, 1536): 2, (1536, 256): 2, (1536, 8960): 2, (8960, 1536): 1
 L2_BYTES = 50 * 2**20
 BF16_ROW_TOL, F32_ROW_TOL = 1e-2, 1e-4
 LOGIT_LIMITS = {"rel_l2": 0.035, "rel_max": 0.035}
-KERNELS = ("redas_gemm", "paged_attention", "flash_attention", "grouped_gemm")
+KERNELS = ("redas_gemm", "paged_attention", "flash_attention", "grouped_gemm",
+           "quant_gemm")
 #: the paged serve: 24 requests over 8 slots (prompt x new tokens * count)
 SLOTS, PAGE, BUCKET = 8, 16, 16
 TRACE = "768x32*4,512x64*4,256x16*8,64x48*8"
@@ -127,6 +145,11 @@ EINSUM_PROMPT, EINSUM_GEN = 256, 16
 GROUPED_SHAPES = ((32, 32, 1024, 512), (32, 32, 512, 1024),
                   (32, 1920, 1024, 512), (32, 1920, 512, 1024),
                   (32, 160, 1024, 512))
+#: the int8 kernel's shapes: qwen's dense (K, N) at the static decode
+#: (M = 4), the paged decode (M = 8) and the prefill (M = 2048), and a
+#: ragged case
+INT8_SHAPES = ([(m, k, n) for m in (BATCH, SLOTS, BATCH * PROMPT)
+                for k, n in LAYER_GEMMS] + [(5, 1000, 200)])
 REPORT = {}
 
 
@@ -235,13 +258,15 @@ def reset_counts() -> None:
     paged_attention.reset_launches()
     flash_attention.reset_launches()
     grouped_gemm.reset_launches()
+    quant_gemm.reset_launches()
 
 
 def read_counts() -> dict:
     return {"redas_gemm": sum(redas_gemm.launches.values()),
             "paged_attention": paged_attention.launches,
             "flash_attention": flash_attention.launches,
-            "grouped_gemm": grouped_gemm.launches}
+            "grouped_gemm": grouped_gemm.launches,
+            "quant_gemm": quant_gemm.launches}
 
 
 def _operand_sets(m, k, n, dtype, gen):
@@ -534,8 +559,8 @@ def phase_main_path(cfg) -> dict:
     check(sum(launches.values()) == expected,
           f"GEMM kernel launched {sum(launches.values())} times, not {expected}")
     check(counts["paged_attention"] == counts["flash_attention"]
-          == counts["grouped_gemm"] == 0,
-          f"attention or grouped kernels on the static path: {counts}")
+          == counts["grouped_gemm"] == counts["quant_gemm"] == 0,
+          f"attention, grouped or int8 kernels on the static path: {counts}")
     check(tuple(tokens.shape) == (BATCH, GEN), f"tokens {tuple(tokens.shape)}")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab)).all()), "token out of range")
     check(torch.equal(first_tokens, tokens[:, :1]),
@@ -636,8 +661,9 @@ def phase_scheduler(cfg) -> dict:
     check(counts["redas_gemm"] == want_gemm,
           f"GEMM kernel launched {counts['redas_gemm']} times, not 7 x 28 x "
           f"({ticks} + {calls}) = {want_gemm}")
-    check(counts["flash_attention"] == counts["grouped_gemm"] == 0,
-          f"flash or grouped kernel on the paged path: {counts}")
+    check(counts["flash_attention"] == counts["grouped_gemm"]
+          == counts["quant_gemm"] == 0,
+          f"flash, grouped or int8 kernel on the paged path: {counts}")
     for uid, toks in tokens.items():
         check(len(toks) == out["trace"][uid][1]
               and all(0 <= t < cfg.vocab for t in toks), f"request {uid}")
@@ -908,6 +934,347 @@ def phase_paged_parity(cfg, paged_out: dict) -> None:
                               "smoke_scheduler_tokens_identical": same}
 
 # --------------------------------------------------------------------------
+# qwen2-1.5b under quantize=True: the int8 kernel and the int8 serves
+# --------------------------------------------------------------------------
+
+
+def int8_bound(m: int, k: int, n: int) -> tuple[float, str]:
+    """int8 A and B read once and the int32 result written once; 2 M K N
+    operations at the dense int8 peak."""
+    ops_ms = 2.0 * m * k * n / PEAK_OPS_INT8 * 1e3
+    bytes_ms = (m * k + k * n + 4 * m * n) / HBM_BW * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def _int8_sets(m, k, n, gen) -> list[tuple]:
+    count = max(2, min(64, math.ceil(2 * L2_BYTES / (m * k + k * n))))
+    return [tuple(torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                                dtype=torch.int32).to(torch.int8)
+                  for shape in ((m, k), (k, n))) for _ in range(count)]
+
+
+def _int8_tile(m, k, n) -> tuple[int, int, int]:
+    """The engine's tile for a `gemm_w8` of this shape in a bf16 serve."""
+    dec = HopperModel().decide(KernelRequest("gemm_w8", m, k, n, in_bytes=1,
+                                             out_bytes=2))
+    return dec.bm, dec.bk, dec.bn
+
+
+def phase_int8_kernel() -> list[dict]:
+    """The int8 kernel at qwen's dense shapes (the static decode M = 4, the
+    paged decode M = 8, the prefill M = 2048) and a ragged one, against its
+    plain version, bit for bit at every menu tile; times at the engine's
+    tile beside the plain version's, torch._int_mm's and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    side = torch.cuda.Stream()
+    rows, failures = [], []
+    for m, k, n in INT8_SHAPES:
+        sets = _int8_sets(m, k, n, gen)
+        a, b = sets[0]
+        ref = quant_gemm.gemm_int8_reference(a, b)
+        wrong = []
+        for tile in quant_gemm.TILES:
+            out = quant_gemm.gemm_int8(a, b, tile=tile)
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                wrong.append(tile)
+        tile = _int8_tile(m, k, n)
+        out = quant_gemm.gemm_int8(a, b, tile=tile)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        # torch._int_mm takes M > 16: a decode operand is padded to 32 rows
+        pad = 32 - m if m <= 16 else 0
+        lib_sets = [(F.pad(x, (0, 0, 0, pad)), y) for x, y in sets]
+        row = {"m": m, "k": k, "n": n, "tile": list(tile),
+               "ms": device_ms(functools.partial(quant_gemm.gemm_int8,
+                                                 tile=tile), sets, side),
+               "plain_ms": device_ms(quant_gemm.gemm_int8_reference, sets,
+                                     side),
+               "library_ms": device_ms(torch._int_mm, lib_sets, side),
+               "library": "torch._int_mm" + (" (M padded to 32)" if pad else ""),
+               "max_abs_err": err, "bitwise_every_tile": not wrong}
+        row["bound_ms"], row["bound_by"] = int8_bound(m, k, n)
+        rows.append(row)
+        ok = not wrong and err == 0
+        print(f"quant_gemm int8 {m}x{k}x{n} tile {tile}: int32 "
+              f"{'bitwise equal' if ok else 'DIFFERS'} at every menu tile"
+              f"{'' if not wrong else f' (not at {wrong})'}; kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"{row['library']} {row['library_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+              f"{'' if ok else '  FAILED'}")
+        if not ok:
+            failures.append(f"{m}x{k}x{n}: tiles {wrong}, max|diff| {err}")
+        del sets, lib_sets
+    REPORT["int8_kernel"] = rows
+    check(not failures, f"int8 kernel differs from its plain version: "
+          f"{failures}")
+    return rows
+
+
+def _int8_params(cfg) -> tuple[dict, dict]:
+    """The launcher's bf16 weights (seed SEED) and their quantized tree;
+    the bytes of both."""
+    params = T.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(SEED), device="cuda", dtype=torch.bfloat16)
+    qparams = quantize_params(params)
+    sizes = {"bf16_weight_bytes": tree_bytes(params),
+             "int8_weight_bytes": tree_bytes(qparams)}
+    del params
+    torch.cuda.empty_cache()
+    return qparams, sizes
+
+
+def phase_int8_static(cfg) -> dict:
+    """qwen2-1.5b at full width under quantize=True through `generate`:
+    4 x (512 + 16), bf16, "hopper-int8" (every dense weight int8, every
+    dense matmul on the int8 kernel); then the prefill logits against
+    "torch-ref-int8" on the same quantized weights and prompt."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    qparams, sizes = _int8_params(cfg)
+    quantize_peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    scfg = serve_lib.ServeConfig(max_seq=PROMPT + GEN + 1, batch=BATCH,
+                                 compute_dtype="bfloat16",
+                                 cache_dtype="bfloat16", quantize=True)
+    check(scfg.kernel_backend == "hopper-int8", f"{scfg.kernel_backend}")
+    prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(
+                               SEED + 1), dtype=torch.int32)
+    eng = serve_lib.warm_start_engine(scfg)
+
+    def serve(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = serve_lib.generate(qparams, cfg, scfg, prompt, n, engine=eng)
+        torch.cuda.synchronize()
+        return toks, time.perf_counter() - t0
+
+    serve(2)                                   # warm-up
+    first, prefill_s = serve(1)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    tokens, seconds = serve(GEN)
+    counts = read_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    want = {"redas_gemm": 0, "paged_attention": 0, "flash_attention": 0,
+            "grouped_gemm": 0,
+            "quant_gemm": sum(LAYER_GEMMS.values()) * cfg.n_layers * GEN}
+    decode_ms = (seconds - prefill_s) * 1e3 / (GEN - 1)
+    print(f"int8 static serve (quantize=True, hopper-int8, bf16, {BATCH} x "
+          f"({PROMPT} + {GEN})): {seconds:.3f} s, "
+          f"{BATCH * GEN / seconds:.1f} tok/s; prefill and first token "
+          f"{prefill_s * 1e3:.2f} ms, decode {decode_ms:.3f} ms/step; weights "
+          f"{sizes['int8_weight_bytes'] / 2**30:.3f} GiB int8 tree against "
+          f"{sizes['bf16_weight_bytes'] / 2**30:.3f} GiB bf16; max memory "
+          f"allocated by the run {peak:.2f} GiB (weights included; "
+          f"{quantize_peak:.2f} GiB while quantizing the bf16 tree); plan "
+          f"{eng.plan.stats}; kernel launches {counts} (want {want})")
+    check(counts == want, f"int8 static serve launches {counts}, not {want}")
+    check(tuple(tokens.shape) == (BATCH, GEN)
+          and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()),
+          f"int8 static tokens {tuple(tokens.shape)}")
+    check(torch.equal(first, tokens[:, :1]), "1-token and 16-token runs differ")
+    check(sizes["int8_weight_bytes"] < 0.65 * sizes["bf16_weight_bytes"],
+          f"weight bytes {sizes}")
+    check({req.op for req, _ in eng.plan} == {"gemm_w8"},
+          f"plan ops {[req.op for req, _ in eng.plan]}")
+
+    logits = {}
+    for backend in ("torch-ref-int8", "hopper-int8"):
+        cache = T.init_cache(cfg, T.CacheSpec(PROMPT + GEN + 1, BATCH),
+                             dtype=torch.bfloat16, device="cuda")
+        with torch.inference_mode(), use_engine(Engine(backend=backend)):
+            logits[backend] = T.prefill(qparams, cfg, prompt, cache)[0]
+    gap = _logit_gap(logits["hopper-int8"], logits["torch-ref-int8"])
+    same = torch.equal(logits["hopper-int8"], logits["torch-ref-int8"])
+    print(f"int8 full-width prefill logits, hopper-int8 vs torch-ref-int8 on "
+          f"the same quantized weights and prompt: "
+          f"{'bitwise equal' if same else 'DIFFER'} (rel-L2 "
+          f"{gap['rel_l2']:.4e}, max|diff|/max|ref| {gap['rel_max']:.4e}): "
+          f"both take the same int32 sums and the same f32 rescale")
+    check(same, f"int8 prefill logits not bitwise equal: {gap}")
+    REPORT["int8_static"] = {
+        "seconds": seconds, "tokens_per_s": BATCH * GEN / seconds,
+        "prefill_ms": prefill_s * 1e3, "decode_ms_per_step": decode_ms,
+        "max_memory_gib": peak, "quantize_peak_gib": quantize_peak, **sizes,
+        "plan": eng.plan.stats,
+        "counts": counts, "prefill_logits": gap,
+        "prefill_logits_bitwise": same, "tokens": tokens.tolist()}
+    return qparams
+
+
+def phase_int8_paged(cfg, qparams) -> None:
+    """The paged serve's trace and slots through the Scheduler under
+    quantize=True (bf16 cache): launch counts, a second pass, a device
+    trace of 10 decode ticks, and one decode tick's logits against
+    "torch-ref-int8"."""
+    trace = launch_serve.parse_trace(TRACE)
+    scfg = serve_lib.ServeConfig(
+        max_seq=max(p + g for p, g in trace) + 1, batch=SLOTS,
+        compute_dtype="bfloat16", cache_dtype="bfloat16", quantize=True,
+        cache_layout="paged", page_size=PAGE)
+    sched = Scheduler(qparams, cfg, scfg, prefill_bucket=BUCKET)
+    eng = sched.engine
+    check(eng.backend == "hopper-int8", f"engine {eng.backend}")
+    reqs = launch_serve.trace_requests(cfg, trace, SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    sched.run(reqs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    st = sched.stats
+    ticks, calls = st["decode_steps"], st["prefill_calls"]
+    n_tok = sum(len(c.tokens) for c in sched.completions.values())
+    tick_ms = sched.timings["decode_s"] * 1e3 / ticks
+    plan = dict(eng.plan.stats)
+    want = {"redas_gemm": 0, "grouped_gemm": 0, "flash_attention": 0,
+            "paged_attention": cfg.n_layers * ticks,
+            "quant_gemm": sum(LAYER_GEMMS.values()) * cfg.n_layers
+            * (ticks + calls)}
+    tokens = {u: c.tokens.tolist() for u, c in sched.completions.items()}
+    print(f"int8 paged serve (quantize=True, bf16 cache): "
+          f"{len(sched.completions)} requests / {n_tok} tokens in "
+          f"{seconds:.3f} s, {n_tok / seconds:.1f} tok/s over {SLOTS} slots; "
+          f"{ticks} decode ticks, {tick_ms:.3f} ms per tick (mean); {calls} "
+          f"prefill calls of widths {sorted(st['prefill_widths'])}, "
+          f"{sched.timings['prefill_s'] * 1e3:.2f} ms in all; plan "
+          f"{plan}; kernel launches {counts} (want {want}); peak "
+          f"memory above what the script held {peak:.3f} GiB")
+    check(len(sched.completions) == len(trace), "int8 paged served too few")
+    check(counts == want, f"int8 paged serve launches {counts}, not {want}")
+    for uid, toks in tokens.items():
+        check(len(toks) == trace[uid][1]
+              and all(0 <= t < cfg.vocab for t in toks), f"request {uid}")
+    sched.paged.check_invariants()
+    new_misses, prof = _replay_and_trace(qparams, cfg, scfg, eng, trace,
+                                         tokens, "int8 ")
+
+    # one decode tick from the same state, hopper-int8 against torch-ref-int8
+    probe = Scheduler(qparams, cfg, scfg, engine=eng, prefill_bucket=BUCKET)
+    for r in launch_serve.trace_requests(cfg, trace, SEED):
+        probe.submit(r)
+    probe.step()                                  # admit 8, first tick
+    for i, s in enumerate(probe.slots):
+        probe.paged.ensure_decode_page(i, s.req.prompt.size + len(s.emitted) - 1)
+    toks = torch.tensor([[s.last_token] for s in probe.slots],
+                        dtype=torch.int32, device="cuda")
+    active = torch.ones(SLOTS, dtype=torch.bool, device="cuda")
+    bt = torch.from_numpy(probe.paged.tables).cuda()
+    logits = {}
+    for backend in ("torch-ref-int8", "hopper-int8"):
+        # both ticks start from the same state (see phase_paged_parity)
+        with torch.inference_mode(), use_engine(Engine(backend=backend)):
+            logits[backend] = T.decode_step(qparams, cfg, probe.cache, toks,
+                                            active=active, block_tables=bt)[0]
+    gap = _logit_gap(logits["hopper-int8"], logits["torch-ref-int8"])
+    print(f"int8 full-width paged decode tick logits (8 slots), hopper-int8 "
+          f"vs torch-ref-int8: rel-L2 {gap['rel_l2']:.4e}, max|diff|/max|ref| "
+          f"{gap['rel_max']:.4e}, argmax agreement "
+          f"{gap['argmax_agreement']:.2f} (limit rel-L2 "
+          f"{LOGIT_LIMITS['rel_l2']}; the paged kernel sums in another order)")
+    REPORT["int8_paged"] = {
+        "trace": TRACE, "slots": SLOTS, "seconds": seconds,
+        "tokens_per_s": n_tok / seconds, "tokens": n_tok,
+        "decode_ticks": ticks, "decode_ms_per_tick": tick_ms,
+        "prefill_calls": calls, "prefill_widths": sorted(st["prefill_widths"]),
+        "prefill_ms": sched.timings["prefill_s"] * 1e3, "plan": plan,
+        "counts": counts, "max_memory_gib": peak,
+        "second_pass_new_misses": new_misses, "trace_10_ticks": prof,
+        "decode_tick_logits": gap}
+    check(math.isfinite(gap["rel_l2"]) and gap["rel_l2"] <= LOGIT_LIMITS["rel_l2"],
+          f"int8 paged decode logit gap {gap}")
+
+
+def phase_int8_smoke_parity() -> None:
+    """qwen2-1.5b SMOKE in f32 under quantize=True, weights quantized on
+    the CPU: the card's tokens equal the CPU's plain run, static
+    (`generate`) and through the Scheduler, paged and contiguous."""
+    smoke = get_config(ARCH, smoke=True)
+    cpu_params = quantize_params(T.init_params(
+        smoke, generator=torch.Generator().manual_seed(SEED),
+        dtype=torch.float32))
+    card_params = _to(cpu_params, "cuda")
+    result = {}
+    sprompt = torch.randint(0, smoke.vocab, (2, 24),
+                            generator=torch.Generator().manual_seed(SEED + 1),
+                            dtype=torch.int32)
+    kw = {"max_seq": 33, "batch": 2, "compute_dtype": "float32",
+          "cache_dtype": "float32", "quantize": True}
+    want = serve_lib.generate(cpu_params, smoke, serve_lib.ServeConfig(
+        device="cpu", **kw), sprompt, 8)
+    quant_gemm.reset_launches()
+    got = serve_lib.generate(card_params, smoke, serve_lib.ServeConfig(
+        device="cuda", **kw), sprompt, 8)
+    check(quant_gemm.launches == 7 * smoke.n_layers * 8,
+          f"smoke static int8 launches {quant_gemm.launches}")
+    result["static"] = torch.equal(got.cpu(), want)
+    rng = np.random.default_rng(SEED)
+    prefix = rng.integers(0, smoke.vocab, 24)
+    spec = [(uid, (np.concatenate([prefix, rng.integers(0, smoke.vocab, 3 + uid)])
+                   if uid % 2 else rng.integers(0, smoke.vocab, 5 + 3 * uid)
+                   ).astype(np.int32), 4 + uid % 5) for uid in range(8)]
+    tokens = {}
+    for device, layout in (("cpu", "paged"), ("cpu", "contiguous"),
+                           ("cuda", "paged"), ("cuda", "contiguous")):
+        sc = serve_lib.ServeConfig(max_seq=48, batch=3, compute_dtype="float32",
+                                   cache_dtype="float32", quantize=True,
+                                   device=device, cache_layout=layout,
+                                   page_size=8)
+        sched = Scheduler(cpu_params if device == "cpu" else card_params,
+                          smoke, sc)
+        done = sched.run([Request(uid=u, prompt=x, max_new_tokens=g)
+                          for u, x, g in spec])
+        tokens[(device, layout)] = {u: c.tokens.tolist() for u, c in done.items()}
+    for layout in ("paged", "contiguous"):
+        result[f"scheduler {layout}"] = (tokens[("cuda", layout)]
+                                         == tokens[("cpu", layout)])
+    print(f"int8 SMOKE f32 (quantize=True): card tokens identical to the "
+          f"CPU's plain run: {result}")
+    REPORT["int8_smoke_parity"] = result
+    check(all(result.values()), f"int8 smoke tokens differ: {result}")
+
+
+def int8_line(rows: list[dict]) -> dict:
+    """The int8 static serve's GEMM work: each shape's time at the engine's
+    tile, weighted by the launches that serve makes (the bound, plain
+    version and torch._int_mm likewise)."""
+    cfg = get_config(ARCH)
+    totals = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+    ops_ms = bytes_ms = 0.0
+    for (k, n), per_layer in LAYER_GEMMS.items():
+        for m, steps in ((BATCH * PROMPT, 1), (BATCH, GEN - 1)):
+            row = next(r for r in rows if (r["m"], r["k"], r["n"]) == (m, k, n))
+            calls = per_layer * cfg.n_layers * steps
+            for key in totals:
+                totals[key] += calls * row[key]
+            ops_ms += calls * 2.0 * m * k * n / PEAK_OPS_INT8 * 1e3
+            bytes_ms += calls * (m * k + k * n + 4 * m * n) / HBM_BW * 1e3
+    static, paged = REPORT["int8_static"], REPORT["int8_paged"]
+    return {"name": "quant_gemm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/quant_gemm.cu",
+            "replaces": "src/repro/kernels/quant_gemm.py:148",
+            "launches": static["counts"]["quant_gemm"],
+            "launches_by_path": {"int8_static_serve":
+                                 static["counts"]["quant_gemm"],
+                                 "int8_paged_serve":
+                                 paged["counts"]["quant_gemm"]},
+            "per": "the int8 static serve's 3136 launches, summed",
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": totals["ms"], "plain_ms": totals["plain_ms"],
+            "bound_ms": totals["bound_ms"],
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": totals["library_ms"],
+            "library": "torch._int_mm (decode M padded to 32)"}
+
+
+# --------------------------------------------------------------------------
 # granite-moe-1b-a400m: the grouped kernel and the MoE serves
 # --------------------------------------------------------------------------
 
@@ -1017,7 +1384,8 @@ def phase_granite_sorted() -> dict:
     layers = cfg.n_layers
     want = {"grouped_gemm": 3 * layers * (ticks + calls),
             "redas_gemm": 4 * layers * (ticks + calls),
-            "paged_attention": layers * ticks, "flash_attention": 0}
+            "paged_attention": layers * ticks, "flash_attention": 0,
+            "quant_gemm": 0}
     tokens = {u: c.tokens.tolist() for u, c in sched.completions.items()}
     print(f"granite sorted serve (paged, full width, bf16): "
           f"{len(sched.completions)} requests / {n_tok} tokens in "
@@ -1117,7 +1485,7 @@ def phase_granite_einsum() -> None:
     cfg = out["cfg"]
     want = {"grouped_gemm": 0,
             "redas_gemm": 4 * cfg.n_layers * EINSUM_GEN,
-            "paged_attention": 0, "flash_attention": 0}
+            "paged_attention": 0, "flash_attention": 0, "quant_gemm": 0}
     tokens = out["tokens"]
     print(f"granite einsum serve (static, {SLOTS} x ({EINSUM_PROMPT} + "
           f"{EINSUM_GEN}), impl={cfg.moe.impl!r}): {out['seconds']:.3f} s, "
@@ -1300,6 +1668,7 @@ def main() -> int:
     rows = phase_kernels()
     attn = phase_attention_kernels()
     grouped_rows = phase_grouped_kernel()
+    int8_rows = phase_int8_kernel()
     cfg = get_config(ARCH)
     served = phase_main_path(cfg)
     phase_parity(cfg, served)
@@ -1307,8 +1676,13 @@ def main() -> int:
     paged = phase_scheduler(cfg)
     phase_shared_prefix(cfg, paged)
     phase_paged_parity(cfg, paged)
-    del paged                              # free qwen before granite
+    del paged                              # free qwen before the int8 serves
     torch.cuda.empty_cache()
+    qparams = phase_int8_static(cfg)
+    phase_int8_paged(cfg, qparams)
+    del qparams                            # free qwen before granite
+    torch.cuda.empty_cache()
+    phase_int8_smoke_parity()
     granite = phase_granite_sorted()
     phase_granite_parity(granite)
     del granite
@@ -1317,7 +1691,8 @@ def main() -> int:
     phase_granite_smoke_parity()
     lines = [gemm_line(rows, REPORT["main_path"], REPORT["paged_serve"]),
              *attention_lines(attn, REPORT["paged_serve"]),
-             grouped_line(grouped_rows, REPORT["granite_sorted"])]
+             grouped_line(grouped_rows, REPORT["granite_sorted"]),
+             int8_line(int8_rows)]
     REPORT["kernels"] = lines
     REPORT["seconds"] = time.perf_counter() - t0
     out_dir = ROOT / "runs"

@@ -2,7 +2,8 @@
 `repro/engine/backends.py`'s `_gemm_backend` and `pallas_gemm`, and of
 the grouped and attention registrations of
 `repro/kernels/grouped_gemm.py`, `repro/kernels/flash_attention.py` and
-`repro/kernels/paged_attention.py`).
+`repro/kernels/paged_attention.py`; the int8 entries port the
+registrations of `repro/kernels/quant_gemm.py`).
 
 The Hopper kernels mask ragged edges themselves, so the entries pass the
 operands straight through: no padding copies, no slicing.
@@ -10,8 +11,10 @@ operands straight through: no padding copies, no slicing.
 
 from __future__ import annotations
 
+import torch
+
 from ..kernels import (flash_attention, grouped_gemm, paged_attention,
-                       redas_gemm)
+                       quant_gemm, redas_gemm)
 from .plan import KernelDecision
 
 
@@ -83,6 +86,65 @@ def ref_paged_attention(decision: KernelDecision, q, k_pages, v_pages,
                                                      block_tables, kv_len)
 
 
+# --------------------------------------------------------------------------
+# The int8 plane
+# --------------------------------------------------------------------------
+
+
+def _int8_tile(decision: KernelDecision) -> tuple[int, int, int]:
+    """The decision's tile on the int8 kernel's menu (a decision planned
+    for another kernel, e.g. from a warm-start plan, snaps to it)."""
+    return quant_gemm.snap_tile(decision.bm, decision.bk, decision.bn)
+
+
+def _int8_gemm(use_kernel: bool):
+    def run(decision: KernelDecision, a, b, *, out_dtype=None):
+        return quant_gemm.quant_gemm(a, b, tile=_int8_tile(decision),
+                                     use_kernel=use_kernel,
+                                     out_dtype=out_dtype)
+    run.__name__ = "hopper_int8_gemm" if use_kernel else "ref_int8_gemm"
+    return run
+
+
+def _int8_gemm_w8(use_kernel: bool):
+    def run(decision: KernelDecision, a, w_q, w_scale, *, out_dtype=None):
+        return quant_gemm.quant_gemm_w8(a, w_q, w_scale,
+                                        tile=_int8_tile(decision),
+                                        use_kernel=use_kernel,
+                                        out_dtype=out_dtype)
+    run.__name__ = "hopper_int8_gemm_w8" if use_kernel else "ref_int8_gemm_w8"
+    return run
+
+
+def _int8_grouped(use_kernel: bool):
+    def run(decision: KernelDecision, x, w, *, out_dtype=None):
+        """x (E, C, D) @ w (E, D, F), each expert through the int8 path
+        (dynamic quantization of both operands), as the JAX package's
+        int8 grouped backend loops them."""
+        tile = _int8_tile(decision)
+        return torch.stack([quant_gemm.quant_gemm(
+            x[e], w[e], tile=tile, use_kernel=use_kernel,
+            out_dtype=out_dtype or x.dtype) for e in range(x.shape[0])])
+    run.__name__ = ("hopper_int8_grouped_gemm" if use_kernel
+                    else "ref_int8_grouped_gemm")
+    return run
+
+
+def plain_attention(decision: KernelDecision, q, k, v, *, causal=True,
+                    window=0):
+    """The plain chunked online softmax of `models.layers.flash_attention`
+    (the JAX package's `_xla_attention`, which its int8 backends
+    register): q/k/v (B, H, S, D) with GQA heads pre-expanded."""
+    from ..models.layers import flash_attention as scan  # models import us
+
+    b, h, sq, d = q.shape
+    positions = torch.arange(sq, device=q.device)[None].expand(b, sq)
+    kv_len = torch.full((b,), k.shape[2], dtype=torch.int32, device=q.device)
+    o = scan(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+             positions, kv_len, causal, window, min(512, sq))
+    return o.transpose(1, 2)
+
+
 def register_into(registry) -> None:
     registry.register("hopper", "gemm", hopper_gemm)
     registry.register("torch-ref", "gemm", ref_gemm)
@@ -92,3 +154,11 @@ def register_into(registry) -> None:
     registry.register("torch-ref", "attention", ref_attention)
     registry.register("hopper", "paged_attention", hopper_paged_attention)
     registry.register("torch-ref", "paged_attention", ref_paged_attention)
+    for name, use_kernel in (("hopper-int8", True), ("torch-ref-int8", False)):
+        registry.register(name, "gemm", _int8_gemm(use_kernel))
+        registry.register(name, "gemm_w8", _int8_gemm_w8(use_kernel))
+        registry.register(name, "grouped_gemm", _int8_grouped(use_kernel))
+        # attention stays float and plain, as in the JAX package
+        registry.register(name, "attention", plain_attention)
+    registry.register("hopper-int8", "paged_attention", hopper_paged_attention)
+    registry.register("torch-ref-int8", "paged_attention", ref_paged_attention)

@@ -12,6 +12,11 @@ a `use_engine` context routes through the engine:
 PyTorch runs eagerly, so the engine is consulted on every call (there
 is no trace-time caveat as in the JAX package); a repeated shape costs
 one dict hit.
+
+On an int8 backend ("hopper-int8", "torch-ref-int8") every request keys
+at in_bytes = 1, the width the int8 kernel moves, and at out_bytes = the
+float compute width it rescales to; `quant_matmul` dispatches the
+`gemm_w8` op for `quant.quantize_params` weights.
 """
 
 from __future__ import annotations
@@ -24,6 +29,40 @@ from .plan import ExecutionPlan, KernelDecision, KernelRequest
 from .registry import KernelRegistry, default_registry
 
 _STACK: list["Engine"] = []
+
+#: backends that execute through the int8 quantization plane: their
+#: requests key at in_bytes = 1 whatever float dtype the tensors carry.
+INT8_BACKENDS = ("hopper-int8", "torch-ref-int8")
+
+#: float backend -> its int8 sibling (the `ServeConfig(quantize=True)`
+#: upgrade); int8 names pass through.
+_INT8_SIBLING = {
+    "hopper": "hopper-int8",
+    "torch-ref": "torch-ref-int8",
+    "hopper-int8": "hopper-int8",
+    "torch-ref-int8": "torch-ref-int8",
+}
+
+
+def backend_in_bytes(backend: str | None, itemsize: int) -> int:
+    """The in_bytes a request dispatched on `backend` is keyed with: the
+    operand itemsize, except that int8 backends pin it to 1."""
+    return 1 if backend in INT8_BACKENDS else itemsize
+
+
+def int8_sibling(backend: str | None) -> str:
+    """The int8 backend a `quantize=True` config executes on instead of
+    `backend`; raises with the known names otherwise.  `None` resolves to
+    "hopper-int8", which, like "hopper", takes the kernel on CUDA tensors
+    and its plain version on CPU tensors."""
+    if backend is None:
+        return "hopper-int8"
+    sibling = _INT8_SIBLING.get(backend)
+    if sibling is None:
+        raise ValueError(
+            f"quantize=True cannot upgrade kernel_backend {backend!r} to an "
+            f"int8 sibling (known: {sorted(_INT8_SIBLING)})")
+    return sibling
 
 
 class Engine:
@@ -41,6 +80,11 @@ class Engine:
             cost_model=self.cost_model.name, backend=self.backend)
         # raw shape key -> (decision, kernel): the steady-state fast path
         self._memo: dict[tuple, tuple] = {}
+
+    @property
+    def int8(self) -> bool:
+        """True when this engine executes on the quantized plane."""
+        return self.backend in INT8_BACKENDS
 
     def _rebind(self, decision: KernelDecision) -> KernelDecision:
         """Execute a decision (possibly from a warm-start plan recorded for
@@ -63,8 +107,12 @@ class Engine:
 
     def _resolve(self, key: tuple, op: str, m: int, k: int, n: int,
                  groups: int, item_bytes: int) -> tuple:
-        """Miss path: full request -> decide -> registry, then memoize."""
-        req = KernelRequest(op, m, k, n, groups=groups, in_bytes=item_bytes,
+        """Miss path: full request -> decide -> registry, then memoize.
+        On an int8 backend the request keys at in_bytes = 1 and the output
+        at the float compute width `item_bytes`."""
+        req = KernelRequest(op, m, k, n, groups=groups,
+                            in_bytes=backend_in_bytes(self.backend,
+                                                      item_bytes),
                             out_bytes=item_bytes)
         dec = self.decide(req)
         entry = self._memo[key] = (dec, self.registry.get(dec.backend, op))
@@ -90,6 +138,24 @@ class Engine:
             hit = self._resolve(key, "gemm", m, k, n, 1, a.element_size())
         dec, fn = hit
         return fn(dec, a, b, out_dtype=out_dtype)
+
+    def quant_matmul(self, a, w_q, w_scale, *, out_dtype=None):
+        """(M, K) float @ pre-quantized (K, N) int8 weight storage
+        (`quant.quantize_params`) through the planned `gemm_w8` kernel:
+        the activations quantize per row, the stored weight never becomes
+        float.  Only int8 backends register the op; callers guard on
+        `Engine.int8`."""
+        key = ("gemm_w8", a.shape, a.dtype, w_q.shape)
+        hit = self._lookup(key)
+        if hit is None:
+            m, k = a.shape
+            k2, n = w_q.shape
+            if k != k2:
+                raise ValueError(f"matmul dim mismatch {tuple(a.shape)} @ "
+                                 f"{tuple(w_q.shape)}")
+            hit = self._resolve(key, "gemm_w8", m, k, n, 1, a.element_size())
+        dec, fn = hit
+        return fn(dec, a, w_q, w_scale, out_dtype=out_dtype)
 
     def grouped_matmul(self, x, w, *, out_dtype=None):
         """x (E, C, D) @ w (E, D, F) -> (E, C, F), per expert."""

@@ -13,6 +13,11 @@ refetches the streaming operands but writes each output once; WS keeps
 the weight tile resident per K chunk but streams f32 partial sums; IS is
 the transpose).  There is no MXU ramp term: nothing on this card fills
 and drains like a systolic array's pipeline.
+
+A request keyed at in_bytes == 1 (every request of an int8 backend) is
+planned on the int8 kernel's own menu, pinned to OS as the JAX package
+pins its int8 kernel (the streaming dataflows would push int32 partial
+sums through HBM), at the data sheet's int8 peak.
 """
 
 from __future__ import annotations
@@ -20,11 +25,12 @@ from __future__ import annotations
 import dataclasses
 import math
 
-from ..kernels import grouped_gemm
+from ..kernels import grouped_gemm, quant_gemm
 from ..kernels.redas_gemm import DATAFLOWS, SMEM_LIMIT, TILES, smem_bytes
 from .plan import KernelDecision, KernelRequest
 
 # H100 SXM data-sheet peaks (NVIDIA; dense, at the 700 W power limit).
+PEAK_OPS_INT8 = 1979e12      # tensor cores, int8 (dense)
 PEAK_FLOPS_BF16 = 989e12     # tensor cores, bf16
 PEAK_FLOPS_F32 = 67e12       # FP32 outside the tensor cores (no TF32)
 HBM_BW = 3.35e12             # bytes / s
@@ -60,6 +66,8 @@ def hbm_traffic(m: int, k: int, n: int, cfg: TileConfig,
 
 
 def peak_flops(in_bytes: int) -> float:
+    if in_bytes == 1:
+        return PEAK_OPS_INT8
     return PEAK_FLOPS_BF16 if in_bytes <= 2 else PEAK_FLOPS_F32
 
 
@@ -73,6 +81,15 @@ def estimate(m: int, k: int, n: int, cfg: TileConfig, in_bytes: int = 2,
     return seconds, bytes_, 2.0 * m * k * n / padded
 
 
+def _tile_smem(bm: int, bk: int, bn: int, in_bytes: int) -> int:
+    """Shared memory of one block of the kernel a request at `in_bytes`
+    runs on: the int8 kernel at 1 byte, the ReDas GEMM's OS tile layout
+    otherwise (the grouped kernel shares it)."""
+    if in_bytes == 1:
+        return quant_gemm.smem_bytes(bm, bk, bn)
+    return smem_bytes(bm, bk, bn, in_bytes)
+
+
 def choose_tile(m: int, k: int, n: int, in_bytes: int = 2,
                 out_bytes: int = 2, dataflows=DATAFLOWS,
                 tiles=TILES) -> TileConfig:
@@ -80,7 +97,7 @@ def choose_tile(m: int, k: int, n: int, in_bytes: int = 2,
     `tiles` (the ReDas GEMM's menu unless given)."""
     best, best_t = None, math.inf
     for bm, bk, bn in tiles:
-        if smem_bytes(bm, bk, bn, in_bytes) > SMEM_LIMIT:
+        if _tile_smem(bm, bk, bn, in_bytes) > SMEM_LIMIT:
             continue
         for df in dataflows:
             cfg = TileConfig(df, bm, bk, bn)
@@ -117,12 +134,13 @@ def decide_attention(request: KernelRequest, name: str) -> KernelDecision:
 def decide_grouped(request: KernelRequest, name: str) -> KernelDecision:
     """The port of `TPUModel._decide_grouped`: the grouped kernel is OS
     (the accumulator stays on chip over the D sweep), so the search is
-    pinned to OS over the grouped kernel's tile menu, gated by shared
-    memory, on one expert's (C, D, F) problem; the call costs that
-    expert's time x the expert count (`groups`)."""
+    pinned to OS over the grouped kernel's tile menu (the int8 kernel's
+    at in_bytes == 1, where the experts loop through it), gated by
+    shared memory, on one expert's (C, D, F) problem; the call costs
+    that expert's time x the expert count (`groups`)."""
+    tiles = quant_gemm.TILES if request.in_bytes == 1 else grouped_gemm.TILES
     cfg = choose_tile(request.m, request.k, request.n, request.in_bytes,
-                      request.out_bytes, dataflows=("os",),
-                      tiles=grouped_gemm.TILES)
+                      request.out_bytes, dataflows=("os",), tiles=tiles)
     seconds = estimate(request.m, request.k, request.n, cfg,
                        request.in_bytes, request.out_bytes)[0]
     return KernelDecision(
@@ -130,15 +148,16 @@ def decide_grouped(request: KernelRequest, name: str) -> KernelDecision:
         cost_model=name, seconds=seconds * request.groups,
         meta=tuple(sorted({
             "groups": request.groups,
-            "smem_bytes": grouped_gemm.smem_bytes(cfg.bm, cfg.bk, cfg.bn,
-                                                  request.in_bytes)}.items())))
+            "smem_bytes": _tile_smem(cfg.bm, cfg.bk, cfg.bn,
+                                     request.in_bytes)}.items())))
 
 
 @dataclasses.dataclass
 class HopperModel:
     """The decision surface as a cost model: `decide(request)` returns
-    the chosen dataflow and CTA tile for a `gemm` request, the per-expert
-    OS tile for a `grouped_gemm` one, and the flash blocks for an
+    the chosen dataflow and CTA tile for a `gemm` or `gemm_w8` request
+    (an OS tile of the int8 kernel at in_bytes == 1), the per-expert OS
+    tile for a `grouped_gemm` one, and the flash blocks for an
     `attention` or `paged_attention` one."""
 
     name: str = "hopper-h100"
@@ -149,11 +168,14 @@ class HopperModel:
             return decide_attention(request, self.name)
         if request.op == "grouped_gemm":
             return decide_grouped(request, self.name)
-        if request.op != "gemm":
-            raise ValueError(f"HopperModel plans gemm, grouped_gemm and "
-                             f"attention, not {request.op!r}")
+        if request.op not in ("gemm", "gemm_w8"):
+            raise ValueError(f"HopperModel plans gemm, gemm_w8, grouped_gemm "
+                             f"and attention, not {request.op!r}")
+        int8 = request.in_bytes == 1
         cfg = choose_tile(request.m, request.k, request.n, request.in_bytes,
-                          request.out_bytes)
+                          request.out_bytes,
+                          dataflows=("os",) if int8 else DATAFLOWS,
+                          tiles=quant_gemm.TILES if int8 else TILES)
         seconds, bytes_, pad_eff = estimate(request.m, request.k, request.n,
                                             cfg, request.in_bytes,
                                             request.out_bytes)
@@ -163,5 +185,5 @@ class HopperModel:
             cost_model=self.name, seconds=seconds,
             meta=tuple(sorted({
                 "hbm_bytes": bytes_, "padding_efficiency": pad_eff,
-                "smem_bytes": smem_bytes(cfg.bm, cfg.bk, cfg.bn,
+                "smem_bytes": _tile_smem(cfg.bm, cfg.bk, cfg.bn,
                                          request.in_bytes)}.items())))

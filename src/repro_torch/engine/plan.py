@@ -24,8 +24,9 @@ from typing import Iterator
 PLAN_FORMAT = "redas-execution-plan-v1"
 
 #: ops the port plans and dispatches so far (the JAX package also plans
-#: int8 and sparse ops; they come with later slices of the port).
-KNOWN_OPS = ("gemm", "grouped_gemm", "attention", "paged_attention")
+#: the sparse op; it comes with a later slice of the port).
+KNOWN_OPS = ("gemm", "gemm_w8", "grouped_gemm", "attention",
+             "paged_attention")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,13 +2,19 @@
 port of `repro/engine/registry.py`).
 
 A backend is a name mapping each op to a callable
-``fn(decision, *tensors, **kw) -> tensor``.  The port has two:
+``fn(decision, *tensors, **kw) -> tensor``.  The port has four:
 
-  hopper     — the hand-written Hopper kernels (`gemm`, `grouped_gemm`,
-               `attention`, `paged_attention`): launched on CUDA
-               tensors; a CPU tensor gets the kernel's plain version.
-  torch-ref  — the plain PyTorch versions, on any device (the parity
-               reference).
+  hopper          — the hand-written Hopper kernels (`gemm`,
+                    `grouped_gemm`, `attention`, `paged_attention`):
+                    launched on CUDA tensors; a CPU tensor gets the
+                    kernel's plain version.
+  torch-ref       — the plain PyTorch versions, on any device (the
+                    parity reference).
+  hopper-int8     — the int8 plane: `gemm`, `gemm_w8` and `grouped_gemm`
+                    through the int8 GEMM kernel (its plain version on
+                    CPU tensors), plain float `attention`, and the paged
+                    kernel for `paged_attention`.
+  torch-ref-int8  — the same ops on the plain versions, on any device.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ from typing import Callable
 from . import backends
 
 #: the backends the default registry holds.
-BACKENDS = ("hopper", "torch-ref")
+BACKENDS = ("hopper", "torch-ref", "hopper-int8", "torch-ref-int8")
 
 
 class KernelRegistry:
@@ -43,7 +49,7 @@ class KernelRegistry:
 
 
 def default_registry() -> KernelRegistry:
-    """A registry holding both backends."""
+    """A registry holding every backend of `BACKENDS`."""
     reg = KernelRegistry()
     backends.register_into(reg)
     return reg

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from ..engine import active_engine
 from ..kernels.paged_attention import paged_attention_reference
+from ..quant.quantize import QuantizedTensor
 
 NEG_INF = -1e30
 
@@ -47,11 +48,22 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int, *,
 
 def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     """x @ w (+ b).  Inside a `use_engine` context the matmul routes
-    through the engine's planned kernel; outside it, plain `@`."""
-    w = p["w"].to(x.dtype)
+    through the engine's planned kernel; outside it, plain `@`.
+
+    A `quant.quantize_params` weight (QuantizedTensor: int8 storage and
+    per-channel scales) dispatches the planned `gemm_w8` kernel on an
+    int8 engine, so the stored weight never becomes float; on any other
+    posture it dequantizes to the compute dtype first."""
+    w = p["w"]
     x2d = x.reshape(-1, x.shape[-1]).contiguous()
     eng = active_engine()
-    y2d = eng.matmul(x2d, w, out_dtype=x.dtype) if eng is not None else x2d @ w
+    if isinstance(w, QuantizedTensor) and eng is not None and eng.int8:
+        y2d = eng.quant_matmul(x2d, w.q, w.scale, out_dtype=x.dtype)
+    else:
+        wf = (w.dequantize(x.dtype) if isinstance(w, QuantizedTensor)
+              else w.to(x.dtype))
+        y2d = (eng.matmul(x2d, wf, out_dtype=x.dtype) if eng is not None
+               else x2d @ wf)
     y = y2d.reshape(*x.shape[:-1], w.shape[-1])
     if "b" in p:
         y = y + p["b"].to(x.dtype)

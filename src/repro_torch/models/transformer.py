@@ -25,6 +25,7 @@ import math
 
 import torch
 
+from ..quant.quantize import QuantizedTensor
 from . import layers, moe
 from .config import ArchConfig
 from .layers import dense, mlp, rms_norm
@@ -93,9 +94,13 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator, device=None,
 
 
 def _index(tree, i: int):
-    """The i-th period of a stacked tree (views, no copies)."""
+    """The i-th period of a stacked tree (views, no copies).  A
+    QuantizedTensor slices both children, `QuantizedTensor(q[i],
+    scale[i])`, as `lax.scan` slices the pytree in the JAX package."""
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
+    if isinstance(tree, QuantizedTensor):
+        return QuantizedTensor(tree.q[i], tree.scale[i])
     return tree[i]
 
 

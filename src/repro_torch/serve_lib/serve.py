@@ -7,6 +7,10 @@ the continuous-batching `scheduler.Scheduler` owns.  Kernel dispatch goes throug
 port's engine when `ServeConfig.kernel_backend` is set ("hopper" for the
 hand-written kernels, "torch-ref" for their plain versions); `None`
 means plain `@`, as the JAX package leaves the matmuls to XLA.
+`ServeConfig(quantize=True)` upgrades the backend to its int8 sibling
+("hopper-int8", "torch-ref-int8") and expects `quant.quantize_params`
+weights: every dense matmul then runs int8 x int8 -> int32 over a float
+KV cache.
 `warm_start_engine` loads a saved `ExecutionPlan` so the first requests
 re-plan nothing.
 
@@ -23,12 +27,13 @@ import warnings
 
 import torch
 
-from ..engine import BACKENDS, Engine, ExecutionPlan, use_engine
+from ..engine import (BACKENDS, Engine, ExecutionPlan, backend_in_bytes,
+                      int8_sibling, use_engine)
 from ..models import transformer as T
 from ..models.config import ArchConfig
 
-#: cache dtypes the port's contiguous cache can hold (the int8 KV codec
-#: of the JAX package is not ported yet).
+#: cache dtypes the port's caches can hold (the int8 KV codec of the JAX
+#: package comes with the next slice of the int8 plane).
 SUPPORTED_CACHE_DTYPES = ("float32", "bfloat16", "float16")
 
 
@@ -51,6 +56,11 @@ class ServeConfig:
     kernel_backend: str | None = None
     # optional ExecutionPlan JSON to warm-start the decision cache from.
     plan_path: str | None = None
+    # int8 matmul plane: route every engine matmul through an int8 backend
+    # (upgrading `kernel_backend` to its int8 sibling) and expect
+    # `quant.quantize_params` weights.  Orthogonal to an int8 KV cache,
+    # which the port does not hold yet.
+    quantize: bool = False
     # where the cache lives and the model runs ("cuda" unless the caller
     # asks for the CPU).
     device: str = "cuda"
@@ -75,7 +85,11 @@ class ServeConfig:
         if str(cache).removeprefix("torch.") not in SUPPORTED_CACHE_DTYPES:
             raise ValueError(f"cache_dtype {cache} is not supported "
                              f"(supported: {SUPPORTED_CACHE_DTYPES}; the int8 "
-                             f"KV codec is ROADMAP.md queue 1 item 2)")
+                             f"KV codec comes with the next slice of the int8 "
+                             f"plane, ROADMAP.md queue 1 item 2b)")
+        if self.quantize:
+            object.__setattr__(self, "kernel_backend",
+                               int8_sibling(self.kernel_backend))
         if self.kernel_backend not in (None, *BACKENDS):
             raise ValueError(f"kernel_backend {self.kernel_backend!r} is not "
                              f"one of {BACKENDS} (or None)")
@@ -143,12 +157,16 @@ def warm_start_engine(scfg: ServeConfig) -> Engine | None:
     plan = None
     if scfg.plan_path:
         plan = ExecutionPlan.load(scfg.plan_path)
-        want = scfg.compute_dtype.itemsize
+        # on an int8 backend every request keys at width 1 whatever the
+        # compute dtype (engine.backend_in_bytes)
+        want = backend_in_bytes(scfg.kernel_backend,
+                                scfg.compute_dtype.itemsize)
         if len(plan) and not any(req.in_bytes == want for req, _ in plan):
             warnings.warn(
                 f"warm-start plan {scfg.plan_path!r} holds no decisions for "
-                f"in_bytes={want} (compute_dtype={scfg.compute_dtype}); every "
-                f"lookup will miss", UserWarning, stacklevel=2)
+                f"in_bytes={want} (compute_dtype={scfg.compute_dtype}, "
+                f"backend={scfg.kernel_backend!r}); every lookup will miss",
+                UserWarning, stacklevel=2)
     eng = _ENGINES[scfg] = Engine(backend=scfg.kernel_backend, plan=plan)
     return eng
 

@@ -5,7 +5,8 @@ Every test here needs a CUDA card and skips without one; on the card run
     PYTHONPATH=src python -m pytest -q -m card tests/test_torch_card.py
 
 The file imports no JAX (the card's machine has none).  Tolerances are
-per output row, rel-L2 <= 1e-4 in f32 and <= 1e-2 in bf16 (PERF.md §2).
+per output row, rel-L2 <= 1e-4 in f32 and <= 1e-2 in bf16 (PERF.md §2);
+the int8 GEMM's int32 result is held to its plain version bit for bit.
 """
 
 import numpy as np
@@ -13,8 +14,10 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.kernels import flash_attention, grouped_gemm, paged_attention
+from repro_torch.kernels import (flash_attention, grouped_gemm,
+                                  paged_attention, quant_gemm)
 from repro_torch.models import transformer as T
+from repro_torch.quant import kv_quantize, quantize, quantize_params
 from repro_torch.serve_lib import serve
 from repro_torch.serve_lib.scheduler import Request, Scheduler
 
@@ -138,6 +141,80 @@ def test_paged_scheduler_tokens_on_the_card_equal_the_cpu(cuda):
     assert paged_attention.launches > 0
     assert card == run("cpu", "torch-ref", "paged")
     assert card == run("cuda", "hopper", "contiguous")
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("m", [1, 5, 8, 33, 2048])
+@pytest.mark.parametrize("k,n", [(1000, 200), (1000, 256), (1536, 1536)])
+def test_int8_kernel_matches_plain_version_bitwise(cuda, m, k, n):
+    """Ragged M and N, K no multiple of any tile's bk (1000: the byte-load
+    path) and a whole one (1536: the vector path), at every menu tile;
+    values at +-127, so the sums reach their largest."""
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=gen, device=cuda,
+                      dtype=torch.int32).to(torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=gen, device=cuda,
+                      dtype=torch.int32).to(torch.int8)
+    a[0] = 127
+    b[:, 0] = 127
+    ref = quant_gemm.gemm_int8_reference(a, b)
+    quant_gemm.reset_launches()
+    for tile in quant_gemm.TILES:
+        got = quant_gemm.gemm_int8(a, b, tile=tile)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32
+        assert torch.equal(got, ref), tile
+    assert quant_gemm.launches == len(quant_gemm.TILES)
+    assert ref[0, 0].item() == k * 127 * 127
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("jitted", [False, True])
+def test_int8_codec_gives_the_cpus_bits_on_the_card(cuda, jitted):
+    """Both scale forms are spelled out so the card gives the CPU's bits
+    (torch itself divides a CUDA tensor by a Python number through the
+    reciprocal)."""
+    x = torch.randn(4096, 64, generator=torch.Generator().manual_seed(0))
+    q, scale = kv_quantize(x.to(cuda), jitted=jitted)
+    want_q, want_scale = kv_quantize(x, jitted=jitted)
+    assert torch.equal(q.cpu(), want_q) and torch.equal(scale.cpu(), want_scale)
+    got, want = quantize(x.to(cuda), jitted=jitted), quantize(x, jitted=jitted)
+    assert torch.equal(got.q.cpu(), want.q)
+    assert torch.equal(got.scale.cpu(), want.scale)
+
+
+@pytest.mark.card
+def test_int8_kernel_raises_for_a_tile_off_the_menu(cuda):
+    a = torch.zeros(8, 64, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="menu"):
+        quant_gemm.gemm_int8(a, a.T.contiguous(), tile=(16, 64, 64))
+
+
+@pytest.mark.card
+def test_quantized_scheduler_tokens_on_the_card_equal_the_cpu(cuda):
+    """SMOKE f32 under quantize=True: the int8 kernel and the paged kernel
+    on the card give the CPU plain run's tokens, paged and contiguous."""
+    cfg = get_config("qwen2-1.5b", smoke=True)
+    params = quantize_params(T.init_params(
+        cfg, generator=torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(1)
+    spec = [(uid, rng.integers(0, cfg.vocab, 4 + 3 * uid).astype(np.int32),
+             3 + uid % 4) for uid in range(6)]
+
+    def run(device, layout):
+        scfg = serve.ServeConfig(max_seq=40, batch=2, compute_dtype="float32",
+                                 cache_dtype="float32", quantize=True,
+                                 device=device, cache_layout=layout,
+                                 page_size=8)
+        done = Scheduler(_to(params, device), cfg, scfg).run(
+            [Request(uid=u, prompt=x, max_new_tokens=g) for u, x, g in spec])
+        return {u: c.tokens.tolist() for u, c in done.items()}
+
+    want = run("cpu", "paged")
+    quant_gemm.reset_launches()
+    assert run("cuda", "paged") == want
+    assert quant_gemm.launches > 0
+    assert run("cuda", "contiguous") == want
 
 
 def _to(tree, dev):

@@ -81,6 +81,8 @@ def test_traffic_formula_equals_jax_packages():
 
 
 def test_registry_holds_both_backends():
+    """The float backends and their int8 siblings; `gemm_w8` is an int8
+    op only, as in the JAX package."""
     reg = default_registry()
     ops = ("gemm", "grouped_gemm", "attention", "paged_attention")
     assert {(b, op): reg.get(b, op).__name__ for b in BACKENDS for op in ops} == {
@@ -90,9 +92,19 @@ def test_registry_holds_both_backends():
         ("hopper", "attention"): "hopper_attention",
         ("torch-ref", "attention"): "ref_attention",
         ("hopper", "paged_attention"): "hopper_paged_attention",
-        ("torch-ref", "paged_attention"): "ref_paged_attention"}
+        ("torch-ref", "paged_attention"): "ref_paged_attention",
+        ("hopper-int8", "gemm"): "hopper_int8_gemm",
+        ("torch-ref-int8", "gemm"): "ref_int8_gemm",
+        ("hopper-int8", "grouped_gemm"): "hopper_int8_grouped_gemm",
+        ("torch-ref-int8", "grouped_gemm"): "ref_int8_grouped_gemm",
+        ("hopper-int8", "attention"): "plain_attention",
+        ("torch-ref-int8", "attention"): "plain_attention",
+        ("hopper-int8", "paged_attention"): "hopper_paged_attention",
+        ("torch-ref-int8", "paged_attention"): "ref_paged_attention"}
     assert reg.has("hopper", "paged_attention")
     assert reg.has("hopper", "grouped_gemm")
+    assert reg.get("hopper-int8", "gemm_w8").__name__ == "hopper_int8_gemm_w8"
+    assert reg.get("torch-ref-int8", "gemm_w8").__name__ == "ref_int8_gemm_w8"
     with pytest.raises(KeyError, match="no kernel"):
         reg.get("hopper", "gemm_w8")
 
