@@ -71,7 +71,24 @@ Phases (any failed check exits non-zero; nothing falls back):
      decode ticks, one tick's logits against "torch-ref-int8" within
      rel-L2 0.035), then SMOKE f32 card tokens against the CPU's (static,
      Scheduler paged and contiguous);
- 14. the kernels line, then the result line.
+ 14. the int8-pool paged kernel against plain: the paged decode tick's
+     shape over int8 pools (random int8 rows, per-row scales from
+     U(1e-3, 2e-2), the same table and kv_len as phase 3), bf16 and f32 q;
+     times of kernel, plain version and a gather + dequantize + SDPA
+     yardstick beside the bound (the live int8 rows and their scales);
+ 15. qwen2-1.5b under the launcher's --quantize (int8 weights, int8 KV,
+     "hopper-int8"): the static serve (4 x (512 + 16), contiguous int8
+     KV; the int8 kernel must launch 3136 times, the float GEMM and the
+     paged kernel 0 times), then the paged serve's trace through the
+     Scheduler on int8 pools (paged launches 28 x ticks, int8 7 x 28 x
+     (ticks + prefill calls), float GEMM 0, 0 new plan misses on a second
+     pass, a device trace of 10 decode ticks, one tick's logits against
+     "torch-ref-int8" within rel-L2 0.035, the KV pool's bytes against a
+     bf16 pool's);
+ 16. SMOKE f32 under the full posture (and under cache_dtype="int8" with
+     float weights, paged): card tokens against the CPU's, static and
+     through the Scheduler, paged and contiguous, with a shared prefix;
+ 17. the kernels line, then the result line.
 
 Every detail also goes to runs/chip_smoke.json.  Exits non-zero
 without a CUDA device, and outside a checkout of the repository.
@@ -331,18 +348,28 @@ def phase_kernels() -> list[dict]:
     return rows
 
 
-def _paged_sets(dtype, count: int, seed: int = 2) -> list[tuple]:
+def _paged_sets(dtype, count: int, seed: int = 2,
+                int8: bool = False) -> list[tuple]:
     """`count` input sets of the paged serve's decode tick, each with its
     own pools: q (8, 1, 12, 128), pools (510, 16, 2, 128), a 51-page
     table per slot whose live pages are drawn from the pool and whose
-    other entries are holes (-1), kv_len = PAGED_LENS."""
+    other entries are holes (-1), kv_len = PAGED_LENS.  `int8`: random
+    int8 pools and their scale pools (510, 16, 2) from U(1e-3, 2e-2), as
+    tests/test_paged.py draws them, after the lengths."""
     gen = torch.Generator().manual_seed(seed)
     lens = torch.tensor(PAGED_LENS, dtype=torch.int32)
     sets = []
     for _ in range(count):
         q = torch.randn(SLOTS, 1, 12, 128, generator=gen)
-        kp, vp = (torch.randn(POOL_PAGES, PAGE, 2, 128, generator=gen)
-                  for _ in range(2))
+        if int8:
+            kp, vp = (torch.randint(-127, 128, (POOL_PAGES, PAGE, 2, 128),
+                                    generator=gen, dtype=torch.int8)
+                      for _ in range(2))
+            scales = tuple(torch.rand(POOL_PAGES, PAGE, 2, generator=gen)
+                           * 1.9e-2 + 1e-3 for _ in range(2))
+        else:
+            kp, vp = (torch.randn(POOL_PAGES, PAGE, 2, 128, generator=gen)
+                      for _ in range(2))
         perm = torch.randperm(POOL_PAGES, generator=gen).to(torch.int32)
         bt = torch.full((SLOTS, SLOT_PAGES), -1, dtype=torch.int32)
         ptr = 0
@@ -350,19 +377,26 @@ def _paged_sets(dtype, count: int, seed: int = 2) -> list[tuple]:
             need = -(-n // PAGE)
             bt[i, :need] = perm[ptr:ptr + need]
             ptr += need
-        sets.append(tuple(t.to("cuda", dtype) for t in (q, kp, vp))
-                    + (bt.cuda(), lens.cuda()))
+        pools = (kp.cuda(), vp.cuda()) if int8 else (kp.to("cuda", dtype),
+                                                      vp.to("cuda", dtype))
+        sets.append((q.to("cuda", dtype), *pools, bt.cuda(), lens.cuda())
+                    + (tuple(x.cuda() for x in scales) if int8 else ()))
     return sets
 
 
-def _paged_library(q, kp, vp, bt, lens):
-    """The library yardstick: gather the pages (`k_pages[bt]`), then
-    `F.scaled_dot_product_attention` with a length mask (two calls)."""
+def _paged_library(q, kp, vp, bt, lens, ks=None, vs=None):
+    """The library yardstick: gather the pages (`k_pages[bt]`; int8 pools
+    also their scales, then dequantize to q's dtype), then
+    `F.scaled_dot_product_attention` with a length mask."""
     b, n_bt = bt.shape
     page, kv, d = kp.shape[1:]
     safe = bt.clamp(min=0).long()
-    k = kp[safe].reshape(b, n_bt * page, kv, d).transpose(1, 2)
-    v = vp[safe].reshape(b, n_bt * page, kv, d).transpose(1, 2)
+    k, v = kp[safe], vp[safe]
+    if ks is not None:
+        k, v = ((x.float() * s[safe][..., None]).to(q.dtype)
+                for x, s in ((k, ks), (v, vs)))
+    k = k.reshape(b, n_bt * page, kv, d).transpose(1, 2)
+    v = v.reshape(b, n_bt * page, kv, d).transpose(1, 2)
     mask = (torch.arange(n_bt * page, device=q.device)[None, :]
             < lens[:, None])[:, None, None, :]
     return F.scaled_dot_product_attention(q.transpose(1, 2), k, v,
@@ -379,13 +413,15 @@ def _bound_of(ops: float, bytes_: float, itemsize: int) -> tuple[float, str]:
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
 
 
-def paged_bound(itemsize: int) -> tuple[float, str]:
-    """q and o, each live K and V row read once, the table and lengths;
-    4 x H x D operations per live row (QK^T and PV)."""
+def paged_bound(itemsize: int, int8: bool = False) -> tuple[float, str]:
+    """q and o, each live K and V row read once (int8 pools: one byte an
+    element and one f32 scale a row), the table and lengths; 4 x H x D
+    operations per live row (QK^T and PV)."""
     live = sum(PAGED_LENS)
     h, kv, d = 12, 2, 128
-    bytes_ = ((2 * SLOTS * h * d + 2 * live * kv * d) * itemsize
-              + SLOTS * SLOT_PAGES * 4 + SLOTS * 4)
+    rows = 2 * live * kv * ((d + 4) if int8 else d * itemsize)
+    bytes_ = (2 * SLOTS * h * d * itemsize + rows + SLOTS * SLOT_PAGES * 4
+              + SLOTS * 4)
     return _bound_of(4.0 * h * live * d, bytes_, itemsize)
 
 
@@ -1156,24 +1192,7 @@ def phase_int8_paged(cfg, qparams) -> None:
     new_misses, prof = _replay_and_trace(qparams, cfg, scfg, eng, trace,
                                          tokens, "int8 ")
 
-    # one decode tick from the same state, hopper-int8 against torch-ref-int8
-    probe = Scheduler(qparams, cfg, scfg, engine=eng, prefill_bucket=BUCKET)
-    for r in launch_serve.trace_requests(cfg, trace, SEED):
-        probe.submit(r)
-    probe.step()                                  # admit 8, first tick
-    for i, s in enumerate(probe.slots):
-        probe.paged.ensure_decode_page(i, s.req.prompt.size + len(s.emitted) - 1)
-    toks = torch.tensor([[s.last_token] for s in probe.slots],
-                        dtype=torch.int32, device="cuda")
-    active = torch.ones(SLOTS, dtype=torch.bool, device="cuda")
-    bt = torch.from_numpy(probe.paged.tables).cuda()
-    logits = {}
-    for backend in ("torch-ref-int8", "hopper-int8"):
-        # both ticks start from the same state (see phase_paged_parity)
-        with torch.inference_mode(), use_engine(Engine(backend=backend)):
-            logits[backend] = T.decode_step(qparams, cfg, probe.cache, toks,
-                                            active=active, block_tables=bt)[0]
-    gap = _logit_gap(logits["hopper-int8"], logits["torch-ref-int8"])
+    gap = _decode_tick_gap(qparams, cfg, scfg, eng, trace)
     print(f"int8 full-width paged decode tick logits (8 slots), hopper-int8 "
           f"vs torch-ref-int8: rel-L2 {gap['rel_l2']:.4e}, max|diff|/max|ref| "
           f"{gap['rel_max']:.4e}, argmax agreement "
@@ -1192,21 +1211,24 @@ def phase_int8_paged(cfg, qparams) -> None:
           f"int8 paged decode logit gap {gap}")
 
 
-def phase_int8_smoke_parity() -> None:
+def phase_int8_smoke_parity(cache_dtype: str = "float32") -> None:
     """qwen2-1.5b SMOKE in f32 under quantize=True, weights quantized on
     the CPU: the card's tokens equal the CPU's plain run, static
-    (`generate`) and through the Scheduler, paged and contiguous."""
+    (`generate`) and through the Scheduler, paged and contiguous.  With
+    cache_dtype="int8" (the full --quantize posture) also the int8 cache
+    alone (float weights, "hopper"), paged."""
     smoke = get_config(ARCH, smoke=True)
-    cpu_params = quantize_params(T.init_params(
+    float_params = T.init_params(
         smoke, generator=torch.Generator().manual_seed(SEED),
-        dtype=torch.float32))
+        dtype=torch.float32)
+    cpu_params = quantize_params(float_params)
     card_params = _to(cpu_params, "cuda")
     result = {}
     sprompt = torch.randint(0, smoke.vocab, (2, 24),
                             generator=torch.Generator().manual_seed(SEED + 1),
                             dtype=torch.int32)
     kw = {"max_seq": 33, "batch": 2, "compute_dtype": "float32",
-          "cache_dtype": "float32", "quantize": True}
+          "cache_dtype": cache_dtype, "quantize": True}
     want = serve_lib.generate(cpu_params, smoke, serve_lib.ServeConfig(
         device="cpu", **kw), sprompt, 8)
     quant_gemm.reset_launches()
@@ -1221,24 +1243,247 @@ def phase_int8_smoke_parity() -> None:
                    if uid % 2 else rng.integers(0, smoke.vocab, 5 + 3 * uid)
                    ).astype(np.int32), 4 + uid % 5) for uid in range(8)]
     tokens = {}
-    for device, layout in (("cpu", "paged"), ("cpu", "contiguous"),
-                           ("cuda", "paged"), ("cuda", "contiguous")):
+    runs = [(device, layout, True) for device in ("cpu", "cuda")
+            for layout in ("paged", "contiguous")]
+    if cache_dtype == "int8":
+        runs += [("cpu", "paged", False), ("cuda", "paged", False)]
+    for device, layout, quant in runs:
         sc = serve_lib.ServeConfig(max_seq=48, batch=3, compute_dtype="float32",
-                                   cache_dtype="float32", quantize=True,
-                                   device=device, cache_layout=layout,
-                                   page_size=8)
-        sched = Scheduler(cpu_params if device == "cpu" else card_params,
+                                   cache_dtype=cache_dtype, quantize=quant,
+                                   kernel_backend="hopper", device=device,
+                                   cache_layout=layout, page_size=8)
+        params = cpu_params if quant else float_params
+        paged_attention.reset_launches()
+        sched = Scheduler(params if device == "cpu" else _to(params, "cuda"),
                           smoke, sc)
         done = sched.run([Request(uid=u, prompt=x, max_new_tokens=g)
                           for u, x, g in spec])
-        tokens[(device, layout)] = {u: c.tokens.tolist() for u, c in done.items()}
-    for layout in ("paged", "contiguous"):
-        result[f"scheduler {layout}"] = (tokens[("cuda", layout)]
-                                         == tokens[("cpu", layout)])
-    print(f"int8 SMOKE f32 (quantize=True): card tokens identical to the "
-          f"CPU's plain run: {result}")
-    REPORT["int8_smoke_parity"] = result
+        tokens[(device, layout, quant)] = {u: c.tokens.tolist()
+                                           for u, c in done.items()}
+        if layout == "paged":
+            check(sched.stats["shared_prefix_tokens"] > 0,
+                  f"smoke trace shared no prefix on {device}")
+            check(device == "cpu" or paged_attention.launches > 0,
+                  "the paged kernel did not run on the card")
+    for layout, quant in dict.fromkeys((lay, q) for _, lay, q in runs):
+        name = f"scheduler {layout}" + ("" if quant else ", float weights")
+        result[name] = (tokens[("cuda", layout, quant)]
+                        == tokens[("cpu", layout, quant)])
+    label = "full --quantize posture" if cache_dtype == "int8" else "float KV"
+    print(f"int8 SMOKE f32 (quantize=True, {label}): card tokens identical "
+          f"to the CPU's plain run: {result}")
+    REPORT["int8_smoke_parity" + ("_int8_kv" if cache_dtype == "int8"
+                                  else "")] = result
     check(all(result.values()), f"int8 smoke tokens differ: {result}")
+
+
+def phase_paged_int8_kernel() -> list[dict]:
+    """The int8-pool variant of the paged kernel at the paged serve's
+    decode tick, bf16 and f32 q, against its plain version."""
+    side = torch.cuda.Stream()
+    rows, failures = [], []
+    dead = [i for i, n in enumerate(PAGED_LENS) if n == 0]
+    live = [i for i, n in enumerate(PAGED_LENS) if n > 0]
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = BF16_ROW_TOL if dtype == torch.bfloat16 else F32_ROW_TOL
+        name = str(dtype)[6:]
+        itemsize = torch.tensor([], dtype=dtype).element_size()
+        live_bytes = 2 * sum(PAGED_LENS) * 2 * (128 + 4)
+        sets = _paged_sets(dtype, max(2, min(64, math.ceil(
+            2 * L2_BYTES / live_bytes))), seed=7, int8=True)
+        out = paged_attention.paged_attention(*sets[0])
+        ref = paged_attention.paged_attention_reference(*sets[0])
+        torch.cuda.synchronize()
+        zeros = bool((out[dead] == 0).all())
+        rel = row_rel_l2(out[live], ref[live])
+        err = (out[live].float() - ref[live].float()).abs().max().item()
+        row = {"kernel": "paged_attention_int8", "dtype": name,
+               "shape": "q (8,1,12,128), int8 pools (510,16,2,128), scale "
+                        "pools (510,16,2), n_bt 51",
+               "kv_len": list(PAGED_LENS),
+               "ms": device_ms(paged_attention.paged_attention, sets, side),
+               "plain_ms": device_ms(
+                   paged_attention.paged_attention_reference, sets, side),
+               "library_ms": device_ms(_paged_library, sets, side),
+               "library": "gather + dequantize + scaled_dot_product_attention",
+               "max_abs_err": err, "row_rel_l2": rel, "tol": tol,
+               "kv_len_0_exact_zeros": zeros}
+        row["bound_ms"], row["bound_by"] = paged_bound(itemsize, int8=True)
+        rows.append(row)
+        ok = math.isfinite(rel) and rel <= tol and zeros
+        print(f"paged_attention int8 pools, {name} q, kv_len {PAGED_LENS}: "
+              f"row rel-L2 {rel:.2e} (tol {tol:g}), max|diff| {err:.3e}, "
+              f"kv_len 0 rows {'exact zeros' if zeros else 'NOT ZERO'}; "
+              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"gather + dequantize + SDPA {row['library_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+              f"{'' if ok else '  FAILED'}")
+        if not ok:
+            failures.append(f"paged int8 {name}: rel {rel:.2e}, zeros {zeros}")
+        del sets
+    REPORT["paged_int8_kernel"] = rows
+    check(not failures, f"int8-pool paged kernel disagrees with its plain "
+          f"version: {failures}")
+    return rows
+
+
+def _quantize_serve(gen: int) -> dict:
+    """The launcher's --quantize static serve: BATCH requests of PROMPT
+    tokens, weights and prompt from SEED."""
+    return launch_serve.main(
+        ["--arch", ARCH, "--quantize", "--batch", str(BATCH), "--prompt-len",
+         str(PROMPT), "--seed", str(SEED), "--gen", str(gen)])
+
+
+def phase_quantize_static(cfg) -> None:
+    """qwen2-1.5b through `launch.serve --quantize` at full width: int8
+    weights, contiguous int8 KV, "hopper-int8"; attention is plain torch
+    over the int8 rows and their scales, as in the reference."""
+    _quantize_serve(1)                         # warm-up
+    first = _quantize_serve(1)
+    first_tokens, prefill_ms = first["tokens"], first["seconds"] * 1e3
+    del first
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counts()
+    out = _quantize_serve(GEN)
+    counts = read_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    scfg, tokens = out["serve_config"], out["tokens"]
+    decode_ms = (out["seconds"] * 1e3 - prefill_ms) / (GEN - 1)
+    want = {"redas_gemm": 0, "paged_attention": 0, "flash_attention": 0,
+            "grouped_gemm": 0,
+            "quant_gemm": sum(LAYER_GEMMS.values()) * cfg.n_layers * GEN}
+    print(f"--quantize static serve ({BATCH} x ({PROMPT} + {GEN}), "
+          f"{scfg.kernel_backend}, cache {scfg.cache_dtype}): "
+          f"{out['seconds']:.3f} s, {out['tokens_per_s']:.1f} tok/s; prefill "
+          f"and first token {prefill_ms:.2f} ms, decode {decode_ms:.3f} "
+          f"ms/step; max memory allocated by the run {peak:.2f} GiB; plan "
+          f"{out['engine_plan']}; kernel launches {counts} (want {want})")
+    check((scfg.kernel_backend, scfg.cache_dtype) == ("hopper-int8",
+                                                      torch.int8),
+          f"--quantize gave {scfg.kernel_backend}, {scfg.cache_dtype}")
+    check(counts == want, f"--quantize static launches {counts}, not {want}")
+    check(tuple(tokens.shape) == (BATCH, GEN)
+          and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()),
+          f"--quantize static tokens {tuple(tokens.shape)}")
+    check(torch.equal(first_tokens, tokens[:, :1]),
+          "1-token and 16-token --quantize runs differ")
+    REPORT["quantize_static"] = {
+        "seconds": out["seconds"], "tokens_per_s": out["tokens_per_s"],
+        "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+        "max_memory_gib": peak, "plan": out["engine_plan"], "counts": counts,
+        "tokens": tokens.tolist()}
+
+
+def _decode_tick_gap(params, cfg, scfg, eng, trace) -> dict:
+    """One paged decode tick at full width from one state, "hopper-int8"
+    against "torch-ref-int8": the slots admitted by the trace's first
+    Scheduler step, each at its decode frontier."""
+    probe = Scheduler(params, cfg, scfg, engine=eng, prefill_bucket=BUCKET)
+    for r in launch_serve.trace_requests(cfg, trace, SEED):
+        probe.submit(r)
+    probe.step()                                  # admit 8, first tick
+    for i, s in enumerate(probe.slots):
+        probe.paged.ensure_decode_page(i, s.req.prompt.size + len(s.emitted) - 1)
+    toks = torch.tensor([[s.last_token] for s in probe.slots],
+                        dtype=torch.int32, device="cuda")
+    active = torch.ones(SLOTS, dtype=torch.bool, device="cuda")
+    bt = torch.from_numpy(probe.paged.tables).cuda()
+    logits = {}
+    for backend in ("torch-ref-int8", "hopper-int8"):
+        # both ticks start from the same state (see phase_paged_parity)
+        with torch.inference_mode(), use_engine(Engine(backend=backend)):
+            logits[backend] = T.decode_step(params, cfg, probe.cache, toks,
+                                            active=active, block_tables=bt)[0]
+    return _logit_gap(logits["hopper-int8"], logits["torch-ref-int8"])
+
+
+def phase_quantize_paged(cfg) -> dict:
+    """The paged serve's trace through `launch.serve --quantize`: the
+    Scheduler on int8 pools, every decode tick on the int8 GEMM and the
+    int8-pool paged kernel."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counts()
+    out = launch_serve.main(SERVE_ARGS + ["--quantize"])
+    counts = read_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    sched, eng, scfg = out["scheduler"], out["engine"], out["serve_config"]
+    st = sched.stats
+    ticks, calls = st["decode_steps"], st["prefill_calls"]
+    tick_ms = sched.timings["decode_s"] * 1e3 / ticks
+    want = {"redas_gemm": 0, "grouped_gemm": 0, "flash_attention": 0,
+            "paged_attention": cfg.n_layers * ticks,
+            "quant_gemm": sum(LAYER_GEMMS.values()) * cfg.n_layers
+            * (ticks + calls)}
+    pools = sched.cache["slots"]["b0"]
+    rows = tree_bytes({k: v for k, v in sched.cache["slots"].items()})
+    scale_bytes = tree_bytes([pools["k_scale_pages"], pools["v_scale_pages"]])
+    row_bytes = rows - scale_bytes
+    bf16_bytes = 2 * row_bytes                 # the same pool at 2 B a value
+    tokens = {u: c.tokens.tolist() for u, c in sched.completions.items()}
+    print(f"--quantize paged serve ({scfg.kernel_backend}, "
+          f"{pools['k_pages'].dtype} pools): {out['requests']} requests / "
+          f"{out['tokens']} tokens in {out['seconds']:.3f} s, "
+          f"{out['tokens_per_s']:.1f} tok/s over {SLOTS} slots; {ticks} decode "
+          f"ticks, {tick_ms:.3f} ms per tick (mean); {calls} prefill calls of "
+          f"widths {sorted(st['prefill_widths'])}, "
+          f"{sched.timings['prefill_s'] * 1e3:.2f} ms in all; plan "
+          f"{eng.plan.stats}; kernel launches {counts} (want {want}); KV pool "
+          f"{row_bytes / 2**20:.2f} MiB of int8 rows + "
+          f"{scale_bytes / 2**20:.2f} MiB of scales against "
+          f"{bf16_bytes / 2**20:.2f} MiB in bf16; peak memory above what the "
+          f"script held {peak:.3f} GiB")
+    check(pools["k_pages"].dtype == torch.int8
+          and pools["k_scale_pages"].dtype == torch.float32,
+          f"pools {pools['k_pages'].dtype}")
+    check(out["requests"] == len(launch_serve.parse_trace(TRACE)),
+          f"served {out['requests']} requests")
+    check(counts == want, f"--quantize paged launches {counts}, not {want}")
+    for uid, toks in tokens.items():
+        check(len(toks) == out["trace"][uid][1]
+              and all(0 <= t < cfg.vocab for t in toks), f"request {uid}")
+    check(rows < 0.55 * bf16_bytes, f"KV bytes {rows} against {bf16_bytes}")
+    sched.paged.check_invariants()
+    new_misses, prof = _replay_and_trace(out["params"], cfg, scfg, eng,
+                                         out["trace"], tokens, "--quantize ")
+    gap = _decode_tick_gap(out["params"], cfg, scfg, eng, out["trace"])
+    print(f"--quantize full-width paged decode tick logits (8 slots, int8 "
+          f"pools), hopper-int8 vs torch-ref-int8: rel-L2 "
+          f"{gap['rel_l2']:.4e}, max|diff|/max|ref| {gap['rel_max']:.4e}, "
+          f"argmax agreement {gap['argmax_agreement']:.2f} (limit rel-L2 "
+          f"{LOGIT_LIMITS['rel_l2']})")
+    REPORT["quantize_paged"] = {
+        "trace": TRACE, "slots": SLOTS, "seconds": out["seconds"],
+        "tokens_per_s": out["tokens_per_s"], "tokens": out["tokens"],
+        "decode_ticks": ticks, "decode_ms_per_tick": tick_ms,
+        "prefill_calls": calls, "prefill_widths": sorted(st["prefill_widths"]),
+        "prefill_ms": sched.timings["prefill_s"] * 1e3,
+        "plan": eng.plan.stats, "counts": counts, "max_memory_gib": peak,
+        "kv_row_bytes": row_bytes, "kv_scale_bytes": scale_bytes,
+        "kv_bf16_bytes": bf16_bytes, "second_pass_new_misses": new_misses,
+        "trace_10_ticks": prof, "decode_tick_logits": gap}
+    check(math.isfinite(gap["rel_l2"]) and gap["rel_l2"] <= LOGIT_LIMITS["rel_l2"],
+          f"--quantize paged decode logit gap {gap}")
+    return REPORT["quantize_paged"]
+
+
+def paged_int8_line(rows: list[dict], qpaged: dict) -> dict:
+    """Per call at the paged decode tick in bf16 over int8 pools; launches
+    from the --quantize paged serve (every launch there is on int8
+    pools)."""
+    main = next(r for r in rows if r["dtype"] == "bfloat16")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library")
+    return {"name": "paged_attention_int8", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:195",
+            "launches": qpaged["counts"]["paged_attention"],
+            "per": f"call, bf16 q, {main['shape']}, kv_len {main['kv_len']}",
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{k: main[k] for k in keys}}
 
 
 def int8_line(rows: list[dict]) -> dict:
@@ -1669,6 +1914,7 @@ def main() -> int:
     attn = phase_attention_kernels()
     grouped_rows = phase_grouped_kernel()
     int8_rows = phase_int8_kernel()
+    paged_int8_rows = phase_paged_int8_kernel()
     cfg = get_config(ARCH)
     served = phase_main_path(cfg)
     phase_parity(cfg, served)
@@ -1683,6 +1929,11 @@ def main() -> int:
     del qparams                            # free qwen before granite
     torch.cuda.empty_cache()
     phase_int8_smoke_parity()
+    phase_quantize_static(cfg)
+    torch.cuda.empty_cache()
+    qpaged = phase_quantize_paged(cfg)
+    torch.cuda.empty_cache()
+    phase_int8_smoke_parity("int8")
     granite = phase_granite_sorted()
     phase_granite_parity(granite)
     del granite
@@ -1692,7 +1943,7 @@ def main() -> int:
     lines = [gemm_line(rows, REPORT["main_path"], REPORT["paged_serve"]),
              *attention_lines(attn, REPORT["paged_serve"]),
              grouped_line(grouped_rows, REPORT["granite_sorted"]),
-             int8_line(int8_rows)]
+             int8_line(int8_rows), paged_int8_line(paged_int8_rows, qpaged)]
     REPORT["kernels"] = lines
     REPORT["seconds"] = time.perf_counter() - t0
     out_dir = ROOT / "runs"

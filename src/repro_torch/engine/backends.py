@@ -70,20 +70,18 @@ def ref_attention(decision: KernelDecision, q, k, v, *, causal=True,
 def hopper_paged_attention(decision: KernelDecision, q, k_pages, v_pages,
                            block_tables, kv_len, *, k_scale=None,
                            v_scale=None):
-    """Paged decode on the kernel (its block is one (slot, KV head); the
-    decision's blocks are planned but do not shape it)."""
+    """Paged decode on the kernel, float pools or int8 pools with their
+    scale pools (its block is one (slot, KV head); the decision's blocks
+    are planned but do not shape it)."""
     return paged_attention.paged_attention(q, k_pages, v_pages, block_tables,
                                            kv_len, k_scale, v_scale)
 
 
 def ref_paged_attention(decision: KernelDecision, q, k_pages, v_pages,
                         block_tables, kv_len, *, k_scale=None, v_scale=None):
-    """The paged kernel's plain version."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "int8 paged pools are not ported yet (ROADMAP.md queue 1 item 2)")
-    return paged_attention.paged_attention_reference(q, k_pages, v_pages,
-                                                     block_tables, kv_len)
+    """The paged kernel's plain version (int8 pools with their scales)."""
+    return paged_attention.paged_attention_reference(
+        q, k_pages, v_pages, block_tables, kv_len, k_scale, v_scale)
 
 
 # --------------------------------------------------------------------------

@@ -186,9 +186,12 @@ class Engine:
     def paged_attention(self, q, k_pages, v_pages, block_tables, kv_len, *,
                         k_scale=None, v_scale=None):
         """Paged decode attention: q (B, 1, H, D) over pools (P, page, KV,
-        D) addressed through `block_tables` (B, n_bt).  Keyed like the
-        runtime shape it is: n = the page span the table can address
-        (n_bt * page), groups = B * H."""
+        D) addressed through `block_tables` (B, n_bt); int8 pools pass
+        their per-row scale pools alongside.  Keyed like the runtime shape
+        it is: n = the page span the table can address (n_bt * page),
+        groups = B * H; the pools' dtype is in the key, so int8 pools plan
+        apart from float pools, and the request's width is q's (1 on an
+        int8 backend), as in the JAX engine."""
         key = ("paged_attention", q.shape, q.dtype, k_pages.shape,
                k_pages.dtype, block_tables.shape)
         hit = self._lookup(key)

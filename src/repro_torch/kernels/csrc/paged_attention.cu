@@ -4,10 +4,13 @@
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/paged_attention.py:
 //   paged_attention_tpu (:195), body _kernel (:96)  -> paged_decode_kernel
+// in both of its forms: float pools, and int8 pools (`quantized=True`)
+// with their per-row scale pools.
 //
 // Layouts (all contiguous): q and out (B, 1, H, D); the k and v pools
-// (P, page, KV, D); block tables (B, n_bt) int32 with -1 for a hole; kv_len
-// (B,) int32.  Head h of the query belongs to KV head h / G (G = H / KV).
+// (P, page, KV, D); for int8 pools the k and v scale pools (P, page, KV)
+// f32; block tables (B, n_bt) int32 with -1 for a hole; kv_len (B,) int32.
+// Head h of the query belongs to KV head h / G (G = H / KV).
 //
 // The TPU kernel walks a sequential grid (B, KV, n_bt) with the block table
 // scalar-prefetched and the online-softmax state (m, l, acc) carried in
@@ -17,23 +20,31 @@
 //   1. stage the next whole pages of K and V rows (up to 64 rows) into
 //      shared memory, each page read once, 16 bytes a thread where the
 //      head dim allows (K rows padded by 16 bytes against bank conflicts);
-//   2. G x rows scores in f32, a thread per (head, row) pair;
+//      int8 pools stage the rows' k and v scales beside them;
+//   2. G x rows scores in f32, a thread per (head, row) pair; int8 pools
+//      multiply each score by its row's k scale before the mask;
 //   3. the online-softmax update of (m, l) a warp per query head, with the
 //      m == NEG_INF guard, so a slot with nothing live writes exact zeros;
+//      l sums the unscaled weights p, and only then does an int8 pool
+//      multiply p by its row's v scale (the TPU kernel's order: the
+//      denominator is the plain softmax's);
 //   4. acc = acc * corr + p @ V, a thread per (head, d) pair.
 // The walk stops after ceil(kv_len / page) pages (at most n_bt): a page
 // wholly past kv_len adds an exact 0 in the TPU kernel, so skipping it is
 // exact.  Holes clamp to page 0 and table entries past the pool to its last
-// page, so no read leaves the pool; their rows mask to 0 when they lie past
-// kv_len.  Queries are scaled as the plain version scales them: q / sqrt(D)
-// rounded to the input type, then f32.
+// page, on the row pools and the scale pools alike, so no read leaves a
+// pool; their rows mask to 0 when they lie past kv_len.  Queries are scaled
+// as the plain version scales them: q / sqrt(D) rounded to the input type,
+// then f32.
 //
-// What bounds it on an H100: bytes.  Each live K and V row is read once and
-// the work is 4 * G * D operations per row, far below the ~295 FLOP per
-// byte where the card turns compute-bound.  The design reads each row once
-// with vector loads and keeps every intermediate on chip; with one block
-// per (slot, KV head) a decode batch of 8 slots fills only 16 of the 132
-// SMs, so the walk is latency-bound (a split over pages is for later).
+// What bounds it on an H100: bytes.  Each live K and V row is read once
+// (for int8 pools D bytes and one f32 scale a row: about half the bf16
+// bytes) and the work is 4 * G * D operations per row, far below the ~295
+// FLOP per byte where the card turns compute-bound.  The design reads each
+// row once with vector loads and keeps every intermediate on chip; with
+// one block per (slot, KV head) a decode batch of 8 slots fills only 16 of
+// the 132 SMs, so the walk is latency-bound (a split over pages is for
+// later).
 //
 // Built by repro_torch/kernels/_build.py with plain nvcc and loaded through
 // ctypes; the C entry point is at the end of this file.
@@ -56,6 +67,10 @@ template <>
 __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+template <>
+__device__ __forceinline__ float to_float<int8_t>(int8_t v) {
+  return static_cast<float>(v);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float v);
@@ -64,6 +79,10 @@ __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+template <>  // only ever given 0 (the staging of rows past the walk)
+__device__ __forceinline__ int8_t from_float<int8_t>(float v) {
+  return static_cast<int8_t>(v);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -78,23 +97,30 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // Shared memory: q (G, D) f32 | acc (G, D) f32 | scores (G, R) f32 |
-// m, l, corr (G,) f32 | pad to 16 bytes | K rows (R, D + kpad) T | pad to
-// 16 bytes | V rows (R, D) T.  paged_attention.smem_bytes mirrors this.
+// m, l, corr (G,) f32 | int8 pools: k scales, v scales (R,) f32 | pad to
+// 16 bytes | K rows (R, D + kpad) P | pad to 16 bytes | V rows (R, D) P.
+// paged_attention.smem_bytes mirrors this.
 __host__ __device__ inline size_t align16(size_t bytes) {
   return (bytes + 15) / 16 * 16;
 }
-__host__ __device__ inline size_t float_region(int g, int d, int rows) {
-  return align16((2 * (size_t)g * d + (size_t)g * rows + 3 * g) * 4);
+__host__ __device__ inline size_t float_region(int g, int d, int rows,
+                                               bool quant) {
+  return align16((2 * (size_t)g * d + (size_t)g * rows + 3 * g +
+                  (quant ? 2 * (size_t)rows : 0)) * 4);
 }
 // K rows are padded by one vector (16 bytes), or by one element for scalar
 // loads, so the rows that neighbouring threads read fall in other banks.
 __host__ __device__ inline int k_pad(int vec) { return vec > 1 ? vec : 1; }
 
-// VEC elements of T per load: 16 bytes where the head dim allows, else 1.
-template <typename T, int VEC>
+// T: q and out (bf16 or f32); P: the pools (T, or int8_t under QUANT);
+// VEC elements of P per load: 16 bytes where the head dim allows, else 1.
+template <typename T, typename P, int VEC, bool QUANT>
 __global__ void __launch_bounds__(kThreads)
-    paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                        const T* __restrict__ vp, const int* __restrict__ bt,
+    paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ kp,
+                        const P* __restrict__ vp,
+                        const float* __restrict__ ksp,
+                        const float* __restrict__ vsp,
+                        const int* __restrict__ bt,
                         const int* __restrict__ kv_len, T* __restrict__ out,
                         int kv, int g, int d, int n_pool, int page, int n_bt,
                         int ppc) {
@@ -107,11 +133,13 @@ __global__ void __launch_bounds__(kThreads)
   float* m = sc + g * rows;
   float* l = m + g;
   float* corr = l + g;
+  float* kscale = corr + g;  // (rows,) each, used under QUANT only
+  float* vscale = kscale + rows;
   const int ks_stride = d + k_pad(VEC);
-  T* ks = reinterpret_cast<T*>(smem + float_region(g, d, rows));
-  T* vs = reinterpret_cast<T*>(
-      smem + float_region(g, d, rows) +
-      align16((size_t)rows * ks_stride * sizeof(T)));
+  const size_t fr = float_region(g, d, rows, QUANT);
+  P* ks = reinterpret_cast<P*>(smem + fr);
+  P* vs = reinterpret_cast<P*>(smem + fr +
+                               align16((size_t)rows * ks_stride * sizeof(P)));
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int heads = kv * g;
@@ -138,8 +166,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = tid; i < rows * vecs; i += kThreads) {
       const int r = i / vecs, c = (i - r * vecs) * VEC;
       const int j = p0 + r / page;
-      T* kd = ks + (size_t)r * ks_stride + c;
-      T* vd = vs + (size_t)r * d + c;
+      P* kd = ks + (size_t)r * ks_stride + c;
+      P* vd = vs + (size_t)r * d + c;
       if (j < n_live) {
         int phys = table[j];
         phys = phys < 0 ? 0 : (phys >= n_pool ? n_pool - 1 : phys);
@@ -156,25 +184,42 @@ __global__ void __launch_bounds__(kThreads)
         }
       } else {
         for (int e = 0; e < VEC; ++e) {
-          kd[e] = from_float<T>(0.0f);
-          vd[e] = from_float<T>(0.0f);
+          kd[e] = from_float<P>(0.0f);
+          vd[e] = from_float<P>(0.0f);
         }
+      }
+    }
+    if (QUANT) {
+      // the rows' scales, clamped through the table as the rows are
+      for (int r = tid; r < rows; r += kThreads) {
+        const int j = p0 + r / page;
+        float ksv = 0.0f, vsv = 0.0f;
+        if (j < n_live) {
+          int phys = table[j];
+          phys = phys < 0 ? 0 : (phys >= n_pool ? n_pool - 1 : phys);
+          const size_t at = ((size_t)phys * page + (r % page)) * kv + h;
+          ksv = ksp[at];
+          vsv = vsp[at];
+        }
+        kscale[r] = ksv;
+        vscale[r] = vsv;
       }
     }
     __syncthreads();
 
-    // 2. scores, masked past kv_len (and past the table): a thread per
-    //    (head, row); neighbouring threads take neighbouring rows
+    // 2. scores (times the row's k scale for int8 pools), masked past
+    //    kv_len (and past the table): a thread per (head, row);
+    //    neighbouring threads take neighbouring rows
     for (int i = tid; i < g * rows; i += kThreads) {
       const int gi = i / rows, r = i - gi * rows;
       const int pos = p0 * page + r;
       float s = kNegInf;
       if ((p0 + r / page) < n_live && pos < len) {
-        const T* krow = ks + (size_t)r * ks_stride;
+        const P* krow = ks + (size_t)r * ks_stride;
         const float* qrow = qs + (size_t)gi * d;
         s = 0.0f;
         for (int e = 0; e < d; e += VEC) {
-          alignas(16) T kvals[VEC];
+          alignas(16) P kvals[VEC];
           if (VEC > 1)
             *reinterpret_cast<uint4*>(kvals) =
                 *reinterpret_cast<const uint4*>(krow + e);
@@ -183,12 +228,14 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
           for (int x = 0; x < VEC; ++x) s += qrow[e + x] * to_float(kvals[x]);
         }
+        if (QUANT) s *= kscale[r];
       }
       sc[i] = s;
     }
     __syncthreads();
 
-    // 3. online softmax over this chunk, a warp per query head
+    // 3. online softmax over this chunk, a warp per query head: l takes
+    //    the unscaled p, acc the p that an int8 pool's v scale multiplies
     for (int gi = warp; gi < g; gi += kWarps) {
       float* srow = sc + (size_t)gi * rows;
       float mx = kNegInf;
@@ -200,8 +247,8 @@ __global__ void __launch_bounds__(kThreads)
       float sum = 0.0f;
       for (int r = lane; r < rows; r += 32) {
         const float p = dead ? 0.0f : expf(srow[r] - m_new);
-        srow[r] = p;
         sum += p;
+        srow[r] = QUANT ? p * vscale[r] : p;
       }
       sum = warp_sum(sum);
       if (lane == 0) {
@@ -229,64 +276,81 @@ __global__ void __launch_bounds__(kThreads)
     ob[i] = from_float<T>(acc[i] / fmaxf(l[i / d], 1e-30f));
 }
 
-template <typename T, int VEC>
-cudaError_t launch_t(const void* q, const void* kp, const void* vp,
-                     const int* bt, const int* kv_len, void* out, int batch,
-                     int kv, int g, int d, int n_pool, int page, int n_bt,
-                     int ppc, cudaStream_t stream) {
-  const int rows = ppc * page;
-  const size_t smem = float_region(g, d, rows) +
-                      align16((size_t)rows * (d + k_pad(VEC)) * sizeof(T)) +
-                      (size_t)rows * d * sizeof(T);
+struct Args {
+  const void *q, *kp, *vp;
+  const float *ksp, *vsp;
+  const int *bt, *kv_len;
+  void* out;
+  int batch, kv, g, d, n_pool, page, n_bt, ppc;
+};
+
+template <typename T, typename P, int VEC, bool QUANT>
+cudaError_t launch_t(const Args& a, cudaStream_t stream) {
+  const int rows = a.ppc * a.page;
+  const size_t smem = float_region(a.g, a.d, rows, QUANT) +
+                      align16((size_t)rows * (a.d + k_pad(VEC)) * sizeof(P)) +
+                      (size_t)rows * a.d * sizeof(P);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      paged_decode_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      232448);
+      paged_decode_kernel<T, P, VEC, QUANT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
   if (attr != cudaSuccess) return attr;
-  paged_decode_kernel<T, VEC><<<dim3(batch, kv), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), bt, kv_len, static_cast<T*>(out), kv, g, d,
-      n_pool, page, n_bt, ppc);
+  paged_decode_kernel<T, P, VEC, QUANT>
+      <<<dim3(a.batch, a.kv), kThreads, smem, stream>>>(
+          static_cast<const T*>(a.q), static_cast<const P*>(a.kp),
+          static_cast<const P*>(a.vp), a.ksp, a.vsp, a.bt, a.kv_len,
+          static_cast<T*>(a.out), a.kv, a.g, a.d, a.n_pool, a.page, a.n_bt,
+          a.ppc);
   return cudaGetLastError();
 }
 
+// 16-byte vector loads of the pools where the head dim allows.
+template <typename T, typename P, bool QUANT>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(P);
+  if (a.d % kVec == 0) return launch_t<T, P, kVec, QUANT>(a, stream);
+  return launch_t<T, P, 1, QUANT>(a, stream);
+}
+
 template <typename T>
-cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const int* bt, const int* kv_len, void* out, int batch,
-                   int kv, int g, int d, int n_pool, int page, int n_bt,
-                   int ppc, cudaStream_t stream) {
-  constexpr int kVec = 16 / sizeof(T);
-  if (d % kVec == 0)
-    return launch_t<T, kVec>(q, kp, vp, bt, kv_len, out, batch, kv, g, d,
-                             n_pool, page, n_bt, ppc, stream);
-  return launch_t<T, 1>(q, kp, vp, bt, kv_len, out, batch, kv, g, d, n_pool,
-                        page, n_bt, ppc, stream);
+cudaError_t launch_pools(const Args& a, bool quantized, cudaStream_t stream) {
+  if (quantized) return launch<T, int8_t, true>(a, stream);
+  return launch<T, T, false>(a, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = bf16, 1 = f32 (q, pools and the output share it).  ppc is the
-// number of whole pages a block stages per step.  Returns the CUDA error
-// of the launch (0 on success).
-int paged_attention_launch(int dtype, const void* q, const void* k_pages,
-                           const void* v_pages, const void* block_tables,
-                           const void* kv_len, void* out, int batch, int kv,
-                           int g, int d, int n_pool, int page, int n_bt,
-                           int ppc, void* stream) {
+// dtype: 0 = bf16, 1 = f32 (q and the output; the pools too unless
+// quantized).  quantized: 1 = int8 pools with f32 scale pools k_scales and
+// v_scales (P, page, KV); 0 = float pools (the scale pointers are unused).
+// ppc is the number of whole pages a block stages per step.  Returns the
+// CUDA error of the launch (0 on success).
+int paged_attention_launch(int dtype, int quantized, const void* q,
+                           const void* k_pages, const void* v_pages,
+                           const void* k_scales, const void* v_scales,
+                           const void* block_tables, const void* kv_len,
+                           void* out, int batch, int kv, int g, int d,
+                           int n_pool, int page, int n_bt, int ppc,
+                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* bt = static_cast<const int*>(block_tables);
-  const int* len = static_cast<const int*>(kv_len);
   if (batch < 1 || kv < 1 || g < 1 || d < 1 || page < 1 || ppc < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (quantized && (k_scales == nullptr || v_scales == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q,
+               k_pages,
+               v_pages,
+               static_cast<const float*>(k_scales),
+               static_cast<const float*>(v_scales),
+               static_cast<const int*>(block_tables),
+               static_cast<const int*>(kv_len),
+               out,
+               batch, kv, g, d, n_pool, page, n_bt, ppc};
   if (dtype == 0)
-    return static_cast<int>(launch<__nv_bfloat16>(q, k_pages, v_pages, bt,
-                                                  len, out, batch, kv, g, d,
-                                                  n_pool, page, n_bt, ppc, s));
+    return static_cast<int>(launch_pools<__nv_bfloat16>(a, quantized != 0, s));
   if (dtype == 1)
-    return static_cast<int>(launch<float>(q, k_pages, v_pages, bt, len, out,
-                                          batch, kv, g, d, n_pool, page, n_bt,
-                                          ppc, s));
+    return static_cast<int>(launch_pools<float>(a, quantized != 0, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -22,8 +22,14 @@ through the CUDA kernel in `csrc/paged_attention.cu`.
 
 Unallocated table entries clamp to page 0; every position of such a page
 that lies at or past `kv_len` masks to an exact 0, so stale or foreign
-rows never reach the output.  The int8 pools (per-row scale pools beside
-the rows) are not ported yet: the wrapper raises for them.
+rows never reach the output.
+
+int8 pools (the KV codec of `quant.kv_quantize`) come with their per-row
+scale pools `k_scale`/`v_scale` (P, page, KV) f32, addressed through the
+same block table.  The rows are read raw and the scales folded in where
+the reference folds them: scores times the row's k scale before masking,
+the softmax weights times the row's v scale after normalising by the
+plain softmax denominator.
 """
 
 from __future__ import annotations
@@ -56,9 +62,13 @@ def reset_launches() -> None:
 def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
                               v_pages: torch.Tensor,
                               block_tables: torch.Tensor,
-                              kv_len: torch.Tensor) -> torch.Tensor:
+                              kv_len: torch.Tensor,
+                              k_scale: torch.Tensor | None = None,
+                              v_scale: torch.Tensor | None = None
+                              ) -> torch.Tensor:
     """q (B, 1, H, D); k/v pools (P, page, KV, D); block_tables (B, n_bt)
-    int32 (-1 = hole); kv_len (B,).  Returns o (B, 1, H, D) before `wo`.
+    int32 (-1 = hole); kv_len (B,); for int8 pools the scale pools
+    k_scale/v_scale (P, page, KV).  Returns o (B, 1, H, D) before `wo`.
 
     The gather reproduces each slot's logical rows [0, n_bt * page) in
     order; then the math is `cached_attention`'s: rows at positions >=
@@ -72,12 +82,18 @@ def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
     s_rows = n_bt * page
     k = k_pages[safe].reshape(b, s_rows, kv, d)
     v = v_pages[safe].reshape(b, s_rows, kv, d)
+    row = lambda sc: (sc[safe].reshape(b, s_rows, kv).float()
+                      .transpose(1, 2)[:, :, None, None, :])
     qg = (q.reshape(b, sq, kv, g, d) / math.sqrt(d)).float()
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+    if k_scale is not None:
+        s = s * row(k_scale)
     srange = torch.arange(s_rows, device=q.device)
     valid = (srange[None, :] < kv_len[:, None])[:, None, :]     # (B, 1, S)
     s = torch.where(valid[:, None, None], s, NEG_INF)
     p_attn = torch.softmax(s, dim=-1)
+    if v_scale is not None:
+        p_attn = p_attn * row(v_scale)
     o = torch.einsum("bkgqs,bskd->bqkgd", p_attn, v.float())
     o = o.reshape(b, sq, h, d)
     # a fully masked slot: exact zeros (the kernels' m == NEG_INF guard)
@@ -85,7 +101,8 @@ def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
     return o.to(q.dtype)
 
 
-def _check(q, k_pages, v_pages, block_tables, kv_len) -> None:
+def _check(q, k_pages, v_pages, block_tables, kv_len, k_scale=None,
+           v_scale=None) -> None:
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"q must be (B, 1, H, D), got {tuple(q.shape)}")
     b, _, h, d = q.shape
@@ -103,31 +120,46 @@ def _check(q, k_pages, v_pages, block_tables, kv_len) -> None:
         raise ValueError(f"kv_len must be (B={b},), got {tuple(kv_len.shape)}")
     if block_tables.dtype != torch.int32 or kv_len.dtype != torch.int32:
         raise TypeError("block_tables and kv_len must be int32")
-    if not (q.dtype == k_pages.dtype == v_pages.dtype
-            and q.dtype in _DTYPE_CODE):
-        raise TypeError(f"paged_attention takes bf16 or f32 q and pools of "
-                        f"one dtype, got {q.dtype}, {k_pages.dtype}, "
-                        f"{v_pages.dtype}")
-    tensors = (q, k_pages, v_pages, block_tables, kv_len)
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
+    quantized = k_scale is not None
+    pools = torch.int8 if quantized else q.dtype
+    if not (q.dtype in _DTYPE_CODE and k_pages.dtype == v_pages.dtype == pools):
+        raise TypeError(f"paged_attention takes a bf16 or f32 q over pools of "
+                        f"its dtype, or over int8 pools with their scale "
+                        f"pools; got q {q.dtype}, pools {k_pages.dtype}, "
+                        f"{v_pages.dtype}, scales "
+                        f"{'given' if quantized else 'absent'}")
+    tensors = [q, k_pages, v_pages, block_tables, kv_len]
+    if quantized:
+        for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if sc.shape != k_pages.shape[:3] or sc.dtype != torch.float32:
+                raise ValueError(f"{name} must be f32 {tuple(k_pages.shape[:3])}"
+                                 f" (P, page, KV), got {sc.dtype} "
+                                 f"{tuple(sc.shape)}")
+        tensors += [k_scale, v_scale]
     if len({t.device for t in tensors}) != 1:
-        raise ValueError("q, pools, block_tables and kv_len on different "
-                         "devices")
+        raise ValueError("q, pools, scales, block_tables and kv_len on "
+                         "different devices")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention takes contiguous tensors")
 
 
-def smem_bytes(g: int, d: int, page: int, itemsize: int) -> int:
+def smem_bytes(g: int, d: int, page: int, pool_itemsize: int,
+               quantized: bool = False) -> int:
     """Shared memory one block uses: q, acc (G, D) f32; scores (G, R)
-    f32; m, l, corr (G,) f32; then the K rows (R, D + pad) and the V rows
-    (R, D) of the input dtype, each region 16-byte aligned (the layout of
+    f32; m, l, corr (G,) f32; for int8 pools the k and v scales of the R
+    staged rows, f32; then the K rows (R, D + pad) and the V rows (R, D)
+    of the pool's dtype, each region 16-byte aligned (the layout of
     csrc/paged_attention.cu; pad is one 16-byte vector, or one element
     where D takes no vector loads)."""
     rows = chunk_pages(page) * page
-    vec = 16 // itemsize if d % (16 // itemsize) == 0 else 1
+    vec = 16 // pool_itemsize if d % (16 // pool_itemsize) == 0 else 1
     pad = vec if vec > 1 else 1
     align = lambda n: -(-n // 16) * 16
-    return (align((2 * g * d + g * rows + 3 * g) * 4)
-            + align(rows * (d + pad) * itemsize) + rows * d * itemsize)
+    floats = 2 * g * d + g * rows + 3 * g + (2 * rows if quantized else 0)
+    return (align(floats * 4) + align(rows * (d + pad) * pool_itemsize)
+            + rows * d * pool_itemsize)
 
 
 def chunk_pages(page: int) -> int:
@@ -139,7 +171,7 @@ def chunk_pages(page: int) -> int:
 def _library() -> ctypes.CDLL:
     lib = _build.load("paged_attention")
     lib.paged_attention_launch.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
         + [ctypes.c_void_p])
     lib.paged_attention_launch.restype = ctypes.c_int
     return lib
@@ -150,36 +182,37 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     kv_len: torch.Tensor, k_scale=None,
                     v_scale=None) -> torch.Tensor:
     """Decode attention through the block table: the kernel on CUDA
-    tensors, `paged_attention_reference` on CPU tensors.  Raises on
-    anything the kernel does not take."""
+    tensors, `paged_attention_reference` on CPU tensors.  int8 pools
+    take their scale pools `k_scale`/`v_scale` (P, page, KV) f32.
+    Raises on anything the kernel does not take."""
     global launches
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "int8 paged pools (k_scale/v_scale) are not ported yet "
-            "(ROADMAP.md queue 1 item 2)")
-    _check(q, k_pages, v_pages, block_tables, kv_len)
+    _check(q, k_pages, v_pages, block_tables, kv_len, k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pages, v_pages, block_tables,
-                                         kv_len)
+                                         kv_len, k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on CUDA or CPU tensors, not "
                          f"{q.device}")
     b, _, h, d = q.shape
     n_pool, page, kv, _ = k_pages.shape
     g = h // kv
-    smem = smem_bytes(g, d, page, q.element_size())
+    quantized = k_scale is not None
+    smem = smem_bytes(g, d, page, k_pages.element_size(), quantized)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"paged_attention needs {smem} bytes of shared "
                          f"memory (G={g}, D={d}, page={page}); the card "
                          f"gives a block {_SMEM_LIMIT}")
     out = torch.empty_like(q)
     lib = _library()
+    scales = ((k_scale.data_ptr(), v_scale.data_ptr()) if quantized
+              else (None, None))
     with torch.cuda.device(q.device):
         err = lib.paged_attention_launch(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k_pages.data_ptr(),
-            v_pages.data_ptr(), block_tables.data_ptr(), kv_len.data_ptr(),
-            out.data_ptr(), b, kv, g, d, n_pool, page, block_tables.shape[1],
-            chunk_pages(page), torch.cuda.current_stream().cuda_stream)
+            _DTYPE_CODE[q.dtype], int(quantized), q.data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr(), *scales,
+            block_tables.data_ptr(), kv_len.data_ptr(), out.data_ptr(), b,
+            kv, g, d, n_pool, page, block_tables.shape[1], chunk_pages(page),
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention launch failed: CUDA error {err}")
     launches += 1

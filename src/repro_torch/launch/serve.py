@@ -16,6 +16,11 @@ optional *COUNT repeat:
         --kernel-backend hopper --batch 8 --cache-layout paged \\
         --trace "768x32*4,512x64*4,256x16*8,64x48*8"
 
+`--quantize` serves the full int8 posture in either mode: the dense
+weights quantized (`quant.quantize_params`), the KV cache int8
+(`cache_dtype=torch.int8`, rows and per-row scales), and the backend
+upgraded to its int8 sibling ("hopper-int8").
+
 Both run on the card; `--device cpu --smoke` runs the reduced
 configuration on the CPU (there the "hopper" backend takes the kernels'
 plain versions).
@@ -32,6 +37,7 @@ import torch
 from ..configs import ARCH_NAMES, get_config
 from ..engine import BACKENDS
 from ..models import transformer as T
+from ..quant import quantize_params
 from ..serve_lib import serve as serve_lib
 from ..serve_lib.scheduler import Request, Scheduler
 
@@ -120,6 +126,11 @@ def main(argv=None) -> dict:
                     help="tokens per page for --cache-layout paged")
     ap.add_argument("--kernel-backend", default=None, choices=BACKENDS,
                     help="engine backend for model matmuls (default: plain @)")
+    ap.add_argument("--quantize", action="store_true",
+                    help="full int8 serving posture: quantize the dense "
+                         "weights (quant.quantize_params), store the KV "
+                         "cache int8 (cache_dtype=int8), and upgrade the "
+                         "kernel backend to its int8 sibling")
     ap.add_argument("--plan", default=None,
                     help="ExecutionPlan JSON to warm-start the decision cache")
     ap.add_argument("--device", default="cuda",
@@ -136,14 +147,17 @@ def main(argv=None) -> dict:
                else args.prompt_len + args.gen + 1)
     scfg = serve_lib.ServeConfig(
         max_seq=max_seq, batch=args.batch,
-        compute_dtype=dtype, cache_dtype=dtype,
+        compute_dtype=dtype,
+        cache_dtype=torch.int8 if args.quantize else dtype,
         kernel_backend=args.kernel_backend, plan_path=args.plan,
-        device=args.device, cache_layout=args.cache_layout,
-        page_size=args.page_size)
+        quantize=args.quantize, device=args.device,
+        cache_layout=args.cache_layout, page_size=args.page_size)
     dev = serve_lib.resolve_device(scfg)
     params = T.init_params(
         cfg, generator=torch.Generator(device=dev).manual_seed(args.seed),
         device=dev, dtype=dtype)
+    if args.quantize:
+        params = quantize_params(params)
     if trace is not None:
         return _run_trace(params, cfg, scfg, args, trace)
     prompt = torch.randint(

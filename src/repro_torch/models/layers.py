@@ -266,19 +266,31 @@ def attention_block(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor, *,
 
 def cached_attention(p: dict, cfg, q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, q_pos: torch.Tensor,
-                     kv_len: torch.Tensor) -> torch.Tensor:
-    """Decode attention: q (B,Sq,H,D) over a float cache (B,Smax,KV,D)
-    whose rows at or past kv_len (B,) are masked; the caller has written
-    the new rows first.  Returns the `wo` projection."""
+                     kv_len: torch.Tensor, *, k_scale=None,
+                     v_scale=None) -> torch.Tensor:
+    """Decode attention: q (B,Sq,H,D) over a cache (B,Smax,KV,D) whose rows
+    at or past kv_len (B,) are masked; the caller has written the new rows
+    first.  Returns the `wo` projection.
+
+    An int8 cache passes its rows raw with their per-row scales
+    `k_scale`/`v_scale` (B, Smax, KV): the scales are constant along the
+    head dim, so the scores are scaled after the QK^T einsum and v_scale
+    folds into the softmax weights; no dequantized copy of the cache is
+    made."""
     b, sq, h, d = q.shape
     kv = k_cache.shape[2]
     g = h // kv
+    row = lambda sc: sc.float().transpose(1, 2)[:, :, None, None, :]
     qg = (q.reshape(b, sq, kv, g, d) / math.sqrt(d)).float()
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache.float())
+    if k_scale is not None:
+        s = s * row(k_scale)
     srange = torch.arange(k_cache.shape[1], device=q.device)
     valid = srange[None, :] < kv_len[:, None]                   # (B, S)
     s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
     p_attn = torch.softmax(s, dim=-1)
+    if v_scale is not None:
+        p_attn = p_attn * row(v_scale)
     o = torch.einsum("bkgqs,bskd->bqkgd", p_attn, v_cache.float())
     o = o.reshape(b, sq, h, d).to(q.dtype)
     return dense(p["wo"], o.reshape(b, sq, cfg.n_heads * cfg.head_dim_))
@@ -289,17 +301,19 @@ def paged_cached_attention(p: dict, cfg, q: torch.Tensor, c: dict,
                            kv_len: torch.Tensor) -> torch.Tensor:
     """Decode attention over the paged pool: q (B, 1, H, D) against the
     cache dict's `k_pages`/`v_pages` pools through `block_tables`
-    (B, n_bt).  Inside an engine whose backend registers the
-    `paged_attention` op the planned kernel runs; otherwise the plain
-    gather, which equals `cached_attention` on the same live rows.
-    Returns the `wo` projection."""
+    (B, n_bt); int8 pools ship their scale pools `k_scale_pages`/
+    `v_scale_pages` through the same table.  Inside an engine whose
+    backend registers the `paged_attention` op the planned kernel runs;
+    otherwise the plain gather, which equals `cached_attention` on the
+    same live rows.  Returns the `wo` projection."""
     b, sq, h, d = q.shape
+    k_scale, v_scale = c.get("k_scale_pages"), c.get("v_scale_pages")
     eng = active_engine()
     if (eng is not None and sq == 1
             and eng.registry.has(eng.backend, "paged_attention")):
         o = eng.paged_attention(q, c["k_pages"], c["v_pages"], block_tables,
-                                kv_len)
+                                kv_len, k_scale=k_scale, v_scale=v_scale)
     else:
         o = paged_attention_reference(q, c["k_pages"], c["v_pages"],
-                                      block_tables, kv_len)
+                                      block_tables, kv_len, k_scale, v_scale)
     return dense(p["wo"], o.reshape(b, sq, cfg.n_heads * cfg.head_dim_))

@@ -15,7 +15,10 @@ JAX `lax.scan` over periods is a Python loop over views of the stack.
 `prefill` and `decode_step` write the cache tensors in place and return
 the cache dict with its new clock.  Where the JAX package merges the old
 rows of masked slots back (`_merge_slot`, `mode="drop"` scatters), the
-port simply never writes them.
+port simply never writes them.  An int8 cache (`init_cache(dtype=
+torch.int8)`) stores each K/V row quantized (`quant.kv_quantize`, in the
+form the reference computes inside `jax.jit`) with its f32 scale beside
+it, written by the same indices as the row.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import math
 
 import torch
 
-from ..quant.quantize import QuantizedTensor
+from ..quant.quantize import QuantizedTensor, kv_dequantize, kv_quantize
 from . import layers, moe
 from .config import ArchConfig
 from .layers import dense, mlp, rms_norm
@@ -171,32 +174,46 @@ class CacheSpec:
 
 def _slot_cache(cfg: ArchConfig, spec: CacheSpec, lead, dtype, device) -> dict:
     kv, hd = cfg.n_kv, cfg.head_dim_
+    quant = dtype == torch.int8
+    zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
     if spec.page_size:
         if not spec.n_pages:
             raise ValueError("paged CacheSpec needs n_pages")
         # physical page p of every layer lives in that layer's own pool at
         # row p: one block table addresses all layers.  Storage holds one
         # page more per layer, the sink of `layers.paged_slot_update`;
-        # the pools are views that leave it out.
-        shape = (*lead, spec.n_pages + 1, spec.page_size, kv, hd)
+        # the pools are views that leave it out.  The int8 codec's per-row
+        # scales page with their rows: same page index, same table, and a
+        # sink page of their own.
+        rows = (*lead, spec.n_pages + 1, spec.page_size, kv)
         cut = (slice(None),) * len(lead) + (slice(0, spec.n_pages),)
-        return {"k_pages": torch.zeros(shape, dtype=dtype, device=device)[cut],
-                "v_pages": torch.zeros(shape, dtype=dtype, device=device)[cut]}
-    shape = (*lead, spec.batch, spec.max_seq, kv, hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+        c = {"k_pages": zeros((*rows, hd), dtype)[cut],
+             "v_pages": zeros((*rows, hd), dtype)[cut]}
+        if quant:
+            c["k_scale_pages"] = zeros(rows, torch.float32)[cut]
+            c["v_scale_pages"] = zeros(rows, torch.float32)[cut]
+        return c
+    rows = (*lead, spec.batch, spec.max_seq, kv)
+    c = {"k": zeros((*rows, hd), dtype), "v": zeros((*rows, hd), dtype)}
+    if quant:
+        # one f32 scale per stored row per KV head, beside the int8 rows
+        c["k_scale"] = zeros(rows, torch.float32)
+        c["v_scale"] = zeros(rows, torch.float32)
+    return c
 
 
 def init_cache(cfg: ArchConfig, spec: CacheSpec, dtype=torch.bfloat16,
                device=None) -> dict:
     """{"t": (B,) int32 per-slot clock, "slots": {"b{j}": {...}} with the
     leading period axis, "tail": [...]}.  Contiguous: k/v (B, max_seq,
-    KV, hd) per layer; paged: k_pages/v_pages (n_pages, page, KV, hd)."""
+    KV, hd) per layer; paged: k_pages/v_pages (n_pages, page, KV, hd).
+    `dtype=torch.int8` selects the int8 codec: the rows are int8 and
+    k_scale/v_scale (B, max_seq, KV), or k_scale_pages/v_scale_pages
+    (n_pages, page, KV), hold their f32 scales."""
     _check_kinds(cfg)
-    if not dtype.is_floating_point:
-        raise NotImplementedError(
-            f"cache dtype {dtype}: the int8 KV codec is not ported yet "
-            f"(ROADMAP.md queue 1 item 2)")
+    if not (dtype.is_floating_point or dtype == torch.int8):
+        raise ValueError(f"cache dtype {dtype}: a float dtype or int8 (the "
+                         f"KV codec)")
     n_periods, n_tail = _period_split(cfg)
     return {"t": torch.zeros(spec.batch, dtype=torch.int32, device=device),
             "slots": {f"b{j}": _slot_cache(cfg, spec, (n_periods,), dtype,
@@ -204,6 +221,20 @@ def init_cache(cfg: ArchConfig, spec: CacheSpec, dtype=torch.bfloat16,
                       for j in range(len(cfg.layer_pattern))},
             "tail": [_slot_cache(cfg, spec, (), dtype, device)
                      for _ in range(n_tail)]}
+
+
+def _store(c: dict, k: torch.Tensor, v: torch.Tensor, paged: bool) -> dict:
+    """Cache leaf name -> the values to write for new rows k/v (..., KV,
+    D): the rows themselves, or on an int8 cache their codes and scales
+    (the jitted form of the reference's codec: its cache writes run
+    inside `jax.jit`)."""
+    names = (("k_pages", "v_pages", "k_scale_pages", "v_scale_pages")
+             if paged else ("k", "v", "k_scale", "v_scale"))
+    if names[2] not in c:
+        return {names[0]: k, names[1]: v}
+    kq, ks = kv_quantize(k, jitted=True)
+    vq, vs = kv_quantize(v, jitted=True)
+    return dict(zip(names, (kq, vq, ks, vs), strict=True))
 
 
 def _decode_block(p, cfg: ArchConfig, x, t, c: dict, active=None,
@@ -228,19 +259,20 @@ def _decode_block(p, cfg: ArchConfig, x, t, c: dict, active=None,
             write = write & active
         phys = torch.where(write, phys, -1)
         off = t % page
-        layers.paged_slot_update(c["k_pages"], phys, off, k_new[:, 0])
-        layers.paged_slot_update(c["v_pages"], phys, off, v_new[:, 0])
+        for name, val in _store(c, k_new[:, 0], v_new[:, 0], True).items():
+            layers.paged_slot_update(c[name], phys, off, val)
         # full attention never wraps: the valid length is the clock
         h = layers.paged_cached_attention(p["attn"], cfg, q, c, block_tables,
                                           t + 1)
     else:
         size = c["k"].shape[1]
         idx = t % size
-        layers.slot_update(c["k"], idx, k_new[:, 0], active)
-        layers.slot_update(c["v"], idx, v_new[:, 0], active)
+        for name, val in _store(c, k_new[:, 0], v_new[:, 0], False).items():
+            layers.slot_update(c[name], idx, val, active)
         kv_len = torch.clamp(t + 1, max=size)
         h = layers.cached_attention(p["attn"], cfg, q, c["k"], c["v"], pos,
-                                    kv_len)
+                                    kv_len, k_scale=c.get("k_scale"),
+                                    v_scale=c.get("v_scale"))
     x = x + h
     return x + _ffn(p, cfg, rms_norm(p["norm2"], x, cfg.norm_eps))[0]
 
@@ -269,24 +301,25 @@ def decode_step(params, cfg: ArchConfig, cache: dict, token: torch.Tensor, *,
 
 
 def _contiguous_prefill_write(c: dict, k, v, lengths, update_mask) -> None:
-    """Write the prompt rows into a contiguous cache, in place: rows
-    [0, S) when the cache holds them, else the last rows rolled to their
-    ring positions.  Slots outside `update_mask` are not written (the JAX
-    package merges their old rows back)."""
+    """Write the prompt rows (on an int8 cache their codes and scales)
+    into a contiguous cache, in place: rows [0, S) when the cache holds
+    them, else the last rows rolled to their ring positions.  Slots
+    outside `update_mask` are not written (the JAX package merges their
+    old rows back)."""
     s = k.shape[1]
     size = c["k"].shape[1]
     if size < s and lengths is not None:
         raise NotImplementedError(
             f"a ragged prompt of width {s} longer than the cache ({size} "
             f"rows) is not ported yet")
-    for name, val in (("k", k), ("v", v)):
+    for name, val in _store(c, k, v, False).items():
         dst = c[name]
         if size >= s:
             new, view = val, dst[:, :s]
         else:  # ring: the last `size` rows, rolled to pos % size
             new, view = torch.roll(val[:, -size:], s % size, dims=1), dst
         if update_mask is not None:
-            keep = update_mask.reshape(-1, 1, 1, 1)
+            keep = update_mask.reshape((-1,) + (1,) * (val.dim() - 1))
             new = torch.where(keep, new.to(dst.dtype), view)
         view.copy_(new)
 
@@ -300,7 +333,10 @@ def _paged_prefill_attn(cfg: ArchConfig, q, k, v, c: dict, positions,
     The attention buffer is logical-row indexed — row r holds the token
     at absolute position r — built from `hist_pages` gathered pages plus
     the suffix at its absolute rows.  Rows past a slot's length and slots
-    outside `update_mask` write nowhere in the pool."""
+    outside `update_mask` write nowhere in the pool.  On int8 pools the
+    suffix is written quantized but attended in float, as the reference
+    attends it; only the shared-history rows are read back, dequantized
+    to the compute dtype."""
     b, s, kv, hd = k.shape
     n_pool, page = c["k_pages"].shape[0], c["k_pages"].shape[1]
     n_bt = block_tables.shape[1]
@@ -317,8 +353,8 @@ def _paged_prefill_attn(cfg: ArchConfig, q, k, v, c: dict, positions,
     phys = block_tables.gather(1, pidx)
     phys = torch.where(valid, phys, -1)
     off = absp % page
-    layers.paged_slot_update(c["k_pages"], phys, off, k)
-    layers.paged_slot_update(c["v_pages"], phys, off, v)
+    for name, val in _store(c, k, v, True).items():
+        layers.paged_slot_update(c[name], phys, off, val)
 
     h0 = hist_pages * page
     # one spare row past the buffer takes the rows that write nowhere
@@ -326,8 +362,15 @@ def _paged_prefill_attn(cfg: ArchConfig, q, k, v, c: dict, positions,
     bufv = torch.zeros((b, h0 + s + 1, kv, hd), dtype=v.dtype, device=dev)
     if h0:
         idx = block_tables[:, :hist_pages].clamp(0, n_pool - 1).long()
-        bufk[:, :h0] = c["k_pages"][idx].reshape(b, h0, kv, hd).to(k.dtype)
-        bufv[:, :h0] = c["v_pages"][idx].reshape(b, h0, kv, hd).to(v.dtype)
+        hk = c["k_pages"][idx].reshape(b, h0, kv, hd)
+        hv = c["v_pages"][idx].reshape(b, h0, kv, hd)
+        if "k_scale_pages" in c:
+            hk = kv_dequantize(hk, c["k_scale_pages"][idx].reshape(b, h0, kv),
+                               k.dtype)
+            hv = kv_dequantize(hv, c["v_scale_pages"][idx].reshape(b, h0, kv),
+                               v.dtype)
+        bufk[:, :h0] = hk.to(k.dtype)
+        bufv[:, :h0] = hv.to(v.dtype)
     rows = torch.where(valid, absp, h0 + s)
     bidx = torch.arange(b, device=dev)[:, None]
     bufk[bidx, rows] = k

@@ -21,7 +21,10 @@ that an earlier request already prefilled (prefix sharing: only the
 suffix is prefilled, bucketed by the number of shared pages), allocates
 the decode frontier page before each step writes it, and releases the
 slot's pages on eviction.  Decode attention then runs the engine's
-`paged_attention` kernel.
+`paged_attention` kernel.  An int8 KV cache (`cache_dtype="int8"`) keeps
+each layer's scale leaves in the same cache dict as its rows, placed by
+the same indices, so admission, eviction and prefix sharing treat them
+alike.
 
 Prefill is the only shape-variable call: prompt widths are rounded up
 to `prefill_bucket` (1 = the group's exact maximum).  Host state is
@@ -29,8 +32,8 @@ numpy, as in the JAX package; the tokens, masks and block tables go to
 the device once per call, and only the argmax tokens come back.
 
 Not ported yet: temperature sampling, speculative decoding, chunked
-prefill and `serve_async` (ROADMAP.md queue 1 item 5), and the int8 KV
-cache (item 2).  Each raises `NotImplementedError`.
+prefill and `serve_async` (ROADMAP.md queue 1 item 5).  Each raises
+`NotImplementedError`.
 """
 
 from __future__ import annotations

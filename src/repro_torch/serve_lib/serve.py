@@ -9,8 +9,10 @@ hand-written kernels, "torch-ref" for their plain versions); `None`
 means plain `@`, as the JAX package leaves the matmuls to XLA.
 `ServeConfig(quantize=True)` upgrades the backend to its int8 sibling
 ("hopper-int8", "torch-ref-int8") and expects `quant.quantize_params`
-weights: every dense matmul then runs int8 x int8 -> int32 over a float
-KV cache.
+weights: every dense matmul then runs int8 x int8 -> int32.
+`cache_dtype="int8"` stores the KV cache through the per-row int8 codec
+(rows and their f32 scales; DESIGN.md §7) on either layout.  The two are
+orthogonal, and the launcher's `--quantize` sets both.
 `warm_start_engine` loads a saved `ExecutionPlan` so the first requests
 re-plan nothing.
 
@@ -32,9 +34,9 @@ from ..engine import (BACKENDS, Engine, ExecutionPlan, backend_in_bytes,
 from ..models import transformer as T
 from ..models.config import ArchConfig
 
-#: cache dtypes the port's caches can hold (the int8 KV codec of the JAX
-#: package comes with the next slice of the int8 plane).
-SUPPORTED_CACHE_DTYPES = ("float32", "bfloat16", "float16")
+#: cache dtypes `models.transformer.init_cache` can represent.  int8
+#: selects the quantized KV codec (rows + per-row scales, DESIGN.md §7).
+SUPPORTED_CACHE_DTYPES = ("float32", "bfloat16", "float16", "int8")
 
 
 def _dtype(value) -> torch.dtype:
@@ -43,6 +45,35 @@ def _dtype(value) -> torch.dtype:
     dt = getattr(torch, str(value), None)
     if not isinstance(dt, torch.dtype):
         raise ValueError(f"{value!r} is not a torch dtype")
+    return dt
+
+
+def validate_cache_dtype(cache_dtype, cfg: ArchConfig | None = None
+                         ) -> torch.dtype:
+    """The cache-dtype validator (`ServeConfig` and `init_cache` both
+    route through it): normalises to a torch dtype, rejects dtypes the
+    cache cannot represent, and, given the arch, rejects int8 where it
+    would quantize nothing (int8 SSM / RG-LRU state is unsupported)."""
+    try:
+        dt = _dtype(cache_dtype)
+    except ValueError as e:
+        raise ValueError(f"cache_dtype {cache_dtype!r} is not a dtype: {e}"
+                         ) from None
+    name = str(dt).removeprefix("torch.")
+    if name not in SUPPORTED_CACHE_DTYPES:
+        raise ValueError(
+            f"cache_dtype {name!r} is not a supported cache dtype "
+            f"(supported: {', '.join(SUPPORTED_CACHE_DTYPES)}; 'int8' "
+            f"selects the quantized KV codec — DESIGN.md §7)")
+    if cfg is not None and dt == torch.int8:
+        if not set(cfg.layer_pattern) & {"attn", "local"}:
+            raise ValueError(
+                f"cache_dtype='int8' quantizes attention/sliding-window "
+                f"KV rows only, but this arch's layer pattern "
+                f"{cfg.layer_pattern} has no such layers — int8 "
+                f"SSM/RG-LRU state is unsupported (recurrent state is "
+                f"read-modify-write every step and stays bf16); use "
+                f"cache_dtype='bfloat16' for this arch")
     return dt
 
 
@@ -58,8 +89,9 @@ class ServeConfig:
     plan_path: str | None = None
     # int8 matmul plane: route every engine matmul through an int8 backend
     # (upgrading `kernel_backend` to its int8 sibling) and expect
-    # `quant.quantize_params` weights.  Orthogonal to an int8 KV cache,
-    # which the port does not hold yet.
+    # `quant.quantize_params` weights.  Orthogonal to cache_dtype="int8"
+    # (the KV codec): each serves without the other, and the launcher's
+    # --quantize sets both.
     quantize: bool = False
     # where the cache lives and the model runs ("cuda" unless the caller
     # asks for the CPU).
@@ -81,12 +113,7 @@ class ServeConfig:
         compute = _dtype(self.compute_dtype)
         if not compute.is_floating_point:
             raise ValueError(f"compute_dtype must be floating ({compute} given)")
-        cache = _dtype(self.cache_dtype)
-        if str(cache).removeprefix("torch.") not in SUPPORTED_CACHE_DTYPES:
-            raise ValueError(f"cache_dtype {cache} is not supported "
-                             f"(supported: {SUPPORTED_CACHE_DTYPES}; the int8 "
-                             f"KV codec comes with the next slice of the int8 "
-                             f"plane, ROADMAP.md queue 1 item 2b)")
+        cache = validate_cache_dtype(self.cache_dtype)
         if self.quantize:
             object.__setattr__(self, "kernel_backend",
                                int8_sibling(self.kernel_backend))
@@ -172,6 +199,9 @@ def warm_start_engine(scfg: ServeConfig) -> Engine | None:
 
 
 def init_cache(cfg: ArchConfig, scfg: ServeConfig) -> dict:
+    # the arch-aware half of the validator: ServeConfig cannot see the
+    # layer pattern
+    validate_cache_dtype(scfg.cache_dtype, cfg)
     paged = scfg.cache_layout == "paged"
     spec = T.CacheSpec(scfg.max_seq, scfg.batch,
                        page_size=scfg.page_size if paged else None,

@@ -216,9 +216,23 @@ def test_paged_wrapper_on_cpu_and_its_checks():
         got, paged_attention.paged_attention_reference(q, kp, vp, bt, ln),
         rtol=0, atol=0)
     assert paged_attention.launches == 0
-    with pytest.raises(NotImplementedError, match="item 2"):
-        paged_attention.paged_attention(q, kp, vp, bt, ln,
-                                        k_scale=torch.ones(kp.shape[:3]))
+    # int8 pools with their scale pools: the wrapper takes them
+    k8, v8 = (torch.from_numpy(np.random.default_rng(i).integers(
+        -127, 128, kp.shape).astype(np.int8)) for i in (1, 2))
+    ks, vs = (torch.full(kp.shape[:3], x) for x in (0.01, 0.02))
+    torch.testing.assert_close(
+        paged_attention.paged_attention(q, k8, v8, bt, ln, ks, vs),
+        paged_attention.paged_attention_reference(q, k8, v8, bt, ln, ks, vs),
+        rtol=0, atol=0)
+    assert paged_attention.launches == 0
+    with pytest.raises(TypeError, match="int8 pools"):
+        paged_attention.paged_attention(q, kp, vp, bt, ln, ks, vs)
+    with pytest.raises(TypeError, match="int8 pools"):
+        paged_attention.paged_attention(q, k8, v8, bt, ln)
+    with pytest.raises(ValueError, match="both"):
+        paged_attention.paged_attention(q, k8, v8, bt, ln, k_scale=ks)
+    with pytest.raises(ValueError, match="k_scale must be f32"):
+        paged_attention.paged_attention(q, k8, v8, bt, ln, ks.double(), vs)
     with pytest.raises(TypeError, match="int32"):
         paged_attention.paged_attention(q, kp, vp, bt.long(), ln)
     with pytest.raises(ValueError, match=r"\(B, 1, H, D\)"):

@@ -9,6 +9,8 @@ per output row, rel-L2 <= 1e-4 in f32 and <= 1e-2 in bf16 (PERF.md §2);
 the int8 GEMM's int32 result is held to its plain version bit for bit.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import (flash_attention, grouped_gemm,
                                   paged_attention, quant_gemm)
+from repro_torch.launch import serve as launch_serve
 from repro_torch.models import transformer as T
 from repro_torch.quant import kv_quantize, quantize, quantize_params
 from repro_torch.serve_lib import serve
@@ -215,6 +218,72 @@ def test_quantized_scheduler_tokens_on_the_card_equal_the_cpu(cuda):
     assert run("cuda", "paged") == want
     assert quant_gemm.launches > 0
     assert run("cuda", "contiguous") == want
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("page,d", [(1, 128), (16, 128), (5, 16), (4, 24)])
+def test_paged_int8_kernel_matches_plain_version(cuda, dtype, tol, page, d):
+    """int8 pools with distinct per-row scales (U(1e-3, 2e-2), as
+    tests/test_paged.py draws them), a table with holes, kv_len 0, 1, a
+    page edge and ragged; d 24 takes the byte-load path."""
+    rng = np.random.default_rng(page + d)
+    lens = [3 * page, 1, 0, 3 * page + 1, 2]
+    b, h, kv, n_bt = len(lens), 12, 2, 5
+    n_pool = b * n_bt + 3
+    perm = rng.permutation(n_pool)
+    bt = np.full((b, n_bt), -1, np.int32)
+    ptr = 0
+    for i, n in enumerate(lens):
+        need = -(-n // page)
+        bt[i, :need] = perm[ptr:ptr + need]
+        ptr += need
+    gen = torch.Generator(device=cuda).manual_seed(page)
+    q = torch.randn(b, 1, h, d, generator=gen, device=cuda).to(dtype)
+    k8, v8 = (torch.randint(-127, 128, (n_pool, page, kv, d), generator=gen,
+                            device=cuda, dtype=torch.int32).to(torch.int8)
+              for _ in range(2))
+    ks, vs = (torch.rand(n_pool, page, kv, generator=gen, device=cuda)
+              * 1.9e-2 + 1e-3 for _ in range(2))
+    bt_t = torch.from_numpy(bt).to(cuda)
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    paged_attention.reset_launches()
+    got = paged_attention.paged_attention(q, k8, v8, bt_t, ln, ks, vs)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == 1
+    ref = paged_attention.paged_attention_reference(q, k8, v8, bt_t, ln, ks,
+                                                    vs)
+    assert bool((got[2] == 0).all())
+    live = torch.tensor([0, 1, 3, 4], device=cuda)
+    assert _row_rel_l2(got[live], ref[live]) <= tol
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("trace", [None, "24x8,8x4*3"])
+def test_quantize_launcher_on_the_card_serves_the_cpus_tokens(cuda, trace):
+    """`--quantize` (int8 weights, int8 KV, hopper-int8) through the
+    launcher on the card, SMOKE f32: its weights and prompts served on the
+    CPU by the plain versions give the same tokens."""
+    args = ["--arch", "qwen2-1.5b", "--smoke", "--quantize", "--batch", "2"]
+    args += (["--prompt-len", "8", "--gen", "5"] if trace is None else
+             ["--cache-layout", "paged", "--page-size", "8", "--trace", trace])
+    paged_attention.reset_launches()
+    quant_gemm.reset_launches()
+    out = launch_serve.main(args)
+    assert quant_gemm.launches > 0
+    cpu = dataclasses.replace(out["serve_config"], device="cpu")
+    params = _to(out["params"], "cpu")
+    if trace is None:
+        want = serve.generate(params, out["cfg"], cpu, out["prompt"].cpu(), 5)
+        assert torch.equal(out["tokens"], want)
+        return
+    assert paged_attention.launches > 0
+    sched = Scheduler(params, out["cfg"], cpu)
+    done = sched.run(launch_serve.trace_requests(
+        out["cfg"], launch_serve.parse_trace(trace), 0))
+    card = out["scheduler"].completions
+    assert {u: c.tokens.tolist() for u, c in done.items()} == {
+        u: c.tokens.tolist() for u, c in card.items()}
 
 
 def _to(tree, dev):

@@ -441,9 +441,15 @@ def test_serveconfig_quantize_refuses_what_it_cannot_upgrade():
     with pytest.raises(ValueError, match="cannot upgrade"):
         jax_serve.ServeConfig(max_seq=8, batch=1, kernel_backend="nope",
                               quantize=True)
-    with pytest.raises(ValueError, match="next slice"):
-        serve.ServeConfig(max_seq=8, batch=1, cache_dtype="int8",
-                          quantize=True, device="cpu")
+    # the full posture, int8 weights over an int8 KV cache, now builds
+    full = serve.ServeConfig(max_seq=8, batch=1, cache_dtype="int8",
+                             quantize=True, device="cpu")
+    assert (full.kernel_backend, full.cache_dtype) == ("hopper-int8",
+                                                       torch.int8)
+    leaves = serve.init_cache(get_config(ARCH, smoke=True),
+                              full)["slots"]["b0"]
+    assert (leaves["k"].dtype, leaves["k_scale"].dtype) == (torch.int8,
+                                                            torch.float32)
 
 
 def test_warm_start_keys_an_int8_plan_at_one_byte(tmp_path, recwarn):
