@@ -88,7 +88,26 @@ Phases (any failed check exits non-zero; nothing falls back):
  16. SMOKE f32 under the full posture (and under cache_dtype="int8" with
      float weights, paged): card tokens against the CPU's, static and
      through the Scheduler, paged and contiguous, with a shared prefix;
- 17. the kernels line, then the result line.
+ 17. the sparse kernel against plain: qwen's dense shapes at 2:4 in bf16
+     (M = 4, 8 and 2048, at the engine's tile; times of kernel, plain
+     version and torch.matmul over the weight densified ahead of time
+     beside the bound), two f32 shapes, 1:2, 1:4, 4:8 and 3:7 at 8 x 1536
+     x 1536, a ragged (5, 1003, 200) also with an f32 output, and an int8
+     index array with offsets out of range and repeated; the untimed
+     cases at every tile of the menu;
+ 18. qwen2-1.5b under the launcher's --sparsity 2:4 (float N:M weights,
+     "hopper-sparse"): the static serve (4 x (512 + 16); the sparse kernel
+     must launch 7 x 28 x 16 = 3136 times and every other kernel 0 times;
+     pruned weight bytes against bf16; prefill logits against
+     "torch-ref-sparse" within rel-L2 and max 0.035), then the paged
+     serve's trace through the Scheduler (sparse launches 7 x 28 x (ticks
+     + prefill calls), paged 28 x ticks, 0 new plan misses on a second
+     pass, a device trace of 10 decode ticks, one tick's logits against
+     "torch-ref-sparse" within rel-L2 0.035);
+ 19. SMOKE f32 under sparsity="2:4": card tokens against the CPU's,
+     static and through the Scheduler, paged and contiguous, with a shared
+     prefix;
+ 20. the kernels line, then the result line.
 
 Every detail also goes to runs/chip_smoke.json.  Exits non-zero
 without a CUDA device, and outside a checkout of the repository.
@@ -122,12 +141,14 @@ from repro_torch.engine.cost import (HBM_BW, PEAK_FLOPS_BF16,  # noqa: E402
                                      HopperModel, choose_tile)
 from repro_torch.kernels import (_build, flash_attention,  # noqa: E402
                                   grouped_gemm, paged_attention, quant_gemm,
-                                  redas_gemm)
+                                  redas_gemm, sparse_gemm)
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.quant import quantize_params, tree_bytes  # noqa: E402
 from repro_torch.serve_lib import serve as serve_lib  # noqa: E402
 from repro_torch.serve_lib.scheduler import Request, Scheduler  # noqa: E402
+from repro_torch.sparse import (SparseTensor, prune_params,  # noqa: E402
+                                sparsify)
 
 ARCH = "qwen2-1.5b"
 BATCH, PROMPT, GEN, SEED = 4, 512, 16, 0
@@ -137,7 +158,7 @@ L2_BYTES = 50 * 2**20
 BF16_ROW_TOL, F32_ROW_TOL = 1e-2, 1e-4
 LOGIT_LIMITS = {"rel_l2": 0.035, "rel_max": 0.035}
 KERNELS = ("redas_gemm", "paged_attention", "flash_attention", "grouped_gemm",
-           "quant_gemm")
+           "quant_gemm", "sparse_gemm")
 #: the paged serve: 24 requests over 8 slots (prompt x new tokens * count)
 SLOTS, PAGE, BUCKET = 8, 16, 16
 TRACE = "768x32*4,512x64*4,256x16*8,64x48*8"
@@ -276,6 +297,7 @@ def reset_counts() -> None:
     flash_attention.reset_launches()
     grouped_gemm.reset_launches()
     quant_gemm.reset_launches()
+    sparse_gemm.reset_launches()
 
 
 def read_counts() -> dict:
@@ -283,7 +305,8 @@ def read_counts() -> dict:
             "paged_attention": paged_attention.launches,
             "flash_attention": flash_attention.launches,
             "grouped_gemm": grouped_gemm.launches,
-            "quant_gemm": quant_gemm.launches}
+            "quant_gemm": quant_gemm.launches,
+            "sparse_gemm": sparse_gemm.launches}
 
 
 def _operand_sets(m, k, n, dtype, gen):
@@ -595,8 +618,10 @@ def phase_main_path(cfg) -> dict:
     check(sum(launches.values()) == expected,
           f"GEMM kernel launched {sum(launches.values())} times, not {expected}")
     check(counts["paged_attention"] == counts["flash_attention"]
-          == counts["grouped_gemm"] == counts["quant_gemm"] == 0,
-          f"attention, grouped or int8 kernels on the static path: {counts}")
+          == counts["grouped_gemm"] == counts["quant_gemm"]
+          == counts["sparse_gemm"] == 0,
+          f"attention, grouped, int8 or sparse kernels on the static path: "
+          f"{counts}")
     check(tuple(tokens.shape) == (BATCH, GEN), f"tokens {tuple(tokens.shape)}")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab)).all()), "token out of range")
     check(torch.equal(first_tokens, tokens[:, :1]),
@@ -698,8 +723,8 @@ def phase_scheduler(cfg) -> dict:
           f"GEMM kernel launched {counts['redas_gemm']} times, not 7 x 28 x "
           f"({ticks} + {calls}) = {want_gemm}")
     check(counts["flash_attention"] == counts["grouped_gemm"]
-          == counts["quant_gemm"] == 0,
-          f"flash, grouped or int8 kernel on the paged path: {counts}")
+          == counts["quant_gemm"] == counts["sparse_gemm"] == 0,
+          f"flash, grouped, int8 or sparse kernel on the paged path: {counts}")
     for uid, toks in tokens.items():
         check(len(toks) == out["trace"][uid][1]
               and all(0 <= t < cfg.vocab for t in toks), f"request {uid}")
@@ -1095,7 +1120,7 @@ def phase_int8_static(cfg) -> dict:
     counts = read_counts()
     peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     want = {"redas_gemm": 0, "paged_attention": 0, "flash_attention": 0,
-            "grouped_gemm": 0,
+            "grouped_gemm": 0, "sparse_gemm": 0,
             "quant_gemm": sum(LAYER_GEMMS.values()) * cfg.n_layers * GEN}
     decode_ms = (seconds - prefill_s) * 1e3 / (GEN - 1)
     print(f"int8 static serve (quantize=True, hopper-int8, bf16, {BATCH} x "
@@ -1171,7 +1196,7 @@ def phase_int8_paged(cfg, qparams) -> None:
     tick_ms = sched.timings["decode_s"] * 1e3 / ticks
     plan = dict(eng.plan.stats)
     want = {"redas_gemm": 0, "grouped_gemm": 0, "flash_attention": 0,
-            "paged_attention": cfg.n_layers * ticks,
+            "sparse_gemm": 0, "paged_attention": cfg.n_layers * ticks,
             "quant_gemm": sum(LAYER_GEMMS.values()) * cfg.n_layers
             * (ticks + calls)}
     tokens = {u: c.tokens.tolist() for u, c in sched.completions.items()}
@@ -1353,7 +1378,7 @@ def phase_quantize_static(cfg) -> None:
     scfg, tokens = out["serve_config"], out["tokens"]
     decode_ms = (out["seconds"] * 1e3 - prefill_ms) / (GEN - 1)
     want = {"redas_gemm": 0, "paged_attention": 0, "flash_attention": 0,
-            "grouped_gemm": 0,
+            "grouped_gemm": 0, "sparse_gemm": 0,
             "quant_gemm": sum(LAYER_GEMMS.values()) * cfg.n_layers * GEN}
     print(f"--quantize static serve ({BATCH} x ({PROMPT} + {GEN}), "
           f"{scfg.kernel_backend}, cache {scfg.cache_dtype}): "
@@ -1377,10 +1402,12 @@ def phase_quantize_static(cfg) -> None:
         "tokens": tokens.tolist()}
 
 
-def _decode_tick_gap(params, cfg, scfg, eng, trace) -> dict:
-    """One paged decode tick at full width from one state, "hopper-int8"
-    against "torch-ref-int8": the slots admitted by the trace's first
-    Scheduler step, each at its decode frontier."""
+def _decode_tick_gap(params, cfg, scfg, eng, trace,
+                     backends=("torch-ref-int8", "hopper-int8")) -> dict:
+    """One paged decode tick at full width from one state, the kernels'
+    backend against its plain twin (`backends` = (plain, kernels)): the
+    slots admitted by the trace's first Scheduler step, each at its
+    decode frontier."""
     probe = Scheduler(params, cfg, scfg, engine=eng, prefill_bucket=BUCKET)
     for r in launch_serve.trace_requests(cfg, trace, SEED):
         probe.submit(r)
@@ -1392,12 +1419,12 @@ def _decode_tick_gap(params, cfg, scfg, eng, trace) -> dict:
     active = torch.ones(SLOTS, dtype=torch.bool, device="cuda")
     bt = torch.from_numpy(probe.paged.tables).cuda()
     logits = {}
-    for backend in ("torch-ref-int8", "hopper-int8"):
+    for backend in backends:
         # both ticks start from the same state (see phase_paged_parity)
         with torch.inference_mode(), use_engine(Engine(backend=backend)):
             logits[backend] = T.decode_step(params, cfg, probe.cache, toks,
                                             active=active, block_tables=bt)[0]
-    return _logit_gap(logits["hopper-int8"], logits["torch-ref-int8"])
+    return _logit_gap(logits[backends[1]], logits[backends[0]])
 
 
 def phase_quantize_paged(cfg) -> dict:
@@ -1416,7 +1443,7 @@ def phase_quantize_paged(cfg) -> dict:
     ticks, calls = st["decode_steps"], st["prefill_calls"]
     tick_ms = sched.timings["decode_s"] * 1e3 / ticks
     want = {"redas_gemm": 0, "grouped_gemm": 0, "flash_attention": 0,
-            "paged_attention": cfg.n_layers * ticks,
+            "sparse_gemm": 0, "paged_attention": cfg.n_layers * ticks,
             "quant_gemm": sum(LAYER_GEMMS.values()) * cfg.n_layers
             * (ticks + calls)}
     pools = sched.cache["slots"]["b0"]
@@ -1517,6 +1544,369 @@ def int8_line(rows: list[dict]) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": totals["library_ms"],
             "library": "torch._int_mm (decode M padded to 32)"}
+
+
+# --------------------------------------------------------------------------
+# qwen2-1.5b under --sparsity 2:4: the sparse kernel and the sparse serves
+# --------------------------------------------------------------------------
+
+
+def sparse_bound(m: int, k: int, n: int, itemsize: int, n_keep: int = 2,
+                 m_group: int = 4) -> tuple[float, str]:
+    """2 M K N x density operations at the operand type's peak; A read
+    once, the compressed weight (values at their itemsize and one index
+    byte per kept value) read once, the output written once."""
+    k_c = -(-k // m_group) * n_keep
+    return _bound_of(2.0 * m * k * n * n_keep / m_group,
+                     (m * k + m * n) * itemsize + k_c * n * (itemsize + 1),
+                     itemsize)
+
+
+def _sparse_sets(m, k, n, dtype, gen, n_keep, m_group, count=None):
+    """Operand sets (past the L2 unless `count` is given): activations,
+    a random weight pruned by `sparsify` (its values and indices), and the
+    same weight densified ahead of time for the library yardstick."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    per = m * k * size + -(-k // m_group) * n_keep * n * (size + 1)
+    count = count or max(2, min(32, math.ceil(2 * L2_BYTES / per)))
+    sets = []
+    for _ in range(count):
+        a = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+        st = sparsify((torch.randn(k, n, generator=gen, device="cuda")
+                       / math.sqrt(k)).to(dtype), n_keep, m_group)
+        sets.append((a, st.values, st.indices, st.densify(dtype)))
+    return sets
+
+
+def phase_sparse_kernel() -> list[dict]:
+    """The sparse kernel against its plain version: qwen's dense shapes at
+    2:4 in bf16 (M = 4, 8, 2048, each at the engine's tile, timed beside
+    the plain version, torch.matmul over the weight densified ahead of time
+    and the bound), two f32 shapes, 1:2, 1:4, 4:8 and 3:7 at 8 x 1536 x
+    1536, a ragged shape (also with an f32 output), and an index array
+    with offsets out of range and repeated (the one-hot sum); the untimed
+    cases at every tile of the menu."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    side = torch.cuda.Stream()
+    bf16, f32 = torch.bfloat16, torch.float32
+    # kind: "timed" at the engine's tile; "menu" (every tile, untimed);
+    # "any index" as "menu" with offsets -2..8 at 3:7 (out of range, repeated)
+    cases = [(m, k, n, bf16, 2, 4, bf16, "timed")
+             for m in (BATCH, SLOTS, BATCH * PROMPT) for k, n in LAYER_GEMMS]
+    cases += [(BATCH, 1536, 8960, f32, 2, 4, f32, "timed"),
+              (BATCH * PROMPT, 1536, 1536, f32, 2, 4, f32, "timed")]
+    cases += [(SLOTS, 1536, 1536, bf16, nk, mg, bf16, "menu")
+              for nk, mg in ((1, 2), (1, 4), (4, 8), (3, 7))]
+    cases += [(5, 1003, 200, bf16, 2, 4, bf16, "menu"),
+              (5, 1003, 200, bf16, 2, 4, f32, "menu"),
+              (5, 1003, 200, f32, 3, 7, f32, "any index")]
+    rows, failures = [], []
+    for m, k, n, dtype, nk, mg, out_dtype, kind in cases:
+        timed = kind == "timed"
+        sets = _sparse_sets(m, k, n, dtype, gen, nk, mg,
+                            None if timed else 1)
+        if kind == "any index":
+            sets = [(a, v, torch.randint(-2, 9, i.shape, generator=gen,
+                                         device="cuda", dtype=torch.int8), w)
+                    for a, v, i, w in sets]
+        a, v, i, _ = sets[0]
+        size = a.element_size()
+        tol = F32_ROW_TOL if out_dtype == f32 else BF16_ROW_TOL
+        kw = {"n_keep": nk, "m_group": mg}
+        ref = sparse_gemm.sparse_gemm_reference(a, v, i, out_dtype=out_dtype,
+                                                **kw)
+        dec = HopperModel().decide(KernelRequest(
+            "gemm_sparse", m, k, n, in_bytes=size, out_bytes=size,
+            density=nk / mg))
+        tile = (dec.bm, dec.bk, dec.bn)
+        rel = err = 0.0
+        for t in ((tile,) if timed else sparse_gemm.TILES):
+            out = sparse_gemm.sparse_gemm(a, v, i, tile=t,
+                                          out_dtype=out_dtype, **kw)
+            torch.cuda.synchronize()
+            check(out.dtype == out_dtype and out.shape == (m, n),
+                  f"sparse output {out.dtype} {tuple(out.shape)}")
+            rel = max(rel, row_rel_l2(out, ref))
+            err = max(err, (out.float() - ref.float()).abs().max().item())
+        name = f"{str(dtype)[6:]}" + ("" if out_dtype == dtype
+                                      else f" -> {str(out_dtype)[6:]}")
+        row = {"m": m, "k": k, "n": n, "dtype": str(dtype)[6:],
+               "out_dtype": str(out_dtype)[6:], "spec": f"{nk}:{mg}",
+               "tile": list(tile), "main_path": timed and dtype == bf16,
+               "tiles_checked": "decision" if timed else "menu",
+               "any_index": kind == "any index", "max_abs_err": err,
+               "row_rel_l2": rel, "tol": tol}
+        row["bound_ms"], row["bound_by"] = sparse_bound(m, k, n, size, nk, mg)
+        times = ""
+        if timed:
+            row["ms"] = device_ms(functools.partial(
+                lambda a, v, i, w, **kw: sparse_gemm.sparse_gemm(a, v, i,
+                                                                  **kw),
+                tile=tile, **kw), sets, side)
+            row["plain_ms"] = device_ms(functools.partial(
+                lambda a, v, i, w, **kw: sparse_gemm.sparse_gemm_reference(
+                    a, v, i, **kw), **kw), sets, side)
+            row["library_ms"] = device_ms(lambda a, v, i, w: a @ w, sets,
+                                          side)
+            times = (f"; kernel {row['ms']:.4f} ms, plain "
+                     f"{row['plain_ms']:.4f} ms, torch.matmul over the "
+                     f"densified weight {row['library_ms']:.4f} ms")
+        rows.append(row)
+        ok = math.isfinite(rel) and rel <= tol
+        print(f"sparse_gemm {nk}:{mg} {name} {m}x{k}x{n} "
+              f"{'tile ' + str(tile) if timed else 'every menu tile'}"
+              f"{', any int8 index' if row['any_index'] else ''}: row rel-L2 "
+              f"{rel:.2e} (tol {tol:g}), max|diff| {err:.3e}{times}, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+              f"{'' if ok else '  FAILED'}")
+        if not ok:
+            failures.append(f"{nk}:{mg} {name} {m}x{k}x{n}: {rel:.2e}")
+        del sets
+    REPORT["sparse_kernel"] = rows
+    check(not failures, f"sparse kernel disagrees with its plain version: "
+          f"{failures}")
+    return rows
+
+
+def _sparse_serve(gen: int) -> dict:
+    """The launcher's --sparsity 2:4 static serve: BATCH requests of PROMPT
+    tokens, weights (pruned after `init_params`) and prompt from SEED."""
+    return launch_serve.main(
+        ["--arch", ARCH, "--sparsity", "2:4", "--batch", str(BATCH),
+         "--prompt-len", str(PROMPT), "--seed", str(SEED), "--gen", str(gen)])
+
+
+def _dense_bytes(tree) -> int:
+    """Bytes of the tree with every SparseTensor at its dense shape in its
+    values' dtype (what the unpruned weights take)."""
+    if isinstance(tree, dict):
+        return sum(_dense_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_dense_bytes(v) for v in tree)
+    if isinstance(tree, SparseTensor):
+        return math.prod(tree.shape) * tree.values.element_size()
+    return tree_bytes(tree)
+
+
+def phase_sparse_static(cfg) -> None:
+    """qwen2-1.5b through `launch.serve --sparsity 2:4` at full width: 4 x
+    (512 + 16), bf16, "hopper-sparse" (every dense matmul on the sparse
+    kernel); then the prefill logits against "torch-ref-sparse" on the
+    served run's own pruned weights and prompt."""
+    _sparse_serve(1)                           # warm-up
+    first = _sparse_serve(1)
+    first_tokens, prefill_ms = first["tokens"], first["seconds"] * 1e3
+    del first
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counts()
+    out = _sparse_serve(GEN)
+    counts = read_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    scfg, tokens, eng = out["serve_config"], out["tokens"], out["engine"]
+    sizes = {"sparse_weight_bytes": tree_bytes(out["params"]),
+             "bf16_weight_bytes": _dense_bytes(out["params"])}
+    decode_ms = (out["seconds"] * 1e3 - prefill_ms) / (GEN - 1)
+    want = {"redas_gemm": 0, "paged_attention": 0, "flash_attention": 0,
+            "grouped_gemm": 0, "quant_gemm": 0,
+            "sparse_gemm": sum(LAYER_GEMMS.values()) * cfg.n_layers * GEN}
+    print(f"--sparsity 2:4 static serve ({BATCH} x ({PROMPT} + {GEN}), "
+          f"{scfg.kernel_backend}): {out['seconds']:.3f} s, "
+          f"{out['tokens_per_s']:.1f} tok/s; prefill and first token "
+          f"{prefill_ms:.2f} ms, decode {decode_ms:.3f} ms/step; weights "
+          f"{sizes['sparse_weight_bytes'] / 2**30:.3f} GiB pruned against "
+          f"{sizes['bf16_weight_bytes'] / 2**30:.3f} GiB bf16; max memory "
+          f"allocated by the run {peak:.2f} GiB (the bf16 draw and its "
+          f"pruning included); plan {out['engine_plan']}; kernel launches "
+          f"{counts} (want {want})")
+    check(scfg.kernel_backend == "hopper-sparse", f"{scfg.kernel_backend}")
+    check(counts == want, f"--sparsity static launches {counts}, not {want}")
+    check(tuple(tokens.shape) == (BATCH, GEN)
+          and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()),
+          f"--sparsity static tokens {tuple(tokens.shape)}")
+    check(torch.equal(first_tokens, tokens[:, :1]),
+          "1-token and 16-token --sparsity runs differ")
+    check({(req.op, req.density) for req, _ in eng.plan}
+          == {("gemm_sparse", 0.5)},
+          f"plan {[(req.op, req.density) for req, _ in eng.plan]}")
+    check(sizes["sparse_weight_bytes"] < 0.85 * sizes["bf16_weight_bytes"],
+          f"weight bytes {sizes}")
+
+    logits = {}
+    for backend in ("torch-ref-sparse", "hopper-sparse"):
+        cache = T.init_cache(cfg, T.CacheSpec(PROMPT + GEN + 1, BATCH),
+                             dtype=torch.bfloat16, device="cuda")
+        with torch.inference_mode(), use_engine(Engine(backend=backend)):
+            logits[backend] = T.prefill(out["params"], cfg, out["prompt"],
+                                        cache)[0]
+    gap = _logit_gap(logits["hopper-sparse"], logits["torch-ref-sparse"])
+    print(f"--sparsity full-width prefill logits, hopper-sparse vs "
+          f"torch-ref-sparse on the same pruned weights and prompt: rel-L2 "
+          f"{gap['rel_l2']:.4e}, max|diff|/max|ref| {gap['rel_max']:.4e}, "
+          f"argmax agreement {gap['argmax_agreement']:.2f} (limits "
+          f"{LOGIT_LIMITS})")
+    check(all(math.isfinite(gap[k]) and gap[k] <= LOGIT_LIMITS[k]
+              for k in LOGIT_LIMITS), f"--sparsity prefill logit gap {gap}")
+    REPORT["sparse_static"] = {
+        "seconds": out["seconds"], "tokens_per_s": out["tokens_per_s"],
+        "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+        "max_memory_gib": peak, **sizes, "plan": out["engine_plan"],
+        "counts": counts, "prefill_logits": gap, "tokens": tokens.tolist()}
+
+
+def phase_sparse_paged(cfg) -> None:
+    """The paged serve's trace through `launch.serve --sparsity 2:4`: the
+    Scheduler on float pools, every dense matmul on the sparse kernel and
+    every decode attention on the paged kernel; a second pass, a device
+    trace of 10 decode ticks, and one tick's logits against
+    "torch-ref-sparse"."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counts()
+    out = launch_serve.main(SERVE_ARGS + ["--sparsity", "2:4"])
+    counts = read_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    sched, eng, scfg = out["scheduler"], out["engine"], out["serve_config"]
+    st = sched.stats
+    ticks, calls = st["decode_steps"], st["prefill_calls"]
+    tick_ms = sched.timings["decode_s"] * 1e3 / ticks
+    want = {"redas_gemm": 0, "grouped_gemm": 0, "flash_attention": 0,
+            "quant_gemm": 0, "paged_attention": cfg.n_layers * ticks,
+            "sparse_gemm": sum(LAYER_GEMMS.values()) * cfg.n_layers
+            * (ticks + calls)}
+    tokens = {u: c.tokens.tolist() for u, c in sched.completions.items()}
+    print(f"--sparsity 2:4 paged serve ({scfg.kernel_backend}): "
+          f"{out['requests']} requests / {out['tokens']} tokens in "
+          f"{out['seconds']:.3f} s, {out['tokens_per_s']:.1f} tok/s over "
+          f"{SLOTS} slots; {ticks} decode ticks, {tick_ms:.3f} ms per tick "
+          f"(mean); {calls} prefill calls of widths "
+          f"{sorted(st['prefill_widths'])}, "
+          f"{sched.timings['prefill_s'] * 1e3:.2f} ms in all; plan "
+          f"{eng.plan.stats}; kernel launches {counts} (want {want}); peak "
+          f"memory above what the script held {peak:.3f} GiB")
+    check(scfg.kernel_backend == "hopper-sparse", f"{scfg.kernel_backend}")
+    check(out["requests"] == len(launch_serve.parse_trace(TRACE)),
+          f"served {out['requests']} requests")
+    check(counts == want, f"--sparsity paged launches {counts}, not {want}")
+    for uid, toks in tokens.items():
+        check(len(toks) == out["trace"][uid][1]
+              and all(0 <= t < cfg.vocab for t in toks), f"request {uid}")
+    sched.paged.check_invariants()
+    new_misses, prof = _replay_and_trace(out["params"], cfg, scfg, eng,
+                                         out["trace"], tokens, "--sparsity ")
+    gap = _decode_tick_gap(out["params"], cfg, scfg, eng, out["trace"],
+                           backends=("torch-ref-sparse", "hopper-sparse"))
+    print(f"--sparsity full-width paged decode tick logits (8 slots), "
+          f"hopper-sparse vs torch-ref-sparse: rel-L2 {gap['rel_l2']:.4e}, "
+          f"max|diff|/max|ref| {gap['rel_max']:.4e}, argmax agreement "
+          f"{gap['argmax_agreement']:.2f} (limit rel-L2 "
+          f"{LOGIT_LIMITS['rel_l2']})")
+    REPORT["sparse_paged"] = {
+        "trace": TRACE, "slots": SLOTS, "seconds": out["seconds"],
+        "tokens_per_s": out["tokens_per_s"], "tokens": out["tokens"],
+        "decode_ticks": ticks, "decode_ms_per_tick": tick_ms,
+        "prefill_calls": calls, "prefill_widths": sorted(st["prefill_widths"]),
+        "prefill_ms": sched.timings["prefill_s"] * 1e3,
+        "plan": eng.plan.stats, "counts": counts, "max_memory_gib": peak,
+        "second_pass_new_misses": new_misses, "trace_10_ticks": prof,
+        "decode_tick_logits": gap}
+    check(math.isfinite(gap["rel_l2"]) and gap["rel_l2"] <= LOGIT_LIMITS["rel_l2"],
+          f"--sparsity paged decode logit gap {gap}")
+
+
+def phase_sparse_smoke_parity() -> None:
+    """qwen2-1.5b SMOKE in f32 under sparsity="2:4", weights pruned on the
+    CPU: the card's tokens (the sparse kernel) equal the CPU's plain run,
+    static (`generate`) and through the Scheduler, paged and contiguous,
+    with a shared prefix."""
+    smoke = get_config(ARCH, smoke=True)
+    cpu_params = prune_params(T.init_params(
+        smoke, generator=torch.Generator().manual_seed(SEED),
+        dtype=torch.float32), 2, 4)
+    card_params = _to(cpu_params, "cuda")
+    result = {}
+    sprompt = torch.randint(0, smoke.vocab, (2, 24),
+                            generator=torch.Generator().manual_seed(SEED + 1),
+                            dtype=torch.int32)
+    kw = {"max_seq": 33, "batch": 2, "compute_dtype": "float32",
+          "cache_dtype": "float32", "sparsity": "2:4"}
+    want = serve_lib.generate(cpu_params, smoke, serve_lib.ServeConfig(
+        device="cpu", **kw), sprompt, 8)
+    sparse_gemm.reset_launches()
+    got = serve_lib.generate(card_params, smoke, serve_lib.ServeConfig(
+        device="cuda", **kw), sprompt, 8)
+    check(sparse_gemm.launches == 7 * smoke.n_layers * 8,
+          f"smoke static sparse launches {sparse_gemm.launches}")
+    result["static"] = torch.equal(got.cpu(), want)
+    rng = np.random.default_rng(SEED)
+    prefix = rng.integers(0, smoke.vocab, 24)
+    spec = [(uid, (np.concatenate([prefix, rng.integers(0, smoke.vocab, 3 + uid)])
+                   if uid % 2 else rng.integers(0, smoke.vocab, 5 + 3 * uid)
+                   ).astype(np.int32), 4 + uid % 5) for uid in range(8)]
+    tokens = {}
+    for device in ("cpu", "cuda"):
+        for layout in ("paged", "contiguous"):
+            sc = serve_lib.ServeConfig(max_seq=48, batch=3,
+                                       compute_dtype="float32",
+                                       cache_dtype="float32", sparsity="2:4",
+                                       device=device, cache_layout=layout,
+                                       page_size=8)
+            sparse_gemm.reset_launches()
+            sched = Scheduler(cpu_params if device == "cpu" else card_params,
+                              smoke, sc)
+            done = sched.run([Request(uid=u, prompt=x, max_new_tokens=g)
+                              for u, x, g in spec])
+            tokens[(device, layout)] = {u: c.tokens.tolist()
+                                        for u, c in done.items()}
+            check(device == "cpu" or sparse_gemm.launches > 0,
+                  "the sparse kernel did not run on the card")
+            if layout == "paged":
+                check(sched.stats["shared_prefix_tokens"] > 0,
+                      f"smoke trace shared no prefix on {device}")
+    for layout in ("paged", "contiguous"):
+        result[f"scheduler {layout}"] = (tokens[("cuda", layout)]
+                                         == tokens[("cpu", layout)])
+    print(f"sparse SMOKE f32 (sparsity='2:4'): card tokens identical to the "
+          f"CPU's plain run: {result}")
+    REPORT["sparse_smoke_parity"] = result
+    check(all(result.values()), f"sparse smoke tokens differ: {result}")
+
+
+def sparse_line(rows: list[dict]) -> dict:
+    """The --sparsity static serve's sparse GEMM work: each main-path
+    shape's time at the engine's tile, weighted by the launches that serve
+    makes (the plain version, torch.matmul over the densified weight and
+    the bound likewise)."""
+    cfg = get_config(ARCH)
+    totals = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+    ops_ms = bytes_ms = 0.0
+    for (k, n), per_layer in LAYER_GEMMS.items():
+        for m, steps in ((BATCH * PROMPT, 1), (BATCH, GEN - 1)):
+            row = next(r for r in rows if r["main_path"]
+                       and (r["m"], r["k"], r["n"]) == (m, k, n))
+            calls = per_layer * cfg.n_layers * steps
+            for key in totals:
+                totals[key] += calls * row[key]
+            ops_ms += calls * m * k * n / PEAK_FLOPS_BF16 * 1e3
+            bytes_ms += calls * ((m * k + m * n) * 2 + k // 2 * n * 3) / HBM_BW * 1e3
+    static, paged = REPORT["sparse_static"], REPORT["sparse_paged"]
+    return {"name": "sparse_gemm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sparse_gemm.cu",
+            "replaces": "src/repro/kernels/sparse_gemm.py:163",
+            "launches": static["counts"]["sparse_gemm"],
+            "launches_by_path": {"sparse_static_serve":
+                                 static["counts"]["sparse_gemm"],
+                                 "sparse_paged_serve":
+                                 paged["counts"]["sparse_gemm"]},
+            "per": "the --sparsity 2:4 static serve's 3136 launches, summed",
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": totals["ms"], "plain_ms": totals["plain_ms"],
+            "bound_ms": totals["bound_ms"],
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": totals["library_ms"],
+            "library": "torch.matmul over the weight densified ahead of time"}
 
 
 # --------------------------------------------------------------------------
@@ -1630,7 +2020,7 @@ def phase_granite_sorted() -> dict:
     want = {"grouped_gemm": 3 * layers * (ticks + calls),
             "redas_gemm": 4 * layers * (ticks + calls),
             "paged_attention": layers * ticks, "flash_attention": 0,
-            "quant_gemm": 0}
+            "quant_gemm": 0, "sparse_gemm": 0}
     tokens = {u: c.tokens.tolist() for u, c in sched.completions.items()}
     print(f"granite sorted serve (paged, full width, bf16): "
           f"{len(sched.completions)} requests / {n_tok} tokens in "
@@ -1730,7 +2120,8 @@ def phase_granite_einsum() -> None:
     cfg = out["cfg"]
     want = {"grouped_gemm": 0,
             "redas_gemm": 4 * cfg.n_layers * EINSUM_GEN,
-            "paged_attention": 0, "flash_attention": 0, "quant_gemm": 0}
+            "paged_attention": 0, "flash_attention": 0, "quant_gemm": 0,
+            "sparse_gemm": 0}
     tokens = out["tokens"]
     print(f"granite einsum serve (static, {SLOTS} x ({EINSUM_PROMPT} + "
           f"{EINSUM_GEN}), impl={cfg.moe.impl!r}): {out['seconds']:.3f} s, "
@@ -1915,6 +2306,7 @@ def main() -> int:
     grouped_rows = phase_grouped_kernel()
     int8_rows = phase_int8_kernel()
     paged_int8_rows = phase_paged_int8_kernel()
+    sparse_rows = phase_sparse_kernel()
     cfg = get_config(ARCH)
     served = phase_main_path(cfg)
     phase_parity(cfg, served)
@@ -1934,6 +2326,11 @@ def main() -> int:
     qpaged = phase_quantize_paged(cfg)
     torch.cuda.empty_cache()
     phase_int8_smoke_parity("int8")
+    phase_sparse_static(cfg)
+    torch.cuda.empty_cache()
+    phase_sparse_paged(cfg)
+    torch.cuda.empty_cache()
+    phase_sparse_smoke_parity()
     granite = phase_granite_sorted()
     phase_granite_parity(granite)
     del granite
@@ -1943,7 +2340,8 @@ def main() -> int:
     lines = [gemm_line(rows, REPORT["main_path"], REPORT["paged_serve"]),
              *attention_lines(attn, REPORT["paged_serve"]),
              grouped_line(grouped_rows, REPORT["granite_sorted"]),
-             int8_line(int8_rows), paged_int8_line(paged_int8_rows, qpaged)]
+             int8_line(int8_rows), paged_int8_line(paged_int8_rows, qpaged),
+             sparse_line(sparse_rows)]
     REPORT["kernels"] = lines
     REPORT["seconds"] = time.perf_counter() - t0
     out_dir = ROOT / "runs"

@@ -3,7 +3,8 @@
 the grouped and attention registrations of
 `repro/kernels/grouped_gemm.py`, `repro/kernels/flash_attention.py` and
 `repro/kernels/paged_attention.py`; the int8 entries port the
-registrations of `repro/kernels/quant_gemm.py`).
+registrations of `repro/kernels/quant_gemm.py`, the sparse ones those of
+`repro/kernels/sparse_gemm.py`).
 
 The Hopper kernels mask ragged edges themselves, so the entries pass the
 operands straight through: no padding copies, no slicing.
@@ -14,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import (flash_attention, grouped_gemm, paged_attention,
-                       quant_gemm, redas_gemm)
+                       quant_gemm, redas_gemm, sparse_gemm)
 from .plan import KernelDecision
 
 
@@ -143,6 +144,31 @@ def plain_attention(decision: KernelDecision, q, k, v, *, causal=True,
     return o.transpose(1, 2)
 
 
+# --------------------------------------------------------------------------
+# The sparse plane
+# --------------------------------------------------------------------------
+
+
+def hopper_sparse_gemm(decision: KernelDecision, a, values, indices, *,
+                       n_keep, m_group, out_dtype=None):
+    """The decision's OS tile on the sparse kernel (a decision planned for
+    another kernel, e.g. from a warm-start plan, snaps to its menu)."""
+    return sparse_gemm.sparse_gemm(
+        a, values, indices, n_keep=n_keep, m_group=m_group,
+        tile=quant_gemm.snap_tile(decision.bm, decision.bk, decision.bn,
+                                  tiles=sparse_gemm.TILES),
+        out_dtype=out_dtype)
+
+
+def ref_sparse_gemm(decision: KernelDecision, a, values, indices, *,
+                    n_keep, m_group, out_dtype=None):
+    """The sparse kernel's plain version; the decision is planned but
+    ignored."""
+    return sparse_gemm.sparse_gemm_reference(
+        a, values, indices, n_keep=n_keep, m_group=m_group,
+        out_dtype=out_dtype)
+
+
 def register_into(registry) -> None:
     registry.register("hopper", "gemm", hopper_gemm)
     registry.register("torch-ref", "gemm", ref_gemm)
@@ -160,3 +186,16 @@ def register_into(registry) -> None:
         registry.register(name, "attention", plain_attention)
     registry.register("hopper-int8", "paged_attention", hopper_paged_attention)
     registry.register("torch-ref-int8", "paged_attention", ref_paged_attention)
+    # the sparse plane: pruned weights on the sparse kernel, anything left
+    # dense on the float GEMM; the grouped and attention ops plain, and
+    # paged decode on its kernel, as the JAX package keeps the sparse
+    # namespace total (MoE expert stacks are never pruned)
+    for name, kernels in (("hopper-sparse", True), ("torch-ref-sparse", False)):
+        registry.register(name, "gemm_sparse",
+                          hopper_sparse_gemm if kernels else ref_sparse_gemm)
+        registry.register(name, "gemm", hopper_gemm if kernels else ref_gemm)
+        registry.register(name, "grouped_gemm", ref_grouped_gemm)
+        registry.register(name, "attention", plain_attention)
+        registry.register(name, "paged_attention",
+                          hopper_paged_attention if kernels
+                          else ref_paged_attention)

@@ -16,7 +16,10 @@ one dict hit.
 On an int8 backend ("hopper-int8", "torch-ref-int8") every request keys
 at in_bytes = 1, the width the int8 kernel moves, and at out_bytes = the
 float compute width it rescales to; `quant_matmul` dispatches the
-`gemm_w8` op for `quant.quantize_params` weights.
+`gemm_w8` op for `quant.quantize_params` weights.  On a sparse backend
+("hopper-sparse", "torch-ref-sparse") `sparse_matmul` dispatches the
+`gemm_sparse` op for `sparse.prune_params` weights, keyed with the
+storage's N and M and planned at its density N/M.
 """
 
 from __future__ import annotations
@@ -44,6 +47,24 @@ _INT8_SIBLING = {
 }
 
 
+#: backends that execute through the N:M structured-sparsity plane: their
+#: `gemm_sparse` requests carry the storage density in the decision key;
+#: everything else dispatches as on the float plane.
+SPARSE_BACKENDS = ("hopper-sparse", "torch-ref-sparse")
+
+#: backend -> its sparse sibling (the `ServeConfig(sparsity=...)`
+#: upgrade, applied after the int8 one); the int8 names upgrade too, as
+#: in the JAX package, and sparse names pass through.
+_SPARSE_SIBLING = {
+    "hopper": "hopper-sparse",
+    "torch-ref": "torch-ref-sparse",
+    "hopper-int8": "hopper-sparse",
+    "torch-ref-int8": "torch-ref-sparse",
+    "hopper-sparse": "hopper-sparse",
+    "torch-ref-sparse": "torch-ref-sparse",
+}
+
+
 def backend_in_bytes(backend: str | None, itemsize: int) -> int:
     """The in_bytes a request dispatched on `backend` is keyed with: the
     operand itemsize, except that int8 backends pin it to 1."""
@@ -62,6 +83,21 @@ def int8_sibling(backend: str | None) -> str:
         raise ValueError(
             f"quantize=True cannot upgrade kernel_backend {backend!r} to an "
             f"int8 sibling (known: {sorted(_INT8_SIBLING)})")
+    return sibling
+
+
+def sparse_sibling(backend: str | None) -> str:
+    """The sparse backend a `sparsity="N:M"` config executes on instead of
+    `backend`; raises with the known names otherwise.  `None` resolves to
+    "hopper-sparse", which, like "hopper", takes the kernel on CUDA
+    tensors and its plain version on CPU tensors."""
+    if backend is None:
+        return "hopper-sparse"
+    sibling = _SPARSE_SIBLING.get(backend)
+    if sibling is None:
+        raise ValueError(
+            f"sparsity cannot upgrade kernel_backend {backend!r} to a sparse "
+            f"sibling (known: {sorted(_SPARSE_SIBLING)})")
     return sibling
 
 
@@ -86,6 +122,12 @@ class Engine:
         """True when this engine executes on the quantized plane."""
         return self.backend in INT8_BACKENDS
 
+    @property
+    def sparse(self) -> bool:
+        """True when this engine executes on the structured-sparsity plane
+        (`sparse_matmul` is dispatchable)."""
+        return self.backend in SPARSE_BACKENDS
+
     def _rebind(self, decision: KernelDecision) -> KernelDecision:
         """Execute a decision (possibly from a warm-start plan recorded for
         another backend) on this engine's backend."""
@@ -106,14 +148,16 @@ class Engine:
         return decision
 
     def _resolve(self, key: tuple, op: str, m: int, k: int, n: int,
-                 groups: int, item_bytes: int) -> tuple:
+                 groups: int, item_bytes: int, *,
+                 density: float = 1.0) -> tuple:
         """Miss path: full request -> decide -> registry, then memoize.
         On an int8 backend the request keys at in_bytes = 1 and the output
-        at the float compute width `item_bytes`."""
+        at the float compute width `item_bytes`; `density` keys a sparse
+        request apart from its dense sibling."""
         req = KernelRequest(op, m, k, n, groups=groups,
                             in_bytes=backend_in_bytes(self.backend,
                                                       item_bytes),
-                            out_bytes=item_bytes)
+                            out_bytes=item_bytes, density=density)
         dec = self.decide(req)
         entry = self._memo[key] = (dec, self.registry.get(dec.backend, op))
         return entry
@@ -156,6 +200,32 @@ class Engine:
             hit = self._resolve(key, "gemm_w8", m, k, n, 1, a.element_size())
         dec, fn = hit
         return fn(dec, a, w_q, w_scale, out_dtype=out_dtype)
+
+    def sparse_matmul(self, a, st, *, out_dtype=None):
+        """(M, K) float @ N:M structured-sparse weight storage
+        (`sparse.prune_params`) through the planned `gemm_sparse` kernel:
+        the compressed values and indices never become a dense weight in
+        device memory.  The request is planned at the storage's density
+        N/M, so it never shares a decision with a dense GEMM of the same
+        shape.  Only sparse backends register the op; callers guard on
+        `Engine.sparse`."""
+        if st.quantized:
+            raise NotImplementedError(
+                "sparse_matmul: sparse x int8 storage (int8 values and "
+                "scales) is not ported yet (ROADMAP.md queue 1 item 2)")
+        v, i = st.values, st.indices
+        key = ("gemm_sparse", a.shape, a.dtype, v.shape, v.dtype, st.n, st.m)
+        hit = self._lookup(key)
+        if hit is None:
+            m, k = a.shape
+            if k != st.k_dense:
+                raise ValueError(f"sparse matmul dim mismatch "
+                                 f"{tuple(a.shape)} @ {st!r}")
+            hit = self._resolve(key, "gemm_sparse", m, k, v.shape[-1], 1,
+                                a.element_size(), density=st.n / st.m)
+        dec, fn = hit
+        return fn(dec, a, v, i, n_keep=st.n, m_group=st.m,
+                  out_dtype=out_dtype)
 
     def grouped_matmul(self, x, w, *, out_dtype=None):
         """x (E, C, D) @ w (E, D, F) -> (E, C, F), per expert."""

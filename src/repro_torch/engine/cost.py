@@ -17,7 +17,10 @@ and drains like a systolic array's pipeline.
 A request keyed at in_bytes == 1 (every request of an int8 backend) is
 planned on the int8 kernel's own menu, pinned to OS as the JAX package
 pins its int8 kernel (the streaming dataflows would push int32 partial
-sums through HBM), at the data sheet's int8 peak.
+sums through HBM), at the data sheet's int8 peak.  A `gemm_sparse`
+request is planned as the JAX package's `_decide_gemm_sparse` plans it:
+at K_eff = density x K, plus one index byte per kept value, on the
+sparse kernel's own menu, pinned to OS (its only dataflow).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
-from ..kernels import grouped_gemm, quant_gemm
+from ..kernels import grouped_gemm, quant_gemm, sparse_gemm
 from ..kernels.redas_gemm import DATAFLOWS, SMEM_LIMIT, TILES, smem_bytes
 from .plan import KernelDecision, KernelRequest
 
@@ -92,12 +95,13 @@ def _tile_smem(bm: int, bk: int, bn: int, in_bytes: int) -> int:
 
 def choose_tile(m: int, k: int, n: int, in_bytes: int = 2,
                 out_bytes: int = 2, dataflows=DATAFLOWS,
-                tiles=TILES) -> TileConfig:
+                tiles=TILES, smem=_tile_smem) -> TileConfig:
     """The least-time legal (dataflow, tile) for one GEMM shape among
-    `tiles` (the ReDas GEMM's menu unless given)."""
+    `tiles` (the ReDas GEMM's menu unless given), a tile being legal when
+    `smem(bm, bk, bn, in_bytes)` fits a block's shared memory."""
     best, best_t = None, math.inf
     for bm, bk, bn in tiles:
-        if _tile_smem(bm, bk, bn, in_bytes) > SMEM_LIMIT:
+        if smem(bm, bk, bn, in_bytes) > SMEM_LIMIT:
             continue
         for df in dataflows:
             cfg = TileConfig(df, bm, bk, bn)
@@ -152,13 +156,37 @@ def decide_grouped(request: KernelRequest, name: str) -> KernelDecision:
                                      request.in_bytes)}.items())))
 
 
+def decide_sparse(request: KernelRequest, name: str) -> KernelDecision:
+    """The port of `TPUModel._decide_gemm_sparse`: the effective-FLOPs
+    roofline of N:M weight sparsity.  The search runs at K_eff = density
+    x K, and one int8 index byte per kept value streams with the weights.
+    It is pinned to OS over the sparse kernel's menu, gated by that
+    kernel's shared memory."""
+    k_eff = max(1, round(request.k * request.density))
+    cfg = choose_tile(request.m, k_eff, request.n, request.in_bytes,
+                      request.out_bytes, dataflows=("os",),
+                      tiles=sparse_gemm.TILES, smem=sparse_gemm.smem_bytes)
+    seconds, bytes_, pad_eff = estimate(request.m, k_eff, request.n, cfg,
+                                        request.in_bytes, request.out_bytes)
+    idx_bytes = float(k_eff * request.n)
+    return KernelDecision(
+        op=request.op, dataflow="os", bm=cfg.bm, bk=cfg.bk, bn=cfg.bn,
+        cost_model=name, seconds=seconds + idx_bytes / HBM_BW,
+        meta=tuple(sorted({
+            "hbm_bytes": bytes_ + idx_bytes, "padding_efficiency": pad_eff,
+            "density": request.density, "k_effective": k_eff,
+            "smem_bytes": sparse_gemm.smem_bytes(
+                cfg.bm, cfg.bk, cfg.bn, request.in_bytes)}.items())))
+
+
 @dataclasses.dataclass
 class HopperModel:
     """The decision surface as a cost model: `decide(request)` returns
     the chosen dataflow and CTA tile for a `gemm` or `gemm_w8` request
-    (an OS tile of the int8 kernel at in_bytes == 1), the per-expert OS
-    tile for a `grouped_gemm` one, and the flash blocks for an
-    `attention` or `paged_attention` one."""
+    (an OS tile of the int8 kernel at in_bytes == 1), the sparse kernel's
+    OS tile for a `gemm_sparse` one, the per-expert OS tile for a
+    `grouped_gemm` one, and the flash blocks for an `attention` or
+    `paged_attention` one."""
 
     name: str = "hopper-h100"
 
@@ -168,9 +196,12 @@ class HopperModel:
             return decide_attention(request, self.name)
         if request.op == "grouped_gemm":
             return decide_grouped(request, self.name)
+        if request.op == "gemm_sparse":
+            return decide_sparse(request, self.name)
         if request.op not in ("gemm", "gemm_w8"):
-            raise ValueError(f"HopperModel plans gemm, gemm_w8, grouped_gemm "
-                             f"and attention, not {request.op!r}")
+            raise ValueError(f"HopperModel plans gemm, gemm_w8, gemm_sparse, "
+                             f"grouped_gemm and attention, not "
+                             f"{request.op!r}")
         int8 = request.in_bytes == 1
         cfg = choose_tile(request.m, request.k, request.n, request.in_bytes,
                           request.out_bytes,

@@ -23,9 +23,8 @@ from typing import Iterator
 
 PLAN_FORMAT = "redas-execution-plan-v1"
 
-#: ops the port plans and dispatches so far (the JAX package also plans
-#: the sparse op; it comes with a later slice of the port).
-KNOWN_OPS = ("gemm", "gemm_w8", "grouped_gemm", "attention",
+#: ops the port plans and dispatches (the JAX package's `KNOWN_OPS`).
+KNOWN_OPS = ("gemm", "gemm_w8", "gemm_sparse", "grouped_gemm", "attention",
              "paged_attention")
 
 
@@ -38,8 +37,9 @@ class KernelRequest:
     `attention` m is
     the query length, n the key length and k the head dim, and for
     `paged_attention` n is the page span the block table addresses.
-    `groups` (batch x heads for attention) and `density` keep the JAX
-    package's key and JSON schema (1 and 1.0 for a dense GEMM).  `name`
+    `groups` (batch x heads for attention) and `density` (N/M of a
+    `gemm_sparse` request's storage) keep the JAX package's key and JSON
+    schema (1 and 1.0 for a dense GEMM).  `name`
     is a human label only — it is excluded from the cache key so
     repeated shapes share one decision regardless of which layer asked.
     """

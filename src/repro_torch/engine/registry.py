@@ -2,7 +2,7 @@
 port of `repro/engine/registry.py`).
 
 A backend is a name mapping each op to a callable
-``fn(decision, *tensors, **kw) -> tensor``.  The port has four:
+``fn(decision, *tensors, **kw) -> tensor``.  The port has six:
 
   hopper          — the hand-written Hopper kernels (`gemm`,
                     `grouped_gemm`, `attention`, `paged_attention`):
@@ -15,6 +15,12 @@ A backend is a name mapping each op to a callable
                     CPU tensors), plain float `attention`, and the paged
                     kernel for `paged_attention`.
   torch-ref-int8  — the same ops on the plain versions, on any device.
+  hopper-sparse   — the N:M sparsity plane: `gemm_sparse` on the sparse
+                    GEMM kernel (its plain version on CPU tensors), `gemm`
+                    on the ReDas kernel, plain `grouped_gemm` and
+                    `attention`, and the paged kernel for
+                    `paged_attention`.
+  torch-ref-sparse — the same ops on the plain versions, on any device.
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ from typing import Callable
 from . import backends
 
 #: the backends the default registry holds.
-BACKENDS = ("hopper", "torch-ref", "hopper-int8", "torch-ref-int8")
+BACKENDS = ("hopper", "torch-ref", "hopper-int8", "torch-ref-int8",
+            "hopper-sparse", "torch-ref-sparse")
 
 
 class KernelRegistry:

@@ -195,15 +195,16 @@ def quant_gemm_w8(a: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     return _rescale(acc, s_a, w_scale.reshape(-1), out_dtype or a.dtype)
 
 
-def snap_tile(bm: int, bk: int, bn: int) -> tuple[int, int, int]:
-    """(bm, bk, bn) itself when it is on the menu, else the menu tile
-    nearest to it in log2 distance summed over the three dims (the first
-    of equals): the int8 kernel's counterpart of the JAX package's
-    `align_int8_blocks`."""
-    if (bm, bk, bn) in TILES:
+def snap_tile(bm: int, bk: int, bn: int,
+              tiles=TILES) -> tuple[int, int, int]:
+    """(bm, bk, bn) itself when it is on the menu `tiles` (the int8
+    kernel's unless given), else the menu tile nearest to it in log2
+    distance summed over the three dims (the first of equals): the int8
+    kernel's counterpart of the JAX package's `align_int8_blocks`."""
+    if (bm, bk, bn) in tiles:
         return bm, bk, bn
 
     def dist(t):
         return sum(abs(math.log2(x / y)) for x, y in zip(t, (bm, bk, bn)))
 
-    return min(TILES, key=dist)
+    return min(tiles, key=dist)

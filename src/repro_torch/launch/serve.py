@@ -19,7 +19,11 @@ optional *COUNT repeat:
 `--quantize` serves the full int8 posture in either mode: the dense
 weights quantized (`quant.quantize_params`), the KV cache int8
 (`cache_dtype=torch.int8`, rows and per-row scales), and the backend
-upgraded to its int8 sibling ("hopper-int8").
+upgraded to its int8 sibling ("hopper-int8").  `--sparsity N:M` serves
+the float N:M-sparse posture: the dense weights magnitude-pruned
+(`sparse.prune_params`) and the backend upgraded to its sparse sibling
+("hopper-sparse").  The two together (sparse x int8) are not ported yet
+and the launcher refuses them.
 
 Both run on the card; `--device cpu --smoke` runs the reduced
 configuration on the CPU (there the "hopper" backend takes the kernels'
@@ -40,6 +44,7 @@ from ..models import transformer as T
 from ..quant import quantize_params
 from ..serve_lib import serve as serve_lib
 from ..serve_lib.scheduler import Request, Scheduler
+from ..sparse import parse_sparsity, prune_params
 
 
 def _sync(dev: torch.device) -> None:
@@ -131,11 +136,20 @@ def main(argv=None) -> dict:
                          "weights (quant.quantize_params), store the KV "
                          "cache int8 (cache_dtype=int8), and upgrade the "
                          "kernel backend to its int8 sibling")
+    ap.add_argument("--sparsity", default=None, metavar="N:M",
+                    help="structured-sparse serving posture (e.g. '2:4'): "
+                         "magnitude-prune the dense weights "
+                         "(sparse.prune_params) and upgrade the kernel "
+                         "backend to its sparse sibling; not with "
+                         "--quantize (sparse x int8 is not ported yet)")
     ap.add_argument("--plan", default=None,
                     help="ExecutionPlan JSON to warm-start the decision cache")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
+    if args.sparsity and args.quantize:
+        raise SystemExit("--sparsity with --quantize (sparse x int8 storage) "
+                         "is not ported yet (ROADMAP.md queue 1 item 2)")
 
     cfg = get_config(args.arch, smoke=args.smoke)
     dtype = torch.float32 if args.smoke else torch.bfloat16
@@ -150,13 +164,15 @@ def main(argv=None) -> dict:
         compute_dtype=dtype,
         cache_dtype=torch.int8 if args.quantize else dtype,
         kernel_backend=args.kernel_backend, plan_path=args.plan,
-        quantize=args.quantize, device=args.device,
+        quantize=args.quantize, sparsity=args.sparsity, device=args.device,
         cache_layout=args.cache_layout, page_size=args.page_size)
     dev = serve_lib.resolve_device(scfg)
     params = T.init_params(
         cfg, generator=torch.Generator(device=dev).manual_seed(args.seed),
         device=dev, dtype=dtype)
-    if args.quantize:
+    if args.sparsity:
+        params = prune_params(params, *parse_sparsity(args.sparsity))
+    elif args.quantize:
         params = quantize_params(params)
     if trace is not None:
         return _run_trace(params, cfg, scfg, args, trace)

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from ..engine import active_engine
 from ..kernels.paged_attention import paged_attention_reference
 from ..quant.quantize import QuantizedTensor
+from ..sparse.nm import SparseTensor
 
 NEG_INF = -1e30
 
@@ -53,15 +54,26 @@ def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     A `quant.quantize_params` weight (QuantizedTensor: int8 storage and
     per-channel scales) dispatches the planned `gemm_w8` kernel on an
     int8 engine, so the stored weight never becomes float; on any other
-    posture it dequantizes to the compute dtype first."""
+    posture it dequantizes to the compute dtype first.  A
+    `sparse.prune_params` weight (SparseTensor: N:M compressed values and
+    int8 offsets) dispatches the planned `gemm_sparse` kernel on a sparse
+    engine and densifies to the compute dtype on any other posture."""
     w = p["w"]
     x2d = x.reshape(-1, x.shape[-1]).contiguous()
     eng = active_engine()
-    if isinstance(w, QuantizedTensor) and eng is not None and eng.int8:
+    quantized = isinstance(w, QuantizedTensor)
+    sparse = isinstance(w, SparseTensor)
+    if sparse and eng is not None and eng.sparse:
+        y2d = eng.sparse_matmul(x2d, w, out_dtype=x.dtype)
+    elif quantized and eng is not None and eng.int8:
         y2d = eng.quant_matmul(x2d, w.q, w.scale, out_dtype=x.dtype)
     else:
-        wf = (w.dequantize(x.dtype) if isinstance(w, QuantizedTensor)
-              else w.to(x.dtype))
+        if sparse:
+            wf = w.densify(x.dtype)
+        elif quantized:
+            wf = w.dequantize(x.dtype)
+        else:
+            wf = w.to(x.dtype)
         y2d = (eng.matmul(x2d, wf, out_dtype=x.dtype) if eng is not None
                else x2d @ wf)
     y = y2d.reshape(*x.shape[:-1], w.shape[-1])

@@ -29,6 +29,7 @@ import math
 import torch
 
 from ..quant.quantize import QuantizedTensor, kv_dequantize, kv_quantize
+from ..sparse.nm import SparseTensor
 from . import layers, moe
 from .config import ArchConfig
 from .layers import dense, mlp, rms_norm
@@ -99,11 +100,14 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator, device=None,
 def _index(tree, i: int):
     """The i-th period of a stacked tree (views, no copies).  A
     QuantizedTensor slices both children, `QuantizedTensor(q[i],
-    scale[i])`, as `lax.scan` slices the pytree in the JAX package."""
+    scale[i])`, and a SparseTensor its values and indices (n, m and
+    k_dense kept), as `lax.scan` slices the pytree in the JAX package."""
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     if isinstance(tree, QuantizedTensor):
         return QuantizedTensor(tree.q[i], tree.scale[i])
+    if isinstance(tree, SparseTensor):
+        return tree.index(i)
     return tree[i]
 
 

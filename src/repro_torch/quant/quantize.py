@@ -63,6 +63,10 @@ class QuantizedTensor:
         """The same storage on `device` (q stays int8, scale f32)."""
         return QuantizedTensor(self.q.to(device), self.scale.to(device))
 
+    @property
+    def nbytes(self) -> int:
+        return self.q.nbytes + self.scale.nbytes
+
     def dequantize(self, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         return (self.q.float() * self.scale).to(dtype)
 
@@ -129,16 +133,13 @@ def quantize_params(params):
 
 def tree_bytes(tree) -> int:
     """Bytes of every tensor in a dict / list tree (a QuantizedTensor
-    counts q + scale)."""
+    counts q + scale, a `sparse.SparseTensor` its values, indices and
+    scale: their `nbytes`)."""
     if isinstance(tree, dict):
         return sum(tree_bytes(v) for v in tree.values())
     if isinstance(tree, (list, tuple)):
         return sum(tree_bytes(v) for v in tree)
-    if isinstance(tree, QuantizedTensor):
-        return tree_bytes(tree.q) + tree_bytes(tree.scale)
-    if isinstance(tree, torch.Tensor):
-        return tree.numel() * tree.element_size()
-    return 0
+    return getattr(tree, "nbytes", 0)
 
 
 # --------------------------------------------------------------------------

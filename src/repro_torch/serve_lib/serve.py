@@ -13,6 +13,10 @@ weights: every dense matmul then runs int8 x int8 -> int32.
 `cache_dtype="int8"` stores the KV cache through the per-row int8 codec
 (rows and their f32 scales; DESIGN.md §7) on either layout.  The two are
 orthogonal, and the launcher's `--quantize` sets both.
+`ServeConfig(sparsity="N:M")` upgrades the backend to its sparse sibling
+("hopper-sparse", "torch-ref-sparse") and expects `sparse.prune_params`
+weights: every pruned matmul then runs on the N:M sparse GEMM.  Sparse x
+int8 (`sparsity` with `quantize=True`) is not ported yet and is refused.
 `warm_start_engine` loads a saved `ExecutionPlan` so the first requests
 re-plan nothing.
 
@@ -30,9 +34,10 @@ import warnings
 import torch
 
 from ..engine import (BACKENDS, Engine, ExecutionPlan, backend_in_bytes,
-                      int8_sibling, use_engine)
+                      int8_sibling, sparse_sibling, use_engine)
 from ..models import transformer as T
 from ..models.config import ArchConfig
+from ..sparse.nm import parse_sparsity
 
 #: cache dtypes `models.transformer.init_cache` can represent.  int8
 #: selects the quantized KV codec (rows + per-row scales, DESIGN.md §7).
@@ -93,6 +98,11 @@ class ServeConfig:
     # (the KV codec): each serves without the other, and the launcher's
     # --quantize sets both.
     quantize: bool = False
+    # structured-sparsity plane: "N:M" (e.g. "2:4") upgrades
+    # `kernel_backend` to its sparse sibling and expects
+    # `sparse.prune_params` weights.  With quantize=True (sparse x int8
+    # storage) it raises: that composition is not ported yet.
+    sparsity: str | None = None
     # where the cache lives and the model runs ("cuda" unless the caller
     # asks for the CPU).
     device: str = "cuda"
@@ -117,6 +127,17 @@ class ServeConfig:
         if self.quantize:
             object.__setattr__(self, "kernel_backend",
                                int8_sibling(self.kernel_backend))
+        if self.sparsity is not None:
+            parse_sparsity(self.sparsity)  # validate "N:M" early
+            if self.quantize:
+                raise NotImplementedError(
+                    f"sparsity={self.sparsity!r} with quantize=True (sparse x "
+                    f"int8 storage) is not ported yet (ROADMAP.md queue 1 "
+                    f"item 2)")
+            # after the int8 upgrade, as in the JAX package: the int8
+            # backend names upgrade to the sparse ones too
+            object.__setattr__(self, "kernel_backend",
+                               sparse_sibling(self.kernel_backend))
         if self.kernel_backend not in (None, *BACKENDS):
             raise ValueError(f"kernel_backend {self.kernel_backend!r} is not "
                              f"one of {BACKENDS} (or None)")

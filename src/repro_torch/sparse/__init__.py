@@ -1,0 +1,21 @@
+"""The N:M structured-sparsity plane of the port (the port of
+`repro/sparse/`).
+
+  * `SparseTensor` — compressed kept values + int8 in-group offsets (a
+    plain class: `models.transformer._index` slices it per period).
+  * `sparsify` / `densify` — magnitude N:M pruning and its one-hot
+    inverse, bit for bit the JAX package's.
+  * `prune_params` / `densify_params` — swap every `models.layers.dense`
+    weight for its pruned form (same walk and skip list as
+    `quant.quantize_params`), and back.
+
+Execution lives in `kernels/sparse_gemm.py` (the scatter-then-multiply
+kernel) behind the engine's "hopper-sparse" / "torch-ref-sparse"
+backends.  Sparse x int8 storage waits for ROADMAP.md queue 1 item 2.
+"""
+
+from .nm import (SparseTensor, densify, densify_params, parse_sparsity,
+                 prune_params, sparsify)
+
+__all__ = ["SparseTensor", "densify", "densify_params", "parse_sparsity",
+           "prune_params", "sparsify"]

@@ -7,6 +7,8 @@ Every test here needs a CUDA card and skips without one; on the card run
 The file imports no JAX (the card's machine has none).  Tolerances are
 per output row, rel-L2 <= 1e-4 in f32 and <= 1e-2 in bf16 (PERF.md §2);
 the int8 GEMM's int32 result is held to its plain version bit for bit.
+The sparse GEMM is held at those row tolerances at every N:M spec, every
+tile of its menu and any int8 index array.
 """
 
 import dataclasses
@@ -17,12 +19,13 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import (flash_attention, grouped_gemm,
-                                  paged_attention, quant_gemm)
+                                  paged_attention, quant_gemm, sparse_gemm)
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import transformer as T
 from repro_torch.quant import kv_quantize, quantize, quantize_params
 from repro_torch.serve_lib import serve
 from repro_torch.serve_lib.scheduler import Request, Scheduler
+from repro_torch.sparse import densify_params, sparsify
 
 DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)]
 
@@ -278,6 +281,96 @@ def test_quantize_launcher_on_the_card_serves_the_cpus_tokens(cuda, trace):
         assert torch.equal(out["tokens"], want)
         return
     assert paged_attention.launches > 0
+    sched = Scheduler(params, out["cfg"], cpu)
+    done = sched.run(launch_serve.trace_requests(
+        out["cfg"], launch_serve.parse_trace(trace), 0))
+    card = out["scheduler"].completions
+    assert {u: c.tokens.tolist() for u, c in done.items()} == {
+        u: c.tokens.tolist() for u, c in card.items()}
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("n_keep,m_group,m,k,n", [
+    (2, 4, 8, 1536, 1536), (2, 4, 4, 8960, 256), (2, 4, 33, 1003, 200),
+    (1, 2, 8, 256, 128), (1, 4, 5, 300, 64), (4, 8, 16, 512, 192),
+    (3, 7, 8, 1000, 130), (63, 64, 3, 200, 72), (1, 128, 2, 300, 64),
+    (127, 128, 4, 256, 64)])
+def test_sparse_kernel_matches_plain_version(cuda, dtype, tol, n_keep,
+                                             m_group, m, k, n):
+    """Every tile of the menu, the f32-output path included."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(m, k, generator=gen, device=cuda).to(dtype)
+    st = sparsify(torch.randn(k, n, generator=gen, device=cuda).to(dtype),
+                  n_keep, m_group)
+    kw = {"n_keep": n_keep, "m_group": m_group}
+    sparse_gemm.reset_launches()
+    for tile in sparse_gemm.TILES:
+        for out in (dtype, torch.float32):
+            got = sparse_gemm.sparse_gemm(a, st.values, st.indices,
+                                          tile=tile, out_dtype=out, **kw)
+            ref = sparse_gemm.sparse_gemm_reference(
+                a, st.values, st.indices, out_dtype=out, **kw)
+            assert got.dtype == out and got.shape == (m, n)
+            assert _row_rel_l2(got, ref) <= (tol if out == dtype else 1e-4)
+    assert sparse_gemm.launches == 2 * len(sparse_gemm.TILES)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_sparse_kernel_takes_any_index_array(cuda, dtype, tol):
+    """Offsets out of range (negative, M, up to 127) add nothing and
+    repeated offsets add: the one-hot sum of the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for n_keep, m_group in ((2, 4), (3, 7)):
+        k_c = -(-300 // m_group) * n_keep
+        a = torch.randn(9, 300, generator=gen, device=cuda).to(dtype)
+        v = torch.randn(k_c, 70, generator=gen, device=cuda).to(dtype)
+        i = torch.randint(-128, 128, (k_c, 70), generator=gen, device=cuda,
+                          dtype=torch.int32).to(torch.int8)
+        i[::3] = torch.randint(0, m_group, (len(i[::3]), 70), generator=gen,
+                               device=cuda, dtype=torch.int32).to(torch.int8)
+        i[1::3] = i[::3][:len(i[1::3])]          # repeats within a group
+        kw = {"n_keep": n_keep, "m_group": m_group}
+        ref = sparse_gemm.sparse_gemm_reference(a, v, i, **kw)
+        for tile in sparse_gemm.TILES:
+            got = sparse_gemm.sparse_gemm(a, v, i, tile=tile, **kw)
+            assert _row_rel_l2(got, ref) <= tol
+
+
+@pytest.mark.card
+def test_sparse_kernel_raises_for_a_tile_off_the_menu(cuda):
+    st = sparsify(torch.randn(64, 32, device=cuda), 2, 4)
+    with pytest.raises(ValueError, match="menu"):
+        sparse_gemm.sparse_gemm(torch.randn(4, 64, device=cuda), st.values,
+                                st.indices, n_keep=2, m_group=4,
+                                tile=(16, 64, 64))
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("trace", [None, "24x8,8x4*3"])
+def test_sparsity_launcher_on_the_card_serves_the_cpus_tokens(cuda, trace):
+    """`--sparsity 2:4` (float N:M weights, hopper-sparse) through the
+    launcher on the card, SMOKE f32: its pruned weights and prompts served
+    on the CPU by the plain versions give the same tokens, and so does the
+    densified tree served plain on the CPU."""
+    args = ["--arch", "qwen2-1.5b", "--smoke", "--sparsity", "2:4",
+            "--batch", "2"]
+    args += (["--prompt-len", "8", "--gen", "5"] if trace is None else
+             ["--cache-layout", "paged", "--page-size", "8", "--trace", trace])
+    sparse_gemm.reset_launches()
+    out = launch_serve.main(args)
+    assert out["serve_config"].kernel_backend == "hopper-sparse"
+    assert sparse_gemm.launches > 0
+    cpu = dataclasses.replace(out["serve_config"], device="cpu")
+    params = _to(out["params"], "cpu")
+    if trace is None:
+        want = serve.generate(params, out["cfg"], cpu, out["prompt"].cpu(), 5)
+        assert torch.equal(out["tokens"], want)
+        dense = dataclasses.replace(cpu, sparsity=None, kernel_backend=None)
+        assert torch.equal(out["tokens"], serve.generate(
+            densify_params(params), out["cfg"], dense, out["prompt"].cpu(), 5))
+        return
     sched = Scheduler(params, out["cfg"], cpu)
     done = sched.run(launch_serve.trace_requests(
         out["cfg"], launch_serve.parse_trace(trace), 0))

@@ -81,8 +81,9 @@ def test_traffic_formula_equals_jax_packages():
 
 
 def test_registry_holds_both_backends():
-    """The float backends and their int8 siblings; `gemm_w8` is an int8
-    op only, as in the JAX package."""
+    """The float backends and their int8 and sparse siblings; `gemm_w8`
+    is an int8 op only and `gemm_sparse` a sparse one, as in the JAX
+    package."""
     reg = default_registry()
     ops = ("gemm", "grouped_gemm", "attention", "paged_attention")
     assert {(b, op): reg.get(b, op).__name__ for b in BACKENDS for op in ops} == {
@@ -100,7 +101,15 @@ def test_registry_holds_both_backends():
         ("hopper-int8", "attention"): "plain_attention",
         ("torch-ref-int8", "attention"): "plain_attention",
         ("hopper-int8", "paged_attention"): "hopper_paged_attention",
-        ("torch-ref-int8", "paged_attention"): "ref_paged_attention"}
+        ("torch-ref-int8", "paged_attention"): "ref_paged_attention",
+        ("hopper-sparse", "gemm"): "hopper_gemm",
+        ("torch-ref-sparse", "gemm"): "ref_gemm",
+        ("hopper-sparse", "grouped_gemm"): "ref_grouped_gemm",
+        ("torch-ref-sparse", "grouped_gemm"): "ref_grouped_gemm",
+        ("hopper-sparse", "attention"): "plain_attention",
+        ("torch-ref-sparse", "attention"): "plain_attention",
+        ("hopper-sparse", "paged_attention"): "hopper_paged_attention",
+        ("torch-ref-sparse", "paged_attention"): "ref_paged_attention"}
     assert reg.has("hopper", "paged_attention")
     assert reg.has("hopper", "grouped_gemm")
     assert reg.get("hopper-int8", "gemm_w8").__name__ == "hopper_int8_gemm_w8"
