@@ -88,22 +88,29 @@ Phases (any failed check exits non-zero; nothing falls back):
  16. SMOKE f32 under the full posture (and under cache_dtype="int8" with
      float weights, paged): card tokens against the CPU's, static and
      through the Scheduler, paged and contiguous, with a shared prefix;
- 17. the sparse kernel against plain: qwen's dense shapes at 2:4 in bf16
-     (M = 4, 8 and 2048, at the engine's tile; times of kernel, plain
-     version and torch.matmul over the weight densified ahead of time
-     beside the bound), two f32 shapes, 1:2, 1:4, 4:8 and 3:7 at 8 x 1536
-     x 1536, a ragged (5, 1003, 200) also with an f32 output, and an int8
-     index array with offsets out of range and repeated; the untimed
-     cases at every tile of the menu;
+ 17. the sparse kernel against plain on both of its paths: qwen's dense
+     shapes at 2:4 in bf16 (M = 4 and 8 on the split-K decode path, 2048
+     on the tiled path, each at the engine's decision; times of kernel,
+     plain version and torch.matmul over the weight densified ahead of
+     time beside the bound, and the decode shapes' reduction alone), two
+     f32 shapes, M = 1, 16 and 17 (which plans the tiled path), 1:2, 1:4,
+     4:8 and 3:7 at 8 x 1536 x 1536, a ragged (5, 1003, 200) also with an
+     f32 output, and an int8 index array with offsets out of range and
+     repeated; at M <= 16 also split 1 and the largest split, the untimed
+     cases also at every tile of the tiled menu; every configuration
+     launched twice, the outputs bit for bit equal;
  18. qwen2-1.5b under the launcher's --sparsity 2:4 (float N:M weights,
      "hopper-sparse"): the static serve (4 x (512 + 16); the sparse kernel
-     must launch 7 x 28 x 16 = 3136 times and every other kernel 0 times;
-     pruned weight bytes against bf16; prefill logits against
+     must launch 7 x 28 x 16 = 3136 times, 2940 of them on the decode
+     path with a reduction each, and every other kernel 0 times; pruned
+     weight bytes against bf16; prefill logits against
      "torch-ref-sparse" within rel-L2 and max 0.035), then the paged
      serve's trace through the Scheduler (sparse launches 7 x 28 x (ticks
-     + prefill calls), paged 28 x ticks, 0 new plan misses on a second
-     pass, a device trace of 10 decode ticks, one tick's logits against
-     "torch-ref-sparse" within rel-L2 0.035);
+     + prefill calls), by path 7 x 28 x ticks decode and 7 x 28 x calls
+     tiled, paged 28 x ticks, 0 new plan misses on a second pass, a
+     device trace of 10 decode ticks with the sparse kernels' device ms
+     a tick, one tick's logits against "torch-ref-sparse" within rel-L2
+     0.035);
  19. SMOKE f32 under sparsity="2:4": card tokens against the CPU's,
      static and through the Scheduler, paged and contiguous, with a shared
      prefix;
@@ -136,6 +143,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.engine import Engine, KernelRequest, use_engine  # noqa: E402
+from repro_torch.engine.backends import sparse_args  # noqa: E402
 from repro_torch.engine.cost import (HBM_BW, PEAK_FLOPS_BF16,  # noqa: E402
                                      PEAK_FLOPS_F32, PEAK_OPS_INT8,
                                      HopperModel, choose_tile)
@@ -650,7 +658,7 @@ def _untraced_ticks(sched, n: int) -> float:
 
 
 def _replay_and_trace(params, cfg, scfg, eng, trace, tokens: dict,
-                      label: str) -> tuple[int, dict]:
+                      label: str, match: tuple = ()) -> tuple[int, dict]:
     """The served trace again through the same engine (nothing new to
     plan, the same tokens), then 10 decode ticks untraced and 10 traced
     (all 8 slots decoding: the first request finishes after 32 tokens).
@@ -671,7 +679,7 @@ def _replay_and_trace(params, cfg, scfg, eng, trace, tokens: dict,
         probe.submit(r)
     probe.step()                                   # admit 8, first tick
     untraced = _untraced_ticks(probe, 10)
-    prof = _profile(lambda: _untraced_ticks(probe, 10))
+    prof = _profile(lambda: _untraced_ticks(probe, 10), match)
     prof.pop("result")
     prof["untraced_ms"] = untraced
     prof["idle_share_untraced"] = max(0.0, 1.0 - prof["device_busy_ms"]
@@ -811,7 +819,16 @@ def _logit_gap(got: torch.Tensor, ref: torch.Tensor) -> dict:
             "top_within_bound": bool(near.all())}
 
 
-def _profile(fn) -> dict:
+#: the sparse GEMM's kernels (csrc/sparse_gemm.cu), as the profiler names
+#: them
+SPARSE_KERNELS = ("sparse_decode_kernel", "sparse_reduce_kernel",
+                  "sparse_os_kernel")
+
+
+def _profile(fn, match: tuple = ()) -> dict:
+    """Run `fn` under the profiler: wall and device-busy ms, idle share,
+    the six kernels with the most device time, and the device ms of the
+    kernels whose names hold each of `match`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -829,7 +846,12 @@ def _profile(fn) -> dict:
     return {"result": result, "wall_ms": wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall),
             "top": [{"ms": ms, "count": c, "name": name[:100]}
-                    for ms, c, name in kernels[:6]]}
+                    for ms, c, name in kernels[:6]],
+            "matched": {key: {"ms": sum(ms for ms, _, name in kernels
+                                        if key in name),
+                              "count": sum(c for _, c, name in kernels
+                                           if key in name)}
+                        for key in match}}
 
 
 def _traces(out: dict, prefill_ms: float, decode_ms: float) -> dict:
@@ -1578,23 +1600,52 @@ def _sparse_sets(m, k, n, dtype, gen, n_keep, m_group, count=None):
     return sets
 
 
+def reduce_bound(split: int, m: int, n: int,
+                 out_itemsize: int) -> tuple[float, str]:
+    """The split-K reduction: the f32 partials read once and the output
+    written once; (split - 1) M N f32 additions."""
+    return _bound_of((split - 1) * m * n, split * m * n * 4
+                     + m * n * out_itemsize, 4)
+
+
+def _sparse_configs(m: int, k: int, m_group: int, planned: dict) -> list:
+    """The kernel arguments a phase-17 case is held at: the engine's
+    decision; at M <= 16 the decode path at split 1, the planner's and
+    the largest the shape allows (one group a split); and, for the
+    untimed cases, every tile of the tiled menu."""
+    configs = [planned]
+    if m <= sparse_gemm.DECODE_ROWS[-1]:
+        for split in (1, sparse_gemm.max_split(k, m_group)):
+            conf = {"path": "decode", "split_k": split}
+            if conf not in configs:
+                configs.append(conf)
+    return configs
+
+
 def phase_sparse_kernel() -> list[dict]:
-    """The sparse kernel against its plain version: qwen's dense shapes at
-    2:4 in bf16 (M = 4, 8, 2048, each at the engine's tile, timed beside
-    the plain version, torch.matmul over the weight densified ahead of time
-    and the bound), two f32 shapes, 1:2, 1:4, 4:8 and 3:7 at 8 x 1536 x
-    1536, a ragged shape (also with an f32 output), and an index array
-    with offsets out of range and repeated (the one-hot sum); the untimed
-    cases at every tile of the menu."""
+    """The sparse kernel against its plain version on both paths: qwen's
+    dense shapes at 2:4 in bf16 (M = 4, 8 on the decode path, 2048 on the
+    tiled one, each at the engine's decision, timed beside the plain
+    version, torch.matmul over the weight densified ahead of time and the
+    bound; the decode shapes' split-K reduction timed on its own), two
+    f32 shapes, M = 1, 16 (the largest decode rows) and 17 (the tiled
+    path), 1:2, 1:4, 4:8 and 3:7 at 8 x 1536 x 1536, a ragged shape (also
+    with an f32 output), and an index array with offsets out of range and
+    repeated (the one-hot sum).  Every case runs at the decision and, at M
+    <= 16, at split 1 and the largest split; the untimed cases also at
+    every tile of the tiled menu; every configuration twice, the two
+    outputs bit for bit equal."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     side = torch.cuda.Stream()
     bf16, f32 = torch.bfloat16, torch.float32
-    # kind: "timed" at the engine's tile; "menu" (every tile, untimed);
-    # "any index" as "menu" with offsets -2..8 at 3:7 (out of range, repeated)
+    # kind: "timed" at the engine's decision; "menu" (untimed, the tiled
+    # menu as well); "any index" as "menu" with offsets -2..8 at 3:7 (out
+    # of range, repeated)
     cases = [(m, k, n, bf16, 2, 4, bf16, "timed")
              for m in (BATCH, SLOTS, BATCH * PROMPT) for k, n in LAYER_GEMMS]
     cases += [(BATCH, 1536, 8960, f32, 2, 4, f32, "timed"),
               (BATCH * PROMPT, 1536, 1536, f32, 2, 4, f32, "timed")]
+    cases += [(m, 8960, 1536, bf16, 2, 4, bf16, "menu") for m in (1, 16, 17)]
     cases += [(SLOTS, 1536, 1536, bf16, nk, mg, bf16, "menu")
               for nk, mg in ((1, 2), (1, 4), (4, 8), (3, 7))]
     cases += [(5, 1003, 200, bf16, 2, 4, bf16, "menu"),
@@ -1618,22 +1669,40 @@ def phase_sparse_kernel() -> list[dict]:
         dec = HopperModel().decide(KernelRequest(
             "gemm_sparse", m, k, n, in_bytes=size, out_bytes=size,
             density=nk / mg))
-        tile = (dec.bm, dec.bk, dec.bn)
+        planned = sparse_args(dec)
+        want_path = ("decode" if m <= sparse_gemm.DECODE_ROWS[-1]
+                     else "tiled")
+        check(planned["path"] == want_path,
+              f"{m}x{k}x{n} planned {planned}, not the {want_path} path")
+        configs = _sparse_configs(m, k, mg, planned)
+        if not timed:
+            configs += [{"path": "tiled", "tile": t}
+                        for t in sparse_gemm.TILES
+                        if {"path": "tiled", "tile": t} != planned]
         rel = err = 0.0
-        for t in ((tile,) if timed else sparse_gemm.TILES):
-            out = sparse_gemm.sparse_gemm(a, v, i, tile=t,
-                                          out_dtype=out_dtype, **kw)
+        repeat_equal = True
+        for conf in configs:
+            out = sparse_gemm.sparse_gemm(a, v, i, out_dtype=out_dtype,
+                                          **conf, **kw)
+            again = sparse_gemm.sparse_gemm(a, v, i, out_dtype=out_dtype,
+                                            **conf, **kw)
             torch.cuda.synchronize()
             check(out.dtype == out_dtype and out.shape == (m, n),
                   f"sparse output {out.dtype} {tuple(out.shape)}")
+            repeat_equal &= torch.equal(out, again)
             rel = max(rel, row_rel_l2(out, ref))
             err = max(err, (out.float() - ref.float()).abs().max().item())
         name = f"{str(dtype)[6:]}" + ("" if out_dtype == dtype
                                       else f" -> {str(out_dtype)[6:]}")
         row = {"m": m, "k": k, "n": n, "dtype": str(dtype)[6:],
                "out_dtype": str(out_dtype)[6:], "spec": f"{nk}:{mg}",
-               "tile": list(tile), "main_path": timed and dtype == bf16,
-               "tiles_checked": "decision" if timed else "menu",
+               "decision": {key: list(val) if key == "tile" else val
+                            for key, val in planned.items()},
+               "main_path": timed and dtype == bf16,
+               "configs_checked": [{key: list(val) if key == "tile" else val
+                                    for key, val in c.items()}
+                                   for c in configs],
+               "repeat_bit_identical": repeat_equal,
                "any_index": kind == "any index", "max_abs_err": err,
                "row_rel_l2": rel, "tol": tol}
         row["bound_ms"], row["bound_by"] = sparse_bound(m, k, n, size, nk, mg)
@@ -1642,7 +1711,7 @@ def phase_sparse_kernel() -> list[dict]:
             row["ms"] = device_ms(functools.partial(
                 lambda a, v, i, w, **kw: sparse_gemm.sparse_gemm(a, v, i,
                                                                   **kw),
-                tile=tile, **kw), sets, side)
+                **planned, **kw), sets, side)
             row["plain_ms"] = device_ms(functools.partial(
                 lambda a, v, i, w, **kw: sparse_gemm.sparse_gemm_reference(
                     a, v, i, **kw), **kw), sets, side)
@@ -1651,21 +1720,68 @@ def phase_sparse_kernel() -> list[dict]:
             times = (f"; kernel {row['ms']:.4f} ms, plain "
                      f"{row['plain_ms']:.4f} ms, torch.matmul over the "
                      f"densified weight {row['library_ms']:.4f} ms")
+            split = planned.get("split_k", 1)
+            if split > 1:
+                row.update(_time_reduce(split, m, n, dtype, gen, side))
+                times += (f"; its reduction of {split} partials "
+                          f"{row['reduce_ms']:.4f} ms (plain "
+                          f"{row['reduce_plain_ms']:.4f}, torch.sum "
+                          f"{row['reduce_library_ms']:.4f}, bound "
+                          f"{row['reduce_bound_ms']:.4f})")
         rows.append(row)
-        ok = math.isfinite(rel) and rel <= tol
-        print(f"sparse_gemm {nk}:{mg} {name} {m}x{k}x{n} "
-              f"{'tile ' + str(tile) if timed else 'every menu tile'}"
+        ok = math.isfinite(rel) and rel <= tol and repeat_equal
+        more = "" if timed else f" and {len(configs) - 1} more configurations"
+        print(f"sparse_gemm {nk}:{mg} {name} {m}x{k}x{n} decision {planned}"
+              f"{more}"
               f"{', any int8 index' if row['any_index'] else ''}: row rel-L2 "
-              f"{rel:.2e} (tol {tol:g}), max|diff| {err:.3e}{times}, bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+              f"{rel:.2e} (tol {tol:g}), max|diff| {err:.3e}, repeat "
+              f"launches {'bit-identical' if repeat_equal else 'DIFFER'}"
+              f"{times}, bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
               f"{'' if ok else '  FAILED'}")
         if not ok:
-            failures.append(f"{nk}:{mg} {name} {m}x{k}x{n}: {rel:.2e}")
+            failures.append(f"{nk}:{mg} {name} {m}x{k}x{n}: {rel:.2e}, "
+                            f"repeat equal {repeat_equal}")
         del sets
     REPORT["sparse_kernel"] = rows
     check(not failures, f"sparse kernel disagrees with its plain version: "
           f"{failures}")
     return rows
+
+
+def _time_reduce(split: int, m: int, n: int, dtype, gen,
+                 side: torch.cuda.Stream) -> dict:
+    """The split-K reduction alone at a decode shape's split: partials
+    (split, M, N) f32 cycled past the L2, to the operand dtype; its plain
+    version and torch.sum beside it."""
+    count = max(2, min(32, math.ceil(2 * L2_BYTES / (split * m * n * 4))))
+    sets = [(torch.randn(split, m, n, generator=gen, device="cuda"),)
+            for _ in range(count)]
+    got = sparse_gemm.split_reduce(sets[0][0], dtype)
+    want = sparse_gemm.split_reduce_reference(sets[0][0], dtype)
+    check(torch.equal(got, want), f"the reduction of {split} partials at "
+          f"{m} x {n} differs from its plain version (same order)")
+    bound_ms, bound_by = reduce_bound(split, m, n, got.element_size())
+    return {"reduce_split": split,
+            "reduce_ms": device_ms(lambda w: sparse_gemm.split_reduce(
+                w, dtype), sets, side),
+            "reduce_plain_ms": device_ms(
+                lambda w: sparse_gemm.split_reduce_reference(w, dtype), sets,
+                side),
+            "reduce_library_ms": device_ms(
+                lambda w: torch.sum(w, 0).to(dtype), sets, side),
+            "reduce_bound_ms": bound_ms, "reduce_bound_by": bound_by,
+            "reduce_max_abs_err": (got.float() - want.float()).abs().max()
+            .item()}
+
+
+def _split_gemms(m: int) -> int:
+    """Sparse GEMMs of one qwen layer at M = m that the engine plans with
+    split_k > 1 (each launches the reduction once)."""
+    model = HopperModel()
+    return sum(calls for (k, n), calls in LAYER_GEMMS.items()
+               if sparse_args(model.decide(KernelRequest(
+                   "gemm_sparse", m, k, n, density=0.5))).get("split_k", 1)
+               > 1)
 
 
 def _sparse_serve(gen: int) -> dict:
@@ -1703,6 +1819,8 @@ def phase_sparse_static(cfg) -> None:
     reset_counts()
     out = _sparse_serve(GEN)
     counts = read_counts()
+    by_path = dict(sparse_gemm.path_launches)
+    reduces = sparse_gemm.reduce_launches
     peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     scfg, tokens, eng = out["serve_config"], out["tokens"], out["engine"]
     sizes = {"sparse_weight_bytes": tree_bytes(out["params"]),
@@ -1722,6 +1840,14 @@ def phase_sparse_static(cfg) -> None:
           f"{counts} (want {want})")
     check(scfg.kernel_backend == "hopper-sparse", f"{scfg.kernel_backend}")
     check(counts == want, f"--sparsity static launches {counts}, not {want}")
+    layer = sum(LAYER_GEMMS.values()) * cfg.n_layers
+    want_paths = {"decode": layer * (GEN - 1), "tiled": layer}
+    want_reduces = (GEN - 1) * cfg.n_layers * _split_gemms(BATCH)
+    print(f"--sparsity static serve: sparse GEMMs by path {by_path} (want "
+          f"{want_paths}), split-K reductions {reduces} (want "
+          f"{want_reduces})")
+    check(by_path == want_paths and reduces == want_reduces,
+          f"--sparsity static paths {by_path}, reductions {reduces}")
     check(tuple(tokens.shape) == (BATCH, GEN)
           and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()),
           f"--sparsity static tokens {tuple(tokens.shape)}")
@@ -1752,7 +1878,9 @@ def phase_sparse_static(cfg) -> None:
         "seconds": out["seconds"], "tokens_per_s": out["tokens_per_s"],
         "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
         "max_memory_gib": peak, **sizes, "plan": out["engine_plan"],
-        "counts": counts, "prefill_logits": gap, "tokens": tokens.tolist()}
+        "counts": counts, "sparse_paths": by_path,
+        "sparse_reduces": reduces, "prefill_logits": gap,
+        "tokens": tokens.tolist()}
 
 
 def phase_sparse_paged(cfg) -> None:
@@ -1767,6 +1895,8 @@ def phase_sparse_paged(cfg) -> None:
     reset_counts()
     out = launch_serve.main(SERVE_ARGS + ["--sparsity", "2:4"])
     counts = read_counts()
+    by_path = dict(sparse_gemm.path_launches)
+    reduces = sparse_gemm.reduce_launches
     peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     sched, eng, scfg = out["scheduler"], out["engine"], out["serve_config"]
     st = sched.stats
@@ -1790,12 +1920,27 @@ def phase_sparse_paged(cfg) -> None:
     check(out["requests"] == len(launch_serve.parse_trace(TRACE)),
           f"served {out['requests']} requests")
     check(counts == want, f"--sparsity paged launches {counts}, not {want}")
+    layer = sum(LAYER_GEMMS.values()) * cfg.n_layers
+    want_paths = {"decode": layer * ticks, "tiled": layer * calls}
+    want_reduces = ticks * cfg.n_layers * _split_gemms(SLOTS)
+    print(f"--sparsity paged serve: sparse GEMMs by path {by_path} (want "
+          f"{want_paths}: every prefill width is above the decode rows), "
+          f"split-K reductions {reduces} (want {want_reduces})")
+    check(min(st["prefill_widths"]) > sparse_gemm.DECODE_ROWS[-1]
+          and by_path == want_paths and reduces == want_reduces,
+          f"--sparsity paged paths {by_path}, reductions {reduces}")
     for uid, toks in tokens.items():
         check(len(toks) == out["trace"][uid][1]
               and all(0 <= t < cfg.vocab for t in toks), f"request {uid}")
     sched.paged.check_invariants()
     new_misses, prof = _replay_and_trace(out["params"], cfg, scfg, eng,
-                                         out["trace"], tokens, "--sparsity ")
+                                         out["trace"], tokens, "--sparsity ",
+                                         SPARSE_KERNELS)
+    sparse_ms = sum(v["ms"] for v in prof["matched"].values())
+    detail = ", ".join(f"{key} {v['ms']:.3f} ms in {v['count']} launches"
+                       for key, v in prof["matched"].items())
+    print(f"the sparse kernels in the 10 traced ticks: {sparse_ms:.3f} ms of "
+          f"device time, {sparse_ms / 10:.3f} ms a tick ({detail})")
     gap = _decode_tick_gap(out["params"], cfg, scfg, eng, out["trace"],
                            backends=("torch-ref-sparse", "hopper-sparse"))
     print(f"--sparsity full-width paged decode tick logits (8 slots), "
@@ -1810,6 +1955,8 @@ def phase_sparse_paged(cfg) -> None:
         "prefill_calls": calls, "prefill_widths": sorted(st["prefill_widths"]),
         "prefill_ms": sched.timings["prefill_s"] * 1e3,
         "plan": eng.plan.stats, "counts": counts, "max_memory_gib": peak,
+        "sparse_paths": by_path, "sparse_reduces": reduces,
+        "sparse_ms_per_traced_tick": sparse_ms / 10,
         "second_pass_new_misses": new_misses, "trace_10_ticks": prof,
         "decode_tick_logits": gap}
     check(math.isfinite(gap["rel_l2"]) and gap["rel_l2"] <= LOGIT_LIMITS["rel_l2"],
@@ -1874,23 +2021,31 @@ def phase_sparse_smoke_parity() -> None:
     check(all(result.values()), f"sparse smoke tokens differ: {result}")
 
 
+def _static_sparse_calls(cfg):
+    """(row, calls) for each main-path shape of the --sparsity static
+    serve: the prefill at M = BATCH x PROMPT once, the decode at M = BATCH
+    for GEN - 1 steps, per layer as LAYER_GEMMS counts."""
+    for (k, n), per_layer in LAYER_GEMMS.items():
+        for m, steps in ((BATCH * PROMPT, 1), (BATCH, GEN - 1)):
+            yield (k, n, m), per_layer * cfg.n_layers * steps
+
+
 def sparse_line(rows: list[dict]) -> dict:
     """The --sparsity static serve's sparse GEMM work: each main-path
-    shape's time at the engine's tile, weighted by the launches that serve
-    makes (the plain version, torch.matmul over the densified weight and
-    the bound likewise)."""
+    shape's time at the engine's decision (on the decode path the
+    reduction included), weighted by the launches that serve makes (the
+    plain version, torch.matmul over the densified weight and the bound
+    likewise)."""
     cfg = get_config(ARCH)
     totals = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
     ops_ms = bytes_ms = 0.0
-    for (k, n), per_layer in LAYER_GEMMS.items():
-        for m, steps in ((BATCH * PROMPT, 1), (BATCH, GEN - 1)):
-            row = next(r for r in rows if r["main_path"]
-                       and (r["m"], r["k"], r["n"]) == (m, k, n))
-            calls = per_layer * cfg.n_layers * steps
-            for key in totals:
-                totals[key] += calls * row[key]
-            ops_ms += calls * m * k * n / PEAK_FLOPS_BF16 * 1e3
-            bytes_ms += calls * ((m * k + m * n) * 2 + k // 2 * n * 3) / HBM_BW * 1e3
+    for (k, n, m), calls in _static_sparse_calls(cfg):
+        row = next(r for r in rows if r["main_path"]
+                   and (r["m"], r["k"], r["n"]) == (m, k, n))
+        for key in totals:
+            totals[key] += calls * row[key]
+        ops_ms += calls * m * k * n / PEAK_FLOPS_BF16 * 1e3
+        bytes_ms += calls * ((m * k + m * n) * 2 + k // 2 * n * 3) / HBM_BW * 1e3
     static, paged = REPORT["sparse_static"], REPORT["sparse_paged"]
     return {"name": "sparse_gemm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sparse_gemm.cu",
@@ -1900,13 +2055,52 @@ def sparse_line(rows: list[dict]) -> dict:
                                  static["counts"]["sparse_gemm"],
                                  "sparse_paged_serve":
                                  paged["counts"]["sparse_gemm"]},
-            "per": "the --sparsity 2:4 static serve's 3136 launches, summed",
+            "kernels": {
+                "sparse_decode_kernel": static["sparse_paths"]["decode"],
+                "sparse_os_kernel": static["sparse_paths"]["tiled"]},
+            "per": "the --sparsity 2:4 static serve's 3136 launches, summed "
+                   "(decode calls with their reduction)",
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": totals["ms"], "plain_ms": totals["plain_ms"],
             "bound_ms": totals["bound_ms"],
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": totals["library_ms"],
             "library": "torch.matmul over the weight densified ahead of time"}
+
+
+def sparse_reduce_line(rows: list[dict]) -> dict:
+    """The decode path's split-K reduction over the --sparsity static
+    serve: each decode shape's reduction alone at its planned split,
+    weighted by the launches that serve makes (`reduce_launches`)."""
+    cfg = get_config(ARCH)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    totals = dict.fromkeys(keys, 0.0)
+    errs, bound_by = [], collections.Counter()
+    for (k, n, m), calls in _static_sparse_calls(cfg):
+        row = next(r for r in rows if r["main_path"]
+                   and (r["m"], r["k"], r["n"]) == (m, k, n))
+        if "reduce_ms" in row:
+            for key in keys:
+                totals[key] += calls * row[f"reduce_{key}"]
+            errs.append(row["reduce_max_abs_err"])
+            bound_by[row["reduce_bound_by"]] += calls * row["reduce_bound_ms"]
+    static, paged = REPORT["sparse_static"], REPORT["sparse_paged"]
+    return {"name": "sparse_reduce", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sparse_gemm.cu",
+            "replaces": "src/repro/kernels/sparse_gemm.py:163 (the OS "
+                        "accumulation across K blocks, split on the card)",
+            "launches": static["sparse_reduces"],
+            "launches_by_path": {"sparse_static_serve":
+                                 static["sparse_reduces"],
+                                 "sparse_paged_serve": paged["sparse_reduces"]},
+            "kernels": {"sparse_reduce_kernel": static["sparse_reduces"]},
+            "per": "the --sparsity 2:4 static serve's reductions, summed",
+            "max_abs_err": max(errs),
+            "ms": totals["ms"], "plain_ms": totals["plain_ms"],
+            "bound_ms": totals["bound_ms"],
+            "bound_by": bound_by.most_common(1)[0][0],
+            "library_ms": totals["library_ms"],
+            "library": "torch.sum over the split dimension"}
 
 
 # --------------------------------------------------------------------------
@@ -2341,7 +2535,7 @@ def main() -> int:
              *attention_lines(attn, REPORT["paged_serve"]),
              grouped_line(grouped_rows, REPORT["granite_sorted"]),
              int8_line(int8_rows), paged_int8_line(paged_int8_rows, qpaged),
-             sparse_line(sparse_rows)]
+             sparse_line(sparse_rows), sparse_reduce_line(sparse_rows)]
     REPORT["kernels"] = lines
     REPORT["seconds"] = time.perf_counter() - t0
     out_dir = ROOT / "runs"

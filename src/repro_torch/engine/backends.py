@@ -149,15 +149,26 @@ def plain_attention(decision: KernelDecision, q, k, v, *, causal=True,
 # --------------------------------------------------------------------------
 
 
+def sparse_args(decision: KernelDecision) -> dict:
+    """The sparse kernel's path arguments a decision names: its `meta`'s
+    path and split_k (a decode decision), else the tiled path at the
+    decision's tile snapped to the tiled menu (a tiled decision, or one
+    planned for another kernel, e.g. from a warm-start plan)."""
+    meta = decision.meta_dict
+    if meta.get("path") == "decode":
+        return {"path": "decode", "split_k": meta["split_k"]}
+    return {"path": "tiled",
+            "tile": quant_gemm.snap_tile(decision.bm, decision.bk,
+                                         decision.bn,
+                                         tiles=sparse_gemm.TILES)}
+
+
 def hopper_sparse_gemm(decision: KernelDecision, a, values, indices, *,
                        n_keep, m_group, out_dtype=None):
-    """The decision's OS tile on the sparse kernel (a decision planned for
-    another kernel, e.g. from a warm-start plan, snaps to its menu)."""
+    """The decision's path on the sparse kernel (`sparse_args`)."""
     return sparse_gemm.sparse_gemm(
         a, values, indices, n_keep=n_keep, m_group=m_group,
-        tile=quant_gemm.snap_tile(decision.bm, decision.bk, decision.bn,
-                                  tiles=sparse_gemm.TILES),
-        out_dtype=out_dtype)
+        out_dtype=out_dtype, **sparse_args(decision))
 
 
 def ref_sparse_gemm(decision: KernelDecision, a, values, indices, *,

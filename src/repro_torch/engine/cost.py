@@ -18,9 +18,11 @@ A request keyed at in_bytes == 1 (every request of an int8 backend) is
 planned on the int8 kernel's own menu, pinned to OS as the JAX package
 pins its int8 kernel (the streaming dataflows would push int32 partial
 sums through HBM), at the data sheet's int8 peak.  A `gemm_sparse`
-request is planned as the JAX package's `_decide_gemm_sparse` plans it:
-at K_eff = density x K, plus one index byte per kept value, on the
-sparse kernel's own menu, pinned to OS (its only dataflow).
+request at M above the sparse kernel's decode rows is planned as the JAX
+package's `_decide_gemm_sparse` plans it: at K_eff = density x K, plus
+one index byte per kept value, on the kernel's tiled menu, pinned to OS;
+at decode M it takes the kernel's split-K decode path, split by a wave
+term over the card's SMs.
 """
 
 from __future__ import annotations
@@ -156,27 +158,92 @@ def decide_grouped(request: KernelRequest, name: str) -> KernelDecision:
                                      request.in_bytes)}.items())))
 
 
+#: the decode path's wave term: the card's SMs, the decode blocks one SM
+#: holds at once (128 threads at 90-235 registers), and the compressed
+#: rows each split keeps at least (8 for each of a block's 4 warps: one
+#: pair of its register stages)
+SMS = 132
+DECODE_BLOCKS_PER_SM = 2
+DECODE_MIN_ROWS = 32
+
+
+def decode_cost(request: KernelRequest, split_k: int) -> dict:
+    """The sparse kernel's decode path at `split_k`: the compressed
+    weight (values and one index byte per kept value) and the activations
+    stream at the HBM rate times the share of the card the grid fills
+    (the wave term), the f32 workspace is written and read back at the
+    full rate, and the multiply-adds of the padded rows run on FFMA."""
+    m, k, n = request.m, request.k, request.n
+    k_eff = max(1, round(k * request.density))
+    rows = sparse_gemm.decode_rows(m)
+    tiles = -(-n // sparse_gemm.decode_columns(request.in_bytes))
+    fill = min(1.0, tiles * split_k / (SMS * DECODE_BLOCKS_PER_SM))
+    streamed = k_eff * n * (request.in_bytes + 1) + m * k * request.in_bytes
+    workspace = 2 * split_k * m * n * 4 if split_k > 1 else 0
+    written = m * n * request.out_bytes
+    seconds = max(2.0 * rows * k_eff * n / PEAK_FLOPS_F32,
+                  streamed / (HBM_BW * fill) + (workspace + written) / HBM_BW)
+    return {"seconds": seconds, "hbm_bytes": float(streamed + workspace
+                                                   + written),
+            "workspace_bytes": workspace, "blocks": tiles * split_k,
+            "rows": rows, "k_effective": k_eff}
+
+
 def decide_sparse(request: KernelRequest, name: str) -> KernelDecision:
-    """The port of `TPUModel._decide_gemm_sparse`: the effective-FLOPs
-    roofline of N:M weight sparsity.  The search runs at K_eff = density
-    x K, and one int8 index byte per kept value streams with the weights.
-    It is pinned to OS over the sparse kernel's menu, gated by that
-    kernel's shared memory."""
-    k_eff = max(1, round(request.k * request.density))
-    cfg = choose_tile(request.m, k_eff, request.n, request.in_bytes,
-                      request.out_bytes, dataflows=("os",),
-                      tiles=sparse_gemm.TILES, smem=sparse_gemm.smem_bytes)
-    seconds, bytes_, pad_eff = estimate(request.m, k_eff, request.n, cfg,
-                                        request.in_bytes, request.out_bytes)
-    idx_bytes = float(k_eff * request.n)
+    """The port of `TPUModel._decide_gemm_sparse`, with the path: the
+    sparse kernel's decode path up to its largest row bucket, the tiled
+    path above it.
+
+    Decode: `split_k` is the least-cost split (`decode_cost`, the first
+    of equals) from 1 to K_eff / `DECODE_MIN_ROWS`; the decision's (bm,
+    bk, bn) are informational (the row bucket, the dense K of a split,
+    the block's columns).  Tiled: the effective-FLOPs roofline of N:M
+    weight sparsity, searched at K_eff = density x K plus one int8 index
+    byte per kept value, pinned to OS over the tiled menu, gated by that
+    kernel's one-stage shared memory at a full chunk (every spec fits);
+    `stages` says whether the density's chunk keeps a second stage.
+    `meta` carries the path and `split_k`, so they survive the plan's
+    JSON."""
+    m, k, n = request.m, request.k, request.n
+    k_eff = max(1, round(k * request.density))
+    if m <= sparse_gemm.DECODE_ROWS[-1]:
+        top = min(max(1, k_eff // DECODE_MIN_ROWS), sparse_gemm.SPLIT_LIMIT)
+        costs = [decode_cost(request, s) for s in range(1, top + 1)]
+        split_k = min(range(len(costs)),
+                      key=lambda i: costs[i]["seconds"]) + 1
+        best = costs[split_k - 1]
+        return KernelDecision(
+            op=request.op, dataflow="os", bm=best["rows"],
+            bk=-(-k // split_k),
+            bn=sparse_gemm.decode_columns(request.in_bytes),
+            cost_model=name, seconds=best["seconds"],
+            meta=tuple(sorted({
+                "path": "decode", "split_k": split_k,
+                "density": request.density,
+                **{key: best[key] for key in ("hbm_bytes", "workspace_bytes",
+                                              "blocks", "k_effective")},
+            }.items())))
+    cfg = choose_tile(m, k_eff, n, request.in_bytes, request.out_bytes,
+                      dataflows=("os",), tiles=sparse_gemm.TILES,
+                      smem=sparse_gemm.smem_bytes)
+    seconds, bytes_, pad_eff = estimate(m, k_eff, n, cfg, request.in_bytes,
+                                        request.out_bytes)
+    idx_bytes = float(k_eff * n)
+    # a chunk's compressed rows: (bk // M) * N <= bk x density
+    rows = math.floor(cfg.bk * request.density + 1e-9)
+    stages = (2 if sparse_gemm.smem_bytes(cfg.bm, cfg.bk, cfg.bn,
+                                          request.in_bytes, rows, 2)
+              <= SMEM_LIMIT else 1)
     return KernelDecision(
         op=request.op, dataflow="os", bm=cfg.bm, bk=cfg.bk, bn=cfg.bn,
         cost_model=name, seconds=seconds + idx_bytes / HBM_BW,
         meta=tuple(sorted({
+            "path": "tiled", "split_k": 1, "stages": stages,
             "hbm_bytes": bytes_ + idx_bytes, "padding_efficiency": pad_eff,
             "density": request.density, "k_effective": k_eff,
             "smem_bytes": sparse_gemm.smem_bytes(
-                cfg.bm, cfg.bk, cfg.bn, request.in_bytes)}.items())))
+                cfg.bm, cfg.bk, cfg.bn, request.in_bytes, rows,
+                stages)}.items())))
 
 
 @dataclasses.dataclass
@@ -184,9 +251,9 @@ class HopperModel:
     """The decision surface as a cost model: `decide(request)` returns
     the chosen dataflow and CTA tile for a `gemm` or `gemm_w8` request
     (an OS tile of the int8 kernel at in_bytes == 1), the sparse kernel's
-    OS tile for a `gemm_sparse` one, the per-expert OS tile for a
-    `grouped_gemm` one, and the flash blocks for an `attention` or
-    `paged_attention` one."""
+    path with its split or OS tile for a `gemm_sparse` one, the
+    per-expert OS tile for a `grouped_gemm` one, and the flash blocks for
+    an `attention` or `paged_attention` one."""
 
     name: str = "hopper-h100"
 

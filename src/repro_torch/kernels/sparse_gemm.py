@@ -1,25 +1,35 @@
-"""The N:M structured-sparse GEMM on Hopper: wrapper, launch counter and
-plain version (the port of `repro/kernels/sparse_gemm.py`, float values).
+"""The N:M structured-sparse GEMM on Hopper: wrapper, launch counters and
+plain versions (the port of `repro/kernels/sparse_gemm.py`, float values).
 
 `sparse_gemm` computes what `repro.kernels.sparse_gemm.sparse_gemm`
 computes for float storage — (M, K) @ N:M-compressed (K_c, N) values and
 int8 in-group offsets -> f32 accumulation, cast to `out_dtype or a.dtype`
-— through the CUDA kernel in `csrc/sparse_gemm.cu`, which scatters each
-compressed chunk back to a dense shared-memory tile (the one-hot sum of
-`_scatter_dense`) and multiplies it densely, OS.  `n_keep` and `m_group`
-are runtime arguments: every spec `sparse.parse_sparsity` admits runs.
-The CTA tile (bm, bk, bn) must be one of `TILES`; bk is the chunk's dense
-capacity, which holds `bk // m_group` whole groups.  The reference's entry
+— through the CUDA kernels in `csrc/sparse_gemm.cu`, on one of two paths
+the caller names (the engine plans it, `engine/cost.py::decide_sparse`):
+
+- "decode" (M <= `DECODE_ROWS[-1]`): no dense tile; each kept value adds
+  its product into registers (the one-hot sum of `_scatter_dense`), the
+  groups split over `split_k` blocks (`split_groups`) whose f32 partials
+  a second kernel sums in split order;
+- "tiled": one block per (bm, bn) output tile, each chunk scattered back
+  to a dense shared-memory tile and multiplied, OS, the next chunk's
+  loads in flight meanwhile; `tile` must be one of `TILES`, and bk is the
+  chunk's dense capacity, which holds `bk // m_group` whole groups.
+
+`n_keep` and `m_group` are runtime arguments: every spec
+`sparse.parse_sparsity` admits runs on both paths.  The reference's entry
 point zero-pads A to the group-padded K and every dim to its blocks
-(`sparse_gemm.py:199-217`); the kernel reads those out-of-range operands
+(`sparse_gemm.py:199-217`); the kernels read those out-of-range operands
 as zero instead, so nothing is padded or sliced here.
 
-On a CUDA tensor `sparse_gemm` launches the kernel (or raises); on a CPU
-tensor it returns the plain version `sparse_gemm_reference`, the
-reference's `use_pallas=False` branch: the one-hot scatter, then one f32
-product.  `launches` counts kernel launches and nothing else.  Sparse x
-int8 storage (int8 values and a per-column scale) is not ported yet
-(ROADMAP.md queue 1 item 2).
+On a CUDA tensor `sparse_gemm` launches the path's kernels (or raises;
+there is no fallback from one path to the other); on a CPU tensor it
+returns the plain version `sparse_gemm_reference`, the reference's
+`use_pallas=False` branch: the one-hot scatter, then one f32 product.
+`launches` counts sparse GEMMs launched, one per call whatever the path
+(`path_launches` splits them by path); `reduce_launches` counts the
+split-K reduction's launches.  Sparse x int8 storage (int8 values and a
+per-column scale) is not ported yet (ROADMAP.md queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -33,33 +43,90 @@ import torch.nn.functional as F
 from . import _build
 from .redas_gemm import SMEM_LIMIT
 
-#: the CTA tiles (bm, bk, bn) the kernel is compiled for; `SPARSE_TILES`
-#: in csrc/sparse_gemm.cu is the same list.  bk = 128 holds at least one
+#: the tiled path's CTA tiles (bm, bk, bn); `SPARSE_TILES` in
+#: csrc/sparse_gemm.cu is the same list.  bk = 128 holds at least one
 #: group of the widest spec (M <= 128).
 TILES = ((16, 128, 64), (32, 128, 128), (64, 128, 128), (128, 128, 128))
+#: the decode path's row buckets (M <= bucket); `SPARSE_DECODE_ROWS` in
+#: csrc/sparse_gemm.cu is the same list
+DECODE_ROWS = (4, 8, 16)
+PATHS = ("decode", "tiled")
+
+#: gridDim.y: the most splits the decode path takes, and of M / bm
+#: blocks on the tiled path
+SPLIT_LIMIT = 65535
 
 _PAD = 8          # shared-memory row padding of the float tiles, elements
 _WARPS = 4        # 128 threads a block
-_GRID_LIMIT = 65535   # gridDim.y
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
-#: kernel launches since the last reset (the CPU path and the plain
-#: version never count).
+#: sparse GEMMs launched since the last reset, in all and by path, and
+#: the split-K reduction's launches (the CPU path and the plain versions
+#: never count).
 launches = 0
+path_launches = dict.fromkeys(PATHS, 0)
+reduce_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, reduce_launches
+    launches = reduce_launches = 0
+    for path in PATHS:
+        path_launches[path] = 0
 
 
-def smem_bytes(bm: int, bk: int, bn: int, in_bytes: int) -> int:
-    """Shared memory one block of tile (bm, bk, bn) uses: the padded
-    activation and dense weight tiles, the per-warp f32 epilogue tile, and
-    the chunk's compressed values (padded rows) and int8 indices, each
-    sized for bk rows (the `SparseSmem` struct of the CUDA source)."""
-    return ((bm * (bk + _PAD) + 2 * bk * (bn + _PAD)) * in_bytes
-            + _WARPS * 256 * 4 + bk * bn)
+def smem_bytes(bm: int, bk: int, bn: int, in_bytes: int,
+               rows: int | None = None, stages: int = 1) -> int:
+    """Shared memory one tiled block of tile (bm, bk, bn) uses: the dense
+    weight tile and the per-warp f32 epilogue tile, then `stages` stages
+    of the padded activation tile and `rows` compressed rows of values
+    (padded) and int8 indices (the `SparseSmem` struct of the CUDA
+    source).  A chunk holds `(bk // m_group) * n_keep` compressed rows,
+    fewer than bk, the default."""
+    rows = bk if rows is None else rows
+    stage = (bm * (bk + _PAD) + rows * (bn + _PAD)) * in_bytes + rows * bn
+    return bk * (bn + _PAD) * in_bytes + _WARPS * 256 * 4 + stages * stage
+
+
+def tiled_stages(tile, in_bytes: int, n_keep: int, m_group: int) -> int:
+    """2 (the next chunk loads while this one is multiplied) where two
+    stages of the spec's chunk fit a block's shared memory, else 1."""
+    bm, bk, bn = tile
+    rows = bk // m_group * n_keep
+    return 2 if smem_bytes(bm, bk, bn, in_bytes, rows, 2) <= SMEM_LIMIT else 1
+
+
+def decode_columns(in_bytes: int) -> int:
+    """Output columns of one decode block: 32 lanes x one 16-byte vector
+    of values each."""
+    return 32 * 16 // in_bytes
+
+
+def decode_rows(m: int) -> int:
+    """The decode row bucket the kernel runs an (m, K) activation at."""
+    for rows in DECODE_ROWS:
+        if m <= rows:
+            return rows
+    raise ValueError(f"M = {m} is above the decode path's largest row "
+                     f"bucket {DECODE_ROWS[-1]}")
+
+
+def max_split(k: int, m_group: int) -> int:
+    """The most splits that each take a group at dense K `k` (the kernel
+    takes up to `SPLIT_LIMIT`; splits past the groups are empty and add
+    zero partials)."""
+    return min(-(-k // m_group), SPLIT_LIMIT)
+
+
+def split_groups(groups: int, split_k: int) -> tuple[int, int]:
+    """(base, extra): split s takes base + (s < extra) groups from
+    s * base + min(s, extra), so every group is taken exactly once and
+    the splits differ by at most one group (splits past the groups take
+    none).  The wrapper hands both to the kernel."""
+    if groups < 1 or not 1 <= split_k <= SPLIT_LIMIT:
+        raise ValueError(f"need groups >= 1 and split_k in 1..{SPLIT_LIMIT}, "
+                         f"got {groups} and {split_k}")
+    return groups // split_k, groups % split_k
 
 
 def scatter_dense(values: torch.Tensor, indices: torch.Tensor, n_keep: int,
@@ -92,7 +159,19 @@ def sparse_gemm_reference(a: torch.Tensor, values: torch.Tensor,
     return (a_f @ w).to(out_dtype or a.dtype)
 
 
-def _check(a, values, indices, n_keep, m_group, tile) -> None:
+def split_reduce_reference(ws: torch.Tensor,
+                           out_dtype: torch.dtype) -> torch.Tensor:
+    """The split-K reduction's plain version: the (split_k, M, N) f32
+    partials summed in split order from zero, as the kernel sums them,
+    cast to `out_dtype`."""
+    total = torch.zeros_like(ws[0])
+    for part in ws:
+        total = total + part
+    return total.to(out_dtype)
+
+
+def _check(a, values, indices, n_keep, m_group, path, tile,
+           split_k) -> None:
     if a.dim() != 2 or values.dim() != 2:
         raise ValueError(f"sparse_gemm takes 2-D operands, got "
                          f"{tuple(a.shape)} @ {tuple(values.shape)}")
@@ -125,40 +204,99 @@ def _check(a, values, indices, n_keep, m_group, tile) -> None:
     if not (a.is_contiguous() and values.is_contiguous()
             and indices.is_contiguous()):
         raise ValueError("sparse_gemm takes contiguous row-major operands")
+    if path not in PATHS:
+        raise ValueError(f"path {path!r} is not one of the kernel's {PATHS}")
+    if path == "decode":
+        if tile is not None:
+            raise ValueError(f"the decode path takes no tile, got {tile}")
+        if m > DECODE_ROWS[-1]:
+            raise ValueError(f"M = {m} is above the decode path's largest "
+                             f"row bucket {DECODE_ROWS[-1]}")
+        if type(split_k) is not int or not 1 <= split_k <= SPLIT_LIMIT:
+            raise ValueError(f"split_k must be an int in 1..{SPLIT_LIMIT}, "
+                             f"got {split_k!r}")
+        return
+    if split_k != 1:
+        raise ValueError(f"the tiled path takes split_k 1, got {split_k!r}")
     if tile not in TILES:
         raise ValueError(f"tile (bm, bk, bn) = {tile} is not on the "
                          f"kernel's menu {TILES}")
     if smem_bytes(*tile, a.element_size()) > SMEM_LIMIT:
         raise ValueError(f"tile {tile} needs more than the {SMEM_LIMIT} "
                          f"bytes of shared memory a block may use")
-    if -(-m // tile[0]) > _GRID_LIMIT:
+    if -(-m // tile[0]) > SPLIT_LIMIT:
         raise ValueError(f"M = {m} at bm = {tile[0]} exceeds the grid limit "
-                         f"{_GRID_LIMIT}")
+                         f"{SPLIT_LIMIT}")
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load("sparse_gemm")
     lib.sparse_gemm_launch.argtypes = (
-        [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+        [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
         + [ctypes.c_void_p])
-    lib.sparse_gemm_launch.restype = ctypes.c_int
+    lib.sparse_decode_launch.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+        + [ctypes.c_void_p])
+    lib.sparse_reduce_launch.argtypes = (
+        [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    for fn in (lib.sparse_gemm_launch, lib.sparse_decode_launch,
+               lib.sparse_reduce_launch):
+        fn.restype = ctypes.c_int
     return lib
 
 
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
+def split_reduce(ws: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """(split_k, M, N) f32 partials -> (M, N) in `out_dtype` (bf16 or
+    f32): their sum in split order from zero, through the decode path's
+    second kernel on a CUDA tensor, `split_reduce_reference` on a CPU
+    one."""
+    global reduce_launches
+    if ws.dim() != 3 or ws.dtype != torch.float32 or not ws.is_contiguous():
+        raise ValueError(f"split_reduce takes contiguous (split_k, M, N) f32 "
+                         f"partials, got {ws.dtype} {tuple(ws.shape)}")
+    if ws.shape[0] < 2 or ws[0].numel() < 1:
+        raise ValueError(f"split_reduce needs 2 or more non-empty partials, "
+                         f"got {tuple(ws.shape)}")
+    if out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"split_reduce writes bf16 or f32, not {out_dtype}")
+    if ws.device.type == "cpu":
+        return split_reduce_reference(ws, out_dtype)
+    split_k, m, n = ws.shape
+    out = torch.empty((m, n), dtype=out_dtype, device=ws.device)
+    with torch.cuda.device(ws.device):
+        _raise_on(_library().sparse_reduce_launch(
+            _DTYPE_CODE[out_dtype], ws.data_ptr(), out.data_ptr(),
+            int(out_dtype == torch.float32), m * n, split_k,
+            torch.cuda.current_stream().cuda_stream),
+            f"sparse_gemm reduction of {split_k} partials")
+    reduce_launches += 1
+    return out
+
+
 def sparse_gemm(a: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
-                *, n_keep: int, m_group: int,
-                tile: tuple[int, int, int] = TILES[-1],
+                *, n_keep: int, m_group: int, path: str = "tiled",
+                tile: tuple[int, int, int] | None = None, split_k: int = 1,
                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """(M, K) float @ N:M-compressed (K_c, N) storage -> (M, N) in
-    `out_dtype or a.dtype`, through the kernel with CTA tile `tile`.
+    `out_dtype or a.dtype`, on the kernel path `path`: "tiled" at CTA
+    tile `tile` (the menu's largest if None), or "decode" with the groups
+    split over `split_k` blocks (M <= `DECODE_ROWS[-1]`, no tile).
 
-    CUDA operands launch the kernel on the current stream; CPU operands
-    get `sparse_gemm_reference`.  Raises on anything the kernel does not
-    take, and when the launch fails (there is no fallback)."""
+    CUDA operands launch the path's kernels on the current stream; CPU
+    operands get `sparse_gemm_reference`.  Raises on anything the kernels
+    do not take, and when a launch fails (there is no fallback)."""
     global launches
-    tile = tuple(tile)
-    _check(a, values, indices, n_keep, m_group, tile)
+    if path == "tiled" and tile is None:
+        tile = TILES[-1]
+    tile = None if tile is None else tuple(tile)
+    _check(a, values, indices, n_keep, m_group, path, tile, split_k)
     out_dtype = out_dtype or a.dtype
     if a.device.type == "cpu":
         return sparse_gemm_reference(a, values, indices, n_keep=n_keep,
@@ -168,19 +306,31 @@ def sparse_gemm(a: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
                          f"{a.device}")
     m, k = a.shape
     k_c, n = values.shape
-    # the kernel writes its operand dtype or the f32 accumulator
+    # the kernels write their operand dtype or the f32 accumulator
     direct = out_dtype == a.dtype
-    out = torch.empty((m, n), dtype=a.dtype if direct else torch.float32,
+    written = a.dtype if direct else torch.float32
+    out = torch.empty((split_k, m, n) if split_k > 1 else (m, n),
+                      dtype=torch.float32 if split_k > 1 else written,
                       device=a.device)
-    lib = _library()
+    lib, code = _library(), _DTYPE_CODE[a.dtype]
+    what = f"sparse_gemm {n_keep}:{m_group} {path}"
     with torch.cuda.device(a.device):
-        err = lib.sparse_gemm_launch(
-            _DTYPE_CODE[a.dtype], *tile, a.data_ptr(), values.data_ptr(),
-            indices.data_ptr(), out.data_ptr(), int(not direct), m, n, k, k_c,
-            n_keep, m_group, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"sparse_gemm {n_keep}:{m_group} {tile} launch "
-                           f"failed: CUDA error {err}")
+        stream = torch.cuda.current_stream().cuda_stream
+        if path == "tiled":
+            stages = tiled_stages(tile, a.element_size(), n_keep, m_group)
+            _raise_on(lib.sparse_gemm_launch(
+                code, *tile, a.data_ptr(), values.data_ptr(),
+                indices.data_ptr(), out.data_ptr(), int(not direct), m, n, k,
+                k_c, n_keep, m_group, stages, stream), f"{what} {tile}")
+        else:
+            base, extra = split_groups(k_c // n_keep, split_k)
+            _raise_on(lib.sparse_decode_launch(
+                code, decode_rows(m), a.data_ptr(), values.data_ptr(),
+                indices.data_ptr(), out.data_ptr(), int(not direct), m, n, k,
+                k_c, n_keep, m_group, split_k, base, extra, stream),
+                f"{what} split_k {split_k}")
     launches += 1
+    path_launches[path] += 1
+    if split_k > 1:                     # out holds the f32 partials
+        out = split_reduce(out, written)
     return out if direct else out.to(out_dtype)
-

@@ -7,8 +7,10 @@ Every test here needs a CUDA card and skips without one; on the card run
 The file imports no JAX (the card's machine has none).  Tolerances are
 per output row, rel-L2 <= 1e-4 in f32 and <= 1e-2 in bf16 (PERF.md §2);
 the int8 GEMM's int32 result is held to its plain version bit for bit.
-The sparse GEMM is held at those row tolerances at every N:M spec, every
-tile of its menu and any int8 index array.
+The sparse GEMM is held at those row tolerances at every N:M spec, on
+both of its paths (every tile of the tiled menu; the decode path at
+several splits) and with any int8 index array, and its repeat launches
+bit for bit.
 """
 
 import dataclasses
@@ -298,29 +300,32 @@ def test_quantize_launcher_on_the_card_serves_the_cpus_tokens(cuda, trace):
     (127, 128, 4, 256, 64)])
 def test_sparse_kernel_matches_plain_version(cuda, dtype, tol, n_keep,
                                              m_group, m, k, n):
-    """Every tile of the menu, the f32-output path included."""
+    """Every tile of the tiled path's menu and, at M <= 16, the decode
+    path at every split of `_splits`; the f32-output path included."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     a = torch.randn(m, k, generator=gen, device=cuda).to(dtype)
     st = sparsify(torch.randn(k, n, generator=gen, device=cuda).to(dtype),
                   n_keep, m_group)
     kw = {"n_keep": n_keep, "m_group": m_group}
     sparse_gemm.reset_launches()
-    for tile in sparse_gemm.TILES:
+    configs = _sparse_configs(m, k, n_keep, m_group, a.element_size())
+    for conf in configs:
         for out in (dtype, torch.float32):
             got = sparse_gemm.sparse_gemm(a, st.values, st.indices,
-                                          tile=tile, out_dtype=out, **kw)
+                                          out_dtype=out, **conf, **kw)
             ref = sparse_gemm.sparse_gemm_reference(
                 a, st.values, st.indices, out_dtype=out, **kw)
             assert got.dtype == out and got.shape == (m, n)
             assert _row_rel_l2(got, ref) <= (tol if out == dtype else 1e-4)
-    assert sparse_gemm.launches == 2 * len(sparse_gemm.TILES)
+    assert sparse_gemm.launches == 2 * len(configs)
 
 
 @pytest.mark.card
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 def test_sparse_kernel_takes_any_index_array(cuda, dtype, tol):
     """Offsets out of range (negative, M, up to 127) add nothing and
-    repeated offsets add: the one-hot sum of the plain version."""
+    repeated offsets add: the one-hot sum of the plain version, on both
+    paths."""
     gen = torch.Generator(device=cuda).manual_seed(1)
     for n_keep, m_group in ((2, 4), (3, 7)):
         k_c = -(-300 // m_group) * n_keep
@@ -333,9 +338,77 @@ def test_sparse_kernel_takes_any_index_array(cuda, dtype, tol):
         i[1::3] = i[::3][:len(i[1::3])]          # repeats within a group
         kw = {"n_keep": n_keep, "m_group": m_group}
         ref = sparse_gemm.sparse_gemm_reference(a, v, i, **kw)
-        for tile in sparse_gemm.TILES:
-            got = sparse_gemm.sparse_gemm(a, v, i, tile=tile, **kw)
+        for conf in _sparse_configs(9, 300, n_keep, m_group,
+                                    a.element_size()):
+            got = sparse_gemm.sparse_gemm(a, v, i, **conf, **kw)
             assert _row_rel_l2(got, ref) <= tol
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_kernel_repeat_launches_are_bit_identical(cuda, dtype):
+    """No atomics: two launches on the same inputs give the same bits on
+    both paths and at every split (the reduction sums in split order)."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for m, k, n, n_keep, m_group in ((8, 1536, 1536, 2, 4),
+                                     (5, 1003, 200, 3, 7)):
+        a = torch.randn(m, k, generator=gen, device=cuda).to(dtype)
+        st = sparsify(torch.randn(k, n, generator=gen, device=cuda).to(dtype),
+                      n_keep, m_group)
+        for conf in _sparse_configs(m, k, n_keep, m_group, a.element_size()):
+            kw = {"n_keep": n_keep, "m_group": m_group,
+                  "out_dtype": torch.float32, **conf}
+            first = sparse_gemm.sparse_gemm(a, st.values, st.indices, **kw)
+            again = sparse_gemm.sparse_gemm(a, st.values, st.indices, **kw)
+            assert torch.equal(first, again), conf
+
+
+@pytest.mark.card
+def test_sparse_counters_count_gemms_and_reductions(cuda):
+    """`launches` counts one per sparse GEMM whatever the path,
+    `path_launches` splits it by path, and `reduce_launches` counts the
+    split-K reduction, which runs only at split_k > 1."""
+    st = sparsify(torch.randn(512, 256, device=cuda), 2, 4)
+    a = torch.randn(8, 512, device=cuda)
+    kw = {"n_keep": 2, "m_group": 4}
+    sparse_gemm.reset_launches()
+    sparse_gemm.sparse_gemm(a, st.values, st.indices, path="decode",
+                            split_k=1, **kw)
+    sparse_gemm.sparse_gemm(a, st.values, st.indices, path="decode",
+                            split_k=5, **kw)
+    sparse_gemm.sparse_gemm(a, st.values, st.indices, **kw)
+    sparse_gemm.sparse_gemm_reference(a, st.values, st.indices, **kw)
+    assert sparse_gemm.launches == 3
+    assert sparse_gemm.path_launches == {"decode": 2, "tiled": 1}
+    assert sparse_gemm.reduce_launches == 1
+    ws = torch.randn(3, 8, 256, device=cuda)
+    got = sparse_gemm.split_reduce(ws, torch.float32)
+    assert torch.equal(got, sparse_gemm.split_reduce_reference(
+        ws, torch.float32))
+    assert sparse_gemm.reduce_launches == 2 and sparse_gemm.launches == 3
+    sparse_gemm.reset_launches()
+    assert (sparse_gemm.launches, sparse_gemm.reduce_launches) == (0, 0)
+    assert sparse_gemm.path_launches == {"decode": 0, "tiled": 0}
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("path", ["decode", "tiled"])
+def test_sparse_kernel_failed_launch_raises(cuda, monkeypatch, path):
+    """A launch the CUDA entry refuses (a row bucket or a stage count it
+    was not built for) raises, and counts nothing: no fallback."""
+    st = sparsify(torch.randn(256, 64, device=cuda), 2, 4)
+    a = torch.randn(4, 256, device=cuda)
+    if path == "decode":
+        monkeypatch.setattr(sparse_gemm, "decode_rows", lambda m: 5)
+        kw = {"path": "decode", "split_k": 2}
+    else:
+        monkeypatch.setattr(sparse_gemm, "tiled_stages", lambda *args: 3)
+        kw = {}
+    sparse_gemm.reset_launches()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        sparse_gemm.sparse_gemm(a, st.values, st.indices, n_keep=2,
+                                m_group=4, **kw)
+    assert sparse_gemm.launches == sparse_gemm.reduce_launches == 0
 
 
 @pytest.mark.card
@@ -377,6 +450,23 @@ def test_sparsity_launcher_on_the_card_serves_the_cpus_tokens(cuda, trace):
     card = out["scheduler"].completions
     assert {u: c.tokens.tolist() for u, c in done.items()} == {
         u: c.tokens.tolist() for u, c in card.items()}
+
+
+def _sparse_configs(m, k, n_keep, m_group, itemsize):
+    """The kernel arguments a card test holds at (m, k): every tile of the
+    tiled menu and, at M <= 16, the decode path at split 1, the planner's
+    split, one group a split, and past the groups (empty splits)."""
+    from repro_torch.engine import HopperModel, KernelRequest
+
+    configs = [{"path": "tiled", "tile": t} for t in sparse_gemm.TILES]
+    if m <= sparse_gemm.DECODE_ROWS[-1]:
+        dec = HopperModel().decide(KernelRequest(
+            "gemm_sparse", m, k, 256, in_bytes=itemsize, out_bytes=itemsize,
+            density=n_keep / m_group))
+        top = sparse_gemm.max_split(k, m_group)
+        for split in sorted({1, dec.meta_dict["split_k"], top, top + 3}):
+            configs.append({"path": "decode", "split_k": split})
+    return configs
 
 
 def _to(tree, dev):

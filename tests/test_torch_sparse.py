@@ -330,13 +330,36 @@ def test_sparse_gemm_on_the_cpu_is_its_plain_version(out):
 
 
 @pytest.mark.parametrize("bad", ["tile", "dtype", "int8", "k", "shape",
-                                 "spec"])
+                                 "spec", "path", "split 0", "split limit",
+                                 "split float", "tiled split", "decode tile",
+                                 "decode rows"])
 def test_sparse_gemm_refuses_what_the_kernel_does_not_take(bad):
+    """Every argument the kernels do not take raises, on the CPU too (the
+    check runs before the plain version): a tile off the menu, a path the
+    kernel lacks, a split_k outside 1..SPLIT_LIMIT or not an int, a split
+    on the tiled path, a tile on the decode path, M above its rows."""
     a, v, i = (torch.from_numpy(x) for x in _operands(4, 64, 32, 2, 4, 16))
     kw = {"n_keep": 2, "m_group": 4}
     want, match = ValueError, None
+    decode = {"path": "decode", "split_k": 2}
     if bad == "tile":
         kw["tile"], match = (16, 64, 64), "menu"
+    elif bad == "path":
+        kw["path"], match = "sparse", "not one of the kernel's"
+    elif bad.startswith("split"):
+        split = {"split 0": 0, "split limit": sparse_gemm.SPLIT_LIMIT + 1,
+                 "split float": 2.0}[bad]
+        kw.update(decode, split_k=split)
+        match = "split_k must be an int"
+    elif bad == "tiled split":
+        kw["split_k"], match = 2, "tiled path takes split_k 1"
+    elif bad == "decode tile":
+        kw.update(decode, tile=sparse_gemm.TILES[0])
+        match = "takes no tile"
+    elif bad == "decode rows":
+        a = torch.from_numpy(_normal((17, 64), 16))
+        kw.update(decode)
+        match = "largest row bucket 16"
     elif bad == "dtype":
         a, want, match = a.double(), TypeError, "bf16 or f32"
     elif bad == "int8":
@@ -352,15 +375,28 @@ def test_sparse_gemm_refuses_what_the_kernel_does_not_take(bad):
 
 
 def test_cuda_source_menu_equals_the_wrapper_menu():
+    """The tiled menu and the decode row buckets are the CUDA source's
+    macros; every tile fits a block with one stage of a full chunk (every
+    spec), and bf16 tiles keep two stages at every spec."""
     src = CSRC.read_text()
     block = src[src.index("#define SPARSE_TILES"):].split("\n\n")[0]
     menu = tuple((int(a), int(b), int(c)) for a, b, c in
                  re.findall(r"X\((\d+), (\d+), (\d+)\)", block))
     assert menu == sparse_gemm.TILES
+    block = src[src.index("#define SPARSE_DECODE_ROWS"):].split("\n\n")[0]
+    rows = tuple(int(r) for r in re.findall(r"X\((\d+)\)", block))
+    assert rows == sparse_gemm.DECODE_ROWS
     assert all(bk >= 128 for _, bk, _ in menu)       # one group of M = 128
+    specs = [(n, m) for m in range(2, 129) for n in range(1, m)]
     for tile in menu:
         for in_bytes in (2, 4):
             assert sparse_gemm.smem_bytes(*tile, in_bytes) <= 232_448
+        assert all(sparse_gemm.tiled_stages(tile, 2, n, m) == 2
+                   for n, m in specs)
+        assert sparse_gemm.smem_bytes(*tile, 2, 127, 2) <= 232_448
+    # f32 at the wide tiles falls back to one stage where two do not fit
+    assert sparse_gemm.tiled_stages((128, 128, 128), 4, 2, 4) == 1
+    assert sparse_gemm.tiled_stages((16, 128, 64), 4, 127, 128) == 2
 
 
 # --------------------------------------------------------------------------
@@ -446,6 +482,19 @@ def test_hopper_sparse_backend_snaps_a_foreign_tile_to_its_menu():
              n_keep=2, m_group=4)
     assert torch.equal(got, sparse_gemm.sparse_gemm_reference(
         a, v, i, n_keep=2, m_group=4))
+    # a decode decision names its path and split (the decision's tile is
+    # informational there), and a bad split in one raises
+    from repro_torch.engine.backends import sparse_args
+    dec = HopperModel().decide(KernelRequest("gemm_sparse", 6, 40, 24,
+                                             in_bytes=4, out_bytes=4,
+                                             density=0.5))
+    assert sparse_args(dec) == {"path": "decode", "split_k":
+                                dec.meta_dict["split_k"]}
+    assert torch.equal(fn(dec, a, v, i, n_keep=2, m_group=4), got)
+    bad = KernelDecision("gemm_sparse", "os", 8, 20, 256,
+                         meta=(("path", "decode"), ("split_k", 0)))
+    with pytest.raises(ValueError, match="split_k must be an int"):
+        fn(bad, a, v, i, n_keep=2, m_group=4)
 
 
 @pytest.mark.parametrize("backend", SPARSE_BACKENDS)
@@ -473,9 +522,15 @@ def test_sparse_matmul_keys_density_and_equals_reference(backend):
 
 
 def test_sparse_request_keys_apart_and_survives_json(tmp_path):
+    """Density keys a sparse request apart; a decision with its path and
+    split_k (decode at M = 8, tiled at M = 64) survives the plan's JSON
+    and names the same kernel arguments after it."""
+    from repro_torch.engine.backends import sparse_args
+
     dense = KernelRequest("gemm", 64, 256, 64)
     half = KernelRequest("gemm_sparse", 64, 256, 64, density=0.5)
     quarter = KernelRequest("gemm_sparse", 64, 256, 64, density=0.25)
+    decode = KernelRequest("gemm_sparse", 8, 8960, 1536, density=0.5)
     assert len({dense.key(), half.key(), quarter.key()}) == 3
     plan = ExecutionPlan()
     model = HopperModel()
@@ -483,11 +538,21 @@ def test_sparse_request_keys_apart_and_survives_json(tmp_path):
     assert plan.lookup(half) is None
     plan.add(half, model.decide(half))
     assert plan.lookup(quarter) is None
+    plan.add(decode, model.decide(decode))
     plan.save(tmp_path / "plan.json")
     loaded = ExecutionPlan.load(tmp_path / "plan.json")
     assert loaded.lookup(half) is not None
     assert loaded.lookup(quarter) is None
-    assert [r.density for r, _ in loaded] == [1.0, 0.5]
+    assert [r.density for r, _ in loaded] == [1.0, 0.5, 0.5]
+    for req in (half, decode):
+        before, after = plan.decisions[req.key()], loaded.lookup(req)
+        assert after == before
+        assert sparse_args(after) == sparse_args(before)
+    assert sparse_args(loaded.lookup(decode)) == {
+        "path": "decode", "split_k": 44}
+    assert sparse_args(loaded.lookup(half))["path"] == "tiled"
+    assert ExecutionPlan.from_json(loaded.to_json()).to_json() == \
+        loaded.to_json()
 
 
 def test_sparse_matmul_refuses_quantized_storage_and_a_wrong_k():
@@ -502,28 +567,82 @@ def test_sparse_matmul_refuses_quantized_storage_and_a_wrong_k():
                                                       st)
 
 
-@pytest.mark.parametrize("m", [4, 8, 2048, 5])
+@pytest.mark.parametrize("m", [1, 4, 8, 16, 17, 2048, 5])
 @pytest.mark.parametrize("in_bytes", [2, 4])
 def test_hopper_plans_sparse_on_the_kernel_menu(m, in_bytes):
-    """OS on the sparse kernel's menu, planned at K_eff = density x K plus
-    one index byte per kept value: cheaper than the dense sibling."""
+    """M up to the decode rows (16) plans the decode path with a split_k
+    that covers the card (blocks >= 132) unless each split is already at
+    its depth floor, streaming fewer bytes than the dense weight; above
+    it, OS on the tiled menu at K_eff = density x K plus one index byte
+    per kept value, cheaper than the dense sibling."""
     for k, n in ((1536, 1536), (1536, 256), (1536, 8960), (8960, 1536)):
         req = KernelRequest("gemm_sparse", m, k, n, in_bytes=in_bytes,
                             out_bytes=in_bytes, density=0.5)
         dec = HopperModel().decide(req)
-        assert dec.dataflow == "os"
-        assert (dec.bm, dec.bk, dec.bn) in sparse_gemm.TILES
         meta = dec.meta_dict
+        assert dec.dataflow == "os"
         assert meta["k_effective"] == k // 2 and meta["density"] == 0.5
+        if m <= sparse_gemm.DECODE_ROWS[-1]:
+            split = meta["split_k"]
+            assert meta["path"] == "decode"
+            assert dec.bm == sparse_gemm.decode_rows(m)
+            assert dec.bn == sparse_gemm.decode_columns(in_bytes)
+            assert meta["blocks"] == -(-n // dec.bn) * split
+            assert (meta["blocks"] >= cost.SMS
+                    or split == k // 2 // cost.DECODE_MIN_ROWS)
+            assert meta["workspace_bytes"] == (2 * split * m * n * 4
+                                               if split > 1 else 0)
+            top = k // 2 // cost.DECODE_MIN_ROWS
+            assert 1 <= split <= top
+            assert dec.seconds == min(cost.decode_cost(req, s)["seconds"]
+                                      for s in range(1, top + 1))
+            # it streams the compressed weight, fewer bytes than the dense
+            streamed = (meta["hbm_bytes"] - meta["workspace_bytes"]
+                        - m * n * in_bytes - m * k * in_bytes)
+            assert streamed == k // 2 * n * (in_bytes + 1) < k * n * in_bytes
+            continue
+        assert meta["path"] == "tiled" and meta["split_k"] == 1
+        assert (dec.bm, dec.bk, dec.bn) in sparse_gemm.TILES
+        stages = meta["stages"]
         assert meta["smem_bytes"] == sparse_gemm.smem_bytes(
-            dec.bm, dec.bk, dec.bn, in_bytes) <= cost.SMEM_LIMIT
+            dec.bm, dec.bk, dec.bn, in_bytes, dec.bk // 2,
+            stages) <= cost.SMEM_LIMIT
+        assert stages == sparse_gemm.tiled_stages(
+            (dec.bm, dec.bk, dec.bn), in_bytes, 2, 4)
         cfg = cost.TileConfig("os", dec.bm, dec.bk, dec.bn)
-        body, bytes_, _ = cost.estimate(m, k // 2, n, cfg, in_bytes, in_bytes)
+        body, bytes_, _ = cost.estimate(m, k // 2, n, cfg, in_bytes,
+                                        in_bytes)
         assert meta["hbm_bytes"] == bytes_ + k // 2 * n
         assert dec.seconds == body + k // 2 * n / cost.HBM_BW
         dense = HopperModel().decide(KernelRequest(
             "gemm", m, k, n, in_bytes=in_bytes, out_bytes=in_bytes))
         assert dec.seconds < dense.seconds
+
+
+@pytest.mark.parametrize("n_keep,m_group", SPECS + [(127, 128), (63, 64)])
+@pytest.mark.parametrize("k", [56, 61, 1003, 8960])
+def test_split_group_ranges_cover_every_group_once(n_keep, m_group, k):
+    """The (base, extra) of `split_groups`, which the wrapper passes the
+    decode kernel, gives each split the groups [s base + min(s, extra),
+    + base + (s < extra)) (the kernel's formula): every group of a ragged
+    or whole K exactly once, in order, at split 1, the planner's split,
+    one group a split, and splits past the groups (empty, as the kernel
+    takes them)."""
+    groups = -(-k // m_group)
+    req = KernelRequest("gemm_sparse", 8, k, 1536, density=n_keep / m_group)
+    planned = HopperModel().decide(req).meta_dict["split_k"]
+    top = sparse_gemm.max_split(k, m_group)
+    assert top == groups
+    for split in {1, 2, 7, planned, top, top + 5}:
+        base, extra = sparse_gemm.split_groups(groups, split)
+        assert base * split + extra == groups and 0 <= extra < split
+        ranges = [(s * base + min(s, extra),
+                   s * base + min(s, extra) + base + (s < extra))
+                  for s in range(split)]
+        taken = [g for lo, hi in ranges for g in range(lo, hi)]
+        assert taken == list(range(groups))
+        sizes = [hi - lo for lo, hi in ranges]
+        assert max(sizes) - min(sizes) <= 1
 
 
 # --------------------------------------------------------------------------
