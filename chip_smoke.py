@@ -124,6 +124,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import json
@@ -143,10 +144,11 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.engine import Engine, KernelRequest, use_engine  # noqa: E402
-from repro_torch.engine.backends import sparse_args  # noqa: E402
+from repro_torch.engine import cost as cost_model  # noqa: E402
+from repro_torch.engine.backends import gemm_args, sparse_args  # noqa: E402
 from repro_torch.engine.cost import (HBM_BW, PEAK_FLOPS_BF16,  # noqa: E402
                                      PEAK_FLOPS_F32, PEAK_OPS_INT8,
-                                     HopperModel, choose_tile)
+                                     HopperModel, decide_gemm, gemm_cost)
 from repro_torch.kernels import (_build, flash_attention,  # noqa: E402
                                   grouped_gemm, paged_attention, quant_gemm,
                                   redas_gemm, sparse_gemm)
@@ -164,6 +166,9 @@ BATCH, PROMPT, GEN, SEED = 4, 512, 16, 0
 LAYER_GEMMS = {(1536, 1536): 2, (1536, 256): 2, (1536, 8960): 2, (8960, 1536): 1}
 L2_BYTES = 50 * 2**20
 BF16_ROW_TOL, F32_ROW_TOL = 1e-2, 1e-4
+#: the most the model's GEMM decision may take against the fastest of the
+#: three dataflows (each at the model's best configuration for it)
+GEMM_PICK_LIMIT = 1.25
 LOGIT_LIMITS = {"rel_l2": 0.035, "rel_max": 0.035}
 KERNELS = ("redas_gemm", "paged_attention", "flash_attention", "grouped_gemm",
            "quant_gemm", "sparse_gemm")
@@ -252,6 +257,20 @@ def device_ms(fn, sets, side: torch.cuda.Stream) -> float:
     return e0.elapsed_time(e1) / (n * reps)
 
 
+def host_ms(fn, calls: int = 200) -> float:
+    """Wall time (ms) of one of `calls` back-to-back calls of `fn`, the
+    card synchronised before and after: at decode shapes the host's cost
+    of a call (its checks, allocations and launches), which the card's
+    time hides only when it is longer."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
 def bound(m: int, k: int, n: int, itemsize: int) -> tuple[float, str]:
     """Least time (ms) the card could take, and what sets it: each input
     read once and the output written once at the HBM rate, against the
@@ -299,6 +318,57 @@ def phase_setup() -> None:
                                  "spill_load_bytes": loads}
 
 
+#: the ReDas GEMM's kernels (csrc/redas_gemm.cu), as the profiler names
+#: them
+GEMM_KERNELS = ("::os_kernel<", "::stream_kernel<", "::stream_reduce_kernel<")
+
+
+@contextlib.contextmanager
+def multi_slab_calls():
+    """Count the ReDas GEMM calls whose arguments span more than one K slab
+    (WS/IS with K > bk: each must launch the reduction once), by watching
+    the wrapper's arguments; the wrapper itself is what runs."""
+    seen = collections.Counter()
+    inner = redas_gemm.gemm
+
+    def watched(a, b, **kw):
+        if (kw.get("dataflow", "os") != "os"
+                and redas_gemm.slab_count(a.shape[1], kw["bk"]) > 1):
+            seen["calls"] += 1
+        return inner(a, b, **kw)
+
+    redas_gemm.gemm = watched
+    try:
+        yield seen
+    finally:
+        redas_gemm.gemm = inner
+
+
+def check_reductions(label: str, seen: collections.Counter) -> int:
+    """The streaming reductions launched since the last reset equal the
+    calls whose decision has more than one slab."""
+    got = redas_gemm.reduce_launches
+    print(f"{label}: {got} streaming reductions, {seen['calls']} GEMM calls "
+          f"with more than one K slab")
+    check(got == seen["calls"], f"{label}: {got} reductions for "
+          f"{seen['calls']} multi-slab calls")
+    return got
+
+
+def gemm_trace_line(prof: dict, per: int, unit: str) -> dict:
+    """The ReDas GEMM kernels' device ms in a trace, by kernel, and per
+    `unit` (the trace covers `per` of them)."""
+    matched = prof["matched"]
+    total = sum(matched[key]["ms"] for key in GEMM_KERNELS)
+    print(f"  the ReDas GEMM kernels in the trace: {total:.3f} ms of device "
+          f"time, {total / per:.3f} ms a {unit} ("
+          + ", ".join(f"{key.strip(':<')} {matched[key]['ms']:.3f} ms in "
+                      f"{matched[key]['count']} launches"
+                      for key in GEMM_KERNELS) + ")")
+    return {"ms": total, f"ms_per_{unit}": total / per,
+            **{key.strip(":<"): matched[key] for key in GEMM_KERNELS}}
+
+
 def reset_counts() -> None:
     redas_gemm.reset_launches()
     paged_attention.reset_launches()
@@ -325,58 +395,245 @@ def _operand_sets(m, k, n, dtype, gen):
               / math.sqrt(k)).to(dtype)) for _ in range(count)]
 
 
+def _stream_extremes(m: int, k: int, n: int, size: int, df: str) -> list:
+    """WS/IS at one slab (the shallowest streaming tile that holds K and
+    fits, where one does) and at the most slabs (bk = 64)."""
+    fits = [t for t in redas_gemm.STREAM_TILES
+            if redas_gemm.stream_stages(df, *t, size)]
+    one = min((t for t in fits if t[1] >= k), key=lambda t: (t[1], t),
+              default=None)
+    return [{"dataflow": df, "bm": t[0], "bk": t[1], "bn": t[2]}
+            for t in ([one] if one else []) + [(16, 64, 64)]]
+
+
 def phase_kernels() -> list[dict]:
+    """The ReDas GEMM against its plain version: qwen's four (K, N) at
+    the static decode (M = 4), the paged decode (M = 8) and the prefill
+    (M = 2048) in bf16, two f32 shapes, and untimed M = 1, 16, 17 at K =
+    8960 and a ragged (5, 1003, 200).  Each dataflow runs at the model's
+    best configuration for it (`decide_gemm` on that dataflow alone), the
+    model's seconds beside the measured ms; at M <= 16 WS and IS also at
+    one slab and at the most slabs.  Every configuration is launched
+    twice, the outputs bit for bit equal.  At each bf16 main-path shape
+    the model's decision must time within GEMM_PICK_LIMIT of the fastest
+    dataflow; at each timed decode shape whose decision has more than
+    one slab the reduction is timed alone."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     side = torch.cuda.Stream()
     model = HopperModel()
-    shapes = [(m, k, n, torch.bfloat16) for m in (BATCH, BATCH * PROMPT)
-              for k, n in LAYER_GEMMS]
-    shapes += [(BATCH, 1536, 8960, torch.float32),
-               (BATCH * PROMPT, 1536, 1536, torch.float32)]
-    rows, failures = [], []
-    for m, k, n, dtype in shapes:
-        sets = _operand_sets(m, k, n, dtype, gen)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(m, k, n, bf16, True) for m in (BATCH, SLOTS, BATCH * PROMPT)
+             for k, n in LAYER_GEMMS]
+    cases += [(BATCH, 1536, 8960, f32, True),
+              (BATCH * PROMPT, 1536, 1536, f32, True)]
+    cases += [(m, 8960, 1536, bf16, False) for m in (1, 16, 17)]
+    cases += [(5, 1003, 200, bf16, False), (5, 1003, 200, f32, False)]
+    rows, failures, picks = [], [], []
+    for m, k, n, dtype, timed in cases:
+        sets = (_operand_sets(m, k, n, dtype, gen) if timed else
+                [(torch.randn(m, k, generator=gen, device="cuda").to(dtype),
+                  (torch.randn(k, n, generator=gen, device="cuda")
+                   / math.sqrt(k)).to(dtype))])
         a, b = sets[0]
         size = a.element_size()
         ref = redas_gemm.gemm_reference(a, b)
-        plain_ms = device_ms(redas_gemm.gemm_reference, sets, side)
-        library_ms = device_ms(torch.matmul, sets, side)
-        bound_ms, bound_by = bound(m, k, n, size)
-        main = model.decide(KernelRequest("gemm", m, k, n, in_bytes=size,
-                                          out_bytes=size))
-        tol = BF16_ROW_TOL if dtype == torch.bfloat16 else F32_ROW_TOL
+        tol = BF16_ROW_TOL if dtype == bf16 else F32_ROW_TOL
+        request = KernelRequest("gemm", m, k, n, in_bytes=size,
+                                out_bytes=size)
+        main = model.decide(request)
+        shape = {"m": m, "k": k, "n": n, "dtype": str(dtype)[6:]}
+        if timed:
+            shape["plain_ms"] = device_ms(redas_gemm.gemm_reference, sets,
+                                          side)
+            shape["library_ms"] = device_ms(torch.matmul, sets, side)
+        shape["bound_ms"], shape["bound_by"] = bound(m, k, n, size)
+        best = {}
         for df in redas_gemm.DATAFLOWS:
-            cfg = choose_tile(m, k, n, size, size, dataflows=(df,))
-            tile = {"bm": cfg.bm, "bk": cfg.bk, "bn": cfg.bn}
-            out = redas_gemm.gemm(a, b, dataflow=df, **tile)
-            torch.cuda.synchronize()
-            rel = row_rel_l2(out, ref)
-            err = (out.float() - ref.float()).abs().max().item()
-            ms = device_ms(lambda x, y, df=df, tile=tile:
-                           redas_gemm.gemm(x, y, dataflow=df, **tile), sets,
-                           side)
-            on_path = (df, cfg.bm, cfg.bk, cfg.bn) == (
-                main.dataflow, main.bm, main.bk, main.bn)
-            row = {"m": m, "k": k, "n": n, "dtype": str(dtype)[6:],
-                   "dataflow": df, "tile": [cfg.bm, cfg.bk, cfg.bn],
-                   "main_path": on_path and dtype == torch.bfloat16,
-                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "max_abs_err": err, "row_rel_l2": rel, "tol": tol}
-            rows.append(row)
-            ok = math.isfinite(rel) and rel <= tol
-            print(f"gemm {row['dtype']} {m}x{k}x{n} {df} tile {tuple(row['tile'])}"
-                  f"{' (main path)' if row['main_path'] else ''}: row rel-L2 "
-                  f"{rel:.2e} (tol {tol:g}), max|diff| {err:.3e}; kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul "
-                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
-                  f"{'' if ok else '  FAILED'}")
-            if not ok:
-                failures.append(f"{df} {m}x{k}x{n} {row['dtype']}: {rel:.2e}")
+            dec = decide_gemm(request, model.name, dataflows=(df,))
+            configs = [(dec, gemm_args(dec))]
+            if df != "os" and m <= 16:
+                configs += [(None, c) for c in _stream_extremes(m, k, n,
+                                                                size, df)
+                            if (c["bm"], c["bk"], c["bn"])
+                            != (dec.bm, dec.bk, dec.bn)]
+            for planned, conf in configs:
+                tile = (conf["bm"], conf["bk"], conf["bn"])
+                out = redas_gemm.gemm(a, b, **conf)
+                again = redas_gemm.gemm(a, b, **conf)
+                torch.cuda.synchronize()
+                check(out.dtype == dtype and out.shape == (m, n),
+                      f"gemm output {out.dtype} {tuple(out.shape)}")
+                rel = row_rel_l2(out, ref)
+                err = (out.float() - ref.float()).abs().max().item()
+                same = torch.equal(out, again)
+                slabs = (1 if df == "os"
+                         else redas_gemm.slab_count(k, tile[1]))
+                cost = gemm_cost(m, k, n, df, tile, size, size)
+                row = {**shape, "dataflow": df, "tile": list(tile),
+                       "slabs": slabs, "groups": cost["groups"],
+                       "role": "planned" if planned else
+                       ("one slab" if slabs == 1 else "most slabs"),
+                       "decision": (df, *tile) == (main.dataflow, main.bm,
+                                                   main.bk, main.bn),
+                       "model_ms": cost["seconds"] * 1e3,
+                       "max_abs_err": err, "row_rel_l2": rel, "tol": tol,
+                       "repeat_bit_identical": same}
+                row["main_path"] = row["decision"] and dtype == bf16 and timed
+                if timed:
+                    row["ms"] = device_ms(
+                        lambda x, y, conf=conf: redas_gemm.gemm(x, y, **conf),
+                        sets, side)
+                    if planned:
+                        best[df] = row
+                    if row["main_path"]:
+                        row["host_ms"] = host_ms(
+                            lambda conf=conf: redas_gemm.gemm(a, b, **conf))
+                        row["library_host_ms"] = host_ms(
+                            lambda: torch.matmul(a, b))
+                    if row["main_path"] and slabs > 1:
+                        row.update(_time_reduce(
+                            slabs, m, n, dtype, gen, side,
+                            redas_gemm.stream_reduce,
+                            redas_gemm.stream_reduce_reference))
+                rows.append(row)
+                ok = math.isfinite(rel) and rel <= tol and same
+                times = (f"; kernel {row['ms']:.4f} ms (model "
+                         f"{row['model_ms']:.4f}), plain "
+                         f"{row['plain_ms']:.4f}, torch.matmul "
+                         f"{row['library_ms']:.4f}, bound "
+                         f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+                         if timed else "")
+                if "host_ms" in row:
+                    times += (f"; host {row['host_ms'] * 1e3:.1f} us a call "
+                              f"(torch.matmul "
+                              f"{row['library_host_ms'] * 1e3:.1f})")
+                if "reduce_ms" in row:
+                    times += (f"; its reduction of {slabs} slabs "
+                              f"{row['reduce_ms']:.4f} ms (plain "
+                              f"{row['reduce_plain_ms']:.4f}, torch.sum "
+                              f"{row['reduce_library_ms']:.4f}, bound "
+                              f"{row['reduce_bound_ms']:.4f})")
+                print(f"gemm {row['dtype']} {m}x{k}x{n} {df} tile {tile} "
+                      f"slabs {slabs} groups {row['groups']} ({row['role']}"
+                      f"{', the decision' if row['decision'] else ''}): row "
+                      f"rel-L2 {rel:.2e} (tol {tol:g}), max|diff| {err:.3e}, "
+                      f"repeat {'bit-identical' if same else 'DIFFERS'}"
+                      f"{times}{'' if ok else '  FAILED'}")
+                if not ok:
+                    failures.append(f"{df} {tile} {m}x{k}x{n} "
+                                    f"{row['dtype']}: {rel:.2e}, repeat "
+                                    f"equal {same}")
+        if timed and dtype == bf16:
+            fastest = min(r["ms"] for r in best.values())
+            pick = best[main.dataflow]["ms"]
+            picks.append({**{key: shape[key] for key in ("m", "k", "n")},
+                          "decision": main.dataflow, "ms": pick,
+                          "fastest_ms": fastest, "ratio": pick / fastest,
+                          "by_dataflow": {df: r["ms"]
+                                          for df, r in best.items()}})
+            print(f"  decision {main.dataflow} ({main.bm}, {main.bk}, "
+                  f"{main.bn}) {pick:.4f} ms against the fastest dataflow "
+                  f"{fastest:.4f} ms: {pick / fastest:.2f}x (limit "
+                  f"{GEMM_PICK_LIMIT}x)")
         del sets
     REPORT["gemm"] = rows
+    REPORT["gemm_picks"] = picks
     check(not failures, f"kernel disagrees with its plain version: {failures}")
+    slow = [p for p in picks if p["ratio"] > GEMM_PICK_LIMIT]
+    check(not slow, f"the model's decision is slower than "
+          f"{GEMM_PICK_LIMIT}x the fastest dataflow: {slow}")
     return rows
+
+
+#: the calibration sweep's shapes: qwen's four (K, N) at decode (M = 4, 8),
+#: at the paged serve's prefill widths (64, 256, 768) and at the static
+#: prefill (2048); granite's attention GEMMs (K, N) at M = 8 and 2048; two
+#: f32 shapes
+SWEEP_SHAPES = ([(m, k, n, torch.bfloat16) for m in (4, 8, 64, 256, 768, 2048)
+                 for k, n in LAYER_GEMMS]
+                + [(m, 1024, n, torch.bfloat16) for m in (8, 2048)
+                   for n in (1024, 512)]
+                + [(4, 1536, 8960, torch.float32),
+                   (2048, 1536, 1536, torch.float32)])
+
+
+def stream_overhead_s(m: int, n: int, dataflow: str, size: int,
+                      cost: dict) -> float:
+    """What `gemm_cost` adds beside a WS/IS call's operation bound: the
+    output and the workspace at the HBM rate and the reduction; 0 for
+    OS."""
+    if dataflow == "os":
+        return 0.0
+    extra = (cost["workspace_bytes"] + m * n * size) / HBM_BW
+    if cost["slabs"] > 1:
+        extra += cost_model.LAUNCH_S + cost_model.REDUCE_ROUND_S * -(
+            -cost["slabs"] // cost_model.REDUCE_BATCH)
+    return extra
+
+
+def sweep() -> int:
+    """`chip_smoke.py --sweep`: build the ReDas GEMM, then time every
+    (dataflow, tile) of its menus at SWEEP_SHAPES beside `gemm_cost`'s
+    prediction, each held to the plain version first; print one JSON
+    line per configuration (also to runs/gemm_sweep.jsonl) and the shares
+    of the bf16 peak each kernel reaches at M = 2048 net of its workspace
+    (the calibration of `engine.cost.MMA_SHARE`)."""
+    print(card_line())
+    _build.build("redas_gemm")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    side = torch.cuda.Stream()
+    out_dir = ROOT / "runs"
+    out_dir.mkdir(exist_ok=True)
+    rows, failures = [], []
+    shares = collections.defaultdict(list)
+    with (out_dir / "gemm_sweep.jsonl").open("w") as fh:
+        for m, k, n, dtype in SWEEP_SHAPES:
+            sets = _operand_sets(m, k, n, dtype, gen)
+            a, b = sets[0]
+            size = a.element_size()
+            ref = redas_gemm.gemm_reference(a, b)
+            tol = BF16_ROW_TOL if dtype == torch.bfloat16 else F32_ROW_TOL
+            for df in redas_gemm.DATAFLOWS:
+                for tile in redas_gemm.tiles_for(df):
+                    cost = gemm_cost(m, k, n, df, tile, size, size)
+                    if cost is None:
+                        continue
+                    kw = {"dataflow": df, "bm": tile[0], "bk": tile[1],
+                          "bn": tile[2]}
+                    got = redas_gemm.gemm(a, b, **kw)
+                    torch.cuda.synchronize()
+                    rel = row_rel_l2(got, ref)
+                    if not (math.isfinite(rel) and rel <= tol):
+                        failures.append((m, k, n, df, tile, rel))
+                    us = 1e3 * device_ms(
+                        lambda x, y, kw=kw: redas_gemm.gemm(x, y, **kw), sets,
+                        side)
+                    row = {"m": m, "k": k, "n": n, "dtype": str(dtype)[6:],
+                           "dataflow": df, "tile": list(tile), "us": us,
+                           "model_us": cost["seconds"] * 1e6,
+                           "row_rel_l2": rel,
+                           **{key: cost[key] for key in
+                              ("slabs", "groups", "blocks", "fill",
+                               "workspace_bytes")}}
+                    rows.append(row)
+                    fh.write(json.dumps(row) + "\n")
+                    print(json.dumps(row), flush=True)
+                    if m == BATCH * PROMPT:
+                        net = us * 1e-6 - stream_overhead_s(m, n, df, size,
+                                                            cost)
+                        mp, kp, np_ = (-(-x // t) * t for x, t in
+                                       zip((m, k, n), tile))
+                        peak = (PEAK_FLOPS_BF16 if size == 2
+                                else PEAK_FLOPS_F32)
+                        shares[df, size, tile].append(
+                            2.0 * mp * kp * np_ / (peak * cost["fill"]
+                                                   * max(net, 1e-9)))
+            del sets
+    for key, vals in sorted(shares.items()):
+        print(f"share {key}: median {sorted(vals)[len(vals) // 2]:.4f} of "
+              f"{[round(v, 4) for v in vals]}")
+    print(f"failures {failures}")
+    return 1 if failures else 0
 
 
 def _paged_sets(dtype, count: int, seed: int = 2,
@@ -608,14 +865,16 @@ def phase_main_path(cfg) -> dict:
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()  # what the script holds already
     reset_counts()
-    out = _serve(GEN)
+    with multi_slab_calls() as seen:
+        out = _serve(GEN)
     counts = read_counts()
     launches = dict(redas_gemm.launches)
+    reduces = check_reductions("static serve", seen)
     peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     expected = sum(LAYER_GEMMS.values()) * cfg.n_layers * GEN
     tokens = out["tokens"]
     decode_ms = (out["seconds"] * 1e3 - prefill_ms) / (GEN - 1)
-    mix = collections.Counter(dec.dataflow for _, dec in out["engine"].plan)
+    mix = decision_mix(out["engine"])
     print(f"main path: served {BATCH} requests x ({PROMPT} prompt + {GEN} new) "
           f"in {out['seconds']:.3f} s, {out['tokens_per_s']:.1f} tok/s; prefill "
           f"and first token {prefill_ms:.2f} ms (a served run of 1 token), "
@@ -625,6 +884,10 @@ def phase_main_path(cfg) -> dict:
           f"{dict(mix)}; kernel launches {launches}")
     check(sum(launches.values()) == expected,
           f"GEMM kernel launched {sum(launches.values())} times, not {expected}")
+    check(launches["os"] > 0 and launches["ws"] + launches["is"] > 0
+          and reduces > 0, f"the static serve ran OS {launches['os']}, "
+          f"WS/IS {launches['ws'] + launches['is']} and {reduces} "
+          f"reductions: each GEMM kernel must run")
     check(counts["paged_attention"] == counts["flash_attention"]
           == counts["grouped_gemm"] == counts["quant_gemm"]
           == counts["sparse_gemm"] == 0,
@@ -640,10 +903,21 @@ def phase_main_path(cfg) -> dict:
         "seconds": out["seconds"], "tokens_per_s": out["tokens_per_s"],
         "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
         "max_memory_gib": peak, "plan": out["engine_plan"],
-        "decision_mix": dict(mix), "launches": launches, "counts": counts,
-        "tokens": tokens.tolist(),
+        "decision_mix": mix, "launches": launches, "counts": counts,
+        "reductions": reduces, "tokens": tokens.tolist(),
         **_traces(out, prefill_ms, decode_ms * (GEN - 1))}
     return out
+
+
+def decision_mix(eng) -> dict:
+    """The engine's GEMM decisions by dataflow and slab count, each with
+    its request's (M, K, N)."""
+    mix = collections.defaultdict(list)
+    for req, dec in eng.plan:
+        if req.op == "gemm":
+            slabs = dec.meta_dict.get("slabs", 1)
+            mix[f"{dec.dataflow} x{slabs}"].append([req.m, req.k, req.n])
+    return dict(mix)
 
 
 def _untraced_ticks(sched, n: int) -> float:
@@ -703,8 +977,11 @@ def phase_scheduler(cfg) -> dict:
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     reset_counts()
-    out = launch_serve.main(SERVE_ARGS)
+    with multi_slab_calls() as seen:
+        out = launch_serve.main(SERVE_ARGS)
     counts = read_counts()
+    launches = dict(redas_gemm.launches)
+    reduces = check_reductions("paged serve", seen)
     peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     sched, eng = out["scheduler"], out["engine"]
     st = sched.stats
@@ -738,9 +1015,13 @@ def phase_scheduler(cfg) -> dict:
               and all(0 <= t < cfg.vocab for t in toks), f"request {uid}")
     sched.paged.check_invariants()
 
+    print(f"paged serve decisions by dataflow and slabs: "
+          f"{decision_mix(eng)}")
     new_misses, trace = _replay_and_trace(out["params"], cfg,
                                           out["serve_config"], eng,
-                                          out["trace"], tokens, "")
+                                          out["trace"], tokens, "",
+                                          GEMM_KERNELS)
+    trace["gemm"] = gemm_trace_line(trace, 10, "tick")
     REPORT["paged_serve"] = {
         "trace": TRACE, "slots": SLOTS, "page_size": PAGE,
         "prefill_bucket": BUCKET, "seconds": out["seconds"],
@@ -751,6 +1032,8 @@ def phase_scheduler(cfg) -> dict:
         "prefill_ms": prefill_ms, "stats": {k: v for k, v in st.items()
                                             if k != "prefill_widths"},
         "plan": eng.plan.stats, "counts": counts, "max_memory_gib": peak,
+        "launches": launches, "reductions": reduces,
+        "decision_mix": decision_mix(eng),
         "second_pass_new_misses": new_misses, "trace_10_ticks": trace}
     return out
 
@@ -866,15 +1149,19 @@ def _traces(out: dict, prefill_ms: float, decode_ms: float) -> dict:
                                           out["serve_config"], out["prompt"],
                                           n, engine=out["engine"])
 
-    prefill = _profile(run(1))
-    whole = _profile(run(GEN))
+    prefill = _profile(run(1), GEMM_KERNELS)
+    whole = _profile(run(GEN), GEMM_KERNELS)
     check(torch.equal(whole.pop("result").cpu(), out["tokens"]),
           "the traced run's tokens differ from the served run's")
     prefill.pop("result")
     wall = whole["wall_ms"] - prefill["wall_ms"]
     busy = whole["device_busy_ms"] - prefill["device_busy_ms"]
     decode = {"wall_ms": wall, "device_busy_ms": busy,
-              "idle_share": max(0.0, 1.0 - busy / wall)}
+              "idle_share": max(0.0, 1.0 - busy / wall),
+              "matched": {key: {k: whole["matched"][key][k]
+                                - prefill["matched"][key][k]
+                                for k in ("ms", "count")}
+                          for key in GEMM_KERNELS}}
     for prof, served in ((prefill, prefill_ms), (whole, prefill_ms + decode_ms),
                          (decode, decode_ms)):
         prof["served_ms"] = served
@@ -887,7 +1174,10 @@ def _traces(out: dict, prefill_ms: float, decode_ms: float) -> dict:
               f"share {prof['idle_share_served']:.2f}")
         for k in prof.get("top", []):
             print(f"    {k['ms']:9.3f} ms {k['count']:5d} x {k['name']}")
-    return {"trace_prefill": prefill, "trace_serve": whole, "trace_decode": decode}
+    gemm = {"prefill": gemm_trace_line(prefill, 1, "prefill"),
+            "decode": gemm_trace_line(decode, GEN - 1, "step")}
+    return {"trace_prefill": prefill, "trace_serve": whole,
+            "trace_decode": decode, "trace_gemm": gemm}
 
 
 def phase_parity(cfg, served: dict) -> None:
@@ -1748,25 +2038,26 @@ def phase_sparse_kernel() -> list[dict]:
     return rows
 
 
-def _time_reduce(split: int, m: int, n: int, dtype, gen,
-                 side: torch.cuda.Stream) -> dict:
-    """The split-K reduction alone at a decode shape's split: partials
-    (split, M, N) f32 cycled past the L2, to the operand dtype; its plain
-    version and torch.sum beside it."""
-    count = max(2, min(32, math.ceil(2 * L2_BYTES / (split * m * n * 4))))
-    sets = [(torch.randn(split, m, n, generator=gen, device="cuda"),)
+def _time_reduce(parts: int, m: int, n: int, dtype, gen,
+                 side: torch.cuda.Stream, kernel=sparse_gemm.split_reduce,
+                 plain=sparse_gemm.split_reduce_reference) -> dict:
+    """A split-K (or K slab) reduction alone at a decision's count of
+    partials: (parts, M, N) f32 partials cycled past the L2, to the
+    operand dtype, held to its plain version bit for bit (the same sum in
+    the same order); its plain version and torch.sum beside it.  The
+    sparse GEMM's unless `kernel` and `plain` name another."""
+    count = max(2, min(32, math.ceil(2 * L2_BYTES / (parts * m * n * 4))))
+    sets = [(torch.randn(parts, m, n, generator=gen, device="cuda"),)
             for _ in range(count)]
-    got = sparse_gemm.split_reduce(sets[0][0], dtype)
-    want = sparse_gemm.split_reduce_reference(sets[0][0], dtype)
-    check(torch.equal(got, want), f"the reduction of {split} partials at "
+    got = kernel(sets[0][0], dtype)
+    want = plain(sets[0][0], dtype)
+    check(torch.equal(got, want), f"the reduction of {parts} partials at "
           f"{m} x {n} differs from its plain version (same order)")
-    bound_ms, bound_by = reduce_bound(split, m, n, got.element_size())
-    return {"reduce_split": split,
-            "reduce_ms": device_ms(lambda w: sparse_gemm.split_reduce(
-                w, dtype), sets, side),
-            "reduce_plain_ms": device_ms(
-                lambda w: sparse_gemm.split_reduce_reference(w, dtype), sets,
-                side),
+    bound_ms, bound_by = reduce_bound(parts, m, n, got.element_size())
+    return {"reduce_parts": parts,
+            "reduce_ms": device_ms(lambda w: kernel(w, dtype), sets, side),
+            "reduce_plain_ms": device_ms(lambda w: plain(w, dtype), sets,
+                                         side),
             "reduce_library_ms": device_ms(
                 lambda w: torch.sum(w, 0).to(dtype), sets, side),
             "reduce_bound_ms": bound_ms, "reduce_bound_by": bound_by,
@@ -2200,10 +2491,12 @@ def phase_granite_sorted() -> dict:
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sched.run(reqs)
+    with multi_slab_calls() as seen:
+        sched.run(reqs)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = read_counts()
+    check_reductions("granite sorted serve", seen)
     peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     eng, st = sched.engine, sched.stats
     ticks, calls = st["decode_steps"], st["prefill_calls"]
@@ -2306,11 +2599,13 @@ def phase_granite_einsum() -> None:
     """The default dispatch through the launcher's static mode: the expert
     matmuls stay plain einsums, so the grouped kernel never launches."""
     reset_counts()
-    out = launch_serve.main(["--arch", GRANITE, "--kernel-backend", "hopper",
-                             "--batch", str(SLOTS), "--prompt-len",
-                             str(EINSUM_PROMPT), "--gen", str(EINSUM_GEN),
-                             "--seed", str(SEED)])
+    with multi_slab_calls() as seen:
+        out = launch_serve.main(["--arch", GRANITE, "--kernel-backend",
+                                 "hopper", "--batch", str(SLOTS),
+                                 "--prompt-len", str(EINSUM_PROMPT), "--gen",
+                                 str(EINSUM_GEN), "--seed", str(SEED)])
     counts = read_counts()
+    check_reductions("granite einsum serve", seen)
     cfg = out["cfg"]
     want = {"grouped_gemm": 0,
             "redas_gemm": 4 * cfg.n_layers * EINSUM_GEN,
@@ -2409,37 +2704,73 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-def gemm_line(rows: list[dict], static: dict, paged: dict) -> dict:
-    """The static serve's GEMM work: each shape's time at its decision,
-    weighted by the launches that serve makes (the paged serve's count
-    stands beside it)."""
+def gemm_lines(rows: list[dict], static: dict, paged: dict) -> list[dict]:
+    """The static serve's GEMM work at the engine's decisions, each
+    shape's time weighted by the calls that serve makes: OS (kernel row
+    1), WS/IS (row 2) and the streaming reduction (its time alone at each
+    decision with more than one slab), each with the plain version,
+    torch.matmul (torch.sum for the reduction) and the bound over the
+    same calls; launches from the static serve, the paged serve's beside
+    them."""
     cfg = get_config(ARCH)
-    totals = dict.fromkeys(("ms", "plain_ms", "library_ms"), 0.0)
-    ops_ms = bytes_ms = bound_ms = 0.0
-    err = 0.0
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    parts = {name: dict.fromkeys(keys, 0.0) for name in ("os", "stream",
+                                                          "reduce")}
+    ops = collections.Counter()
+    bytes_ = collections.Counter()
+    errs = collections.defaultdict(list)
     for (k, n), per_layer in LAYER_GEMMS.items():
         for m, steps in ((BATCH * PROMPT, 1), (BATCH, GEN - 1)):
             row = next(r for r in rows if r["main_path"]
                        and (r["m"], r["k"], r["n"]) == (m, k, n))
             calls = per_layer * cfg.n_layers * steps
-            for key in totals:
-                totals[key] += calls * row[key]
-            bound_ms += calls * row["bound_ms"]
-            ops_ms += calls * 2.0 * m * k * n / PEAK_FLOPS_BF16 * 1e3
-            bytes_ms += calls * (m * k + k * n + m * n) * 2 / HBM_BW * 1e3
-            err = max(err, row["max_abs_err"])
-    return {"name": "redas_gemm", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/redas_gemm.cu",
-            "replaces": "src/repro/kernels/redas_gemm.py:169",
-            "launches": sum(static["launches"].values()),
-            "launches_by_dataflow": static["launches"],
-            "launches_by_path": {"static_serve": static["counts"]["redas_gemm"],
-                                 "paged_serve": paged["counts"]["redas_gemm"]},
-            "per": "the static serve's 3136 launches, summed",
-            "max_abs_err": err, "ms": totals["ms"],
-            "plain_ms": totals["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": totals["library_ms"]}
+            name = "os" if row["dataflow"] == "os" else "stream"
+            for key in keys:
+                parts[name][key] += calls * row[key]
+            ops[name] += calls * 2.0 * m * k * n / PEAK_FLOPS_BF16
+            bytes_[name] += calls * (m * k + k * n + m * n) * 2 / HBM_BW
+            errs[name].append(row["max_abs_err"])
+            if "reduce_ms" in row:
+                for key in keys:
+                    parts["reduce"][key] += calls * row[f"reduce_{key}"]
+                slabs = row["reduce_parts"]
+                ops["reduce"] += calls * (slabs - 1) * m * n / PEAK_FLOPS_F32
+                bytes_["reduce"] += calls * (slabs * 4 + 2) * m * n / HBM_BW
+                errs["reduce"].append(row["reduce_max_abs_err"])
+    by_df = static["launches"]
+    paged_df = paged["launches"]
+    common = {"route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/redas_gemm.cu"}
+    lines = []
+    for name, kernel, replaces, launches, paged_n, what in (
+            ("redas_gemm_os", "os_kernel",
+             "src/repro/kernels/redas_gemm.py:169 (OS, _os_kernel :108)",
+             by_df["os"], paged_df["os"], "OS calls"),
+            ("redas_gemm_stream", "stream_kernel",
+             "src/repro/kernels/redas_gemm.py:206 (WS/IS, _streaming_kernel "
+             ":126)", by_df["ws"] + by_df["is"],
+             paged_df["ws"] + paged_df["is"], "WS and IS calls"),
+            ("redas_gemm_reduce", "stream_reduce_kernel",
+             "src/repro/kernels/redas_gemm.py:206 (the WS/IS partial sums "
+             "carried across K chunks, split into slabs on the card)",
+             static["reductions"], paged["reductions"],
+             "reductions")):
+        key = name.split("_")[-1]
+        lines.append({
+            "name": name, **common, "kernel": kernel, "replaces": replaces,
+            "launches": launches,
+            "launches_by_path": {"static_serve": launches,
+                                 "paged_serve": paged_n},
+            "per": f"the static serve's {launches} {what}, summed",
+            "max_abs_err": max(errs[key]), "ms": parts[key]["ms"],
+            "plain_ms": parts[key]["plain_ms"],
+            "bound_ms": parts[key]["bound_ms"],
+            "bound_by": ("operations" if ops[key] >= bytes_[key]
+                         else "bytes"),
+            "library_ms": parts[key]["library_ms"],
+            "library": "torch.sum over the slab dimension"
+            if key == "reduce" else "torch.matmul"})
+    return lines
 
 
 def attention_lines(attn: dict, paged: dict) -> list[dict]:
@@ -2493,6 +2824,8 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--sweep"]:
+        return sweep()
     t0 = time.perf_counter()
     phase_setup()
     rows = phase_kernels()
@@ -2531,7 +2864,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_granite_einsum()
     phase_granite_smoke_parity()
-    lines = [gemm_line(rows, REPORT["main_path"], REPORT["paged_serve"]),
+    lines = [*gemm_lines(rows, REPORT["main_path"], REPORT["paged_serve"]),
              *attention_lines(attn, REPORT["paged_serve"]),
              grouped_line(grouped_rows, REPORT["granite_sorted"]),
              int8_line(int8_rows), paged_int8_line(paged_int8_rows, qpaged),

@@ -19,11 +19,23 @@ from ..kernels import (flash_attention, grouped_gemm, paged_attention,
 from .plan import KernelDecision
 
 
+def gemm_args(decision: KernelDecision) -> dict:
+    """The ReDas kernel's arguments a decision names: its dataflow and
+    tile, and for WS/IS the `slabs` and `groups` its `meta` carries (a
+    decision without them, e.g. from an older plan, leaves both to the
+    wrapper's rules)."""
+    args = {"dataflow": decision.dataflow, "bm": decision.bm,
+            "bk": decision.bk, "bn": decision.bn}
+    if decision.dataflow != "os":
+        meta = decision.meta_dict
+        args.update(slabs=meta.get("slabs"), groups=meta.get("groups"))
+    return args
+
+
 def hopper_gemm(decision: KernelDecision, a, b, *, out_dtype=None):
-    """The decision's dataflow and CTA tile on the ReDas kernel."""
-    return redas_gemm.gemm(a, b, dataflow=decision.dataflow, bm=decision.bm,
-                           bk=decision.bk, bn=decision.bn,
-                           out_dtype=out_dtype)
+    """The decision's dataflow, CTA tile, slabs and groups on the ReDas
+    kernel (`gemm_args`)."""
+    return redas_gemm.gemm(a, b, out_dtype=out_dtype, **gemm_args(decision))
 
 
 def ref_gemm(decision: KernelDecision, a, b, *, out_dtype=None):

@@ -2,27 +2,33 @@
 `repro/engine/cost.py::TPUModel._decide_gemm` and the primitives of
 `repro/core/tpu_model.py`).
 
-The search runs over the kernel's tile menu x {os, ws, is}.  A tile is
-legal when one block's shared memory fits the card's 227 KB; among the
-legal ones the model takes the least
+A `gemm` request at in_bytes 2 or 4 (the float ReDas GEMM) is planned by
+`gemm_cost` over OS's tile menu and WS/IS's streaming menu, each tile
+legal when one block's shared memory fits the card's 227 KB, with a wave
+term: each (dataflow, tile) launches a grid of blocks (OS gm x gn; WS gn
+x slabs x groups; IS gm x slabs x groups), a grid that leaves SMs empty
+reaches only its share of the card's operation rate, and a streaming
+block's pipeline steps run one after another.  WS and IS count their own
+bytes (`stream_traffic`), with the K slabs' f32 workspace and the
+reduction where K spans more than one slab; the decision's `meta`
+carries `slabs` and `groups`.  There is no MXU ramp term: nothing on
+this card fills and drains like a systolic array's pipeline.
+
+The other requests keep the roofline of the reference's search,
 
     t = max(padded FLOPs / peak, dataflow bytes / HBM bandwidth)
 
-with the dataflow traffic formula of `core/tpu_model.hbm_traffic` (OS
-refetches the streaming operands but writes each output once; WS keeps
-the weight tile resident per K chunk but streams f32 partial sums; IS is
-the transpose).  There is no MXU ramp term: nothing on this card fills
-and drains like a systolic array's pipeline.
-
-A request keyed at in_bytes == 1 (every request of an int8 backend) is
-planned on the int8 kernel's own menu, pinned to OS as the JAX package
-pins its int8 kernel (the streaming dataflows would push int32 partial
-sums through HBM), at the data sheet's int8 peak.  A `gemm_sparse`
-request at M above the sparse kernel's decode rows is planned as the JAX
-package's `_decide_gemm_sparse` plans it: at K_eff = density x K, plus
-one index byte per kept value, on the kernel's tiled menu, pinned to OS;
-at decode M it takes the kernel's split-K decode path, split by a wave
-term over the card's SMs.
+with the dataflow traffic formula of `core/tpu_model.hbm_traffic`
+(`choose_tile`, `estimate`).  A request keyed at in_bytes == 1 (every
+request of an int8 backend) is planned on the int8 kernel's own menu,
+pinned to OS as the JAX package pins its int8 kernel (the streaming
+dataflows would push int32 partial sums through HBM), at the data
+sheet's int8 peak.  A `gemm_sparse` request at M above the sparse
+kernel's decode rows is planned as the JAX package's
+`_decide_gemm_sparse` plans it: at K_eff = density x K, plus one index
+byte per kept value, on the kernel's tiled menu, pinned to OS; at decode
+M it takes the kernel's split-K decode path, split by a wave term over
+the card's SMs.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
-from ..kernels import grouped_gemm, quant_gemm, sparse_gemm
+from ..kernels import grouped_gemm, quant_gemm, redas_gemm, sparse_gemm
 from ..kernels.redas_gemm import DATAFLOWS, SMEM_LIMIT, TILES, smem_bytes
 from .plan import KernelDecision, KernelRequest
 
@@ -162,7 +168,7 @@ def decide_grouped(request: KernelRequest, name: str) -> KernelDecision:
 #: holds at once (128 threads at 90-235 registers), and the compressed
 #: rows each split keeps at least (8 for each of a block's 4 warps: one
 #: pair of its register stages)
-SMS = 132
+SMS = redas_gemm.SMS
 DECODE_BLOCKS_PER_SM = 2
 DECODE_MIN_ROWS = 32
 
@@ -246,6 +252,165 @@ def decide_sparse(request: KernelRequest, name: str) -> KernelDecision:
                 stages)}.items())))
 
 
+#: the share of the data sheet's peak that each ReDas kernel's math
+#: reaches, by (dataflow, operand bytes) and tile (bf16: WMMA from shared
+#: memory without wgmma; f32: FFMA): the operation bound of `gemm_cost`
+#: runs at peak x share x fill.  Effective values: the median over the M =
+#: 2048 shapes of `chip_smoke.py --sweep` of padded FLOPs / (peak x fill x
+#: time net of the workspace and the reduction), so a share also absorbs
+#: what the fill's shared-memory count of resident blocks misses (the
+#: register limit of the 128-wide tiles).  NVIDIA H100 80GB HBM3, 700 W
+#: (PERF.md §6).
+MMA_SHARE = {
+    ("os", 2): {(16, 64, 64): 0.0714, (32, 64, 64): 0.097,
+                (64, 32, 64): 0.215, (64, 64, 128): 0.151,
+                (128, 32, 128): 0.293, (64, 256, 64): 0.0529},
+    ("ws", 2): {(16, 64, 64): 0.0918, (16, 256, 64): 0.0621,
+                (16, 512, 64): 0.0395, (16, 1536, 64): 0.0256,
+                (64, 256, 64): 0.0794, (64, 512, 64): 0.0878,
+                (128, 128, 128): 0.167, (128, 256, 128): 0.0982},
+    ("is", 2): {(16, 64, 64): 0.0591, (16, 256, 64): 0.0529,
+                (16, 512, 64): 0.0461, (16, 1536, 64): 0.0368,
+                (64, 256, 64): 0.101, (64, 512, 64): 0.0881,
+                (64, 1536, 64): 0.044, (128, 128, 128): 0.15,
+                (128, 256, 128): 0.0825},
+    ("os", 4): {(16, 64, 64): 0.262, (32, 64, 64): 0.359,
+                (64, 32, 64): 0.589, (64, 64, 128): 0.458,
+                (128, 32, 128): 0.978, (64, 256, 64): 0.124},
+    ("ws", 4): {(16, 64, 64): 0.355, (16, 256, 64): 0.137,
+                (16, 512, 64): 0.0831, (64, 256, 64): 0.141,
+                (64, 512, 64): 0.142, (128, 128, 128): 0.275,
+                (128, 256, 128): 0.278},
+    ("is", 4): {(16, 64, 64): 0.149, (16, 256, 64): 0.147,
+                (16, 512, 64): 0.11, (16, 1536, 64): 0.0767,
+                (64, 256, 64): 0.186, (64, 512, 64): 0.184,
+                (128, 128, 128): 0.356, (128, 256, 128): 0.353},
+}
+#: the share a tile missing from MMA_SHARE is taken at
+DEFAULT_SHARE = {2: 0.05, 4: 0.2}
+#: one pipeline step of a streaming block (a kSub-deep sub-chunk: wait for
+#: its loads, barrier, the next loads issued, the math) on a loaded SM;
+#: a block's steps run one after another, so a wave of blocks takes its
+#: blocks' steps x STEP_S at least
+STEP_S = 1.4e-6
+#: the share of the HBM rate the streaming kernels' operand stream reaches
+STREAM_EFF = 0.6
+#: the reduction: its launch beside its work, and one round of its
+#: REDUCE_BATCH partial loads in flight (`kReduceBatch`)
+LAUNCH_S = 1.0e-6
+REDUCE_ROUND_S = 1.0e-6
+REDUCE_BATCH = 16
+# (STEP_S, STREAM_EFF, LAUNCH_S and REDUCE_ROUND_S: the fit of
+# `chip_smoke.py --sweep`'s times at M <= 768, same card)
+
+
+def mma_share(dataflow: str, tile: tuple[int, int, int],
+              in_bytes: int) -> float:
+    return MMA_SHARE[dataflow, in_bytes].get(tuple(tile),
+                                             DEFAULT_SHARE[in_bytes])
+
+
+def stream_traffic(m: int, k: int, n: int, dataflow: str,
+                   tile: tuple[int, int, int], groups: int, in_bytes: int,
+                   out_bytes: int) -> dict:
+    """Device-memory bytes of the WS/IS kernel (the port's own count; the
+    reference's formula is `hbm_traffic`): `streamed` are the operand
+    reads — WS reads A once per n-tile and each weight slab once per
+    group, IS the mirror — at the real (masked) dims; `workspace` the
+    f32 partials written and read back when K spans more than one slab;
+    `written` the output (by the kernel, or by the reduction)."""
+    fixed, slabs, n_groups = redas_gemm.grid(dataflow, m, k, n, tile, groups)
+    a, b = m * k * in_bytes, k * n * in_bytes
+    streamed = a * fixed + b * n_groups if dataflow == "ws" else (
+        a * n_groups + b * fixed)
+    return {"streamed": streamed,
+            "workspace": 2 * slabs * m * n * 4 if slabs > 1 else 0,
+            "written": m * n * out_bytes}
+
+
+def gemm_cost(m: int, k: int, n: int, dataflow: str,
+              tile: tuple[int, int, int], in_bytes: int = 2,
+              out_bytes: int = 2) -> dict | None:
+    """The float ReDas GEMM's time at one (dataflow, tile), or None when a
+    block does not fit shared memory.  The wave term: the grid's blocks
+    over the blocks the card holds at once (132 SMs x the blocks one SM
+    holds at the tile's shared memory) is the `fill`, and the operations
+    run at peak x `mma_share` x fill.
+
+    OS: t = max(ops, the reference's `hbm_traffic` / (HBM x fill)).
+    WS/IS: the blocks run in waves of the blocks the card holds, each
+    block's pipeline steps one after another (STEP_S each), and the
+    operand stream at STREAM_EFF of the HBM rate; t = max(ops, waves x
+    steps x STEP_S, stream) plus the output and (slabs > 1) the workspace
+    at the full HBM rate and the reduction (its launch and its rounds of
+    loads)."""
+    bm, bk, bn = tile
+    smem = redas_gemm.tile_smem(dataflow, bm, bk, bn, in_bytes)
+    if smem > SMEM_LIMIT:
+        return None
+    groups = redas_gemm.groups_for(dataflow, m, k, n, tile, in_bytes, SMS)
+    fixed, slabs, n_groups = redas_gemm.grid(dataflow, m, k, n, tile, groups)
+    blocks = fixed * slabs * n_groups
+    if dataflow == "os":
+        slabs = 1
+    slots = SMS * redas_gemm.blocks_per_sm(smem)
+    fill = min(1.0, blocks / slots)
+    mp, kp, np_ = _round_up(m, bm), _round_up(k, bk), _round_up(n, bn)
+    padded = 2.0 * mp * kp * np_
+    ops_s = padded / (peak_flops(in_bytes) * mma_share(dataflow, tile,
+                                                       in_bytes) * fill)
+    if dataflow == "os":
+        bytes_ = hbm_traffic(m, k, n, TileConfig("os", bm, bk, bn), in_bytes,
+                             out_bytes)
+        seconds = max(ops_s, bytes_ / (HBM_BW * fill))
+        workspace = 0
+    else:
+        traffic = stream_traffic(m, k, n, dataflow, tile, groups, in_bytes,
+                                 out_bytes)
+        workspace = traffic["workspace"]
+        bytes_ = traffic["streamed"] + workspace + traffic["written"]
+        swept = -(-m // bm) if dataflow == "ws" else -(-n // bn)
+        steps = (-(-swept // n_groups)
+                 * -(-min(k, bk) // redas_gemm.SUB_K))
+        stream_s = max(-(-blocks // slots) * steps * STEP_S,
+                       traffic["streamed"] / (HBM_BW * STREAM_EFF))
+        seconds = (max(ops_s, stream_s)
+                   + (workspace + traffic["written"]) / HBM_BW)
+        if slabs > 1:
+            seconds += LAUNCH_S + REDUCE_ROUND_S * -(-slabs // REDUCE_BATCH)
+    return {"seconds": seconds, "hbm_bytes": float(bytes_),
+            "padding_efficiency": 2.0 * m * k * n / padded,
+            "smem_bytes": smem, "slabs": slabs, "groups": groups,
+            "blocks": blocks, "fill": fill,
+            "workspace_bytes": workspace}
+
+
+def decide_gemm(request: KernelRequest, name: str,
+                dataflows=DATAFLOWS) -> KernelDecision:
+    """The least-`gemm_cost` (dataflow, tile) of a float `gemm` request
+    over each dataflow's menu (OS `TILES`, WS/IS `STREAM_TILES`), the
+    first of equals in menu order; `meta` carries the cost's terms, so a
+    plan's JSON keeps `slabs` and `groups`."""
+    best, best_cfg = None, None
+    for df in dataflows:
+        for tile in redas_gemm.tiles_for(df):
+            cost = gemm_cost(request.m, request.k, request.n, df, tile,
+                             request.in_bytes, request.out_bytes)
+            if cost is not None and (best is None
+                                     or cost["seconds"] < best["seconds"]):
+                best, best_cfg = cost, (df, tile)
+    if best is None:
+        raise ValueError(f"no tile of {dataflows} fits {SMEM_LIMIT} bytes "
+                         f"of shared memory at {request.in_bytes}-byte "
+                         f"operands")
+    df, (bm, bk, bn) = best_cfg
+    return KernelDecision(
+        op=request.op, dataflow=df, bm=bm, bk=bk, bn=bn, cost_model=name,
+        seconds=best["seconds"],
+        meta=tuple(sorted((key, val) for key, val in best.items()
+                          if key != "seconds")))
+
+
 @dataclasses.dataclass
 class HopperModel:
     """The decision surface as a cost model: `decide(request)` returns
@@ -269,6 +434,8 @@ class HopperModel:
             raise ValueError(f"HopperModel plans gemm, gemm_w8, gemm_sparse, "
                              f"grouped_gemm and attention, not "
                              f"{request.op!r}")
+        if request.op == "gemm" and request.in_bytes in (2, 4):
+            return decide_gemm(request, self.name)
         int8 = request.in_bytes == 1
         cfg = choose_tile(request.m, request.k, request.n, request.in_bytes,
                           request.out_bytes,

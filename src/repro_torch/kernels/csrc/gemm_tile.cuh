@@ -5,6 +5,8 @@
 // element once.  bf16 runs on the tensor cores (WMMA 16x16x16, f32
 // accumulate), f32 on FFMA (no TF32).  Ragged M, K and N are masked here:
 // out-of-range operands read as zero, out-of-range outputs are not written.
+// The streaming dataflows of redas_gemm.cu reuse TileMath through `mma_ld`,
+// which takes the operands' leading dimensions (a sub-chunk of a slab).
 
 #pragma once
 
@@ -122,6 +124,34 @@ struct TileMath<__nv_bfloat16, BM, BN, BK> {
     }
   }
 
+  // `mma` on operands of leading dimensions LDA and LDB (in elements): a
+  // K sub-chunk of a deeper shared-memory slab (the streaming dataflows).
+  template <int LDA, int LDB>
+  __device__ __forceinline__ void mma_ld(const __nv_bfloat16* As,
+                                         const __nv_bfloat16* Bs) {
+    using namespace nvcuda;
+    const int warp = threadIdx.x / 32;
+    const int wr = (warp / WN) * FM * 16, wc = (warp % WN) * FN * 16;
+#pragma unroll
+    for (int k = 0; k < BK; k += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
+          a[FM];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>
+          b[FN];
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+        wmma::load_matrix_sync(a[i], As + (wr + i * 16) * LDA + k, LDA);
+#pragma unroll
+      for (int j = 0; j < FN; ++j)
+        wmma::load_matrix_sync(b[j], Bs + k * LDB + wc + j * 16, LDB);
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+#pragma unroll
+        for (int j = 0; j < FN; ++j)
+          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    }
+  }
+
   template <typename F>
   __device__ __forceinline__ void epilogue(float* scratch, F&& emit) {
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -167,6 +197,24 @@ struct TileMath<float, BM, BN, BK> {
       for (int i = 0; i < RM; ++i) a[i] = As[(ty + i * TM) * (BK + kPad) + k];
 #pragma unroll
       for (int j = 0; j < RN; ++j) b[j] = Bs[k * (BN + kPad) + tx + j * TN];
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+
+  // `mma` on operands of leading dimensions LDA and LDB (in elements).
+  template <int LDA, int LDB>
+  __device__ __forceinline__ void mma_ld(const float* As, const float* Bs) {
+    const int ty = threadIdx.x / TN, tx = threadIdx.x % TN;
+#pragma unroll 4
+    for (int k = 0; k < BK; ++k) {
+      float a[RM], b[RN];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) a[i] = As[(ty + i * TM) * LDA + k];
+#pragma unroll
+      for (int j = 0; j < RN; ++j) b[j] = Bs[k * LDB + tx + j * TN];
 #pragma unroll
       for (int i = 0; i < RM; ++i)
 #pragma unroll

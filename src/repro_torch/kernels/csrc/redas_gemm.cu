@@ -3,32 +3,57 @@
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/redas_gemm.py:
 //   _os_kernel        (:108)  -> os_kernel
-//   _streaming_kernel (:126)  -> ws_kernel / is_kernel
+//   _streaming_kernel (:126)  -> stream_kernel<..., WS = true / false>
+//                                (+ stream_reduce_kernel)
 //
 // The dataflow is which operand stays resident in shared memory:
 //   OS  grid (n-tiles, m-tiles).  The K loop runs inside the block with the
 //       f32 accumulator in registers; each output tile is written once.
-//   WS  grid (n-tiles, groups of m-tiles).  Per K chunk the block loads its
-//       (BK, BN) weight tile once and keeps it resident while it sweeps its
-//       m-tiles.  Partial sums stream through an f32 buffer that only this
-//       block touches, and the K chunks run in order, so the result is
-//       deterministic without atomics (the counterpart of the TPU kernel's
-//       input/output-aliased accumulator).
-//   IS  the mirror of WS: the (BM, BK) input tile is resident while the
-//       block sweeps its n-tiles.
-// Ragged M, K and N are masked inside the kernel (out-of-range operands read
-// as zero, out-of-range outputs are not written), so no padded copies exist.
+//   WS  grid (n-tiles, K slabs, groups of m-tiles).  A block holds the
+//       (BK, BN) weight slab of its n-tile and K slab in shared memory for
+//       its whole sweep over its group's m-tiles; the input streams past it.
+//   IS  the mirror of WS: grid (m-tiles, K slabs, groups of n-tiles), the
+//       (BM, BK) input slab resident while the weight streams past it.
+// On the TPU the streaming grid runs in order on one core and carries the
+// partial sums from one K chunk to the next through an aliased f32
+// accumulator.  Here blocks run in parallel and in no order, so the K slabs
+// are the parallel axis: each slab writes the f32 partials of its K range to
+// its own (slab, M, N) slice of a workspace, and stream_reduce_kernel,
+// launched by the same C entry right after, sums the slices in slab order
+// from zero.  No atomics: two launches on the same inputs give the same
+// bits.  When K fits one slab the block writes the output itself and
+// neither workspace nor reduction exists.
 //
-// What bounds it on an H100: at prefill widths (M = 2048) the products are
-// bound by operations (arithmetic intensity far above the card's ~295 FLOP
-// per byte in bf16); at decode widths (M = 4) by the bytes of the weight
-// stream.  The design answers the first with tensor cores for bf16 (WMMA
-// 16x16x16, f32 accumulate) and a CTA tile that reuses each loaded operand
-// across BM x BN outputs, and the second with 16-byte vector loads and a
-// 16-row tile so that the weights are read once per call.  f32 stays true
-// f32 (FFMA, no TF32).  There is no cp.async/TMA pipelining, wgmma or warp
-// specialisation yet: loads and math do not overlap, which is what keeps
-// the kernel well short of both bounds.
+// What bounds WS/IS on an H100:
+//   - at decode (M = 4-16) the weight bytes (27.5 MB at 8960 x 1536 bf16,
+//     8.2 us at 3.35 TB/s).  Only bytes in flight on every SM reach that
+//     rate, and a grid of a few dozen blocks that each walk K in order
+//     (the previous design, and OS) leaves most SMs idle.  The parallel
+//     slabs multiply the blocks by ceil(K / BK), and each block puts its
+//     whole slab in flight at once, with stages - 1 ring pieces.  A
+//     block's pipeline steps still run one after another (about 1.4 us
+//     each on a loaded H100), so at decode shallow slabs over many blocks
+//     beat one deep slab a block; the engine's cost model weighs that
+//     against the workspace and the reduction (engine/cost.py gemm_cost).
+//   - at prefill (M = 2048) the operations, and the f32 partial stream that
+//     the dataflow implies: the previous design read and wrote the whole
+//     (M, N) partial buffer once per BK-deep chunk (up to 280 passes at
+//     K = 8960).  Here the accumulator of the current output tile stays in
+//     registers over the slab's K sub-chunks, so a partial leaves the chip
+//     once per slab, and a slab as deep as K writes none.
+//
+// The pipeline of one streaming block: step u is one kSub-deep sub-chunk of
+// one swept tile; its moving-operand piece lands in ring stage u % stages by
+// cp.async, and the loads of step u + stages - 1 are issued before step u's
+// math.  The first stages - 1 steps' cp.async groups carry their slab
+// sub-chunks and one group right behind them the rest of the slab, so the
+// whole slab is in flight from the start and its load overlaps the first
+// sub-chunks' math.  bf16 runs on the tensor cores (WMMA
+// 16x16x16, f32 accumulate), f32 on FFMA (no TF32); ragged M, K and N are
+// masked inside the kernels (out-of-range operands read as zero,
+// out-of-range outputs are not written), so no padded copies exist.
+// There is no wgmma, TMA or warp specialisation yet (OS at prefill is the
+// next redesign).
 //
 // Built by repro_torch/kernels/_build.py with plain nvcc and loaded through
 // ctypes; the C entry points are at the end of this file.
@@ -37,17 +62,60 @@
 
 namespace {
 
-// One step of a streaming dataflow for one element: add this K chunk's
-// contribution to the element's running f32 sum, and write the output at the
-// last chunk.
-template <typename T>
-__device__ __forceinline__ void stream_out(T* O, float* P, size_t idx, float v,
-                                           bool first, bool last) {
-  const float p = first ? v : P[idx] + v;
-  if (last)
-    O[idx] = from_float<T>(p);
+constexpr int kSub = 64;           // K depth of one pipeline step
+constexpr int kMaxStages = 4;      // ring stages a streaming block may use
+constexpr int kSmemLimit = 232448; // shared memory a block may use (227 KB)
+
+// cp.async (sm_80+): 16-byte copies from device to shared memory that do not
+// hold a register while in flight.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// Wait until at most `pending` (0 .. kMaxStages - 1) of this thread's newest
+// cp.async groups are still in flight.
+__device__ __forceinline__ void cp_async_wait_pending(int pending) {
+  if (pending <= 0)
+    asm volatile("cp.async.wait_group 0;\n" ::);
+  else if (pending == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::);
+  else if (pending == 2)
+    asm volatile("cp.async.wait_group 2;\n" ::);
   else
-    P[idx] = p;
+    asm volatile("cp.async.wait_group 3;\n" ::);
+}
+
+// Copy rows [r0, r0 + rows) x columns [c0, c0 + COLS) of a row-major matrix
+// with leading dimension `ld` into shared memory (row stride LDD): whole
+// in-range 16-byte-aligned vectors by cp.async, the rest element by element,
+// elements at or past (row_limit, col_limit) as zero.  The caller commits.
+template <typename T, int COLS, int LDD>
+__device__ __forceinline__ void stage_tile(T* __restrict__ dst,
+                                           const T* __restrict__ src, int ld,
+                                           int r0, int rows, int row_limit,
+                                           int c0, int col_limit) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VPR = COLS / VEC;
+  static_assert(COLS % VEC == 0, "tile width must hold whole 16-byte vectors");
+  const T zero = from_float<T>(0.f);
+  for (int v = threadIdx.x; v < rows * VPR; v += kThreads) {
+    const int r = v / VPR, c = (v % VPR) * VEC;
+    const int gr = r0 + r, gc = c0 + c;
+    T* d = dst + r * LDD + c;
+    const T* s = src + size_t(gr) * ld + gc;
+    if (gr < row_limit && gc + VEC <= col_limit &&
+        (reinterpret_cast<uintptr_t>(s) & 15) == 0) {
+      cp_async16(d, s);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        d[e] = (gr < row_limit && gc + e < col_limit) ? s[e] : zero;
+    }
+  }
 }
 
 template <typename T, int BM, int BN, int BK>
@@ -59,107 +127,220 @@ __global__ void __launch_bounds__(kThreads)
                           smem);
 }
 
-template <typename T, int BM, int BN, int BK>
+// Shared memory of one streaming block: the stationary slab, `stages` ring
+// stages of the moving operand (rows padded by kPad), then one 16x16 f32
+// staging tile per warp for the tensor-core epilogue.  Every region starts
+// on 32 bytes.  redas_gemm.stream_smem_bytes mirrors this.
+//   WS: slab (BK, BN) of B, a stage (BM, kSub) of A;
+//   IS: slab (BM, BK) of A, a stage (kSub, BN) of B.
+template <typename T, int BM, int BN, int BK, bool WS>
+struct StreamSmem {
+  static constexpr int LDS = WS ? BN + kPad : BK + kPad;  // slab row stride
+  static constexpr int LDR = WS ? kSub + kPad : BN + kPad;  // ring row stride
+  static constexpr size_t slab = size_t(WS ? BK : BM) * LDS * sizeof(T);
+  static constexpr size_t stage = size_t(WS ? BM : kSub) * LDR * sizeof(T);
+  static constexpr size_t scratch = size_t(kWarps) * 256 * sizeof(float);
+  static constexpr size_t bytes(int stages) {
+    return slab + size_t(stages) * stage + scratch;
+  }
+};
+
+// One streaming block.  blockIdx.x is the stationary tile (the n-tile for
+// WS, the m-tile for IS), blockIdx.y the K slab [y BK, min(K, (y + 1) BK)),
+// blockIdx.z the group of swept tiles [z per, min(swept, (z + 1) per)).
+// With P null (one slab) the block writes O; else the f32 partials of its
+// slab to P[y] of the (slabs, M, N) workspace.
+template <typename T, int BM, int BN, int BK, bool WS>
 __global__ void __launch_bounds__(kThreads)
-    ws_kernel(const T* __restrict__ A, const T* __restrict__ B,
-              T* __restrict__ O, float* __restrict__ P, int M, int N, int K,
-              int tiles_per_group) {
+    stream_kernel(const T* __restrict__ A, const T* __restrict__ B,
+                  T* __restrict__ O, float* __restrict__ P, int M, int N,
+                  int K, int per, int stages) {
+  using L = StreamSmem<T, BM, BN, BK, WS>;
   extern __shared__ __align__(128) unsigned char smem[];
-  Views<T, BM, BN, BK> s(smem);
-  const int n0 = blockIdx.x * BN;
-  const int gm = (M + BM - 1) / BM;
-  const int i0 = blockIdx.y * tiles_per_group;
-  const int i1 = min(gm, i0 + tiles_per_group);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    const bool first = k0 == 0, last = k0 + BK >= K;
-    load_tile<T, BK, BN>(s.Bs, B, K, N, k0, n0);  // resident for the sweep
-    for (int i = i0; i < i1; ++i) {
-      const int m0 = i * BM;
-      load_tile<T, BM, BK>(s.As, A, M, K, m0, k0);
-      __syncthreads();
-      TileMath<T, BM, BN, BK> tm;
-      tm.zero();
-      tm.mma(s.As, s.Bs);
-      __syncthreads();
-      tm.epilogue(s.scratch, [&](int r, int c, float v) {
-        const int gr = m0 + r, gc = n0 + c;
-        if (gr < M && gc < N)
-          stream_out(O, P, size_t(gr) * N + gc, v, first, last);
+  T* slab = reinterpret_cast<T*>(smem);
+  unsigned char* ring0 = smem + L::slab;
+  float* scratch = reinterpret_cast<float*>(ring0 + stages * L::stage);
+  const int k_lo = blockIdx.y * BK, k_hi = min(K, k_lo + BK);
+  const int nsub = (k_hi - k_lo + kSub - 1) / kSub;
+  const int fixed0 = blockIdx.x * (WS ? BN : BM);
+  const int swept = WS ? (M + BM - 1) / BM : (N + BN - 1) / BN;
+  const int t0 = blockIdx.z * per, t1 = min(swept, t0 + per);
+  const int steps = (t1 - t0) * nsub;
+  auto ring = [&](int u) {
+    return reinterpret_cast<T*>(ring0 + (u % stages) * L::stage);
+  };
+  auto load_slab = [&](int c) {  // the slab's sub-chunk c
+    const int kc = k_lo + c * kSub;
+    if constexpr (WS)
+      stage_tile<T, BN, L::LDS>(slab + c * kSub * L::LDS, B, N, kc, kSub,
+                                k_hi, fixed0, N);
+    else
+      stage_tile<T, kSub, L::LDS>(slab + c * kSub, A, K, fixed0, BM, M, kc,
+                                  k_hi);
+  };
+  auto load_ring = [&](int u) {  // step u's moving piece, none past the end
+    if (u >= steps) return;
+    const int t = t0 + u / nsub, kc = k_lo + (u % nsub) * kSub;
+    if constexpr (WS)
+      stage_tile<T, kSub, L::LDR>(ring(u), A, K, t * BM, BM, M, kc, k_hi);
+    else
+      stage_tile<T, BN, L::LDR>(ring(u), B, N, kc, kSub, k_hi, t * BN, N);
+  };
+
+  TileMath<T, BM, BN, kSub> tm;
+  tm.zero();
+  // cp.async groups, in the order the steps need them: steps 0 .. stages-2,
+  // each with its slab sub-chunk; then the rest of the slab, so that the
+  // whole slab is in flight from the start; then one group a step (step
+  // u + stages - 1's piece), empty past the last step.
+  for (int u = 0; u < stages - 1; ++u) {
+    if (u < nsub) load_slab(u);
+    load_ring(u);
+    cp_async_commit();
+  }
+  for (int c = stages - 1; c < nsub; ++c) load_slab(c);
+  cp_async_commit();
+  for (int u = 0; u < steps; ++u) {
+    // step u's group has landed: the first steps' groups have the rest of
+    // the slab and u step groups behind them, the later ones stages - 2
+    cp_async_wait_pending(u < stages - 1 ? stages - 1 : stages - 2);
+    __syncthreads();  // ... for every thread; step u - 1's stage is free
+    load_ring(u + stages - 1);
+    cp_async_commit();
+    const int c = u % nsub;
+    if constexpr (WS)
+      tm.template mma_ld<L::LDR, L::LDS>(ring(u), slab + c * kSub * L::LDS);
+    else
+      tm.template mma_ld<L::LDS, L::LDR>(slab + c * kSub, ring(u));
+    if (c == nsub - 1) {  // the tile's last sub-chunk of this slab
+      const int t = t0 + u / nsub;
+      const int m0 = WS ? t * BM : fixed0, n0 = WS ? fixed0 : t * BN;
+      float* part = P ? P + size_t(blockIdx.y) * M * N : nullptr;
+      tm.epilogue(scratch, [&](int r, int col, float v) {
+        const int gr = m0 + r, gc = n0 + col;
+        if (gr < M && gc < N) {
+          const size_t at = size_t(gr) * N + gc;
+          if (part)
+            part[at] = v;
+          else
+            O[at] = from_float<T>(v);
+        }
       });
+      tm.zero();
     }
   }
+  cp_async_wait_pending(0);  // nothing in flight when the block exits
 }
 
-template <typename T, int BM, int BN, int BK>
-__global__ void __launch_bounds__(kThreads)
-    is_kernel(const T* __restrict__ A, const T* __restrict__ B,
-              T* __restrict__ O, float* __restrict__ P, int M, int N, int K,
-              int tiles_per_group) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  Views<T, BM, BN, BK> s(smem);
-  const int m0 = blockIdx.x * BM;
-  const int gn = (N + BN - 1) / BN;
-  const int j0 = blockIdx.y * tiles_per_group;
-  const int j1 = min(gn, j0 + tiles_per_group);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    const bool first = k0 == 0, last = k0 + BK >= K;
-    load_tile<T, BM, BK>(s.As, A, M, K, m0, k0);  // resident for the sweep
-    for (int j = j0; j < j1; ++j) {
-      const int n0 = j * BN;
-      load_tile<T, BK, BN>(s.Bs, B, K, N, k0, n0);
-      __syncthreads();
-      TileMath<T, BM, BN, BK> tm;
-      tm.zero();
-      tm.mma(s.As, s.Bs);
-      __syncthreads();
-      tm.epilogue(s.scratch, [&](int r, int c, float v) {
-        const int gr = m0 + r, gc = n0 + c;
-        if (gr < M && gc < N)
-          stream_out(O, P, size_t(gr) * N + gc, v, first, last);
-      });
+// out[e] = the sum over s = 0, 1, ... of P[s, e], in that order, from 0,
+// cast to T; a thread sums VEC consecutive elements with up to kReduceBatch
+// slabs' loads in flight at once (at decode the reduction is a few such
+// rounds of latency, not bytes).
+constexpr int kReduceThreads = 256;
+constexpr int kReduceBatch = 16;
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kReduceThreads)
+    stream_reduce_kernel(const float* __restrict__ P, T* __restrict__ O,
+                         int MN, int slabs) {
+  constexpr int B = kReduceBatch;
+  const size_t e = (size_t(blockIdx.x) * kReduceThreads + threadIdx.x) * VEC;
+  if (e >= size_t(MN)) return;
+  float sum[VEC];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) sum[v] = 0.f;
+  for (int s0 = 0; s0 < slabs; s0 += B) {
+    float part[B][VEC];
+#pragma unroll
+    for (int j = 0; j < B; ++j) {
+      if (s0 + j < slabs) {
+        const float* src = P + size_t(s0 + j) * MN + e;
+        if constexpr (VEC == 4) {
+          const float4 q = __ldcs(reinterpret_cast<const float4*>(src));
+          part[j][0] = q.x;
+          part[j][1] = q.y;
+          part[j][2] = q.z;
+          part[j][3] = q.w;
+        } else {
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) part[j][v] = __ldcs(src + v);
+        }
+      }
     }
+#pragma unroll
+    for (int j = 0; j < B; ++j)
+      if (s0 + j < slabs)
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) sum[v] += part[j][v];
   }
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) O[e + v] = from_float<T>(sum[v]);
 }
 
 template <typename T, int BM, int BK, int BN>
-cudaError_t launch(int dataflow, const void* a, const void* b, void* o,
-                   void* p, int M, int N, int K, int groups,
-                   cudaStream_t stream) {
+cudaError_t launch_os(const void* a, const void* b, void* o, int M, int N,
+                      int K, cudaStream_t stream) {
   constexpr size_t smem = Smem<T, BM, BN, BK>::bytes;
-  const T* A = static_cast<const T*>(a);
-  const T* B = static_cast<const T*>(b);
-  T* O = static_cast<T*>(o);
-  float* P = static_cast<float*>(p);
   const int gm = (M + BM - 1) / BM, gn = (N + BN - 1) / BN;
-  if (groups < 1) groups = 1;
-  if (dataflow == 0) {
-    static const cudaError_t attr = allow_smem(os_kernel<T, BM, BN, BK>, smem);
-    if (attr != cudaSuccess) return attr;
-    os_kernel<T, BM, BN, BK>
-        <<<dim3(gn, gm), kThreads, smem, stream>>>(A, B, O, M, N, K);
-  } else if (dataflow == 1) {
-    static const cudaError_t attr = allow_smem(ws_kernel<T, BM, BN, BK>, smem);
-    if (attr != cudaSuccess) return attr;
-    const int per = (gm + groups - 1) / groups;
-    ws_kernel<T, BM, BN, BK><<<dim3(gn, (gm + per - 1) / per), kThreads, smem,
-                               stream>>>(A, B, O, P, M, N, K, per);
-  } else if (dataflow == 2) {
-    static const cudaError_t attr = allow_smem(is_kernel<T, BM, BN, BK>, smem);
-    if (attr != cudaSuccess) return attr;
-    const int per = (gn + groups - 1) / groups;
-    is_kernel<T, BM, BN, BK><<<dim3(gm, (gn + per - 1) / per), kThreads, smem,
-                               stream>>>(A, B, O, P, M, N, K, per);
+  static const cudaError_t attr = allow_smem(os_kernel<T, BM, BN, BK>, smem);
+  if (attr != cudaSuccess) return attr;
+  os_kernel<T, BM, BN, BK><<<dim3(gn, gm), kThreads, smem, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(o),
+      M, N, K);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_reduce(const void* p, void* o, int mn, int slabs,
+                          cudaStream_t stream) {
+  const float* P = static_cast<const float*>(p);
+  T* O = static_cast<T*>(o);
+  if (mn % 4 == 0) {
+    const int blocks = (mn / 4 + kReduceThreads - 1) / kReduceThreads;
+    stream_reduce_kernel<T, 4><<<blocks, kReduceThreads, 0, stream>>>(
+        P, O, mn, slabs);
   } else {
-    return cudaErrorInvalidValue;
+    const int blocks = (mn + kReduceThreads - 1) / kReduceThreads;
+    stream_reduce_kernel<T, 1><<<blocks, kReduceThreads, 0, stream>>>(
+        P, O, mn, slabs);
   }
   return cudaGetLastError();
 }
 
+template <typename T, int BM, int BK, int BN, bool WS>
+cudaError_t launch_stream(const void* a, const void* b, void* o, void* p,
+                          int M, int N, int K, int slabs, int groups,
+                          int stages, cudaStream_t stream) {
+  using L = StreamSmem<T, BM, BN, BK, WS>;
+  const int gm = (M + BM - 1) / BM, gn = (N + BN - 1) / BN;
+  const int fixed = WS ? gn : gm, swept = WS ? gm : gn;
+  if (stages < 2 || stages > kMaxStages || slabs != (K + BK - 1) / BK ||
+      slabs > 65535 || (slabs > 1) != (p != nullptr) || groups < 1 ||
+      groups > swept)
+    return cudaErrorInvalidValue;
+  const size_t smem = L::bytes(stages);
+  if (smem > size_t(kSmemLimit)) return cudaErrorInvalidValue;
+  const int per = (swept + groups - 1) / groups;
+  const int n_groups = (swept + per - 1) / per;
+  if (n_groups > 65535) return cudaErrorInvalidValue;
+  auto kernel = stream_kernel<T, BM, BN, BK, WS>;
+  static const cudaError_t attr = allow_smem(
+      kernel, L::bytes(kMaxStages) < size_t(kSmemLimit) ? L::bytes(kMaxStages)
+                                                        : size_t(kSmemLimit));
+  if (attr != cudaSuccess) return attr;
+  kernel<<<dim3(fixed, slabs, n_groups), kThreads, smem, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(o),
+      static_cast<float*>(p), M, N, K, per, stages);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || p == nullptr) return err;
+  return launch_reduce<T>(p, o, M * N, slabs, stream);
+}
+
 }  // namespace
 
-// The tile menu (BM, BK, BN), compiled for every dataflow and both dtypes.
-// TILES in repro_torch/kernels/redas_gemm.py is the same list (a test reads
-// this macro to hold the two together).
+// The OS tile menu (BM, BK, BN), compiled for both dtypes.  TILES in
+// repro_torch/kernels/redas_gemm.py is the same list (a test reads this
+// macro to hold the two together); the grouped GEMM shares its layout.
 #define REDAS_TILES(X) \
   X(16, 64, 64)        \
   X(32, 64, 64)        \
@@ -168,28 +349,88 @@ cudaError_t launch(int dataflow, const void* a, const void* b, void* o,
   X(128, 32, 128)      \
   X(64, 256, 64)
 
+// The streaming menu (BM, BK, BN): BK is the slab's depth (a multiple of
+// kSub), compiled for WS and IS and both dtypes.  STREAM_TILES in
+// repro_torch/kernels/redas_gemm.py is the same list; a (dataflow, dtype,
+// tile) whose slab and two ring stages do not fit kSmemLimit is refused at
+// launch.
+#define REDAS_STREAM_TILES(X) \
+  X(16, 64, 64)               \
+  X(16, 256, 64)              \
+  X(16, 512, 64)              \
+  X(16, 1536, 64)             \
+  X(64, 256, 64)              \
+  X(64, 512, 64)              \
+  X(64, 1536, 64)             \
+  X(128, 128, 128)            \
+  X(128, 256, 128)
+
 extern "C" {
 
-// dataflow: 0 = OS, 1 = WS, 2 = IS.  dtype: 0 = bf16, 1 = f32 (A, B and the
-// output share it).  `p` is an (M, N) f32 scratch for the streaming
-// dataflows' partial sums, unused by OS and when K fits one chunk.  `groups`
-// splits the WS m-tiles (IS n-tiles) among that many blocks per column (row).
-// Returns the CUDA error of the launch (0 on success), or -1 for a tile that
-// is not on the menu.
-int redas_gemm_launch(int dataflow, int dtype, int bm, int bk, int bn,
-                      const void* a, const void* b, void* o, void* p, int M,
-                      int N, int K, int groups, void* stream) {
+// OS: dtype 0 = bf16, 1 = f32 (A, B and the output share it).  Returns the
+// CUDA error of the launch (0 on success), or -1 for a tile that is not on
+// the OS menu.
+int redas_gemm_launch(int dtype, int bm, int bk, int bn, const void* a,
+                      const void* b, void* o, int M, int N, int K,
+                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REDAS_DISPATCH(BM, BK, BN)                                          \
   if (bm == BM && bk == BK && bn == BN)                                     \
     return static_cast<int>(                                                \
-        dtype == 0 ? launch<__nv_bfloat16, BM, BK, BN>(dataflow, a, b, o, p, \
-                                                       M, N, K, groups, s)  \
-                   : launch<float, BM, BK, BN>(dataflow, a, b, o, p, M, N,  \
-                                               K, groups, s));
+        dtype == 0 ? launch_os<__nv_bfloat16, BM, BK, BN>(a, b, o, M, N, K, \
+                                                          s)                \
+                   : launch_os<float, BM, BK, BN>(a, b, o, M, N, K, s));
   REDAS_TILES(REDAS_DISPATCH)
 #undef REDAS_DISPATCH
   return -1;
+}
+
+// WS (dataflow 1) or IS (dataflow 2) at a streaming tile, writing `o`.
+// `slabs` must be ceil(K / bk); with slabs > 1 `p` is the (slabs, M, N) f32
+// workspace that receives each slab's partials, and the reduction is
+// launched after the GEMM on the same stream (two launches, one call); with
+// slabs == 1 `p` is null and the GEMM writes `o` itself.  `groups` (1 .. swept tiles) splits
+// each stationary tile's sweep among that many blocks; `stages` (2 ..
+// kMaxStages) is the ring's depth.  Returns the CUDA error of the launch,
+// cudaErrorInvalidValue for arguments the kernel does not take, or -1 for a
+// tile that is not on the streaming menu.
+int redas_stream_launch(int dataflow, int dtype, int bm, int bk, int bn,
+                        const void* a, const void* b, void* o, void* p, int M,
+                        int N, int K, int slabs, int groups, int stages,
+                        void* stream) {
+  if (dataflow != 1 && dataflow != 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define STREAM_DISPATCH(BM, BK, BN)                                        \
+  if (bm == BM && bk == BK && bn == BN) {                                  \
+    if (dtype == 0)                                                        \
+      return static_cast<int>(                                             \
+          dataflow == 1                                                    \
+              ? launch_stream<__nv_bfloat16, BM, BK, BN, true>(            \
+                    a, b, o, p, M, N, K, slabs, groups, stages, s)         \
+              : launch_stream<__nv_bfloat16, BM, BK, BN, false>(           \
+                    a, b, o, p, M, N, K, slabs, groups, stages, s));       \
+    return static_cast<int>(                                               \
+        dataflow == 1 ? launch_stream<float, BM, BK, BN, true>(            \
+                            a, b, o, p, M, N, K, slabs, groups, stages, s) \
+                      : launch_stream<float, BM, BK, BN, false>(           \
+                            a, b, o, p, M, N, K, slabs, groups, stages,    \
+                            s));                                           \
+  }
+  REDAS_STREAM_TILES(STREAM_DISPATCH)
+#undef STREAM_DISPATCH
+  return -1;
+}
+
+// The streaming dataflows' second kernel: o (mn elements, dtype 0 = bf16,
+// 1 = f32) = the sum of the workspace's `slabs` partials in slab order.
+int redas_reduce_launch(int dtype, const void* p, void* o, int mn, int slabs,
+                        void* stream) {
+  if (mn < 1 || slabs < 2) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      dtype == 0 ? launch_reduce<__nv_bfloat16>(p, o, mn, slabs, s)
+                 : launch_reduce<float>(p, o, mn, slabs, s));
 }
 
 }  // extern "C"

@@ -1,16 +1,24 @@
-"""The ReDas GEMM on Hopper: wrapper, launch counter and plain version.
+"""The ReDas GEMM on Hopper: wrapper, launch counters and plain versions.
 
 `gemm` computes what `repro.kernels.redas_gemm.gemm` computes — (M, K) @
 (K, N) with f32 accumulation, in the OS, WS or IS dataflow — through the
-CUDA kernel in `csrc/redas_gemm.cu`.  The decision's (bm, bk, bn) is the
-CTA tile, and it must be one of `TILES`, the menu the kernel is compiled
-for.  Ragged M, K and N are masked inside the kernel: nothing is padded
-or sliced here.
+CUDA kernels in `csrc/redas_gemm.cu`.  The decision's (bm, bk, bn) is the
+CTA tile, and it must be on the dataflow's menu: `TILES` for OS,
+`STREAM_TILES` for WS and IS, whose bk is the depth of the stationary
+slab.  WS and IS run one block per (stationary tile, K slab, group of
+swept tiles); with more than one slab (K > bk) each slab writes f32
+partials to its own slice of a (slabs, M, N) workspace and a second
+kernel sums them in slab order (launched by the same call;
+`stream_reduce` runs it alone).  Ragged M, K and N are
+masked inside the kernels: nothing is padded or sliced here.
 
-On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
-tensor it returns the plain version `gemm_reference`, which is what the
-tests compare against the JAX reference.  `launches` counts kernel
-launches by dataflow and nothing else.
+On a CUDA tensor the wrapper launches the kernels (or raises: there is no
+fallback); on a CPU tensor it returns the plain version `gemm_reference`,
+which is what the tests compare against the JAX reference.
+`stream_reference` is the plain version of the streaming kernels' own
+arithmetic: one f32 product per slab, then their sum in slab order.
+`launches` counts GEMMs launched, one per call, by dataflow;
+`reduce_launches` counts the streaming dataflows' reductions.
 """
 
 from __future__ import annotations
@@ -25,36 +33,168 @@ from .ref import matmul_ref
 
 DATAFLOWS = ("os", "ws", "is")
 
-#: the CTA tiles (bm, bk, bn) the kernel is compiled for, in every dataflow
-#: and both dtypes; `REDAS_TILES` in csrc/redas_gemm.cu is the same list.
+#: the OS CTA tiles (bm, bk, bn), in both dtypes; `REDAS_TILES` in
+#: csrc/redas_gemm.cu is the same list.  The grouped GEMM shares the
+#: layout (`smem_bytes`).
 TILES = ((16, 64, 64), (32, 64, 64), (64, 32, 64), (64, 64, 128),
          (128, 32, 128), (64, 256, 64))
+#: the WS/IS tiles (bm, bk, bn), bk the stationary slab's depth, in both
+#: dtypes; `REDAS_STREAM_TILES` in csrc/redas_gemm.cu is the same list.
+#: A (dataflow, dtype, tile) is legal when its slab and two ring stages
+#: fit SMEM_LIMIT (`stream_stages`).
+STREAM_TILES = ((16, 64, 64), (16, 256, 64), (16, 512, 64), (16, 1536, 64),
+                (64, 256, 64), (64, 512, 64), (64, 1536, 64),
+                (128, 128, 128), (128, 256, 128))
 
-#: shared memory a block may use on an H100 (227 KB, NVIDIA data sheet).
+#: shared memory a block may use on an H100 (227 KB, NVIDIA data sheet),
+#: and what one SM holds for all its blocks (228 KB, each block reserving
+#: 1 KB more)
 SMEM_LIMIT = 232_448
+SM_SMEM = 233_472
+BLOCK_RESERVED = 1024
+#: resident blocks an SM holds at 128 threads a block (2048 threads)
+MAX_BLOCKS_PER_SM = 16
+#: K depth of one streaming pipeline step (`kSub`), and the ring's most
+#: stages (`kMaxStages`)
+SUB_K = 64
+MAX_STAGES = 4
+#: the H100's SMs, for the group rule when the caller names no card
+SMS = 132
+#: gridDim.y and gridDim.z
+GRID_LIMIT = 65535
 
 _PAD = 8          # shared-memory row padding, elements
 _WARPS = 4        # 128 threads a block
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
-#: kernel launches by dataflow since the last reset (the CPU path and the
-#: plain version never count).
+#: GEMMs launched by dataflow, and the streaming reductions launched,
+#: since the last reset (the CPU path and the plain versions never count)
 launches = dict.fromkeys(DATAFLOWS, 0)
+reduce_launches = 0
 
-#: the plain version of the kernel: cast to f32, multiply, cast back.
+#: the plain version of the kernels: cast to f32, multiply, cast back.
 gemm_reference = matmul_ref
 
 
 def reset_launches() -> None:
+    global reduce_launches
     for df in DATAFLOWS:
         launches[df] = 0
+    reduce_launches = 0
 
 
 def smem_bytes(bm: int, bk: int, bn: int, in_bytes: int) -> int:
-    """Shared memory one block of the (bm, bk, bn) kernel uses: the padded
-    input and weight tiles plus the per-warp f32 epilogue tile (the
-    `Smem` struct of the CUDA source)."""
+    """Shared memory one block of the OS (bm, bk, bn) kernel uses: the
+    padded input and weight tiles plus the per-warp f32 epilogue tile (the
+    `Smem` struct of csrc/gemm_tile.cuh, which the grouped GEMM shares)."""
     return (bm * (bk + _PAD) + bk * (bn + _PAD)) * in_bytes + _WARPS * 256 * 4
+
+
+def stream_smem_bytes(dataflow: str, bm: int, bk: int, bn: int,
+                      in_bytes: int, stages: int) -> int:
+    """Shared memory one WS or IS block uses with a ring of `stages`: the
+    stationary slab, the moving operand's stages and the per-warp f32
+    epilogue tiles (the `StreamSmem` struct of csrc/redas_gemm.cu)."""
+    if dataflow == "ws":
+        slab, stage = bk * (bn + _PAD), bm * (SUB_K + _PAD)
+    elif dataflow == "is":
+        slab, stage = bm * (bk + _PAD), SUB_K * (bn + _PAD)
+    else:
+        raise ValueError(f"{dataflow!r} is not a streaming dataflow")
+    return (slab + stages * stage) * in_bytes + _WARPS * 256 * 4
+
+
+@functools.cache
+def stream_stages(dataflow: str, bm: int, bk: int, bn: int,
+                  in_bytes: int) -> int:
+    """The ring's depth a streaming block runs at: the most stages (up to
+    MAX_STAGES) whose shared memory fits SMEM_LIMIT; 0 when two do not."""
+    for stages in range(MAX_STAGES, 1, -1):
+        if stream_smem_bytes(dataflow, bm, bk, bn, in_bytes,
+                             stages) <= SMEM_LIMIT:
+            return stages
+    return 0
+
+
+def tiles_for(dataflow: str) -> tuple:
+    """The tile menu of a dataflow."""
+    return TILES if dataflow == "os" else STREAM_TILES
+
+
+def tile_smem(dataflow: str, bm: int, bk: int, bn: int,
+              in_bytes: int) -> int:
+    """Shared memory one block of the dataflow's kernel uses at this tile
+    (a streaming tile that fits no ring: its two-stage bytes, above
+    SMEM_LIMIT)."""
+    if dataflow == "os":
+        return smem_bytes(bm, bk, bn, in_bytes)
+    stages = stream_stages(dataflow, bm, bk, bn, in_bytes)
+    return stream_smem_bytes(dataflow, bm, bk, bn, in_bytes, max(stages, 2))
+
+
+def blocks_per_sm(smem: int) -> int:
+    """Blocks of `smem` bytes one SM holds at once (shared memory and
+    threads; registers not counted)."""
+    return max(0, min(MAX_BLOCKS_PER_SM, SM_SMEM // (smem + BLOCK_RESERVED)))
+
+
+def slab_count(k: int, bk: int) -> int:
+    """The K slabs of a streaming call: one per bk rows of K."""
+    return -(-k // bk)
+
+
+def groups_for(dataflow: str, m: int, k: int, n: int,
+               tile: tuple[int, int, int], in_bytes: int,
+               sms: int = SMS) -> int:
+    """How many blocks share one stationary tile's sweep (WS: its m-tiles,
+    IS: its n-tiles): enough for the grid to fill every SM with as many
+    blocks as it holds at the tile's shared memory, never more than the
+    tiles swept.  OS has one."""
+    if dataflow == "os":
+        return 1
+    bm, bk, bn = tile
+    gm, gn = -(-m // bm), -(-n // bn)
+    fixed, swept = (gn, gm) if dataflow == "ws" else (gm, gn)
+    per_sm = max(1, blocks_per_sm(tile_smem(dataflow, *tile, in_bytes)))
+    want = max(1, min(swept, -(-sms * per_sm // (fixed * slab_count(k, bk)))))
+    return -(-swept // -(-swept // want))    # as the kernel forms them
+
+
+def grid(dataflow: str, m: int, k: int, n: int, tile: tuple[int, int, int],
+         groups: int = 1) -> tuple[int, int, int]:
+    """The kernel's grid: OS (n-tiles, m-tiles, 1); WS (n-tiles, slabs,
+    groups of m-tiles); IS (m-tiles, slabs, groups of n-tiles), the
+    groups as the kernel forms them (`per` = ceil(swept / groups) tiles
+    each)."""
+    bm, bk, bn = tile
+    gm, gn = -(-m // bm), -(-n // bn)
+    if dataflow == "os":
+        return gn, gm, 1
+    fixed, swept = (gn, gm) if dataflow == "ws" else (gm, gn)
+    per = -(-swept // groups)
+    return fixed, slab_count(k, bk), -(-swept // per)
+
+
+def stream_reference(a: torch.Tensor, b: torch.Tensor, bk: int,
+                     out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The plain version of the WS/IS kernels' arithmetic: each bk-deep K
+    slab's f32 product (the partials the kernel writes), summed in slab
+    order from zero (`stream_reduce_reference`)."""
+    a32, b32 = a.float(), b.float()
+    parts = torch.stack([a32[:, k0:k0 + bk] @ b32[k0:k0 + bk]
+                         for k0 in range(0, a.shape[1], bk)])
+    return stream_reduce_reference(parts, out_dtype or a.dtype)
+
+
+def stream_reduce_reference(ws: torch.Tensor,
+                            out_dtype: torch.dtype) -> torch.Tensor:
+    """The reduction's plain version: the (slabs, M, N) f32 partials
+    summed in slab order from zero, as the kernel sums them, cast to
+    `out_dtype`."""
+    total = torch.zeros_like(ws[0])
+    for part in ws:
+        total = total + part
+    return total.to(out_dtype)
 
 
 def _check(a: torch.Tensor, b: torch.Tensor, dataflow: str,
@@ -80,18 +220,49 @@ def _check(a: torch.Tensor, b: torch.Tensor, dataflow: str,
         raise ValueError("gemm takes contiguous row-major operands")
     if dataflow not in DATAFLOWS:
         raise ValueError(f"unknown dataflow {dataflow!r} (known: {DATAFLOWS})")
-    if tile not in TILES:
+    if tile not in tiles_for(dataflow):
         raise ValueError(f"tile (bm, bk, bn) = {tile} is not on the "
-                         f"kernel's menu {TILES}")
+                         f"{dataflow} kernel's menu {tiles_for(dataflow)}")
+
+
+def _check_stream(dataflow: str, m: int, k: int, n: int,
+                  tile: tuple[int, int, int], in_bytes: int, slabs, groups
+                  ) -> None:
+    bm, bk, bn = tile
+    if stream_stages(dataflow, *tile, in_bytes) < 2:
+        need = tile_smem(dataflow, *tile, in_bytes)
+        raise ValueError(
+            f"{dataflow} tile {tile} needs {need} bytes of shared memory at "
+            f"{in_bytes}-byte operands, more than the {SMEM_LIMIT} a block "
+            f"may use")
+    if slabs is not None and slabs != slab_count(k, bk):
+        raise ValueError(f"slabs = {slabs}, but K = {k} at bk = {bk} makes "
+                         f"{slab_count(k, bk)}")
+    if slab_count(k, bk) > GRID_LIMIT:
+        raise ValueError(f"K = {k} at bk = {bk} exceeds the grid limit "
+                         f"{GRID_LIMIT}")
+    swept = -(-m // bm) if dataflow == "ws" else -(-n // bn)
+    if groups is not None and (type(groups) is not int
+                               or not 1 <= groups <= swept):
+        raise ValueError(f"groups must be an int in 1..{swept}, got "
+                         f"{groups!r}")
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load("redas_gemm")
     lib.redas_gemm_launch.argtypes = (
-        [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+        [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
         + [ctypes.c_void_p])
-    lib.redas_gemm_launch.restype = ctypes.c_int
+    lib.redas_stream_launch.argtypes = (
+        [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        + [ctypes.c_void_p])
+    lib.redas_reduce_launch.argtypes = (
+        [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    for fn in (lib.redas_gemm_launch, lib.redas_stream_launch,
+               lib.redas_reduce_launch):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -100,45 +271,92 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _groups(dataflow: str, gm: int, gn: int, sms: int) -> int:
-    """How many blocks share one stationary tile's sweep: enough to give
-    the card about two blocks per SM, never more than the tiles swept."""
-    if dataflow == "ws":
-        return max(1, min(gm, -(-2 * sms // gn)))
-    if dataflow == "is":
-        return max(1, min(gn, -(-2 * sms // gm)))
-    return 1
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
+def stream_reduce(ws: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """(slabs, M, N) f32 partials -> (M, N) in `out_dtype` (bf16 or f32):
+    their sum in slab order from zero, through the reduction kernel on a
+    CUDA tensor, `stream_reduce_reference` on a CPU one."""
+    global reduce_launches
+    if ws.dim() != 3 or ws.dtype != torch.float32 or not ws.is_contiguous():
+        raise ValueError(f"stream_reduce takes contiguous (slabs, M, N) f32 "
+                         f"partials, got {ws.dtype} {tuple(ws.shape)}")
+    if ws.shape[0] < 2 or ws.shape[1] * ws.shape[2] < 1:
+        raise ValueError(f"stream_reduce needs 2 or more non-empty partials, "
+                         f"got {tuple(ws.shape)}")
+    if out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"stream_reduce writes bf16 or f32, not {out_dtype}")
+    if ws.device.type == "cpu":
+        return stream_reduce_reference(ws, out_dtype)
+    slabs, m, n = ws.shape
+    out = torch.empty((m, n), dtype=out_dtype, device=ws.device)
+    with torch.cuda.device(ws.device):
+        _raise_on(_library().redas_reduce_launch(
+            _DTYPE_CODE[out_dtype], ws.data_ptr(), out.data_ptr(), m * n,
+            slabs, torch.cuda.current_stream().cuda_stream),
+            f"redas_gemm reduction of {slabs} slabs")
+    reduce_launches += 1
+    return out
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, *, dataflow: str = "os",
-         bm: int, bk: int, bn: int,
+         bm: int, bk: int, bn: int, slabs: int | None = None,
+         groups: int | None = None,
          out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """(M, K) @ (K, N) through the ReDas kernel with CTA tile (bm, bk, bn).
 
-    CUDA operands launch the kernel on the current stream; CPU operands
-    get `gemm_reference`.  Raises on anything the kernel does not take."""
-    _check(a, b, dataflow, (bm, bk, bn), out_dtype)
+    WS and IS take `slabs` (None, or ceil(K / bk), which it must be) and
+    `groups` (the blocks that share a stationary tile's sweep; None: the
+    rule of `groups_for` on this card).  CUDA operands launch the kernels
+    on the current stream; CPU operands get `gemm_reference`.  Raises on
+    anything the kernels do not take, and when a launch fails."""
+    global reduce_launches
+    tile = (bm, bk, bn)
+    _check(a, b, dataflow, tile, out_dtype)
+    m, k = a.shape
+    n = b.shape[1]
+    if dataflow == "os":
+        if (slabs, groups) not in ((None, None), (1, 1)):
+            raise ValueError(f"OS takes no slabs or groups, got {slabs}, "
+                             f"{groups}")
+    else:
+        _check_stream(dataflow, m, k, n, tile, a.element_size(), slabs,
+                      groups)
     if a.device.type == "cpu":
         return gemm_reference(a, b, out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"gemm runs on CUDA or CPU tensors, not {a.device}")
-    m, k = a.shape
-    n = b.shape[1]
+    lib, code = _library(), _DTYPE_CODE[a.dtype]
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    partial = None
-    if dataflow != "os" and k > bk:
-        partial = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    groups = _groups(dataflow, -(-m // bm), -(-n // bn),
-                     _sm_count(a.device.index or 0))
-    lib = _library()
     with torch.cuda.device(a.device):
-        err = lib.redas_gemm_launch(
-            DATAFLOWS.index(dataflow), _DTYPE_CODE[a.dtype], bm, bk, bn,
-            a.data_ptr(), b.data_ptr(), out.data_ptr(),
-            partial.data_ptr() if partial is not None else None,
-            m, n, k, groups, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"redas_gemm {dataflow} ({bm},{bk},{bn}) launch "
-                           f"failed: CUDA error {err}")
+        stream = torch.cuda.current_stream().cuda_stream
+        if dataflow == "os":
+            err = lib.redas_gemm_launch(code, bm, bk, bn, a.data_ptr(),
+                                        b.data_ptr(), out.data_ptr(), m, n,
+                                        k, stream)
+            if err != 0:
+                _raise_on(err, f"redas_gemm os {tile}")
+            launches["os"] += 1
+            return out
+        slabs = slab_count(k, bk)
+        if groups is None:
+            groups = groups_for(dataflow, m, k, n, tile, a.element_size(),
+                                _sm_count(a.device.index or 0))
+        # more than one slab: f32 partials, reduced in the same call
+        ws = (torch.empty((slabs, m, n), dtype=torch.float32,
+                          device=a.device) if slabs > 1 else None)
+        err = lib.redas_stream_launch(
+            DATAFLOWS.index(dataflow), code, bm, bk, bn, a.data_ptr(),
+            b.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), m, n, k, slabs, groups,
+            stream_stages(dataflow, bm, bk, bn, a.element_size()), stream)
+        if err != 0:
+            _raise_on(err, f"redas_gemm {dataflow} {tile} slabs {slabs} "
+                           f"groups {groups}")
     launches[dataflow] += 1
+    if ws is not None:
+        reduce_launches += 1
     return out

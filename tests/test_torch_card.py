@@ -10,7 +10,10 @@ the int8 GEMM's int32 result is held to its plain version bit for bit.
 The sparse GEMM is held at those row tolerances at every N:M spec, on
 both of its paths (every tile of the tiled menu; the decode path at
 several splits) and with any int8 index array, and its repeat launches
-bit for bit.
+bit for bit.  The ReDas GEMM is held at those row tolerances in each
+dataflow at a decode, a prefill and a ragged shape (WS/IS at one slab,
+the planner's slabs and the most slabs), its repeat launches and its
+reduction bit for bit.
 """
 
 import dataclasses
@@ -21,7 +24,8 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import (flash_attention, grouped_gemm,
-                                  paged_attention, quant_gemm, sparse_gemm)
+                                  paged_attention, quant_gemm, redas_gemm,
+                                  sparse_gemm)
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import transformer as T
 from repro_torch.quant import kv_quantize, quantize, quantize_params
@@ -45,6 +49,120 @@ def _row_rel_l2(got, ref):
     d = got.shape[-1]
     num = (got - ref).reshape(-1, d).norm(dim=-1)
     return (num / ref.reshape(-1, d).norm(dim=-1).clamp_min(1e-30)).max().item()
+
+
+def _gemm_configs(m, k, n, itemsize):
+    """The ReDas kernel arguments a card test holds at (m, k, n): OS at
+    the model's best OS tile; WS and IS at one slab (the shallowest
+    streaming tile that holds K and fits), at the model's best
+    configuration for the dataflow, and at the most slabs (bk = 64)."""
+    from repro_torch.engine import KernelRequest
+    from repro_torch.engine.cost import decide_gemm
+
+    req = KernelRequest("gemm", m, k, n, in_bytes=itemsize,
+                        out_bytes=itemsize)
+    configs = []
+    for df in redas_gemm.DATAFLOWS:
+        dec = decide_gemm(req, "test", dataflows=(df,))
+        planned = {"dataflow": df, "bm": dec.bm, "bk": dec.bk, "bn": dec.bn}
+        if df == "os":
+            configs.append(planned)
+            continue
+        planned.update(slabs=dec.meta_dict["slabs"],
+                       groups=dec.meta_dict["groups"])
+        fits = [t for t in redas_gemm.STREAM_TILES
+                if redas_gemm.stream_stages(df, *t, itemsize)]
+        one = min((t for t in fits if t[1] >= k), key=lambda t: (t[1], t),
+                  default=None)
+        for tile in ([one] if one else []) + [(16, 64, 64)]:
+            conf = {"dataflow": df, "bm": tile[0], "bk": tile[1],
+                    "bn": tile[2]}
+            if conf not in configs:
+                configs.append(conf)
+        if planned not in configs:
+            configs.append(planned)
+    return configs
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("m,k,n", [(4, 1536, 1536), (8, 1024, 2048),
+                                   (300, 512, 384), (5, 1003, 200)])
+def test_redas_gemm_matches_plain_version(cuda, dtype, tol, m, k, n):
+    """Every dataflow against `gemm_reference` at a decode, a prefill and
+    a ragged shape; WS/IS at one slab, the planner's and the most slabs;
+    each configuration launched twice, the outputs bit for bit equal."""
+    gen = torch.Generator(device=cuda).manual_seed(m + k)
+    a = torch.randn(m, k, generator=gen, device=cuda).to(dtype)
+    b = (torch.randn(k, n, generator=gen, device=cuda) / k ** 0.5).to(dtype)
+    ref = redas_gemm.gemm_reference(a, b)
+    configs = _gemm_configs(m, k, n, a.element_size())
+    assert {c["dataflow"] for c in configs} == set(redas_gemm.DATAFLOWS)
+    assert any(c.get("bk", 0) >= k for c in configs if c["dataflow"] != "os")
+    for conf in configs:
+        got = redas_gemm.gemm(a, b, **conf)
+        again = redas_gemm.gemm(a, b, **conf)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (m, n)
+        assert _row_rel_l2(got, ref) <= tol, conf
+        assert torch.equal(got, again), conf
+
+
+@pytest.mark.card
+def test_redas_counters_count_gemms_and_reductions(cuda):
+    """`launches` counts one per GEMM by dataflow, `reduce_launches` the
+    streaming reductions (one per call with more than one slab); the
+    reduction equals its plain version bit for bit; the plain versions
+    count nothing."""
+    a = torch.randn(8, 1024, device=cuda, dtype=torch.bfloat16)
+    b = torch.randn(1024, 512, device=cuda, dtype=torch.bfloat16)
+    redas_gemm.reset_launches()
+    redas_gemm.gemm(a, b, dataflow="os", bm=16, bk=64, bn=64)
+    redas_gemm.gemm(a, b, dataflow="ws", bm=16, bk=1536, bn=64)  # one slab
+    redas_gemm.gemm(a, b, dataflow="ws", bm=16, bk=256, bn=64)   # four
+    redas_gemm.gemm(a, b, dataflow="is", bm=16, bk=64, bn=64)    # sixteen
+    redas_gemm.gemm_reference(a, b)
+    redas_gemm.stream_reference(a, b, 256)
+    assert redas_gemm.launches == {"os": 1, "ws": 2, "is": 1}
+    assert redas_gemm.reduce_launches == 2
+    ws = torch.randn(5, 7, 33, device=cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert torch.equal(redas_gemm.stream_reduce(ws, dtype),
+                           redas_gemm.stream_reduce_reference(ws, dtype))
+    assert redas_gemm.reduce_launches == 4
+    redas_gemm.reset_launches()
+    assert redas_gemm.launches == {"os": 0, "ws": 0, "is": 0}
+    assert redas_gemm.reduce_launches == 0
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("what", ["stages", "slabs"])
+def test_redas_gemm_failed_launch_raises(cuda, monkeypatch, what):
+    """A launch the CUDA entry refuses (a ring depth or a slab count it
+    was not built for) raises and counts nothing: no fallback."""
+    a = torch.randn(4, 512, device=cuda)
+    b = torch.randn(512, 64, device=cuda)
+    if what == "stages":
+        monkeypatch.setattr(redas_gemm, "stream_stages", lambda *args: 5)
+    else:
+        monkeypatch.setattr(redas_gemm, "slab_count", lambda k, bk: 3)
+    redas_gemm.reset_launches()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        redas_gemm.gemm(a, b, dataflow="is", bm=16, bk=256, bn=64)
+    assert sum(redas_gemm.launches.values()) == 0
+    assert redas_gemm.reduce_launches == 0
+
+
+@pytest.mark.card
+def test_redas_gemm_raises_for_a_tile_off_the_menu(cuda):
+    a = torch.randn(4, 256, device=cuda)
+    b = torch.randn(256, 64, device=cuda)
+    with pytest.raises(ValueError, match="menu"):
+        redas_gemm.gemm(a, b, dataflow="ws", bm=16, bk=128, bn=64)
+    with pytest.raises(ValueError, match="menu"):
+        redas_gemm.gemm(a, b, dataflow="os", bm=16, bk=512, bn=64)
+    with pytest.raises(ValueError, match="shared memory"):
+        redas_gemm.gemm(a, b, dataflow="ws", bm=16, bk=1536, bn=64)  # f32
 
 
 @pytest.mark.card

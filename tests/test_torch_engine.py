@@ -2,6 +2,7 @@
 JAX package's engine, on the CPU."""
 
 import itertools
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -61,11 +62,22 @@ def test_hits_and_misses_count_as_in_jax_engine():
 @pytest.mark.parametrize("in_bytes", [2, 4])
 @pytest.mark.parametrize("shape", MAIN_PATH_SHAPES)
 def test_hopper_decisions_lie_in_menu_and_fit_shared_memory(shape, in_bytes):
+    """Each decision's tile is on its dataflow's menu, and its block's
+    shared memory in that dataflow's layout (OS: `smem_bytes`, which the
+    grouped GEMM shares; WS/IS: the slab and the ring at the depth the
+    wrapper launches) fits the card and is what `meta` records."""
     dec = HopperModel().decide(KernelRequest("gemm", *shape, in_bytes=in_bytes,
                                              out_bytes=in_bytes))
-    assert (dec.bm, dec.bk, dec.bn) in redas_gemm.TILES
     assert dec.dataflow in redas_gemm.DATAFLOWS
-    smem = redas_gemm.smem_bytes(dec.bm, dec.bk, dec.bn, in_bytes)
+    assert (dec.bm, dec.bk, dec.bn) in redas_gemm.tiles_for(dec.dataflow)
+    tile = (dec.bm, dec.bk, dec.bn)
+    if dec.dataflow == "os":
+        smem = redas_gemm.smem_bytes(*tile, in_bytes)
+    else:
+        smem = redas_gemm.stream_smem_bytes(
+            dec.dataflow, *tile, in_bytes,
+            redas_gemm.stream_stages(dec.dataflow, *tile, in_bytes))
+    assert smem == redas_gemm.tile_smem(dec.dataflow, *tile, in_bytes)
     assert smem == dec.meta_dict["smem_bytes"] <= 232_448
     assert dec.seconds > 0
 
@@ -78,6 +90,209 @@ def test_traffic_formula_equals_jax_packages():
         assert cost.hbm_traffic(m, k, n, cost.TileConfig(df, bm, bk, bn),
                                 ib, ob) == tpu_model.hbm_traffic(
             m, k, n, tpu_model.TPUKernelConfig(df, bm, bk, bn), ib, ob)
+
+
+#: decode M = 4 (static) and 8 (paged): WS or IS, K split into slabs
+#: where it spans more than one; prefill M = 2048: OS, but IS at N = 256
+#: (measured 3.9x faster than OS there, PERF.md §6)
+PREFILL_DATAFLOW = {(1536, 1536): "os", (1536, 256): "is",
+                    (1536, 8960): "os", (8960, 1536): "os"}
+
+
+@pytest.mark.parametrize("m", [4, 8, 2048])
+@pytest.mark.parametrize("k,n", MAIN_PATH_KN)
+def test_hopper_gemm_picks_streaming_at_decode_and_os_at_prefill(m, k, n):
+    """The wave term moves qwen's bf16 decode GEMMs off OS's serial K
+    loop (24 blocks at 4 x 8960 x 1536) onto WS/IS with K slabs in
+    parallel; the decision's `meta` carries the slabs and groups the
+    kernel runs at."""
+    dec = HopperModel().decide(KernelRequest("gemm", m, k, n))
+    meta = dec.meta_dict
+    tile = (dec.bm, dec.bk, dec.bn)
+    if m <= 16:
+        assert dec.dataflow in ("ws", "is")
+        assert meta["slabs"] == redas_gemm.slab_count(k, dec.bk)
+        assert meta["groups"] == redas_gemm.groups_for(
+            dec.dataflow, m, k, n, tile, 2)
+        os_dec = cost.decide_gemm(KernelRequest("gemm", m, k, n), "test",
+                                  dataflows=("os",))
+        assert os_dec.seconds > 3 * dec.seconds
+    else:
+        assert dec.dataflow == PREFILL_DATAFLOW[k, n]
+    assert meta["blocks"] == math.prod(redas_gemm.grid(
+        dec.dataflow, m, k, n, tile, meta["groups"]))
+    assert 0 < meta["fill"] <= 1
+    assert meta["workspace_bytes"] == (
+        2 * meta["slabs"] * m * n * 4 if meta["slabs"] > 1 else 0)
+
+
+def test_stream_decisions_keep_slabs_and_groups_through_json(tmp_path):
+    """A plan's JSON keeps `slabs` and `groups`, and the backend passes
+    them on to the kernel's wrapper."""
+    from repro_torch.engine.backends import gemm_args
+
+    eng = Engine()
+    for m, k, n in MAIN_PATH_SHAPES:
+        eng.decide(KernelRequest("gemm", m, k, n))
+    eng.plan.save(tmp_path / "plan.json")
+    back = ExecutionPlan.load(tmp_path / "plan.json")
+    streamed = 0
+    for (req, dec), (req2, dec2) in zip(eng.plan, back, strict=True):
+        assert (req, dec) == (req2, dec2)
+        meta = dec2.meta_dict
+        args = gemm_args(dec2)
+        assert (args["dataflow"], args["bm"], args["bk"], args["bn"]) == (
+            dec.dataflow, dec.bm, dec.bk, dec.bn)
+        if dec2.dataflow == "os":
+            assert "slabs" not in args
+        else:
+            streamed += 1
+            assert (args["slabs"], args["groups"]) == (meta["slabs"],
+                                                       meta["groups"])
+            assert type(args["groups"]) is int
+    assert streamed >= 4
+
+
+#: the decisions of the other kernels' requests at their main-path shapes,
+#: as the parent commit of the wave term made them (it plans only `gemm`
+#: at in_bytes 2 and 4): request (op, m, k, n, groups, in_bytes, density)
+#: -> (dataflow, bm, bk, bn, seconds, meta); out_bytes 2
+PINNED_DECISIONS = {
+    ('gemm_w8', 4, 1536, 1536, 1, 1, 1.0): (
+        'os', 16, 128, 64, 8.950065671641791e-07,
+        {'hbm_bytes': 2998272, 'padding_efficiency': 0.25,
+         'smem_bytes': 14336}),
+    ('gemm_sparse', 4, 1536, 1536, 1, 2, 0.5): (
+        'os', 4, 64, 256, 2.299262089552239e-06,
+        {'blocks': 144, 'density': 0.5, 'hbm_bytes': 4743168.0,
+         'k_effective': 768, 'path': 'decode', 'split_k': 24,
+         'workspace_bytes': 1179648}),
+    ('gemm_w8', 4, 1536, 256, 1, 1, 1.0): (
+        'os', 16, 128, 64, 1.4916776119402985e-07,
+        {'hbm_bytes': 499712, 'padding_efficiency': 0.25,
+         'smem_bytes': 14336}),
+    ('gemm_sparse', 4, 1536, 256, 1, 2, 0.5): (
+        'os', 4, 64, 256, 2.0363844776119402e-06,
+        {'blocks': 24, 'density': 0.5, 'hbm_bytes': 800768.0,
+         'k_effective': 768, 'path': 'decode', 'split_k': 24,
+         'workspace_bytes': 196608}),
+    ('gemm_w8', 4, 1536, 8960, 1, 1, 1.0): (
+        'os', 16, 128, 64, 5.220871641791045e-06,
+        {'hbm_bytes': 17489920, 'padding_efficiency': 0.25,
+         'smem_bytes': 14336}),
+    ('gemm_sparse', 4, 1536, 8960, 1, 2, 0.5): (
+        'os', 4, 192, 256, 6.872109850746269e-06,
+        {'blocks': 280, 'density': 0.5, 'hbm_bytes': 23021568.0,
+         'k_effective': 768, 'path': 'decode', 'split_k': 8,
+         'workspace_bytes': 2293760}),
+    ('gemm_w8', 4, 8960, 1536, 1, 1, 1.0): (
+        'os', 16, 128, 64, 5.149955820895522e-06,
+        {'hbm_bytes': 17252352, 'padding_efficiency': 0.25,
+         'smem_bytes': 14336}),
+    ('gemm_sparse', 4, 8960, 1536, 1, 2, 0.5): (
+        'os', 4, 204, 256, 6.832983880597015e-06,
+        {'blocks': 264, 'density': 0.5, 'hbm_bytes': 22890496.0,
+         'k_effective': 4480, 'path': 'decode', 'split_k': 44,
+         'workspace_bytes': 2162688}),
+    ('gemm_w8', 8, 1536, 1536, 1, 1, 1.0): (
+        'os', 16, 128, 64, 8.950065671641791e-07,
+        {'hbm_bytes': 2998272, 'padding_efficiency': 0.5,
+         'smem_bytes': 14336}),
+    ('gemm_sparse', 8, 1536, 1536, 1, 2, 0.5): (
+        'os', 8, 64, 256, 2.6617886567164184e-06,
+        {'blocks': 144, 'density': 0.5, 'hbm_bytes': 5947392.0,
+         'k_effective': 768, 'path': 'decode', 'split_k': 24,
+         'workspace_bytes': 2359296}),
+    ('gemm_w8', 8, 1536, 256, 1, 1, 1.0): (
+        'os', 16, 128, 64, 1.4916776119402985e-07,
+        {'hbm_bytes': 499712, 'padding_efficiency': 0.5, 'smem_bytes': 14336}),
+    ('gemm_sparse', 8, 1536, 256, 1, 2, 0.5): (
+        'os', 8, 64, 256, 2.1360334328358213e-06,
+        {'blocks': 24, 'density': 0.5, 'hbm_bytes': 1011712.0,
+         'k_effective': 768, 'path': 'decode', 'split_k': 24,
+         'workspace_bytes': 393216}),
+    ('gemm_w8', 8, 1536, 8960, 1, 1, 1.0): (
+        'os', 16, 128, 64, 5.220871641791045e-06,
+        {'hbm_bytes': 17489920, 'padding_efficiency': 0.5,
+         'smem_bytes': 14336}),
+    ('gemm_sparse', 8, 1536, 8960, 1, 2, 0.5): (
+        'os', 8, 192, 256, 7.5818794029850746e-06,
+        {'blocks': 280, 'density': 0.5, 'hbm_bytes': 25399296.0,
+         'k_effective': 768, 'path': 'decode', 'split_k': 8,
+         'workspace_bytes': 4587520}),
+    ('gemm_w8', 8, 8960, 1536, 1, 1, 1.0): (
+        'os', 16, 128, 64, 5.149955820895522e-06,
+        {'hbm_bytes': 17252352, 'padding_efficiency': 0.5,
+         'smem_bytes': 14336}),
+    ('gemm_sparse', 8, 8960, 1536, 1, 2, 0.5): (
+        'os', 8, 204, 256, 7.503627462686567e-06,
+        {'blocks': 264, 'density': 0.5, 'hbm_bytes': 25137152.0,
+         'k_effective': 4480, 'path': 'decode', 'split_k': 44,
+         'workspace_bytes': 4325376}),
+    ('gemm_w8', 2048, 1536, 1536, 1, 1, 1.0): (
+        'os', 128, 64, 128, 2.441460537313433e-05,
+        {'hbm_bytes': 81788928, 'padding_efficiency': 1.0,
+         'smem_bytes': 20480}),
+    ('gemm_sparse', 2048, 1536, 1536, 1, 2, 0.5): (
+        'os', 128, 128, 128, 2.4766739104477612e-05,
+        {'density': 0.5, 'hbm_bytes': 82968576.0, 'k_effective': 768,
+         'padding_efficiency': 1.0, 'path': 'tiled', 'smem_bytes': 159744,
+         'split_k': 1, 'stages': 2}),
+    ('gemm_w8', 2048, 1536, 256, 1, 1, 1.0): (
+        'os', 128, 64, 128, 4.069100895522388e-06,
+        {'hbm_bytes': 13631488, 'padding_efficiency': 1.0,
+         'smem_bytes': 20480}),
+    ('gemm_sparse', 2048, 1536, 256, 1, 2, 0.5): (
+        'os', 128, 128, 128, 4.127789850746269e-06,
+        {'density': 0.5, 'hbm_bytes': 13828096.0, 'k_effective': 768,
+         'padding_efficiency': 1.0, 'path': 'tiled', 'smem_bytes': 159744,
+         'split_k': 1, 'stages': 2}),
+    ('gemm_w8', 2048, 1536, 8960, 1, 1, 1.0): (
+        'os', 128, 64, 128, 0.00014241853134328359,
+        {'hbm_bytes': 477102080, 'padding_efficiency': 1.0,
+         'smem_bytes': 20480}),
+    ('gemm_sparse', 2048, 1536, 8960, 1, 2, 0.5): (
+        'os', 128, 128, 128, 0.0001444726447761194,
+        {'density': 0.5, 'hbm_bytes': 483983360.0, 'k_effective': 768,
+         'padding_efficiency': 1.0, 'path': 'tiled', 'smem_bytes': 159744,
+         'split_k': 1, 'stages': 2}),
+    ('gemm_w8', 2048, 8960, 1536, 1, 1, 1.0): (
+        'os', 128, 64, 128, 0.0001333413062686567,
+        {'hbm_bytes': 446693376, 'padding_efficiency': 1.0,
+         'smem_bytes': 20480}),
+    ('gemm_sparse', 2048, 8960, 1536, 1, 2, 0.5): (
+        'os', 128, 128, 128, 0.00013539541970149254,
+        {'density': 0.5, 'hbm_bytes': 453574656.0, 'k_effective': 4480,
+         'padding_efficiency': 1.0, 'path': 'tiled', 'smem_bytes': 159744,
+         'split_k': 1, 'stages': 2}),
+    ('grouped_gemm', 32, 1024, 512, 32, 2, 1.0): (
+        'os', 32, 64, 64, 1.5337380298507464e-05,
+        {'groups': 32, 'smem_bytes': 17920}),
+    ('grouped_gemm', 32, 512, 1024, 32, 2, 1.0): (
+        'os', 32, 64, 64, 1.5650388059701493e-05,
+        {'groups': 32, 'smem_bytes': 17920}),
+    ('grouped_gemm', 1920, 1024, 512, 32, 2, 1.0): (
+        'os', 128, 32, 128, 0.00031926791641791045,
+        {'groups': 32, 'smem_bytes': 23040}),
+    ('grouped_gemm', 1920, 512, 1024, 32, 2, 1.0): (
+        'os', 128, 32, 128, 0.00033804838208955224,
+        {'groups': 32, 'smem_bytes': 23040}),
+    ('grouped_gemm', 160, 1024, 512, 32, 2, 1.0): (
+        'os', 128, 32, 128, 4.256905552238806e-05,
+        {'groups': 32, 'smem_bytes': 23040}),
+    ('grouped_gemm', 160, 512, 1024, 32, 2, 1.0): (
+        'os', 128, 32, 128, 4.50731176119403e-05,
+        {'groups': 32, 'smem_bytes': 23040}),
+}
+
+
+def test_other_kernels_decisions_are_unchanged_by_the_wave_term():
+    model = HopperModel()
+    for (op, m, k, n, g, ib, dens), want in PINNED_DECISIONS.items():
+        dec = model.decide(KernelRequest(op, m, k, n, groups=g, in_bytes=ib,
+                                         out_bytes=2, density=dens))
+        assert (dec.dataflow, dec.bm, dec.bk, dec.bn, dec.seconds,
+                dec.meta_dict) == want, (op, m, k, n)
 
 
 def test_registry_holds_both_backends():
