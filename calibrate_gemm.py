@@ -1,0 +1,186 @@
+"""Hold the ReDas GEMM's cost model (`engine.cost.gemm_cost`) against a
+calibration sweep of the card, and refit its constants.
+
+    python3 calibrate_gemm.py [SWEEP] [--src DIR] [--fit]
+
+SWEEP is a JSON-lines file of `chip_smoke.py --sweep` (one line per
+(shape, dataflow, tile): m, k, n, dtype, dataflow, tile and the measured
+device `us`); by default the committed tests/data/gemm_sweep_h100.jsonl.
+Runs on the CPU.  It prints, for each shape, the model's decision among
+the measured configurations (each dataflow at the model's best tile for
+it, then the least of those three), its time against the fastest of the
+three and against the fastest configuration measured, and the model's
+seconds against the measured; then the worst bf16 ratios and the log-RMS
+error of the model's times.  `--src DIR` plans with the package under
+DIR (another checkout's src: its model on the same sweep).
+
+`--fit` refits OS_BLOCK_BW, STREAM_STEP_S, SM_MMA_RATE (bf16 and f32) and
+REDUCE_S by least squares on log time (Nelder-Mead from the committed
+values and from random restarts, scipy), over the configurations within
+4x of their shape's fastest, leaving out the shapes whose M is in HOLD
+(the paged prefill's, which `chip_smoke.py` phase 2 then times), and
+prints the constants and the picks they make.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import math
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SWEEP = ROOT / "tests" / "data" / "gemm_sweep_h100.jsonl"
+#: the constants `--fit` fits: (module attribute, key), key None for a
+#: scalar, else the operand bytes of SM_MMA_RATE
+FITTED = (("OS_BLOCK_BW", None), ("STREAM_STEP_S", None),
+          ("SM_MMA_RATE", 2), ("SM_MMA_RATE", 4), ("REDUCE_S", None))
+SIZES = {"bfloat16": 2, "float32": 4}
+#: the M held out of the fit: the paged prefill's (8 slots x widths 64
+#: and 768)
+HOLD = (512, 6144)
+
+
+def load(path: Path, redas_gemm) -> dict:
+    """The sweep's rows by (m, k, n, dtype), keeping the configurations on
+    the package's menus."""
+    shapes = collections.defaultdict(list)
+    for line in path.read_text().splitlines():
+        row = json.loads(line)
+        if tuple(row["tile"]) in redas_gemm.tiles_for(row["dataflow"]):
+            shapes[row["m"], row["k"], row["n"], row["dtype"]].append(row)
+    return dict(shapes)
+
+
+def picks(shapes: dict, cost) -> list[dict]:
+    """The model's decision at each shape among the measured
+    configurations, beside the fastest dataflow and the fastest
+    configuration."""
+    out = []
+    for (m, k, n, dtype), rows in shapes.items():
+        size = SIZES[dtype]
+        model = {id(r): cost.gemm_cost(m, k, n, r["dataflow"],
+                                       tuple(r["tile"]), size, size)
+                 for r in rows}
+        rows = [r for r in rows if model[id(r)] is not None]
+        best = {}
+        for r in rows:
+            df = r["dataflow"]
+            if (df not in best or model[id(r)]["seconds"]
+                    < model[id(best[df])]["seconds"]):
+                best[df] = r
+        pick = min(best.values(), key=lambda r: model[id(r)]["seconds"])
+        out.append({
+            "m": m, "k": k, "n": n, "dtype": dtype,
+            "decision": [pick["dataflow"], *pick["tile"]], "us": pick["us"],
+            "model_us": model[id(pick)]["seconds"] * 1e6,
+            "vs_fastest_dataflow": pick["us"] / min(r["us"]
+                                                   for r in best.values()),
+            "vs_fastest": pick["us"] / min(r["us"] for r in rows),
+            "by_dataflow": {df: [*r["tile"], r["us"]]
+                            for df, r in best.items()}})
+    return out
+
+
+def log_errors(shapes: dict, cost, hold=()) -> list[float]:
+    """log(model / measured) of every configuration within 4x of its
+    shape's fastest, the shapes whose M is in `hold` left out."""
+    errs = []
+    for (m, k, n, dtype), rows in shapes.items():
+        if m in hold:
+            continue
+        size, fastest = SIZES[dtype], min(r["us"] for r in rows)
+        for r in rows:
+            if r["us"] > 4 * fastest:
+                continue
+            c = cost.gemm_cost(m, k, n, r["dataflow"], tuple(r["tile"]),
+                               size, size)
+            if c is not None:
+                errs.append(math.log(c["seconds"] / (r["us"] * 1e-6)))
+    return errs
+
+
+def _get(cost) -> list[float]:
+    return [getattr(cost, a) if key is None else getattr(cost, a)[key]
+            for a, key in FITTED]
+
+
+def _set(cost, values) -> None:
+    for (attr, key), v in zip(FITTED, values, strict=True):
+        if key is None:
+            setattr(cost, attr, v)
+        else:
+            getattr(cost, attr)[key] = v
+
+
+def fit(shapes: dict, cost, hold, restarts: int = 4) -> list[float]:
+    """The constants that minimise the mean squared log error, from the
+    committed values and `restarts` random starts around them."""
+    import numpy as np
+    from scipy.optimize import minimize
+
+    start = np.log(_get(cost))
+
+    def loss(x):
+        _set(cost, np.exp(x))
+        errs = log_errors(shapes, cost, hold)
+        return sum(e * e for e in errs) / len(errs)
+
+    rng = np.random.default_rng(0)
+    best = None
+    for trial in range(restarts + 1):
+        x0 = start + (0 if trial == 0 else rng.normal(0, 1, len(start)))
+        res = minimize(loss, x0, method="Nelder-Mead",
+                       options={"maxiter": 3000, "xatol": 1e-4,
+                                "fatol": 1e-8})
+        if best is None or res.fun < best.fun:
+            best = res
+    values = [float(v) for v in np.exp(best.x)]
+    _set(cost, values)
+    return values
+
+
+def report(shapes: dict, cost, hold) -> None:
+    rows = picks(shapes, cost)
+    for p in rows:
+        print(f"{p['m']:5d} x {p['k']:5d} x {p['n']:5d} {p['dtype']:8s} "
+              f"{'held out ' if p['m'] in hold else ''}decision "
+              f"{p['decision']} {p['us']:.2f} us (model {p['model_us']:.2f}):"
+              f" {p['vs_fastest_dataflow']:.3f}x the fastest dataflow, "
+              f"{p['vs_fastest']:.3f}x the fastest configuration; "
+              f"{p['by_dataflow']}")
+    bf16 = [p for p in rows if p["dtype"] == "bfloat16"]
+    errs = log_errors(shapes, cost)
+    print(f"bf16 worst: {max(p['vs_fastest_dataflow'] for p in bf16):.3f}x "
+          f"the fastest dataflow, {max(p['vs_fastest'] for p in bf16):.3f}x "
+          f"the fastest configuration, over {len(bf16)} shapes; log-RMS "
+          f"error of the model's times {math.sqrt(sum(e * e for e in errs) / len(errs)):.3f} "
+          f"over {len(errs)} configurations within 4x of their shape's "
+          f"fastest")
+    print(json.dumps({"picks": rows}))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("sweep", nargs="?", default=str(SWEEP))
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--fit", action="store_true")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, args.src)
+    from repro_torch.engine import cost
+    from repro_torch.kernels import redas_gemm
+
+    shapes = load(Path(args.sweep), redas_gemm)
+    if args.fit:
+        values = fit(shapes, cost, HOLD)
+        print("fitted, M in", HOLD, "held out:",
+              {f"{a}[{k}]" if k else a: f"{v:.3g}"
+               for (a, k), v in zip(FITTED, values, strict=True)})
+    report(shapes, cost, HOLD)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -124,7 +124,6 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
-import contextlib
 import dataclasses
 import functools
 import json
@@ -144,7 +143,6 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.engine import Engine, KernelRequest, use_engine  # noqa: E402
-from repro_torch.engine import cost as cost_model  # noqa: E402
 from repro_torch.engine.backends import gemm_args, sparse_args  # noqa: E402
 from repro_torch.engine.cost import (HBM_BW, PEAK_FLOPS_BF16,  # noqa: E402
                                      PEAK_FLOPS_F32, PEAK_OPS_INT8,
@@ -164,11 +162,18 @@ ARCH = "qwen2-1.5b"
 BATCH, PROMPT, GEN, SEED = 4, 512, 16, 0
 #: engine GEMMs of one qwen2-1.5b layer: (K, N) -> calls per layer
 LAYER_GEMMS = {(1536, 1536): 2, (1536, 256): 2, (1536, 8960): 2, (8960, 1536): 1}
+#: granite-moe-1b-a400m's engine GEMMs of one layer (q, k, v, o; the
+#: experts are grouped or einsum matmuls)
+GRANITE_LAYER_GEMMS = {(1024, 1024): 2, (1024, 512): 2}
 L2_BYTES = 50 * 2**20
 BF16_ROW_TOL, F32_ROW_TOL = 1e-2, 1e-4
 #: the most the model's GEMM decision may take against the fastest of the
 #: three dataflows (each at the model's best configuration for it)
 GEMM_PICK_LIMIT = 1.25
+#: the bf16 GEMM's M on the main paths: the static decode (4) and prefill
+#: (2048), the paged decode (8) and prefill (8 slots x widths 64, 256 and
+#: 768); 512 and 6144 are held out of the cost model's fit
+GEMM_MAIN_M = (4, 8, 512, 2048, 6144)
 LOGIT_LIMITS = {"rel_l2": 0.035, "rel_max": 0.035}
 KERNELS = ("redas_gemm", "paged_attention", "flash_attention", "grouped_gemm",
            "quant_gemm", "sparse_gemm")
@@ -323,36 +328,50 @@ def phase_setup() -> None:
 GEMM_KERNELS = ("::os_kernel<", "::stream_kernel<", "::stream_reduce_kernel<")
 
 
-@contextlib.contextmanager
-def multi_slab_calls():
-    """Count the ReDas GEMM calls whose arguments span more than one K slab
-    (WS/IS with K > bk: each must launch the reduction once), by watching
-    the wrapper's arguments; the wrapper itself is what runs."""
-    seen = collections.Counter()
-    inner = redas_gemm.gemm
-
-    def watched(a, b, **kw):
-        if (kw.get("dataflow", "os") != "os"
-                and redas_gemm.slab_count(a.shape[1], kw["bk"]) > 1):
-            seen["calls"] += 1
-        return inner(a, b, **kw)
-
-    redas_gemm.gemm = watched
-    try:
-        yield seen
-    finally:
-        redas_gemm.gemm = inner
+#: the streaming reduction's kernel, as the profiler names it
+REDUCE_KERNEL = "::stream_reduce_kernel<"
 
 
-def check_reductions(label: str, seen: collections.Counter) -> int:
-    """The streaming reductions launched since the last reset equal the
-    calls whose decision has more than one slab."""
+def check_reductions(label: str, eng, per_layer: dict, layers: int,
+                     passes: dict) -> int:
+    """The streaming reductions launched since the last reset equal what
+    the serve's plan implies: for each GEMM decision with more than one K
+    slab, the layer's calls of its (K, N) x the layers x the forward
+    passes at its M (`passes`, M -> passes)."""
+    want = 0
+    for req, dec in eng.plan:
+        if req.op != "gemm":
+            continue
+        check(req.m in passes and (req.k, req.n) in per_layer,
+              f"{label}: a GEMM decision at {req.m} x {req.k} x {req.n} "
+              f"outside the serve's shapes")
+        if dec.meta_dict.get("slabs", 1) > 1:
+            want += per_layer[req.k, req.n] * layers * passes[req.m]
     got = redas_gemm.reduce_launches
-    print(f"{label}: {got} streaming reductions, {seen['calls']} GEMM calls "
-          f"with more than one K slab")
-    check(got == seen["calls"], f"{label}: {got} reductions for "
-          f"{seen['calls']} multi-slab calls")
+    print(f"{label}: {got} streaming reductions; its plan's multi-slab "
+          f"decisions make {want} calls")
+    check(got == want, f"{label}: {got} reductions, but the plan's "
+          f"multi-slab decisions make {want} calls")
     return got
+
+
+#: the share of a traced run's kernel launches the profiler must show: it
+#: may drop a few records under load (957 of 960 reductions in granite's
+#: 10 traced ticks, NVIDIA H100 80GB HBM3), never add one
+TRACE_KEPT = 0.99
+
+
+def check_traced_reductions(label: str, prof: dict, want: int) -> None:
+    """The wrapper's reduction count over a traced run equals `want`, and
+    the profiler's count of the reduction kernel shows at least
+    TRACE_KEPT of them and no more."""
+    seen, counted = (prof["matched"][REDUCE_KERNEL]["count"],
+                     prof["reduce_launches"])
+    print(f"{label}: the trace holds {seen} reduction launches, the wrapper "
+          f"counted {counted}, the plan implies {want}")
+    check(counted == want and TRACE_KEPT * counted <= seen <= counted,
+          f"{label}: traced {seen} reductions, counted {counted}, want "
+          f"{want}")
 
 
 def gemm_trace_line(prof: dict, per: int, unit: str) -> dict:
@@ -408,8 +427,8 @@ def _stream_extremes(m: int, k: int, n: int, size: int, df: str) -> list:
 
 def phase_kernels() -> list[dict]:
     """The ReDas GEMM against its plain version: qwen's four (K, N) at
-    the static decode (M = 4), the paged decode (M = 8) and the prefill
-    (M = 2048) in bf16, two f32 shapes, and untimed M = 1, 16, 17 at K =
+    every M of GEMM_MAIN_M in bf16 (the static and paged decode, the
+    static prefill and the paged prefill's other widths), two f32 shapes, and untimed M = 1, 16, 17 at K =
     8960 and a ragged (5, 1003, 200).  Each dataflow runs at the model's
     best configuration for it (`decide_gemm` on that dataflow alone), the
     model's seconds beside the measured ms; at M <= 16 WS and IS also at
@@ -422,8 +441,7 @@ def phase_kernels() -> list[dict]:
     side = torch.cuda.Stream()
     model = HopperModel()
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [(m, k, n, bf16, True) for m in (BATCH, SLOTS, BATCH * PROMPT)
-             for k, n in LAYER_GEMMS]
+    cases = [(m, k, n, bf16, True) for m in GEMM_MAIN_M for k, n in LAYER_GEMMS]
     cases += [(BATCH, 1536, 8960, f32, True),
               (BATCH * PROMPT, 1536, 1536, f32, True)]
     cases += [(m, 8960, 1536, bf16, False) for m in (1, 16, 17)]
@@ -546,10 +564,12 @@ def phase_kernels() -> list[dict]:
 
 
 #: the calibration sweep's shapes: qwen's four (K, N) at decode (M = 4, 8),
-#: at the paged serve's prefill widths (64, 256, 768) and at the static
-#: prefill (2048); granite's attention GEMMs (K, N) at M = 8 and 2048; two
-#: f32 shapes
-SWEEP_SHAPES = ([(m, k, n, torch.bfloat16) for m in (4, 8, 64, 256, 768, 2048)
+#: at M = 64, 256 and 768, at the static prefill (2048) and at the paged
+#: serve's other prefill GEMMs (8 slots x widths 64 and 768: M = 512 and
+#: 6144); granite's attention GEMMs (K, N) at M = 8 and 2048; two f32
+#: shapes
+SWEEP_SHAPES = ([(m, k, n, torch.bfloat16)
+                 for m in (4, 8, 64, 256, 512, 768, 2048, 6144)
                  for k, n in LAYER_GEMMS]
                 + [(m, 1024, n, torch.bfloat16) for m in (8, 2048)
                    for n in (1024, 512)]
@@ -557,35 +577,21 @@ SWEEP_SHAPES = ([(m, k, n, torch.bfloat16) for m in (4, 8, 64, 256, 768, 2048)
                    (2048, 1536, 1536, torch.float32)])
 
 
-def stream_overhead_s(m: int, n: int, dataflow: str, size: int,
-                      cost: dict) -> float:
-    """What `gemm_cost` adds beside a WS/IS call's operation bound: the
-    output and the workspace at the HBM rate and the reduction; 0 for
-    OS."""
-    if dataflow == "os":
-        return 0.0
-    extra = (cost["workspace_bytes"] + m * n * size) / HBM_BW
-    if cost["slabs"] > 1:
-        extra += cost_model.LAUNCH_S + cost_model.REDUCE_ROUND_S * -(
-            -cost["slabs"] // cost_model.REDUCE_BATCH)
-    return extra
-
-
 def sweep() -> int:
     """`chip_smoke.py --sweep`: build the ReDas GEMM, then time every
     (dataflow, tile) of its menus at SWEEP_SHAPES beside `gemm_cost`'s
     prediction, each held to the plain version first; print one JSON
-    line per configuration (also to runs/gemm_sweep.jsonl) and the shares
-    of the bf16 peak each kernel reaches at M = 2048 net of its workspace
-    (the calibration of `engine.cost.MMA_SHARE`)."""
+    line per configuration (also to runs/gemm_sweep.jsonl): the data
+    `calibrate_gemm.py` fits `engine.cost.gemm_cost`'s constants to and
+    holds its decisions against (tests/data/gemm_sweep_h100.jsonl is one
+    such file, its fields trimmed)."""
     print(card_line())
     _build.build("redas_gemm")
     gen = torch.Generator(device="cuda").manual_seed(1)
     side = torch.cuda.Stream()
     out_dir = ROOT / "runs"
     out_dir.mkdir(exist_ok=True)
-    rows, failures = [], []
-    shares = collections.defaultdict(list)
+    failures = []
     with (out_dir / "gemm_sweep.jsonl").open("w") as fh:
         for m, k, n, dtype in SWEEP_SHAPES:
             sets = _operand_sets(m, k, n, dtype, gen)
@@ -615,23 +621,9 @@ def sweep() -> int:
                            **{key: cost[key] for key in
                               ("slabs", "groups", "blocks", "fill",
                                "workspace_bytes")}}
-                    rows.append(row)
                     fh.write(json.dumps(row) + "\n")
                     print(json.dumps(row), flush=True)
-                    if m == BATCH * PROMPT:
-                        net = us * 1e-6 - stream_overhead_s(m, n, df, size,
-                                                            cost)
-                        mp, kp, np_ = (-(-x // t) * t for x, t in
-                                       zip((m, k, n), tile))
-                        peak = (PEAK_FLOPS_BF16 if size == 2
-                                else PEAK_FLOPS_F32)
-                        shares[df, size, tile].append(
-                            2.0 * mp * kp * np_ / (peak * cost["fill"]
-                                                   * max(net, 1e-9)))
             del sets
-    for key, vals in sorted(shares.items()):
-        print(f"share {key}: median {sorted(vals)[len(vals) // 2]:.4f} of "
-              f"{[round(v, 4) for v in vals]}")
     print(f"failures {failures}")
     return 1 if failures else 0
 
@@ -865,11 +857,12 @@ def phase_main_path(cfg) -> dict:
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()  # what the script holds already
     reset_counts()
-    with multi_slab_calls() as seen:
-        out = _serve(GEN)
+    out = _serve(GEN)
     counts = read_counts()
     launches = dict(redas_gemm.launches)
-    reduces = check_reductions("static serve", seen)
+    reduces = check_reductions("static serve", out["engine"], LAYER_GEMMS,
+                               cfg.n_layers, {BATCH * PROMPT: 1,
+                                              BATCH: GEN - 1})
     peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     expected = sum(LAYER_GEMMS.values()) * cfg.n_layers * GEN
     tokens = out["tokens"]
@@ -906,6 +899,8 @@ def phase_main_path(cfg) -> dict:
         "decision_mix": mix, "launches": launches, "counts": counts,
         "reductions": reduces, "tokens": tokens.tolist(),
         **_traces(out, prefill_ms, decode_ms * (GEN - 1))}
+    check_traced_reductions("static serve, traced again",
+                            REPORT["main_path"]["trace_serve"], reduces)
     return out
 
 
@@ -918,6 +913,20 @@ def decision_mix(eng) -> dict:
             slabs = dec.meta_dict.get("slabs", 1)
             mix[f"{dec.dataflow} x{slabs}"].append([req.m, req.k, req.n])
     return dict(mix)
+
+
+def _paged_passes(sched) -> dict:
+    """Forward passes of a paged serve by GEMM M: the decode ticks at
+    M = SLOTS, each prefill call at M = SLOTS x its width."""
+    return {SLOTS: sched.stats["decode_steps"],
+            **{SLOTS * w: c for w, c in sched.prefill_width_calls.items()}}
+
+
+def _decode_reductions(eng, per_layer: dict, layers: int) -> int:
+    """The reductions one decode tick (M = SLOTS) makes by the plan."""
+    return sum(per_layer[req.k, req.n] * layers for req, dec in eng.plan
+               if req.op == "gemm" and req.m == SLOTS
+               and dec.meta_dict.get("slabs", 1) > 1)
 
 
 def _untraced_ticks(sched, n: int) -> float:
@@ -953,8 +962,10 @@ def _replay_and_trace(params, cfg, scfg, eng, trace, tokens: dict,
         probe.submit(r)
     probe.step()                                   # admit 8, first tick
     untraced = _untraced_ticks(probe, 10)
+    before = redas_gemm.reduce_launches
     prof = _profile(lambda: _untraced_ticks(probe, 10), match)
     prof.pop("result")
+    prof["reduce_launches"] = redas_gemm.reduce_launches - before
     prof["untraced_ms"] = untraced
     prof["idle_share_untraced"] = max(0.0, 1.0 - prof["device_busy_ms"]
                                       / untraced)
@@ -977,15 +988,15 @@ def phase_scheduler(cfg) -> dict:
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     reset_counts()
-    with multi_slab_calls() as seen:
-        out = launch_serve.main(SERVE_ARGS)
+    out = launch_serve.main(SERVE_ARGS)
     counts = read_counts()
     launches = dict(redas_gemm.launches)
-    reduces = check_reductions("paged serve", seen)
     peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     sched, eng = out["scheduler"], out["engine"]
     st = sched.stats
     ticks, calls = st["decode_steps"], st["prefill_calls"]
+    reduces = check_reductions("paged serve", eng, LAYER_GEMMS, cfg.n_layers,
+                               _paged_passes(sched))
     tick_ms = sched.timings["decode_s"] * 1e3 / ticks
     prefill_ms = sched.timings["prefill_s"] * 1e3
     want_paged = cfg.n_layers * ticks
@@ -1022,6 +1033,8 @@ def phase_scheduler(cfg) -> dict:
                                           out["trace"], tokens, "",
                                           GEMM_KERNELS)
     trace["gemm"] = gemm_trace_line(trace, 10, "tick")
+    check_traced_reductions("paged serve, 10 traced ticks", trace, 10 * (
+        _decode_reductions(eng, LAYER_GEMMS, cfg.n_layers)))
     REPORT["paged_serve"] = {
         "trace": TRACE, "slots": SLOTS, "page_size": PAGE,
         "prefill_bucket": BUCKET, "seconds": out["seconds"],
@@ -1150,7 +1163,9 @@ def _traces(out: dict, prefill_ms: float, decode_ms: float) -> dict:
                                           n, engine=out["engine"])
 
     prefill = _profile(run(1), GEMM_KERNELS)
+    before = redas_gemm.reduce_launches
     whole = _profile(run(GEN), GEMM_KERNELS)
+    whole["reduce_launches"] = redas_gemm.reduce_launches - before
     check(torch.equal(whole.pop("result").cpu(), out["tokens"]),
           "the traced run's tokens differ from the served run's")
     prefill.pop("result")
@@ -2491,12 +2506,12 @@ def phase_granite_sorted() -> dict:
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with multi_slab_calls() as seen:
-        sched.run(reqs)
+    sched.run(reqs)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = read_counts()
-    check_reductions("granite sorted serve", seen)
+    check_reductions("granite sorted serve", sched.engine,
+                     GRANITE_LAYER_GEMMS, cfg.n_layers, _paged_passes(sched))
     peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     eng, st = sched.engine, sched.stats
     ticks, calls = st["decode_steps"], st["prefill_calls"]
@@ -2525,7 +2540,10 @@ def phase_granite_sorted() -> dict:
     sched.paged.check_invariants()
 
     new_misses, prof = _replay_and_trace(params, cfg, scfg, eng, trace,
-                                         tokens, "granite ")
+                                         tokens, "granite ", GEMM_KERNELS)
+    check_traced_reductions("granite sorted serve, 10 traced ticks", prof,
+                            10 * _decode_reductions(eng, GRANITE_LAYER_GEMMS,
+                                                    layers))
     REPORT["granite_sorted"] = {
         "trace": TRACE, "slots": SLOTS, "page_size": PAGE,
         "prefill_bucket": BUCKET, "seconds": seconds,
@@ -2599,14 +2617,15 @@ def phase_granite_einsum() -> None:
     """The default dispatch through the launcher's static mode: the expert
     matmuls stay plain einsums, so the grouped kernel never launches."""
     reset_counts()
-    with multi_slab_calls() as seen:
-        out = launch_serve.main(["--arch", GRANITE, "--kernel-backend",
-                                 "hopper", "--batch", str(SLOTS),
-                                 "--prompt-len", str(EINSUM_PROMPT), "--gen",
-                                 str(EINSUM_GEN), "--seed", str(SEED)])
+    out = launch_serve.main(["--arch", GRANITE, "--kernel-backend", "hopper",
+                             "--batch", str(SLOTS), "--prompt-len",
+                             str(EINSUM_PROMPT), "--gen", str(EINSUM_GEN),
+                             "--seed", str(SEED)])
     counts = read_counts()
-    check_reductions("granite einsum serve", seen)
     cfg = out["cfg"]
+    check_reductions("granite einsum serve", out["engine"],
+                     GRANITE_LAYER_GEMMS, cfg.n_layers,
+                     {SLOTS * EINSUM_PROMPT: 1, SLOTS: EINSUM_GEN - 1})
     want = {"grouped_gemm": 0,
             "redas_gemm": 4 * cfg.n_layers * EINSUM_GEN,
             "paged_attention": 0, "flash_attention": 0, "quant_gemm": 0,

@@ -1,0 +1,81 @@
+"""Time the paged serve's decode ticks on the card, to compare two trees of
+the port in one machine.
+
+    python3 paged_ticks.py [--src DIR]
+
+Serves `chip_smoke.py`'s paged trace (qwen2-1.5b at full width, bf16,
+random weights from seed 0, 8 slots, pages of 16) through the launcher
+ROUNDS times with the package under DIR (default: this checkout's src),
+and after each serve runs three windows of 10 untraced decode ticks
+with all 8 slots decoding; the serve's kernels are built first.
+Prints, per round, the serve's mean ms per tick and each window's ms per
+tick, then one JSON line.
+Needs a CUDA device.  Run it for each tree in turns (A, B, B, A) within
+one machine: host times move between machines and over a call.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SLOTS, PAGE, BUCKET, SEED, ROUNDS = 8, 16, 16, 0, 3
+TRACE = "768x32*4,512x64*4,256x16*8,64x48*8"
+ARGS = ["--arch", "qwen2-1.5b", "--kernel-backend", "hopper", "--batch",
+        str(SLOTS), "--cache-layout", "paged", "--page-size", str(PAGE),
+        "--prefill-bucket", str(BUCKET), "--seed", str(SEED), "--trace",
+        TRACE]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    args = ap.parse_args(argv)
+    sys.path.insert(0, args.src)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("paged_ticks: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve_lib.scheduler import Scheduler
+
+    for name in ("redas_gemm", "paged_attention"):   # not inside a serve
+        _build.build(name)
+    rounds = []
+    for _ in range(ROUNDS):
+        out = launch_serve.main(ARGS)
+        sched = out["scheduler"]
+        serve_ms = sched.timings["decode_s"] * 1e3 / sched.stats["decode_steps"]
+        probe = Scheduler(out["params"], out["cfg"], out["serve_config"],
+                          engine=out["engine"], prefill_bucket=BUCKET)
+        for req in launch_serve.trace_requests(out["cfg"], out["trace"],
+                                               SEED):
+            probe.submit(req)
+        probe.step()                       # admit 8, the first tick
+        windows = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                probe.step()
+            torch.cuda.synchronize()
+            windows.append((time.perf_counter() - t0) * 1e2)
+        print(f"{args.src}: serve {serve_ms:.3f} ms a tick; untraced "
+              f"windows {', '.join(f'{w:.3f}' for w in windows)} ms a tick",
+              flush=True)
+        rounds.append({"serve_ms_per_tick": serve_ms,
+                       "window_ms_per_tick": windows})
+        del out, sched, probe
+        torch.cuda.empty_cache()
+    print(json.dumps({"src": args.src, "rounds": rounds}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,32 +3,32 @@
 `repro/core/tpu_model.py`).
 
 A `gemm` request at in_bytes 2 or 4 (the float ReDas GEMM) is planned by
-`gemm_cost` over OS's tile menu and WS/IS's streaming menu, each tile
-legal when one block's shared memory fits the card's 227 KB, with a wave
-term: each (dataflow, tile) launches a grid of blocks (OS gm x gn; WS gn
-x slabs x groups; IS gm x slabs x groups), a grid that leaves SMs empty
-reaches only its share of the card's operation rate, and a streaming
-block's pipeline steps run one after another.  WS and IS count their own
-bytes (`stream_traffic`), with the K slabs' f32 workspace and the
-reduction where K spans more than one slab; the decision's `meta`
-carries `slabs` and `groups`.  There is no MXU ramp term: nothing on
-this card fills and drains like a systolic array's pipeline.
+`decide_gemm` over OS's tile menu and WS/IS's streaming menu with
+`gemm_cost`, a wave term: each (dataflow, tile) launches a grid of blocks
+(OS gm x gn; WS gn x slabs x groups; IS gm x slabs x groups) that runs
+in waves of the blocks the card holds, each block walking its steps one
+after another.  Its five constants are fitted to a committed chip sweep
+(`calibrate_gemm.py`).  WS and IS count their own bytes
+(`stream_traffic`), with the K slabs' f32 workspace and the reduction
+where K spans more than one slab; the decision's `meta` carries `slabs`
+and `groups`.  There is no MXU ramp term: nothing on this card fills and
+drains like a systolic array's pipeline.
 
-The other requests keep the roofline of the reference's search,
+Every other request keeps the roofline of the reference's search,
 
     t = max(padded FLOPs / peak, dataflow bytes / HBM bandwidth)
 
 with the dataflow traffic formula of `core/tpu_model.hbm_traffic`
-(`choose_tile`, `estimate`).  A request keyed at in_bytes == 1 (every
-request of an int8 backend) is planned on the int8 kernel's own menu,
-pinned to OS as the JAX package pins its int8 kernel (the streaming
-dataflows would push int32 partial sums through HBM), at the data
-sheet's int8 peak.  A `gemm_sparse` request at M above the sparse
-kernel's decode rows is planned as the JAX package's
-`_decide_gemm_sparse` plans it: at K_eff = density x K, plus one index
-byte per kept value, on the kernel's tiled menu, pinned to OS; at decode
-M it takes the kernel's split-K decode path, split by a wave term over
-the card's SMs.
+(`choose_tile`, `estimate`), pinned to OS on its kernel's menu.  A
+`gemm` or `gemm_w8` request keyed at in_bytes == 1 (every request of an
+int8 backend) is planned on the int8 kernel's menu, pinned to OS as the
+JAX package pins its int8 kernel (the streaming dataflows would push
+int32 partial sums through HBM), at the data sheet's int8 peak.  A
+`gemm_sparse` request at M above the sparse kernel's decode rows is
+planned as the JAX package's `_decide_gemm_sparse` plans it: at K_eff =
+density x K, plus one index byte per kept value, on the kernel's tiled
+menu; at decode M it takes the kernel's split-K decode path, split by a
+wave term over the card's SMs.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ import dataclasses
 import math
 
 from ..kernels import grouped_gemm, quant_gemm, redas_gemm, sparse_gemm
-from ..kernels.redas_gemm import DATAFLOWS, SMEM_LIMIT, TILES, smem_bytes
+from ..kernels.redas_gemm import DATAFLOWS, SMEM_LIMIT, smem_bytes
 from .plan import KernelDecision, KernelRequest
 
 # H100 SXM data-sheet peaks (NVIDIA; dense, at the 700 W power limit).
@@ -102,11 +102,12 @@ def _tile_smem(bm: int, bk: int, bn: int, in_bytes: int) -> int:
 
 
 def choose_tile(m: int, k: int, n: int, in_bytes: int = 2,
-                out_bytes: int = 2, dataflows=DATAFLOWS,
-                tiles=TILES, smem=_tile_smem) -> TileConfig:
-    """The least-time legal (dataflow, tile) for one GEMM shape among
-    `tiles` (the ReDas GEMM's menu unless given), a tile being legal when
-    `smem(bm, bk, bn, in_bytes)` fits a block's shared memory."""
+                out_bytes: int = 2, dataflows=("os",), *, tiles,
+                smem=_tile_smem) -> TileConfig:
+    """The least-`estimate` legal (dataflow, tile) for one GEMM shape
+    among `tiles` (the grouped, int8 or sparse kernel's menu), a tile
+    being legal when `smem(bm, bk, bn, in_bytes)` fits a block's shared
+    memory.  The float ReDas GEMM is planned by `decide_gemm` instead."""
     best, best_t = None, math.inf
     for bm, bk, bn in tiles:
         if smem(bm, bk, bn, in_bytes) > SMEM_LIMIT:
@@ -252,62 +253,36 @@ def decide_sparse(request: KernelRequest, name: str) -> KernelDecision:
                 stages)}.items())))
 
 
-#: the share of the data sheet's peak that each ReDas kernel's math
-#: reaches, by (dataflow, operand bytes) and tile (bf16: WMMA from shared
-#: memory without wgmma; f32: FFMA): the operation bound of `gemm_cost`
-#: runs at peak x share x fill.  Effective values: the median over the M =
-#: 2048 shapes of `chip_smoke.py --sweep` of padded FLOPs / (peak x fill x
-#: time net of the workspace and the reduction), so a share also absorbs
-#: what the fill's shared-memory count of resident blocks misses (the
-#: register limit of the 128-wide tiles).  NVIDIA H100 80GB HBM3, 700 W
-#: (PERF.md §6).
-MMA_SHARE = {
-    ("os", 2): {(16, 64, 64): 0.0714, (32, 64, 64): 0.097,
-                (64, 32, 64): 0.215, (64, 64, 128): 0.151,
-                (128, 32, 128): 0.293, (64, 256, 64): 0.0529},
-    ("ws", 2): {(16, 64, 64): 0.0918, (16, 256, 64): 0.0621,
-                (16, 512, 64): 0.0395, (16, 1536, 64): 0.0256,
-                (64, 256, 64): 0.0794, (64, 512, 64): 0.0878,
-                (128, 128, 128): 0.167, (128, 256, 128): 0.0982},
-    ("is", 2): {(16, 64, 64): 0.0591, (16, 256, 64): 0.0529,
-                (16, 512, 64): 0.0461, (16, 1536, 64): 0.0368,
-                (64, 256, 64): 0.101, (64, 512, 64): 0.0881,
-                (64, 1536, 64): 0.044, (128, 128, 128): 0.15,
-                (128, 256, 128): 0.0825},
-    ("os", 4): {(16, 64, 64): 0.262, (32, 64, 64): 0.359,
-                (64, 32, 64): 0.589, (64, 64, 128): 0.458,
-                (128, 32, 128): 0.978, (64, 256, 64): 0.124},
-    ("ws", 4): {(16, 64, 64): 0.355, (16, 256, 64): 0.137,
-                (16, 512, 64): 0.0831, (64, 256, 64): 0.141,
-                (64, 512, 64): 0.142, (128, 128, 128): 0.275,
-                (128, 256, 128): 0.278},
-    ("is", 4): {(16, 64, 64): 0.149, (16, 256, 64): 0.147,
-                (16, 512, 64): 0.11, (16, 1536, 64): 0.0767,
-                (64, 256, 64): 0.186, (64, 512, 64): 0.184,
-                (128, 128, 128): 0.356, (128, 256, 128): 0.353},
-}
-#: the share a tile missing from MMA_SHARE is taken at
-DEFAULT_SHARE = {2: 0.05, 4: 0.2}
-#: one pipeline step of a streaming block (a kSub-deep sub-chunk: wait for
-#: its loads, barrier, the next loads issued, the math) on a loaded SM;
-#: a block's steps run one after another, so a wave of blocks takes its
-#: blocks' steps x STEP_S at least
-STEP_S = 1.4e-6
-#: the share of the HBM rate the streaming kernels' operand stream reaches
-STREAM_EFF = 0.6
-#: the reduction: its launch beside its work, and one round of its
-#: REDUCE_BATCH partial loads in flight (`kReduceBatch`)
-LAUNCH_S = 1.0e-6
-REDUCE_ROUND_S = 1.0e-6
-REDUCE_BATCH = 16
-# (STEP_S, STREAM_EFF, LAUNCH_S and REDUCE_ROUND_S: the fit of
-# `chip_smoke.py --sweep`'s times at M <= 768, same card)
+#: `gemm_cost`'s constants, fitted by `calibrate_gemm.py --fit` to the
+#: calibration sweep in tests/data/gemm_sweep_h100.jsonl (`chip_smoke.py
+#: --sweep`: every (dataflow, tile) at 38 shapes, NVIDIA H100 80GB HBM3,
+#: 700 W), the paged prefill's M = 512 and 6144 held out of the fit:
+#: the rate one OS block loads its tiles at (synchronous loads, two
+#: barriers a chunk), one pipeline step of a streaming block (a
+#: SUB_K-deep sub-chunk: wait for its loads, barrier, issue the next, the
+#: math), the operations one SM's resident blocks reach together (bf16 on
+#: WMMA from shared memory, f32 on FFMA), and a reduction's cost beside
+#: the workspace's bytes (its launch)
+OS_BLOCK_BW = 3.78e9
+STREAM_STEP_S = 9.02e-7
+SM_MMA_RATE = {2: 8.06e11, 4: 1.48e11}
+REDUCE_S = 5.70e-6
+#: an SM's registers, and a block's threads
+SM_REGISTERS = 65536
+BLOCK_THREADS = 128
 
 
-def mma_share(dataflow: str, tile: tuple[int, int, int],
-              in_bytes: int) -> float:
-    return MMA_SHARE[dataflow, in_bytes].get(tuple(tile),
-                                             DEFAULT_SHARE[in_bytes])
+def resident_blocks(dataflow: str, tile: tuple[int, int, int],
+                    in_bytes: int) -> int:
+    """Blocks of the tile one SM holds at once: its shared memory
+    (`redas_gemm.blocks_per_sm`) and its registers, a thread's taken as 32
+    plus its share of the f32 accumulator tile (bm x bn over 128 threads
+    for OS, over 64 for WS/IS, whose fragments double it), at most 255."""
+    bm, bk, bn = tile
+    regs = min(255, 32 + bm * bn // (128 if dataflow == "os" else 64))
+    smem = redas_gemm.tile_smem(dataflow, bm, bk, bn, in_bytes)
+    return max(1, min(redas_gemm.blocks_per_sm(smem),
+                      SM_REGISTERS // (BLOCK_THREADS * regs)))
 
 
 def stream_traffic(m: int, k: int, n: int, dataflow: str,
@@ -332,18 +307,20 @@ def gemm_cost(m: int, k: int, n: int, dataflow: str,
               tile: tuple[int, int, int], in_bytes: int = 2,
               out_bytes: int = 2) -> dict | None:
     """The float ReDas GEMM's time at one (dataflow, tile), or None when a
-    block does not fit shared memory.  The wave term: the grid's blocks
-    over the blocks the card holds at once (132 SMs x the blocks one SM
-    holds at the tile's shared memory) is the `fill`, and the operations
-    run at peak x `mma_share` x fill.
+    block does not fit shared memory.
 
-    OS: t = max(ops, the reference's `hbm_traffic` / (HBM x fill)).
-    WS/IS: the blocks run in waves of the blocks the card holds, each
-    block's pipeline steps one after another (STEP_S each), and the
-    operand stream at STREAM_EFF of the HBM rate; t = max(ops, waves x
-    steps x STEP_S, stream) plus the output and (slabs > 1) the workspace
-    at the full HBM rate and the reduction (its launch and its rounds of
-    loads)."""
+    The wave term: the grid's blocks run in waves of the blocks the card
+    holds (132 SMs x `resident_blocks`), and the busiest SM's blocks
+    (`shared`, at most what it holds) split its operation rate.  A block
+    walks its steps one after another, each the longer of its own latency
+    and its share of the SM's operations:
+      OS: ceil(K / bk) chunks, each the synchronous load of its (bm + bn)
+          x bk tiles at OS_BLOCK_BW; t = max(waves x steps x step, the
+          reference's `hbm_traffic` / HBM);
+      WS/IS: the group's swept tiles x the slab's SUB_K-deep sub-chunks,
+          each at least STREAM_STEP_S; t = max(waves x steps x step,
+          `stream_traffic`'s operand reads / HBM), plus the output and
+          (slabs > 1) the workspace at the HBM rate and REDUCE_S."""
     bm, bk, bn = tile
     smem = redas_gemm.tile_smem(dataflow, bm, bk, bn, in_bytes)
     if smem > SMEM_LIMIT:
@@ -353,35 +330,35 @@ def gemm_cost(m: int, k: int, n: int, dataflow: str,
     blocks = fixed * slabs * n_groups
     if dataflow == "os":
         slabs = 1
-    slots = SMS * redas_gemm.blocks_per_sm(smem)
-    fill = min(1.0, blocks / slots)
+    per_sm = resident_blocks(dataflow, tile, in_bytes)
+    waves = -(-blocks // (SMS * per_sm))
+    shared = min(per_sm, -(-blocks // SMS))
+    rate = SM_MMA_RATE[in_bytes]
     mp, kp, np_ = _round_up(m, bm), _round_up(k, bk), _round_up(n, bn)
     padded = 2.0 * mp * kp * np_
-    ops_s = padded / (peak_flops(in_bytes) * mma_share(dataflow, tile,
-                                                       in_bytes) * fill)
+    workspace = 0
     if dataflow == "os":
+        step = max((bm + bn) * bk * in_bytes / OS_BLOCK_BW,
+                   shared * 2.0 * bm * bn * bk / rate)
         bytes_ = hbm_traffic(m, k, n, TileConfig("os", bm, bk, bn), in_bytes,
                              out_bytes)
-        seconds = max(ops_s, bytes_ / (HBM_BW * fill))
-        workspace = 0
+        seconds = max(waves * -(-k // bk) * step, bytes_ / HBM_BW)
     else:
         traffic = stream_traffic(m, k, n, dataflow, tile, groups, in_bytes,
                                  out_bytes)
         workspace = traffic["workspace"]
         bytes_ = traffic["streamed"] + workspace + traffic["written"]
         swept = -(-m // bm) if dataflow == "ws" else -(-n // bn)
-        steps = (-(-swept // n_groups)
-                 * -(-min(k, bk) // redas_gemm.SUB_K))
-        stream_s = max(-(-blocks // slots) * steps * STEP_S,
-                       traffic["streamed"] / (HBM_BW * STREAM_EFF))
-        seconds = (max(ops_s, stream_s)
-                   + (workspace + traffic["written"]) / HBM_BW)
-        if slabs > 1:
-            seconds += LAUNCH_S + REDUCE_ROUND_S * -(-slabs // REDUCE_BATCH)
+        steps = -(-swept // n_groups) * -(-min(k, bk) // redas_gemm.SUB_K)
+        step = max(STREAM_STEP_S,
+                   shared * 2.0 * bm * bn * redas_gemm.SUB_K / rate)
+        seconds = (max(waves * steps * step, traffic["streamed"] / HBM_BW)
+                   + (workspace + traffic["written"]) / HBM_BW
+                   + (REDUCE_S if slabs > 1 else 0.0))
     return {"seconds": seconds, "hbm_bytes": float(bytes_),
             "padding_efficiency": 2.0 * m * k * n / padded,
             "smem_bytes": smem, "slabs": slabs, "groups": groups,
-            "blocks": blocks, "fill": fill,
+            "blocks": blocks, "fill": min(1.0, blocks / (SMS * per_sm)),
             "workspace_bytes": workspace}
 
 
@@ -436,19 +413,20 @@ class HopperModel:
                              f"{request.op!r}")
         if request.op == "gemm" and request.in_bytes in (2, 4):
             return decide_gemm(request, self.name)
-        int8 = request.in_bytes == 1
+        if request.in_bytes != 1:
+            raise ValueError(f"HopperModel plans {request.op} at 1-byte "
+                             f"(int8) operands, and gemm also at 2 or 4 "
+                             f"bytes, not {request.in_bytes}")
         cfg = choose_tile(request.m, request.k, request.n, request.in_bytes,
-                          request.out_bytes,
-                          dataflows=("os",) if int8 else DATAFLOWS,
-                          tiles=quant_gemm.TILES if int8 else TILES)
+                          request.out_bytes, dataflows=("os",),
+                          tiles=quant_gemm.TILES)
         seconds, bytes_, pad_eff = estimate(request.m, request.k, request.n,
                                             cfg, request.in_bytes,
                                             request.out_bytes)
         return KernelDecision(
-            op=request.op, dataflow=cfg.dataflow,
-            bm=cfg.bm, bk=cfg.bk, bn=cfg.bn,
+            op=request.op, dataflow="os", bm=cfg.bm, bk=cfg.bk, bn=cfg.bn,
             cost_model=self.name, seconds=seconds,
             meta=tuple(sorted({
                 "hbm_bytes": bytes_, "padding_efficiency": pad_eff,
-                "smem_bytes": _tile_smem(cfg.bm, cfg.bk, cfg.bn,
-                                         request.in_bytes)}.items())))
+                "smem_bytes": quant_gemm.smem_bytes(cfg.bm, cfg.bk,
+                                                    cfg.bn)}.items())))

@@ -31,8 +31,8 @@
 //     (the previous design, and OS) leaves most SMs idle.  The parallel
 //     slabs multiply the blocks by ceil(K / BK), and each block puts its
 //     whole slab in flight at once, with stages - 1 ring pieces.  A
-//     block's pipeline steps still run one after another (about 1.4 us
-//     each on a loaded H100), so at decode shallow slabs over many blocks
+//     block's pipeline steps still run one after another (about 0.9 us
+//     each on an H100), so at decode shallow slabs over many blocks
 //     beat one deep slab a block; the engine's cost model weighs that
 //     against the workspace and the reduction (engine/cost.py gemm_cost).
 //   - at prefill (M = 2048) the operations, and the f32 partial stream that
@@ -350,18 +350,18 @@ cudaError_t launch_stream(const void* a, const void* b, void* o, void* p,
   X(64, 256, 64)
 
 // The streaming menu (BM, BK, BN): BK is the slab's depth (a multiple of
-// kSub), compiled for WS and IS and both dtypes.  STREAM_TILES in
-// repro_torch/kernels/redas_gemm.py is the same list; a (dataflow, dtype,
-// tile) whose slab and two ring stages do not fit kSmemLimit is refused at
-// launch.
+// kSub), compiled for WS and IS and both dtypes.  (16, 1536, 64) holds
+// K = 1536 in one slab; each other tile is the fastest of its dataflow at
+// some shape of the calibration sweep (tests/data/gemm_sweep_h100.jsonl).
+// STREAM_TILES in repro_torch/kernels/redas_gemm.py is the same list; a
+// (dataflow, dtype, tile) whose slab and two ring stages do not fit
+// kSmemLimit is refused at launch.
 #define REDAS_STREAM_TILES(X) \
   X(16, 64, 64)               \
   X(16, 256, 64)              \
-  X(16, 512, 64)              \
   X(16, 1536, 64)             \
   X(64, 256, 64)              \
   X(64, 512, 64)              \
-  X(64, 1536, 64)             \
   X(128, 128, 128)            \
   X(128, 256, 128)
 

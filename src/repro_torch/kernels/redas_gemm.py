@@ -42,9 +42,8 @@ TILES = ((16, 64, 64), (32, 64, 64), (64, 32, 64), (64, 64, 128),
 #: dtypes; `REDAS_STREAM_TILES` in csrc/redas_gemm.cu is the same list.
 #: A (dataflow, dtype, tile) is legal when its slab and two ring stages
 #: fit SMEM_LIMIT (`stream_stages`).
-STREAM_TILES = ((16, 64, 64), (16, 256, 64), (16, 512, 64), (16, 1536, 64),
-                (64, 256, 64), (64, 512, 64), (64, 1536, 64),
-                (128, 128, 128), (128, 256, 128))
+STREAM_TILES = ((16, 64, 64), (16, 256, 64), (16, 1536, 64), (64, 256, 64),
+                (64, 512, 64), (128, 128, 128), (128, 256, 128))
 
 #: shared memory a block may use on an H100 (227 KB, NVIDIA data sheet),
 #: and what one SM holds for all its blocks (228 KB, each block reserving

@@ -139,6 +139,10 @@ class Scheduler:
                       "spec_ticks": 0, "draft_tokens": 0,
                       "accepted_draft_tokens": 0}
         self.timings = {"prefill_s": 0.0, "decode_s": 0.0}
+        #: prefill calls by width (`stats` keeps the JAX package's keys,
+        #: the set of widths only)
+        self.prefill_width_calls: collections.Counter[int] = (
+            collections.Counter())
         self._live_uids: set[int] = set()
 
     # -- request intake ----------------------------------------------------
@@ -289,6 +293,7 @@ class Scheduler:
         self.timings["prefill_s"] += time.perf_counter() - t0
         self.stats["prefill_calls"] += 1
         self.stats["prefill_widths"].add(width)
+        self.prefill_width_calls[width] += 1
         self.stats["prefill_tokens"] += int(lengths[mask].sum())
         self.stats["prefill_width_sum"] += width * len(picks)
         return {i: int(out[i]) for i, _ in picks}

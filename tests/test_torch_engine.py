@@ -1,8 +1,11 @@
 """The port's engine (plan, registry, HopperModel, Engine) against the
 JAX package's engine, on the CPU."""
 
+import collections
 import itertools
+import json
 import math
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -93,10 +96,11 @@ def test_traffic_formula_equals_jax_packages():
 
 
 #: decode M = 4 (static) and 8 (paged): WS or IS, K split into slabs
-#: where it spans more than one; prefill M = 2048: OS, but IS at N = 256
-#: (measured 3.9x faster than OS there, PERF.md §6)
-PREFILL_DATAFLOW = {(1536, 1536): "os", (1536, 256): "is",
-                    (1536, 8960): "os", (8960, 1536): "os"}
+#: where it spans more than one; prefill M = 2048: OS, but a streaming
+#: dataflow at N = 256 (WS and IS within 1.14x of each other there, OS
+#: 2.5x slower, in tests/data/gemm_sweep_h100.jsonl)
+PREFILL_DATAFLOW = {(1536, 1536): ("os",), (1536, 256): ("ws", "is"),
+                    (1536, 8960): ("os",), (8960, 1536): ("os",)}
 
 
 @pytest.mark.parametrize("m", [4, 8, 2048])
@@ -118,12 +122,72 @@ def test_hopper_gemm_picks_streaming_at_decode_and_os_at_prefill(m, k, n):
                                   dataflows=("os",))
         assert os_dec.seconds > 3 * dec.seconds
     else:
-        assert dec.dataflow == PREFILL_DATAFLOW[k, n]
+        assert dec.dataflow in PREFILL_DATAFLOW[k, n]
     assert meta["blocks"] == math.prod(redas_gemm.grid(
         dec.dataflow, m, k, n, tile, meta["groups"]))
     assert 0 < meta["fill"] <= 1
     assert meta["workspace_bytes"] == (
         2 * meta["slabs"] * m * n * 4 if meta["slabs"] > 1 else 0)
+
+
+#: the card's calibration sweep (`chip_smoke.py --sweep`, NVIDIA H100 80GB
+#: HBM3, 700 W): every (dataflow, tile) timed at 38 shapes
+SWEEP = Path(__file__).parent / "data" / "gemm_sweep_h100.jsonl"
+#: the most the decision may take against the fastest dataflow (each at
+#: the model's best tile for it), as `chip_smoke.py` phase 2 holds it
+PICK_LIMIT = 1.25
+#: the paged prefill's GEMM M (8 slots x widths 64 and 768), held out of
+#: the fit of `gemm_cost`'s constants
+HELD_OUT_M = (512, 6144)
+
+
+def _sweep() -> dict:
+    shapes = collections.defaultdict(list)
+    for line in SWEEP.read_text().splitlines():
+        row = json.loads(line)
+        if tuple(row["tile"]) in redas_gemm.tiles_for(row["dataflow"]):
+            shapes[row["m"], row["k"], row["n"], row["dtype"]].append(row)
+    return shapes
+
+
+@pytest.mark.parametrize("held_out", [False, True])
+def test_gemm_cost_picks_hold_on_the_cards_sweep(held_out):
+    """At every bf16 shape of the committed sweep (the shapes the
+    constants were fitted to, and apart from them the held-out paged
+    prefill), the model's decision among the measured configurations
+    takes at most PICK_LIMIT x the fastest dataflow's time, each
+    dataflow at the model's best tile for it."""
+    shapes = {key: rows for key, rows in _sweep().items()
+              if key[3] == "bfloat16" and (key[0] in HELD_OUT_M) == held_out}
+    assert len(shapes) == (8 if held_out else 28)
+    for (m, k, n, _), rows in shapes.items():
+        seconds = {id(r): cost.gemm_cost(m, k, n, r["dataflow"],
+                                         tuple(r["tile"]))["seconds"]
+                   for r in rows}
+        best = {}
+        for r in rows:
+            df = r["dataflow"]
+            if df not in best or seconds[id(r)] < seconds[id(best[df])]:
+                best[df] = r
+        assert set(best) == set(redas_gemm.DATAFLOWS)
+        pick = min(best.values(), key=lambda r: seconds[id(r)])
+        dec = HopperModel().decide(KernelRequest("gemm", m, k, n))
+        assert [dec.dataflow, dec.bm, dec.bk, dec.bn] == [
+            pick["dataflow"], *pick["tile"]]
+        fastest = min(r["us"] for r in best.values())
+        assert pick["us"] <= PICK_LIMIT * fastest, (m, k, n, pick)
+
+
+def test_hopper_plans_float_gemm_only_through_the_wave_term():
+    """A float `gemm` goes to `decide_gemm`; an int8 request to the int8
+    kernel's OS menu; any other operand width is refused."""
+    req = KernelRequest("gemm", 8, 1536, 1536)
+    assert HopperModel().decide(req) == cost.decide_gemm(req, "hopper-h100")
+    with pytest.raises(ValueError, match="not 2"):
+        HopperModel().decide(KernelRequest("gemm_w8", 8, 1536, 1536))
+    with pytest.raises(ValueError, match="not 4"):
+        HopperModel().decide(KernelRequest("gemm_w8", 8, 1536, 1536,
+                                           in_bytes=4, out_bytes=4))
 
 
 def test_stream_decisions_keep_slabs_and_groups_through_json(tmp_path):

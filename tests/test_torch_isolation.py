@@ -17,7 +17,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / name for name in (
+        "chip_smoke.py", "calibrate_gemm.py", "paged_ticks.py")]
 
 
 def _imported_roots(path: Path) -> set[str]:

@@ -186,6 +186,6 @@ def test_streaming_wrapper_checks_slabs_groups_and_fit():
     with pytest.raises(ValueError, match="menu"):
         redas_gemm.gemm(a, b, dataflow="os", bm=16, bk=256, bn=64)
     with pytest.raises(ValueError, match="shared memory"):
-        redas_gemm.gemm(a, b, dataflow="ws", bm=64, bk=1536, bn=64)
+        redas_gemm.gemm(a, b, dataflow="ws", bm=16, bk=1536, bn=64)  # f32
     with pytest.raises(ValueError, match="OS takes no slabs"):
         redas_gemm.gemm(a, b, slabs=2, **TILE)
