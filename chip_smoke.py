@@ -114,7 +114,30 @@ Phases (any failed check exits non-zero; nothing falls back):
  19. SMOKE f32 under sparsity="2:4": card tokens against the CPU's,
      static and through the Scheduler, paged and contiguous, with a shared
      prefix;
- 20. the kernels line, then the result line.
+ 20. phase 17 for the sparse kernel's int8-value variant (sparse x int8
+     storage: int8 values and a per-column f32 scale): qwen's dense shapes
+     at 2:4 with bf16 activations (M = 4 and 8 on the decode path at the
+     engine's decision, split 1 and the largest split; 2048 on the tiled
+     path at the decision and every menu tile; timed as in phase 17, the
+     library yardstick over the weight densified and scaled ahead of
+     time, the decode shapes' scaled reduction alone, bit for bit its
+     plain version), one f32-activation shape, 1:2, 4:8 and 3:7 at 8 x
+     1536 x 1536, a ragged (5, 1003, 200) with an f32 output, and a
+     weight with an all-zero column (scale 1.0) and values of -127 and
+     127; every configuration launched twice, the outputs bit for bit
+     equal;
+ 21-23. phases 18-19 under the launcher's --sparsity 2:4 --quantize
+     (sparse x int8 weights, int8 KV, "hopper-sparse"): the static serve
+     (the int8-value variant 3136 launches, 2940 on the decode path with
+     a reduction each and 196 tiled, the float variant and every other
+     kernel 0; weight bytes against the float 2:4 posture's), the paged
+     serve on int8 pools (the int8-value variant 7 x 28 x (ticks +
+     prefill calls), the int8-pool paged kernel 28 x ticks; the KV pool's
+     bytes), and SMOKE f32 parity under a float and under an int8 KV
+     cache.  Every phase reads both variants' counts
+     (`sparse_gemm.launches`, `int8_launches`): each serve must launch
+     the other variant 0 times;
+ 24. the kernels line, then the result line.
 
 Every detail also goes to runs/chip_smoke.json.  Exits non-zero
 without a CUDA device, and outside a checkout of the repository.
@@ -403,7 +426,8 @@ def read_counts() -> dict:
             "flash_attention": flash_attention.launches,
             "grouped_gemm": grouped_gemm.launches,
             "quant_gemm": quant_gemm.launches,
-            "sparse_gemm": sparse_gemm.launches}
+            "sparse_gemm": sparse_gemm.launches,
+            "sparse_gemm_int8": sparse_gemm.int8_launches}
 
 
 def _operand_sets(m, k, n, dtype, gen):
@@ -883,7 +907,7 @@ def phase_main_path(cfg) -> dict:
           f"reductions: each GEMM kernel must run")
     check(counts["paged_attention"] == counts["flash_attention"]
           == counts["grouped_gemm"] == counts["quant_gemm"]
-          == counts["sparse_gemm"] == 0,
+          == counts["sparse_gemm"] == counts["sparse_gemm_int8"] == 0,
           f"attention, grouped, int8 or sparse kernels on the static path: "
           f"{counts}")
     check(tuple(tokens.shape) == (BATCH, GEN), f"tokens {tuple(tokens.shape)}")
@@ -1019,7 +1043,8 @@ def phase_scheduler(cfg) -> dict:
           f"GEMM kernel launched {counts['redas_gemm']} times, not 7 x 28 x "
           f"({ticks} + {calls}) = {want_gemm}")
     check(counts["flash_attention"] == counts["grouped_gemm"]
-          == counts["quant_gemm"] == counts["sparse_gemm"] == 0,
+          == counts["quant_gemm"] == counts["sparse_gemm"]
+          == counts["sparse_gemm_int8"] == 0,
           f"flash, grouped, int8 or sparse kernel on the paged path: {counts}")
     for uid, toks in tokens.items():
         check(len(toks) == out["trace"][uid][1]
@@ -1447,7 +1472,7 @@ def phase_int8_static(cfg) -> dict:
     counts = read_counts()
     peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     want = {"redas_gemm": 0, "paged_attention": 0, "flash_attention": 0,
-            "grouped_gemm": 0, "sparse_gemm": 0,
+            "grouped_gemm": 0, "sparse_gemm": 0, "sparse_gemm_int8": 0,
             "quant_gemm": sum(LAYER_GEMMS.values()) * cfg.n_layers * GEN}
     decode_ms = (seconds - prefill_s) * 1e3 / (GEN - 1)
     print(f"int8 static serve (quantize=True, hopper-int8, bf16, {BATCH} x "
@@ -1523,7 +1548,8 @@ def phase_int8_paged(cfg, qparams) -> None:
     tick_ms = sched.timings["decode_s"] * 1e3 / ticks
     plan = dict(eng.plan.stats)
     want = {"redas_gemm": 0, "grouped_gemm": 0, "flash_attention": 0,
-            "sparse_gemm": 0, "paged_attention": cfg.n_layers * ticks,
+            "sparse_gemm": 0, "sparse_gemm_int8": 0,
+            "paged_attention": cfg.n_layers * ticks,
             "quant_gemm": sum(LAYER_GEMMS.values()) * cfg.n_layers
             * (ticks + calls)}
     tokens = {u: c.tokens.tolist() for u, c in sched.completions.items()}
@@ -1705,7 +1731,7 @@ def phase_quantize_static(cfg) -> None:
     scfg, tokens = out["serve_config"], out["tokens"]
     decode_ms = (out["seconds"] * 1e3 - prefill_ms) / (GEN - 1)
     want = {"redas_gemm": 0, "paged_attention": 0, "flash_attention": 0,
-            "grouped_gemm": 0, "sparse_gemm": 0,
+            "grouped_gemm": 0, "sparse_gemm": 0, "sparse_gemm_int8": 0,
             "quant_gemm": sum(LAYER_GEMMS.values()) * cfg.n_layers * GEN}
     print(f"--quantize static serve ({BATCH} x ({PROMPT} + {GEN}), "
           f"{scfg.kernel_backend}, cache {scfg.cache_dtype}): "
@@ -1770,7 +1796,8 @@ def phase_quantize_paged(cfg) -> dict:
     ticks, calls = st["decode_steps"], st["prefill_calls"]
     tick_ms = sched.timings["decode_s"] * 1e3 / ticks
     want = {"redas_gemm": 0, "grouped_gemm": 0, "flash_attention": 0,
-            "sparse_gemm": 0, "paged_attention": cfg.n_layers * ticks,
+            "sparse_gemm": 0, "sparse_gemm_int8": 0,
+            "paged_attention": cfg.n_layers * ticks,
             "quant_gemm": sum(LAYER_GEMMS.values()) * cfg.n_layers
             * (ticks + calls)}
     pools = sched.cache["slots"]["b0"]
@@ -1874,34 +1901,75 @@ def int8_line(rows: list[dict]) -> dict:
 
 
 # --------------------------------------------------------------------------
-# qwen2-1.5b under --sparsity 2:4: the sparse kernel and the sparse serves
+# qwen2-1.5b under --sparsity 2:4 (float values) and under --sparsity 2:4
+# --quantize (sparse x int8: int8 values and per-column scales): the sparse
+# kernel's two variants and their serves
 # --------------------------------------------------------------------------
 
 
+@dataclasses.dataclass(frozen=True)
+class Posture:
+    """What tells the two sparse postures apart in phases 17-23."""
+    quantize: bool      # int8 values and scales (the launcher's --quantize)
+    label: str          # of the printed lines
+    report: str         # the prefix of its REPORT keys
+    counter: str        # `read_counts` key of the variant it runs
+    other: str          # the other variant's key, which must stay 0
+    cache: torch.dtype  # the launcher's KV cache
+    in_bytes: int       # its requests' key under bf16 activations
+
+    @property
+    def flags(self) -> list[str]:
+        return ["--sparsity", "2:4"] + (["--quantize"] if self.quantize
+                                        else [])
+
+    def paths(self) -> dict:
+        return dict(sparse_gemm.int8_path_launches if self.quantize
+                    else sparse_gemm.path_launches)
+
+
+FLOAT_SPARSE = Posture(False, "--sparsity", "sparse", "sparse_gemm",
+                       "sparse_gemm_int8", torch.bfloat16, 2)
+INT8_SPARSE = Posture(True, "sparse x int8", "sparse_int8",
+                      "sparse_gemm_int8", "sparse_gemm", torch.int8, 1)
+
+
 def sparse_bound(m: int, k: int, n: int, itemsize: int, n_keep: int = 2,
-                 m_group: int = 4) -> tuple[float, str]:
-    """2 M K N x density operations at the operand type's peak; A read
-    once, the compressed weight (values at their itemsize and one index
-    byte per kept value) read once, the output written once."""
+                 m_group: int = 4, quantize: bool = False
+                 ) -> tuple[float, str]:
+    """2 M K N x density operations at the activations' peak; A read once,
+    the compressed weight (values at their itemsize, int8 ones at one
+    byte with the N f32 scales, and one index byte per kept value) read
+    once, the output written once."""
     k_c = -(-k // m_group) * n_keep
+    weight = (k_c * n * 2 + 4 * n if quantize
+              else k_c * n * (itemsize + 1))
     return _bound_of(2.0 * m * k * n * n_keep / m_group,
-                     (m * k + m * n) * itemsize + k_c * n * (itemsize + 1),
-                     itemsize)
+                     (m * k + m * n) * itemsize + weight, itemsize)
 
 
-def _sparse_sets(m, k, n, dtype, gen, n_keep, m_group, count=None):
-    """Operand sets (past the L2 unless `count` is given): activations,
-    a random weight pruned by `sparsify` (its values and indices), and the
-    same weight densified ahead of time for the library yardstick."""
+def _sparse_sets(m, k, n, dtype, gen, n_keep, m_group, count=None,
+                 quantize=False, extremes=False):
+    """Operand sets (past the L2 unless `count` is given): activations, a
+    random weight pruned by `sparsify` (with `quantize` its values int8
+    and scaled) as values, indices and scale (None for float values), and
+    the same weight densified (and scaled) ahead of time in `dtype` for
+    the library yardstick.  With `extremes`, column 7 is all zero (scale
+    1.0) and column 11 holds +-50 at every kept place (int8 values -127
+    and 127)."""
     size = torch.tensor([], dtype=dtype).element_size()
-    per = m * k * size + -(-k // m_group) * n_keep * n * (size + 1)
+    per = m * k * size + -(-k // m_group) * n_keep * n * (
+        (1 if quantize else size) + 1)
     count = count or max(2, min(32, math.ceil(2 * L2_BYTES / per)))
     sets = []
     for _ in range(count):
         a = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
-        st = sparsify((torch.randn(k, n, generator=gen, device="cuda")
-                       / math.sqrt(k)).to(dtype), n_keep, m_group)
-        sets.append((a, st.values, st.indices, st.densify(dtype)))
+        w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
+        if extremes:
+            w[:, 7] = 0.0
+            w[::2, 11], w[1::2, 11] = 50.0, -50.0
+        st = sparsify(w.to(dtype), n_keep, m_group, quantize=quantize)
+        sets.append((a, st.values, st.indices, st.scale, st.densify(dtype)))
     return sets
 
 
@@ -1914,10 +1982,9 @@ def reduce_bound(split: int, m: int, n: int,
 
 
 def _sparse_configs(m: int, k: int, m_group: int, planned: dict) -> list:
-    """The kernel arguments a phase-17 case is held at: the engine's
+    """The kernel arguments a sparse kernel case is held at: the engine's
     decision; at M <= 16 the decode path at split 1, the planner's and
-    the largest the shape allows (one group a split); and, for the
-    untimed cases, every tile of the tiled menu."""
+    the largest the shape allows (one group a split)."""
     configs = [planned]
     if m <= sparse_gemm.DECODE_ROWS[-1]:
         for split in (1, sparse_gemm.max_split(k, m_group)):
@@ -1927,128 +1994,159 @@ def _sparse_configs(m: int, k: int, m_group: int, planned: dict) -> list:
     return configs
 
 
-def phase_sparse_kernel() -> list[dict]:
-    """The sparse kernel against its plain version on both paths: qwen's
-    dense shapes at 2:4 in bf16 (M = 4, 8 on the decode path, 2048 on the
-    tiled one, each at the engine's decision, timed beside the plain
-    version, torch.matmul over the weight densified ahead of time and the
-    bound; the decode shapes' split-K reduction timed on its own), two
-    f32 shapes, M = 1, 16 (the largest decode rows) and 17 (the tiled
-    path), 1:2, 1:4, 4:8 and 3:7 at 8 x 1536 x 1536, a ragged shape (also
-    with an f32 output), and an index array with offsets out of range and
-    repeated (the one-hot sum).  Every case runs at the decision and, at M
-    <= 16, at split 1 and the largest split; the untimed cases also at
-    every tile of the tiled menu; every configuration twice, the two
-    outputs bit for bit equal."""
-    gen = torch.Generator(device="cuda").manual_seed(8)
-    side = torch.cuda.Stream()
+def _sparse_cases(quantize: bool) -> list[tuple]:
+    """(M, K, N, A's dtype, n_keep, m_group, out dtype, kind) of the
+    sparse kernel phase.  kind: "timed" at the engine's decision; "timed,
+    menu" also at every tile of the tiled menu; "menu" untimed, with the
+    menu; "any index" as "menu" with offsets -2..8 (out of range,
+    repeated); "extremes" as "menu" on `_sparse_sets`' extremes."""
     bf16, f32 = torch.bfloat16, torch.float32
-    # kind: "timed" at the engine's decision; "menu" (untimed, the tiled
-    # menu as well); "any index" as "menu" with offsets -2..8 at 3:7 (out
-    # of range, repeated)
-    cases = [(m, k, n, bf16, 2, 4, bf16, "timed")
-             for m in (BATCH, SLOTS, BATCH * PROMPT) for k, n in LAYER_GEMMS]
-    cases += [(BATCH, 1536, 8960, f32, 2, 4, f32, "timed"),
-              (BATCH * PROMPT, 1536, 1536, f32, 2, 4, f32, "timed")]
-    cases += [(m, 8960, 1536, bf16, 2, 4, bf16, "menu") for m in (1, 16, 17)]
-    cases += [(SLOTS, 1536, 1536, bf16, nk, mg, bf16, "menu")
-              for nk, mg in ((1, 2), (1, 4), (4, 8), (3, 7))]
-    cases += [(5, 1003, 200, bf16, 2, 4, bf16, "menu"),
-              (5, 1003, 200, bf16, 2, 4, f32, "menu"),
-              (5, 1003, 200, f32, 3, 7, f32, "any index")]
+    main = [BATCH, SLOTS, BATCH * PROMPT]
+    if not quantize:
+        return ([(m, k, n, bf16, 2, 4, bf16, "timed")
+                 for m in main for k, n in LAYER_GEMMS]
+                + [(BATCH, 1536, 8960, f32, 2, 4, f32, "timed"),
+                   (BATCH * PROMPT, 1536, 1536, f32, 2, 4, f32, "timed")]
+                + [(m, 8960, 1536, bf16, 2, 4, bf16, "menu")
+                   for m in (1, 16, 17)]
+                + [(SLOTS, 1536, 1536, bf16, nk, mg, bf16, "menu")
+                   for nk, mg in ((1, 2), (1, 4), (4, 8), (3, 7))]
+                + [(5, 1003, 200, bf16, 2, 4, bf16, "menu"),
+                   (5, 1003, 200, bf16, 2, 4, f32, "menu"),
+                   (5, 1003, 200, f32, 3, 7, f32, "any index")])
+    return ([(m, k, n, bf16, 2, 4, bf16,
+              "timed" if m <= sparse_gemm.DECODE_ROWS[-1] else "timed, menu")
+             for m in main for k, n in LAYER_GEMMS]
+            + [(BATCH, 1536, 8960, f32, 2, 4, f32, "timed")]
+            + [(SLOTS, 1536, 1536, bf16, nk, mg, bf16, "menu")
+               for nk, mg in ((1, 2), (4, 8), (3, 7))]
+            + [(5, 1003, 200, bf16, 2, 4, f32, "menu"),
+               (SLOTS, 1536, 1536, bf16, 2, 4, bf16, "extremes"),
+               (BATCH * PROMPT, 1536, 1536, bf16, 2, 4, bf16, "extremes")])
+
+
+def phase_sparse_kernel(p: Posture) -> list[dict]:
+    """The sparse kernel's variant of posture `p` against its plain
+    version on both paths (`_sparse_cases`): qwen's dense shapes at 2:4
+    with bf16 activations (M = 4, 8 on the decode path, 2048 on the tiled
+    one, each at the engine's decision, timed beside the plain version,
+    torch.matmul over the weight densified (and scaled) ahead of time and
+    the bound; the decode shapes' split-K reduction (with int8 values the
+    scaled one) timed alone and held to its plain version bit for bit),
+    f32 activations, other N:M specs, a ragged shape, and for float values
+    M = 1, 16, 17 and an index array with offsets out of range and
+    repeated, for int8 values an all-zero column (scale 1.0) and values
+    of -127 and 127.  Every case runs at the decision and, at M <= 16, at
+    split 1 and the largest split; every configuration twice, the two
+    outputs bit for bit equal."""
+    gen = torch.Generator(device="cuda").manual_seed(9 if p.quantize else 8)
+    side = torch.cuda.Stream()
     rows, failures = [], []
-    for m, k, n, dtype, nk, mg, out_dtype, kind in cases:
-        timed = kind == "timed"
+    variant = "sparse_gemm int8 values" if p.quantize else "sparse_gemm"
+    for m, k, n, dtype, nk, mg, out_dtype, kind in _sparse_cases(p.quantize):
+        timed = kind.startswith("timed")
         sets = _sparse_sets(m, k, n, dtype, gen, nk, mg,
-                            None if timed else 1)
+                            None if timed else 1, p.quantize,
+                            kind == "extremes")
         if kind == "any index":
             sets = [(a, v, torch.randint(-2, 9, i.shape, generator=gen,
-                                         device="cuda", dtype=torch.int8), w)
-                    for a, v, i, w in sets]
-        a, v, i, _ = sets[0]
+                                         device="cuda", dtype=torch.int8),
+                     s, w) for a, v, i, s, w in sets]
+        a, v, i, s, _ = sets[0]
         size = a.element_size()
-        tol = F32_ROW_TOL if out_dtype == f32 else BF16_ROW_TOL
+        tol = F32_ROW_TOL if out_dtype == torch.float32 else BF16_ROW_TOL
         kw = {"n_keep": nk, "m_group": mg}
-        ref = sparse_gemm.sparse_gemm_reference(a, v, i, out_dtype=out_dtype,
-                                                **kw)
+        ref = sparse_gemm.sparse_gemm_reference(a, v, i, s,
+                                                out_dtype=out_dtype, **kw)
         dec = HopperModel().decide(KernelRequest(
-            "gemm_sparse", m, k, n, in_bytes=size, out_bytes=size,
-            density=nk / mg))
+            "gemm_sparse", m, k, n, in_bytes=1 if p.quantize else size,
+            out_bytes=size, density=nk / mg))
         planned = sparse_args(dec)
         want_path = ("decode" if m <= sparse_gemm.DECODE_ROWS[-1]
                      else "tiled")
         check(planned["path"] == want_path,
-              f"{m}x{k}x{n} planned {planned}, not the {want_path} path")
+              f"{variant} {m}x{k}x{n} planned {planned}, not the "
+              f"{want_path} path")
         configs = _sparse_configs(m, k, mg, planned)
-        if not timed:
+        if kind != "timed":
             configs += [{"path": "tiled", "tile": t}
                         for t in sparse_gemm.TILES
                         if {"path": "tiled", "tile": t} != planned]
         rel = err = 0.0
         repeat_equal = True
         for conf in configs:
-            out = sparse_gemm.sparse_gemm(a, v, i, out_dtype=out_dtype,
+            out = sparse_gemm.sparse_gemm(a, v, i, s, out_dtype=out_dtype,
                                           **conf, **kw)
-            again = sparse_gemm.sparse_gemm(a, v, i, out_dtype=out_dtype,
+            again = sparse_gemm.sparse_gemm(a, v, i, s, out_dtype=out_dtype,
                                             **conf, **kw)
             torch.cuda.synchronize()
             check(out.dtype == out_dtype and out.shape == (m, n),
-                  f"sparse output {out.dtype} {tuple(out.shape)}")
+                  f"{variant} output {out.dtype} {tuple(out.shape)}")
             repeat_equal &= torch.equal(out, again)
             rel = max(rel, row_rel_l2(out, ref))
             err = max(err, (out.float() - ref.float()).abs().max().item())
+        if kind == "extremes":
+            check(s[0, 7].item() == 1.0 and not ref[:, 7].any()
+                  and {-127, 127} <= set(v[:, 11].tolist()),
+                  "the extremes' weight lost its zero column or its +-127")
         name = f"{str(dtype)[6:]}" + ("" if out_dtype == dtype
                                       else f" -> {str(out_dtype)[6:]}")
         row = {"m": m, "k": k, "n": n, "dtype": str(dtype)[6:],
                "out_dtype": str(out_dtype)[6:], "spec": f"{nk}:{mg}",
+               "kind": kind,
                "decision": {key: list(val) if key == "tile" else val
                             for key, val in planned.items()},
-               "main_path": timed and dtype == bf16,
+               "main_path": timed and dtype == torch.bfloat16,
                "configs_checked": [{key: list(val) if key == "tile" else val
                                     for key, val in c.items()}
                                    for c in configs],
                "repeat_bit_identical": repeat_equal,
                "any_index": kind == "any index", "max_abs_err": err,
                "row_rel_l2": rel, "tol": tol}
-        row["bound_ms"], row["bound_by"] = sparse_bound(m, k, n, size, nk, mg)
+        row["bound_ms"], row["bound_by"] = sparse_bound(m, k, n, size, nk, mg,
+                                                        p.quantize)
         times = ""
         if timed:
             row["ms"] = device_ms(functools.partial(
-                lambda a, v, i, w, **kw: sparse_gemm.sparse_gemm(a, v, i,
-                                                                  **kw),
-                **planned, **kw), sets, side)
+                lambda a, v, i, s, w, **kw: sparse_gemm.sparse_gemm(
+                    a, v, i, s, **kw), **planned, **kw), sets, side)
             row["plain_ms"] = device_ms(functools.partial(
-                lambda a, v, i, w, **kw: sparse_gemm.sparse_gemm_reference(
-                    a, v, i, **kw), **kw), sets, side)
-            row["library_ms"] = device_ms(lambda a, v, i, w: a @ w, sets,
+                lambda a, v, i, s, w, **kw: sparse_gemm.sparse_gemm_reference(
+                    a, v, i, s, **kw), **kw), sets, side)
+            row["library_ms"] = device_ms(lambda a, v, i, s, w: a @ w, sets,
                                           side)
             times = (f"; kernel {row['ms']:.4f} ms, plain "
                      f"{row['plain_ms']:.4f} ms, torch.matmul over the "
-                     f"densified weight {row['library_ms']:.4f} ms")
+                     f"densified{', scaled' if p.quantize else ''} weight "
+                     f"{row['library_ms']:.4f} ms")
             split = planned.get("split_k", 1)
             if split > 1:
-                row.update(_time_reduce(split, m, n, dtype, gen, side))
-                times += (f"; its reduction of {split} partials "
-                          f"{row['reduce_ms']:.4f} ms (plain "
-                          f"{row['reduce_plain_ms']:.4f}, torch.sum "
+                row.update(_time_reduce(
+                    split, m, n, dtype, gen, side,
+                    kernel=lambda w, dt: sparse_gemm.split_reduce(w, dt, s),
+                    plain=lambda w, dt: sparse_gemm.split_reduce_reference(
+                        w, dt, s)))
+                times += (f"; its {'scaled ' if p.quantize else ''}reduction "
+                          f"of {split} partials {row['reduce_ms']:.4f} ms "
+                          f"(plain {row['reduce_plain_ms']:.4f}, torch.sum "
                           f"{row['reduce_library_ms']:.4f}, bound "
-                          f"{row['reduce_bound_ms']:.4f})")
+                          f"{row['reduce_bound_ms']:.4f}; bit for bit)")
         rows.append(row)
         ok = math.isfinite(rel) and rel <= tol and repeat_equal
-        more = "" if timed else f" and {len(configs) - 1} more configurations"
-        print(f"sparse_gemm {nk}:{mg} {name} {m}x{k}x{n} decision {planned}"
-              f"{more}"
-              f"{', any int8 index' if row['any_index'] else ''}: row rel-L2 "
-              f"{rel:.2e} (tol {tol:g}), max|diff| {err:.3e}, repeat "
-              f"launches {'bit-identical' if repeat_equal else 'DIFFER'}"
-              f"{times}, bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+        more = (f" and {len(configs) - 1} more configurations"
+                if len(configs) > 1 else "")
+        print(f"{variant} {nk}:{mg} {name} {m}x{k}x{n} ({kind}) decision "
+              f"{planned}{more}: row rel-L2 {rel:.2e} (tol {tol:g}), "
+              f"max|diff| {err:.3e}, repeat launches "
+              f"{'bit-identical' if repeat_equal else 'DIFFER'}{times}, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
               f"{'' if ok else '  FAILED'}")
         if not ok:
-            failures.append(f"{nk}:{mg} {name} {m}x{k}x{n}: {rel:.2e}, "
-                            f"repeat equal {repeat_equal}")
+            failures.append(f"{nk}:{mg} {name} {m}x{k}x{n} {kind}: "
+                            f"{rel:.2e}, repeat equal {repeat_equal}")
         del sets
-    REPORT["sparse_kernel"] = rows
-    check(not failures, f"sparse kernel disagrees with its plain version: "
+    REPORT[f"{p.report}_kernel"] = rows
+    check(not failures, f"{variant} disagrees with its plain version: "
           f"{failures}")
     return rows
 
@@ -2080,22 +2178,24 @@ def _time_reduce(parts: int, m: int, n: int, dtype, gen,
             .item()}
 
 
-def _split_gemms(m: int) -> int:
+def _split_gemms(m: int, in_bytes: int = 2) -> int:
     """Sparse GEMMs of one qwen layer at M = m that the engine plans with
-    split_k > 1 (each launches the reduction once)."""
+    split_k > 1 (each launches the reduction once), keyed at `in_bytes`
+    (1 for int8 values) under bf16 activations."""
     model = HopperModel()
     return sum(calls for (k, n), calls in LAYER_GEMMS.items()
                if sparse_args(model.decide(KernelRequest(
-                   "gemm_sparse", m, k, n, density=0.5))).get("split_k", 1)
-               > 1)
+                   "gemm_sparse", m, k, n, in_bytes=in_bytes, out_bytes=2,
+                   density=0.5))).get("split_k", 1) > 1)
 
 
-def _sparse_serve(gen: int) -> dict:
-    """The launcher's --sparsity 2:4 static serve: BATCH requests of PROMPT
-    tokens, weights (pruned after `init_params`) and prompt from SEED."""
+def _sparse_serve(p: Posture, gen: int) -> dict:
+    """The launcher's static serve in posture `p`: BATCH requests of
+    PROMPT tokens, weights (pruned, and quantized with --quantize, after
+    `init_params`) and prompt from SEED."""
     return launch_serve.main(
-        ["--arch", ARCH, "--sparsity", "2:4", "--batch", str(BATCH),
-         "--prompt-len", str(PROMPT), "--seed", str(SEED), "--gen", str(gen)])
+        ["--arch", ARCH, *p.flags, "--batch", str(BATCH), "--prompt-len",
+         str(PROMPT), "--seed", str(SEED), "--gen", str(gen)])
 
 
 def _dense_bytes(tree) -> int:
@@ -2110,77 +2210,105 @@ def _dense_bytes(tree) -> int:
     return tree_bytes(tree)
 
 
-def phase_sparse_static(cfg) -> None:
-    """qwen2-1.5b through `launch.serve --sparsity 2:4` at full width: 4 x
-    (512 + 16), bf16, "hopper-sparse" (every dense matmul on the sparse
-    kernel); then the prefill logits against "torch-ref-sparse" on the
-    served run's own pruned weights and prompt."""
-    _sparse_serve(1)                           # warm-up
-    first = _sparse_serve(1)
+def _float_sparse_bytes(tree) -> int:
+    """Bytes of the tree with every SparseTensor's values at 2 bytes and no
+    scale: the float 2:4 posture's bf16 storage of the same weights."""
+    if isinstance(tree, dict):
+        return sum(_float_sparse_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_float_sparse_bytes(v) for v in tree)
+    if isinstance(tree, SparseTensor):
+        return 2 * tree.values.numel() + tree.indices.nbytes
+    return tree_bytes(tree)
+
+
+def _want_counts(p: Posture, sparse: int, paged: int = 0) -> dict:
+    """`read_counts` of a serve in posture `p`: `sparse` launches of its
+    variant, `paged` of the paged kernel, every other kernel 0."""
+    return {"redas_gemm": 0, "paged_attention": paged, "flash_attention": 0,
+            "grouped_gemm": 0, "quant_gemm": 0, "sparse_gemm": 0,
+            "sparse_gemm_int8": 0, p.counter: sparse}
+
+
+def phase_sparse_static(cfg, p: Posture) -> None:
+    """qwen2-1.5b through the launcher in posture `p` (`--sparsity 2:4`,
+    or with `--quantize` int8 values and scales and a contiguous int8 KV
+    cache) at full width: 4 x (512 + 16), bf16 activations,
+    "hopper-sparse" (every dense matmul on the posture's variant of the
+    sparse kernel); then the prefill logits against "torch-ref-sparse" on
+    the served run's own weights and prompt."""
+    _sparse_serve(p, 1)                        # warm-up
+    first = _sparse_serve(p, 1)
     first_tokens, prefill_ms = first["tokens"], first["seconds"] * 1e3
     del first
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     reset_counts()
-    out = _sparse_serve(GEN)
+    out = _sparse_serve(p, GEN)
     counts = read_counts()
-    by_path = dict(sparse_gemm.path_launches)
+    by_path = p.paths()
     reduces = sparse_gemm.reduce_launches
     peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     scfg, tokens, eng = out["serve_config"], out["tokens"], out["engine"]
-    sizes = {"sparse_weight_bytes": tree_bytes(out["params"]),
-             "bf16_weight_bytes": _dense_bytes(out["params"])}
+    # the weights against the float 2:4 posture's (sparse x int8) or the
+    # unpruned bf16 ones (float 2:4)
+    baseline, baseline_bytes = (("float 2:4", _float_sparse_bytes)
+                                if p.quantize else ("bf16", _dense_bytes))
+    sizes = {"weight_bytes": tree_bytes(out["params"]),
+             "baseline_weight_bytes": baseline_bytes(out["params"])}
     decode_ms = (out["seconds"] * 1e3 - prefill_ms) / (GEN - 1)
-    want = {"redas_gemm": 0, "paged_attention": 0, "flash_attention": 0,
-            "grouped_gemm": 0, "quant_gemm": 0,
-            "sparse_gemm": sum(LAYER_GEMMS.values()) * cfg.n_layers * GEN}
-    print(f"--sparsity 2:4 static serve ({BATCH} x ({PROMPT} + {GEN}), "
-          f"{scfg.kernel_backend}): {out['seconds']:.3f} s, "
+    layer = sum(LAYER_GEMMS.values()) * cfg.n_layers
+    want = _want_counts(p, layer * GEN)
+    print(f"{p.label} static serve ({' '.join(p.flags)}, {BATCH} x "
+          f"({PROMPT} + {GEN}), {scfg.kernel_backend}, cache "
+          f"{scfg.cache_dtype}): {out['seconds']:.3f} s, "
           f"{out['tokens_per_s']:.1f} tok/s; prefill and first token "
           f"{prefill_ms:.2f} ms, decode {decode_ms:.3f} ms/step; weights "
-          f"{sizes['sparse_weight_bytes'] / 2**30:.3f} GiB pruned against "
-          f"{sizes['bf16_weight_bytes'] / 2**30:.3f} GiB bf16; max memory "
-          f"allocated by the run {peak:.2f} GiB (the bf16 draw and its "
-          f"pruning included); plan {out['engine_plan']}; kernel launches "
-          f"{counts} (want {want})")
-    check(scfg.kernel_backend == "hopper-sparse", f"{scfg.kernel_backend}")
-    check(counts == want, f"--sparsity static launches {counts}, not {want}")
-    layer = sum(LAYER_GEMMS.values()) * cfg.n_layers
+          f"{sizes['weight_bytes'] / 2**30:.3f} GiB against "
+          f"{sizes['baseline_weight_bytes'] / 2**30:.3f} GiB {baseline}; max "
+          f"memory allocated by the run {peak:.2f} GiB (the bf16 draw and "
+          f"its pruning included); plan {out['engine_plan']}; kernel "
+          f"launches {counts} (want {want})")
+    check((scfg.kernel_backend, scfg.cache_dtype) == ("hopper-sparse",
+                                                      p.cache),
+          f"{' '.join(p.flags)} gave {scfg.kernel_backend}, "
+          f"{scfg.cache_dtype}")
+    check(counts == want, f"{p.label} static launches {counts}, not {want}")
     want_paths = {"decode": layer * (GEN - 1), "tiled": layer}
-    want_reduces = (GEN - 1) * cfg.n_layers * _split_gemms(BATCH)
-    print(f"--sparsity static serve: sparse GEMMs by path {by_path} (want "
+    want_reduces = (GEN - 1) * cfg.n_layers * _split_gemms(BATCH, p.in_bytes)
+    print(f"{p.label} static serve: sparse GEMMs by path {by_path} (want "
           f"{want_paths}), split-K reductions {reduces} (want "
           f"{want_reduces})")
     check(by_path == want_paths and reduces == want_reduces,
-          f"--sparsity static paths {by_path}, reductions {reduces}")
+          f"{p.label} static paths {by_path}, reductions {reduces}")
     check(tuple(tokens.shape) == (BATCH, GEN)
           and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()),
-          f"--sparsity static tokens {tuple(tokens.shape)}")
+          f"{p.label} static tokens {tuple(tokens.shape)}")
     check(torch.equal(first_tokens, tokens[:, :1]),
-          "1-token and 16-token --sparsity runs differ")
-    check({(req.op, req.density) for req, _ in eng.plan}
-          == {("gemm_sparse", 0.5)},
-          f"plan {[(req.op, req.density) for req, _ in eng.plan]}")
-    check(sizes["sparse_weight_bytes"] < 0.85 * sizes["bf16_weight_bytes"],
+          f"1-token and 16-token {p.label} runs differ")
+    check({(req.op, req.in_bytes, req.out_bytes, req.density)
+           for req, _ in eng.plan} == {("gemm_sparse", p.in_bytes, 2, 0.5)},
+          f"plan {[(req.op, req.in_bytes, req.density) for req, _ in eng.plan]}")
+    check(sizes["weight_bytes"] < 0.85 * sizes["baseline_weight_bytes"],
           f"weight bytes {sizes}")
 
     logits = {}
     for backend in ("torch-ref-sparse", "hopper-sparse"):
         cache = T.init_cache(cfg, T.CacheSpec(PROMPT + GEN + 1, BATCH),
-                             dtype=torch.bfloat16, device="cuda")
+                             dtype=p.cache, device="cuda")
         with torch.inference_mode(), use_engine(Engine(backend=backend)):
             logits[backend] = T.prefill(out["params"], cfg, out["prompt"],
                                         cache)[0]
     gap = _logit_gap(logits["hopper-sparse"], logits["torch-ref-sparse"])
-    print(f"--sparsity full-width prefill logits, hopper-sparse vs "
-          f"torch-ref-sparse on the same pruned weights and prompt: rel-L2 "
-          f"{gap['rel_l2']:.4e}, max|diff|/max|ref| {gap['rel_max']:.4e}, "
-          f"argmax agreement {gap['argmax_agreement']:.2f} (limits "
-          f"{LOGIT_LIMITS})")
+    print(f"{p.label} full-width prefill logits ({p.cache} KV), "
+          f"hopper-sparse vs torch-ref-sparse on the same weights and "
+          f"prompt: rel-L2 {gap['rel_l2']:.4e}, max|diff|/max|ref| "
+          f"{gap['rel_max']:.4e}, argmax agreement "
+          f"{gap['argmax_agreement']:.2f} (limits {LOGIT_LIMITS})")
     check(all(math.isfinite(gap[k]) and gap[k] <= LOGIT_LIMITS[k]
-              for k in LOGIT_LIMITS), f"--sparsity prefill logit gap {gap}")
-    REPORT["sparse_static"] = {
+              for k in LOGIT_LIMITS), f"{p.label} prefill logit gap {gap}")
+    REPORT[f"{p.report}_static"] = {
         "seconds": out["seconds"], "tokens_per_s": out["tokens_per_s"],
         "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
         "max_memory_gib": peak, **sizes, "plan": out["engine_plan"],
@@ -2189,58 +2317,69 @@ def phase_sparse_static(cfg) -> None:
         "tokens": tokens.tolist()}
 
 
-def phase_sparse_paged(cfg) -> None:
-    """The paged serve's trace through `launch.serve --sparsity 2:4`: the
-    Scheduler on float pools, every dense matmul on the sparse kernel and
-    every decode attention on the paged kernel; a second pass, a device
-    trace of 10 decode ticks, and one tick's logits against
-    "torch-ref-sparse"."""
+def phase_sparse_paged(cfg, p: Posture) -> None:
+    """The paged serve's trace through the launcher in posture `p`: the
+    Scheduler on float pools (on int8 pools with --quantize), every dense
+    matmul on the posture's variant of the sparse kernel and every decode
+    attention on the paged kernel; a second pass, a device trace of 10
+    decode ticks, and one tick's logits against "torch-ref-sparse"."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     reset_counts()
-    out = launch_serve.main(SERVE_ARGS + ["--sparsity", "2:4"])
+    out = launch_serve.main(SERVE_ARGS + p.flags)
     counts = read_counts()
-    by_path = dict(sparse_gemm.path_launches)
+    by_path = p.paths()
     reduces = sparse_gemm.reduce_launches
     peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     sched, eng, scfg = out["scheduler"], out["engine"], out["serve_config"]
     st = sched.stats
     ticks, calls = st["decode_steps"], st["prefill_calls"]
     tick_ms = sched.timings["decode_s"] * 1e3 / ticks
-    want = {"redas_gemm": 0, "grouped_gemm": 0, "flash_attention": 0,
-            "quant_gemm": 0, "paged_attention": cfg.n_layers * ticks,
-            "sparse_gemm": sum(LAYER_GEMMS.values()) * cfg.n_layers
-            * (ticks + calls)}
+    layer = sum(LAYER_GEMMS.values()) * cfg.n_layers
+    want = _want_counts(p, layer * (ticks + calls), cfg.n_layers * ticks)
+    pools = sched.cache["slots"]["b0"]
+    kv_bytes = tree_bytes(dict(sched.cache["slots"]))
     tokens = {u: c.tokens.tolist() for u, c in sched.completions.items()}
-    print(f"--sparsity 2:4 paged serve ({scfg.kernel_backend}): "
+    print(f"{p.label} paged serve ({' '.join(p.flags)}, "
+          f"{scfg.kernel_backend}, {pools['k_pages'].dtype} pools): "
           f"{out['requests']} requests / {out['tokens']} tokens in "
           f"{out['seconds']:.3f} s, {out['tokens_per_s']:.1f} tok/s over "
           f"{SLOTS} slots; {ticks} decode ticks, {tick_ms:.3f} ms per tick "
           f"(mean); {calls} prefill calls of widths "
           f"{sorted(st['prefill_widths'])}, "
           f"{sched.timings['prefill_s'] * 1e3:.2f} ms in all; plan "
-          f"{eng.plan.stats}; kernel launches {counts} (want {want}); peak "
-          f"memory above what the script held {peak:.3f} GiB")
+          f"{eng.plan.stats}; kernel launches {counts} (want {want}); KV pool "
+          f"{kv_bytes / 2**20:.2f} MiB; peak memory above what the script "
+          f"held {peak:.3f} GiB")
     check(scfg.kernel_backend == "hopper-sparse", f"{scfg.kernel_backend}")
+    check(pools["k_pages"].dtype == p.cache,
+          f"pools {pools['k_pages'].dtype}, not {p.cache}")
     check(out["requests"] == len(launch_serve.parse_trace(TRACE)),
           f"served {out['requests']} requests")
-    check(counts == want, f"--sparsity paged launches {counts}, not {want}")
-    layer = sum(LAYER_GEMMS.values()) * cfg.n_layers
+    check(counts == want, f"{p.label} paged launches {counts}, not {want}")
+    if p.quantize:
+        # the int8 pool of --quantize: one byte a K/V value, an f32 scale a
+        # row
+        want_kv = (cfg.n_layers * 2 * POOL_PAGES * PAGE * cfg.n_kv
+                   * (cfg.head_dim_ + 4))
+        check(pools["k_scale_pages"].dtype == torch.float32
+              and kv_bytes == want_kv, f"KV pool {kv_bytes} bytes, not the "
+              f"int8 pool's {want_kv}")
     want_paths = {"decode": layer * ticks, "tiled": layer * calls}
-    want_reduces = ticks * cfg.n_layers * _split_gemms(SLOTS)
-    print(f"--sparsity paged serve: sparse GEMMs by path {by_path} (want "
+    want_reduces = ticks * cfg.n_layers * _split_gemms(SLOTS, p.in_bytes)
+    print(f"{p.label} paged serve: sparse GEMMs by path {by_path} (want "
           f"{want_paths}: every prefill width is above the decode rows), "
           f"split-K reductions {reduces} (want {want_reduces})")
     check(min(st["prefill_widths"]) > sparse_gemm.DECODE_ROWS[-1]
           and by_path == want_paths and reduces == want_reduces,
-          f"--sparsity paged paths {by_path}, reductions {reduces}")
+          f"{p.label} paged paths {by_path}, reductions {reduces}")
     for uid, toks in tokens.items():
         check(len(toks) == out["trace"][uid][1]
               and all(0 <= t < cfg.vocab for t in toks), f"request {uid}")
     sched.paged.check_invariants()
     new_misses, prof = _replay_and_trace(out["params"], cfg, scfg, eng,
-                                         out["trace"], tokens, "--sparsity ",
+                                         out["trace"], tokens, f"{p.label} ",
                                          SPARSE_KERNELS)
     sparse_ms = sum(v["ms"] for v in prof["matched"].values())
     detail = ", ".join(f"{key} {v['ms']:.3f} ms in {v['count']} launches"
@@ -2249,99 +2388,118 @@ def phase_sparse_paged(cfg) -> None:
           f"device time, {sparse_ms / 10:.3f} ms a tick ({detail})")
     gap = _decode_tick_gap(out["params"], cfg, scfg, eng, out["trace"],
                            backends=("torch-ref-sparse", "hopper-sparse"))
-    print(f"--sparsity full-width paged decode tick logits (8 slots), "
-          f"hopper-sparse vs torch-ref-sparse: rel-L2 {gap['rel_l2']:.4e}, "
-          f"max|diff|/max|ref| {gap['rel_max']:.4e}, argmax agreement "
-          f"{gap['argmax_agreement']:.2f} (limit rel-L2 "
+    print(f"{p.label} full-width paged decode tick logits (8 slots, "
+          f"{p.cache} pools), hopper-sparse vs torch-ref-sparse: rel-L2 "
+          f"{gap['rel_l2']:.4e}, max|diff|/max|ref| {gap['rel_max']:.4e}, "
+          f"argmax agreement {gap['argmax_agreement']:.2f} (limit rel-L2 "
           f"{LOGIT_LIMITS['rel_l2']})")
-    REPORT["sparse_paged"] = {
+    REPORT[f"{p.report}_paged"] = {
         "trace": TRACE, "slots": SLOTS, "seconds": out["seconds"],
         "tokens_per_s": out["tokens_per_s"], "tokens": out["tokens"],
         "decode_ticks": ticks, "decode_ms_per_tick": tick_ms,
         "prefill_calls": calls, "prefill_widths": sorted(st["prefill_widths"]),
         "prefill_ms": sched.timings["prefill_s"] * 1e3,
         "plan": eng.plan.stats, "counts": counts, "max_memory_gib": peak,
-        "sparse_paths": by_path, "sparse_reduces": reduces,
+        "kv_bytes": kv_bytes, "sparse_paths": by_path,
+        "sparse_reduces": reduces,
         "sparse_ms_per_traced_tick": sparse_ms / 10,
         "second_pass_new_misses": new_misses, "trace_10_ticks": prof,
         "decode_tick_logits": gap}
     check(math.isfinite(gap["rel_l2"]) and gap["rel_l2"] <= LOGIT_LIMITS["rel_l2"],
-          f"--sparsity paged decode logit gap {gap}")
+          f"{p.label} paged decode logit gap {gap}")
 
 
-def phase_sparse_smoke_parity() -> None:
-    """qwen2-1.5b SMOKE in f32 under sparsity="2:4", weights pruned on the
-    CPU: the card's tokens (the sparse kernel) equal the CPU's plain run,
-    static (`generate`) and through the Scheduler, paged and contiguous,
-    with a shared prefix."""
+def phase_sparse_smoke_parity(p: Posture) -> None:
+    """qwen2-1.5b SMOKE in f32 under sparsity="2:4" (and quantize=True for
+    sparse x int8), weights pruned (and quantized) on the CPU: the card's
+    tokens (the posture's variant of the sparse kernel) equal the CPU's
+    plain run, static (`generate`) and through the Scheduler, paged and
+    contiguous, with a shared prefix, under a float KV cache and, for
+    sparse x int8, under an int8 one."""
     smoke = get_config(ARCH, smoke=True)
     cpu_params = prune_params(T.init_params(
         smoke, generator=torch.Generator().manual_seed(SEED),
-        dtype=torch.float32), 2, 4)
+        dtype=torch.float32), 2, 4, quantize=p.quantize)
     card_params = _to(cpu_params, "cuda")
     result = {}
     sprompt = torch.randint(0, smoke.vocab, (2, 24),
                             generator=torch.Generator().manual_seed(SEED + 1),
                             dtype=torch.int32)
-    kw = {"max_seq": 33, "batch": 2, "compute_dtype": "float32",
-          "cache_dtype": "float32", "sparsity": "2:4"}
-    want = serve_lib.generate(cpu_params, smoke, serve_lib.ServeConfig(
-        device="cpu", **kw), sprompt, 8)
-    sparse_gemm.reset_launches()
-    got = serve_lib.generate(card_params, smoke, serve_lib.ServeConfig(
-        device="cuda", **kw), sprompt, 8)
-    check(sparse_gemm.launches == 7 * smoke.n_layers * 8,
-          f"smoke static sparse launches {sparse_gemm.launches}")
-    result["static"] = torch.equal(got.cpu(), want)
     rng = np.random.default_rng(SEED)
     prefix = rng.integers(0, smoke.vocab, 24)
     spec = [(uid, (np.concatenate([prefix, rng.integers(0, smoke.vocab, 3 + uid)])
                    if uid % 2 else rng.integers(0, smoke.vocab, 5 + 3 * uid)
                    ).astype(np.int32), 4 + uid % 5) for uid in range(8)]
-    tokens = {}
-    for device in ("cpu", "cuda"):
+    for cache in ("float32", "int8") if p.quantize else ("float32",):
+        kw = {"max_seq": 33, "batch": 2, "compute_dtype": "float32",
+              "cache_dtype": cache, "sparsity": "2:4",
+              "quantize": p.quantize}
+        want = serve_lib.generate(cpu_params, smoke, serve_lib.ServeConfig(
+            device="cpu", **kw), sprompt, 8)
+        reset_counts()
+        got = serve_lib.generate(card_params, smoke, serve_lib.ServeConfig(
+            device="cuda", **kw), sprompt, 8)
+        counts = read_counts()
+        check(counts[p.counter] == 7 * smoke.n_layers * 8
+              and counts[p.other] == 0,
+              f"smoke static sparse launches {counts}")
+        result[f"static, {cache} KV"] = torch.equal(got.cpu(), want)
+        tokens = {}
+        for device in ("cpu", "cuda"):
+            for layout in ("paged", "contiguous"):
+                sc = serve_lib.ServeConfig(
+                    max_seq=48, batch=3, compute_dtype="float32",
+                    cache_dtype=cache, sparsity="2:4", quantize=p.quantize,
+                    device=device, cache_layout=layout, page_size=8)
+                reset_counts()
+                sched = Scheduler(cpu_params if device == "cpu"
+                                  else card_params, smoke, sc)
+                done = sched.run([Request(uid=u, prompt=x, max_new_tokens=g)
+                                  for u, x, g in spec])
+                tokens[(device, layout)] = {u: c.tokens.tolist()
+                                            for u, c in done.items()}
+                counts = read_counts()
+                check(device == "cpu" or (counts[p.counter] > 0
+                                          and counts[p.other] == 0),
+                      f"the {p.label} sparse kernel did not run on the card: "
+                      f"{counts}")
+                if layout == "paged":
+                    check(sched.stats["shared_prefix_tokens"] > 0,
+                          f"smoke trace shared no prefix on {device}")
         for layout in ("paged", "contiguous"):
-            sc = serve_lib.ServeConfig(max_seq=48, batch=3,
-                                       compute_dtype="float32",
-                                       cache_dtype="float32", sparsity="2:4",
-                                       device=device, cache_layout=layout,
-                                       page_size=8)
-            sparse_gemm.reset_launches()
-            sched = Scheduler(cpu_params if device == "cpu" else card_params,
-                              smoke, sc)
-            done = sched.run([Request(uid=u, prompt=x, max_new_tokens=g)
-                              for u, x, g in spec])
-            tokens[(device, layout)] = {u: c.tokens.tolist()
-                                        for u, c in done.items()}
-            check(device == "cpu" or sparse_gemm.launches > 0,
-                  "the sparse kernel did not run on the card")
-            if layout == "paged":
-                check(sched.stats["shared_prefix_tokens"] > 0,
-                      f"smoke trace shared no prefix on {device}")
-    for layout in ("paged", "contiguous"):
-        result[f"scheduler {layout}"] = (tokens[("cuda", layout)]
-                                         == tokens[("cpu", layout)])
-    print(f"sparse SMOKE f32 (sparsity='2:4'): card tokens identical to the "
-          f"CPU's plain run: {result}")
-    REPORT["sparse_smoke_parity"] = result
-    check(all(result.values()), f"sparse smoke tokens differ: {result}")
+            result[f"scheduler {layout}, {cache} KV"] = (
+                tokens[("cuda", layout)] == tokens[("cpu", layout)])
+    print(f"{p.label} SMOKE f32 (sparsity='2:4', quantize={p.quantize}): "
+          f"card tokens identical to the CPU's plain run: {result}")
+    REPORT[f"{p.report}_smoke_parity"] = result
+    check(all(result.values()), f"{p.label} smoke tokens differ: {result}")
+
+
+def phase_sparse_serves(cfg, p: Posture) -> None:
+    """The static serve, the paged serve and SMOKE parity in posture
+    `p`."""
+    phase_sparse_static(cfg, p)
+    torch.cuda.empty_cache()
+    phase_sparse_paged(cfg, p)
+    torch.cuda.empty_cache()
+    phase_sparse_smoke_parity(p)
 
 
 def _static_sparse_calls(cfg):
-    """(row, calls) for each main-path shape of the --sparsity static
-    serve: the prefill at M = BATCH x PROMPT once, the decode at M = BATCH
-    for GEN - 1 steps, per layer as LAYER_GEMMS counts."""
+    """(row, calls) for each main-path shape of the sparse static serves:
+    the prefill at M = BATCH x PROMPT once, the decode at M = BATCH for
+    GEN - 1 steps, per layer as LAYER_GEMMS counts."""
     for (k, n), per_layer in LAYER_GEMMS.items():
         for m, steps in ((BATCH * PROMPT, 1), (BATCH, GEN - 1)):
             yield (k, n, m), per_layer * cfg.n_layers * steps
 
 
-def sparse_line(rows: list[dict]) -> dict:
-    """The --sparsity static serve's sparse GEMM work: each main-path
+def sparse_line(rows: list[dict], p: Posture) -> dict:
+    """The static serve's sparse GEMM work in posture `p`: each main-path
     shape's time at the engine's decision (on the decode path the
     reduction included), weighted by the launches that serve makes (the
-    plain version, torch.matmul over the densified weight and the bound
-    likewise)."""
+    plain version, torch.matmul over the weight densified (and scaled)
+    ahead of time and the bound likewise)."""
     cfg = get_config(ARCH)
     totals = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
     ops_ms = bytes_ms = 0.0
@@ -2350,28 +2508,40 @@ def sparse_line(rows: list[dict]) -> dict:
                    and (r["m"], r["k"], r["n"]) == (m, k, n))
         for key in totals:
             totals[key] += calls * row[key]
+        weight = k // 2 * n * 2 + 4 * n if p.quantize else k // 2 * n * 3
         ops_ms += calls * m * k * n / PEAK_FLOPS_BF16 * 1e3
-        bytes_ms += calls * ((m * k + m * n) * 2 + k // 2 * n * 3) / HBM_BW * 1e3
-    static, paged = REPORT["sparse_static"], REPORT["sparse_paged"]
-    return {"name": "sparse_gemm", "route": "cuda",
+        bytes_ms += calls * ((m * k + m * n) * 2 + weight) / HBM_BW * 1e3
+    static = REPORT[f"{p.report}_static"]
+    paged = REPORT[f"{p.report}_paged"]
+    variant = "<T, signed char>" if p.quantize else ""
+    kernels = {f"sparse_decode_kernel{variant}": static["sparse_paths"]["decode"],
+               f"sparse_os_kernel{variant}": static["sparse_paths"]["tiled"]}
+    if p.quantize:
+        kernels["sparse_reduce_kernel (scaled)"] = static["sparse_reduces"]
+    return {"name": p.counter, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sparse_gemm.cu",
-            "replaces": "src/repro/kernels/sparse_gemm.py:163",
-            "launches": static["counts"]["sparse_gemm"],
-            "launches_by_path": {"sparse_static_serve":
-                                 static["counts"]["sparse_gemm"],
-                                 "sparse_paged_serve":
-                                 paged["counts"]["sparse_gemm"]},
-            "kernels": {
-                "sparse_decode_kernel": static["sparse_paths"]["decode"],
-                "sparse_os_kernel": static["sparse_paths"]["tiled"]},
-            "per": "the --sparsity 2:4 static serve's 3136 launches, summed "
-                   "(decode calls with their reduction)",
+            "replaces": "src/repro/kernels/sparse_gemm.py:163" + (
+                " (int8 values, the scale of :225-226)" if p.quantize
+                else ""),
+            "launches": static["counts"][p.counter],
+            "launches_by_path": {
+                f"{p.report}_static_serve": static["sparse_paths"],
+                f"{p.report}_paged_serve": paged["sparse_paths"]},
+            "reductions": {f"{p.report}_static_serve": static["sparse_reduces"],
+                           f"{p.report}_paged_serve": paged["sparse_reduces"]},
+            "kernels": kernels,
+            "per": f"the {' '.join(p.flags)} static serve's "
+                   f"{static['counts'][p.counter]} launches, summed (decode "
+                   f"calls with their reduction)",
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": totals["ms"], "plain_ms": totals["plain_ms"],
             "bound_ms": totals["bound_ms"],
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": totals["library_ms"],
-            "library": "torch.matmul over the weight densified ahead of time"}
+            "library": ("torch.matmul over the weight densified and scaled "
+                        "ahead of time in bf16" if p.quantize else
+                        "torch.matmul over the weight densified ahead of "
+                        "time")}
 
 
 def sparse_reduce_line(rows: list[dict]) -> dict:
@@ -2522,7 +2692,7 @@ def phase_granite_sorted() -> dict:
     want = {"grouped_gemm": 3 * layers * (ticks + calls),
             "redas_gemm": 4 * layers * (ticks + calls),
             "paged_attention": layers * ticks, "flash_attention": 0,
-            "quant_gemm": 0, "sparse_gemm": 0}
+            "quant_gemm": 0, "sparse_gemm": 0, "sparse_gemm_int8": 0}
     tokens = {u: c.tokens.tolist() for u, c in sched.completions.items()}
     print(f"granite sorted serve (paged, full width, bf16): "
           f"{len(sched.completions)} requests / {n_tok} tokens in "
@@ -2629,7 +2799,7 @@ def phase_granite_einsum() -> None:
     want = {"grouped_gemm": 0,
             "redas_gemm": 4 * cfg.n_layers * EINSUM_GEN,
             "paged_attention": 0, "flash_attention": 0, "quant_gemm": 0,
-            "sparse_gemm": 0}
+            "sparse_gemm": 0, "sparse_gemm_int8": 0}
     tokens = out["tokens"]
     print(f"granite einsum serve (static, {SLOTS} x ({EINSUM_PROMPT} + "
           f"{EINSUM_GEN}), impl={cfg.moe.impl!r}): {out['seconds']:.3f} s, "
@@ -2852,7 +3022,7 @@ def main() -> int:
     grouped_rows = phase_grouped_kernel()
     int8_rows = phase_int8_kernel()
     paged_int8_rows = phase_paged_int8_kernel()
-    sparse_rows = phase_sparse_kernel()
+    sparse_rows = phase_sparse_kernel(FLOAT_SPARSE)
     cfg = get_config(ARCH)
     served = phase_main_path(cfg)
     phase_parity(cfg, served)
@@ -2872,11 +3042,9 @@ def main() -> int:
     qpaged = phase_quantize_paged(cfg)
     torch.cuda.empty_cache()
     phase_int8_smoke_parity("int8")
-    phase_sparse_static(cfg)
-    torch.cuda.empty_cache()
-    phase_sparse_paged(cfg)
-    torch.cuda.empty_cache()
-    phase_sparse_smoke_parity()
+    phase_sparse_serves(cfg, FLOAT_SPARSE)
+    sparse_int8_rows = phase_sparse_kernel(INT8_SPARSE)
+    phase_sparse_serves(cfg, INT8_SPARSE)
     granite = phase_granite_sorted()
     phase_granite_parity(granite)
     del granite
@@ -2887,7 +3055,9 @@ def main() -> int:
              *attention_lines(attn, REPORT["paged_serve"]),
              grouped_line(grouped_rows, REPORT["granite_sorted"]),
              int8_line(int8_rows), paged_int8_line(paged_int8_rows, qpaged),
-             sparse_line(sparse_rows), sparse_reduce_line(sparse_rows)]
+             sparse_line(sparse_rows, FLOAT_SPARSE),
+             sparse_reduce_line(sparse_rows),
+             sparse_line(sparse_int8_rows, INT8_SPARSE)]
     REPORT["kernels"] = lines
     REPORT["seconds"] = time.perf_counter() - t0
     out_dir = ROOT / "runs"

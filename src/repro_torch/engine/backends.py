@@ -175,20 +175,21 @@ def sparse_args(decision: KernelDecision) -> dict:
                                          tiles=sparse_gemm.TILES)}
 
 
-def hopper_sparse_gemm(decision: KernelDecision, a, values, indices, *,
-                       n_keep, m_group, out_dtype=None):
-    """The decision's path on the sparse kernel (`sparse_args`)."""
+def hopper_sparse_gemm(decision: KernelDecision, a, values, indices,
+                       scale=None, *, n_keep, m_group, out_dtype=None):
+    """The decision's path on the sparse kernel (`sparse_args`); int8
+    values with their per-column `scale` take its int8-value variant."""
     return sparse_gemm.sparse_gemm(
-        a, values, indices, n_keep=n_keep, m_group=m_group,
+        a, values, indices, scale, n_keep=n_keep, m_group=m_group,
         out_dtype=out_dtype, **sparse_args(decision))
 
 
-def ref_sparse_gemm(decision: KernelDecision, a, values, indices, *,
-                    n_keep, m_group, out_dtype=None):
+def ref_sparse_gemm(decision: KernelDecision, a, values, indices,
+                    scale=None, *, n_keep, m_group, out_dtype=None):
     """The sparse kernel's plain version; the decision is planned but
     ignored."""
     return sparse_gemm.sparse_gemm_reference(
-        a, values, indices, n_keep=n_keep, m_group=m_group,
+        a, values, indices, scale, n_keep=n_keep, m_group=m_group,
         out_dtype=out_dtype)
 
 

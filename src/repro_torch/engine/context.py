@@ -19,7 +19,9 @@ float compute width it rescales to; `quant_matmul` dispatches the
 `gemm_w8` op for `quant.quantize_params` weights.  On a sparse backend
 ("hopper-sparse", "torch-ref-sparse") `sparse_matmul` dispatches the
 `gemm_sparse` op for `sparse.prune_params` weights, keyed with the
-storage's N and M and planned at its density N/M.
+storage's N and M and planned at its density N/M; sparse x int8 storage
+(`prune_params(..., quantize=True)`) keys at in_bytes = 1, as the JAX
+package keys it, and at out_bytes = the float compute width.
 """
 
 from __future__ import annotations
@@ -148,15 +150,17 @@ class Engine:
         return decision
 
     def _resolve(self, key: tuple, op: str, m: int, k: int, n: int,
-                 groups: int, item_bytes: int, *,
-                 density: float = 1.0) -> tuple:
+                 groups: int, item_bytes: int, *, density: float = 1.0,
+                 in_bytes: int | None = None) -> tuple:
         """Miss path: full request -> decide -> registry, then memoize.
         On an int8 backend the request keys at in_bytes = 1 and the output
         at the float compute width `item_bytes`; `density` keys a sparse
-        request apart from its dense sibling."""
-        req = KernelRequest(op, m, k, n, groups=groups,
-                            in_bytes=backend_in_bytes(self.backend,
-                                                      item_bytes),
+        request apart from its dense sibling; `in_bytes` overrides the
+        backend's rule (sparse x int8 storage keys at 1 on a sparse
+        backend, which is not an int8 one)."""
+        if in_bytes is None:
+            in_bytes = backend_in_bytes(self.backend, item_bytes)
+        req = KernelRequest(op, m, k, n, groups=groups, in_bytes=in_bytes,
                             out_bytes=item_bytes, density=density)
         dec = self.decide(req)
         entry = self._memo[key] = (dec, self.registry.get(dec.backend, op))
@@ -207,14 +211,14 @@ class Engine:
         the compressed values and indices never become a dense weight in
         device memory.  The request is planned at the storage's density
         N/M, so it never shares a decision with a dense GEMM of the same
-        shape.  Only sparse backends register the op; callers guard on
+        shape; sparse x int8 storage (int8 values and per-column scales)
+        keys at in_bytes = 1 and carries the scale's presence in its memo
+        key, so it never shares a decision with float sparse storage.
+        Only sparse backends register the op; callers guard on
         `Engine.sparse`."""
-        if st.quantized:
-            raise NotImplementedError(
-                "sparse_matmul: sparse x int8 storage (int8 values and "
-                "scales) is not ported yet (ROADMAP.md queue 1 item 2)")
-        v, i = st.values, st.indices
-        key = ("gemm_sparse", a.shape, a.dtype, v.shape, v.dtype, st.n, st.m)
+        v, i, scale = st.values, st.indices, st.scale
+        key = ("gemm_sparse", a.shape, a.dtype, v.shape, v.dtype,
+               None if scale is None else scale.shape, st.n, st.m)
         hit = self._lookup(key)
         if hit is None:
             m, k = a.shape
@@ -222,9 +226,10 @@ class Engine:
                 raise ValueError(f"sparse matmul dim mismatch "
                                  f"{tuple(a.shape)} @ {st!r}")
             hit = self._resolve(key, "gemm_sparse", m, k, v.shape[-1], 1,
-                                a.element_size(), density=st.n / st.m)
+                                a.element_size(), density=st.n / st.m,
+                                in_bytes=1 if st.quantized else None)
         dec, fn = hit
-        return fn(dec, a, v, i, n_keep=st.n, m_group=st.m,
+        return fn(dec, a, v, i, scale, n_keep=st.n, m_group=st.m,
                   out_dtype=out_dtype)
 
     def grouped_matmul(self, x, w, *, out_dtype=None):

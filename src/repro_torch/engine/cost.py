@@ -28,12 +28,16 @@ int32 partial sums through HBM), at the data sheet's int8 peak.  A
 planned as the JAX package's `_decide_gemm_sparse` plans it: at K_eff =
 density x K, plus one index byte per kept value, on the kernel's tiled
 menu; at decode M it takes the kernel's split-K decode path, split by a
-wave term over the card's SMs.
+wave term over the card's SMs.  A `gemm_sparse` request keyed at
+in_bytes 1 is sparse x int8 storage under float activations (the JAX
+package's key): its values move at 1 byte, while A streams, sits in
+shared memory and is multiplied at the compute width, its `out_bytes`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 from ..kernels import grouped_gemm, quant_gemm, redas_gemm, sparse_gemm
@@ -60,12 +64,15 @@ class TileConfig:
 
 
 def hbm_traffic(m: int, k: int, n: int, cfg: TileConfig,
-                in_bytes: int = 2, out_bytes: int = 2) -> float:
+                in_bytes: int = 2, out_bytes: int = 2,
+                b_bytes: int | None = None) -> float:
     """Device-memory bytes the dataflow moves on padded dims (the formula
-    of `core/tpu_model.hbm_traffic`)."""
+    of `core/tpu_model.hbm_traffic`); B at `b_bytes`, A's `in_bytes` by
+    default."""
     mp, kp, np_ = _round_up(m, cfg.bm), _round_up(k, cfg.bk), _round_up(n, cfg.bn)
     gm, gk, gn = mp // cfg.bm, kp // cfg.bk, np_ // cfg.bn
-    a, b, o = mp * kp * in_bytes, kp * np_ * in_bytes, mp * np_ * out_bytes
+    a, o = mp * kp * in_bytes, mp * np_ * out_bytes
+    b = kp * np_ * (b_bytes or in_bytes)
     if cfg.dataflow == "os":
         return a * gn + b * gm + o
     acc = mp * np_ * 4  # f32 partial-sum stream
@@ -83,11 +90,13 @@ def peak_flops(in_bytes: int) -> float:
 
 
 def estimate(m: int, k: int, n: int, cfg: TileConfig, in_bytes: int = 2,
-             out_bytes: int = 2) -> tuple[float, float, float]:
-    """(seconds, hbm bytes, padding efficiency) of one call."""
+             out_bytes: int = 2,
+             b_bytes: int | None = None) -> tuple[float, float, float]:
+    """(seconds, hbm bytes, padding efficiency) of one call, at the peak
+    of A's width `in_bytes` (B at `b_bytes`, A's width by default)."""
     mp, kp, np_ = _round_up(m, cfg.bm), _round_up(k, cfg.bk), _round_up(n, cfg.bn)
     padded = 2.0 * mp * kp * np_
-    bytes_ = hbm_traffic(m, k, n, cfg, in_bytes, out_bytes)
+    bytes_ = hbm_traffic(m, k, n, cfg, in_bytes, out_bytes, b_bytes)
     seconds = max(padded / peak_flops(in_bytes), bytes_ / HBM_BW)
     return seconds, bytes_, 2.0 * m * k * n / padded
 
@@ -103,7 +112,7 @@ def _tile_smem(bm: int, bk: int, bn: int, in_bytes: int) -> int:
 
 def choose_tile(m: int, k: int, n: int, in_bytes: int = 2,
                 out_bytes: int = 2, dataflows=("os",), *, tiles,
-                smem=_tile_smem) -> TileConfig:
+                smem=_tile_smem, b_bytes: int | None = None) -> TileConfig:
     """The least-`estimate` legal (dataflow, tile) for one GEMM shape
     among `tiles` (the grouped, int8 or sparse kernel's menu), a tile
     being legal when `smem(bm, bk, bn, in_bytes)` fits a block's shared
@@ -114,7 +123,7 @@ def choose_tile(m: int, k: int, n: int, in_bytes: int = 2,
             continue
         for df in dataflows:
             cfg = TileConfig(df, bm, bk, bn)
-            t = estimate(m, k, n, cfg, in_bytes, out_bytes)[0]
+            t = estimate(m, k, n, cfg, in_bytes, out_bytes, b_bytes)[0]
             if t < best_t:
                 best, best_t = cfg, t
     if best is None:
@@ -174,6 +183,16 @@ DECODE_BLOCKS_PER_SM = 2
 DECODE_MIN_ROWS = 32
 
 
+def sparse_widths(request: KernelRequest) -> tuple[int, int]:
+    """(A's bytes, the values' bytes) of a `gemm_sparse` request: both
+    `in_bytes` for float storage; at in_bytes 1 (sparse x int8 storage,
+    the JAX package's key) int8 values under activations of the compute
+    width `out_bytes`."""
+    if request.in_bytes == 1:
+        return request.out_bytes, 1
+    return request.in_bytes, request.in_bytes
+
+
 def decode_cost(request: KernelRequest, split_k: int) -> dict:
     """The sparse kernel's decode path at `split_k`: the compressed
     weight (values and one index byte per kept value) and the activations
@@ -181,11 +200,12 @@ def decode_cost(request: KernelRequest, split_k: int) -> dict:
     (the wave term), the f32 workspace is written and read back at the
     full rate, and the multiply-adds of the padded rows run on FFMA."""
     m, k, n = request.m, request.k, request.n
+    a_bytes, v_bytes = sparse_widths(request)
     k_eff = max(1, round(k * request.density))
     rows = sparse_gemm.decode_rows(m)
-    tiles = -(-n // sparse_gemm.decode_columns(request.in_bytes))
+    tiles = -(-n // sparse_gemm.decode_columns(v_bytes))
     fill = min(1.0, tiles * split_k / (SMS * DECODE_BLOCKS_PER_SM))
-    streamed = k_eff * n * (request.in_bytes + 1) + m * k * request.in_bytes
+    streamed = k_eff * n * (v_bytes + 1) + m * k * a_bytes
     workspace = 2 * split_k * m * n * 4 if split_k > 1 else 0
     written = m * n * request.out_bytes
     seconds = max(2.0 * rows * k_eff * n / PEAK_FLOPS_F32,
@@ -208,10 +228,11 @@ def decide_sparse(request: KernelRequest, name: str) -> KernelDecision:
     weight sparsity, searched at K_eff = density x K plus one int8 index
     byte per kept value, pinned to OS over the tiled menu, gated by that
     kernel's one-stage shared memory at a full chunk (every spec fits);
-    `stages` says whether the density's chunk keeps a second stage.
-    `meta` carries the path and `split_k`, so they survive the plan's
-    JSON."""
+    `stages` says whether the density's chunk keeps a second stage.  Both
+    paths count A and the values at `sparse_widths`.  `meta` carries the
+    path and `split_k`, so they survive the plan's JSON."""
     m, k, n = request.m, request.k, request.n
+    a_bytes, v_bytes = sparse_widths(request)
     k_eff = max(1, round(k * request.density))
     if m <= sparse_gemm.DECODE_ROWS[-1]:
         top = min(max(1, k_eff // DECODE_MIN_ROWS), sparse_gemm.SPLIT_LIMIT)
@@ -222,7 +243,7 @@ def decide_sparse(request: KernelRequest, name: str) -> KernelDecision:
         return KernelDecision(
             op=request.op, dataflow="os", bm=best["rows"],
             bk=-(-k // split_k),
-            bn=sparse_gemm.decode_columns(request.in_bytes),
+            bn=sparse_gemm.decode_columns(v_bytes),
             cost_model=name, seconds=best["seconds"],
             meta=tuple(sorted({
                 "path": "decode", "split_k": split_k,
@@ -230,16 +251,16 @@ def decide_sparse(request: KernelRequest, name: str) -> KernelDecision:
                 **{key: best[key] for key in ("hbm_bytes", "workspace_bytes",
                                               "blocks", "k_effective")},
             }.items())))
-    cfg = choose_tile(m, k_eff, n, request.in_bytes, request.out_bytes,
-                      dataflows=("os",), tiles=sparse_gemm.TILES,
-                      smem=sparse_gemm.smem_bytes)
-    seconds, bytes_, pad_eff = estimate(m, k_eff, n, cfg, request.in_bytes,
-                                        request.out_bytes)
+    smem = functools.partial(sparse_gemm.smem_bytes, value_bytes=v_bytes)
+    cfg = choose_tile(m, k_eff, n, a_bytes, request.out_bytes,
+                      dataflows=("os",), tiles=sparse_gemm.TILES, smem=smem,
+                      b_bytes=v_bytes)
+    seconds, bytes_, pad_eff = estimate(m, k_eff, n, cfg, a_bytes,
+                                        request.out_bytes, v_bytes)
     idx_bytes = float(k_eff * n)
     # a chunk's compressed rows: (bk // M) * N <= bk x density
     rows = math.floor(cfg.bk * request.density + 1e-9)
-    stages = (2 if sparse_gemm.smem_bytes(cfg.bm, cfg.bk, cfg.bn,
-                                          request.in_bytes, rows, 2)
+    stages = (2 if smem(cfg.bm, cfg.bk, cfg.bn, a_bytes, rows, 2)
               <= SMEM_LIMIT else 1)
     return KernelDecision(
         op=request.op, dataflow="os", bm=cfg.bm, bk=cfg.bk, bn=cfg.bn,
@@ -248,9 +269,8 @@ def decide_sparse(request: KernelRequest, name: str) -> KernelDecision:
             "path": "tiled", "split_k": 1, "stages": stages,
             "hbm_bytes": bytes_ + idx_bytes, "padding_efficiency": pad_eff,
             "density": request.density, "k_effective": k_eff,
-            "smem_bytes": sparse_gemm.smem_bytes(
-                cfg.bm, cfg.bk, cfg.bn, request.in_bytes, rows,
-                stages)}.items())))
+            "smem_bytes": smem(cfg.bm, cfg.bk, cfg.bn, a_bytes, rows,
+                               stages)}.items())))
 
 
 #: `gemm_cost`'s constants, fitted by `calibrate_gemm.py --fit` to the

@@ -22,8 +22,13 @@ weights quantized (`quant.quantize_params`), the KV cache int8
 upgraded to its int8 sibling ("hopper-int8").  `--sparsity N:M` serves
 the float N:M-sparse posture: the dense weights magnitude-pruned
 (`sparse.prune_params`) and the backend upgraded to its sparse sibling
-("hopper-sparse").  The two together (sparse x int8) are not ported yet
-and the launcher refuses them.
+("hopper-sparse").  The two together serve sparse x int8: the kept
+values stored int8 with per-column scales (`prune_params(...,
+quantize=True)`, and no `quantize_params`), the KV cache int8, and
+"hopper-sparse" running the sparse GEMM's int8-value variant:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
+        --sparsity 2:4 --quantize --batch 4 --prompt-len 512 --gen 16
 
 Both run on the card; `--device cpu --smoke` runs the reduced
 configuration on the CPU (there the "hopper" backend takes the kernels'
@@ -140,16 +145,13 @@ def main(argv=None) -> dict:
                     help="structured-sparse serving posture (e.g. '2:4'): "
                          "magnitude-prune the dense weights "
                          "(sparse.prune_params) and upgrade the kernel "
-                         "backend to its sparse sibling; not with "
-                         "--quantize (sparse x int8 is not ported yet)")
+                         "backend to its sparse sibling; with --quantize "
+                         "the kept values are stored int8 (sparse x int8)")
     ap.add_argument("--plan", default=None,
                     help="ExecutionPlan JSON to warm-start the decision cache")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
-    if args.sparsity and args.quantize:
-        raise SystemExit("--sparsity with --quantize (sparse x int8 storage) "
-                         "is not ported yet (ROADMAP.md queue 1 item 2)")
 
     cfg = get_config(args.arch, smoke=args.smoke)
     dtype = torch.float32 if args.smoke else torch.bfloat16
@@ -171,7 +173,10 @@ def main(argv=None) -> dict:
         cfg, generator=torch.Generator(device=dev).manual_seed(args.seed),
         device=dev, dtype=dtype)
     if args.sparsity:
-        params = prune_params(params, *parse_sparsity(args.sparsity))
+        # with --quantize the kept values store int8 inside the
+        # SparseTensor (sparse x int8): quantize_params must not run
+        params = prune_params(params, *parse_sparsity(args.sparsity),
+                              quantize=args.quantize)
     elif args.quantize:
         params = quantize_params(params)
     if trace is not None:

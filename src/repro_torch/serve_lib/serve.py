@@ -15,8 +15,11 @@ weights: every dense matmul then runs int8 x int8 -> int32.
 orthogonal, and the launcher's `--quantize` sets both.
 `ServeConfig(sparsity="N:M")` upgrades the backend to its sparse sibling
 ("hopper-sparse", "torch-ref-sparse") and expects `sparse.prune_params`
-weights: every pruned matmul then runs on the N:M sparse GEMM.  Sparse x
-int8 (`sparsity` with `quantize=True`) is not ported yet and is refused.
+weights: every pruned matmul then runs on the N:M sparse GEMM.  With
+`quantize=True` too (sparse x int8, `prune_params(..., quantize=True)`
+weights: int8 values and per-column scales) the backend upgrades to the
+int8 sibling and then to the sparse one, as in the JAX package, and the
+pruned matmuls run on that GEMM's int8-value variant.
 `warm_start_engine` loads a saved `ExecutionPlan` so the first requests
 re-plan nothing.
 
@@ -100,8 +103,9 @@ class ServeConfig:
     quantize: bool = False
     # structured-sparsity plane: "N:M" (e.g. "2:4") upgrades
     # `kernel_backend` to its sparse sibling and expects
-    # `sparse.prune_params` weights.  With quantize=True (sparse x int8
-    # storage) it raises: that composition is not ported yet.
+    # `sparse.prune_params` weights.  Composes with quantize=True (sparse
+    # x int8: `prune_params(..., quantize=True)` storage, which the sparse
+    # backends dispatch; the KV codec stays cache_dtype's).
     sparsity: str | None = None
     # where the cache lives and the model runs ("cuda" unless the caller
     # asks for the CPU).
@@ -129,13 +133,9 @@ class ServeConfig:
                                int8_sibling(self.kernel_backend))
         if self.sparsity is not None:
             parse_sparsity(self.sparsity)  # validate "N:M" early
-            if self.quantize:
-                raise NotImplementedError(
-                    f"sparsity={self.sparsity!r} with quantize=True (sparse x "
-                    f"int8 storage) is not ported yet (ROADMAP.md queue 1 "
-                    f"item 2)")
             # after the int8 upgrade, as in the JAX package: the int8
-            # backend names upgrade to the sparse ones too
+            # backend names upgrade to the sparse ones too (sparse x int8
+            # stores int8 values inside the SparseTensor)
             object.__setattr__(self, "kernel_backend",
                                sparse_sibling(self.kernel_backend))
         if self.kernel_backend not in (None, *BACKENDS):

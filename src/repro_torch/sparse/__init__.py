@@ -11,7 +11,8 @@
 
 Execution lives in `kernels/sparse_gemm.py` (the scatter-then-multiply
 kernel) behind the engine's "hopper-sparse" / "torch-ref-sparse"
-backends.  Sparse x int8 storage waits for ROADMAP.md queue 1 item 2.
+backends; `quantize=True` stores the kept values as int8 with
+per-column scales (sparse x int8), which the same kernel takes.
 """
 
 from .nm import (SparseTensor, densify, densify_params, parse_sparsity,

@@ -5,7 +5,8 @@ A dense (..., K, N) weight is pruned per group of M consecutive K
 elements of each output column: the N largest magnitudes stay, the rest
 go.  It is stored compressed:
 
-  values   (..., K_eff, N)  the kept values, in the weight's dtype
+  values   (..., K_eff, N)  the kept values, in the weight's dtype (int8
+                            under sparse x int8 storage)
   indices  (..., K_eff, N)  int8 in-group offsets (0..M-1) of each kept
                             value, ascending within its group
   scale    (..., 1, N)      per-output-channel f32 scales of sparse x int8
@@ -17,18 +18,18 @@ a stable descending sort per group (the earlier offset wins a tie), K
 zero-padded to a multiple of M, and the densify a one-hot sum over the
 in-group offset.
 
-Sparse x int8 storage (`quantize=True`) is not ported yet (ROADMAP.md
-queue 1 item 2): `sparsify` and `prune_params` refuse it by name.
+Sparse x int8 storage (`quantize=True`) quantizes the kept f32 values
+per output column with the int8 codec's eager arithmetic
+(`quant.quantize`: scale amax / 127 over the compressed K axis, 1.0 for
+an all-zero column; round half to even; clamp to +-127), as the JAX
+package's eager `sparsify` does.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..quant.quantize import SKIP_KEYS
-
-_SPARSE_INT8 = ("sparse x int8 storage (quantize=True) is not ported yet "
-                "(ROADMAP.md queue 1 item 2)")
+from ..quant.quantize import SKIP_KEYS, quantize as _quantize
 
 
 def parse_sparsity(spec: str) -> tuple[int, int]:
@@ -130,8 +131,9 @@ class SparseTensor:
 
 
 def _sparsify_2d(x: torch.Tensor, n: int, m: int, values: torch.Tensor,
-                 indices: torch.Tensor) -> None:
-    """Prune one (K, N) matrix into `values` / `indices` (K_eff, N)."""
+                 indices: torch.Tensor, scale: torch.Tensor | None) -> None:
+    """Prune one (K, N) matrix into `values` / `indices` (K_eff, N), and
+    with `scale` (1, N) given, store the kept f32 values as int8."""
     k, ncols = x.shape
     groups = -(-k // m)
     xf = x.float()
@@ -140,7 +142,12 @@ def _sparsify_2d(x: torch.Tensor, n: int, m: int, values: torch.Tensor,
     xg = xf.reshape(groups, m, ncols)
     order = torch.sort(-xg.abs(), dim=1, stable=True).indices
     keep = torch.sort(order[:, :n], dim=1).values
-    values.copy_(torch.gather(xg, 1, keep).reshape(groups * n, ncols))
+    vals = torch.gather(xg, 1, keep).reshape(groups * n, ncols)
+    if scale is not None:
+        qt = _quantize(vals, -2)
+        vals = qt.q
+        scale.copy_(qt.scale)
+    values.copy_(vals)
     indices.copy_(keep.reshape(groups * n, ncols))
 
 
@@ -152,24 +159,30 @@ def sparsify(x: torch.Tensor, n: int = 2, m: int = 4, *,
     the `n` largest magnitudes (stable on ties: the earlier offset wins)
     and record their in-group offsets ascending.  K is zero-padded up to
     a multiple of `m` first; padded positions never displace real values
-    and `densify` slices them off.  A stacked weight is pruned one
+    and `densify` slices them off.  `quantize=True` stores the kept
+    values as int8 with a per-output-column f32 scale (..., 1, N), taken
+    from the f32 values (sparse x int8).  A stacked weight is pruned one
     (K, N) slice at a time, so the f32 temporaries stay one slice wide."""
     if not 1 <= n < m:
         raise ValueError(f"need 1 <= N < M, got {n}:{m}")
-    if quantize:
-        raise NotImplementedError(f"sparsify: {_SPARSE_INT8}")
     lead = x.shape[:-2]
     k, ncols = x.shape[-2:]
     k_eff = -(-k // m) * n
-    values = torch.empty(*lead, k_eff, ncols, dtype=x.dtype, device=x.device)
+    values = torch.empty(*lead, k_eff, ncols,
+                         dtype=torch.int8 if quantize else x.dtype,
+                         device=x.device)
     indices = torch.empty(*lead, k_eff, ncols, dtype=torch.int8,
                           device=x.device)
+    scale = (torch.empty(*lead, 1, ncols, dtype=torch.float32,
+                         device=x.device) if quantize else None)
     flat_x = x.reshape(-1, k, ncols)
     flat_v = values.view(-1, k_eff, ncols)
     flat_i = indices.view(-1, k_eff, ncols)
+    flat_s = None if scale is None else scale.view(-1, 1, ncols)
     for s in range(flat_x.shape[0]):
-        _sparsify_2d(flat_x[s], n, m, flat_v[s], flat_i[s])
-    return SparseTensor(values, indices, n=n, m=m, k_dense=k)
+        _sparsify_2d(flat_x[s], n, m, flat_v[s], flat_i[s],
+                     None if flat_s is None else flat_s[s])
+    return SparseTensor(values, indices, scale, n=n, m=m, k_dense=k)
 
 
 def densify(st: SparseTensor, dtype: torch.dtype = torch.float32
@@ -181,10 +194,10 @@ def prune_params(params, n: int = 2, m: int = 4, *, quantize: bool = False):
     """Swap every `models.layers.dense` weight for its SparseTensor: each
     `{"w": <float tensor, ndim >= 2>}` outside `SKIP_KEYS` (the targeting
     of `quant.quantize_params`).  Norm scales, biases, embeddings, the LM
-    head and MoE expert stacks keep their dtype.  One leaf is pruned at a
+    head and MoE expert stacks keep their dtype.  `quantize=True` stores
+    the kept values as int8 with per-column scales (sparse x int8); the
+    tree then takes no `quant.quantize_params`.  One leaf is pruned at a
     time."""
-    if quantize:
-        raise NotImplementedError(f"prune_params: {_SPARSE_INT8}")
 
     def walk(node, skip: bool):
         if isinstance(node, dict):
@@ -192,7 +205,7 @@ def prune_params(params, n: int = 2, m: int = 4, *, quantize: bool = False):
             for k, v in node.items():
                 if (k == "w" and not skip and isinstance(v, torch.Tensor)
                         and v.dim() >= 2 and v.is_floating_point()):
-                    out[k] = sparsify(v, n, m)
+                    out[k] = sparsify(v, n, m, quantize=quantize)
                 else:
                     out[k] = walk(v, skip or k in SKIP_KEYS)
             return out

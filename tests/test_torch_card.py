@@ -10,7 +10,8 @@ the int8 GEMM's int32 result is held to its plain version bit for bit.
 The sparse GEMM is held at those row tolerances at every N:M spec, on
 both of its paths (every tile of the tiled menu; the decode path at
 several splits) and with any int8 index array, and its repeat launches
-bit for bit.  The ReDas GEMM is held at those row tolerances in each
+bit for bit; its int8-value variant (sparse x int8 storage, with the
+per-column scale) likewise, and its scaled reduction bit for bit.  The ReDas GEMM is held at those row tolerances in each
 dataflow at a decode, a prefill and a ragged shape (WS/IS at one slab,
 the planner's slabs and the most slabs), its repeat launches and its
 reduction bit for bit.
@@ -570,21 +571,146 @@ def test_sparsity_launcher_on_the_card_serves_the_cpus_tokens(cuda, trace):
         u: c.tokens.tolist() for u, c in card.items()}
 
 
-def _sparse_configs(m, k, n_keep, m_group, itemsize):
+@pytest.mark.card
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("n_keep,m_group,m,k,n", [
+    (2, 4, 8, 1536, 1536), (2, 4, 4, 8960, 256), (2, 4, 33, 1003, 200),
+    (1, 2, 8, 256, 128), (1, 4, 5, 300, 64), (4, 8, 16, 512, 192),
+    (3, 7, 8, 1000, 130), (63, 64, 3, 200, 72), (1, 128, 2, 300, 64),
+    (127, 128, 4, 256, 64)])
+def test_sparse_int8_kernel_matches_plain_version(cuda, dtype, tol, n_keep,
+                                                  m_group, m, k, n):
+    """The int8-value variant (int8 values, per-column f32 scale) at every
+    tile of the tiled menu and, at M <= 16, the decode path at every split
+    of `_sparse_configs`, in A's dtype and in f32; two launches of each
+    configuration bit for bit; counted apart from the float variant."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randn(m, k, generator=gen, device=cuda).to(dtype)
+    st = sparsify(torch.randn(k, n, generator=gen, device=cuda), n_keep,
+                  m_group, quantize=True)
+    assert st.values.dtype == torch.int8
+    kw = {"n_keep": n_keep, "m_group": m_group}
+    sparse_gemm.reset_launches()
+    configs = _sparse_configs(m, k, n_keep, m_group, a.element_size(),
+                              int8=True)
+    for conf in configs:
+        for out in (dtype, torch.float32):
+            got = sparse_gemm.sparse_gemm(a, st.values, st.indices, st.scale,
+                                          out_dtype=out, **conf, **kw)
+            again = sparse_gemm.sparse_gemm(a, st.values, st.indices,
+                                            st.scale, out_dtype=out, **conf,
+                                            **kw)
+            ref = sparse_gemm.sparse_gemm_reference(
+                a, st.values, st.indices, st.scale, out_dtype=out, **kw)
+            assert got.dtype == out and got.shape == (m, n)
+            assert torch.equal(got, again), conf
+            assert _row_rel_l2(got, ref) <= (tol if out == dtype else 1e-4)
+    assert sparse_gemm.int8_launches == 4 * len(configs)
+    assert sparse_gemm.launches == 0
+    want = {"tiled": 4 * len(sparse_gemm.TILES)}
+    want["decode"] = 4 * len(configs) - want["tiled"]
+    assert sparse_gemm.int8_path_launches == want
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_sparse_int8_kernel_at_the_extremes(cuda, dtype, tol):
+    """Values of -127 and 127, a column whose kept values are all zero
+    (scale 1.0) and a scale given as (N,): the plain version's product on
+    both paths."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    w = torch.randn(1536, 200, generator=gen, device=cuda)
+    w[:, 7] = 0.0
+    w[::3, 11] = 50.0
+    w[1::3, 11] = -50.0
+    st = sparsify(w, 2, 4, quantize=True)
+    assert st.scale[0, 7].item() == 1.0 and not st.values[:, 7].any()
+    assert {-127, 127} <= set(st.values[:, 11].tolist())
+    scale = st.scale.reshape(-1)
+    for m in (8, 40):
+        a = torch.randn(m, 1536, generator=gen, device=cuda).to(dtype)
+        ref = sparse_gemm.sparse_gemm_reference(a, st.values, st.indices,
+                                                scale, n_keep=2, m_group=4)
+        assert not ref[:, 7].any()
+        for conf in _sparse_configs(m, 1536, 2, 4, a.element_size(),
+                                    int8=True):
+            got = sparse_gemm.sparse_gemm(a, st.values, st.indices, scale,
+                                          n_keep=2, m_group=4, **conf)
+            assert not got[:, 7].any()
+            assert _row_rel_l2(got, ref) <= tol
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(44, 8, 1536), (3, 5, 1003)])
+@pytest.mark.parametrize("scaled", [True, False])
+def test_sparse_scaled_reduction_equals_plain_bitwise(cuda, out, shape,
+                                                      scaled):
+    """The split-K reduction with a scale (and without): the partials
+    summed in split order, then times the column's scale, bit for bit its
+    plain version, with 16-byte loads (M x N a multiple of 4) and without
+    (a ragged 5 x 1003)."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    ws = torch.randn(*shape, generator=gen, device=cuda)
+    scale = (torch.rand(1, shape[-1], generator=gen, device=cuda) * 0.02
+             + 1e-3) if scaled else None
+    sparse_gemm.reset_launches()
+    got = sparse_gemm.split_reduce(ws, out, scale)
+    assert torch.equal(got, sparse_gemm.split_reduce_reference(ws, out,
+                                                               scale))
+    assert sparse_gemm.reduce_launches == 1
+
+
+def _sparse_configs(m, k, n_keep, m_group, itemsize, int8=False):
     """The kernel arguments a card test holds at (m, k): every tile of the
     tiled menu and, at M <= 16, the decode path at split 1, the planner's
-    split, one group a split, and past the groups (empty splits)."""
+    split (keyed at in_bytes 1 for `int8` values), one group a split, and
+    past the groups (empty splits)."""
     from repro_torch.engine import HopperModel, KernelRequest
 
     configs = [{"path": "tiled", "tile": t} for t in sparse_gemm.TILES]
     if m <= sparse_gemm.DECODE_ROWS[-1]:
         dec = HopperModel().decide(KernelRequest(
-            "gemm_sparse", m, k, 256, in_bytes=itemsize, out_bytes=itemsize,
-            density=n_keep / m_group))
+            "gemm_sparse", m, k, 256, in_bytes=1 if int8 else itemsize,
+            out_bytes=itemsize, density=n_keep / m_group))
         top = sparse_gemm.max_split(k, m_group)
         for split in sorted({1, dec.meta_dict["split_k"], top, top + 3}):
             configs.append({"path": "decode", "split_k": split})
     return configs
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("trace", [None, "24x8,8x4*3"])
+def test_sparse_int8_launcher_on_the_card_serves_the_cpus_tokens(cuda, trace):
+    """`--sparsity 2:4 --quantize` (sparse x int8 weights, an int8 KV
+    cache, hopper-sparse) through the launcher on the card, SMOKE f32:
+    its weights and prompts served on the CPU by the plain versions give
+    the same tokens; every pruned matmul ran on the int8-value variant."""
+    args = ["--arch", "qwen2-1.5b", "--smoke", "--sparsity", "2:4",
+            "--quantize", "--batch", "2"]
+    args += (["--prompt-len", "8", "--gen", "5"] if trace is None else
+             ["--cache-layout", "paged", "--page-size", "8", "--trace", trace])
+    sparse_gemm.reset_launches()
+    out = launch_serve.main(args)
+    assert out["serve_config"].kernel_backend == "hopper-sparse"
+    assert out["serve_config"].cache_dtype == torch.int8
+    assert sparse_gemm.int8_launches > 0 and sparse_gemm.launches == 0
+    card_cfg = out["serve_config"]
+    cpu = serve.ServeConfig(
+        max_seq=card_cfg.max_seq, batch=2, compute_dtype=torch.float32,
+        cache_dtype=torch.int8, quantize=True, sparsity="2:4", device="cpu",
+        cache_layout=card_cfg.cache_layout, page_size=8)
+    params = _to(out["params"], "cpu")
+    if trace is None:
+        want = serve.generate(params, out["cfg"], cpu, out["prompt"].cpu(), 5)
+        assert torch.equal(out["tokens"], want)
+        return
+    sched = Scheduler(params, out["cfg"], cpu)
+    done = sched.run(launch_serve.trace_requests(
+        out["cfg"], launch_serve.parse_trace(trace), 0))
+    card = out["scheduler"].completions
+    assert {u: c.tokens.tolist() for u, c in done.items()} == {
+        u: c.tokens.tolist() for u, c in card.items()}
 
 
 def _to(tree, dev):

@@ -126,13 +126,23 @@ def test_sparsify_keeps_bf16_values_exact():
 
 
 def test_sparse_x_int8_is_refused_by_name():
-    x = torch.from_numpy(_normal((16, 8), 8))
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        sparsify(x, 2, 4, quantize=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        prune_params({"w": x}, 2, 4, quantize=True)
-    with pytest.raises(ValueError, match="need 1 <= N < M"):
-        sparsify(x, 4, 4)
+    """Sparse x int8 storage is served now (tests/test_torch_sparse_int8.py
+    holds it bit for bit): `quantize=True` gives int8 values and a (1, N)
+    f32 scale, in `sparsify` and in `prune_params`, as the reference's;
+    what it still refuses, it refuses by name, with or without
+    `quantize`."""
+    x = _normal((16, 8), 8)
+    got = sparsify(torch.from_numpy(x), 2, 4, quantize=True)
+    want = jax_sparsify(jnp.asarray(x), 2, 4, quantize=True)
+    assert got.quantized and got.values.dtype == torch.int8
+    assert got.scale.dtype == torch.float32 and got.scale.shape == (1, 8)
+    np.testing.assert_array_equal(got.values.numpy(), np.asarray(want.values))
+    np.testing.assert_array_equal(got.scale.numpy(), np.asarray(want.scale))
+    tree = prune_params({"w": torch.from_numpy(x)}, 2, 4, quantize=True)
+    assert torch.equal(tree["w"].values, got.values)
+    for quantize in (False, True):
+        with pytest.raises(ValueError, match="need 1 <= N < M"):
+            sparsify(torch.from_numpy(x), 4, 4, quantize=quantize)
 
 
 @pytest.fixture(scope="module")
@@ -363,7 +373,9 @@ def test_sparse_gemm_refuses_what_the_kernel_does_not_take(bad):
     elif bad == "dtype":
         a, want, match = a.double(), TypeError, "bf16 or f32"
     elif bad == "int8":
-        v, want, match = v.to(torch.int8), NotImplementedError, "queue 1 item 2"
+        # int8 values are taken; int8 activations are not
+        a, v = a.to(torch.int8), v.to(torch.int8)
+        want, match = TypeError, "bf16 or f32 activations"
     elif bad == "k":
         a, match = a[:, :59].contiguous(), "compressed K 32 does not match"
     elif bad == "shape":
@@ -439,9 +451,14 @@ def test_serveconfig_sparsity_refuses_what_it_cannot_serve():
     with pytest.raises(ValueError, match="cannot upgrade"):
         serve.ServeConfig(max_seq=8, batch=1, sparsity="2:4",
                           kernel_backend="simulator", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+    # sparse x int8 is served (the int8 upgrade, then the sparse one), but
+    # not from a backend without an int8 sibling
+    assert serve.ServeConfig(max_seq=8, batch=1, sparsity="2:4",
+                             quantize=True,
+                             device="cpu").kernel_backend == "hopper-sparse"
+    with pytest.raises(ValueError, match="cannot upgrade"):
         serve.ServeConfig(max_seq=8, batch=1, sparsity="2:4", quantize=True,
-                          device="cpu")
+                          kernel_backend="simulator", device="cpu")
 
 
 def test_registry_holds_the_sparse_backends():
@@ -556,15 +573,25 @@ def test_sparse_request_keys_apart_and_survives_json(tmp_path):
 
 
 def test_sparse_matmul_refuses_quantized_storage_and_a_wrong_k():
+    """Quantized storage is served now, keyed at in_bytes 1 (apart from
+    float storage of the same shape); a wrong K is still refused, and so
+    is a scale the kernel does not take."""
     st = sparsify(torch.from_numpy(_normal((64, 32), 19)), 2, 4)
     a = torch.from_numpy(_normal((4, 64), 20))
     q = SparseTensor(st.values.to(torch.int8), st.indices,
-                     torch.ones(1, 32), n=2, m=4, k_dense=64)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        Engine(backend="hopper-sparse").sparse_matmul(a, q)
+                     torch.full((1, 32), 0.5), n=2, m=4, k_dense=64)
+    eng = Engine(backend="hopper-sparse")
+    got = eng.sparse_matmul(a, q)
+    assert torch.equal(got, sparse_gemm.sparse_gemm_reference(
+        a, q.values, q.indices, q.scale, n_keep=2, m_group=4))
+    eng.sparse_matmul(a, st)
+    assert sorted(req.in_bytes for req, _ in eng.plan) == [1, 4]
     with pytest.raises(ValueError, match="dim mismatch"):
-        Engine(backend="hopper-sparse").sparse_matmul(a[:, :60].contiguous(),
-                                                      st)
+        eng.sparse_matmul(a[:, :60].contiguous(), st)
+    bad = SparseTensor(q.values, q.indices, q.scale.double(), n=2, m=4,
+                       k_dense=64)
+    with pytest.raises(TypeError, match="scale must be f32"):
+        Engine(backend="hopper-sparse").sparse_matmul(a, bad)
 
 
 @pytest.mark.parametrize("m", [1, 4, 8, 16, 17, 2048, 5])
@@ -825,9 +852,14 @@ def test_launcher_serves_sparsity_on_the_cpu(trace):
 
 
 def test_launcher_refuses_sparsity_with_quantize():
-    with pytest.raises(SystemExit, match="queue 1 item 2"):
-        launch_serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                           "--sparsity", "2:4", "--quantize"])
-    with pytest.raises(ValueError, match="need 1 <= N < M"):
-        launch_serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                           "--sparsity", "4:4"])
+    """`--sparsity` with `--quantize` serves sparse x int8 now
+    (tests/test_torch_sparse_int8.py drives it); a bad spec is refused
+    with or without `--quantize`."""
+    out = launch_serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                             "--sparsity", "2:4", "--quantize", "--batch",
+                             "1", "--prompt-len", "4", "--gen", "2"])
+    assert out["params"]["stack"]["b0"]["mlp"]["wi"]["w"].quantized
+    for extra in ([], ["--quantize"]):
+        with pytest.raises(ValueError, match="need 1 <= N < M"):
+            launch_serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                               "--sparsity", "4:4", *extra])
