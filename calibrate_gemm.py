@@ -4,8 +4,9 @@ calibration sweep of the card, and refit its constants.
     python3 calibrate_gemm.py [SWEEP] [--src DIR] [--fit]
 
 SWEEP is a JSON-lines file of `chip_smoke.py --sweep` (one line per
-(shape, dataflow, tile): m, k, n, dtype, dataflow, tile and the measured
-device `us`); by default the committed tests/data/gemm_sweep_h100.jsonl.
+(shape, dataflow, tile): m, k, n, dtype, dataflow, OS's route, tile and
+the measured device `us`); by default the committed
+tests/data/gemm_sweep_h100.jsonl.
 Runs on the CPU.  It prints, for each shape, the model's decision among
 the measured configurations (each dataflow at the model's best tile for
 it, then the least of those three), its time against the fastest of the
@@ -45,13 +46,21 @@ HOLD = (512, 6144)
 
 def load(path: Path, redas_gemm) -> dict:
     """The sweep's rows by (m, k, n, dtype), keeping the configurations on
-    the package's menus."""
+    the package's menus (an OS row on its route's: "sync" where a row
+    names none)."""
     shapes = collections.defaultdict(list)
     for line in path.read_text().splitlines():
         row = json.loads(line)
-        if tuple(row["tile"]) in redas_gemm.tiles_for(row["dataflow"]):
+        menu = redas_gemm.tiles_for(row["dataflow"],
+                                    row.get("route") or "sync")
+        if tuple(row["tile"]) in menu:
             shapes[row["m"], row["k"], row["n"], row["dtype"]].append(row)
     return dict(shapes)
+
+
+def _cost(cost, m, k, n, row, size):
+    return cost.gemm_cost(m, k, n, row["dataflow"], tuple(row["tile"]), size,
+                          size, row.get("route"))
 
 
 def picks(shapes: dict, cost) -> list[dict]:
@@ -61,9 +70,7 @@ def picks(shapes: dict, cost) -> list[dict]:
     out = []
     for (m, k, n, dtype), rows in shapes.items():
         size = SIZES[dtype]
-        model = {id(r): cost.gemm_cost(m, k, n, r["dataflow"],
-                                       tuple(r["tile"]), size, size)
-                 for r in rows}
+        model = {id(r): _cost(cost, m, k, n, r, size) for r in rows}
         rows = [r for r in rows if model[id(r)] is not None]
         best = {}
         for r in rows:
@@ -95,8 +102,7 @@ def log_errors(shapes: dict, cost, hold=()) -> list[float]:
         for r in rows:
             if r["us"] > 4 * fastest:
                 continue
-            c = cost.gemm_cost(m, k, n, r["dataflow"], tuple(r["tile"]),
-                               size, size)
+            c = _cost(cost, m, k, n, r, size)
             if c is not None:
                 errs.append(math.log(c["seconds"] / (r["us"] * 1e-6)))
     return errs

@@ -11,7 +11,11 @@ Phases (any failed check exits non-zero; nothing falls back):
   2. GEMM against plain: the ReDas GEMM in each dataflow at every GEMM
      shape of the static serve (bf16) and at two shapes in f32, held to its
      plain version, with the kernel's, the plain version's and
-     torch.matmul's times beside the card's bound;
+     torch.matmul's times beside the card's bound; OS on both of its
+     routes (the wgmma kernel at the bf16 shapes, with the host time of a
+     call at decode M; the sync kernel at f32, at the ragged shape, and,
+     through operands at a misaligned base, at the bf16 shapes whose
+     decision is OS), each call's route read from the counters;
   3. attention kernels against plain: paged attention at the paged
      serve's decode shape (8 slots, 12 heads over 2 KV heads, head dim 128,
      pages of 16, a 51-page table with holes, kv_len 0, 1, a page edge and
@@ -22,15 +26,18 @@ Phases (any failed check exits non-zero; nothing falls back):
   4. the static serve (the first slice's path): `repro_torch.launch.serve`
      serving full-width qwen2-1.5b (4 requests x 512 prompt + 16 new
      tokens, bf16, weights from a seed) on the `hopper` backend; the GEMM
-     kernel must launch 7 x 28 x 16 = 3136 times.  The same entry point
-     serving 1 token gives the prefill time, and device traces of the
-     served run's `generate` the idle share;
+     kernel must launch 7 x 28 x 16 = 3136 times, every OS call of the
+     plan on the wgmma kernel.  The same entry point serving 1 token gives
+     the prefill time, and device traces of the served run's `generate`
+     the idle share (the prefill's trace shows `os_wgmma_kernel` and no
+     `os_kernel`);
   5. the paged serve (this slice's path): the same entry point in trace
      mode, 24 requests over 8 slots through the continuous-batching
      Scheduler on the paged layout; paged-kernel launches must equal
      28 x decode ticks and GEMM launches 7 x 28 x (decode ticks + prefill
-     calls).  A second pass through the same engine must plan nothing
-     new, and a device trace of 10 decode ticks gives the idle share;
+     calls), every OS call on the wgmma kernel.  A second pass through the
+     same engine must plan nothing new, and a device trace of 10 decode
+     ticks gives the idle share;
   6. prefix sharing: 12 requests with a common 256-token prefix through
      the Scheduler, paged against contiguous;
   7. parity on the card: full-width prefill logits and one paged decode
@@ -47,11 +54,12 @@ Phases (any failed check exits non-zero; nothing falls back):
      configuration as in the JAX package), full width, through the
      Scheduler on the paged layout with the paged serve's trace; grouped
      launches must equal 3 x 24 x (decode ticks + prefill calls), GEMM 4 x
-     24 x (ticks + calls), paged 24 x ticks; a second pass plans nothing
-     new; a device trace of 10 decode ticks;
+     24 x (ticks + calls) with every OS call on the wgmma kernel, paged 24
+     x ticks; a second pass plans nothing new; a device trace of 10 decode
+     ticks;
  10. granite, default einsum dispatch, through the launcher's static mode
      (8 x (256 + 16)): the grouped kernel must launch 0 times and the GEMM
-     4 x 24 x 16 times;
+     4 x 24 x 16 times, every OS call on the wgmma kernel;
  11. granite parity: one full-width paged decode tick's logits, hopper
      against torch-ref, with the count of (token, layer) top-k sets that
      differ; the SMOKE configuration in f32 (cf 8.0 and the default cf,
@@ -347,8 +355,10 @@ def phase_setup() -> None:
 
 
 #: the ReDas GEMM's kernels (csrc/redas_gemm.cu), as the profiler names
-#: them
-GEMM_KERNELS = ("::os_kernel<", "::stream_kernel<", "::stream_reduce_kernel<")
+#: them: OS on its wgmma and sync routes, WS/IS and their reduction
+WGMMA_KERNEL = "::os_wgmma_kernel<"
+GEMM_KERNELS = (WGMMA_KERNEL, "::os_kernel<", "::stream_kernel<",
+                "::stream_reduce_kernel<")
 
 
 #: the streaming reduction's kernel, as the profiler names it
@@ -376,6 +386,23 @@ def check_reductions(label: str, eng, per_layer: dict, layers: int,
     check(got == want, f"{label}: {got} reductions, but the plan's "
           f"multi-slab decisions make {want} calls")
     return got
+
+
+def check_os_routes(label: str, eng, per_layer: dict, layers: int,
+                    passes: dict) -> int:
+    """The OS GEMMs launched since the last reset equal the calls the
+    serve's plan makes at its OS decisions (the layer's calls of the
+    decision's (K, N) x the layers x the forward passes at its M), and
+    every one of them ran on the wgmma kernel (`os_wgmma_launches`)."""
+    want = sum(per_layer[req.k, req.n] * layers * passes[req.m]
+               for req, dec in eng.plan
+               if req.op == "gemm" and dec.dataflow == "os")
+    got, wgmma = redas_gemm.launches["os"], redas_gemm.os_wgmma_launches
+    print(f"{label}: {got} OS GEMMs, {wgmma} of them on the wgmma kernel; "
+          f"its plan's OS decisions make {want} calls")
+    check(got == wgmma == want, f"{label}: {got} OS GEMMs, {wgmma} on the "
+          f"wgmma kernel, but the plan's OS decisions make {want} calls")
+    return wgmma
 
 
 #: the share of a traced run's kernel launches the profiler must show: it
@@ -449,18 +476,36 @@ def _stream_extremes(m: int, k: int, n: int, size: int, df: str) -> list:
             for t in ([one] if one else []) + [(16, 64, 64)]]
 
 
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A copy of `t` whose base is 2 bytes past a 16-byte boundary: TMA
+    cannot take it, so OS runs it on the sync kernel."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    skip = next(i for i in range(1, 8)
+                if (flat.data_ptr() + i * t.element_size()) % 16)
+    out = flat[skip:skip + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def phase_kernels() -> list[dict]:
     """The ReDas GEMM against its plain version: qwen's four (K, N) at
     every M of GEMM_MAIN_M in bf16 (the static and paged decode, the
-    static prefill and the paged prefill's other widths), two f32 shapes, and untimed M = 1, 16, 17 at K =
-    8960 and a ragged (5, 1003, 200).  Each dataflow runs at the model's
-    best configuration for it (`decide_gemm` on that dataflow alone), the
-    model's seconds beside the measured ms; at M <= 16 WS and IS also at
-    one slab and at the most slabs.  Every configuration is launched
-    twice, the outputs bit for bit equal.  At each bf16 main-path shape
-    the model's decision must time within GEMM_PICK_LIMIT of the fastest
-    dataflow; at each timed decode shape whose decision has more than
-    one slab the reduction is timed alone."""
+    static prefill and the paged prefill's other widths), two f32 shapes,
+    and untimed M = 1, 16, 17 at K = 8960 and a ragged (5, 1003, 200).
+    Each dataflow runs at the model's best configuration for it
+    (`decide_gemm` on that dataflow alone), the model's seconds beside the
+    measured ms; at M <= 16 WS and IS also at one slab and at the most
+    slabs.  OS runs on the route its operands take (the wgmma kernel at
+    the bf16 shapes, the sync kernel at f32 and (5, 1003, 200), each
+    call's route read from `os_wgmma_launches`); at the timed bf16 shapes
+    whose decision is OS it also runs on the sync kernel, at its model's
+    best tile, on the same operands copied to a misaligned base.  Every
+    configuration is launched twice, the outputs bit for bit equal.  At
+    each bf16 main-path shape the model's decision must time within
+    GEMM_PICK_LIMIT of the fastest dataflow; at each timed decode shape
+    whose decision has more than one slab the reduction is timed alone;
+    at M <= 16 the host's time of an OS call (two tensor maps encoded)
+    beside torch.matmul's."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     side = torch.cuda.Stream()
     model = HopperModel()
@@ -490,19 +535,33 @@ def phase_kernels() -> list[dict]:
             shape["library_ms"] = device_ms(torch.matmul, sets, side)
         shape["bound_ms"], shape["bound_by"] = bound(m, k, n, size)
         best = {}
+        route = redas_gemm.shape_route(size, k, n)
         for df in redas_gemm.DATAFLOWS:
             dec = decide_gemm(request, model.name, dataflows=(df,))
-            configs = [(dec, gemm_args(dec))]
+            configs = [(dec, gemm_args(dec), route if df == "os" else None)]
             if df != "os" and m <= 16:
-                configs += [(None, c) for c in _stream_extremes(m, k, n,
-                                                                size, df)
+                configs += [(None, c, None)
+                            for c in _stream_extremes(m, k, n, size, df)
                             if (c["bm"], c["bk"], c["bn"])
                             != (dec.bm, dec.bk, dec.bn)]
-            for planned, conf in configs:
+            if (df == "os" and route == "wgmma" and timed
+                    and main.dataflow == "os"):
+                sync = decide_gemm(request, model.name, dataflows=("os",),
+                                   route="sync")
+                configs.append((None, gemm_args(sync), "sync"))
+            for planned, conf, os_route in configs:
                 tile = (conf["bm"], conf["bk"], conf["bn"])
-                out = redas_gemm.gemm(a, b, **conf)
-                again = redas_gemm.gemm(a, b, **conf)
+                # the sync kernel at a wgmma shape: A at a misaligned base
+                misaligned = os_route == "sync" and route == "wgmma"
+                xa = _misaligned(a) if misaligned else a
+                before = redas_gemm.os_wgmma_launches
+                out = redas_gemm.gemm(xa, b, **conf)
+                again = redas_gemm.gemm(xa, b, **conf)
                 torch.cuda.synchronize()
+                ran = redas_gemm.os_wgmma_launches - before
+                check(ran == (2 if os_route == "wgmma" else 0),
+                      f"{m}x{k}x{n} {df} route {os_route}: {ran} of 2 calls "
+                      f"on the wgmma kernel")
                 check(out.dtype == dtype and out.shape == (m, n),
                       f"gemm output {out.dtype} {tuple(out.shape)}")
                 rel = row_rel_l2(out, ref)
@@ -510,24 +569,32 @@ def phase_kernels() -> list[dict]:
                 same = torch.equal(out, again)
                 slabs = (1 if df == "os"
                          else redas_gemm.slab_count(k, tile[1]))
-                cost = gemm_cost(m, k, n, df, tile, size, size)
+                cost = gemm_cost(m, k, n, df, tile, size, size, os_route)
                 row = {**shape, "dataflow": df, "tile": list(tile),
                        "slabs": slabs, "groups": cost["groups"],
                        "role": "planned" if planned else
-                       ("one slab" if slabs == 1 else "most slabs"),
-                       "decision": (df, *tile) == (main.dataflow, main.bm,
-                                                   main.bk, main.bn),
+                       ("sync route" if misaligned else
+                        "one slab" if slabs == 1 else "most slabs"),
+                       "decision": planned is not None
+                       and (df, *tile) == (main.dataflow, main.bm, main.bk,
+                                           main.bn),
                        "model_ms": cost["seconds"] * 1e3,
                        "max_abs_err": err, "row_rel_l2": rel, "tol": tol,
                        "repeat_bit_identical": same}
+                if os_route:
+                    row["route"] = os_route
                 row["main_path"] = row["decision"] and dtype == bf16 and timed
                 if timed:
+                    sets_x = ([(_misaligned(x), y) for x, y in sets]
+                              if misaligned else sets)
                     row["ms"] = device_ms(
                         lambda x, y, conf=conf: redas_gemm.gemm(x, y, **conf),
-                        sets, side)
+                        sets_x, side)
+                    del sets_x
                     if planned:
                         best[df] = row
-                    if row["main_path"]:
+                    if row["main_path"] or (os_route == "wgmma"
+                                            and m <= 16):
                         row["host_ms"] = host_ms(
                             lambda conf=conf: redas_gemm.gemm(a, b, **conf))
                         row["library_host_ms"] = host_ms(
@@ -555,7 +622,8 @@ def phase_kernels() -> list[dict]:
                               f"{row['reduce_plain_ms']:.4f}, torch.sum "
                               f"{row['reduce_library_ms']:.4f}, bound "
                               f"{row['reduce_bound_ms']:.4f})")
-                print(f"gemm {row['dtype']} {m}x{k}x{n} {df} tile {tile} "
+                print(f"gemm {row['dtype']} {m}x{k}x{n} {df}"
+                      f"{' ' + os_route if os_route else ''} tile {tile} "
                       f"slabs {slabs} groups {row['groups']} ({row['role']}"
                       f"{', the decision' if row['decision'] else ''}): row "
                       f"rel-L2 {rel:.2e} (tol {tol:g}), max|diff| {err:.3e}, "
@@ -604,8 +672,10 @@ SWEEP_SHAPES = ([(m, k, n, torch.bfloat16)
 def sweep() -> int:
     """`chip_smoke.py --sweep`: build the ReDas GEMM, then time every
     (dataflow, tile) of its menus at SWEEP_SHAPES beside `gemm_cost`'s
-    prediction, each held to the plain version first; print one JSON
-    line per configuration (also to runs/gemm_sweep.jsonl): the data
+    prediction (OS on the route the shape takes, `shape_route`: the wgmma
+    kernel's menu at these bf16 shapes, the sync kernel's at f32), each
+    held to the plain version first; print one JSON line per
+    configuration (also to runs/gemm_sweep.jsonl): the data
     `calibrate_gemm.py` fits `engine.cost.gemm_cost`'s constants to and
     holds its decisions against (tests/data/gemm_sweep_h100.jsonl is one
     such file, its fields trimmed)."""
@@ -624,8 +694,10 @@ def sweep() -> int:
             ref = redas_gemm.gemm_reference(a, b)
             tol = BF16_ROW_TOL if dtype == torch.bfloat16 else F32_ROW_TOL
             for df in redas_gemm.DATAFLOWS:
-                for tile in redas_gemm.tiles_for(df):
-                    cost = gemm_cost(m, k, n, df, tile, size, size)
+                route = (redas_gemm.shape_route(size, k, n) if df == "os"
+                         else None)
+                for tile in redas_gemm.tiles_for(df, route or "sync"):
+                    cost = gemm_cost(m, k, n, df, tile, size, size, route)
                     if cost is None:
                         continue
                     kw = {"dataflow": df, "bm": tile[0], "bk": tile[1],
@@ -639,7 +711,9 @@ def sweep() -> int:
                         lambda x, y, kw=kw: redas_gemm.gemm(x, y, **kw), sets,
                         side)
                     row = {"m": m, "k": k, "n": n, "dtype": str(dtype)[6:],
-                           "dataflow": df, "tile": list(tile), "us": us,
+                           "dataflow": df, **({"route": route} if route
+                                              else {}),
+                           "tile": list(tile), "us": us,
                            "model_us": cost["seconds"] * 1e6,
                            "row_rel_l2": rel,
                            **{key: cost[key] for key in
@@ -884,9 +958,11 @@ def phase_main_path(cfg) -> dict:
     out = _serve(GEN)
     counts = read_counts()
     launches = dict(redas_gemm.launches)
+    passes = {BATCH * PROMPT: 1, BATCH: GEN - 1}
     reduces = check_reductions("static serve", out["engine"], LAYER_GEMMS,
-                               cfg.n_layers, {BATCH * PROMPT: 1,
-                                              BATCH: GEN - 1})
+                               cfg.n_layers, passes)
+    wgmma = check_os_routes("static serve", out["engine"], LAYER_GEMMS,
+                            cfg.n_layers, passes)
     peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     expected = sum(LAYER_GEMMS.values()) * cfg.n_layers * GEN
     tokens = out["tokens"]
@@ -920,11 +996,24 @@ def phase_main_path(cfg) -> dict:
         "seconds": out["seconds"], "tokens_per_s": out["tokens_per_s"],
         "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
         "max_memory_gib": peak, "plan": out["engine_plan"],
-        "decision_mix": mix, "launches": launches, "counts": counts,
-        "reductions": reduces, "tokens": tokens.tolist(),
+        "decision_mix": mix, "launches": launches, "os_wgmma": wgmma,
+        "counts": counts, "reductions": reduces, "tokens": tokens.tolist(),
         **_traces(out, prefill_ms, decode_ms * (GEN - 1))}
     check_traced_reductions("static serve, traced again",
                             REPORT["main_path"]["trace_serve"], reduces)
+    traced = REPORT["main_path"]["trace_prefill"]["matched"]
+    want = sum(LAYER_GEMMS[req.k, req.n] * cfg.n_layers
+               for req, dec in out["engine"].plan
+               if req.op == "gemm" and req.m == BATCH * PROMPT
+               and dec.dataflow == "os")
+    seen, sync = (traced[WGMMA_KERNEL]["count"],
+                  traced["::os_kernel<"]["count"])
+    print(f"static serve, traced prefill: {seen} os_wgmma_kernel launches "
+          f"({traced[WGMMA_KERNEL]['ms']:.3f} ms), {sync} os_kernel; the "
+          f"plan's OS decisions at prefill make {want} calls")
+    check(TRACE_KEPT * want <= seen <= want and sync == 0,
+          f"the traced prefill ran {seen} wgmma OS GEMMs and {sync} sync "
+          f"ones, want {want} and 0")
     return out
 
 
@@ -1021,6 +1110,8 @@ def phase_scheduler(cfg) -> dict:
     ticks, calls = st["decode_steps"], st["prefill_calls"]
     reduces = check_reductions("paged serve", eng, LAYER_GEMMS, cfg.n_layers,
                                _paged_passes(sched))
+    wgmma = check_os_routes("paged serve", eng, LAYER_GEMMS, cfg.n_layers,
+                            _paged_passes(sched))
     tick_ms = sched.timings["decode_s"] * 1e3 / ticks
     prefill_ms = sched.timings["prefill_s"] * 1e3
     want_paged = cfg.n_layers * ticks
@@ -1070,7 +1161,7 @@ def phase_scheduler(cfg) -> dict:
         "prefill_ms": prefill_ms, "stats": {k: v for k, v in st.items()
                                             if k != "prefill_widths"},
         "plan": eng.plan.stats, "counts": counts, "max_memory_gib": peak,
-        "launches": launches, "reductions": reduces,
+        "launches": launches, "os_wgmma": wgmma, "reductions": reduces,
         "decision_mix": decision_mix(eng),
         "second_pass_new_misses": new_misses, "trace_10_ticks": trace}
     return out
@@ -2680,8 +2771,12 @@ def phase_granite_sorted() -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = read_counts()
+    launches = dict(redas_gemm.launches)
     check_reductions("granite sorted serve", sched.engine,
                      GRANITE_LAYER_GEMMS, cfg.n_layers, _paged_passes(sched))
+    wgmma = check_os_routes("granite sorted serve", sched.engine,
+                            GRANITE_LAYER_GEMMS, cfg.n_layers,
+                            _paged_passes(sched))
     peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     eng, st = sched.engine, sched.stats
     ticks, calls = st["decode_steps"], st["prefill_calls"]
@@ -2721,8 +2816,8 @@ def phase_granite_sorted() -> dict:
         "decode_ticks": ticks, "decode_ms_per_tick": tick_ms,
         "prefill_calls": calls, "prefill_widths": sorted(st["prefill_widths"]),
         "prefill_ms": prefill_ms, "plan": eng.plan.stats, "counts": counts,
-        "max_memory_gib": peak, "second_pass_new_misses": new_misses,
-        "trace_10_ticks": prof}
+        "launches": launches, "os_wgmma": wgmma, "max_memory_gib": peak,
+        "second_pass_new_misses": new_misses, "trace_10_ticks": prof}
     return {"cfg": cfg, "scfg": scfg, "params": params, "engine": eng,
             "trace": trace}
 
@@ -2793,9 +2888,11 @@ def phase_granite_einsum() -> None:
                              "--seed", str(SEED)])
     counts = read_counts()
     cfg = out["cfg"]
+    passes = {SLOTS * EINSUM_PROMPT: 1, SLOTS: EINSUM_GEN - 1}
     check_reductions("granite einsum serve", out["engine"],
-                     GRANITE_LAYER_GEMMS, cfg.n_layers,
-                     {SLOTS * EINSUM_PROMPT: 1, SLOTS: EINSUM_GEN - 1})
+                     GRANITE_LAYER_GEMMS, cfg.n_layers, passes)
+    check_os_routes("granite einsum serve", out["engine"],
+                    GRANITE_LAYER_GEMMS, cfg.n_layers, passes)
     want = {"grouped_gemm": 0,
             "redas_gemm": 4 * cfg.n_layers * EINSUM_GEN,
             "paged_attention": 0, "flash_attention": 0, "quant_gemm": 0,
@@ -2893,64 +2990,91 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-def gemm_lines(rows: list[dict], static: dict, paged: dict) -> list[dict]:
+def gemm_lines(rows: list[dict], static: dict, paged: dict,
+               granite: dict) -> list[dict]:
     """The static serve's GEMM work at the engine's decisions, each
-    shape's time weighted by the calls that serve makes: OS (kernel row
-    1), WS/IS (row 2) and the streaming reduction (its time alone at each
-    decision with more than one slab), each with the plain version,
-    torch.matmul (torch.sum for the reduction) and the bound over the
-    same calls; launches from the static serve, the paged serve's beside
-    them."""
+    shape's time weighted by the calls that serve makes: OS on the wgmma
+    kernel (kernel row 1), the same OS calls on the kept sync kernel
+    (timed in phase 2 on operands at a misaligned base; no served path
+    launches it), WS/IS (row 2) and the streaming reduction (its time
+    alone at each decision with more than one slab), each with the plain
+    version, torch.matmul (torch.sum for the reduction) and the bound
+    over the same calls; launches from the static serve, the paged
+    serve's and granite's sorted serve's beside them."""
     cfg = get_config(ARCH)
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
-    parts = {name: dict.fromkeys(keys, 0.0) for name in ("os", "stream",
-                                                          "reduce")}
+    parts = {name: dict.fromkeys(keys, 0.0) for name in ("os", "sync",
+                                                          "stream", "reduce")}
     ops = collections.Counter()
     bytes_ = collections.Counter()
     errs = collections.defaultdict(list)
+    # each kernel's ms and calls at the prefill's M and at decode's
+    by_m = collections.defaultdict(lambda: collections.defaultdict(
+        lambda: {"ms": 0.0, "calls": 0}))
     for (k, n), per_layer in LAYER_GEMMS.items():
         for m, steps in ((BATCH * PROMPT, 1), (BATCH, GEN - 1)):
             row = next(r for r in rows if r["main_path"]
                        and (r["m"], r["k"], r["n"]) == (m, k, n))
             calls = per_layer * cfg.n_layers * steps
-            name = "os" if row["dataflow"] == "os" else "stream"
-            for key in keys:
-                parts[name][key] += calls * row[key]
-            ops[name] += calls * 2.0 * m * k * n / PEAK_FLOPS_BF16
-            bytes_[name] += calls * (m * k + k * n + m * n) * 2 / HBM_BW
-            errs[name].append(row["max_abs_err"])
+            names = (("os", "sync") if row["dataflow"] == "os"
+                     else ("stream",))
+            for name in names:
+                timed = row if name != "sync" else next(
+                    r for r in rows if r["role"] == "sync route"
+                    and (r["m"], r["k"], r["n"]) == (m, k, n))
+                for key in keys:
+                    parts[name][key] += calls * timed[key]
+                by_m[name][m]["ms"] += calls * timed["ms"]
+                by_m[name][m]["calls"] += calls
+                ops[name] += calls * 2.0 * m * k * n / PEAK_FLOPS_BF16
+                bytes_[name] += calls * (m * k + k * n + m * n) * 2 / HBM_BW
+                errs[name].append(timed["max_abs_err"])
             if "reduce_ms" in row:
                 for key in keys:
                     parts["reduce"][key] += calls * row[f"reduce_{key}"]
+                by_m["reduce"][m]["ms"] += calls * row["reduce_ms"]
+                by_m["reduce"][m]["calls"] += calls
                 slabs = row["reduce_parts"]
                 ops["reduce"] += calls * (slabs - 1) * m * n / PEAK_FLOPS_F32
                 bytes_["reduce"] += calls * (slabs * 4 + 2) * m * n / HBM_BW
                 errs["reduce"].append(row["reduce_max_abs_err"])
-    by_df = static["launches"]
-    paged_df = paged["launches"]
+    by_df, paged_df = static["launches"], paged["launches"]
     common = {"route": "cuda",
               "source": "src/repro_torch/kernels/csrc/redas_gemm.cu"}
+    os_site = "src/repro/kernels/redas_gemm.py:169 (OS, _os_kernel :108)"
     lines = []
-    for name, kernel, replaces, launches, paged_n, what in (
-            ("redas_gemm_os", "os_kernel",
-             "src/repro/kernels/redas_gemm.py:169 (OS, _os_kernel :108)",
-             by_df["os"], paged_df["os"], "OS calls"),
+    for name, kernel, replaces, launches, by_path, what in (
+            ("redas_gemm_os", "os_wgmma_kernel", os_site, static["os_wgmma"],
+             {"static_serve": static["os_wgmma"],
+              "paged_serve": paged["os_wgmma"],
+              "granite_sorted_serve": granite["os_wgmma"]}, "OS calls"),
+            ("redas_gemm_os_sync", "os_kernel", os_site,
+             by_df["os"] - static["os_wgmma"],
+             {"static_serve": by_df["os"] - static["os_wgmma"],
+              "paged_serve": paged_df["os"] - paged["os_wgmma"],
+              "granite_sorted_serve": granite["launches"]["os"]
+              - granite["os_wgmma"]},
+             "OS calls on the kept sync kernel (f32 and shapes TMA cannot "
+             "describe; timed on operands at a misaligned base)"),
             ("redas_gemm_stream", "stream_kernel",
              "src/repro/kernels/redas_gemm.py:206 (WS/IS, _streaming_kernel "
              ":126)", by_df["ws"] + by_df["is"],
-             paged_df["ws"] + paged_df["is"], "WS and IS calls"),
+             {"static_serve": by_df["ws"] + by_df["is"],
+              "paged_serve": paged_df["ws"] + paged_df["is"]},
+             "WS and IS calls"),
             ("redas_gemm_reduce", "stream_reduce_kernel",
              "src/repro/kernels/redas_gemm.py:206 (the WS/IS partial sums "
              "carried across K chunks, split into slabs on the card)",
-             static["reductions"], paged["reductions"],
-             "reductions")):
+             static["reductions"],
+             {"static_serve": static["reductions"],
+              "paged_serve": paged["reductions"]}, "reductions")):
         key = name.split("_")[-1]
+        calls = by_df["os"] if key == "sync" else launches
         lines.append({
             "name": name, **common, "kernel": kernel, "replaces": replaces,
-            "launches": launches,
-            "launches_by_path": {"static_serve": launches,
-                                 "paged_serve": paged_n},
-            "per": f"the static serve's {launches} {what}, summed",
+            "launches": launches, "launches_by_path": by_path,
+            "per": f"the static serve's {calls} {what}, summed",
+            "ms_by_m": {str(mm): v for mm, v in sorted(by_m[key].items())},
             "max_abs_err": max(errs[key]), "ms": parts[key]["ms"],
             "plain_ms": parts[key]["plain_ms"],
             "bound_ms": parts[key]["bound_ms"],
@@ -3051,7 +3175,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_granite_einsum()
     phase_granite_smoke_parity()
-    lines = [*gemm_lines(rows, REPORT["main_path"], REPORT["paged_serve"]),
+    lines = [*gemm_lines(rows, REPORT["main_path"], REPORT["paged_serve"],
+                         REPORT["granite_sorted"]),
              *attention_lines(attn, REPORT["paged_serve"]),
              grouped_line(grouped_rows, REPORT["granite_sorted"]),
              int8_line(int8_rows), paged_int8_line(paged_int8_rows, qpaged),

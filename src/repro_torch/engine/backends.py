@@ -19,23 +19,33 @@ from ..kernels import (flash_attention, grouped_gemm, paged_attention,
 from .plan import KernelDecision
 
 
-def gemm_args(decision: KernelDecision) -> dict:
+def gemm_args(decision: KernelDecision, a=None, b=None) -> dict:
     """The ReDas kernel's arguments a decision names: its dataflow and
     tile, and for WS/IS the `slabs` and `groups` its `meta` carries (a
     decision without them, e.g. from an older plan, leaves both to the
-    wrapper's rules)."""
+    wrapper's rules).  Given the operands, an OS tile that is not on the
+    menu of the route they take (`redas_gemm.os_route`: a base that is not
+    16-byte aligned, where the plan saw only the shape, or a plan from an
+    older menu) snaps to that menu's nearest tile."""
     args = {"dataflow": decision.dataflow, "bm": decision.bm,
             "bk": decision.bk, "bn": decision.bn}
     if decision.dataflow != "os":
         meta = decision.meta_dict
         args.update(slabs=meta.get("slabs"), groups=meta.get("groups"))
+    elif a is not None:
+        menu = redas_gemm.tiles_for("os", redas_gemm.os_route(a, b))
+        tile = (decision.bm, decision.bk, decision.bn)
+        if tile not in menu:
+            args.update(zip(("bm", "bk", "bn"),
+                            quant_gemm.snap_tile(*tile, tiles=menu)))
     return args
 
 
 def hopper_gemm(decision: KernelDecision, a, b, *, out_dtype=None):
     """The decision's dataflow, CTA tile, slabs and groups on the ReDas
-    kernel (`gemm_args`)."""
-    return redas_gemm.gemm(a, b, out_dtype=out_dtype, **gemm_args(decision))
+    kernel (`gemm_args`), in `out_dtype`."""
+    return redas_gemm.gemm(a, b, out_dtype=out_dtype,
+                           **gemm_args(decision, a, b))
 
 
 def ref_gemm(decision: KernelDecision, a, b, *, out_dtype=None):

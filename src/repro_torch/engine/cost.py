@@ -3,12 +3,14 @@
 `repro/core/tpu_model.py`).
 
 A `gemm` request at in_bytes 2 or 4 (the float ReDas GEMM) is planned by
-`decide_gemm` over OS's tile menu and WS/IS's streaming menu with
-`gemm_cost`, a wave term: each (dataflow, tile) launches a grid of blocks
-(OS gm x gn; WS gn x slabs x groups; IS gm x slabs x groups) that runs
-in waves of the blocks the card holds, each block walking its steps one
-after another.  Its five constants are fitted to a committed chip sweep
-(`calibrate_gemm.py`).  WS and IS count their own bytes
+`decide_gemm` over OS's tile menu (that of the OS route the request's
+width and shape take, `redas_gemm.shape_route`: the wgmma kernel's for
+bf16 that TMA can describe, else the sync kernel's) and WS/IS's streaming
+menu with `gemm_cost`, a wave term: each (dataflow, tile) launches a grid
+of blocks (OS gm x gn; WS gn x slabs x groups; IS gm x slabs x groups)
+that runs in waves of the blocks the card holds, each block walking its
+steps one after another.  Its five constants are fitted to a committed
+chip sweep (`calibrate_gemm.py`).  WS and IS count their own bytes
 (`stream_traffic`), with the K slabs' f32 workspace and the reduction
 where K spans more than one slab; the decision's `meta` carries `slabs`
 and `groups`.  There is no MXU ramp term: nothing on this card fills and
@@ -277,32 +279,42 @@ def decide_sparse(request: KernelRequest, name: str) -> KernelDecision:
 #: calibration sweep in tests/data/gemm_sweep_h100.jsonl (`chip_smoke.py
 #: --sweep`: every (dataflow, tile) at 38 shapes, NVIDIA H100 80GB HBM3,
 #: 700 W), the paged prefill's M = 512 and 6144 held out of the fit:
-#: the rate one OS block loads its tiles at (synchronous loads, two
-#: barriers a chunk), one pipeline step of a streaming block (a
-#: SUB_K-deep sub-chunk: wait for its loads, barrier, issue the next, the
-#: math), the operations one SM's resident blocks reach together (bf16 on
-#: WMMA from shared memory, f32 on FFMA), and a reduction's cost beside
-#: the workspace's bytes (its launch)
-OS_BLOCK_BW = 3.78e9
-STREAM_STEP_S = 9.02e-7
-SM_MMA_RATE = {2: 8.06e11, 4: 1.48e11}
-REDUCE_S = 5.70e-6
-#: an SM's registers, and a block's threads
+#: the rate one SM's OS blocks land their operand tiles in shared memory
+#: at (the wgmma kernel's TMA ring; the sync kernel's synchronous loads),
+#: one pipeline step of a streaming block (a SUB_K-deep sub-chunk: wait
+#: for its loads, barrier, issue the next, the math), the operations one
+#: SM's resident blocks reach together on the WMMA/FFMA kernels (bf16 on
+#: WMMA from shared memory, f32 on FFMA; the wgmma kernel's are the data
+#: sheet's peak), and a reduction's cost beside the workspace's bytes
+#: (its launch)
+OS_BLOCK_BW = 7.02e10
+STREAM_STEP_S = 1.08e-6
+SM_MMA_RATE = {2: 7.48e11, 4: 1.47e11}
+REDUCE_S = 4.92e-6
+#: an SM's registers, and the WMMA/FFMA kernels' threads a block
 SM_REGISTERS = 65536
 BLOCK_THREADS = 128
 
 
 def resident_blocks(dataflow: str, tile: tuple[int, int, int],
-                    in_bytes: int) -> int:
+                    in_bytes: int, route: str = "sync") -> int:
     """Blocks of the tile one SM holds at once: its shared memory
-    (`redas_gemm.blocks_per_sm`) and its registers, a thread's taken as 32
-    plus its share of the f32 accumulator tile (bm x bn over 128 threads
-    for OS, over 64 for WS/IS, whose fragments double it), at most 255."""
+    (`redas_gemm.blocks_per_sm`), its threads and its registers, a
+    thread's taken as 32 plus its share of the f32 accumulator tile (bm x
+    bn over 128 threads for the sync OS kernel, over 64 for WS/IS, whose
+    fragments double it; the wgmma kernel's consumer threads hold bn / 2
+    each and its producer warp as many), at most 255."""
     bm, bk, bn = tile
-    regs = min(255, 32 + bm * bn // (128 if dataflow == "os" else 64))
-    smem = redas_gemm.tile_smem(dataflow, bm, bk, bn, in_bytes)
+    if dataflow == "os" and route == "wgmma":
+        threads = redas_gemm.wgmma_threads(bm)
+        regs = min(255, 32 + bn // 2)
+    else:
+        threads = BLOCK_THREADS
+        regs = min(255, 32 + bm * bn // (128 if dataflow == "os" else 64))
+    smem = redas_gemm.tile_smem(dataflow, bm, bk, bn, in_bytes, route)
     return max(1, min(redas_gemm.blocks_per_sm(smem),
-                      SM_REGISTERS // (BLOCK_THREADS * regs)))
+                      redas_gemm.MAX_BLOCKS_PER_SM * BLOCK_THREADS // threads,
+                      SM_REGISTERS // (threads * regs)))
 
 
 def stream_traffic(m: int, k: int, n: int, dataflow: str,
@@ -325,24 +337,38 @@ def stream_traffic(m: int, k: int, n: int, dataflow: str,
 
 def gemm_cost(m: int, k: int, n: int, dataflow: str,
               tile: tuple[int, int, int], in_bytes: int = 2,
-              out_bytes: int = 2) -> dict | None:
+              out_bytes: int = 2, route: str | None = None) -> dict | None:
     """The float ReDas GEMM's time at one (dataflow, tile), or None when a
-    block does not fit shared memory.
+    block does not fit shared memory or the tile is not on the menu of the
+    kernel the call runs on (OS: `route`, by default the request's
+    `redas_gemm.shape_route`).
 
     The wave term: the grid's blocks run in waves of the blocks the card
     holds (132 SMs x `resident_blocks`), and the busiest SM's blocks
-    (`shared`, at most what it holds) split its operation rate.  A block
-    walks its steps one after another, each the longer of its own latency
-    and its share of the SM's operations:
-      OS: ceil(K / bk) chunks, each the synchronous load of its (bm + bn)
-          x bk tiles at OS_BLOCK_BW; t = max(waves x steps x step, the
-          reference's `hbm_traffic` / HBM);
+    (`shared`, at most what it holds) split its load and operation rates.
+    A block walks its steps one after another:
+      OS: ceil(K / bk) steps, each loading (bm + bn) x bk operand elements
+          at OS_BLOCK_BW and multiplying them, at the data sheet's peak
+          on the wgmma kernel, at SM_MMA_RATE on the sync kernel.  The
+          wgmma kernel's ring overlaps the two, so a step is the longer,
+          and at least one load's latency (STREAM_STEP_S) over the ring's
+          WGMMA_STAGES loads in flight, plus the ring's fill (one load's
+          latency) before the first; t = max(waves x the block's time,
+          each operand read once and the output written once / HBM: the
+          L2 serves the tiles' re-reads).  The sync kernel's chunk is a
+          ring of one stage, its load then its math; t = max(waves x the
+          block's time, the reference's `hbm_traffic` / HBM);
       WS/IS: the group's swept tiles x the slab's SUB_K-deep sub-chunks,
           each at least STREAM_STEP_S; t = max(waves x steps x step,
           `stream_traffic`'s operand reads / HBM), plus the output and
           (slabs > 1) the workspace at the HBM rate and REDUCE_S."""
     bm, bk, bn = tile
-    smem = redas_gemm.tile_smem(dataflow, bm, bk, bn, in_bytes)
+    if dataflow == "os" and route is None:
+        route = redas_gemm.shape_route(in_bytes, k, n)
+    if tile not in redas_gemm.tiles_for(dataflow, route or "sync"):
+        return None
+    smem = redas_gemm.tile_smem(dataflow, bm, bk, bn, in_bytes,
+                                route or "sync")
     if smem > SMEM_LIMIT:
         return None
     groups = redas_gemm.groups_for(dataflow, m, k, n, tile, in_bytes, SMS)
@@ -350,7 +376,7 @@ def gemm_cost(m: int, k: int, n: int, dataflow: str,
     blocks = fixed * slabs * n_groups
     if dataflow == "os":
         slabs = 1
-    per_sm = resident_blocks(dataflow, tile, in_bytes)
+    per_sm = resident_blocks(dataflow, tile, in_bytes, route or "sync")
     waves = -(-blocks // (SMS * per_sm))
     shared = min(per_sm, -(-blocks // SMS))
     rate = SM_MMA_RATE[in_bytes]
@@ -358,11 +384,19 @@ def gemm_cost(m: int, k: int, n: int, dataflow: str,
     padded = 2.0 * mp * kp * np_
     workspace = 0
     if dataflow == "os":
-        step = max((bm + bn) * bk * in_bytes / OS_BLOCK_BW,
-                   shared * 2.0 * bm * bn * bk / rate)
-        bytes_ = hbm_traffic(m, k, n, TileConfig("os", bm, bk, bn), in_bytes,
-                             out_bytes)
-        seconds = max(waves * -(-k // bk) * step, bytes_ / HBM_BW)
+        load = shared * (bm + bn) * bk * in_bytes / OS_BLOCK_BW
+        ops = shared * 2.0 * bm * bn * bk
+        if route == "wgmma":
+            block = STREAM_STEP_S + -(-k // bk) * max(
+                load, ops / (PEAK_FLOPS_BF16 / SMS),
+                STREAM_STEP_S / redas_gemm.WGMMA_STAGES)
+            # each operand read once: the L2 serves the tiles' re-reads
+            bytes_ = (m * k + k * n) * in_bytes + m * n * out_bytes
+        else:
+            block = -(-k // bk) * (load + ops / rate)
+            bytes_ = hbm_traffic(m, k, n, TileConfig("os", bm, bk, bn),
+                                 in_bytes, out_bytes)
+        seconds = max(waves * block, bytes_ / HBM_BW)
     else:
         traffic = stream_traffic(m, k, n, dataflow, tile, groups, in_bytes,
                                  out_bytes)
@@ -375,24 +409,31 @@ def gemm_cost(m: int, k: int, n: int, dataflow: str,
         seconds = (max(waves * steps * step, traffic["streamed"] / HBM_BW)
                    + (workspace + traffic["written"]) / HBM_BW
                    + (REDUCE_S if slabs > 1 else 0.0))
-    return {"seconds": seconds, "hbm_bytes": float(bytes_),
+    cost = {"seconds": seconds, "hbm_bytes": float(bytes_),
             "padding_efficiency": 2.0 * m * k * n / padded,
             "smem_bytes": smem, "slabs": slabs, "groups": groups,
             "blocks": blocks, "fill": min(1.0, blocks / (SMS * per_sm)),
             "workspace_bytes": workspace}
+    if route:
+        cost["route"] = route
+    return cost
 
 
-def decide_gemm(request: KernelRequest, name: str,
-                dataflows=DATAFLOWS) -> KernelDecision:
+def decide_gemm(request: KernelRequest, name: str, dataflows=DATAFLOWS,
+                route: str | None = None) -> KernelDecision:
     """The least-`gemm_cost` (dataflow, tile) of a float `gemm` request
-    over each dataflow's menu (OS `TILES`, WS/IS `STREAM_TILES`), the
-    first of equals in menu order; `meta` carries the cost's terms, so a
-    plan's JSON keeps `slabs` and `groups`."""
+    over each dataflow's menu (OS the menu of `route`, by default the
+    request's `redas_gemm.shape_route`; WS/IS `STREAM_TILES`), the first
+    of equals in menu order; `meta` carries the cost's terms, so a plan's
+    JSON keeps `slabs` and `groups` (and OS its route)."""
+    route = route or redas_gemm.shape_route(request.in_bytes, request.k,
+                                            request.n)
     best, best_cfg = None, None
     for df in dataflows:
-        for tile in redas_gemm.tiles_for(df):
+        for tile in redas_gemm.tiles_for(df, route):
             cost = gemm_cost(request.m, request.k, request.n, df, tile,
-                             request.in_bytes, request.out_bytes)
+                             request.in_bytes, request.out_bytes,
+                             route if df == "os" else None)
             if cost is not None and (best is None
                                      or cost["seconds"] < best["seconds"]):
                 best, best_cfg = cost, (df, tile)

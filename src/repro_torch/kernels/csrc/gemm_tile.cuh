@@ -2,9 +2,12 @@
 // (grouped_gemm.cu) share: a 128-thread block computes one (BM, BN) output
 // tile of a row-major (M, K) @ (K, N) product, sweeping K in chunks of BK
 // through shared memory with an f32 accumulator, and writes each output
-// element once.  bf16 runs on the tensor cores (WMMA 16x16x16, f32
-// accumulate), f32 on FFMA (no TF32).  Ragged M, K and N are masked here:
-// out-of-range operands read as zero, out-of-range outputs are not written.
+// element once, in its own output type (bf16 or f32, whatever the operands'
+// type).  bf16 runs on the tensor cores (WMMA 16x16x16, f32 accumulate), f32
+// on FFMA (no TF32).  Ragged M, K and N are masked here: out-of-range
+// operands read as zero, out-of-range outputs are not written.  The ReDas
+// GEMM's main OS route at bf16 is its wgmma kernel (redas_gemm.cu); this
+// tile serves f32 and the shapes TMA cannot describe.
 // The streaming dataflows of redas_gemm.cu reuse TileMath through `mma_ld`,
 // which takes the operands' leading dimensions (a sub-chunk of a slab).
 
@@ -246,11 +249,11 @@ struct Views {
 
 // One OS output tile: rows [m0, m0 + BM) and columns [n0, n0 + BN) of
 // O = A @ B, with the K loop inside the block and the f32 accumulator in
-// registers; `smem` holds Smem<T, BM, BN, BK>::bytes.
-template <typename T, int BM, int BN, int BK>
+// registers, written as OT; `smem` holds Smem<T, BM, BN, BK>::bytes.
+template <typename T, typename OT, int BM, int BN, int BK>
 __device__ __forceinline__ void os_block(const T* __restrict__ A,
                                          const T* __restrict__ B,
-                                         T* __restrict__ O, int M, int N,
+                                         OT* __restrict__ O, int M, int N,
                                          int K, int m0, int n0,
                                          unsigned char* smem) {
   Views<T, BM, BN, BK> s(smem);
@@ -265,7 +268,7 @@ __device__ __forceinline__ void os_block(const T* __restrict__ A,
   }
   tm.epilogue(s.scratch, [&](int r, int c, float v) {
     const int gr = m0 + r, gc = n0 + c;
-    if (gr < M && gc < N) O[size_t(gr) * N + gc] = from_float<T>(v);
+    if (gr < M && gc < N) O[size_t(gr) * N + gc] = from_float<OT>(v);
   });
 }
 

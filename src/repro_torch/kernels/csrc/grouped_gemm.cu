@@ -1,5 +1,6 @@
 // Grouped (per-expert) GEMM for Hopper (sm_90a): y[e] = x[e] @ w[e] for
-// x (E, C, D), w (E, D, F) -> y (E, C, F), f32 accumulation, bf16 and f32.
+// x (E, C, D), w (E, D, F) -> y (E, C, F), f32 accumulation, bf16 and f32
+// operands, y written in bf16 or f32 from the f32 accumulator.
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/grouped_gemm.py:
 //   grouped_matmul (:73), kernel body _kernel (:35)  -> grouped_os_kernel
@@ -34,28 +35,42 @@
 
 namespace {
 
-template <typename T, int BM, int BN, int BK>
+template <typename T, typename OT, int BM, int BN, int BK>
 __global__ void __launch_bounds__(kThreads)
     grouped_os_kernel(const T* __restrict__ X, const T* __restrict__ W,
-                      T* __restrict__ Y, int C, int D, int F) {
+                      OT* __restrict__ Y, int C, int D, int F) {
   extern __shared__ __align__(128) unsigned char smem[];
   const size_t e = blockIdx.z;
-  os_block<T, BM, BN, BK>(X + e * C * D, W + e * D * F, Y + e * C * F, C, F,
-                          D, blockIdx.y * BM, blockIdx.x * BN, smem);
+  os_block<T, OT, BM, BN, BK>(X + e * C * D, W + e * D * F, Y + e * C * F, C,
+                              F, D, blockIdx.y * BM, blockIdx.x * BN, smem);
 }
 
-template <typename T, int BM, int BK, int BN>
+template <typename T, typename OT, int BM, int BK, int BN>
 cudaError_t launch(const void* x, const void* w, void* y, int E, int C, int D,
                    int F, cudaStream_t stream) {
   constexpr size_t smem = Smem<T, BM, BN, BK>::bytes;
   static const cudaError_t attr =
-      allow_smem(grouped_os_kernel<T, BM, BN, BK>, smem);
+      allow_smem(grouped_os_kernel<T, OT, BM, BN, BK>, smem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((F + BN - 1) / BN, (C + BM - 1) / BM, E);
-  grouped_os_kernel<T, BM, BN, BK><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
+  grouped_os_kernel<T, OT, BM, BN, BK><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<OT*>(y),
       C, D, F);
   return cudaGetLastError();
+}
+
+template <int BM, int BK, int BN>
+cudaError_t launch_typed(int dtype, int out_dtype, const void* x,
+                         const void* w, void* y, int E, int C, int D, int F,
+                         cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  if (dtype == 0)
+    return out_dtype == 0
+               ? launch<bf16, bf16, BM, BK, BN>(x, w, y, E, C, D, F, s)
+               : launch<bf16, float, BM, BK, BN>(x, w, y, E, C, D, F, s);
+  return out_dtype == 0
+             ? launch<float, bf16, BM, BK, BN>(x, w, y, E, C, D, F, s)
+             : launch<float, float, BM, BK, BN>(x, w, y, E, C, D, F, s);
 }
 
 }  // namespace
@@ -73,19 +88,18 @@ cudaError_t launch(const void* x, const void* w, void* y, int E, int C, int D,
 
 extern "C" {
 
-// dtype: 0 = bf16, 1 = f32 (x, w and y share it).  x (E, C, D), w (E, D, F)
-// and y (E, C, F) are contiguous.  Returns the CUDA error of the launch (0 on
-// success), or -1 for a tile that is not on the menu.
-int grouped_gemm_launch(int dtype, int bm, int bk, int bn, const void* x,
-                        const void* w, void* y, int E, int C, int D, int F,
-                        void* stream) {
+// dtype (x and w) and out_dtype (y): 0 = bf16, 1 = f32.  x (E, C, D),
+// w (E, D, F) and y (E, C, F) are contiguous.  Returns the CUDA error of the
+// launch (0 on success), or -1 for a tile that is not on the menu.
+int grouped_gemm_launch(int dtype, int out_dtype, int bm, int bk, int bn,
+                        const void* x, const void* w, void* y, int E, int C,
+                        int D, int F, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define GROUPED_DISPATCH(BM, BK, BN)                                       \
-  if (bm == BM && bk == BK && bn == BN)                                    \
-    return static_cast<int>(                                               \
-        dtype == 0                                                         \
-            ? launch<__nv_bfloat16, BM, BK, BN>(x, w, y, E, C, D, F, s)    \
-            : launch<float, BM, BK, BN>(x, w, y, E, C, D, F, s));
+#define GROUPED_DISPATCH(BM, BK, BN)                                   \
+  if (bm == BM && bk == BK && bn == BN)                                \
+    return static_cast<int>(launch_typed<BM, BK, BN>(dtype, out_dtype, \
+                                                     x, w, y, E, C, D, \
+                                                     F, s));
   GROUPED_TILES(GROUPED_DISPATCH)
 #undef GROUPED_DISPATCH
   return -1;

@@ -1,12 +1,15 @@
 // ReDas GEMM for Hopper (sm_90a): out = A @ B with f32 accumulation, in the
-// three dataflows of the ReDas paper, for bf16 and f32 operands.
+// three dataflows of the ReDas paper, for bf16 and f32 operands, the output
+// written in bf16 or f32 from the f32 accumulator (the reference's
+// `out_dtype`).
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/redas_gemm.py:
-//   _os_kernel        (:108)  -> os_kernel
+//   _os_kernel        (:108)  -> os_wgmma_kernel (bf16 whose operands TMA can
+//                                describe), os_kernel (everything else)
 //   _streaming_kernel (:126)  -> stream_kernel<..., WS = true / false>
 //                                (+ stream_reduce_kernel)
 //
-// The dataflow is which operand stays resident in shared memory:
+// The dataflow is which operand stays resident on chip:
 //   OS  grid (n-tiles, m-tiles).  The K loop runs inside the block with the
 //       f32 accumulator in registers; each output tile is written once.
 //   WS  grid (n-tiles, K slabs, groups of m-tiles).  A block holds the
@@ -14,33 +17,59 @@
 //       its whole sweep over its group's m-tiles; the input streams past it.
 //   IS  the mirror of WS: grid (m-tiles, K slabs, groups of n-tiles), the
 //       (BM, BK) input slab resident while the weight streams past it.
+//
+// OS has two routes, chosen by the wrapper before the launch from the
+// operands alone (kernels/redas_gemm.py os_route):
+//   wgmma  bf16 with K % 8 == 0, N % 8 == 0 and 16-byte-aligned bases (TMA's
+//          stride and address rules; every prefill GEMM of the served
+//          models).  A block of BM = 64 or 128 rows is warp-specialised: one
+//          producer warp keeps a ring of kWgStages stages in flight, each a
+//          (BM, 64) box of A (K-major) and BN / 64 (64, 64) boxes of B
+//          (N-major), all loaded by TMA with 128-byte swizzle and completed
+//          on the stage's `full` mbarrier; one consumer warpgroup per 64 rows
+//          issues wgmma m64nBNk16 on each stage from shared memory (B read
+//          MN-major), keeps one wgmma group in flight, and frees the stage
+//          on its `empty` mbarrier when the group behind it has finished.
+//          TMA's zero fill covers a ragged M, N or K edge; B boxes wholly
+//          past N are not loaded (their columns are never stored).  The
+//          epilogue stores each accumulator pair straight from registers,
+//          masked at the edge.
+//   sync   f32, and bf16 shapes TMA cannot describe: a 128-thread block
+//          loads each (BM, BK) and (BK, BN) chunk synchronously into padded
+//          shared memory and runs WMMA 16x16x16 (bf16) or FFMA (f32) on it
+//          (csrc/gemm_tile.cuh, shared with the grouped GEMM).
+// What bounds OS on an H100: at prefill (M = 512-6144) the operations, 2MKN
+// at 989 TFLOP/s in bf16.  The wgmma ring overlaps every load with the math
+// of the stages before it, and a warpgroup's MMA runs at the tensor cores'
+// own rate; what it leaves is one block per output tile (no persistent
+// grid), so the ring's fill and the epilogue of each tile are not hidden
+// behind another tile's math, and the grid's last wave runs part-empty.
+//
 // On the TPU the streaming grid runs in order on one core and carries the
 // partial sums from one K chunk to the next through an aliased f32
 // accumulator.  Here blocks run in parallel and in no order, so the K slabs
 // are the parallel axis: each slab writes the f32 partials of its K range to
 // its own (slab, M, N) slice of a workspace, and stream_reduce_kernel,
 // launched by the same C entry right after, sums the slices in slab order
-// from zero.  No atomics: two launches on the same inputs give the same
-// bits.  When K fits one slab the block writes the output itself and
+// from zero.  No atomics anywhere: two launches on the same inputs give the
+// same bits.  When K fits one slab the block writes the output itself and
 // neither workspace nor reduction exists.
 //
 // What bounds WS/IS on an H100:
 //   - at decode (M = 4-16) the weight bytes (27.5 MB at 8960 x 1536 bf16,
 //     8.2 us at 3.35 TB/s).  Only bytes in flight on every SM reach that
 //     rate, and a grid of a few dozen blocks that each walk K in order
-//     (the previous design, and OS) leaves most SMs idle.  The parallel
-//     slabs multiply the blocks by ceil(K / BK), and each block puts its
-//     whole slab in flight at once, with stages - 1 ring pieces.  A
-//     block's pipeline steps still run one after another (about 0.9 us
-//     each on an H100), so at decode shallow slabs over many blocks
-//     beat one deep slab a block; the engine's cost model weighs that
-//     against the workspace and the reduction (engine/cost.py gemm_cost).
-//   - at prefill (M = 2048) the operations, and the f32 partial stream that
-//     the dataflow implies: the previous design read and wrote the whole
-//     (M, N) partial buffer once per BK-deep chunk (up to 280 passes at
-//     K = 8960).  Here the accumulator of the current output tile stays in
-//     registers over the slab's K sub-chunks, so a partial leaves the chip
-//     once per slab, and a slab as deep as K writes none.
+//     leaves most SMs idle.  The parallel slabs multiply the blocks by
+//     ceil(K / BK), and each block puts its whole slab in flight at once,
+//     with stages - 1 ring pieces.  A block's pipeline steps still run one
+//     after another (about 0.9 us each on an H100), so at decode shallow
+//     slabs over many blocks beat one deep slab a block; the engine's cost
+//     model weighs that against the workspace and the reduction
+//     (engine/cost.py gemm_cost).
+//   - at prefill (N = 256) the operations; the accumulator of the current
+//     output tile stays in registers over the slab's K sub-chunks, so a
+//     partial leaves the chip once per slab, and a slab as deep as K writes
+//     none.
 //
 // The pipeline of one streaming block: step u is one kSub-deep sub-chunk of
 // one swept tile; its moving-operand piece lands in ring stage u % stages by
@@ -48,23 +77,23 @@
 // math.  The first stages - 1 steps' cp.async groups carry their slab
 // sub-chunks and one group right behind them the rest of the slab, so the
 // whole slab is in flight from the start and its load overlaps the first
-// sub-chunks' math.  bf16 runs on the tensor cores (WMMA
-// 16x16x16, f32 accumulate), f32 on FFMA (no TF32); ragged M, K and N are
-// masked inside the kernels (out-of-range operands read as zero,
-// out-of-range outputs are not written), so no padded copies exist.
-// There is no wgmma, TMA or warp specialisation yet (OS at prefill is the
-// next redesign).
+// sub-chunks' math.  bf16 runs on the tensor cores (WMMA 16x16x16, f32
+// accumulate), f32 on FFMA (no TF32); ragged M, K and N are masked inside
+// the kernels (out-of-range operands read as zero, out-of-range outputs are
+// not written), so no padded copies exist.
 //
 // Built by repro_torch/kernels/_build.py with plain nvcc and loaded through
 // ctypes; the C entry points are at the end of this file.
 
 #include "gemm_tile.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kSub = 64;           // K depth of one pipeline step
 constexpr int kMaxStages = 4;      // ring stages a streaming block may use
 constexpr int kSmemLimit = 232448; // shared memory a block may use (227 KB)
+constexpr int kWgStages = 4;       // ring stages of the wgmma OS kernel
 
 // cp.async (sm_80+): 16-byte copies from device to shared memory that do not
 // hold a register while in flight.
@@ -118,13 +147,134 @@ __device__ __forceinline__ void stage_tile(T* __restrict__ dst,
   }
 }
 
-template <typename T, int BM, int BN, int BK>
+template <typename T, typename OT, int BM, int BN, int BK>
 __global__ void __launch_bounds__(kThreads)
     os_kernel(const T* __restrict__ A, const T* __restrict__ B,
-              T* __restrict__ O, int M, int N, int K) {
+              OT* __restrict__ O, int M, int N, int K) {
   extern __shared__ __align__(128) unsigned char smem[];
-  os_block<T, BM, BN, BK>(A, B, O, M, N, K, blockIdx.y * BM, blockIdx.x * BN,
-                          smem);
+  os_block<T, OT, BM, BN, BK>(A, B, O, M, N, K, blockIdx.y * BM,
+                              blockIdx.x * BN, smem);
+}
+
+// Shared memory of one wgmma OS block: kWgStages ring stages, each the
+// (BM, 64) box of A then BN / 64 (64, 64) boxes of B (bf16, 128-byte rows,
+// every box 1024-byte aligned for the swizzle), then a `full` and an `empty`
+// mbarrier per stage; 1 KB more to align the ring.  The wrapper's
+// wgmma_smem_bytes mirrors this.
+template <int BM, int BN>
+struct WgSmem {
+  static constexpr int box_b = 64 * 64 * 2;
+  static constexpr int stage_a = BM * 64 * 2;
+  static constexpr int stage = stage_a + (BN / 64) * box_b;
+  static constexpr size_t bytes = 1024 + size_t(kWgStages) * stage +
+                                  2 * kWgStages * sizeof(uint64_t);
+};
+
+template <typename OT>
+__device__ __forceinline__ void store_pair(OT* O, size_t at, float x,
+                                           float y);
+template <>
+__device__ __forceinline__ void store_pair<float>(float* O, size_t at,
+                                                  float x, float y) {
+  *reinterpret_cast<float2*>(O + at) = make_float2(x, y);
+}
+template <>
+__device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* O,
+                                                          size_t at, float x,
+                                                          float y) {
+  *reinterpret_cast<__nv_bfloat162*>(O + at) = __floats2bfloat162_rn(x, y);
+}
+
+// One (BM, BN) output tile of O = A @ B (bf16 operands, OT output): BM / 64
+// consumer warpgroups (threads 0 .. 2 BM - 1), then one producer warp.
+template <int BM, int BN, typename OT>
+__global__ void __launch_bounds__(2 * BM + 32, 1)
+    os_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
+                    const __grid_constant__ CUtensorMap tmB,
+                    OT* __restrict__ O, int M, int N, int K) {
+  constexpr int WG = BM / 64;
+  using L = WgSmem<BM, BN>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kWgStages * L::stage);
+  uint64_t* empty = full + kWgStages;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int steps = (K + 63) / 64;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);    // the producer's arrival, plus the bytes
+      mbar_init(&empty[s], WG);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * WG) {  // the producer warp: one thread issues
+    if (threadIdx.x == 128 * WG) {
+      // B boxes with a column in range; a box wholly past N is not loaded
+      const int boxes = min(BN / 64, (N - n0 + 63) / 64);
+      const uint32_t bytes = L::stage_a + boxes * L::box_b;
+      for (int k = 0; k < steps; ++k) {
+        const int s = k % kWgStages;
+        if (k >= kWgStages)  // the consumers freed this stage's last round
+          mbar_wait(&empty[s], ((k / kWgStages) - 1) & 1);
+        unsigned char* st = ring + s * L::stage;
+        mbar_expect_tx(&full[s], bytes);
+        tma_load_2d(st, &tmA, k * 64, m0, &full[s]);
+        for (int j = 0; j < boxes; ++j)
+          tma_load_2d(st + L::stage_a + j * L::box_b, &tmB, n0 + 64 * j,
+                      k * 64, &full[s]);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows [m0 + 64 wg, m0 + 64 wg + 64) of the tile
+  const int wg = threadIdx.x / 128;
+  float d[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
+  for (int k = 0; k < steps; ++k) {
+    const int s = k % kWgStages;
+    mbar_wait(&full[s], (k / kWgStages) & 1);
+    const unsigned char* a = ring + s * L::stage + wg * 64 * 128;
+    const unsigned char* b = ring + s * L::stage + L::stage_a;
+    fence_accumulator(d);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)  // four k16 steps of the 64-deep stage
+      // A K-major: 128-byte rows, 8-row groups 1024 bytes apart, the k16
+      // step 32 bytes along the row; B N-major: 16 rows (2048 bytes) a
+      // k16 step, 8-row groups 1024 bytes apart, 64-column boxes L::box_b
+      // apart
+      Wgmma<BN>::mma(d, wgmma_desc(a + kk * 32, 16, 1024),
+                     wgmma_desc(b + kk * 2048, L::box_b, 1024));
+    wgmma_commit();
+    wgmma_wait<1>();  // the group of step k - 1 has finished
+    fence_accumulator(d);
+    if (k > 0 && threadIdx.x % 128 == 0)
+      mbar_arrive(&empty[(k - 1) % kWgStages]);
+  }
+  wgmma_wait<0>();
+  fence_accumulator(d);
+
+  // the accumulator fragment: warp w of the warpgroup holds rows 16 w ..
+  // 16 w + 15, lane l rows l / 4 and l / 4 + 8, columns 8 j + 2 (l % 4)
+  // and the next for j = 0 .. BN / 8 - 1
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int r0 = m0 + wg * 64 + warp * 16 + lane / 4;
+  const int c0 = n0 + 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = c0 + 8 * j;
+    if (c < N) {  // N is even, so c + 1 < N too
+      if (r0 < M)
+        store_pair(O, size_t(r0) * N + c, d[4 * j], d[4 * j + 1]);
+      if (r0 + 8 < M)
+        store_pair(O, size_t(r0 + 8) * N + c, d[4 * j + 2], d[4 * j + 3]);
+    }
+  }
 }
 
 // Shared memory of one streaming block: the stationary slab, `stages` ring
@@ -148,13 +298,14 @@ struct StreamSmem {
 // One streaming block.  blockIdx.x is the stationary tile (the n-tile for
 // WS, the m-tile for IS), blockIdx.y the K slab [y BK, min(K, (y + 1) BK)),
 // blockIdx.z the group of swept tiles [z per, min(swept, (z + 1) per)).
-// With P null (one slab) the block writes O; else the f32 partials of its
-// slab to P[y] of the (slabs, M, N) workspace.
+// With P null (one slab) the block writes O, in f32 when out_f32 (a flag
+// uniform over the grid) else in bf16; else the f32 partials of its slab to
+// P[y] of the (slabs, M, N) workspace.
 template <typename T, int BM, int BN, int BK, bool WS>
 __global__ void __launch_bounds__(kThreads)
     stream_kernel(const T* __restrict__ A, const T* __restrict__ B,
-                  T* __restrict__ O, float* __restrict__ P, int M, int N,
-                  int K, int per, int stages) {
+                  void* __restrict__ O, float* __restrict__ P, int M, int N,
+                  int K, int per, int stages, int out_f32) {
   using L = StreamSmem<T, BM, BN, BK, WS>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* slab = reinterpret_cast<T*>(smem);
@@ -222,8 +373,10 @@ __global__ void __launch_bounds__(kThreads)
           const size_t at = size_t(gr) * N + gc;
           if (part)
             part[at] = v;
+          else if (out_f32)
+            static_cast<float*>(O)[at] = v;
           else
-            O[at] = from_float<T>(v);
+            static_cast<__nv_bfloat16*>(O)[at] = __float2bfloat16(v);
         }
       });
       tm.zero();
@@ -277,16 +430,54 @@ __global__ void __launch_bounds__(kReduceThreads)
   for (int v = 0; v < VEC; ++v) O[e + v] = from_float<T>(sum[v]);
 }
 
-template <typename T, int BM, int BK, int BN>
+template <typename T, typename OT, int BM, int BK, int BN>
 cudaError_t launch_os(const void* a, const void* b, void* o, int M, int N,
                       int K, cudaStream_t stream) {
   constexpr size_t smem = Smem<T, BM, BN, BK>::bytes;
   const int gm = (M + BM - 1) / BM, gn = (N + BN - 1) / BN;
-  static const cudaError_t attr = allow_smem(os_kernel<T, BM, BN, BK>, smem);
+  static const cudaError_t attr =
+      allow_smem(os_kernel<T, OT, BM, BN, BK>, smem);
   if (attr != cudaSuccess) return attr;
-  os_kernel<T, BM, BN, BK><<<dim3(gn, gm), kThreads, smem, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(o),
+  os_kernel<T, OT, BM, BN, BK><<<dim3(gn, gm), kThreads, smem, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<OT*>(o),
       M, N, K);
+  return cudaGetLastError();
+}
+
+template <int BM, int BK, int BN>
+cudaError_t launch_os_typed(int dtype, int out_dtype, const void* a,
+                            const void* b, void* o, int M, int N, int K,
+                            cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  if (dtype == 0)
+    return out_dtype == 0
+               ? launch_os<bf16, bf16, BM, BK, BN>(a, b, o, M, N, K, s)
+               : launch_os<bf16, float, BM, BK, BN>(a, b, o, M, N, K, s);
+  return out_dtype == 0
+             ? launch_os<float, bf16, BM, BK, BN>(a, b, o, M, N, K, s)
+             : launch_os<float, float, BM, BK, BN>(a, b, o, M, N, K, s);
+}
+
+// The tensor maps are encoded on the host at every call (the operands'
+// addresses change); a launch the operands' strides or bases do not allow
+// is refused with cudaErrorInvalidValue.
+template <int BM, int BN, typename OT>
+cudaError_t launch_os_wgmma(const void* a, const void* b, void* o, int M,
+                            int N, int K, cudaStream_t stream) {
+  if (K % 8 || N % 8 || (reinterpret_cast<uintptr_t>(a) & 15) ||
+      (reinterpret_cast<uintptr_t>(b) & 15))
+    return cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  if (!encode_bf16_map(&ta, a, M, K, BM) || !encode_bf16_map(&tb, b, K, N, 64))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = WgSmem<BM, BN>::bytes;
+  static_assert(smem <= size_t(kSmemLimit), "wgmma ring exceeds a block");
+  auto kernel = os_wgmma_kernel<BM, BN, OT>;
+  static const cudaError_t attr = allow_smem(kernel, smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  kernel<<<grid, 2 * BM + 32, smem, stream>>>(ta, tb, static_cast<OT*>(o), M,
+                                               N, K);
   return cudaGetLastError();
 }
 
@@ -310,7 +501,7 @@ cudaError_t launch_reduce(const void* p, void* o, int mn, int slabs,
 template <typename T, int BM, int BK, int BN, bool WS>
 cudaError_t launch_stream(const void* a, const void* b, void* o, void* p,
                           int M, int N, int K, int slabs, int groups,
-                          int stages, cudaStream_t stream) {
+                          int stages, int out_dtype, cudaStream_t stream) {
   using L = StreamSmem<T, BM, BN, BK, WS>;
   const int gm = (M + BM - 1) / BM, gn = (N + BN - 1) / BN;
   const int fixed = WS ? gn : gm, swept = WS ? gm : gn;
@@ -329,18 +520,21 @@ cudaError_t launch_stream(const void* a, const void* b, void* o, void* p,
                                                         : size_t(kSmemLimit));
   if (attr != cudaSuccess) return attr;
   kernel<<<dim3(fixed, slabs, n_groups), kThreads, smem, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(o),
-      static_cast<float*>(p), M, N, K, per, stages);
+      static_cast<const T*>(a), static_cast<const T*>(b), o,
+      static_cast<float*>(p), M, N, K, per, stages, out_dtype);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p == nullptr) return err;
-  return launch_reduce<T>(p, o, M * N, slabs, stream);
+  return out_dtype == 0
+             ? launch_reduce<__nv_bfloat16>(p, o, M * N, slabs, stream)
+             : launch_reduce<float>(p, o, M * N, slabs, stream);
 }
 
 }  // namespace
 
-// The OS tile menu (BM, BK, BN), compiled for both dtypes.  TILES in
-// repro_torch/kernels/redas_gemm.py is the same list (a test reads this
-// macro to hold the two together); the grouped GEMM shares its layout.
+// The sync route's OS tile menu (BM, BK, BN), compiled for both operand
+// and both output dtypes.  TILES in repro_torch/kernels/redas_gemm.py is the
+// same list (a test reads this macro to hold the two together); the grouped
+// GEMM shares its layout.
 #define REDAS_TILES(X) \
   X(16, 64, 64)        \
   X(32, 64, 64)        \
@@ -348,6 +542,18 @@ cudaError_t launch_stream(const void* a, const void* b, void* o, void* p,
   X(64, 64, 128)       \
   X(128, 32, 128)      \
   X(64, 256, 64)
+
+// The wgmma route's OS tile menu (BM, BK, BN): BM one or two consumer
+// warpgroups, BK the ring stage's depth, BN one wgmma's width; compiled for
+// both output dtypes.  Each tile is the fastest OS tile at some shape of
+// the calibration sweep (tests/data/gemm_sweep_h100.jsonl).  WGMMA_TILES in
+// repro_torch/kernels/redas_gemm.py is the same list.
+#define REDAS_WGMMA_TILES(X) \
+  X(64, 64, 64)              \
+  X(64, 64, 128)             \
+  X(128, 64, 64)             \
+  X(128, 64, 128)            \
+  X(128, 64, 256)
 
 // The streaming menu (BM, BK, BN): BK is the slab's depth (a multiple of
 // kSub), compiled for WS and IS and both dtypes.  (16, 1536, 64) holds
@@ -367,55 +573,79 @@ cudaError_t launch_stream(const void* a, const void* b, void* o, void* p,
 
 extern "C" {
 
-// OS: dtype 0 = bf16, 1 = f32 (A, B and the output share it).  Returns the
-// CUDA error of the launch (0 on success), or -1 for a tile that is not on
-// the OS menu.
-int redas_gemm_launch(int dtype, int bm, int bk, int bn, const void* a,
-                      const void* b, void* o, int M, int N, int K,
-                      void* stream) {
+// OS on the sync route: dtype (A and B) and out_dtype (the output): 0 =
+// bf16, 1 = f32.  Returns the CUDA error of the launch (0 on success), or -1
+// for a tile that is not on the sync menu.
+int redas_gemm_launch(int dtype, int out_dtype, int bm, int bk, int bn,
+                      const void* a, const void* b, void* o, int M, int N,
+                      int K, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REDAS_DISPATCH(BM, BK, BN)                                          \
-  if (bm == BM && bk == BK && bn == BN)                                     \
-    return static_cast<int>(                                                \
-        dtype == 0 ? launch_os<__nv_bfloat16, BM, BK, BN>(a, b, o, M, N, K, \
-                                                          s)                \
-                   : launch_os<float, BM, BK, BN>(a, b, o, M, N, K, s));
+#define REDAS_DISPATCH(BM, BK, BN)                                        \
+  if (bm == BM && bk == BK && bn == BN)                                   \
+    return static_cast<int>(launch_os_typed<BM, BK, BN>(dtype, out_dtype, \
+                                                        a, b, o, M, N, K, \
+                                                        s));
   REDAS_TILES(REDAS_DISPATCH)
 #undef REDAS_DISPATCH
   return -1;
 }
 
-// WS (dataflow 1) or IS (dataflow 2) at a streaming tile, writing `o`.
-// `slabs` must be ceil(K / bk); with slabs > 1 `p` is the (slabs, M, N) f32
-// workspace that receives each slab's partials, and the reduction is
-// launched after the GEMM on the same stream (two launches, one call); with
-// slabs == 1 `p` is null and the GEMM writes `o` itself.  `groups` (1 .. swept tiles) splits
+// OS on the wgmma route: bf16 A (M, K) and B (K, N), row-major, with
+// K % 8 == 0, N % 8 == 0 and 16-byte-aligned bases; out_dtype 0 = bf16, 1 =
+// f32.  Returns the CUDA error of the launch, cudaErrorInvalidValue for
+// operands TMA cannot describe, or -1 for a tile that is not on the wgmma
+// menu.
+int redas_wgmma_launch(int out_dtype, int bm, int bk, int bn, const void* a,
+                       const void* b, void* o, int M, int N, int K,
+                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define WGMMA_DISPATCH(BM, BK, BN)                                          \
+  if (bm == BM && bk == BK && bn == BN)                                     \
+    return static_cast<int>(                                                \
+        out_dtype == 0                                                      \
+            ? launch_os_wgmma<BM, BN, __nv_bfloat16>(a, b, o, M, N, K, s)   \
+            : launch_os_wgmma<BM, BN, float>(a, b, o, M, N, K, s));
+  REDAS_WGMMA_TILES(WGMMA_DISPATCH)
+#undef WGMMA_DISPATCH
+  return -1;
+}
+
+// WS (dataflow 1) or IS (dataflow 2) at a streaming tile, writing `o` in
+// out_dtype (0 = bf16, 1 = f32; dtype is the operands').  `slabs` must be
+// ceil(K / bk); with slabs > 1 `p` is the (slabs, M, N) f32 workspace that
+// receives each slab's partials, and the reduction is launched after the
+// GEMM on the same stream (two launches, one call); with slabs == 1 `p` is
+// null and the GEMM writes `o` itself.  `groups` (1 .. swept tiles) splits
 // each stationary tile's sweep among that many blocks; `stages` (2 ..
 // kMaxStages) is the ring's depth.  Returns the CUDA error of the launch,
 // cudaErrorInvalidValue for arguments the kernel does not take, or -1 for a
 // tile that is not on the streaming menu.
-int redas_stream_launch(int dataflow, int dtype, int bm, int bk, int bn,
-                        const void* a, const void* b, void* o, void* p, int M,
-                        int N, int K, int slabs, int groups, int stages,
-                        void* stream) {
-  if (dataflow != 1 && dataflow != 2)
+int redas_stream_launch(int dataflow, int dtype, int out_dtype, int bm,
+                        int bk, int bn, const void* a, const void* b, void* o,
+                        void* p, int M, int N, int K, int slabs, int groups,
+                        int stages, void* stream) {
+  if ((dataflow != 1 && dataflow != 2) || (out_dtype != 0 && out_dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define STREAM_DISPATCH(BM, BK, BN)                                        \
-  if (bm == BM && bk == BK && bn == BN) {                                  \
-    if (dtype == 0)                                                        \
-      return static_cast<int>(                                             \
-          dataflow == 1                                                    \
-              ? launch_stream<__nv_bfloat16, BM, BK, BN, true>(            \
-                    a, b, o, p, M, N, K, slabs, groups, stages, s)         \
-              : launch_stream<__nv_bfloat16, BM, BK, BN, false>(           \
-                    a, b, o, p, M, N, K, slabs, groups, stages, s));       \
-    return static_cast<int>(                                               \
-        dataflow == 1 ? launch_stream<float, BM, BK, BN, true>(            \
-                            a, b, o, p, M, N, K, slabs, groups, stages, s) \
-                      : launch_stream<float, BM, BK, BN, false>(           \
-                            a, b, o, p, M, N, K, slabs, groups, stages,    \
-                            s));                                           \
+#define STREAM_DISPATCH(BM, BK, BN)                                       \
+  if (bm == BM && bk == BK && bn == BN) {                                 \
+    if (dtype == 0)                                                       \
+      return static_cast<int>(                                            \
+          dataflow == 1                                                   \
+              ? launch_stream<__nv_bfloat16, BM, BK, BN, true>(           \
+                    a, b, o, p, M, N, K, slabs, groups, stages,           \
+                    out_dtype, s)                                         \
+              : launch_stream<__nv_bfloat16, BM, BK, BN, false>(          \
+                    a, b, o, p, M, N, K, slabs, groups, stages,           \
+                    out_dtype, s));                                       \
+    return static_cast<int>(                                              \
+        dataflow == 1                                                     \
+            ? launch_stream<float, BM, BK, BN, true>(                     \
+                  a, b, o, p, M, N, K, slabs, groups, stages, out_dtype,  \
+                  s)                                                      \
+            : launch_stream<float, BM, BK, BN, false>(                    \
+                  a, b, o, p, M, N, K, slabs, groups, stages, out_dtype,  \
+                  s));                                                    \
   }
   REDAS_STREAM_TILES(STREAM_DISPATCH)
 #undef STREAM_DISPATCH

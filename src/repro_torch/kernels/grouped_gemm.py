@@ -3,7 +3,9 @@ plain version.
 
 `grouped_matmul` computes what `repro.kernels.grouped_gemm.grouped_matmul`
 computes — y[e] = x[e] @ w[e] for x (E, C, D) and w (E, D, F), with f32
-accumulation — through the CUDA kernel in `csrc/grouped_gemm.cu`: one
+accumulation, written in `out_dtype` (bf16 or f32; x's dtype unless
+given), as the JAX package's grouped backend casts its f32 result —
+through the CUDA kernel in `csrc/grouped_gemm.cu`: one
 block per (expert, C tile, F tile), the D sweep inside the block (OS).
 The decision's (bm, bk, bn) is the per-expert tile over (C, D, F), and it
 must be one of `TILES`, the menu the kernel is compiled for.  Ragged C, D
@@ -67,9 +69,8 @@ def _check(x: torch.Tensor, w: torch.Tensor, tile: tuple[int, int, int],
     if x.dtype != w.dtype or x.dtype not in _DTYPE_CODE:
         raise TypeError(f"grouped_matmul takes two bf16 or two f32 operands, "
                         f"got {x.dtype} and {w.dtype}")
-    if out_dtype not in (None, x.dtype):
-        raise TypeError(f"the kernel writes its operand dtype {x.dtype}, "
-                        f"not {out_dtype}")
+    if out_dtype not in (None, *_DTYPE_CODE):
+        raise TypeError(f"the kernel writes bf16 or f32, not {out_dtype}")
     if x.device != w.device:
         raise ValueError(f"operands on {x.device} and {w.device}")
     if not (x.is_contiguous() and w.is_contiguous()):
@@ -89,7 +90,7 @@ def _check(x: torch.Tensor, w: torch.Tensor, tile: tuple[int, int, int],
 def _library() -> ctypes.CDLL:
     lib = _build.load("grouped_gemm")
     lib.grouped_gemm_launch.argtypes = (
-        [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+        [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
         + [ctypes.c_void_p])
     lib.grouped_gemm_launch.restype = ctypes.c_int
     return lib
@@ -98,8 +99,9 @@ def _library() -> ctypes.CDLL:
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
                    tile: tuple[int, int, int],
                    out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """x (E, C, D) @ w (E, D, F) -> (E, C, F) through the grouped kernel
-    with per-expert tile `tile` = (bm, bk, bn).
+    """x (E, C, D) @ w (E, D, F) -> (E, C, F) in `out_dtype` (x's dtype if
+    None) through the grouped kernel with per-expert tile `tile` = (bm,
+    bk, bn).
 
     CUDA operands launch the kernel on the current stream; CPU operands
     get `grouped_matmul_reference`.  Raises on anything the kernel does
@@ -114,11 +116,12 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
                          f"{x.device}")
     e, c, d = x.shape
     f = w.shape[2]
-    out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
+    out = torch.empty((e, c, f), dtype=out_dtype or x.dtype, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
         err = lib.grouped_gemm_launch(
-            _DTYPE_CODE[x.dtype], *tile, x.data_ptr(), w.data_ptr(),
+            _DTYPE_CODE[x.dtype], _DTYPE_CODE[out.dtype], *tile,
+            x.data_ptr(), w.data_ptr(),
             out.data_ptr(), e, c, d, f,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:

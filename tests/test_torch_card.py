@@ -14,7 +14,9 @@ bit for bit; its int8-value variant (sparse x int8 storage, with the
 per-column scale) likewise, and its scaled reduction bit for bit.  The ReDas GEMM is held at those row tolerances in each
 dataflow at a decode, a prefill and a ragged shape (WS/IS at one slab,
 the planner's slabs and the most slabs), its repeat launches and its
-reduction bit for bit.
+reduction bit for bit; its wgmma OS kernel at every tile of its menu, at
+qwen's prefill shapes and ragged ones, in both output dtypes; every GEMM
+kernel's f32 output from bf16 operands.
 """
 
 import dataclasses
@@ -118,13 +120,16 @@ def test_redas_counters_count_gemms_and_reductions(cuda):
     a = torch.randn(8, 1024, device=cuda, dtype=torch.bfloat16)
     b = torch.randn(1024, 512, device=cuda, dtype=torch.bfloat16)
     redas_gemm.reset_launches()
-    redas_gemm.gemm(a, b, dataflow="os", bm=16, bk=64, bn=64)
+    redas_gemm.gemm(a, b, dataflow="os", bm=64, bk=64, bn=128)   # wgmma
+    redas_gemm.gemm(a.float(), b.float(), dataflow="os", bm=16, bk=64,
+                    bn=64)                                       # sync
     redas_gemm.gemm(a, b, dataflow="ws", bm=16, bk=1536, bn=64)  # one slab
     redas_gemm.gemm(a, b, dataflow="ws", bm=16, bk=256, bn=64)   # four
     redas_gemm.gemm(a, b, dataflow="is", bm=16, bk=64, bn=64)    # sixteen
     redas_gemm.gemm_reference(a, b)
     redas_gemm.stream_reference(a, b, 256)
-    assert redas_gemm.launches == {"os": 1, "ws": 2, "is": 1}
+    assert redas_gemm.launches == {"os": 2, "ws": 2, "is": 1}
+    assert redas_gemm.os_wgmma_launches == 1
     assert redas_gemm.reduce_launches == 2
     ws = torch.randn(5, 7, 33, device=cuda)
     for dtype in (torch.float32, torch.bfloat16):
@@ -133,7 +138,98 @@ def test_redas_counters_count_gemms_and_reductions(cuda):
     assert redas_gemm.reduce_launches == 4
     redas_gemm.reset_launches()
     assert redas_gemm.launches == {"os": 0, "ws": 0, "is": 0}
-    assert redas_gemm.reduce_launches == 0
+    assert redas_gemm.os_wgmma_launches == redas_gemm.reduce_launches == 0
+
+
+def _misaligned(t):
+    """A copy of `t` whose base is 2 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    skip = next(i for i in range(1, 8)
+                if (flat.data_ptr() + i * t.element_size()) % 16)
+    out = flat[skip:skip + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("m,k,n", [(2048, 1536, 1536), (2048, 1536, 256),
+                                   (2048, 1536, 8960), (2048, 8960, 1536),
+                                   (1, 1536, 1536), (17, 1536, 256),
+                                   (2047, 1536, 8960), (40, 1000, 200)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_wgmma_kernel_matches_plain_version(cuda, m, k, n, out_dtype):
+    """The wgmma OS kernel at every tile of its menu against
+    `gemm_reference` in both output dtypes: qwen's four (K, N) at the
+    prefill's M = 2048, ragged M (1, 17, 2047) and a K that is a multiple
+    of 8 but not of the ring's 64 (1000 x 200: TMA zero-fills the edge);
+    a repeat launch bit for bit equal; every call counted on the wgmma
+    route.  The same operands at a misaligned base run the sync kernel."""
+    gen = torch.Generator(device=cuda).manual_seed(m + n)
+    a = torch.randn(m, k, generator=gen, device=cuda).bfloat16()
+    b = (torch.randn(k, n, generator=gen, device=cuda) / k ** 0.5).bfloat16()
+    ref = redas_gemm.gemm_reference(a, b, out_dtype)
+    assert redas_gemm.os_route(a, b) == "wgmma"
+    redas_gemm.reset_launches()
+    for bm, bk, bn in redas_gemm.WGMMA_TILES:
+        got = redas_gemm.gemm(a, b, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
+        again = redas_gemm.gemm(a, b, bm=bm, bk=bk, bn=bn,
+                                out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype and got.shape == (m, n)
+        assert _row_rel_l2(got, ref) <= 1e-2, (bm, bk, bn)
+        assert torch.equal(got, again), (bm, bk, bn)
+    calls = 2 * len(redas_gemm.WGMMA_TILES)
+    assert redas_gemm.os_wgmma_launches == redas_gemm.launches["os"] == calls
+    off = _misaligned(a)
+    assert redas_gemm.os_route(off, b) == "sync"
+    got = redas_gemm.gemm(off, b, bm=64, bk=64, bn=128, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert _row_rel_l2(got, ref) <= 1e-2
+    assert redas_gemm.os_wgmma_launches == calls
+    assert redas_gemm.launches["os"] == calls + 1
+
+
+@pytest.mark.card
+def test_gemm_kernels_write_f32_from_bf16_operands(cuda):
+    """Every float GEMM kernel writes f32 (and bf16 from f32 operands)
+    from its f32 accumulator: the sync OS kernel, WS/IS at one slab
+    (the kernel's own store) and at many (the reduction's), the grouped
+    kernel, and `Engine.matmul(..., out_dtype=torch.float32)` on
+    `hopper`."""
+    from repro_torch.engine import Engine
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    a = torch.randn(300, 512, generator=gen, device=cuda).bfloat16()
+    b = (torch.randn(512, 384, generator=gen, device=cuda)
+         / 512 ** 0.5).bfloat16()
+    for x, y, out_dtype, tol in ((a, b, torch.float32, 1e-2),
+                                 (a.float(), b.float(), torch.bfloat16,
+                                  1e-2)):
+        ref = redas_gemm.gemm_reference(x, y, out_dtype)
+        for conf in ({"dataflow": "os", "bm": 64, "bk": 64, "bn": 128},
+                     {"dataflow": "ws", "bm": 64, "bk": 512, "bn": 64},
+                     {"dataflow": "is", "bm": 64, "bk": 256, "bn": 64}):
+            got = redas_gemm.gemm(x, y, out_dtype=out_dtype, **conf)
+            torch.cuda.synchronize()
+            assert got.dtype == out_dtype, conf
+            assert _row_rel_l2(got, ref) <= tol, conf
+        got = redas_gemm.gemm(_misaligned(x), y, bm=64, bk=64, bn=128,
+                              out_dtype=out_dtype)
+        assert _row_rel_l2(got, ref) <= tol
+    x = torch.randn(4, 40, 256, generator=gen, device=cuda).bfloat16()
+    w = (torch.randn(4, 256, 72, generator=gen, device=cuda) / 16).bfloat16()
+    got = grouped_gemm.grouped_matmul(x, w, tile=(32, 64, 64),
+                                      out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    assert _row_rel_l2(got, grouped_gemm.grouped_matmul_reference(
+        x, w, torch.float32)) <= 1e-4
+    redas_gemm.reset_launches()
+    got = Engine(backend="hopper").matmul(a, b, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert _row_rel_l2(got, redas_gemm.gemm_reference(
+        a, b, torch.float32)) <= 1e-4
+    assert sum(redas_gemm.launches.values()) == 1
 
 
 @pytest.mark.card

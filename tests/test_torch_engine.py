@@ -65,22 +65,29 @@ def test_hits_and_misses_count_as_in_jax_engine():
 @pytest.mark.parametrize("in_bytes", [2, 4])
 @pytest.mark.parametrize("shape", MAIN_PATH_SHAPES)
 def test_hopper_decisions_lie_in_menu_and_fit_shared_memory(shape, in_bytes):
-    """Each decision's tile is on its dataflow's menu, and its block's
-    shared memory in that dataflow's layout (OS: `smem_bytes`, which the
+    """Each decision's tile is on its dataflow's menu (OS: the menu of the
+    route the shape takes, the wgmma kernel's for these bf16 shapes, the
+    sync kernel's for f32), and its block's shared memory in that
+    kernel's layout (wgmma: the TMA ring; sync OS: `smem_bytes`, which the
     grouped GEMM shares; WS/IS: the slab and the ring at the depth the
     wrapper launches) fits the card and is what `meta` records."""
     dec = HopperModel().decide(KernelRequest("gemm", *shape, in_bytes=in_bytes,
                                              out_bytes=in_bytes))
     assert dec.dataflow in redas_gemm.DATAFLOWS
-    assert (dec.bm, dec.bk, dec.bn) in redas_gemm.tiles_for(dec.dataflow)
+    route = "wgmma" if in_bytes == 2 else "sync"
+    assert redas_gemm.shape_route(in_bytes, *shape[1:]) == route
     tile = (dec.bm, dec.bk, dec.bn)
     if dec.dataflow == "os":
-        smem = redas_gemm.smem_bytes(*tile, in_bytes)
+        assert tile in redas_gemm.tiles_for("os", route)
+        assert dec.meta_dict["route"] == route
+        smem = (redas_gemm.wgmma_smem_bytes(*tile) if route == "wgmma"
+                else redas_gemm.smem_bytes(*tile, in_bytes))
     else:
+        assert tile in redas_gemm.tiles_for(dec.dataflow)
         smem = redas_gemm.stream_smem_bytes(
             dec.dataflow, *tile, in_bytes,
             redas_gemm.stream_stages(dec.dataflow, *tile, in_bytes))
-    assert smem == redas_gemm.tile_smem(dec.dataflow, *tile, in_bytes)
+    assert smem == redas_gemm.tile_smem(dec.dataflow, *tile, in_bytes, route)
     assert smem == dec.meta_dict["smem_bytes"] <= 232_448
     assert dec.seconds > 0
 
@@ -96,33 +103,36 @@ def test_traffic_formula_equals_jax_packages():
 
 
 #: decode M = 4 (static) and 8 (paged): WS or IS, K split into slabs
-#: where it spans more than one; prefill M = 2048: OS, but a streaming
-#: dataflow at N = 256 (WS and IS within 1.14x of each other there, OS
-#: 2.5x slower, in tests/data/gemm_sweep_h100.jsonl)
-PREFILL_DATAFLOW = {(1536, 1536): ("os",), (1536, 256): ("ws", "is"),
-                    (1536, 8960): ("os",), (8960, 1536): ("os",)}
+#: where it spans more than one, but OS on the wgmma kernel at N = 8960
+#: (13.3-13.4 us against WS/IS's 17.0-17.4, 1.3x, in
+#: tests/data/gemm_sweep_h100.jsonl); prefill M = 2048: OS on the wgmma
+#: kernel at every (K, N), N = 256 included (10.3 us against 23.6)
+DECODE_DATAFLOW = {(1536, 1536): ("ws", "is"), (1536, 256): ("ws", "is"),
+                   (1536, 8960): ("os",), (8960, 1536): ("ws", "is")}
 
 
 @pytest.mark.parametrize("m", [4, 8, 2048])
 @pytest.mark.parametrize("k,n", MAIN_PATH_KN)
 def test_hopper_gemm_picks_streaming_at_decode_and_os_at_prefill(m, k, n):
-    """The wave term moves qwen's bf16 decode GEMMs off OS's serial K
-    loop (24 blocks at 4 x 8960 x 1536) onto WS/IS with K slabs in
-    parallel; the decision's `meta` carries the slabs and groups the
-    kernel runs at."""
+    """The wave term moves qwen's bf16 decode GEMMs off OS's serial K loop
+    onto WS/IS with K slabs in parallel, except where the wgmma OS
+    kernel's one wave of blocks is faster (N = 8960); prefill is OS.  A
+    streaming decision's `meta` carries the slabs and groups the kernel
+    runs at, an OS one its route."""
     dec = HopperModel().decide(KernelRequest("gemm", m, k, n))
     meta = dec.meta_dict
     tile = (dec.bm, dec.bk, dec.bn)
-    if m <= 16:
-        assert dec.dataflow in ("ws", "is")
+    want = DECODE_DATAFLOW[k, n] if m <= 16 else ("os",)
+    assert dec.dataflow in want
+    if dec.dataflow == "os":
+        assert meta["route"] == "wgmma" and meta["slabs"] == 1
+    else:
         assert meta["slabs"] == redas_gemm.slab_count(k, dec.bk)
         assert meta["groups"] == redas_gemm.groups_for(
             dec.dataflow, m, k, n, tile, 2)
         os_dec = cost.decide_gemm(KernelRequest("gemm", m, k, n), "test",
                                   dataflows=("os",))
-        assert os_dec.seconds > 3 * dec.seconds
-    else:
-        assert dec.dataflow in PREFILL_DATAFLOW[k, n]
+        assert os_dec.seconds > dec.seconds
     assert meta["blocks"] == math.prod(redas_gemm.grid(
         dec.dataflow, m, k, n, tile, meta["groups"]))
     assert 0 < meta["fill"] <= 1
@@ -145,7 +155,8 @@ def _sweep() -> dict:
     shapes = collections.defaultdict(list)
     for line in SWEEP.read_text().splitlines():
         row = json.loads(line)
-        if tuple(row["tile"]) in redas_gemm.tiles_for(row["dataflow"]):
+        if tuple(row["tile"]) in redas_gemm.tiles_for(
+                row["dataflow"], row.get("route") or "sync"):
             shapes[row["m"], row["k"], row["n"], row["dtype"]].append(row)
     return shapes
 
@@ -162,7 +173,8 @@ def test_gemm_cost_picks_hold_on_the_cards_sweep(held_out):
     assert len(shapes) == (8 if held_out else 28)
     for (m, k, n, _), rows in shapes.items():
         seconds = {id(r): cost.gemm_cost(m, k, n, r["dataflow"],
-                                         tuple(r["tile"]))["seconds"]
+                                         tuple(r["tile"]), 2, 2,
+                                         r.get("route"))["seconds"]
                    for r in rows}
         best = {}
         for r in rows:
@@ -208,13 +220,13 @@ def test_stream_decisions_keep_slabs_and_groups_through_json(tmp_path):
         assert (args["dataflow"], args["bm"], args["bk"], args["bn"]) == (
             dec.dataflow, dec.bm, dec.bk, dec.bn)
         if dec2.dataflow == "os":
-            assert "slabs" not in args
+            assert "slabs" not in args and meta["route"] == "wgmma"
         else:
             streamed += 1
             assert (args["slabs"], args["groups"]) == (meta["slabs"],
                                                        meta["groups"])
             assert type(args["groups"]) is int
-    assert streamed >= 4
+    assert streamed >= 3     # decode at N = 1536 and 256 (DECODE_DATAFLOW)
 
 
 #: the decisions of the other kernels' requests at their main-path shapes,

@@ -9,7 +9,8 @@ The CUDA kernel runs only on the card: `chip_smoke.py` and
 tests/test_torch_card.py hold it against this plain version there.
 Tolerance rtol 2e-5, atol 2e-4, as tests/test_kernels.py holds the f32
 TPU kernels to their oracle (f32 both sides; only the order of sums
-differs).
+differs); a bf16 output within one bf16 ulp (rtol 2^-7), the f32 sums
+then rounding either way.
 """
 
 import re
@@ -89,8 +90,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
                                     .transpose(1, 2), w, tile=tile)
     with pytest.raises(TypeError):
         grouped_gemm.grouped_matmul(x.double(), w.double(), tile=tile)
-    with pytest.raises(TypeError):
-        grouped_gemm.grouped_matmul(x, w, tile=tile, out_dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        grouped_gemm.grouped_matmul(x, w, tile=tile, out_dtype=torch.float16)
     with pytest.raises(ValueError, match="empty"):
         grouped_gemm.grouped_matmul(x[:, :0], w, tile=tile)
 
@@ -166,3 +167,38 @@ def test_engine_grouped_matmul_dim_mismatch_raises_as_in_jax_engine():
             eng.grouped_matmul(torch.from_numpy(xs),
                                torch.from_numpy(np.ascontiguousarray(ws)))
         assert len(eng.plan) == 0
+
+
+@pytest.mark.parametrize("in_dt,out_dt", [("bfloat16", "float32"),
+                                          ("float32", "bfloat16"),
+                                          ("bfloat16", "bfloat16")])
+def test_out_dtype_matches_the_reference_grouped_backend(in_dt, out_dt):
+    """The wrapper and `Engine.grouped_matmul` on `hopper` (and
+    `torch-ref`) write any `out_dtype` from the f32 accumulator; the
+    reference's grouped backend (`pallas-interpret`) casts its kernel's
+    result, which the kernel stores in x's dtype, so with bf16 operands
+    its f32 output carries one bf16 rounding that the port's does not:
+    held within one bf16 ulp wherever bf16 is on either side.  The CPU
+    path counts nothing."""
+    t_in, t_out = getattr(torch, in_dt), getattr(torch, out_dt)
+    j_in, j_out = getattr(jnp, in_dt), getattr(jnp, out_dt)
+    x, w = _operands(3, 20, 40, 24, seed=4, zero_rows=5)
+    want = jax_engine.Engine(backend="pallas-interpret").grouped_matmul(
+        jnp.asarray(x, dtype=j_in), jnp.asarray(w, dtype=j_in),
+        out_dtype=j_out)
+    assert want.dtype == j_out
+    tx, tw = torch.from_numpy(x).to(t_in), torch.from_numpy(w).to(t_in)
+    tol = ({"rtol": 2 ** -7, "atol": 2e-4} if "bfloat16" in (in_dt, out_dt)
+           else TOL)
+    grouped_gemm.reset_launches()
+    for got in (grouped_gemm.grouped_matmul(tx, tw, tile=grouped_gemm.TILES[0],
+                                            out_dtype=t_out),
+                Engine(backend="hopper").grouped_matmul(tx, tw,
+                                                        out_dtype=t_out),
+                Engine(backend="torch-ref").grouped_matmul(tx, tw,
+                                                           out_dtype=t_out)):
+        assert got.dtype == t_out
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want.astype(jnp.float32)),
+                                   **tol)
+    assert grouped_gemm.launches == 0
