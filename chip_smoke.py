@@ -48,15 +48,22 @@ Phases (any failed check exits non-zero; nothing falls back):
   8. the grouped kernel against plain: granite's expert GEMMs at 8 slots
      (decode (32, 32, 1024) @ (32, 1024, 512) and its wo mirror, the
      prefill of the widest bucket at C = 8 x 240, a ragged C = 8 x 20), in
-     bf16 and f32; times of kernel, plain version and torch.bmm beside the
-     bound;
+     bf16 on the wgmma route (the engine's tile and every tile of the
+     wgmma menu, a repeat bit for bit, the pick within GEMM_PICK_LIMIT of
+     the fastest tile; the sync kernel on the same operands through its C
+     entry and through the wrapper on a copy at a misaligned base; the
+     host's us per call of both routes at the decode shapes) and in f32
+     (the sync route); times of kernel, plain version and torch.bmm beside
+     the bound;
   9. granite-moe-1b-a400m, sorted dispatch (`impl="sort"`, chosen in the
      configuration as in the JAX package), full width, through the
      Scheduler on the paged layout with the paged serve's trace; grouped
-     launches must equal 3 x 24 x (decode ticks + prefill calls), GEMM 4 x
-     24 x (ticks + calls) with every OS call on the wgmma kernel, paged 24
-     x ticks; a second pass plans nothing new; a device trace of 10 decode
-     ticks;
+     launches must equal 3 x 24 x (decode ticks + prefill calls), every one
+     on the wgmma kernel, GEMM 4 x 24 x (ticks + calls) with every OS call
+     on the wgmma kernel, paged 24 x ticks; a second pass plans nothing
+     new; a device trace of 10 decode ticks (at least 0.99 of their
+     grouped calls shown as `grouped_wgmma_kernel`, none as
+     `grouped_os_kernel`; the ticks' device split by kernel);
  10. granite, default einsum dispatch, through the launcher's static mode
      (8 x (256 + 16)): the grouped kernel must launch 0 times and the GEMM
      4 x 24 x 16 times, every OS call on the wgmma kernel;
@@ -160,6 +167,7 @@ import functools
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -177,7 +185,8 @@ from repro_torch.engine import Engine, KernelRequest, use_engine  # noqa: E402
 from repro_torch.engine.backends import gemm_args, sparse_args  # noqa: E402
 from repro_torch.engine.cost import (HBM_BW, PEAK_FLOPS_BF16,  # noqa: E402
                                      PEAK_FLOPS_F32, PEAK_OPS_INT8,
-                                     HopperModel, decide_gemm, gemm_cost)
+                                     HopperModel, choose_tile, decide_gemm,
+                                     gemm_cost)
 from repro_torch.kernels import (_build, flash_attention,  # noqa: E402
                                   grouped_gemm, paged_attention, quant_gemm,
                                   redas_gemm, sparse_gemm)
@@ -307,6 +316,24 @@ def host_ms(fn, calls: int = 200) -> float:
     return (time.perf_counter() - t0) * 1e3 / calls
 
 
+def host_enqueue_us(fn, calls: int = 200, repeats: int = 5) -> float:
+    """The host's us per call of `fn` alone: the wall time of `calls`
+    calls enqueued back to back, the card drained before and after but
+    not waited for in between (fewer launches than the launch queue
+    holds, so a slower card does not stall the host), the median of
+    `repeats`."""
+    fn()
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e6 / calls)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def bound(m: int, k: int, n: int, itemsize: int) -> tuple[float, str]:
     """Least time (ms) the card could take, and what sets it: each input
     read once and the output written once at the HBM rate, against the
@@ -422,6 +449,40 @@ def check_traced_reductions(label: str, prof: dict, want: int) -> None:
     check(counted == want and TRACE_KEPT * counted <= seen <= counted,
           f"{label}: traced {seen} reductions, counted {counted}, want "
           f"{want}")
+
+
+#: the grouped GEMM's kernels (csrc/grouped_gemm.cu) and the paged decode
+#: kernel, as the profiler names them
+GROUPED_WGMMA_KERNEL = "::grouped_wgmma_kernel<"
+GROUPED_KERNELS = (GROUPED_WGMMA_KERNEL, "::grouped_os_kernel<")
+PAGED_KERNEL = "::paged_decode_kernel<"
+
+
+def check_traced_grouped(prof: dict, want: int) -> None:
+    """A traced run of granite's sorted decode ticks: the wrapper counted
+    `want` grouped calls, all on the wgmma route; the profiler shows at
+    least TRACE_KEPT of them as `grouped_wgmma_kernel` (never more) and
+    no `grouped_os_kernel`.  Prints the ticks' device split."""
+    matched = prof["matched"]
+    seen = matched[GROUPED_WGMMA_KERNEL]["count"]
+    sync = matched[GROUPED_KERNELS[1]]["count"]
+    counted, wgmma = prof["grouped_launches"], prof["grouped_wgmma_launches"]
+    gemm = sum(matched[key]["ms"] for key in GEMM_KERNELS)
+    grouped = sum(matched[key]["ms"] for key in GROUPED_KERNELS)
+    paged = matched[PAGED_KERNEL]["ms"]
+    prof["split_ms"] = {"grouped": grouped, "redas_gemm": gemm,
+                        "paged_attention": paged,
+                        "other": prof["device_busy_ms"] - grouped - gemm
+                        - paged}
+    print(f"  granite's traced ticks: {counted} grouped calls counted, "
+          f"{wgmma} on wgmma, the plan implies {want}; the trace holds {seen} "
+          f"grouped_wgmma_kernel and {sync} grouped_os_kernel launches; "
+          f"device split " + ", ".join(f"{k} {v:.3f} ms"
+                                       for k, v in prof["split_ms"].items()))
+    check(counted == wgmma == want and sync == 0
+          and TRACE_KEPT * counted <= seen <= counted,
+          f"granite's traced ticks: counted {counted} ({wgmma} wgmma), want "
+          f"{want}; traced {seen} wgmma and {sync} sync grouped launches")
 
 
 def gemm_trace_line(prof: dict, per: int, unit: str) -> dict:
@@ -1075,10 +1136,13 @@ def _replay_and_trace(params, cfg, scfg, eng, trace, tokens: dict,
         probe.submit(r)
     probe.step()                                   # admit 8, first tick
     untraced = _untraced_ticks(probe, 10)
-    before = redas_gemm.reduce_launches
+    before = (redas_gemm.reduce_launches, grouped_gemm.launches,
+              grouped_gemm.wgmma_launches)
     prof = _profile(lambda: _untraced_ticks(probe, 10), match)
     prof.pop("result")
-    prof["reduce_launches"] = redas_gemm.reduce_launches - before
+    prof["reduce_launches"] = redas_gemm.reduce_launches - before[0]
+    prof["grouped_launches"] = grouped_gemm.launches - before[1]
+    prof["grouped_wgmma_launches"] = grouped_gemm.wgmma_launches - before[2]
     prof["untraced_ms"] = untraced
     prof["idle_share_untraced"] = max(0.0, 1.0 - prof["device_busy_ms"]
                                       / untraced)
@@ -2689,14 +2753,35 @@ def _grouped_sets(e, c, d, f, dtype, gen) -> list[tuple]:
               / math.sqrt(d)).to(dtype)) for _ in range(count)]
 
 
+def _sync_entry(tile, x, w):
+    """The sync route's kernel (the grouped kernel before the wgmma one)
+    on aligned bf16 operands, through its C entry: the wrapper routes
+    those to the wgmma kernel.  For timing it against the wgmma route;
+    counts nothing."""
+    e, c, d = x.shape
+    out = torch.empty((e, c, w.shape[2]), dtype=x.dtype, device=x.device)
+    code = 0 if x.dtype == torch.bfloat16 else 1
+    err = grouped_gemm._library().grouped_gemm_launch(
+        code, code, *tile, x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c,
+        d, w.shape[2], torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"grouped sync entry {tile}: CUDA error {err}")
+    return out
+
+
 def phase_grouped_kernel() -> list[dict]:
-    """The grouped kernel at granite's expert shapes, at the tile the
-    engine decides, against its plain version; times of kernel, plain
-    version and torch.bmm (the one PyTorch call computing the same
-    function) beside the bound."""
+    """The grouped kernel at granite's expert shapes, on both routes,
+    against its plain version; times of kernel, plain version and
+    torch.bmm (the one PyTorch call computing the same function) beside
+    the bound.  bf16 runs on the wgmma route: the engine's tile, every
+    tile of the wgmma menu (the pick within GEMM_PICK_LIMIT of the
+    fastest), the sync kernel at its own roofline tile on the same
+    aligned operands (through its C entry) and through the wrapper on a
+    copy at a misaligned base (the route TMA cannot describe), each call's
+    route read from the counters; the host's us per call at the decode
+    shapes on both routes.  f32 runs on the sync route."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     side = torch.cuda.Stream()
-    rows, failures = [], []
+    rows, failures, picks = [], [], []
     for dtype in (torch.bfloat16, torch.float32):
         tol = BF16_ROW_TOL if dtype == torch.bfloat16 else F32_ROW_TOL
         name = str(dtype)[6:]
@@ -2708,34 +2793,108 @@ def phase_grouped_kernel() -> list[dict]:
                 "grouped_gemm", c, d, f, groups=e, in_bytes=size,
                 out_bytes=size))
             tile = (dec.bm, dec.bk, dec.bn)
+            route = grouped_gemm.grouped_route(x, w)
+            check(route == ("wgmma" if size == 2 else "sync"),
+                  f"grouped {name} {(e, c, d, f)} on the {route} route")
             run = functools.partial(grouped_gemm.grouped_matmul, tile=tile)
+            grouped_gemm.reset_launches()
             out, ref = run(x, w), grouped_gemm.grouped_matmul_reference(x, w)
             torch.cuda.synchronize()
+            check(grouped_gemm.launches == 1 and grouped_gemm.wgmma_launches
+                  == (route == "wgmma"), f"grouped {name} {(e, c, d, f)}: "
+                  f"counted {grouped_gemm.launches}, "
+                  f"{grouped_gemm.wgmma_launches} on wgmma")
             rel = row_rel_l2(out, ref)
             err = (out.float() - ref.float()).abs().max().item()
-            row = {"shape": [e, c, d, f], "dtype": name, "tile": list(tile),
-                   "ms": device_ms(run, sets, side),
+            row = {"shape": [e, c, d, f], "dtype": name, "route": route,
+                   "tile": list(tile), "ms": device_ms(run, sets, side),
                    "plain_ms": device_ms(grouped_gemm.grouped_matmul_reference,
                                          sets, side),
                    "library_ms": device_ms(torch.bmm, sets, side),
-                   "library": "torch.bmm",
+                   "library": "torch.bmm", "predicted_ms": dec.seconds * 1e3,
                    "max_abs_err": err, "row_rel_l2": rel, "tol": tol}
             row["bound_ms"], row["bound_by"] = grouped_bound(e, c, d, f, size)
+            if route == "wgmma":
+                row.update(_grouped_wgmma_extras(sets, tile, ref, tol, side))
+                fastest = min(row["tiles_ms"].values())
+                picks.append({"shape": [e, c, d, f], "tile": list(tile),
+                              "ratio": row["ms"] / fastest})
             rows.append(row)
             ok = math.isfinite(rel) and rel <= tol
-            print(f"grouped_gemm {name} ({e}, {c}, {d}) @ ({e}, {d}, {f}) tile "
-                  f"{tile}: row rel-L2 {rel:.2e} (tol {tol:g}), max|diff| "
-                  f"{err:.3e}; kernel {row['ms']:.4f} ms, plain "
+            extra = (f"; sync kernel {tuple(row['sync_tile'])} "
+                     f"{row['sync_ms']:.4f} ms (misaligned base "
+                     f"{row['sync_misaligned_ms']:.4f}); every wgmma tile "
+                     + ", ".join(f"{t} {v:.4f}"
+                                 for t, v in row["tiles_ms"].items())
+                     if route == "wgmma" else "")
+            print(f"grouped_gemm {name} ({e}, {c}, {d}) @ ({e}, {d}, {f}) "
+                  f"{route} tile {tile}: row rel-L2 {rel:.2e} (tol {tol:g}), "
+                  f"max|diff| {err:.3e}; kernel {row['ms']:.4f} ms "
+                  f"(predicted {row['predicted_ms']:.4f}), plain "
                   f"{row['plain_ms']:.4f} ms, torch.bmm "
                   f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                  f"({row['bound_by']}){'' if ok else '  FAILED'}")
+                  f"({row['bound_by']}){extra}{'' if ok else '  FAILED'}")
+            if "host_us" in row:
+                print("  host us per call (enqueued back to back, the card "
+                      "not waited for): " + ", ".join(
+                          f"{k} {v:.1f} us" for k, v in row["host_us"].items()))
             if not ok:
                 failures.append(f"grouped {name} {(e, c, d, f)}: {rel:.2e}")
+            failures += row.pop("failures", [])
             del sets, x, w, out, ref
     REPORT["grouped_kernel"] = rows
+    REPORT["grouped_picks"] = picks
     check(not failures, f"grouped kernel disagrees with its plain version: "
           f"{failures}")
+    slow = [p for p in picks if p["ratio"] > GEMM_PICK_LIMIT]
+    check(not slow, f"the grouped decision takes more than {GEMM_PICK_LIMIT}x "
+          f"the fastest wgmma tile: {slow}")
     return rows
+
+
+def _grouped_wgmma_extras(sets, tile, ref, tol, side) -> dict:
+    """At a bf16 shape on the wgmma route: every tile of the wgmma menu
+    held to the plain version (a repeat bit for bit) and timed; the sync
+    kernel at its roofline tile on the same aligned operands and through
+    the wrapper on a misaligned copy, held and timed; at decode C the
+    host's us per call of each route and of torch.bmm
+    (`host_enqueue_us`)."""
+    x, w = sets[0]
+    e, c, d = x.shape
+    f = w.shape[2]
+    out, failures = {"tiles_ms": {}}, []
+    for t in grouped_gemm.WGMMA_TILES:
+        run = functools.partial(grouped_gemm.grouped_matmul, tile=t)
+        got, again = run(x, w), run(x, w)
+        torch.cuda.synchronize()
+        if not (row_rel_l2(got, ref) <= tol and torch.equal(got, again)):
+            failures.append(f"grouped wgmma {(e, c, d, f)} tile {t}")
+        out["tiles_ms"][str(t)] = device_ms(run, sets, side)
+    old = choose_tile(c, d, f, 2, 2, dataflows=("os",),
+                      tiles=grouped_gemm.TILES)
+    old = (old.bm, old.bk, old.bn)
+    sync = functools.partial(_sync_entry, old)
+    off = [(_misaligned(a), b) for a, b in sets]
+    via = functools.partial(grouped_gemm.grouped_matmul, tile=old)
+    before = (grouped_gemm.launches, grouped_gemm.wgmma_launches)
+    for got in (sync(x, w), via(*off[0])):
+        torch.cuda.synchronize()
+        if not row_rel_l2(got, ref) <= tol:
+            failures.append(f"grouped sync {(e, c, d, f)} tile {old}")
+    check(grouped_gemm.launches == before[0] + 1
+          and grouped_gemm.wgmma_launches == before[1],
+          "a misaligned grouped call did not run on the sync kernel")
+    out.update(sync_tile=list(old), sync_ms=device_ms(sync, sets, side),
+               sync_misaligned_ms=device_ms(via, off, side),
+               failures=failures)
+    if c == GROUPED_SHAPES[0][1]:
+        new = functools.partial(grouped_gemm.grouped_matmul, x, w, tile=tile)
+        out["host_us"] = {
+            "wgmma": host_enqueue_us(new),
+            "sync_misaligned": host_enqueue_us(lambda: via(*off[0])),
+            "torch.bmm": host_enqueue_us(lambda: torch.bmm(x, w))}
+    del off
+    return out
 
 
 def _sorted(cfg):
@@ -2799,16 +2958,24 @@ def phase_granite_sorted() -> dict:
           f"script held {peak:.3f} GiB")
     check(len(sched.completions) == len(trace), "granite served too few")
     check(counts == want, f"granite sorted serve launches {counts}, not {want}")
+    grouped_wgmma = grouped_gemm.wgmma_launches
+    print(f"granite sorted serve: {grouped_wgmma} of its "
+          f"{counts['grouped_gemm']} grouped calls on the wgmma kernel")
+    check(grouped_wgmma == counts["grouped_gemm"],
+          f"granite sorted serve: {grouped_wgmma} of "
+          f"{counts['grouped_gemm']} grouped calls on the wgmma kernel")
     for uid, toks in tokens.items():
         check(len(toks) == trace[uid][1]
               and all(0 <= t < cfg.vocab for t in toks), f"request {uid}")
     sched.paged.check_invariants()
 
-    new_misses, prof = _replay_and_trace(params, cfg, scfg, eng, trace,
-                                         tokens, "granite ", GEMM_KERNELS)
+    new_misses, prof = _replay_and_trace(
+        params, cfg, scfg, eng, trace, tokens, "granite ",
+        GEMM_KERNELS + GROUPED_KERNELS + (PAGED_KERNEL,))
     check_traced_reductions("granite sorted serve, 10 traced ticks", prof,
                             10 * _decode_reductions(eng, GRANITE_LAYER_GEMMS,
                                                     layers))
+    check_traced_grouped(prof, 10 * 3 * layers)
     REPORT["granite_sorted"] = {
         "trace": TRACE, "slots": SLOTS, "page_size": PAGE,
         "prefill_bucket": BUCKET, "seconds": seconds,
@@ -2816,7 +2983,8 @@ def phase_granite_sorted() -> dict:
         "decode_ticks": ticks, "decode_ms_per_tick": tick_ms,
         "prefill_calls": calls, "prefill_widths": sorted(st["prefill_widths"]),
         "prefill_ms": prefill_ms, "plan": eng.plan.stats, "counts": counts,
-        "launches": launches, "os_wgmma": wgmma, "max_memory_gib": peak,
+        "launches": launches, "os_wgmma": wgmma,
+        "grouped_wgmma": grouped_wgmma, "max_memory_gib": peak,
         "second_pass_new_misses": new_misses, "trace_10_ticks": prof}
     return {"cfg": cfg, "scfg": scfg, "params": params, "engine": eng,
             "trace": trace}
@@ -3117,18 +3285,30 @@ def attention_lines(attn: dict, paged: dict) -> list[dict]:
 
 def grouped_line(rows: list[dict], granite: dict) -> dict:
     """Per call at the decode shape of wi/wg in bf16 (two of every three
-    grouped launches of a decode tick); launches from the sorted serve."""
+    grouped launches of a decode tick) on the wgmma route; every shape's
+    times on both routes beside it; launches from the sorted serve, by
+    route."""
     main = next(r for r in rows if r["dtype"] == "bfloat16"
                 and r["shape"] == list(GROUPED_SHAPES[0]))
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library")
+    shape_keys = ("route", "tile", "ms", "sync_tile", "sync_ms",
+                  "sync_misaligned_ms", "library_ms", "bound_ms", "host_us")
+    launches = granite["counts"]["grouped_gemm"]
     return {"name": "grouped_gemm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
+            "kernel": "grouped_wgmma_kernel (bf16 TMA can describe); "
+                      "grouped_os_kernel (the rest)",
             "replaces": "src/repro/kernels/grouped_gemm.py:73",
-            "launches": granite["counts"]["grouped_gemm"],
-            "per": f"call, bf16, (E, C, D, F) = {tuple(main['shape'])}, tile "
-                   f"{tuple(main['tile'])}",
+            "launches": launches,
+            "launches_by_route": {"wgmma": granite["grouped_wgmma"],
+                                  "sync": launches - granite["grouped_wgmma"]},
+            "per": f"call, bf16, (E, C, D, F) = {tuple(main['shape'])}, "
+                   f"wgmma tile {tuple(main['tile'])}",
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            **{k: main[k] for k in keys}}
+            **{k: main[k] for k in keys},
+            "by_shape": [{"shape": r["shape"], "dtype": r["dtype"],
+                          **{k: r[k] for k in shape_keys if k in r}}
+                         for r in rows]}
 
 
 def main() -> int:

@@ -1,13 +1,17 @@
 """Time the paged serve's decode ticks on the card, to compare two trees of
 the port in one machine.
 
-    python3 paged_ticks.py [--src DIR]
+    python3 paged_ticks.py [--src DIR] [--granite-sorted]
 
 Serves `chip_smoke.py`'s paged trace (qwen2-1.5b at full width, bf16,
 random weights from seed 0, 8 slots, pages of 16) through the launcher
 ROUNDS times with the package under DIR (default: this checkout's src),
 and after each serve runs three windows of 10 untraced decode ticks
-with all 8 slots decoding; the serve's kernels are built first.
+with all 8 slots decoding; the serve's kernels are built first.  With
+--granite-sorted it serves granite-moe-1b-a400m at full width with the
+sorted dispatch (`impl="sort"`, set in the configuration: the grouped
+kernel) through the Scheduler instead, on the same trace and windows,
+as chip_smoke.py's granite sorted serve does.
 Prints, per round, the serve's mean ms per tick and each window's ms per
 tick, then one JSON line.
 Needs a CUDA device.  Run it for each tree in turns (A, B, B, A) within
@@ -31,9 +35,40 @@ ARGS = ["--arch", "qwen2-1.5b", "--kernel-backend", "hopper", "--batch",
         TRACE]
 
 
+def granite_sorted_serve() -> dict:
+    """granite-moe-1b-a400m (sorted dispatch) served through the Scheduler
+    on the paged layout with TRACE; the launcher's keys for what follows."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.engine import Engine
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer as T
+    from repro_torch.serve_lib import serve as serve_lib
+    from repro_torch.serve_lib.scheduler import Scheduler
+
+    cfg = get_config("granite-moe-1b-a400m")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           impl="sort"))
+    trace = launch_serve.parse_trace(TRACE)
+    scfg = serve_lib.ServeConfig(
+        max_seq=max(p + g for p, g in trace) + 1, batch=SLOTS,
+        kernel_backend="hopper", cache_layout="paged", page_size=PAGE)
+    params = T.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(SEED), device="cuda", dtype=torch.bfloat16)
+    sched = Scheduler(params, cfg, scfg, engine=Engine(backend="hopper"),
+                      prefill_bucket=BUCKET)
+    sched.run(launch_serve.trace_requests(cfg, trace, SEED))
+    return {"scheduler": sched, "params": params, "cfg": cfg,
+            "serve_config": scfg, "engine": sched.engine, "trace": trace}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--granite-sorted", action="store_true",
+                    help="serve granite-moe-1b-a400m, sorted dispatch")
     args = ap.parse_args(argv)
     sys.path.insert(0, args.src)
     import torch
@@ -45,11 +80,15 @@ def main(argv=None) -> int:
     from repro_torch.launch import serve as launch_serve
     from repro_torch.serve_lib.scheduler import Scheduler
 
-    for name in ("redas_gemm", "paged_attention"):   # not inside a serve
+    kernels = ["redas_gemm", "paged_attention"]
+    if args.granite_sorted:
+        kernels.append("grouped_gemm")
+    for name in kernels:   # not inside a serve
         _build.build(name)
     rounds = []
     for _ in range(ROUNDS):
-        out = launch_serve.main(ARGS)
+        out = (granite_sorted_serve() if args.granite_sorted
+               else launch_serve.main(ARGS))
         sched = out["scheduler"]
         serve_ms = sched.timings["decode_s"] * 1e3 / sched.stats["decode_steps"]
         probe = Scheduler(out["params"], out["cfg"], out["serve_config"],
@@ -73,7 +112,8 @@ def main(argv=None) -> int:
                        "window_ms_per_tick": windows})
         del out, sched, probe
         torch.cuda.empty_cache()
-    print(json.dumps({"src": args.src, "rounds": rounds}))
+    print(json.dumps({"src": args.src, "granite_sorted": args.granite_sorted,
+                      "rounds": rounds}))
     return 0
 
 

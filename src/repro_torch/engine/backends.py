@@ -53,12 +53,22 @@ def ref_gemm(decision: KernelDecision, a, b, *, out_dtype=None):
     return redas_gemm.gemm_reference(a, b, out_dtype)
 
 
+def grouped_tile(decision: KernelDecision, x, w) -> tuple[int, int, int]:
+    """The decision's per-expert OS tile, snapped to the nearest tile of
+    the menu of the route the operands take (`grouped_gemm.grouped_route`)
+    when it is not on it: a base that is not 16-byte aligned, where the
+    plan saw only the shape, or a plan from an older menu."""
+    menu = grouped_gemm.tiles_for(grouped_gemm.grouped_route(x, w))
+    return quant_gemm.snap_tile(decision.bm, decision.bk, decision.bn,
+                                tiles=menu)
+
+
 def hopper_grouped_gemm(decision: KernelDecision, x, w, *,
                         out_dtype=None):
-    """The decision's per-expert OS tile on the grouped kernel."""
+    """The decision's per-expert OS tile on the grouped kernel of the
+    operands' route (`grouped_tile`)."""
     return grouped_gemm.grouped_matmul(
-        x, w, tile=(decision.bm, decision.bk, decision.bn),
-        out_dtype=out_dtype)
+        x, w, tile=grouped_tile(decision, x, w), out_dtype=out_dtype)
 
 
 def ref_grouped_gemm(decision: KernelDecision, x, w, *, out_dtype=None):

@@ -14,7 +14,9 @@ chip sweep (`calibrate_gemm.py`).  WS and IS count their own bytes
 (`stream_traffic`), with the K slabs' f32 workspace and the reduction
 where K spans more than one slab; the decision's `meta` carries `slabs`
 and `groups`.  There is no MXU ramp term: nothing on this card fills and
-drains like a systolic array's pipeline.
+drains like a systolic array's pipeline.  A bf16 `grouped_gemm` request
+whose (D, F) TMA can describe runs on the same ring, so `decide_grouped`
+plans it with `gemm_cost` too, the grid and bytes times the experts.
 
 Every other request keeps the roofline of the reference's search,
 
@@ -158,20 +160,42 @@ def decide_attention(request: KernelRequest, name: str) -> KernelDecision:
 def decide_grouped(request: KernelRequest, name: str) -> KernelDecision:
     """The port of `TPUModel._decide_grouped`: the grouped kernel is OS
     (the accumulator stays on chip over the D sweep), so the search is
-    pinned to OS over the grouped kernel's tile menu (the int8 kernel's
-    at in_bytes == 1, where the experts loop through it), gated by
-    shared memory, on one expert's (C, D, F) problem; the call costs
-    that expert's time x the expert count (`groups`)."""
+    pinned to OS, on one expert's (C, D, F) problem, over the menu of the
+    route the request's width and (D, F) take (`redas_gemm.shape_route`:
+    the planner sees no pointers).  On the wgmma route the call is
+    `gemm_cost`'s wave term over `grouped_gemm.WGMMA_TILES` with the grid
+    and the bytes multiplied by the expert count (`groups`); on the sync
+    route, and at in_bytes == 1 (the int8 kernel's menu, where the
+    experts loop through it), the roofline `choose_tile`, gated by shared
+    memory, costing that expert's time x the expert count.  `meta`
+    carries `groups` (the experts), and on the wgmma route the route and
+    the wave term's blocks, fill and bytes."""
+    e, c, d, f = request.groups, request.m, request.k, request.n
+    route = redas_gemm.shape_route(request.in_bytes, d, f)
+    if route == "wgmma":
+        best, tile = None, None
+        for t in grouped_gemm.WGMMA_TILES:
+            cost = gemm_cost(c, d, f, "os", t, request.in_bytes,
+                             request.out_bytes, route, batch=e)
+            if cost is not None and (best is None
+                                     or cost["seconds"] < best["seconds"]):
+                best, tile = cost, t
+        meta = {key: best[key] for key in ("hbm_bytes", "blocks", "fill",
+                                           "smem_bytes")}
+        return KernelDecision(
+            op=request.op, dataflow="os", bm=tile[0], bk=tile[1], bn=tile[2],
+            cost_model=name, seconds=best["seconds"],
+            meta=tuple(sorted({**meta, "groups": e,
+                               "route": route}.items())))
     tiles = quant_gemm.TILES if request.in_bytes == 1 else grouped_gemm.TILES
-    cfg = choose_tile(request.m, request.k, request.n, request.in_bytes,
-                      request.out_bytes, dataflows=("os",), tiles=tiles)
-    seconds = estimate(request.m, request.k, request.n, cfg,
-                       request.in_bytes, request.out_bytes)[0]
+    cfg = choose_tile(c, d, f, request.in_bytes, request.out_bytes,
+                      dataflows=("os",), tiles=tiles)
+    seconds = estimate(c, d, f, cfg, request.in_bytes, request.out_bytes)[0]
     return KernelDecision(
         op=request.op, dataflow="os", bm=cfg.bm, bk=cfg.bk, bn=cfg.bn,
-        cost_model=name, seconds=seconds * request.groups,
+        cost_model=name, seconds=seconds * e,
         meta=tuple(sorted({
-            "groups": request.groups,
+            "groups": e,
             "smem_bytes": _tile_smem(cfg.bm, cfg.bk, cfg.bn,
                                      request.in_bytes)}.items())))
 
@@ -337,11 +361,15 @@ def stream_traffic(m: int, k: int, n: int, dataflow: str,
 
 def gemm_cost(m: int, k: int, n: int, dataflow: str,
               tile: tuple[int, int, int], in_bytes: int = 2,
-              out_bytes: int = 2, route: str | None = None) -> dict | None:
+              out_bytes: int = 2, route: str | None = None,
+              batch: int = 1) -> dict | None:
     """The float ReDas GEMM's time at one (dataflow, tile), or None when a
     block does not fit shared memory or the tile is not on the menu of the
     kernel the call runs on (OS: `route`, by default the request's
-    `redas_gemm.shape_route`).
+    `redas_gemm.shape_route`).  OS also takes `batch` independent (m, k,
+    n) problems in one launch (the grouped GEMM's experts, whose wgmma
+    route runs this ring): the grid's blocks and the bytes are `batch`
+    times one problem's.
 
     The wave term: the grid's blocks run in waves of the blocks the card
     holds (132 SMs x `resident_blocks`), and the busiest SM's blocks
@@ -363,6 +391,8 @@ def gemm_cost(m: int, k: int, n: int, dataflow: str,
           `stream_traffic`'s operand reads / HBM), plus the output and
           (slabs > 1) the workspace at the HBM rate and REDUCE_S."""
     bm, bk, bn = tile
+    if batch != 1 and dataflow != "os":
+        raise ValueError(f"only OS runs a batch of problems, not {dataflow}")
     if dataflow == "os" and route is None:
         route = redas_gemm.shape_route(in_bytes, k, n)
     if tile not in redas_gemm.tiles_for(dataflow, route or "sync"):
@@ -373,7 +403,7 @@ def gemm_cost(m: int, k: int, n: int, dataflow: str,
         return None
     groups = redas_gemm.groups_for(dataflow, m, k, n, tile, in_bytes, SMS)
     fixed, slabs, n_groups = redas_gemm.grid(dataflow, m, k, n, tile, groups)
-    blocks = fixed * slabs * n_groups
+    blocks = fixed * slabs * n_groups * batch
     if dataflow == "os":
         slabs = 1
     per_sm = resident_blocks(dataflow, tile, in_bytes, route or "sync")
@@ -391,11 +421,12 @@ def gemm_cost(m: int, k: int, n: int, dataflow: str,
                 load, ops / (PEAK_FLOPS_BF16 / SMS),
                 STREAM_STEP_S / redas_gemm.WGMMA_STAGES)
             # each operand read once: the L2 serves the tiles' re-reads
-            bytes_ = (m * k + k * n) * in_bytes + m * n * out_bytes
+            bytes_ = batch * ((m * k + k * n) * in_bytes + m * n * out_bytes)
         else:
             block = -(-k // bk) * (load + ops / rate)
-            bytes_ = hbm_traffic(m, k, n, TileConfig("os", bm, bk, bn),
-                                 in_bytes, out_bytes)
+            bytes_ = batch * hbm_traffic(m, k, n,
+                                         TileConfig("os", bm, bk, bn),
+                                         in_bytes, out_bytes)
         seconds = max(waves * block, bytes_ / HBM_BW)
     else:
         traffic = stream_traffic(m, k, n, dataflow, tile, groups, in_bytes,

@@ -22,7 +22,8 @@
 // operands alone (kernels/redas_gemm.py os_route):
 //   wgmma  bf16 with K % 8 == 0, N % 8 == 0 and 16-byte-aligned bases (TMA's
 //          stride and address rules; every prefill GEMM of the served
-//          models).  A block of BM = 64 or 128 rows is warp-specialised: one
+//          models).  A block of BM = 64 or 128 rows is warp-specialised
+//          (wgmma_os_tile in hopper.cuh, shared with the grouped GEMM): one
 //          producer warp keeps a ring of kWgStages stages in flight, each a
 //          (BM, 64) box of A (K-major) and BN / 64 (64, 64) boxes of B
 //          (N-major), all loaded by TMA with 128-byte swizzle and completed
@@ -93,7 +94,6 @@ namespace {
 constexpr int kSub = 64;           // K depth of one pipeline step
 constexpr int kMaxStages = 4;      // ring stages a streaming block may use
 constexpr int kSmemLimit = 232448; // shared memory a block may use (227 KB)
-constexpr int kWgStages = 4;       // ring stages of the wgmma OS kernel
 
 // cp.async (sm_80+): 16-byte copies from device to shared memory that do not
 // hold a register while in flight.
@@ -156,125 +156,16 @@ __global__ void __launch_bounds__(kThreads)
                               blockIdx.x * BN, smem);
 }
 
-// Shared memory of one wgmma OS block: kWgStages ring stages, each the
-// (BM, 64) box of A then BN / 64 (64, 64) boxes of B (bf16, 128-byte rows,
-// every box 1024-byte aligned for the swizzle), then a `full` and an `empty`
-// mbarrier per stage; 1 KB more to align the ring.  The wrapper's
-// wgmma_smem_bytes mirrors this.
-template <int BM, int BN>
-struct WgSmem {
-  static constexpr int box_b = 64 * 64 * 2;
-  static constexpr int stage_a = BM * 64 * 2;
-  static constexpr int stage = stage_a + (BN / 64) * box_b;
-  static constexpr size_t bytes = 1024 + size_t(kWgStages) * stage +
-                                  2 * kWgStages * sizeof(uint64_t);
-};
-
-template <typename OT>
-__device__ __forceinline__ void store_pair(OT* O, size_t at, float x,
-                                           float y);
-template <>
-__device__ __forceinline__ void store_pair<float>(float* O, size_t at,
-                                                  float x, float y) {
-  *reinterpret_cast<float2*>(O + at) = make_float2(x, y);
-}
-template <>
-__device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* O,
-                                                          size_t at, float x,
-                                                          float y) {
-  *reinterpret_cast<__nv_bfloat162*>(O + at) = __floats2bfloat162_rn(x, y);
-}
-
-// One (BM, BN) output tile of O = A @ B (bf16 operands, OT output): BM / 64
-// consumer warpgroups (threads 0 .. 2 BM - 1), then one producer warp.
+// One (BM, BN) output tile of O = A @ B (bf16 operands, OT output) on the
+// warp-specialised ring of hopper.cuh (wgmma_os_tile): BM / 64 consumer
+// warpgroups, then one producer warp.
 template <int BM, int BN, typename OT>
 __global__ void __launch_bounds__(2 * BM + 32, 1)
     os_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
                     const __grid_constant__ CUtensorMap tmB,
                     OT* __restrict__ O, int M, int N, int K) {
-  constexpr int WG = BM / 64;
-  using L = WgSmem<BM, BN>;
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  unsigned char* ring =
-      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kWgStages * L::stage);
-  uint64_t* empty = full + kWgStages;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int steps = (K + 63) / 64;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kWgStages; ++s) {
-      mbar_init(&full[s], 1);    // the producer's arrival, plus the bytes
-      mbar_init(&empty[s], WG);  // one arrival per consumer warpgroup
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (threadIdx.x >= 128 * WG) {  // the producer warp: one thread issues
-    if (threadIdx.x == 128 * WG) {
-      // B boxes with a column in range; a box wholly past N is not loaded
-      const int boxes = min(BN / 64, (N - n0 + 63) / 64);
-      const uint32_t bytes = L::stage_a + boxes * L::box_b;
-      for (int k = 0; k < steps; ++k) {
-        const int s = k % kWgStages;
-        if (k >= kWgStages)  // the consumers freed this stage's last round
-          mbar_wait(&empty[s], ((k / kWgStages) - 1) & 1);
-        unsigned char* st = ring + s * L::stage;
-        mbar_expect_tx(&full[s], bytes);
-        tma_load_2d(st, &tmA, k * 64, m0, &full[s]);
-        for (int j = 0; j < boxes; ++j)
-          tma_load_2d(st + L::stage_a + j * L::box_b, &tmB, n0 + 64 * j,
-                      k * 64, &full[s]);
-      }
-    }
-    return;
-  }
-
-  // a consumer warpgroup: rows [m0 + 64 wg, m0 + 64 wg + 64) of the tile
-  const int wg = threadIdx.x / 128;
-  float d[BN / 2];
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
-  for (int k = 0; k < steps; ++k) {
-    const int s = k % kWgStages;
-    mbar_wait(&full[s], (k / kWgStages) & 1);
-    const unsigned char* a = ring + s * L::stage + wg * 64 * 128;
-    const unsigned char* b = ring + s * L::stage + L::stage_a;
-    fence_accumulator(d);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)  // four k16 steps of the 64-deep stage
-      // A K-major: 128-byte rows, 8-row groups 1024 bytes apart, the k16
-      // step 32 bytes along the row; B N-major: 16 rows (2048 bytes) a
-      // k16 step, 8-row groups 1024 bytes apart, 64-column boxes L::box_b
-      // apart
-      Wgmma<BN>::mma(d, wgmma_desc(a + kk * 32, 16, 1024),
-                     wgmma_desc(b + kk * 2048, L::box_b, 1024));
-    wgmma_commit();
-    wgmma_wait<1>();  // the group of step k - 1 has finished
-    fence_accumulator(d);
-    if (k > 0 && threadIdx.x % 128 == 0)
-      mbar_arrive(&empty[(k - 1) % kWgStages]);
-  }
-  wgmma_wait<0>();
-  fence_accumulator(d);
-
-  // the accumulator fragment: warp w of the warpgroup holds rows 16 w ..
-  // 16 w + 15, lane l rows l / 4 and l / 4 + 8, columns 8 j + 2 (l % 4)
-  // and the next for j = 0 .. BN / 8 - 1
-  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
-  const int r0 = m0 + wg * 64 + warp * 16 + lane / 4;
-  const int c0 = n0 + 2 * (lane % 4);
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int c = c0 + 8 * j;
-    if (c < N) {  // N is even, so c + 1 < N too
-      if (r0 < M)
-        store_pair(O, size_t(r0) * N + c, d[4 * j], d[4 * j + 1]);
-      if (r0 + 8 < M)
-        store_pair(O, size_t(r0 + 8) * N + c, d[4 * j + 2], d[4 * j + 3]);
-    }
-  }
+  wgmma_os_tile<BM, BN, 2>(&tmA, &tmB, 0, O, M, N, K, blockIdx.y * BM,
+                           blockIdx.x * BN);
 }
 
 // Shared memory of one streaming block: the stationary slab, `stages` ring
@@ -471,7 +362,6 @@ cudaError_t launch_os_wgmma(const void* a, const void* b, void* o, int M,
   if (!encode_bf16_map(&ta, a, M, K, BM) || !encode_bf16_map(&tb, b, K, N, 64))
     return cudaErrorInvalidValue;
   constexpr size_t smem = WgSmem<BM, BN>::bytes;
-  static_assert(smem <= size_t(kSmemLimit), "wgmma ring exceeds a block");
   auto kernel = os_wgmma_kernel<BM, BN, OT>;
   static const cudaError_t attr = allow_smem(kernel, smem);
   if (attr != cudaSuccess) return attr;

@@ -16,7 +16,10 @@ dataflow at a decode, a prefill and a ragged shape (WS/IS at one slab,
 the planner's slabs and the most slabs), its repeat launches and its
 reduction bit for bit; its wgmma OS kernel at every tile of its menu, at
 qwen's prefill shapes and ragged ones, in both output dtypes; every GEMM
-kernel's f32 output from bf16 operands.
+kernel's f32 output from bf16 operands.  The grouped GEMM's wgmma kernel
+is held at every tile of its menu at granite's expert shapes and ragged
+ones, its capacity rows exactly zero, its repeats and each expert's
+output (whatever the other experts hold, Inf included) bit for bit.
 """
 
 import dataclasses
@@ -218,11 +221,12 @@ def test_gemm_kernels_write_f32_from_bf16_operands(cuda):
         assert _row_rel_l2(got, ref) <= tol
     x = torch.randn(4, 40, 256, generator=gen, device=cuda).bfloat16()
     w = (torch.randn(4, 256, 72, generator=gen, device=cuda) / 16).bfloat16()
-    got = grouped_gemm.grouped_matmul(x, w, tile=(32, 64, 64),
-                                      out_dtype=torch.float32)
-    assert got.dtype == torch.float32
-    assert _row_rel_l2(got, grouped_gemm.grouped_matmul_reference(
-        x, w, torch.float32)) <= 1e-4
+    for xs, tile in ((x, (64, 64, 128)), (_misaligned(x), (32, 64, 64))):
+        got = grouped_gemm.grouped_matmul(xs, w, tile=tile,
+                                          out_dtype=torch.float32)
+        assert got.dtype == torch.float32
+        assert _row_rel_l2(got, grouped_gemm.grouped_matmul_reference(
+            x, w, torch.float32)) <= 1e-4
     redas_gemm.reset_launches()
     got = Engine(backend="hopper").matmul(a, b, out_dtype=torch.float32)
     torch.cuda.synchronize()
@@ -318,7 +322,7 @@ def test_paged_kernel_matches_plain_version(cuda, dtype, tol, page, d):
 
 @pytest.mark.card
 @pytest.mark.parametrize("dtype,tol,shape,tile", [
-    (torch.bfloat16, 1e-2, (32, 32, 1024, 512), (32, 64, 64)),
+    (torch.bfloat16, 1e-2, (32, 32, 1024, 512), (64, 64, 64)),
     (torch.float32, 1e-4, (5, 20, 130, 70), (16, 64, 64)),   # ragged
 ])
 def test_grouped_kernel_matches_plain_version(cuda, dtype, tol, shape, tile):
@@ -336,6 +340,90 @@ def test_grouped_kernel_matches_plain_version(cuda, dtype, tol, shape, tile):
     assert grouped_gemm.launches == 1        # the plain version never counts
     assert bool((got[:, c // 2:] == 0).all())
     assert _row_rel_l2(got[:, :c // 2], ref[:, :c // 2]) <= tol
+
+
+#: granite's expert GEMMs (E, C, D, F) at 8 slots (chip_smoke.py's
+#: GROUPED_SHAPES), then ragged ones: C = 20, 161 and 1921, E = 1 and 33,
+#: D = 1000 (a multiple of 8, not of the ring's 64) and F = 200
+GROUPED_WGMMA_SHAPES = [(32, 32, 1024, 512), (32, 32, 512, 1024),
+                        (32, 1920, 1024, 512), (32, 1920, 512, 1024),
+                        (32, 160, 1024, 512), (33, 20, 1000, 200),
+                        (1, 161, 1024, 512), (4, 1921, 512, 200),
+                        (3, 161, 1000, 200)]
+
+
+def _grouped_operands(cuda, e, c, d, f, dtype=torch.bfloat16, pad=0):
+    """x (E, C, D) with its last `pad` rows of every expert zero (capacity
+    padding), w (E, D, F) scaled by 1 / sqrt(D)."""
+    gen = torch.Generator(device=cuda).manual_seed(e * 7 + c + d + f)
+    x = torch.randn(e, c, d, generator=gen, device=cuda)
+    if pad:
+        x[:, c - pad:] = 0.0
+    w = torch.randn(e, d, f, generator=gen, device=cuda) / d ** 0.5
+    return x.to(dtype), w.to(dtype)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("shape", GROUPED_WGMMA_SHAPES)
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_grouped_wgmma_kernel_matches_plain_version(cuda, shape, out_dtype):
+    """The grouped wgmma kernel at every tile of its menu against
+    `grouped_matmul_reference` at bf16 row tolerance, in both output
+    dtypes: a repeat launch bit for bit equal, the capacity padding's
+    zero rows exactly zero, every call counted on the wgmma route.  The
+    same operands at a misaligned base run the sync kernel, which
+    `wgmma_launches` does not count."""
+    e, c, d, f = shape
+    pad = min(8, c // 4)
+    x, w = _grouped_operands(cuda, e, c, d, f, pad=pad)
+    ref = grouped_gemm.grouped_matmul_reference(x, w, out_dtype)
+    assert grouped_gemm.grouped_route(x, w) == "wgmma"
+    grouped_gemm.reset_launches()
+    for tile in grouped_gemm.WGMMA_TILES:
+        got = grouped_gemm.grouped_matmul(x, w, tile=tile, out_dtype=out_dtype)
+        again = grouped_gemm.grouped_matmul(x, w, tile=tile,
+                                            out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype and got.shape == (e, c, f)
+        assert bool((got[:, c - pad:] == 0).all()), tile
+        assert _row_rel_l2(got[:, :c - pad], ref[:, :c - pad]) <= 1e-2, tile
+        assert torch.equal(got, again), tile
+    calls = 2 * len(grouped_gemm.WGMMA_TILES)
+    assert grouped_gemm.wgmma_launches == grouped_gemm.launches == calls
+    off = _misaligned(x)
+    assert grouped_gemm.grouped_route(off, w) == "sync"
+    got = grouped_gemm.grouped_matmul(off, w, tile=(64, 64, 128),
+                                      out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert _row_rel_l2(got[:, :c - pad], ref[:, :c - pad]) <= 1e-2
+    assert grouped_gemm.wgmma_launches == calls
+    assert grouped_gemm.launches == calls + 1
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("shape", [(4, 20, 1000, 200), (3, 161, 1024, 512),
+                                   (2, 32, 1024, 512)])
+def test_grouped_wgmma_kernel_keeps_experts_apart(cuda, shape):
+    """Expert isolation: changing x[1] and w[1], to other values and to
+    Inf, leaves every other expert's y bit for bit the same at every
+    wgmma tile (TMA's per-dimension zero fill never reads expert 1's rows
+    from a box of expert 0 past its ragged C or D)."""
+    e, c, d, f = shape
+    x, w = _grouped_operands(cuda, e, c, d, f)
+    others = [i for i in range(e) if i != 1]
+    for tile in grouped_gemm.WGMMA_TILES:
+        base = grouped_gemm.grouped_matmul(x, w, tile=tile)
+        for fill in (None, float("inf")):
+            x2, w2 = x.clone(), w.clone()
+            if fill is None:
+                x2[1] = -3 * x2[1]
+                w2[1] = torch.flip(w2[1], dims=(0,))
+            else:
+                x2[1] = fill
+                w2[1] = fill
+            got = grouped_gemm.grouped_matmul(x2, w2, tile=tile)
+            torch.cuda.synchronize()
+            assert torch.equal(got[others], base[others]), (tile, fill)
 
 
 @pytest.mark.card

@@ -231,8 +231,10 @@ def test_stream_decisions_keep_slabs_and_groups_through_json(tmp_path):
 
 #: the decisions of the other kernels' requests at their main-path shapes,
 #: as the parent commit of the wave term made them (it plans only `gemm`
-#: at in_bytes 2 and 4): request (op, m, k, n, groups, in_bytes, density)
-#: -> (dataflow, bm, bk, bn, seconds, meta); out_bytes 2
+#: at in_bytes 2 and 4, and the bf16 `grouped_gemm` of the wgmma route
+#: below), and the grouped requests also in f32, whose sync route keeps
+#: the roofline: request (op, m, k, n, groups, in_bytes, density) ->
+#: (dataflow, bm, bk, bn, seconds, meta); out_bytes 2
 PINNED_DECISIONS = {
     ('gemm_w8', 4, 1536, 1536, 1, 1, 1.0): (
         'os', 16, 128, 64, 8.950065671641791e-07,
@@ -341,24 +343,50 @@ PINNED_DECISIONS = {
         {'density': 0.5, 'hbm_bytes': 453574656.0, 'k_effective': 4480,
          'padding_efficiency': 1.0, 'path': 'tiled', 'smem_bytes': 159744,
          'split_k': 1, 'stages': 2}),
+    ('grouped_gemm', 32, 1024, 512, 32, 4, 1.0): (
+        'os', 32, 64, 64, 3.0361752835820894e-05,
+        {'groups': 32, 'smem_bytes': 31744}),
+    ('grouped_gemm', 32, 512, 1024, 32, 4, 1.0): (
+        'os', 32, 64, 64, 3.067476059701493e-05,
+        {'groups': 32, 'smem_bytes': 31744}),
+    ('grouped_gemm', 1920, 1024, 512, 32, 4, 1.0): (
+        'os', 64, 64, 128, 0.0009615598423880597,
+        {'groups': 32, 'smem_bytes': 57344}),
+    ('grouped_gemm', 1920, 512, 1024, 32, 4, 1.0): (
+        'os', 64, 64, 128, 0.0009615598423880597,
+        {'groups': 32, 'smem_bytes': 57344}),
+    ('grouped_gemm', 160, 1024, 512, 32, 4, 1.0): (
+        'os', 64, 64, 128, 9.615598423880597e-05,
+        {'groups': 32, 'smem_bytes': 57344}),
+    ('grouped_gemm', 160, 512, 1024, 32, 4, 1.0): (
+        'os', 64, 64, 128, 9.615598423880597e-05,
+        {'groups': 32, 'smem_bytes': 57344}),
+    # bf16 experts whose (D, F) TMA can describe run on the GEMM's wgmma
+    # ring, and the same wave term plans them with the experts as a batch
     ('grouped_gemm', 32, 1024, 512, 32, 2, 1.0): (
-        'os', 32, 64, 64, 1.5337380298507464e-05,
-        {'groups': 32, 'smem_bytes': 17920}),
+        'os', 64, 64, 64, 1.0955271641791044e-05,
+        {'blocks': 256, 'fill': 0.6464646464646465, 'groups': 32,
+         'hbm_bytes': 36700160.0, 'route': 'wgmma', 'smem_bytes': 66624}),
     ('grouped_gemm', 32, 512, 1024, 32, 2, 1.0): (
-        'os', 32, 64, 64, 1.5650388059701493e-05,
-        {'groups': 32, 'smem_bytes': 17920}),
+        'os', 64, 64, 128, 1.0955271641791044e-05,
+        {'blocks': 256, 'fill': 0.9696969696969697, 'groups': 32,
+         'hbm_bytes': 36700160.0, 'route': 'wgmma', 'smem_bytes': 99392}),
     ('grouped_gemm', 1920, 1024, 512, 32, 2, 1.0): (
-        'os', 128, 32, 128, 0.00031926791641791045,
-        {'groups': 32, 'smem_bytes': 23040}),
+        'os', 128, 64, 256, 9.826188034188034e-05,
+        {'blocks': 960, 'fill': 1.0, 'groups': 32,
+         'hbm_bytes': 222298112.0, 'route': 'wgmma', 'smem_bytes': 197696}),
     ('grouped_gemm', 1920, 512, 1024, 32, 2, 1.0): (
-        'os', 128, 32, 128, 0.00033804838208955224,
-        {'groups': 32, 'smem_bytes': 23040}),
+        'os', 128, 64, 256, 0.00010022051282051282,
+        {'blocks': 1920, 'fill': 1.0, 'groups': 32,
+         'hbm_bytes': 222298112.0, 'route': 'wgmma', 'smem_bytes': 197696}),
     ('grouped_gemm', 160, 1024, 512, 32, 2, 1.0): (
-        'os', 128, 32, 128, 4.256905552238806e-05,
-        {'groups': 32, 'smem_bytes': 23040}),
+        'os', 128, 64, 256, 1.4711364776119402e-05,
+        {'blocks': 128, 'fill': 0.9696969696969697, 'groups': 32,
+         'hbm_bytes': 49283072.0, 'route': 'wgmma', 'smem_bytes': 197696}),
     ('grouped_gemm', 160, 512, 1024, 32, 2, 1.0): (
-        'os', 128, 32, 128, 4.50731176119403e-05,
-        {'groups': 32, 'smem_bytes': 23040}),
+        'os', 128, 64, 256, 1.4711364776119402e-05,
+        {'blocks': 256, 'fill': 1.0, 'groups': 32,
+         'hbm_bytes': 49283072.0, 'route': 'wgmma', 'smem_bytes': 197696}),
 }
 
 

@@ -104,7 +104,11 @@ def test_tile_menu_matches_the_cuda_source(macro, menu):
         assert {bm for bm, _, _ in tiles} == {64, 128}
         assert {bk for _, bk, _ in tiles} == {64}
         assert all(bn % 64 == 0 and bn <= 256 for _, _, bn in tiles)
-        assert f"kWgStages = {redas_gemm.WGMMA_STAGES};" in src
+        # the ring, shared with the grouped GEMM, lives in hopper.cuh
+        ring = (Path(redas_gemm.__file__).with_name("csrc")
+                / "hopper.cuh").read_text()
+        assert f"kWgStages = {redas_gemm.WGMMA_STAGES};" in ring
+        assert "wgmma_os_tile<BM, BN, 2>" in src
 
 
 @pytest.mark.parametrize("dataflow", ["ws", "is"])
