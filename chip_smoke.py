@@ -17,9 +17,13 @@ Phases (any failed check exits non-zero; nothing falls back):
      through operands at a misaligned base, at the bf16 shapes whose
      decision is OS), each call's route read from the counters;
   3. attention kernels against plain: paged attention at the paged
-     serve's decode shape (8 slots, 12 heads over 2 KV heads, head dim 128,
-     pages of 16, a 51-page table with holes, kv_len 0, 1, a page edge and
-     ragged lengths) and flash attention at (4, 12, 512, 128) causal, one
+     serve's decode shapes (8 slots, pages of 16, a 51-page table with
+     holes, kv_len 0, 1, a page edge and ragged lengths; qwen2-1.5b's 12
+     heads over 2 KV heads at head dim 128, and granite's 16 over 8 at 64)
+     at the wrapper's cluster size and at C = 1, 2, 4, 8 (each held to the
+     plain version and timed; the pick within PAGED_PICK_LIMIT of the
+     fastest C in bf16; the cluster occupancy and the host's us a call)
+     and flash attention at (4, 12, 512, 128) causal, one
      window case, non-causal and a length `_legal_block` bends, in bf16
      and f32; times of kernel, plain version and library yardstick beside
      the bound; `Engine.attention` driven through the engine once;
@@ -37,7 +41,7 @@ Phases (any failed check exits non-zero; nothing falls back):
      28 x decode ticks and GEMM launches 7 x 28 x (decode ticks + prefill
      calls), every OS call on the wgmma kernel.  A second pass through the
      same engine must plan nothing new, and a device trace of 10 decode
-     ticks gives the idle share;
+     ticks gives the idle share and the paged kernel's device ms;
   6. prefix sharing: 12 requests with a common 256-token prefix through
      the Scheduler, paged against contiguous;
   7. parity on the card: full-width prefill logits and one paged decode
@@ -63,7 +67,8 @@ Phases (any failed check exits non-zero; nothing falls back):
      on the wgmma kernel, paged 24 x ticks; a second pass plans nothing
      new; a device trace of 10 decode ticks (at least 0.99 of their
      grouped calls shown as `grouped_wgmma_kernel`, none as
-     `grouped_os_kernel`; the ticks' device split by kernel);
+     `grouped_os_kernel`; the ticks' device split by kernel, the paged
+     kernel's ms printed);
  10. granite, default einsum dispatch, through the launcher's static mode
      (8 x (256 + 16)): the grouped kernel must launch 0 times and the GEMM
      4 x 24 x 16 times, every OS call on the wgmma kernel;
@@ -86,11 +91,12 @@ Phases (any failed check exits non-zero; nothing falls back):
      decode ticks, one tick's logits against "torch-ref-int8" within
      rel-L2 0.035), then SMOKE f32 card tokens against the CPU's (static,
      Scheduler paged and contiguous);
- 14. the int8-pool paged kernel against plain: the paged decode tick's
-     shape over int8 pools (random int8 rows, per-row scales from
-     U(1e-3, 2e-2), the same table and kv_len as phase 3), bf16 and f32 q;
-     times of kernel, plain version and a gather + dequantize + SDPA
-     yardstick beside the bound (the live int8 rows and their scales);
+ 14. the int8-pool paged kernel against plain: phase 3's paged shapes
+     over int8 pools (random int8 rows, per-row scales from U(1e-3,
+     2e-2), the same tables and kv_len), bf16 and f32 q, at the wrapper's
+     cluster size and at C = 1, 2, 4, 8 as in phase 3; times of kernel,
+     plain version and a gather + dequantize + SDPA yardstick beside the
+     bound (the live int8 rows and their scales);
  15. qwen2-1.5b under the launcher's --quantize (int8 weights, int8 KV,
      "hopper-int8"): the static serve (4 x (512 + 16), contiguous int8
      KV; the int8 kernel must launch 3136 times, the float GEMM and the
@@ -485,6 +491,20 @@ def check_traced_grouped(prof: dict, want: int) -> None:
           f"{want}; traced {seen} wgmma and {sync} sync grouped launches")
 
 
+def paged_trace_line(prof: dict, label: str, cfg) -> dict:
+    """The paged kernel's device ms in a trace of 10 decode ticks (one
+    launch a layer a tick; at least TRACE_KEPT of them shown)."""
+    seen = prof["matched"][PAGED_KERNEL]
+    print(f"  the paged kernel in {label} 10 traced ticks: {seen['ms']:.3f} "
+          f"ms of device time in {seen['count']} launches, "
+          f"{seen['ms'] / 10:.3f} ms a tick")
+    want = 10 * cfg.n_layers
+    check(TRACE_KEPT * want <= seen["count"] <= want,
+          f"{label} traced ticks show {seen['count']} paged launches, want "
+          f"{want}")
+    return dict(seen)
+
+
 def gemm_trace_line(prof: dict, per: int, unit: str) -> dict:
     """The ReDas GEMM kernels' device ms in a trace, by kernel, and per
     `unit` (the trace covers `per` of them)."""
@@ -787,27 +807,29 @@ def sweep() -> int:
     return 1 if failures else 0
 
 
-def _paged_sets(dtype, count: int, seed: int = 2,
-                int8: bool = False) -> list[tuple]:
+def _paged_sets(dtype, count: int, seed: int, int8: bool,
+                shape: tuple) -> list[tuple]:
     """`count` input sets of the paged serve's decode tick, each with its
-    own pools: q (8, 1, 12, 128), pools (510, 16, 2, 128), a 51-page
-    table per slot whose live pages are drawn from the pool and whose
-    other entries are holes (-1), kv_len = PAGED_LENS.  `int8`: random
-    int8 pools and their scale pools (510, 16, 2) from U(1e-3, 2e-2), as
-    tests/test_paged.py draws them, after the lengths."""
+    own pools: q (8, 1, H, D), pools (510, 16, KV, D) for `shape` = (H,
+    KV, D), a 51-page table per slot whose live
+    pages are drawn from the pool and whose other entries are holes (-1),
+    kv_len = PAGED_LENS.  `int8`: random int8 pools and their scale pools
+    (510, 16, KV) from U(1e-3, 2e-2), as tests/test_paged.py draws them,
+    after the lengths."""
+    h, kv, d = shape
     gen = torch.Generator().manual_seed(seed)
     lens = torch.tensor(PAGED_LENS, dtype=torch.int32)
     sets = []
     for _ in range(count):
-        q = torch.randn(SLOTS, 1, 12, 128, generator=gen)
+        q = torch.randn(SLOTS, 1, h, d, generator=gen)
         if int8:
-            kp, vp = (torch.randint(-127, 128, (POOL_PAGES, PAGE, 2, 128),
+            kp, vp = (torch.randint(-127, 128, (POOL_PAGES, PAGE, kv, d),
                                     generator=gen, dtype=torch.int8)
                       for _ in range(2))
-            scales = tuple(torch.rand(POOL_PAGES, PAGE, 2, generator=gen)
+            scales = tuple(torch.rand(POOL_PAGES, PAGE, kv, generator=gen)
                            * 1.9e-2 + 1e-3 for _ in range(2))
         else:
-            kp, vp = (torch.randn(POOL_PAGES, PAGE, 2, 128, generator=gen)
+            kp, vp = (torch.randn(POOL_PAGES, PAGE, kv, d, generator=gen)
                       for _ in range(2))
         perm = torch.randperm(POOL_PAGES, generator=gen).to(torch.int32)
         bt = torch.full((SLOTS, SLOT_PAGES), -1, dtype=torch.int32)
@@ -852,12 +874,13 @@ def _bound_of(ops: float, bytes_: float, itemsize: int) -> tuple[float, str]:
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
 
 
-def paged_bound(itemsize: int, int8: bool = False) -> tuple[float, str]:
+def paged_bound(itemsize: int, int8: bool,
+                shape: tuple) -> tuple[float, str]:
     """q and o, each live K and V row read once (int8 pools: one byte an
     element and one f32 scale a row), the table and lengths; 4 x H x D
-    operations per live row (QK^T and PV)."""
+    operations per live row (QK^T and PV); `shape` = (H, KV, D)."""
     live = sum(PAGED_LENS)
-    h, kv, d = 12, 2, 128
+    h, kv, d = shape
     rows = 2 * live * kv * ((d + 4) if int8 else d * itemsize)
     bytes_ = (2 * SLOTS * h * d * itemsize + rows + SLOTS * SLOT_PAGES * 4
               + SLOTS * 4)
@@ -889,6 +912,109 @@ def _flash_blocks(shape, itemsize: int) -> tuple[int, int]:
             flash_attention._legal_block(s, dec.bn))
 
 
+#: the paged kernel's decode shapes (H, KV, D) at the serve's 8 slots,
+#: 51-page tables and PAGED_LENS: qwen2-1.5b's and granite-moe-1b-a400m's
+PAGED_SHAPES = {ARCH: (12, 2, 128), GRANITE: (16, 8, 64)}
+#: the cluster sizes the paged phases time, and the most the wrapper's
+#: pick (`splits_for`) may take against the fastest of them (bf16)
+PAGED_SPLITS = (1, 2, 4, 8)
+PAGED_PICK_LIMIT = 1.25
+
+
+def paged_kernel_rows(dtype, int8: bool, side) -> tuple[list[dict], list]:
+    """The paged kernel (float pools, or int8 pools with their scales) at
+    each of PAGED_SHAPES in `dtype`: held to its plain version at the
+    wrapper's cluster size and at each of PAGED_SPLITS (per live row; the
+    kv_len 0 rows exact zeros; a repeat bit for bit), timed at each and
+    beside the plain version, the library yardstick and the bound; the
+    cluster occupancy (`cudaOccupancyMaxActiveClusters`) and the host's
+    us a call at the pick (enqueued back to back).  Returns the rows and
+    the failures; in bf16 a pick slower than PAGED_PICK_LIMIT x the
+    fastest split fails."""
+    tol = BF16_ROW_TOL if dtype == torch.bfloat16 else F32_ROW_TOL
+    name = str(dtype)[6:]
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    dead = [i for i, n in enumerate(PAGED_LENS) if n == 0]
+    live = [i for i, n in enumerate(PAGED_LENS) if n > 0]
+    kernel = "paged_attention_int8" if int8 else "paged_attention"
+    rows, failures = [], []
+    for arch, (h, kv, d) in PAGED_SHAPES.items():
+        row_bytes = kv * ((d + 4) if int8 else d * itemsize)
+        sets = _paged_sets(dtype, max(2, min(64, math.ceil(
+            L2_BYTES / (sum(PAGED_LENS) * row_bytes)))),
+            seed=7 if int8 else 2, int8=int8, shape=(h, kv, d))
+        ref = paged_attention.paged_attention_reference(*sets[0])
+        pick = paged_attention.splits_for(SLOTS, kv, SLOT_PAGES)
+        rel, zeros, err = {}, {}, 0.0
+        for c in (None, *PAGED_SPLITS):
+            out = paged_attention.paged_attention(*sets[0], splits=c)
+            torch.cuda.synchronize()
+            rel[c] = row_rel_l2(out[live], ref[live])
+            zeros[c] = bool((out[dead] == 0).all())
+            err = max(err, (out[live].float() - ref[live].float()).abs()
+                      .max().item())
+        again = paged_attention.paged_attention(*sets[0])
+        same = bool(torch.equal(again, paged_attention.paged_attention(
+            *sets[0])))
+        split_ms = {c: device_ms(functools.partial(
+            paged_attention.paged_attention, splits=c), sets, side)
+            for c in PAGED_SPLITS}
+        ms = device_ms(paged_attention.paged_attention, sets, side)
+        fastest = min(split_ms, key=split_ms.get)
+        row = {"kernel": kernel, "arch": arch, "dtype": name,
+               "shape": (f"q (8,1,{h},{d}), {'int8 ' if int8 else ''}pools "
+                         f"(510,16,{kv},{d})" + (", scale pools (510,16,"
+                                                 f"{kv})" if int8 else "")
+                         + ", n_bt 51"),
+               "kv_len": list(PAGED_LENS), "splits": pick, "ms": ms,
+               "splits_ms": split_ms, "fastest_split": fastest,
+               "pick_over_fastest": ms / split_ms[fastest],
+               "plain_ms": device_ms(
+                   paged_attention.paged_attention_reference, sets, side),
+               "library_ms": device_ms(_paged_library, sets, side),
+               "library": ("gather + dequantize + scaled_dot_product_attention"
+                           if int8 else "k_pages[bt] gather + "
+                           "scaled_dot_product_attention (two calls)"),
+               "max_active_clusters": paged_attention.max_active_clusters(
+                   *sets[0]),
+               "host_us": host_enqueue_us(functools.partial(
+                   paged_attention.paged_attention, *sets[0])),
+               "max_abs_err": err, "row_rel_l2": max(rel.values()),
+               "row_rel_l2_by_split": {str(c): v for c, v in rel.items()},
+               "tol": tol, "kv_len_0_exact_zeros": all(zeros.values()),
+               "repeat_bitwise": same}
+        row["bound_ms"], row["bound_by"] = paged_bound(itemsize, int8,
+                                                       (h, kv, d))
+        rows.append(row)
+        ok = (all(math.isfinite(r) and r <= tol for r in rel.values())
+              and row["kv_len_0_exact_zeros"] and same)
+        slow = dtype == torch.bfloat16 and (row["pick_over_fastest"]
+                                            > PAGED_PICK_LIMIT)
+        print(f"{kernel} {arch} {name}: {row['shape']}, kv_len "
+              f"{PAGED_LENS}: row rel-L2 {row['row_rel_l2']:.2e} at C in "
+              f"(pick, 1, 2, 4, 8) (tol {tol:g}), max|diff| {err:.3e}, kv_len "
+              f"0 rows {'exact zeros' if row['kv_len_0_exact_zeros'] else 'NOT ZERO'}, "
+              f"repeat {'bit for bit' if same else 'DIFFERS'}; kernel at the "
+              f"pick C = {pick} {ms:.4f} ms ("
+              + ", ".join(f"C={c} {v:.4f}" for c, v in split_ms.items())
+              + f"; pick / fastest {row['pick_over_fastest']:.3f}, limit "
+              f"{PAGED_PICK_LIMIT}), plain {row['plain_ms']:.4f} ms, "
+              f"{'gather + dequantize + SDPA' if int8 else 'gather + SDPA (two calls)'} "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}); {row['max_active_clusters']} clusters of "
+              f"{pick} fit at once; host {row['host_us']:.1f} us a call"
+              f"{'' if ok and not slow else '  FAILED'}")
+        if not ok:
+            failures.append(f"{kernel} {arch} {name}: rel {rel}, zeros "
+                            f"{zeros}, repeat {same}")
+        if slow:
+            failures.append(f"{kernel} {arch} {name}: the pick C = {pick} "
+                            f"takes {row['pick_over_fastest']:.3f} x the "
+                            f"fastest C = {fastest}")
+        del sets
+    return rows, failures
+
+
 def phase_attention_kernels() -> dict:
     side = torch.cuda.Stream()
     rows, failures = [], []
@@ -896,42 +1022,10 @@ def phase_attention_kernels() -> dict:
         tol = BF16_ROW_TOL if dtype == torch.bfloat16 else F32_ROW_TOL
         name = str(dtype)[6:]
         itemsize = torch.tensor([], dtype=dtype).element_size()
-        # paged attention at the paged serve's decode shape
-        live_bytes = 2 * sum(PAGED_LENS) * 2 * 128 * itemsize
-        sets = _paged_sets(dtype, max(2, min(64, math.ceil(2 * L2_BYTES
-                                                           / live_bytes))))
-        out = paged_attention.paged_attention(*sets[0])
-        ref = paged_attention.paged_attention_reference(*sets[0])
-        torch.cuda.synchronize()
-        dead = [i for i, n in enumerate(PAGED_LENS) if n == 0]
-        live = [i for i, n in enumerate(PAGED_LENS) if n > 0]
-        zeros = bool((out[dead] == 0).all())
-        rel = row_rel_l2(out[live], ref[live])
-        err = (out[live].float() - ref[live].float()).abs().max().item()
-        ms = device_ms(paged_attention.paged_attention, sets, side)
-        plain_ms = device_ms(paged_attention.paged_attention_reference, sets,
-                             side)
-        library_ms = device_ms(_paged_library, sets, side)
-        bound_ms, bound_by = paged_bound(itemsize)
-        row = {"kernel": "paged_attention", "dtype": name,
-               "shape": "q (8,1,12,128), pools (510,16,2,128), n_bt 51",
-               "kv_len": list(PAGED_LENS), "ms": ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "library": "k_pages[bt] gather + "
-               "scaled_dot_product_attention (two calls)",
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "max_abs_err": err, "row_rel_l2": rel, "tol": tol,
-               "kv_len_0_exact_zeros": zeros}
-        rows.append(row)
-        ok = math.isfinite(rel) and rel <= tol and zeros
-        print(f"paged_attention {name} {row['shape']}, kv_len {PAGED_LENS}: "
-              f"row rel-L2 {rel:.2e} (tol {tol:g}), max|diff| {err:.3e}, "
-              f"kv_len 0 rows {'exact zeros' if zeros else 'NOT ZERO'}; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, gather + SDPA "
-              f"(two calls) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}){'' if ok else '  FAILED'}")
-        if not ok:
-            failures.append(f"paged {name}: rel {rel:.2e}, zeros {zeros}")
-        del sets
+        # paged attention at the paged serve's decode shapes
+        paged_rows, paged_failures = paged_kernel_rows(dtype, False, side)
+        rows += paged_rows
+        failures += paged_failures
         # flash attention: the timed main case, then the other masks
         cases = [(FLASH_SHAPE, True, 0, True), (FLASH_SHAPE, True, 128, False),
                  (FLASH_SHAPE, False, 0, False), ((4, 12, 500, 128), True, 0,
@@ -1211,8 +1305,9 @@ def phase_scheduler(cfg) -> dict:
     new_misses, trace = _replay_and_trace(out["params"], cfg,
                                           out["serve_config"], eng,
                                           out["trace"], tokens, "",
-                                          GEMM_KERNELS)
+                                          GEMM_KERNELS + (PAGED_KERNEL,))
     trace["gemm"] = gemm_trace_line(trace, 10, "tick")
+    trace["paged"] = paged_trace_line(trace, "the paged serve's", cfg)
     check_traced_reductions("paged serve, 10 traced ticks", trace, 10 * (
         _decode_reductions(eng, LAYER_GEMMS, cfg.n_layers)))
     REPORT["paged_serve"] = {
@@ -1811,49 +1906,14 @@ def phase_int8_smoke_parity(cache_dtype: str = "float32") -> None:
 
 
 def phase_paged_int8_kernel() -> list[dict]:
-    """The int8-pool variant of the paged kernel at the paged serve's
-    decode tick, bf16 and f32 q, against its plain version."""
+    """The int8-pool variant of the paged kernel at the paged decode
+    shapes, bf16 and f32 q, against its plain version."""
     side = torch.cuda.Stream()
     rows, failures = [], []
-    dead = [i for i, n in enumerate(PAGED_LENS) if n == 0]
-    live = [i for i, n in enumerate(PAGED_LENS) if n > 0]
     for dtype in (torch.bfloat16, torch.float32):
-        tol = BF16_ROW_TOL if dtype == torch.bfloat16 else F32_ROW_TOL
-        name = str(dtype)[6:]
-        itemsize = torch.tensor([], dtype=dtype).element_size()
-        live_bytes = 2 * sum(PAGED_LENS) * 2 * (128 + 4)
-        sets = _paged_sets(dtype, max(2, min(64, math.ceil(
-            2 * L2_BYTES / live_bytes))), seed=7, int8=True)
-        out = paged_attention.paged_attention(*sets[0])
-        ref = paged_attention.paged_attention_reference(*sets[0])
-        torch.cuda.synchronize()
-        zeros = bool((out[dead] == 0).all())
-        rel = row_rel_l2(out[live], ref[live])
-        err = (out[live].float() - ref[live].float()).abs().max().item()
-        row = {"kernel": "paged_attention_int8", "dtype": name,
-               "shape": "q (8,1,12,128), int8 pools (510,16,2,128), scale "
-                        "pools (510,16,2), n_bt 51",
-               "kv_len": list(PAGED_LENS),
-               "ms": device_ms(paged_attention.paged_attention, sets, side),
-               "plain_ms": device_ms(
-                   paged_attention.paged_attention_reference, sets, side),
-               "library_ms": device_ms(_paged_library, sets, side),
-               "library": "gather + dequantize + scaled_dot_product_attention",
-               "max_abs_err": err, "row_rel_l2": rel, "tol": tol,
-               "kv_len_0_exact_zeros": zeros}
-        row["bound_ms"], row["bound_by"] = paged_bound(itemsize, int8=True)
-        rows.append(row)
-        ok = math.isfinite(rel) and rel <= tol and zeros
-        print(f"paged_attention int8 pools, {name} q, kv_len {PAGED_LENS}: "
-              f"row rel-L2 {rel:.2e} (tol {tol:g}), max|diff| {err:.3e}, "
-              f"kv_len 0 rows {'exact zeros' if zeros else 'NOT ZERO'}; "
-              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-              f"gather + dequantize + SDPA {row['library_ms']:.4f} ms, bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
-              f"{'' if ok else '  FAILED'}")
-        if not ok:
-            failures.append(f"paged int8 {name}: rel {rel:.2e}, zeros {zeros}")
-        del sets
+        more, bad = paged_kernel_rows(dtype, True, side)
+        rows += more
+        failures += bad
     REPORT["paged_int8_kernel"] = rows
     check(not failures, f"int8-pool paged kernel disagrees with its plain "
           f"version: {failures}")
@@ -2976,6 +3036,7 @@ def phase_granite_sorted() -> dict:
                             10 * _decode_reductions(eng, GRANITE_LAYER_GEMMS,
                                                     layers))
     check_traced_grouped(prof, 10 * 3 * layers)
+    prof["paged"] = paged_trace_line(prof, "granite's", cfg)
     REPORT["granite_sorted"] = {
         "trace": TRACE, "slots": SLOTS, "page_size": PAGE,
         "prefill_bucket": BUCKET, "seconds": seconds,

@@ -104,8 +104,9 @@ def hopper_paged_attention(decision: KernelDecision, q, k_pages, v_pages,
                            block_tables, kv_len, *, k_scale=None,
                            v_scale=None):
     """Paged decode on the kernel, float pools or int8 pools with their
-    scale pools (its block is one (slot, KV head); the decision's blocks
-    are planned but do not shape it)."""
+    scale pools (a cluster of `paged_attention.splits_for` blocks per
+    (slot, KV head); the decision's blocks are planned but do not shape
+    it)."""
     return paged_attention.paged_attention(q, k_pages, v_pages, block_tables,
                                            kv_len, k_scale, v_scale)
 

@@ -30,6 +30,12 @@ same block table.  The rows are read raw and the scales folded in where
 the reference folds them: scores times the row's k scale before masking,
 the softmax weights times the row's v scale after normalising by the
 plain softmax denominator.
+
+On the card each (slot, KV head) is a thread-block cluster of
+`splits_for(B, KV, n_bt)` blocks that split the slot's live pages and
+combine their partial softmax states through distributed shared memory
+(csrc/paged_attention.cu); `splits=` forces the cluster size, for tests
+and measurements only.
 """
 
 from __future__ import annotations
@@ -45,10 +51,17 @@ from . import _build
 NEG_INF = -1e30
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
-#: rows of K and V one block stages per step (whole pages, at least one)
-_CHUNK_ROWS = 64
 #: shared memory a block may use on an H100 (227 KB, NVIDIA data sheet)
 _SMEM_LIMIT = 232_448
+#: the H100's SMs, which `splits_for` fills
+SMS = 132
+#: the largest portable thread-block cluster
+MAX_SPLITS = 8
+#: the kernel's ring stages (at most), the K and V bytes a stage holds
+#: (whole pages, at least one) and its threads (csrc/paged_attention.cu)
+STAGES, STAGE_BYTES, THREADS = 4, 16384, 256
+#: a lane holds 8 elements of the head dim, a row at most a warp of lanes
+MAX_HEAD_DIM = 256
 
 #: kernel launches since the last reset (the CPU path never counts).
 launches = 0
@@ -102,7 +115,7 @@ def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 def _check(q, k_pages, v_pages, block_tables, kv_len, k_scale=None,
-           v_scale=None) -> None:
+           v_scale=None, splits=None) -> None:
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"q must be (B, 1, H, D), got {tuple(q.shape)}")
     b, _, h, d = q.shape
@@ -143,77 +156,159 @@ def _check(q, k_pages, v_pages, block_tables, kv_len, k_scale=None,
                          "different devices")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention takes contiguous tensors")
+    if splits is not None and not (type(splits) is int
+                                   and 1 <= splits <= MAX_SPLITS):
+        raise ValueError(f"splits must be an int in 1..{MAX_SPLITS}, got "
+                         f"{splits!r}")
+
+
+@functools.cache
+def splits_for(b: int, kv: int, n_bt: int) -> int:
+    """The cluster size C, from the shapes alone: about SMS / (B x KV)
+    blocks a (slot, KV head), at most MAX_SPLITS and n_bt, a power of
+    two; 8 for qwen2-1.5b's decode (B 8, KV 2), 2 for granite's (B 8,
+    KV 8)."""
+    want = max(1, min(MAX_SPLITS, n_bt, SMS // max(1, b * kv)))
+    return 1 << (want.bit_length() - 1)
+
+
+def heads_per_group(g: int) -> int:
+    """Query heads a row group of the kernel holds in registers, 2 to 4:
+    the KV head's G heads split into ceil(G / HN) chunks with the fewest
+    padded heads, then the fewest chunks (3 for qwen2-1.5b's G = 6, 2 for
+    granite's G = 2)."""
+    return min(range(2, 5), key=lambda hn: (-(-g // hn) * hn - g, -(-g // hn)))
+
+
+def stage_pages(page: int, d: int, pool_itemsize: int,
+                quantized: bool = False) -> int:
+    """Whole pages a ring stage holds: up to STAGE_BYTES of K and V rows
+    (and their scales for int8 pools), at least one page."""
+    row = d * pool_itemsize + (4 if quantized else 0)
+    return max(1, STAGE_BYTES // (2 * page * row))
 
 
 def smem_bytes(g: int, d: int, page: int, pool_itemsize: int,
-               quantized: bool = False) -> int:
-    """Shared memory one block uses: q, acc (G, D) f32; scores (G, R)
-    f32; m, l, corr (G,) f32; for int8 pools the k and v scales of the R
-    staged rows, f32; then the K rows (R, D + pad) and the V rows (R, D)
-    of the pool's dtype, each region 16-byte aligned (the layout of
-    csrc/paged_attention.cu; pad is one 16-byte vector, or one element
-    where D takes no vector loads)."""
-    rows = chunk_pages(page) * page
-    vec = 16 // pool_itemsize if d % (16 // pool_itemsize) == 0 else 1
-    pad = vec if vec > 1 else 1
+               quantized: bool = False, *, n_bt: int) -> int:
+    """Shared memory one block uses (the layout of
+    csrc/paged_attention.cu), every piece 16-byte aligned: the block's
+    partial (m, l, acc) for the KV head's G heads, f32; the slot's
+    block-table row, int32; then the ring of STAGES stages (fewer, at
+    least two, where they would not fit), each the K and V rows of
+    `stage_pages` pages and, for int8 pools, their k and v scales (f32);
+    after the walk the ring's bytes hold the warps' partials."""
+    hn, warps = heads_per_group(g), THREADS // 32
+    rows = stage_pages(page, d, pool_itemsize, quantized) * page
     align = lambda n: -(-n // 16) * 16
-    floats = 2 * g * d + g * rows + 3 * g + (2 * rows if quantized else 0)
-    return (align(floats * 4) + align(rows * (d + pad) * pool_itemsize)
-            + rows * d * pool_itemsize)
+    stage = (2 * align(rows * d * pool_itemsize)
+             + (2 * align(rows * 4) if quantized else 0))
+    red = warps * hn * (d + 2) * 4
+    total = lambda stages: (align(g * (d + 2) * 4) + align(n_bt * 4)
+                            + max(stages * stage, red))
+    stages = STAGES
+    while stages > 2 and total(stages) > _SMEM_LIMIT:
+        stages -= 1
+    return total(stages)
 
 
-def chunk_pages(page: int) -> int:
-    """Pages a block stages per step: whole pages up to _CHUNK_ROWS rows."""
-    return max(1, _CHUNK_ROWS // page)
+@functools.cache
+def _geometry(g, d, page, n_bt, pool_itemsize, quantized) -> int:
+    """`stage_pages` of a shape the kernel takes, worked out once per
+    shape (the wrapper runs on a host-bound decode tick); raises on a
+    shape it does not take."""
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"paged_attention takes a head dim of at most "
+                         f"{MAX_HEAD_DIM}, got {d}")
+    if -(-g // heads_per_group(g)) > THREADS // 32:
+        raise ValueError(f"paged_attention takes at most {4 * THREADS // 32}"
+                         f" query heads a KV head, got {g}")
+    smem = smem_bytes(g, d, page, pool_itemsize, quantized, n_bt=n_bt)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"paged_attention needs {smem} bytes of shared "
+                         f"memory (G={g}, D={d}, page={page}, n_bt={n_bt}); "
+                         f"the card gives a block {_SMEM_LIMIT}")
+    return stage_pages(page, d, pool_itemsize, quantized)
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load("paged_attention")
-    lib.paged_attention_launch.argtypes = (
-        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-        + [ctypes.c_void_p])
+    args = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+            + [ctypes.c_void_p])
+    lib.paged_attention_launch.argtypes = args
     lib.paged_attention_launch.restype = ctypes.c_int
+    lib.paged_attention_max_active_clusters.argtypes = (
+        args + [ctypes.POINTER(ctypes.c_int)])
+    lib.paged_attention_max_active_clusters.restype = ctypes.c_int
     return lib
+
+
+def _launch_args(q, k_pages, v_pages, block_tables, kv_len, k_scale,
+                 v_scale, splits, out) -> tuple:
+    """The C entry's arguments after `_check`; raises on what the kernel
+    does not take."""
+    b, _, h, d = q.shape
+    n_pool, page, kv, _ = k_pages.shape
+    g, n_bt = h // kv, block_tables.shape[1]
+    quantized = k_scale is not None
+    ppc = _geometry(g, d, page, n_bt, k_pages.element_size(), quantized)
+    if splits is None:
+        splits = splits_for(b, kv, n_bt)
+    scales = ((k_scale.data_ptr(), v_scale.data_ptr()) if quantized
+              else (None, None))
+    return (_DTYPE_CODE[q.dtype], int(quantized), q.data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr(), *scales,
+            block_tables.data_ptr(), kv_len.data_ptr(), out.data_ptr(), b,
+            kv, g, d, n_pool, page, n_bt, ppc, splits,
+            torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, block_tables: torch.Tensor,
-                    kv_len: torch.Tensor, k_scale=None,
-                    v_scale=None) -> torch.Tensor:
+                    kv_len: torch.Tensor, k_scale=None, v_scale=None,
+                    splits: int | None = None) -> torch.Tensor:
     """Decode attention through the block table: the kernel on CUDA
     tensors, `paged_attention_reference` on CPU tensors.  int8 pools
     take their scale pools `k_scale`/`v_scale` (P, page, KV) f32.
-    Raises on anything the kernel does not take."""
+    `splits` forces the cluster size (1..MAX_SPLITS; default
+    `splits_for`).  Raises on anything the kernel does not take."""
     global launches
-    _check(q, k_pages, v_pages, block_tables, kv_len, k_scale, v_scale)
+    _check(q, k_pages, v_pages, block_tables, kv_len, k_scale, v_scale,
+           splits)
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pages, v_pages, block_tables,
                                          kv_len, k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on CUDA or CPU tensors, not "
                          f"{q.device}")
-    b, _, h, d = q.shape
-    n_pool, page, kv, _ = k_pages.shape
-    g = h // kv
-    quantized = k_scale is not None
-    smem = smem_bytes(g, d, page, k_pages.element_size(), quantized)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"paged_attention needs {smem} bytes of shared "
-                         f"memory (G={g}, D={d}, page={page}); the card "
-                         f"gives a block {_SMEM_LIMIT}")
     out = torch.empty_like(q)
-    lib = _library()
-    scales = ((k_scale.data_ptr(), v_scale.data_ptr()) if quantized
-              else (None, None))
+    args = _launch_args(q, k_pages, v_pages, block_tables, kv_len, k_scale,
+                        v_scale, splits, out)
     with torch.cuda.device(q.device):
-        err = lib.paged_attention_launch(
-            _DTYPE_CODE[q.dtype], int(quantized), q.data_ptr(),
-            k_pages.data_ptr(), v_pages.data_ptr(), *scales,
-            block_tables.data_ptr(), kv_len.data_ptr(), out.data_ptr(), b,
-            kv, g, d, n_pool, page, block_tables.shape[1], chunk_pages(page),
-            torch.cuda.current_stream().cuda_stream)
+        err = _library().paged_attention_launch(*args)
     if err != 0:
         raise RuntimeError(f"paged_attention launch failed: CUDA error {err}")
     launches += 1
     return out
+
+
+def max_active_clusters(q, k_pages, v_pages, block_tables, kv_len,
+                        k_scale=None, v_scale=None,
+                        splits: int | None = None) -> int:
+    """How many of the kernel's clusters the card holds at once
+    (`cudaOccupancyMaxActiveClusters`) for a call with these arguments;
+    launches nothing."""
+    _check(q, k_pages, v_pages, block_tables, kv_len, k_scale, v_scale,
+           splits)
+    if q.device.type != "cuda":
+        raise ValueError("max_active_clusters asks the card: CUDA tensors")
+    clusters = ctypes.c_int(0)
+    args = _launch_args(q, k_pages, v_pages, block_tables, kv_len, k_scale,
+                        v_scale, splits, q)
+    with torch.cuda.device(q.device):
+        err = _library().paged_attention_max_active_clusters(
+            *args, ctypes.byref(clusters))
+    if err != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: CUDA "
+                           f"error {err}")
+    return clusters.value

@@ -12,6 +12,8 @@ holds the TPU kernel to its oracle), paged rtol = atol = 2e-5 (as
 tests/test_paged.py holds it).
 """
 
+import functools
+import math
 import re
 
 import jax.numpy as jnp
@@ -239,7 +241,8 @@ def test_paged_wrapper_on_cpu_and_its_checks():
         paged_attention.paged_attention(q.expand(2, 2, 12, 16).contiguous(),
                                         kp, vp, bt, ln)
     # the kernel's shared memory at the main-path shape fits one block
-    assert paged_attention.smem_bytes(6, 128, 16, 2) <= paged_attention._SMEM_LIMIT
+    assert paged_attention.smem_bytes(6, 128, 16, 2, n_bt=51) <= \
+        paged_attention._SMEM_LIMIT
 
 
 def test_engine_paged_attention_memo_and_plan_as_in_jax_engine():
@@ -257,3 +260,207 @@ def test_engine_paged_attention_memo_and_plan_as_in_jax_engine():
     (req, dec), = teng.plan
     assert (req.op, req.m, req.k, req.n, req.groups) == (
         "paged_attention", 1, 16, bt.shape[1] * 4, 2 * 12)
+
+
+# --------------------------------------------------------------------------
+# the card's split over pages: the cluster size, the page ranges and the
+# combine, on the CPU
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,kv,n_bt,want", [
+    (8, 2, 51, 8),     # qwen2-1.5b's decode tick: 16 pairs -> 128 blocks
+    (8, 8, 51, 2),     # granite-moe-1b-a400m's: 64 pairs -> 128 blocks
+    (2, 2, 2, 2),      # SMOKE (2 KV heads) at the launcher's --batch 2,
+                       # pages of 8 and 8 + 4 tokens: capped by n_bt
+    (4, 2, 13, 8),     # SMOKE at 4 slots, a longer table
+    (70, 2, 51, 1),    # more pairs than SMs
+])
+def test_splits_for_at_the_decode_shapes(b, kv, n_bt, want):
+    assert paged_attention.splits_for(b, kv, n_bt) == want
+
+
+def test_splits_for_bounds():
+    for b in (1, 2, 3, 5, 8, 16, 33, 66, 140):
+        for kv in (1, 2, 8):
+            for n_bt in (0, 1, 2, 3, 7, 51):
+                c = paged_attention.splits_for(b, kv, n_bt)
+                assert 1 <= c <= paged_attention.MAX_SPLITS
+                assert c & (c - 1) == 0                    # a power of two
+                assert c <= max(1, n_bt)
+                assert c == 1 or c * b * kv <= paged_attention.SMS
+                # the largest such power of two
+                twice = 2 * c
+                assert not (twice <= min(paged_attention.MAX_SPLITS, n_bt)
+                            and twice * b * kv <= paged_attention.SMS)
+
+
+#: where the kernel states the page-range rule that `_page_range` mirrors
+PAGE_RANGE_LINE = 252
+
+
+def _page_range(n_live, splits, rank):
+    """The kernel's page-range rule (csrc/paged_attention.cu:252,
+    `page_range`): rank `rank` of `splits` takes the live pages [begin,
+    end), at most ceil(n_live / splits) of them."""
+    per = -(-n_live // splits)
+    begin = min(rank * per, n_live)
+    return begin, min(begin + per, n_live)
+
+
+def test_page_ranges_cover_every_live_page_once_in_order():
+    src = (paged_attention._build.CSRC / "paged_attention.cu").read_text()
+    assert "void page_range(" in src.splitlines()[PAGE_RANGE_LINE - 1]
+    assert f"paged_attention.cu:{PAGE_RANGE_LINE}," in _page_range.__doc__
+    for n_live in range(0, 61):
+        for splits in range(1, paged_attention.MAX_SPLITS + 1):
+            ranges = [_page_range(n_live, splits, r) for r in range(splits)]
+            pages = [p for lo, hi in ranges for p in range(lo, hi)]
+            assert pages == list(range(n_live))           # once, in order
+            assert all(hi - lo <= -(-n_live // splits) for lo, hi in ranges)
+            assert all(hi >= lo for lo, hi in ranges)
+            # the dead ranks are the last ones
+            live = [hi > lo for lo, hi in ranges]
+            assert live == sorted(live, reverse=True)
+
+
+def _split_combine(q, kp, vp, bt, ln, splits, ks=None, vs=None):
+    """The kernel's algebra in numpy f32: per (slot, KV head), each rank's
+    partial softmax state (m, l, acc) over its page range's rows at
+    positions < kv_len (holes clamp into the pool; an int8 pool's k scale
+    multiplies the score, its v scale the weight after l), then the
+    rank-order combine with the dead guard."""
+    b, _, h, d = q.shape
+    n_pool, page, kv, _ = kp.shape
+    g, n_bt = h // kv, bt.shape[1]
+    neg = np.float32(paged_attention.NEG_INF)
+    qs = (q / np.float32(math.sqrt(d))).astype(np.float32)
+    out = np.zeros_like(q)
+    for bi in range(b):
+        n_live = min(-(-int(ln[bi]) // page), n_bt) if ln[bi] > 0 else 0
+        for kh in range(kv):
+            qg = qs[bi, 0, kh * g:(kh + 1) * g]                   # (G, D)
+            parts = []
+            for rank in range(splits):
+                lo, hi = _page_range(n_live, splits, rank)
+                rows = [(np.clip(bt[bi, p], 0, n_pool - 1), i)
+                        for p in range(lo, hi) for i in range(page)
+                        if p * page + i < ln[bi]]
+                if not rows:
+                    parts.append((np.full(g, neg), np.zeros(g, np.float32),
+                                  np.zeros((g, d), np.float32)))
+                    continue
+                idx = tuple(np.array(x) for x in zip(*rows))
+                k = kp[idx + (kh,)].astype(np.float32)            # (n, D)
+                v = vp[idx + (kh,)].astype(np.float32)
+                s = qg @ k.T                                       # (G, n)
+                if ks is not None:
+                    s = s * ks[idx + (kh,)][None, :]
+                m = s.max(axis=1)
+                p = np.exp(s - m[:, None])
+                l = p.sum(axis=1)
+                if vs is not None:
+                    p = p * vs[idx + (kh,)][None, :]
+                parts.append((m, l, p @ v))
+            big = np.max([m for m, _, _ in parts], axis=0)
+            num = np.zeros((g, d), np.float32)
+            den = np.zeros(g, np.float32)
+            for m, l, acc in parts:                               # rank order
+                w = np.where(m == neg, 0.0, np.exp(m - big)).astype(np.float32)
+                num += w[:, None] * acc
+                den += w * l
+            out[bi, 0, kh * g:(kh + 1) * g] = num / np.maximum(den, 1e-30)[:, None]
+    return out
+
+
+def _split_case(kind):
+    """Page 4, kv_len 0, 1, a page edge (8) and past it, a slot of 8 live
+    pages and one of 5, holes after every live span; int8 pools with
+    distinct per-row scales from U(1e-3, 2e-2)."""
+    q, kp, vp, bt, ln = _paged_case(4, [0, 1, 8, 9, 30, 17], seed=7)
+    if kind == "float":
+        return q, kp, vp, bt, ln
+    rng = np.random.default_rng(8)
+    k8, v8 = (rng.integers(-127, 128, kp.shape).astype(np.int8)
+              for _ in range(2))
+    ks, vs = (rng.uniform(1e-3, 2e-2, kp.shape[:3]).astype(np.float32)
+              for _ in range(2))
+    return q, k8, v8, bt, ln, ks, vs
+
+
+@functools.cache
+def _split_references(kind):
+    case = _split_case(kind)
+    port = paged_attention.paged_attention_reference(*_t(*case)).numpy()
+    jax_kernel = np.asarray(paged_attention_tpu(
+        *(jnp.asarray(x) for x in case), interpret=True))
+    return port, jax_kernel
+
+
+@pytest.mark.parametrize("kind", ["float", "int8"])
+@pytest.mark.parametrize("splits", range(1, 9))
+def test_split_and_combine_matches_the_references(kind, splits):
+    case = _split_case(kind)
+    got = _split_combine(*case[:5], splits, *case[5:])
+    port, jax_kernel = _split_references(kind)
+    np.testing.assert_allclose(got, port, **PAGED_TOL)
+    np.testing.assert_allclose(got, jax_kernel, **PAGED_TOL)
+    np.testing.assert_array_equal(got[0], 0.0)                 # kv_len 0
+
+
+def test_paged_wrapper_takes_splits_on_cpu():
+    q, kp, vp, bt, ln = _t(*_paged_case(4, [5, 3, 0]))
+    want = paged_attention.paged_attention_reference(q, kp, vp, bt, ln)
+    paged_attention.reset_launches()
+    for splits in (1, 2, 8):
+        torch.testing.assert_close(
+            paged_attention.paged_attention(q, kp, vp, bt, ln, splits=splits),
+            want, rtol=0, atol=0)
+    assert paged_attention.launches == 0
+    for bad in (0, 9, 2.0, True):
+        with pytest.raises(ValueError, match="splits"):
+            paged_attention.paged_attention(q, kp, vp, bt, ln, splits=bad)
+
+
+@pytest.mark.parametrize("g,d,itemsize,quantized", [
+    (6, 128, 2, False), (6, 128, 4, False), (6, 128, 1, True),   # qwen
+    (2, 64, 2, False), (2, 64, 1, True),                          # granite
+    (2, 16, 4, False), (2, 16, 1, True),                          # SMOKE
+    (12, 256, 4, False), (1, 80, 2, False),                       # others
+])
+def test_smem_bytes_fits_and_stages_hold_whole_pages(g, d, itemsize,
+                                                     quantized):
+    for page in (1, 4, 5, 16, 32):
+        pages = paged_attention.stage_pages(page, d, itemsize, quantized)
+        assert pages >= 1
+        row = d * itemsize + (4 if quantized else 0)
+        assert pages == 1 or 2 * pages * page * row <= \
+            paged_attention.STAGE_BYTES
+        for n_bt in (1, 51, 2048 // page):
+            assert paged_attention.smem_bytes(
+                g, d, page, itemsize, quantized, n_bt=n_bt) <= \
+                paged_attention._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("g,want", [(1, 2), (2, 2), (3, 3), (4, 4), (5, 3),
+                                    (6, 3), (8, 4), (12, 4), (16, 4)])
+def test_heads_per_group_pads_least(g, want):
+    hn = paged_attention.heads_per_group(g)
+    assert hn == want
+    chunks = -(-g // hn)
+    for other in (2, 3, 4):      # no other choice pads less, or as little
+        c = -(-g // other)       # in fewer chunks
+        assert (c * other - g, c) >= (chunks * hn - g, chunks)
+
+
+
+@pytest.mark.parametrize("g,d,page,match", [
+    (6, 512, 16, "head dim"),          # a row takes at most a warp of lanes
+    (40, 128, 16, "query heads"),      # 10 chunks of 4 heads, 8 warps
+    (6, 256, 256, "shared memory"),    # two stages of one f32 page each
+])
+def test_kernel_geometry_refuses_what_the_kernel_cannot_take(g, d, page,
+                                                              match):
+    with pytest.raises(ValueError, match=match):
+        paged_attention._geometry(g, d, page, 51, 4, False)
+    assert paged_attention._geometry(6, 128, 16, 51, 2, False) == 2

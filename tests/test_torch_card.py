@@ -20,6 +20,10 @@ kernel's f32 output from bf16 operands.  The grouped GEMM's wgmma kernel
 is held at every tile of its menu at granite's expert shapes and ragged
 ones, its capacity rows exactly zero, its repeats and each expert's
 output (whatever the other experts hold, Inf included) bit for bit.
+The paged kernel is held over float and int8 pools at cluster sizes 1,
+the wrapper's and 8, at small tables, qwen2-1.5b's decode tick and
+granite's (G = 2, D = 64), its kv_len 0 rows exactly zero and its
+repeats bit for bit.
 """
 
 import dataclasses
@@ -289,35 +293,80 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, tol, sq, sk, bq, bk,
     assert _row_rel_l2(got, ref) <= tol
 
 
-@pytest.mark.card
-@pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("page,d", [(1, 128), (16, 128), (5, 16)])
-def test_paged_kernel_matches_plain_version(cuda, dtype, tol, page, d):
-    rng = np.random.default_rng(page)
-    lens = [3 * page, 1, 0, 3 * page + 1, 2]
-    b, h, kv, n_bt = len(lens), 12, 2, 5
-    n_pool = b * n_bt + 3
+#: the paged kernel's cases (page, H, KV, D, kv_len, n_bt): small tables
+#: with holes, kv_len 0, 1, a page edge and ragged; qwen2-1.5b's decode tick
+#: (the serve's 51-page table); granite's (G = 2, D = 64)
+PAGED_LENS = (800, 0, 1, 16, 17, 400, 783, 255)
+PAGED_CASES = {
+    "p1": (1, 12, 2, 128, None, 5), "p16": (16, 12, 2, 128, None, 5),
+    "p5d16": (5, 12, 2, 16, None, 5),
+    "qwen": (16, 12, 2, 128, PAGED_LENS, 51),
+    "granite": (16, 16, 8, 64, PAGED_LENS, 51),
+}
+
+
+def _paged_inputs(cuda, dtype, name, int8=False):
+    """q, pools (int8 ones with distinct per-row scales from U(1e-3,
+    2e-2), as tests/test_paged.py draws them), a permuted table with holes
+    and kv_len for PAGED_CASES[name] (or the int8 test's (4, 24) case)."""
+    page, h, kv, d, lens, n_bt = (
+        PAGED_CASES[name] if name in PAGED_CASES else (4, 12, 2, 24, None, 5))
+    lens = list(lens or [3 * page, 1, 0, 3 * page + 1, 2])
+    rng = np.random.default_rng(page + d)
+    b = len(lens)
+    need = [-(-n // page) for n in lens]
+    n_pool = sum(need) + 3
     perm = rng.permutation(n_pool)
     bt = np.full((b, n_bt), -1, np.int32)
     ptr = 0
-    for i, n in enumerate(lens):
-        need = -(-n // page)
-        bt[i, :need] = perm[ptr:ptr + need]
-        ptr += need
+    for i, n in enumerate(need):
+        bt[i, :n] = perm[ptr:ptr + n]
+        ptr += n
     gen = torch.Generator(device=cuda).manual_seed(page)
     q = torch.randn(b, 1, h, d, generator=gen, device=cuda).to(dtype)
-    kp, vp = (torch.randn(n_pool, page, kv, d, generator=gen,
-                          device=cuda).to(dtype) for _ in range(2))
-    bt_t = torch.from_numpy(bt).to(cuda)
+    if int8:
+        pools = tuple(torch.randint(-127, 128, (n_pool, page, kv, d),
+                                    generator=gen, device=cuda,
+                                    dtype=torch.int32).to(torch.int8)
+                      for _ in range(2))
+        scales = tuple(torch.rand(n_pool, page, kv, generator=gen,
+                                  device=cuda) * 1.9e-2 + 1e-3
+                       for _ in range(2))
+    else:
+        pools = tuple(torch.randn(n_pool, page, kv, d, generator=gen,
+                                  device=cuda).to(dtype) for _ in range(2))
+        scales = ()
     ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    return (q, *pools, torch.from_numpy(bt).to(cuda), ln, *scales), lens
+
+
+def _check_paged_kernel(args, lens, tol, splits):
+    """One launch at `splits` (None: the wrapper's) against the plain
+    version per live row, the kv_len 0 rows exact zeros, a second launch
+    bit for bit equal."""
     paged_attention.reset_launches()
-    got = paged_attention.paged_attention(q, kp, vp, bt_t, ln)
+    got = paged_attention.paged_attention(*args, splits=splits)
+    again = paged_attention.paged_attention(*args, splits=splits)
     torch.cuda.synchronize()
-    assert paged_attention.launches == 1
-    ref = paged_attention.paged_attention_reference(q, kp, vp, bt_t, ln)
-    assert bool((got[2] == 0).all())
-    live = torch.tensor([0, 1, 3, 4], device=cuda)
+    assert paged_attention.launches == 2
+    ref = paged_attention.paged_attention_reference(*args)
+    dead = [i for i, n in enumerate(lens) if n == 0]
+    live = torch.tensor([i for i, n in enumerate(lens) if n > 0],
+                        device=got.device)
+    assert bool((got[dead] == 0).all())
     assert _row_rel_l2(got[live], ref[live]) <= tol
+    assert torch.equal(got, again)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("name", list(PAGED_CASES))
+@pytest.mark.parametrize("splits", [1, None, 8])
+def test_paged_kernel_matches_plain_version(cuda, dtype, tol, name, splits):
+    """Float pools at C = 1, the wrapper's split and 8: slots with fewer
+    live pages than C (kv_len 1, 2, 16) leave ranks dead."""
+    args, lens = _paged_inputs(cuda, dtype, name)
+    _check_paged_kernel(args, lens, tol, splits)
 
 
 @pytest.mark.card
@@ -530,40 +579,15 @@ def test_quantized_scheduler_tokens_on_the_card_equal_the_cpu(cuda):
 
 @pytest.mark.card
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("page,d", [(1, 128), (16, 128), (5, 16), (4, 24)])
-def test_paged_int8_kernel_matches_plain_version(cuda, dtype, tol, page, d):
+@pytest.mark.parametrize("name", [*PAGED_CASES, "p4d24"])
+@pytest.mark.parametrize("splits", [1, None, 8])
+def test_paged_int8_kernel_matches_plain_version(cuda, dtype, tol, name,
+                                                 splits):
     """int8 pools with distinct per-row scales (U(1e-3, 2e-2), as
-    tests/test_paged.py draws them), a table with holes, kv_len 0, 1, a
-    page edge and ragged; d 24 takes the byte-load path."""
-    rng = np.random.default_rng(page + d)
-    lens = [3 * page, 1, 0, 3 * page + 1, 2]
-    b, h, kv, n_bt = len(lens), 12, 2, 5
-    n_pool = b * n_bt + 3
-    perm = rng.permutation(n_pool)
-    bt = np.full((b, n_bt), -1, np.int32)
-    ptr = 0
-    for i, n in enumerate(lens):
-        need = -(-n // page)
-        bt[i, :need] = perm[ptr:ptr + need]
-        ptr += need
-    gen = torch.Generator(device=cuda).manual_seed(page)
-    q = torch.randn(b, 1, h, d, generator=gen, device=cuda).to(dtype)
-    k8, v8 = (torch.randint(-127, 128, (n_pool, page, kv, d), generator=gen,
-                            device=cuda, dtype=torch.int32).to(torch.int8)
-              for _ in range(2))
-    ks, vs = (torch.rand(n_pool, page, kv, generator=gen, device=cuda)
-              * 1.9e-2 + 1e-3 for _ in range(2))
-    bt_t = torch.from_numpy(bt).to(cuda)
-    ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
-    paged_attention.reset_launches()
-    got = paged_attention.paged_attention(q, k8, v8, bt_t, ln, ks, vs)
-    torch.cuda.synchronize()
-    assert paged_attention.launches == 1
-    ref = paged_attention.paged_attention_reference(q, k8, v8, bt_t, ln, ks,
-                                                    vs)
-    assert bool((got[2] == 0).all())
-    live = torch.tensor([0, 1, 3, 4], device=cuda)
-    assert _row_rel_l2(got[live], ref[live]) <= tol
+    tests/test_paged.py draws them) at C = 1, the wrapper's split and 8;
+    d 24 takes the plain-load path."""
+    args, lens = _paged_inputs(cuda, dtype, name, int8=True)
+    _check_paged_kernel(args, lens, tol, splits)
 
 
 @pytest.mark.card

@@ -19,7 +19,7 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / name for name in (
         "chip_smoke.py", "calibrate_gemm.py", "paged_ticks.py",
-        "sparse_decode_times.py")]
+        "sparse_decode_times.py", "gemm_times.py", "paged_times.py")]
 
 
 def _imported_roots(path: Path) -> set[str]:
