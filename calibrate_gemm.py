@@ -1,7 +1,8 @@
-"""Hold the ReDas GEMM's cost model (`engine.cost.gemm_cost`) against a
+"""Hold the ReDas GEMM's cost model (`engine.cost.gemm_cost`), or with
+--int8 the int8 GEMM's (`engine.cost.decide_int8`), against a
 calibration sweep of the card, and refit its constants.
 
-    python3 calibrate_gemm.py [SWEEP] [--src DIR] [--fit]
+    python3 calibrate_gemm.py [SWEEP] [--src DIR] [--fit] [--int8]
 
 SWEEP is a JSON-lines file of `chip_smoke.py --sweep` (one line per
 (shape, dataflow, tile): m, k, n, dtype, dataflow, OS's route, tile and
@@ -21,6 +22,14 @@ values and from random restarts, scipy), over the configurations within
 4x of their shape's fastest, leaving out the shapes whose M is in HOLD
 (the paged prefill's, which `chip_smoke.py` phase 2 then times), and
 prints the constants and the picks they make.
+
+`--int8` reads a `chip_smoke.py --sweep-int8` file instead (one line per
+(shape, configuration): m, k, n, path, split_k, tile and `us`; by
+default the committed tests/data/int8_sweep_h100.jsonl) and prints, for
+each shape, `decide_int8`'s pick among the measured configurations of
+its path (each decode split at M <= 16, each tiled tile above) against
+the fastest; with `--fit` it first refits INT8_FITTED the same way, over
+every shape (none held out).
 """
 
 from __future__ import annotations
@@ -42,6 +51,11 @@ SIZES = {"bfloat16": 2, "float32": 4}
 #: the M held out of the fit: the paged prefill's (8 slots x widths 64
 #: and 768)
 HOLD = (512, 6144)
+INT8_SWEEP = ROOT / "tests" / "data" / "int8_sweep_h100.jsonl"
+#: the int8 model's constants `--int8 --fit` fits
+INT8_FITTED = tuple((name, None) for name in (
+    "INT8_DECODE_FIXED_S", "INT8_COMBINE_S", "INT8_WAVE_S", "INT8_SM_BW",
+    "INT8_DECODE_BW", "INT8_TILE_FIXED_S", "INT8_LOAD_BW", "INT8_SM_OPS"))
 
 
 def load(path: Path, redas_gemm) -> dict:
@@ -108,30 +122,31 @@ def log_errors(shapes: dict, cost, hold=()) -> list[float]:
     return errs
 
 
-def _get(cost) -> list[float]:
+def _get(cost, fitted=FITTED) -> list[float]:
     return [getattr(cost, a) if key is None else getattr(cost, a)[key]
-            for a, key in FITTED]
+            for a, key in fitted]
 
 
-def _set(cost, values) -> None:
-    for (attr, key), v in zip(FITTED, values, strict=True):
+def _set(cost, values, fitted=FITTED) -> None:
+    for (attr, key), v in zip(fitted, values, strict=True):
         if key is None:
             setattr(cost, attr, v)
         else:
             getattr(cost, attr)[key] = v
 
 
-def fit(shapes: dict, cost, hold, restarts: int = 4) -> list[float]:
-    """The constants that minimise the mean squared log error, from the
-    committed values and `restarts` random starts around them."""
+def fit(errors, cost, fitted=FITTED, restarts: int = 4) -> list[float]:
+    """The constants `fitted` that minimise the mean squared log error
+    `errors()` returns, from the committed values and `restarts` random
+    starts around them."""
     import numpy as np
     from scipy.optimize import minimize
 
-    start = np.log(_get(cost))
+    start = np.log(_get(cost, fitted))
 
     def loss(x):
-        _set(cost, np.exp(x))
-        errs = log_errors(shapes, cost, hold)
+        _set(cost, np.exp(x), fitted)
+        errs = errors()
         return sum(e * e for e in errs) / len(errs)
 
     rng = np.random.default_rng(0)
@@ -144,8 +159,64 @@ def fit(shapes: dict, cost, hold, restarts: int = 4) -> list[float]:
         if best is None or res.fun < best.fun:
             best = res
     values = [float(v) for v in np.exp(best.x)]
-    _set(cost, values)
+    _set(cost, values, fitted)
     return values
+
+
+def int8_load(path: Path) -> dict:
+    """The int8 sweep's rows by (m, k, n)."""
+    shapes = collections.defaultdict(list)
+    for line in path.read_text().splitlines():
+        row = json.loads(line)
+        shapes[row["m"], row["k"], row["n"]].append(row)
+    return dict(shapes)
+
+
+def int8_seconds(cost, row) -> float:
+    """`decide_int8`'s model of one measured configuration."""
+    m, k, n = row["m"], row["k"], row["n"]
+    if row["path"] == "decode":
+        return cost.int8_decode_cost(m, k, n, row["split_k"])["seconds"]
+    return cost.int8_tiled_cost(m, k, n, tuple(row["tile"]))["seconds"]
+
+
+def int8_picks(shapes: dict, cost) -> list[dict]:
+    """The model's pick at each shape among the measured configurations,
+    against the fastest of them."""
+    out = []
+    for (m, k, n), rows in shapes.items():
+        pick = min(rows, key=lambda r: int8_seconds(cost, r))
+        out.append({"m": m, "k": k, "n": n, "path": pick["path"],
+                    "decision": pick["split_k"] if pick["path"] == "decode"
+                    else pick["tile"], "us": pick["us"],
+                    "model_us": int8_seconds(cost, pick) * 1e6,
+                    "vs_fastest": pick["us"] / min(r["us"] for r in rows)})
+    return out
+
+
+def int8_log_errors(shapes: dict, cost) -> list[float]:
+    """log(model / measured) of every configuration within 4x of its
+    shape's fastest."""
+    errs = []
+    for rows in shapes.values():
+        fastest = min(r["us"] for r in rows)
+        errs += [math.log(int8_seconds(cost, r) / (r["us"] * 1e-6))
+                 for r in rows if r["us"] <= 4 * fastest]
+    return errs
+
+
+def int8_report(shapes: dict, cost) -> None:
+    rows = int8_picks(shapes, cost)
+    for p in rows:
+        print(f"{p['m']:5d} x {p['k']:5d} x {p['n']:5d} {p['path']} "
+              f"{p['decision']}: {p['us']:.2f} us (model "
+              f"{p['model_us']:.2f}), {p['vs_fastest']:.3f}x the fastest")
+    errs = int8_log_errors(shapes, cost)
+    print(f"worst: {max(p['vs_fastest'] for p in rows):.3f}x the fastest "
+          f"over {len(rows)} shapes; log-RMS error of the model's times "
+          f"{math.sqrt(sum(e * e for e in errs) / len(errs)):.3f} over "
+          f"{len(errs)} configurations within 4x of their shape's fastest")
+    print(json.dumps({"picks": rows}))
 
 
 def report(shapes: dict, cost, hold) -> None:
@@ -170,17 +241,28 @@ def report(shapes: dict, cost, hold) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("sweep", nargs="?", default=str(SWEEP))
+    ap.add_argument("sweep", nargs="?")
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--fit", action="store_true")
+    ap.add_argument("--int8", action="store_true",
+                    help="the int8 GEMM's model and sweep")
     args = ap.parse_args(argv)
     sys.path.insert(0, args.src)
     from repro_torch.engine import cost
     from repro_torch.kernels import redas_gemm
 
-    shapes = load(Path(args.sweep), redas_gemm)
+    if args.int8:
+        shapes = int8_load(Path(args.sweep or INT8_SWEEP))
+        if args.fit:
+            values = fit(lambda: int8_log_errors(shapes, cost), cost,
+                         INT8_FITTED)
+            print("fitted:", {a: f"{v:.3g}" for (a, _), v in
+                              zip(INT8_FITTED, values, strict=True)})
+        int8_report(shapes, cost)
+        return 0
+    shapes = load(Path(args.sweep or SWEEP), redas_gemm)
     if args.fit:
-        values = fit(shapes, cost, HOLD)
+        values = fit(lambda: log_errors(shapes, cost, HOLD), cost)
         print("fitted, M in", HOLD, "held out:",
               {f"{a}[{k}]" if k else a: f"{v:.3g}"
                for (a, k), v in zip(FITTED, values, strict=True)})

@@ -77,20 +77,27 @@ Phases (any failed check exits non-zero; nothing falls back):
      differ; the SMOKE configuration in f32 (cf 8.0 and the default cf,
      both dispatches, paged and contiguous) giving the same tokens on the
      card as the plain versions on the CPU;
- 12. the int8 kernel against plain: qwen's dense shapes at M = 4, 8 and
-     2048 and a ragged (5, 1000, 200), the int32 result bit for bit at
-     every menu tile; times of kernel, plain version and torch._int_mm
-     (decode M padded to 32, as it takes M > 16) beside the bound;
+ 12. the int8 kernel against plain on both of its paths: qwen's dense
+     shapes at M = 4, 8 (the decode path) and 2048 (tiled), 16, 17 and a
+     ragged (5, 1000, 200), the int32 result bit for bit at every split of
+     the decode path (M <= 16) and every tile of the tiled menu, each
+     launched twice; at qwen's shapes the engine's decision timed beside
+     every split (decode) or tile (tiled) of its path (the pick within
+     GEMM_PICK_LIMIT of the fastest), the plain version, torch._int_mm
+     (decode M padded to 32, as it takes M > 16) and the bound, and the
+     host's us a decode call;
  13. qwen2-1.5b under quantize=True (int8 weights, float KV): the static
      serve through `generate` (4 x (512 + 16), "hopper-int8"; the int8
-     kernel must launch 7 x 28 x 16 = 3136 times and the float GEMM 0
-     times; weight bytes against the bf16 tree; prefill logits bitwise
-     equal to "torch-ref-int8"), then the paged serve's trace through the
-     Scheduler (int8 launches 7 x 28 x (ticks + prefill calls), paged 28 x
-     ticks, 0 new plan misses on a second pass, a device trace of 10
-     decode ticks, one tick's logits against "torch-ref-int8" within
-     rel-L2 0.035), then SMOKE f32 card tokens against the CPU's (static,
-     Scheduler paged and contiguous);
+     kernel must launch 7 x 28 x 16 = 3136 times, 2940 on the decode path
+     and 196 tiled, and the float GEMM 0 times; weight bytes against the
+     bf16 tree; prefill logits bitwise equal to "torch-ref-int8"), then
+     the paged serve's trace through the Scheduler (int8 launches 7 x 28 x
+     (ticks + prefill calls), 7 x 28 x ticks decode and 7 x 28 x calls
+     tiled, paged 28 x ticks, 0 new plan misses on a second pass, a device
+     trace of 10 decode ticks with the int8 kernel's device ms, one tick's
+     logits against "torch-ref-int8" within rel-L2 0.035), then SMOKE f32
+     card tokens against the CPU's (static, Scheduler paged and
+     contiguous);
  14. the int8-pool paged kernel against plain: phase 3's paged shapes
      over int8 pools (random int8 rows, per-row scales from U(1e-3,
      2e-2), the same tables and kv_len), bf16 and f32 q, at the wrapper's
@@ -99,11 +106,13 @@ Phases (any failed check exits non-zero; nothing falls back):
      bound (the live int8 rows and their scales);
  15. qwen2-1.5b under the launcher's --quantize (int8 weights, int8 KV,
      "hopper-int8"): the static serve (4 x (512 + 16), contiguous int8
-     KV; the int8 kernel must launch 3136 times, the float GEMM and the
-     paged kernel 0 times), then the paged serve's trace through the
-     Scheduler on int8 pools (paged launches 28 x ticks, int8 7 x 28 x
-     (ticks + prefill calls), float GEMM 0, 0 new plan misses on a second
-     pass, a device trace of 10 decode ticks, one tick's logits against
+     KV; the int8 kernel must launch 3136 times, 2940 decode and 196
+     tiled, the float GEMM and the paged kernel 0 times), then the paged
+     serve's trace through the Scheduler on int8 pools (paged launches 28
+     x ticks, int8 7 x 28 x (ticks + prefill calls), by path as in phase
+     13, float GEMM 0, 0 new plan misses on a second pass, a device trace
+     of 10 decode ticks with the int8 kernel's device ms (7 x 28 x 10
+     decode launches, none tiled), one tick's logits against
      "torch-ref-int8" within rel-L2 0.035, the KV pool's bytes against a
      bf16 pool's);
  16. SMOKE f32 under the full posture (and under cache_dtype="int8" with
@@ -188,7 +197,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.engine import Engine, KernelRequest, use_engine  # noqa: E402
-from repro_torch.engine.backends import gemm_args, sparse_args  # noqa: E402
+from repro_torch.engine.backends import (gemm_args, int8_args,  # noqa: E402
+                                         sparse_args)
 from repro_torch.engine.cost import (HBM_BW, PEAK_FLOPS_BF16,  # noqa: E402
                                      PEAK_FLOPS_F32, PEAK_OPS_INT8,
                                      HopperModel, choose_tile, decide_gemm,
@@ -248,10 +258,12 @@ GROUPED_SHAPES = ((32, 32, 1024, 512), (32, 32, 512, 1024),
                   (32, 1920, 1024, 512), (32, 1920, 512, 1024),
                   (32, 160, 1024, 512))
 #: the int8 kernel's shapes: qwen's dense (K, N) at the static decode
-#: (M = 4), the paged decode (M = 8) and the prefill (M = 2048), and a
-#: ragged case
+#: (M = 4), the paged decode (M = 8) and the prefill (M = 2048), the
+#: decode path's largest bucket (16) and the tiled path's least M (17),
+#: and a ragged case
 INT8_SHAPES = ([(m, k, n) for m in (BATCH, SLOTS, BATCH * PROMPT)
-                for k, n in LAYER_GEMMS] + [(5, 1000, 200)])
+                for k, n in LAYER_GEMMS]
+               + [(16, 1536, 1536), (17, 1536, 1536), (5, 1000, 200)])
 REPORT = {}
 
 
@@ -803,6 +815,59 @@ def sweep() -> int:
                     fh.write(json.dumps(row) + "\n")
                     print(json.dumps(row), flush=True)
             del sets
+    print(f"failures {failures}")
+    return 1 if failures else 0
+
+
+#: the int8 kernel's sweep: every decode split at M <= 16 and every
+#: tiled tile above it, at qwen2-1.5b's (K, N)
+INT8_SWEEP_M = (1, 4, 8, 16, 17, 33, 512, 2048, 6144)
+
+
+def sweep_int8() -> int:
+    """`chip_smoke.py --sweep-int8`: build the int8 kernel, then time
+    every configuration of the path the engine takes at each M of
+    INT8_SWEEP_M (each decode split at M <= 16, each tiled tile above)
+    at qwen's (K, N) beside `decide_int8`'s model, each held to the plain
+    version bit for bit first; print one JSON line per configuration
+    (also to runs/int8_sweep.jsonl): the data `calibrate_gemm.py --int8`
+    fits the int8 model's constants to and holds its decisions against
+    (tests/data/int8_sweep_h100.jsonl is one such file, its fields
+    trimmed)."""
+    from repro_torch.engine.cost import int8_decode_cost, int8_tiled_cost
+
+    print(card_line())
+    _build.build("quant_gemm")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    side = torch.cuda.Stream()
+    out_dir = ROOT / "runs"
+    out_dir.mkdir(exist_ok=True)
+    failures = []
+    with (out_dir / "int8_sweep.jsonl").open("w") as fh:
+        for m in INT8_SWEEP_M:
+            for k, n in LAYER_GEMMS:
+                sets = _int8_sets(m, k, n, gen)
+                ref = quant_gemm.gemm_int8_reference(*sets[0])
+                path = ("decode" if m <= quant_gemm.DECODE_ROWS[-1]
+                        else "tiled")
+                for kw in _int8_options(path):
+                    got = quant_gemm.gemm_int8(*sets[0], **kw)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, ref):
+                        failures.append((m, k, n, _int8_label(kw)))
+                    model = (int8_decode_cost(m, k, n, kw["split_k"])
+                             if kw["path"] == "decode"
+                             else int8_tiled_cost(m, k, n, kw["tile"]))
+                    row = {"m": m, "k": k, "n": n, "path": kw["path"],
+                           "split_k": kw.get("split_k", 1),
+                           "tile": list(kw.get("tile", ())),
+                           "us": 1e3 * device_ms(functools.partial(
+                               quant_gemm.gemm_int8, **kw), sets, side),
+                           "model_us": model["seconds"] * 1e6,
+                           "blocks": model["blocks"]}
+                    fh.write(json.dumps(row) + "\n")
+                    print(json.dumps(row), flush=True)
+                del sets
     print(f"failures {failures}")
     return 1 if failures else 0
 
@@ -1609,6 +1674,45 @@ def int8_bound(m: int, k: int, n: int) -> tuple[float, str]:
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
 
 
+#: the int8 kernel's two paths (csrc/quant_gemm.cu), as the profiler
+#: names them
+INT8_KERNELS = ("::decode_kernel<", "::tiled_kernel<")
+
+
+def int8_path_counts(cfg, decode_passes: int, prefill_passes: int) -> dict:
+    """The int8 GEMMs a qwen serve makes by path: 7 a layer a forward
+    pass, decode passes (M <= 16) on the decode path, prefill passes on
+    the tiled path."""
+    per = sum(LAYER_GEMMS.values()) * cfg.n_layers
+    return {"decode": per * decode_passes, "tiled": per * prefill_passes}
+
+
+def check_int8_paths(label: str, want: dict) -> dict:
+    """`quant_gemm.path_launches` since the last reset equal `want`."""
+    got = dict(quant_gemm.path_launches)
+    print(f"{label}: int8 GEMMs by path {got} (want {want})")
+    check(got == want, f"{label}: int8 GEMMs by path {got}, not {want}")
+    return got
+
+
+def int8_trace_line(prof: dict, label: str, cfg) -> dict:
+    """The int8 kernel's device ms in a trace of 10 decode ticks: 7 decode
+    launches a layer a tick (at least TRACE_KEPT of them shown), no tiled
+    one."""
+    dec, tiled = (prof["matched"][key] for key in INT8_KERNELS)
+    want = 10 * sum(LAYER_GEMMS.values()) * cfg.n_layers
+    print(f"  the int8 kernel in {label}10 traced ticks: {dec['ms']:.3f} ms "
+          f"of device time in {dec['count']} decode_kernel launches "
+          f"({dec['ms'] / 10:.3f} ms a tick; want {want} launches), "
+          f"{tiled['count']} tiled_kernel launches; the ticks' device busy "
+          f"{prof['device_busy_ms']:.2f} ms")
+    check(TRACE_KEPT * want <= dec["count"] <= want and tiled["count"] == 0,
+          f"{label}traced ticks show {dec['count']} decode and "
+          f"{tiled['count']} tiled int8 launches, want {want} and 0")
+    return {"decode_kernel": dict(dec), "tiled_kernel": dict(tiled),
+            "ms_per_tick": dec["ms"] / 10}
+
+
 def _int8_sets(m, k, n, gen) -> list[tuple]:
     count = max(2, min(64, math.ceil(2 * L2_BYTES / (m * k + k * n))))
     return [tuple(torch.randint(-127, 128, shape, generator=gen, device="cuda",
@@ -1616,18 +1720,42 @@ def _int8_sets(m, k, n, gen) -> list[tuple]:
                   for shape in ((m, k), (k, n))) for _ in range(count)]
 
 
-def _int8_tile(m, k, n) -> tuple[int, int, int]:
-    """The engine's tile for a `gemm_w8` of this shape in a bf16 serve."""
-    dec = HopperModel().decide(KernelRequest("gemm_w8", m, k, n, in_bytes=1,
-                                             out_bytes=2))
-    return dec.bm, dec.bk, dec.bn
+def _int8_decision(m, k, n) -> dict:
+    """The engine's int8 kernel arguments for a `gemm_w8` of this shape in
+    a bf16 serve (`int8_args`: the decode path and its split, or the
+    tiled path and its tile)."""
+    return int8_args(HopperModel().decide(KernelRequest(
+        "gemm_w8", m, k, n, in_bytes=1, out_bytes=2)))
+
+
+def _int8_options(path: str) -> list[dict]:
+    """Every configuration of an int8 kernel path: each split of the
+    decode path, or each tile of the tiled menu."""
+    if path == "decode":
+        return [{"path": "decode", "split_k": s}
+                for s in range(1, quant_gemm.DECODE_MAX_SPLIT + 1)]
+    return [{"path": "tiled", "tile": t} for t in quant_gemm.TILES]
+
+
+def _int8_label(kw: dict) -> str:
+    return (f"split {kw['split_k']}" if kw["path"] == "decode"
+            else f"tile {kw['tile']}")
+
+
+#: the int8 kernel's (K, N) and M that phase 12 times at every option
+#: (the qwen serves' decode and prefill); the rest are checked only
+INT8_TIMED_M = (BATCH, SLOTS, BATCH * PROMPT)
 
 
 def phase_int8_kernel() -> list[dict]:
     """The int8 kernel at qwen's dense shapes (the static decode M = 4, the
     paged decode M = 8, the prefill M = 2048) and a ragged one, against its
-    plain version, bit for bit at every menu tile; times at the engine's
-    tile beside the plain version's, torch._int_mm's and the bound."""
+    plain version bit for bit at every configuration of both paths (each
+    split of the decode path at M <= 16, every tile of the tiled menu),
+    each launched twice; at qwen's shapes the time of the engine's
+    decision and of every configuration of its path (the pick within
+    GEMM_PICK_LIMIT of the fastest), beside the plain version's,
+    torch._int_mm's and the bound, and the host's us a call at decode."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     side = torch.cuda.Stream()
     rows, failures = [], []
@@ -1635,43 +1763,76 @@ def phase_int8_kernel() -> list[dict]:
         sets = _int8_sets(m, k, n, gen)
         a, b = sets[0]
         ref = quant_gemm.gemm_int8_reference(a, b)
+        pick = _int8_decision(m, k, n)
+        configs = _int8_options("tiled") + (
+            _int8_options("decode") if m <= quant_gemm.DECODE_ROWS[-1]
+            else [])
         wrong = []
-        for tile in quant_gemm.TILES:
-            out = quant_gemm.gemm_int8(a, b, tile=tile)
+        for kw in configs:
+            first = quant_gemm.gemm_int8(a, b, **kw)
+            again = quant_gemm.gemm_int8(a, b, **kw)
             torch.cuda.synchronize()
-            if not torch.equal(out, ref):
-                wrong.append(tile)
-        tile = _int8_tile(m, k, n)
-        out = quant_gemm.gemm_int8(a, b, tile=tile)
+            if not (torch.equal(first, ref) and torch.equal(again, first)):
+                wrong.append(_int8_label(kw))
+        out = quant_gemm.gemm_int8(a, b, **pick)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
-        # torch._int_mm takes M > 16: a decode operand is padded to 32 rows
-        pad = 32 - m if m <= 16 else 0
-        lib_sets = [(F.pad(x, (0, 0, 0, pad)), y) for x, y in sets]
-        row = {"m": m, "k": k, "n": n, "tile": list(tile),
-               "ms": device_ms(functools.partial(quant_gemm.gemm_int8,
-                                                 tile=tile), sets, side),
-               "plain_ms": device_ms(quant_gemm.gemm_int8_reference, sets,
-                                     side),
-               "library_ms": device_ms(torch._int_mm, lib_sets, side),
-               "library": "torch._int_mm" + (" (M padded to 32)" if pad else ""),
-               "max_abs_err": err, "bitwise_every_tile": not wrong}
+        timed = m in INT8_TIMED_M
+        run = functools.partial(quant_gemm.gemm_int8, **pick)
+        row = {"m": m, "k": k, "n": n, "path": pick["path"],
+               "split_k": pick.get("split_k", 1),
+               "tile": list(pick["tile"]) if "tile" in pick else None,
+               "ms": device_ms(run, sets, side),
+               "max_abs_err": err, "bitwise_every_configuration": not wrong,
+               "configurations_checked": len(configs)}
+        if timed:
+            options = [device_ms(functools.partial(quant_gemm.gemm_int8,
+                                                   **kw), sets, side)
+                       for kw in _int8_options(pick["path"])]
+            row["option_ms"] = options
+            row["pick_over_fastest"] = row["ms"] / min(options)
+            # torch._int_mm takes M > 16: a decode operand is padded to 32
+            pad = 32 - m if m <= 16 else 0
+            lib_sets = [(F.pad(x, (0, 0, 0, pad)), y) for x, y in sets]
+            row.update(
+                plain_ms=device_ms(quant_gemm.gemm_int8_reference, sets, side),
+                library_ms=device_ms(torch._int_mm, lib_sets, side),
+                library="torch._int_mm" + (" (M padded to 32)" if pad
+                                           else ""))
+            del lib_sets
+            if pick["path"] == "decode":
+                row["host_us"] = host_enqueue_us(lambda: run(a, b))
         row["bound_ms"], row["bound_by"] = int8_bound(m, k, n)
         rows.append(row)
         ok = not wrong and err == 0
-        print(f"quant_gemm int8 {m}x{k}x{n} tile {tile}: int32 "
-              f"{'bitwise equal' if ok else 'DIFFERS'} at every menu tile"
-              f"{'' if not wrong else f' (not at {wrong})'}; kernel "
-              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-              f"{row['library']} {row['library_ms']:.4f} ms, bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
-              f"{'' if ok else '  FAILED'}")
+        slow = timed and row["pick_over_fastest"] > GEMM_PICK_LIMIT
+        line = (f"quant_gemm int8 {m}x{k}x{n} {pick['path']} "
+                f"{_int8_label(pick)}: int32 "
+                f"{'bitwise equal' if ok else 'DIFFERS'} at every one of "
+                f"{len(configs)} configurations, each twice"
+                f"{'' if not wrong else f' (not at {wrong})'}; kernel "
+                f"{row['ms']:.4f} ms")
+        if timed:
+            names = ("splits 1-8" if pick["path"] == "decode"
+                     else f"tiles {list(quant_gemm.TILES)}")
+            line += (f" ({names}: "
+                     + ", ".join(f"{t:.4f}" for t in row["option_ms"])
+                     + f"; pick / fastest {row['pick_over_fastest']:.3f}, "
+                     f"limit {GEMM_PICK_LIMIT}), plain {row['plain_ms']:.4f} "
+                     f"ms, {row['library']} {row['library_ms']:.4f} ms")
+            if "host_us" in row:
+                line += f", host {row['host_us']:.1f} us a call"
+        print(line + f", bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+              + ("" if ok and not slow else "  FAILED"))
         if not ok:
-            failures.append(f"{m}x{k}x{n}: tiles {wrong}, max|diff| {err}")
-        del sets, lib_sets
+            failures.append(f"{m}x{k}x{n}: {wrong}, max|diff| {err}")
+        if slow:
+            failures.append(f"{m}x{k}x{n}: the pick {_int8_label(pick)} "
+                            f"takes {row['pick_over_fastest']:.3f}x the "
+                            f"fastest")
+        del sets
     REPORT["int8_kernel"] = rows
-    check(not failures, f"int8 kernel differs from its plain version: "
-          f"{failures}")
+    check(not failures, f"int8 kernel: {failures}")
     return rows
 
 
@@ -1735,6 +1896,8 @@ def phase_int8_static(cfg) -> dict:
           f"{quantize_peak:.2f} GiB while quantizing the bf16 tree); plan "
           f"{eng.plan.stats}; kernel launches {counts} (want {want})")
     check(counts == want, f"int8 static serve launches {counts}, not {want}")
+    paths = check_int8_paths("int8 static serve",
+                             int8_path_counts(cfg, GEN - 1, 1))
     check(tuple(tokens.shape) == (BATCH, GEN)
           and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()),
           f"int8 static tokens {tuple(tokens.shape)}")
@@ -1763,7 +1926,7 @@ def phase_int8_static(cfg) -> dict:
         "prefill_ms": prefill_s * 1e3, "decode_ms_per_step": decode_ms,
         "max_memory_gib": peak, "quantize_peak_gib": quantize_peak, **sizes,
         "plan": eng.plan.stats,
-        "counts": counts, "prefill_logits": gap,
+        "counts": counts, "int8_paths": paths, "prefill_logits": gap,
         "prefill_logits_bitwise": same, "tokens": tokens.tolist()}
     return qparams
 
@@ -1813,12 +1976,15 @@ def phase_int8_paged(cfg, qparams) -> None:
           f"memory above what the script held {peak:.3f} GiB")
     check(len(sched.completions) == len(trace), "int8 paged served too few")
     check(counts == want, f"int8 paged serve launches {counts}, not {want}")
+    paths = check_int8_paths("int8 paged serve",
+                             int8_path_counts(cfg, ticks, calls))
     for uid, toks in tokens.items():
         check(len(toks) == trace[uid][1]
               and all(0 <= t < cfg.vocab for t in toks), f"request {uid}")
     sched.paged.check_invariants()
     new_misses, prof = _replay_and_trace(qparams, cfg, scfg, eng, trace,
-                                         tokens, "int8 ")
+                                         tokens, "int8 ", INT8_KERNELS)
+    prof["int8_kernel"] = int8_trace_line(prof, "int8 ", cfg)
 
     gap = _decode_tick_gap(qparams, cfg, scfg, eng, trace)
     print(f"int8 full-width paged decode tick logits (8 slots), hopper-int8 "
@@ -1832,7 +1998,7 @@ def phase_int8_paged(cfg, qparams) -> None:
         "decode_ticks": ticks, "decode_ms_per_tick": tick_ms,
         "prefill_calls": calls, "prefill_widths": sorted(st["prefill_widths"]),
         "prefill_ms": sched.timings["prefill_s"] * 1e3, "plan": plan,
-        "counts": counts, "max_memory_gib": peak,
+        "counts": counts, "int8_paths": paths, "max_memory_gib": peak,
         "second_pass_new_misses": new_misses, "trace_10_ticks": prof,
         "decode_tick_logits": gap}
     check(math.isfinite(gap["rel_l2"]) and gap["rel_l2"] <= LOGIT_LIMITS["rel_l2"],
@@ -1958,6 +2124,8 @@ def phase_quantize_static(cfg) -> None:
                                                       torch.int8),
           f"--quantize gave {scfg.kernel_backend}, {scfg.cache_dtype}")
     check(counts == want, f"--quantize static launches {counts}, not {want}")
+    paths = check_int8_paths("--quantize static serve",
+                             int8_path_counts(cfg, GEN - 1, 1))
     check(tuple(tokens.shape) == (BATCH, GEN)
           and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()),
           f"--quantize static tokens {tuple(tokens.shape)}")
@@ -1967,7 +2135,7 @@ def phase_quantize_static(cfg) -> None:
         "seconds": out["seconds"], "tokens_per_s": out["tokens_per_s"],
         "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
         "max_memory_gib": peak, "plan": out["engine_plan"], "counts": counts,
-        "tokens": tokens.tolist()}
+        "int8_paths": paths, "tokens": tokens.tolist()}
 
 
 def _decode_tick_gap(params, cfg, scfg, eng, trace,
@@ -2039,13 +2207,17 @@ def phase_quantize_paged(cfg) -> dict:
     check(out["requests"] == len(launch_serve.parse_trace(TRACE)),
           f"served {out['requests']} requests")
     check(counts == want, f"--quantize paged launches {counts}, not {want}")
+    paths = check_int8_paths("--quantize paged serve",
+                             int8_path_counts(cfg, ticks, calls))
     for uid, toks in tokens.items():
         check(len(toks) == out["trace"][uid][1]
               and all(0 <= t < cfg.vocab for t in toks), f"request {uid}")
     check(rows < 0.55 * bf16_bytes, f"KV bytes {rows} against {bf16_bytes}")
     sched.paged.check_invariants()
     new_misses, prof = _replay_and_trace(out["params"], cfg, scfg, eng,
-                                         out["trace"], tokens, "--quantize ")
+                                         out["trace"], tokens, "--quantize ",
+                                         INT8_KERNELS)
+    prof["int8_kernel"] = int8_trace_line(prof, "--quantize ", cfg)
     gap = _decode_tick_gap(out["params"], cfg, scfg, eng, out["trace"])
     print(f"--quantize full-width paged decode tick logits (8 slots, int8 "
           f"pools), hopper-int8 vs torch-ref-int8: rel-L2 "
@@ -2058,8 +2230,9 @@ def phase_quantize_paged(cfg) -> dict:
         "decode_ticks": ticks, "decode_ms_per_tick": tick_ms,
         "prefill_calls": calls, "prefill_widths": sorted(st["prefill_widths"]),
         "prefill_ms": sched.timings["prefill_s"] * 1e3,
-        "plan": eng.plan.stats, "counts": counts, "max_memory_gib": peak,
-        "kv_row_bytes": row_bytes, "kv_scale_bytes": scale_bytes,
+        "plan": eng.plan.stats, "counts": counts, "int8_paths": paths,
+        "max_memory_gib": peak, "kv_row_bytes": row_bytes,
+        "kv_scale_bytes": scale_bytes,
         "kv_bf16_bytes": bf16_bytes, "second_pass_new_misses": new_misses,
         "trace_10_ticks": prof, "decode_tick_logits": gap}
     check(math.isfinite(gap["rel_l2"]) and gap["rel_l2"] <= LOGIT_LIMITS["rel_l2"],
@@ -2082,37 +2255,62 @@ def paged_int8_line(rows: list[dict], qpaged: dict) -> dict:
             **{k: main[k] for k in keys}}
 
 
-def int8_line(rows: list[dict]) -> dict:
-    """The int8 static serve's GEMM work: each shape's time at the engine's
-    tile, weighted by the launches that serve makes (the bound, plain
-    version and torch._int_mm likewise)."""
+def int8_lines(rows: list[dict]) -> list[dict]:
+    """The int8 static serve's GEMM work by path (decode: the 15 decode
+    steps at M = 4; tiled: the prefill at M = 2048): each shape's time at
+    the engine's decision, weighted by the launches that serve makes (the
+    bound, plain version and torch._int_mm likewise); launches by path
+    from the int8 static and paged serves and the traced ticks."""
     cfg = get_config(ARCH)
-    totals = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
-    ops_ms = bytes_ms = 0.0
-    for (k, n), per_layer in LAYER_GEMMS.items():
-        for m, steps in ((BATCH * PROMPT, 1), (BATCH, GEN - 1)):
+    static, paged = REPORT["int8_static"], REPORT["int8_paged"]
+    qstatic, qpaged = REPORT["quantize_static"], REPORT["quantize_paged"]
+    lines = []
+    for path, m, steps, kernel in (("decode", BATCH, GEN - 1,
+                                    "decode_kernel"),
+                                   ("tiled", BATCH * PROMPT, 1,
+                                    "tiled_kernel")):
+        totals = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"),
+                               0.0)
+        ops_ms = bytes_ms = 0.0
+        errs = []
+        for (k, n), per_layer in LAYER_GEMMS.items():
             row = next(r for r in rows if (r["m"], r["k"], r["n"]) == (m, k, n))
+            check(row["path"] == path, f"{m}x{k}x{n} planned {row['path']}")
             calls = per_layer * cfg.n_layers * steps
             for key in totals:
                 totals[key] += calls * row[key]
             ops_ms += calls * 2.0 * m * k * n / PEAK_OPS_INT8 * 1e3
             bytes_ms += calls * (m * k + k * n + 4 * m * n) / HBM_BW * 1e3
-    static, paged = REPORT["int8_static"], REPORT["int8_paged"]
-    return {"name": "quant_gemm", "route": "cuda",
+            errs.append(row["max_abs_err"])
+        errs += [r["max_abs_err"] for r in rows if r["path"] == path]
+        lines.append({
+            "name": f"quant_gemm_{path}", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/quant_gemm.cu",
             "replaces": "src/repro/kernels/quant_gemm.py:148",
-            "launches": static["counts"]["quant_gemm"],
-            "launches_by_path": {"int8_static_serve":
-                                 static["counts"]["quant_gemm"],
-                                 "int8_paged_serve":
-                                 paged["counts"]["quant_gemm"]},
-            "per": "the int8 static serve's 3136 launches, summed",
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "kernel": kernel,
+            "launches": static["int8_paths"][path],
+            "launches_by_serve": {
+                "int8_static_serve": static["int8_paths"][path],
+                "int8_paged_serve": paged["int8_paths"][path],
+                "quantize_static_serve": qstatic["int8_paths"][path],
+                "quantize_paged_serve": qpaged["int8_paths"][path]},
+            "traced_10_quantize_ticks_ms":
+                qpaged["trace_10_ticks"]["int8_kernel"][kernel]["ms"],
+            "per": f"the int8 static serve's {static['int8_paths'][path]} "
+                   f"{path} launches at M = {m}, summed",
+            "max_abs_err": max(errs),
             "ms": totals["ms"], "plain_ms": totals["plain_ms"],
             "bound_ms": totals["bound_ms"],
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": totals["library_ms"],
-            "library": "torch._int_mm (decode M padded to 32)"}
+            "library": "torch._int_mm" + (" (M padded to 32)"
+                                          if path == "decode" else "")})
+        print(f"quant_gemm {path} path over the int8 static serve's "
+              f"{lines[-1]['launches']} calls: {totals['ms']:.3f} ms, plain "
+              f"{totals['plain_ms']:.3f}, torch._int_mm "
+              f"{totals['library_ms']:.3f}, bound {totals['bound_ms']:.3f} "
+              f"({lines[-1]['bound_by']})")
+    return lines
 
 
 # --------------------------------------------------------------------------
@@ -3380,6 +3578,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:] == ["--sweep"]:
         return sweep()
+    if sys.argv[1:] == ["--sweep-int8"]:
+        return sweep_int8()
     t0 = time.perf_counter()
     phase_setup()
     rows = phase_kernels()
@@ -3420,7 +3620,8 @@ def main() -> int:
                          REPORT["granite_sorted"]),
              *attention_lines(attn, REPORT["paged_serve"]),
              grouped_line(grouped_rows, REPORT["granite_sorted"]),
-             int8_line(int8_rows), paged_int8_line(paged_int8_rows, qpaged),
+             *int8_lines(int8_rows),
+             paged_int8_line(paged_int8_rows, qpaged),
              sparse_line(sparse_rows, FLOAT_SPARSE),
              sparse_reduce_line(sparse_rows),
              sparse_line(sparse_int8_rows, INT8_SPARSE)]

@@ -1,7 +1,7 @@
 """Time the ReDas GEMM's OS calls and the grouped GEMM on the card, to
 compare two trees of the port in one machine.
 
-    python3 gemm_times.py [--src DIR] [--build-only]
+    python3 gemm_times.py [--src DIR] [--build-only] [--int8]
 
 With the package under DIR (default: this checkout's src), in bf16:
 the ReDas GEMM's OS dataflow at qwen2-1.5b's (K, N) and the main paths'
@@ -15,6 +15,13 @@ at the decode shapes, as the wall time of enqueueing 200 calls back to
 back without waiting for the card (median of 5).  Operands are random
 (seed 0), cycled past the L2; device times are those of CUDA graphs of
 calls, by CUDA events.  Prints one line a shape, then one JSON line.
+With --int8 it times the int8 GEMM instead: qwen2-1.5b's (K, N) at M =
+4, 8 (decode) and 2048 (prefill), each through `Engine.quant_matmul` on
+the `hopper-int8` backend (bf16 activations against `quantize_params`
+storage, w_q (K, N) int8 and its per-column scale: the activations'
+quantization, the kernel at the decision that tree's engine takes, the
+rescale) and the kernel alone at that decision, with the host's us of
+one `quant_matmul` call at the decode shapes.
 Needs a CUDA device.  Run it for each tree in turns (A, B, B, A) within
 one machine; `--build-only` builds the tree's GEMM kernels and exits,
 so that several trees build at once beforehand.
@@ -33,6 +40,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 LAYER_GEMMS = ((1536, 1536), (1536, 256), (1536, 8960), (8960, 1536))
 GEMM_M = (4, 8, 512, 2048, 6144)
+INT8_M = (4, 8, 2048)
 GROUPED_SHAPES = ((32, 32, 1024, 512), (32, 32, 512, 1024),
                   (32, 1920, 1024, 512), (32, 1920, 512, 1024),
                   (32, 160, 1024, 512))
@@ -86,10 +94,64 @@ def enqueue_us(torch, fn, calls: int = 200, repeats: int = 5) -> float:
     return statistics.median(times)
 
 
+def int8_rows(torch, src: str) -> list[dict]:
+    """qwen's int8 GEMMs through `Engine.quant_matmul` on `hopper-int8`
+    and through the kernel alone at the tree's decision."""
+    from repro_torch.engine import Engine, KernelRequest, backends
+    from repro_torch.kernels import quant_gemm
+
+    def kernel_args(dec) -> dict:
+        # a tree with the int8 kernel's paths names them; an older one
+        # names a tile only
+        if hasattr(backends, "int8_args"):
+            return backends.int8_args(dec)
+        return {"tile": backends._int8_tile(dec)}
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    eng = Engine(backend="hopper-int8")
+    rows = []
+    for m in INT8_M:
+        for k, n in LAYER_GEMMS:
+            count = max(2, min(32, math.ceil(2 * L2_BYTES / (2 * m * k
+                                                             + k * n))))
+            sets = [(torch.randn(m, k, generator=gen, device="cuda")
+                     .to(torch.bfloat16),
+                     torch.randint(-127, 128, (k, n), generator=gen,
+                                   device="cuda", dtype=torch.int32)
+                     .to(torch.int8),
+                     torch.rand(1, n, generator=gen, device="cuda") * 1e-2)
+                    for _ in range(count)]
+            dec = eng.decide(KernelRequest("gemm_w8", m, k, n, in_bytes=1,
+                                           out_bytes=2))
+            conf = kernel_args(dec)
+            q_sets = [(torch.randint(-127, 128, (m, k), generator=gen,
+                                     device="cuda", dtype=torch.int32)
+                       .to(torch.int8), w) for _, w, _ in sets]
+            row = {"kernel": "quant_gemm", "m": m, "k": k, "n": n,
+                   "decision": {key: list(v) if isinstance(v, tuple) else v
+                                for key, v in conf.items()},
+                   "op_ms": device_ms(torch, eng.quant_matmul, sets),
+                   "kernel_ms": device_ms(torch, lambda a, b: quant_gemm
+                                          .gemm_int8(a, b, **conf), q_sets)}
+            if m < 16:
+                row["host_us"] = enqueue_us(
+                    torch, lambda: eng.quant_matmul(*sets[0]))
+            rows.append(row)
+            host = (f", host {row['host_us']:.1f} us a call"
+                    if "host_us" in row else "")
+            print(f"{src}: quant_matmul {m} x {k} x {n} {row['decision']}: "
+                  f"op {row['op_ms']:.4f} ms, kernel {row['kernel_ms']:.4f} "
+                  f"ms{host}", flush=True)
+            del sets, q_sets
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--build-only", action="store_true")
+    ap.add_argument("--int8", action="store_true",
+                    help="time the int8 GEMM (Engine.quant_matmul)")
     args = ap.parse_args(argv)
     sys.path.insert(0, args.src)
     import torch
@@ -102,9 +164,14 @@ def main(argv=None) -> int:
     from repro_torch.engine.cost import decide_gemm
     from repro_torch.kernels import _build, redas_gemm
 
-    for name in ("redas_gemm", "grouped_gemm"):
+    for name in (("quant_gemm",) if args.int8
+                 else ("redas_gemm", "grouped_gemm")):
         _build.build(name)
     if args.build_only:
+        return 0
+    if args.int8:
+        rows = int8_rows(torch, args.src)
+        print(json.dumps({"src": args.src, "int8": True, "rows": rows}))
         return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16 = torch.bfloat16

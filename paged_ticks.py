@@ -1,7 +1,7 @@
 """Time the paged serve's decode ticks on the card, to compare two trees of
 the port in one machine.
 
-    python3 paged_ticks.py [--src DIR] [--granite-sorted]
+    python3 paged_ticks.py [--src DIR] [--granite-sorted | --quantize]
 
 Serves `chip_smoke.py`'s paged trace (qwen2-1.5b at full width, bf16,
 random weights from seed 0, 8 slots, pages of 16) through the launcher
@@ -11,7 +11,10 @@ with all 8 slots decoding; the serve's kernels are built first.  With
 --granite-sorted it serves granite-moe-1b-a400m at full width with the
 sorted dispatch (`impl="sort"`, set in the configuration: the grouped
 kernel) through the Scheduler instead, on the same trace and windows,
-as chip_smoke.py's granite sorted serve does.
+as chip_smoke.py's granite sorted serve does.  With --quantize it
+serves qwen2-1.5b through the launcher's --quantize (int8 weights on the
+int8 GEMM, int8 KV pools on the paged kernel) on the same trace and
+windows.
 Prints, per round, the serve's mean ms per tick and each window's ms per
 tick, then one JSON line.
 Needs a CUDA device.  Run it for each tree in turns (A, B, B, A) within
@@ -67,8 +70,11 @@ def granite_sorted_serve() -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
-    ap.add_argument("--granite-sorted", action="store_true",
-                    help="serve granite-moe-1b-a400m, sorted dispatch")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--granite-sorted", action="store_true",
+                      help="serve granite-moe-1b-a400m, sorted dispatch")
+    mode.add_argument("--quantize", action="store_true",
+                      help="serve qwen2-1.5b under --quantize")
     args = ap.parse_args(argv)
     sys.path.insert(0, args.src)
     import torch
@@ -83,12 +89,15 @@ def main(argv=None) -> int:
     kernels = ["redas_gemm", "paged_attention"]
     if args.granite_sorted:
         kernels.append("grouped_gemm")
+    if args.quantize:
+        kernels = ["quant_gemm", "paged_attention"]
     for name in kernels:   # not inside a serve
         _build.build(name)
     rounds = []
     for _ in range(ROUNDS):
         out = (granite_sorted_serve() if args.granite_sorted
-               else launch_serve.main(ARGS))
+               else launch_serve.main(ARGS + (["--quantize"] if args.quantize
+                                              else [])))
         sched = out["scheduler"]
         serve_ms = sched.timings["decode_s"] * 1e3 / sched.stats["decode_steps"]
         probe = Scheduler(out["params"], out["cfg"], out["serve_config"],
@@ -113,7 +122,7 @@ def main(argv=None) -> int:
         del out, sched, probe
         torch.cuda.empty_cache()
     print(json.dumps({"src": args.src, "granite_sorted": args.granite_sorted,
-                      "rounds": rounds}))
+                      "quantize": args.quantize, "rounds": rounds}))
     return 0
 
 

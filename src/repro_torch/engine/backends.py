@@ -124,16 +124,28 @@ def ref_paged_attention(decision: KernelDecision, q, k_pages, v_pages,
 
 
 def _int8_tile(decision: KernelDecision) -> tuple[int, int, int]:
-    """The decision's tile on the int8 kernel's menu (a decision planned
-    for another kernel, e.g. from a warm-start plan, snaps to it)."""
+    """The decision's tile on the int8 kernel's tiled menu (a decision
+    planned for another kernel, e.g. from a warm-start plan, snaps to
+    it)."""
     return quant_gemm.snap_tile(decision.bm, decision.bk, decision.bn)
+
+
+def int8_args(decision: KernelDecision) -> dict:
+    """The int8 kernel's path arguments a decision names: its `meta`'s
+    path and split_k (a decode decision), else the tiled path at the
+    decision's tile snapped to the tiled menu (a tiled decision, or one
+    planned for another kernel or an older menu)."""
+    meta = decision.meta_dict
+    if meta.get("path") == "decode":
+        return {"path": "decode", "split_k": meta["split_k"]}
+    return {"path": "tiled", "tile": _int8_tile(decision)}
 
 
 def _int8_gemm(use_kernel: bool):
     def run(decision: KernelDecision, a, b, *, out_dtype=None):
-        return quant_gemm.quant_gemm(a, b, tile=_int8_tile(decision),
-                                     use_kernel=use_kernel,
-                                     out_dtype=out_dtype)
+        return quant_gemm.quant_gemm(a, b, use_kernel=use_kernel,
+                                     out_dtype=out_dtype,
+                                     **int8_args(decision))
     run.__name__ = "hopper_int8_gemm" if use_kernel else "ref_int8_gemm"
     return run
 
@@ -141,9 +153,9 @@ def _int8_gemm(use_kernel: bool):
 def _int8_gemm_w8(use_kernel: bool):
     def run(decision: KernelDecision, a, w_q, w_scale, *, out_dtype=None):
         return quant_gemm.quant_gemm_w8(a, w_q, w_scale,
-                                        tile=_int8_tile(decision),
                                         use_kernel=use_kernel,
-                                        out_dtype=out_dtype)
+                                        out_dtype=out_dtype,
+                                        **int8_args(decision))
     run.__name__ = "hopper_int8_gemm_w8" if use_kernel else "ref_int8_gemm_w8"
     return run
 
@@ -151,8 +163,8 @@ def _int8_gemm_w8(use_kernel: bool):
 def _int8_grouped(use_kernel: bool):
     def run(decision: KernelDecision, x, w, *, out_dtype=None):
         """x (E, C, D) @ w (E, D, F), each expert through the int8 path
-        (dynamic quantization of both operands), as the JAX package's
-        int8 grouped backend loops them."""
+        (dynamic quantization of both operands) on the tiled kernel, as
+        the JAX package's int8 grouped backend loops them."""
         tile = _int8_tile(decision)
         return torch.stack([quant_gemm.quant_gemm(
             x[e], w[e], tile=tile, use_kernel=use_kernel,

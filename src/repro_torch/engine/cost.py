@@ -25,9 +25,11 @@ Every other request keeps the roofline of the reference's search,
 with the dataflow traffic formula of `core/tpu_model.hbm_traffic`
 (`choose_tile`, `estimate`), pinned to OS on its kernel's menu.  A
 `gemm` or `gemm_w8` request keyed at in_bytes == 1 (every request of an
-int8 backend) is planned on the int8 kernel's menu, pinned to OS as the
-JAX package pins its int8 kernel (the streaming dataflows would push
-int32 partial sums through HBM), at the data sheet's int8 peak.  A
+int8 backend) is planned by `decide_int8` on the int8 kernel's two paths,
+each output element summed on chip as the JAX package's OS int8 kernel
+sums it: at M <= 16 the decode path, its K split by a wave term over the
+card's SMs (`int8_decode_cost`), above it the tiled path, its tile by a
+wave term (`int8_tiled_cost`).  A
 `gemm_sparse` request at M above the sparse kernel's decode rows is
 planned as the JAX package's `_decide_gemm_sparse` plans it: at K_eff =
 density x K, plus one index byte per kept value, on the kernel's tiled
@@ -480,11 +482,143 @@ def decide_gemm(request: KernelRequest, name: str, dataflows=DATAFLOWS,
                           if key != "seconds")))
 
 
+#: the int8 kernel's wave terms (csrc/quant_gemm.cu), fitted by
+#: `calibrate_gemm.py --int8 --fit` (log-error least squares) to its
+#: times at every decode split (M = 1, 4, 8, 16) and tiled tile (M = 17,
+#: 33, 512, 2048, 6144) at qwen2-1.5b's (K, N) in the committed sweep
+#: tests/data/int8_sweep_h100.jsonl (`chip_smoke.py --sweep-int8`, NVIDIA
+#: H100 80GB HBM3, 700 W).  Decode: a
+#: launch's fixed time (the activation rows, the first slice's latency,
+#: the cluster barriers), the combine's time for each rank past one, each
+#: wave of blocks past the first, the rate one SM's decode blocks read
+#: the weight at, and the rate the card reaches on this path with every SM
+#: busy.  Tiled: a block's fixed time (its ring's fill, the epilogue), the
+#: rate one SM's blocks land operand chunks in shared memory, and the
+#: int8 operations one SM's blocks reach on mma.sync.
+INT8_DECODE_FIXED_S = 2.92e-6
+INT8_COMBINE_S = 1.14e-7
+INT8_WAVE_S = 3.89e-6
+INT8_SM_BW = 2.58e10
+INT8_DECODE_BW = 2.3e12
+INT8_TILE_FIXED_S = 7.59e-6
+INT8_LOAD_BW = 4.97e10
+INT8_SM_OPS = 2.89e12
+
+
+def int8_decode_cost(m: int, k: int, n: int, split_k: int) -> dict | None:
+    """The int8 kernel's decode path at `split_k`, or None when a block
+    does not fit shared memory.  The grid's tiles x split_k blocks run in
+    waves of the blocks the card holds; the busiest SM reads its blocks'
+    weight slices at INT8_SM_BW, and the whole call (weight, activations,
+    int32 output) streams at INT8_DECODE_BW times the share of the SMs
+    the grid keeps busy; the longer of the two, plus the launch's fixed
+    time, each wave past the first and each rank past one."""
+    smem = quant_gemm.decode_smem_bytes(m, k, split_k)
+    if smem > SMEM_LIMIT:
+        return None
+    tiles = -(-n // quant_gemm.DECODE_BN)
+    blocks = tiles * split_k
+    per_sm = redas_gemm.blocks_per_sm(smem)
+    waves = -(-blocks // (SMS * per_sm))
+    busiest = -(-min(blocks, SMS * per_sm) // SMS)
+    base, extra = quant_gemm.split_slices(k, split_k)
+    block_bytes = ((base + (extra > 0)) * quant_gemm.DECODE_SLICE
+                   * quant_gemm.DECODE_BN)
+    bytes_ = k * n + m * k + 4 * m * n
+    fill = min(1.0, blocks / SMS)
+    seconds = (INT8_DECODE_FIXED_S + INT8_COMBINE_S * (split_k - 1)
+               + INT8_WAVE_S * (waves - 1)
+               + max(busiest * block_bytes / INT8_SM_BW,
+                     bytes_ / (INT8_DECODE_BW * fill)))
+    return {"seconds": seconds, "hbm_bytes": float(bytes_), "blocks": blocks,
+            "fill": fill, "smem_bytes": smem}
+
+
+def int8_resident(tile: tuple[int, int, int]) -> int:
+    """Tiled blocks one SM holds: its shared memory, and its registers at
+    a thread's 80 plus its share of the int32 accumulator tile (bm x bn
+    over 128 threads)."""
+    bm, bk, bn = tile
+    regs = min(255, 80 + bm * bn // BLOCK_THREADS)
+    return max(1, min(redas_gemm.blocks_per_sm(quant_gemm.smem_bytes(*tile)),
+                      SM_REGISTERS // (BLOCK_THREADS * regs)))
+
+
+def int8_tiled_cost(m: int, k: int, n: int,
+                    tile: tuple[int, int, int]) -> dict:
+    """The int8 kernel's tiled path at `tile`: the grid's blocks run in
+    waves of the blocks the card holds (`int8_resident`), the busiest
+    SM's blocks sharing its load and operation rates; a block walks
+    ceil(K / bk) ring chunks, each the longer of its loads and its
+    operations (the ring overlaps the two), after INT8_TILE_FIXED_S; at
+    least each operand read once and the output written once at the HBM
+    rate."""
+    bm, bk, bn = tile
+    blocks = -(-m // bm) * -(-n // bn)
+    per_sm = int8_resident(tile)
+    waves = -(-blocks // (SMS * per_sm))
+    shared = min(per_sm, -(-blocks // SMS))
+    step = max(shared * (bm + bn) * bk / INT8_LOAD_BW,
+               shared * 2.0 * bm * bn * bk / INT8_SM_OPS)
+    block = INT8_TILE_FIXED_S + -(-k // bk) * step
+    bytes_ = m * k + k * n + 4 * m * n
+    padded = 2.0 * _round_up(m, bm) * _round_up(k, bk) * _round_up(n, bn)
+    return {"seconds": max(waves * block, bytes_ / HBM_BW),
+            "hbm_bytes": float(bytes_), "blocks": blocks,
+            "fill": min(1.0, blocks / (SMS * per_sm)),
+            "smem_bytes": quant_gemm.smem_bytes(*tile),
+            "padding_efficiency": 2.0 * m * k * n / padded}
+
+
+def decide_int8(request: KernelRequest, name: str) -> KernelDecision:
+    """A `gemm` or `gemm_w8` request at in_bytes 1 on the int8 kernel:
+    the decode path up to its largest row bucket, `split_k` the
+    least-`int8_decode_cost` split from 1 to DECODE_MAX_SPLIT (the first
+    of equals; the decision's (bm, bk, bn) are informational: the row
+    bucket, the K rows of the largest split, the block's columns); the
+    tiled path above it, the least-`int8_tiled_cost` tile of the menu.
+    `meta` carries the path and `split_k`, so they survive the plan's
+    JSON."""
+    m, k, n = request.m, request.k, request.n
+    if m <= quant_gemm.DECODE_ROWS[-1]:
+        best, split_k = None, None
+        for s in range(1, quant_gemm.DECODE_MAX_SPLIT + 1):
+            cost = int8_decode_cost(m, k, n, s)
+            if cost is not None and (best is None
+                                     or cost["seconds"] < best["seconds"]):
+                best, split_k = cost, s
+        if best is None:
+            raise ValueError(f"no decode split of K = {k} fits {SMEM_LIMIT} "
+                             f"bytes of shared memory")
+        base, extra = quant_gemm.split_slices(k, split_k)
+        return KernelDecision(
+            op=request.op, dataflow="os", bm=quant_gemm.decode_rows(m),
+            bk=(base + (extra > 0)) * quant_gemm.DECODE_SLICE,
+            bn=quant_gemm.DECODE_BN, cost_model=name,
+            seconds=best["seconds"],
+            meta=tuple(sorted({
+                "path": "decode", "split_k": split_k,
+                **{key: best[key] for key in ("hbm_bytes", "blocks", "fill",
+                                              "smem_bytes")}}.items())))
+    best, tile = None, None
+    for t in quant_gemm.TILES:
+        cost = int8_tiled_cost(m, k, n, t)
+        if best is None or cost["seconds"] < best["seconds"]:
+            best, tile = cost, t
+    return KernelDecision(
+        op=request.op, dataflow="os", bm=tile[0], bk=tile[1], bn=tile[2],
+        cost_model=name, seconds=best["seconds"],
+        meta=tuple(sorted({"path": "tiled", "split_k": 1,
+                           **{key: val for key, val in best.items()
+                              if key != "seconds"}}.items())))
+
+
 @dataclasses.dataclass
 class HopperModel:
     """The decision surface as a cost model: `decide(request)` returns
     the chosen dataflow and CTA tile for a `gemm` or `gemm_w8` request
-    (an OS tile of the int8 kernel at in_bytes == 1), the sparse kernel's
+    (the int8 kernel's path, with its split or tile, at in_bytes == 1),
+    the sparse kernel's
     path with its split or OS tile for a `gemm_sparse` one, the
     per-expert OS tile for a `grouped_gemm` one, and the flash blocks for
     an `attention` or `paged_attention` one."""
@@ -509,16 +643,4 @@ class HopperModel:
             raise ValueError(f"HopperModel plans {request.op} at 1-byte "
                              f"(int8) operands, and gemm also at 2 or 4 "
                              f"bytes, not {request.in_bytes}")
-        cfg = choose_tile(request.m, request.k, request.n, request.in_bytes,
-                          request.out_bytes, dataflows=("os",),
-                          tiles=quant_gemm.TILES)
-        seconds, bytes_, pad_eff = estimate(request.m, request.k, request.n,
-                                            cfg, request.in_bytes,
-                                            request.out_bytes)
-        return KernelDecision(
-            op=request.op, dataflow="os", bm=cfg.bm, bk=cfg.bk, bn=cfg.bn,
-            cost_model=self.name, seconds=seconds,
-            meta=tuple(sorted({
-                "hbm_bytes": bytes_, "padding_efficiency": pad_eff,
-                "smem_bytes": quant_gemm.smem_bytes(cfg.bm, cfg.bk,
-                                                    cfg.bn)}.items())))
+        return decide_int8(request, self.name)

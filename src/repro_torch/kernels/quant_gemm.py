@@ -1,13 +1,22 @@
-"""The int8 GEMM on Hopper: wrapper, launch counter, plain version, and
+"""The int8 GEMM on Hopper: wrapper, launch counters, plain version, and
 the quantize -> int32 GEMM -> rescale entry points (the port of
 `repro/kernels/quant_gemm.py`).
 
 `gemm_int8` computes what `repro.kernels.quant_gemm.gemm_int8` computes —
-(M, K) int8 @ (K, N) int8 -> int32, OS, the int32 accumulator on chip for
-the whole K loop — through the CUDA kernel in `csrc/quant_gemm.cu`.  The
-tile (bm, bk, bn) must be one of `TILES`, the menu the kernel is compiled
-for; ragged M, K and N are masked inside the kernel (zero padding is
-exact for integers), so nothing is padded or sliced here.
+(M, K) int8 @ (K, N) int8 -> int32, exact — through the CUDA kernels in
+`csrc/quant_gemm.cu`, on one of two paths the caller names (the engine
+plans it, `engine/cost.py::decide_int8`):
+
+- "tiled" (any M): one block per (bm, bn) output tile, a pipelined ring
+  of bk-deep K chunks; `tile` must be one of `TILES`;
+- "decode" (M <= `DECODE_ROWS[-1]`): no tile; `DECODE_BN`-column tiles
+  of the weight, K's 32-row slices split over `split_k` blocks of one
+  thread-block cluster (`split_slices`), combined in the same launch.
+
+Ragged M, K and N and operands at any base address are handled inside
+the kernels (zero padding is exact for integers), so nothing is padded
+or sliced here.  Integer sums are exact in any order: every path, tile
+and split gives the plain version's bits.
 
 `quant_gemm` (dynamic per-row / per-column quantization of both
 operands) and `quant_gemm_w8` (pre-quantized weights, per-row dynamic
@@ -17,9 +26,11 @@ run it: the codec of `quant.quantize` with the scale XLA computes there
 cast to the output dtype.  The quantization and the rescale are plain
 torch, as they are jnp outside the `pallas_call` there.
 
-On a CUDA tensor `gemm_int8` launches the kernel (or raises); on a CPU
-tensor it returns the plain version `gemm_int8_reference`.  `launches`
-counts kernel launches and nothing else.
+On a CUDA tensor `gemm_int8` launches the path's kernel (or raises; there
+is no fallback from one path to the other); on a CPU tensor it returns
+the plain version `gemm_int8_reference`.  `launches` counts kernel
+launches, one per call whatever the path, and `path_launches` splits
+them by path.
 """
 
 from __future__ import annotations
@@ -34,50 +45,94 @@ from ..quant.quantize import kv_quantize, quantize
 from . import _build
 from .redas_gemm import SMEM_LIMIT
 
-#: the CTA tiles (bm, bk, bn) the kernel is compiled for; `QUANT_TILES`
-#: in csrc/quant_gemm.cu is the same list.  bm is 16 or a multiple of 32
-#: (the 4-warp WMMA layout), bk and bn multiples of 64.
-TILES = ((16, 128, 64), (16, 256, 64), (32, 128, 128), (64, 128, 128),
-         (128, 64, 128), (128, 128, 128))
+#: the tiled path's CTA tiles (bm, bk, bn); `QUANT_TILES` in
+#: csrc/quant_gemm.cu is the same list.  4 warps (2 x 2) a block: bm a
+#: multiple of 32, bn of 64 (a warp's columns, 4 or 8 a lane), bk the
+#: ring's chunk depth.
+TILES = ((32, 64, 64), (64, 64, 64), (64, 64, 128), (128, 64, 64),
+         (128, 64, 128))
+#: the decode path's row buckets (M <= bucket), the weight columns of a
+#: block, the K rows of a slice and the most splits (the portable cluster
+#: size); `QUANT_DECODE_*` in csrc/quant_gemm.cu
+DECODE_ROWS = (8, 16)
+DECODE_BN = 64
+DECODE_SLICE = 32
+DECODE_MAX_SPLIT = 8
+PATHS = ("decode", "tiled")
 
-_WARPS = 4
-_GRID_LIMIT = 65535   # gridDim.y
+_STAGES = 4                 # the tiled ring's depth
+_DECODE_RING = 4 * 6 * DECODE_SLICE * DECODE_BN   # 4 warps x 6 stages
+_GRID_LIMIT = 65535         # gridDim.y
 
-#: kernel launches since the last reset (the CPU path and the plain
-#: version never count).
+#: kernel launches since the last reset, in all and by path (the CPU path
+#: and the plain version never count).
 launches = 0
+path_launches = dict.fromkeys(PATHS, 0)
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    for path in PATHS:
+        path_launches[path] = 0
 
 
 def smem_bytes(bm: int, bk: int, bn: int) -> int:
-    """Shared memory one block of tile (bm, bk, bn) uses: the int8 A and
-    B tiles (in 16-byte slabs, no padding) and one 16 x 16 int32 staging
-    tile per warp (the `Smem` struct of the CUDA source)."""
-    return bm * bk + bk * bn + _WARPS * 256 * 4
+    """Shared memory one tiled block of tile (bm, bk, bn) uses: the ring's
+    stages of the int8 A and B chunks (`Tiled::smem` in the CUDA
+    source)."""
+    return _STAGES * (bm * bk + bk * bn)
+
+
+def decode_rows(m: int) -> int:
+    """The decode row bucket the kernel runs an (m, K) activation at."""
+    for rows in DECODE_ROWS:
+        if m <= rows:
+            return rows
+    raise ValueError(f"M = {m} is above the decode path's largest row "
+                     f"bucket {DECODE_ROWS[-1]}")
+
+
+def split_slices(k: int, split_k: int) -> tuple[int, int]:
+    """(base, extra) over K's ceil(K / 32) slices: split s takes base +
+    (s < extra) slices from s * base + min(s, extra), so every slice is
+    taken once and the splits differ by at most one (splits past the
+    slices take none).  The wrapper hands both to the kernel."""
+    if k < 1 or not 1 <= split_k <= DECODE_MAX_SPLIT:
+        raise ValueError(f"need K >= 1 and split_k in 1..{DECODE_MAX_SPLIT}, "
+                         f"got {k} and {split_k}")
+    slices = -(-k // DECODE_SLICE)
+    return slices // split_k, slices % split_k
+
+
+def decode_smem_bytes(m: int, k: int, split_k: int) -> int:
+    """Shared memory of one decode block: the warps' rings, then the
+    row bucket's activation rows of the largest split's slices, each
+    padded by 16 bytes (`dec_smem` in the CUDA source)."""
+    base, extra = split_slices(k, split_k)
+    slices = base + (extra > 0)
+    return _DECODE_RING + decode_rows(m) * (slices * DECODE_SLICE + 16)
 
 
 def gemm_int8_reference(a_q: torch.Tensor, b_q: torch.Tensor) -> torch.Tensor:
     """The plain version, exact: an int32 matmul on the CPU; on the card,
     where torch has no integer matmul, float64 (every int8 x int8 sum at
-    these K, |sum| <= K x 127^2 < 2^53, is exact there)."""
+    these K, |sum| <= K x 128^2 < 2^53, is exact there)."""
     if a_q.device.type == "cpu":
         return a_q.to(torch.int32) @ b_q.to(torch.int32)
     return (a_q.double() @ b_q.double()).to(torch.int32)
 
 
-def _check(a_q: torch.Tensor, b_q: torch.Tensor,
-           tile: tuple[int, int, int]) -> None:
+def _check(a_q, b_q, path, tile, split_k) -> None:
     if a_q.dim() != 2 or b_q.dim() != 2:
         raise ValueError(f"gemm_int8 takes 2-D operands, got "
                          f"{tuple(a_q.shape)} @ {tuple(b_q.shape)}")
     if a_q.shape[1] != b_q.shape[0]:
         raise ValueError(f"int8 GEMM dim mismatch {tuple(a_q.shape)} @ "
                          f"{tuple(b_q.shape)}")
-    if min(a_q.shape[0], a_q.shape[1], b_q.shape[1]) < 1:
+    m, k = a_q.shape
+    n = b_q.shape[1]
+    if min(m, k, n) < 1:
         raise ValueError(f"gemm_int8 of an empty operand {tuple(a_q.shape)} "
                          f"@ {tuple(b_q.shape)}")
     if a_q.dtype != torch.int8 or b_q.dtype != torch.int8:
@@ -87,15 +142,30 @@ def _check(a_q: torch.Tensor, b_q: torch.Tensor,
         raise ValueError(f"operands on {a_q.device} and {b_q.device}")
     if not (a_q.is_contiguous() and b_q.is_contiguous()):
         raise ValueError("gemm_int8 takes contiguous row-major operands")
+    if path not in PATHS:
+        raise ValueError(f"path {path!r} is not one of the kernel's {PATHS}")
+    if path == "decode":
+        if tile is not None:
+            raise ValueError(f"the decode path takes no tile, got {tile}")
+        decode_rows(m)
+        if type(split_k) is not int or not 1 <= split_k <= DECODE_MAX_SPLIT:
+            raise ValueError(f"split_k must be an int in "
+                             f"1..{DECODE_MAX_SPLIT}, got {split_k!r}")
+        if decode_smem_bytes(m, k, split_k) > SMEM_LIMIT:
+            raise ValueError(f"K = {k} at split_k {split_k} needs more than "
+                             f"the {SMEM_LIMIT} bytes of shared memory a "
+                             f"block may use")
+        if -(-n // DECODE_BN) > _GRID_LIMIT:
+            raise ValueError(f"N = {n} exceeds the decode grid's limit")
+        return
+    if split_k != 1:
+        raise ValueError(f"the tiled path takes split_k 1, got {split_k!r}")
     if tile not in TILES:
         raise ValueError(f"tile (bm, bk, bn) = {tile} is not on the "
                          f"kernel's menu {TILES}")
-    if smem_bytes(*tile) > SMEM_LIMIT:
-        raise ValueError(f"tile {tile} needs more than the {SMEM_LIMIT} "
-                         f"bytes of shared memory a block may use")
-    if -(-a_q.shape[0] // tile[0]) > _GRID_LIMIT:
-        raise ValueError(f"M = {a_q.shape[0]} at bm = {tile[0]} exceeds the "
-                         f"grid limit {_GRID_LIMIT}")
+    if -(-m // tile[0]) > _GRID_LIMIT:
+        raise ValueError(f"M = {m} at bm = {tile[0]} exceeds the grid limit "
+                         f"{_GRID_LIMIT}")
 
 
 @functools.cache
@@ -104,21 +174,30 @@ def _library() -> ctypes.CDLL:
     lib.quant_gemm_launch.argtypes = (
         [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
         + [ctypes.c_void_p])
+    lib.quant_decode_launch.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+        + [ctypes.c_void_p])
     lib.quant_gemm_launch.restype = ctypes.c_int
+    lib.quant_decode_launch.restype = ctypes.c_int
     return lib
 
 
 def gemm_int8(a_q: torch.Tensor, b_q: torch.Tensor, *,
-              tile: tuple[int, int, int]) -> torch.Tensor:
-    """(M, K) int8 @ (K, N) int8 -> (M, N) int32 through the kernel with
-    CTA tile `tile` = (bm, bk, bn).
+              tile: tuple[int, int, int] | None = None, path: str = "tiled",
+              split_k: int = 1) -> torch.Tensor:
+    """(M, K) int8 @ (K, N) int8 -> (M, N) int32 on the kernel path
+    `path`: "tiled" at CTA tile `tile` = (bm, bk, bn) (the menu's largest
+    if None), or "decode" with K split over `split_k` blocks (M <=
+    `DECODE_ROWS[-1]`, no tile).
 
     CUDA operands launch the kernel on the current stream; CPU operands
-    get `gemm_int8_reference`.  Raises on anything the kernel does not
+    get `gemm_int8_reference`.  Raises on anything the kernels do not
     take, and when the launch fails (there is no fallback)."""
     global launches
-    tile = tuple(tile)
-    _check(a_q, b_q, tile)
+    if path == "tiled" and tile is None:
+        tile = TILES[-1]
+    tile = None if tile is None else tuple(tile)
+    _check(a_q, b_q, path, tile, split_k)
     if a_q.device.type == "cpu":
         return gemm_int8_reference(a_q, b_q)
     if a_q.device.type != "cuda":
@@ -129,13 +208,23 @@ def gemm_int8(a_q: torch.Tensor, b_q: torch.Tensor, *,
     out = torch.empty((m, n), dtype=torch.int32, device=a_q.device)
     lib = _library()
     with torch.cuda.device(a_q.device):
-        err = lib.quant_gemm_launch(
-            *tile, a_q.data_ptr(), b_q.data_ptr(), out.data_ptr(), m, n, k,
-            torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if path == "tiled":
+            err = lib.quant_gemm_launch(
+                *tile, a_q.data_ptr(), b_q.data_ptr(), out.data_ptr(), m, n,
+                k, stream)
+            what = f"tile {tile}"
+        else:
+            err = lib.quant_decode_launch(
+                decode_rows(m), a_q.data_ptr(), b_q.data_ptr(),
+                out.data_ptr(), m, n, k, split_k, *split_slices(k, split_k),
+                stream)
+            what = f"decode split_k {split_k}"
     if err != 0:
-        raise RuntimeError(f"quant_gemm {tile} launch failed: CUDA error "
+        raise RuntimeError(f"quant_gemm {what} launch failed: CUDA error "
                            f"{err}")
     launches += 1
+    path_launches[path] += 1
     return out
 
 
@@ -159,9 +248,9 @@ def quantize_cols(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return qt.q, qt.scale.reshape(-1)
 
 
-def _int32(a_q, b_q, tile, use_kernel: bool) -> torch.Tensor:
+def _int32(a_q, b_q, use_kernel: bool, kernel_args: dict) -> torch.Tensor:
     if use_kernel:
-        return gemm_int8(a_q, b_q.contiguous(), tile=tile)
+        return gemm_int8(a_q, b_q.contiguous(), **kernel_args)
     return gemm_int8_reference(a_q, b_q)
 
 
@@ -170,28 +259,34 @@ def _rescale(acc, s_a, s_b, out_dtype) -> torch.Tensor:
 
 
 def quant_gemm(a: torch.Tensor, b: torch.Tensor, *,
-               tile: tuple[int, int, int] = TILES[-1],
+               tile: tuple[int, int, int] | None = None,
+               path: str = "tiled", split_k: int = 1,
                use_kernel: bool = True,
                out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Float (M, K) @ (K, N) through dynamic int8 quantization of both
-    operands: per-row scales on A, per-column on B, int32 accumulation,
+    operands: per-row scales on A, per-column on B, int32 accumulation on
+    the kernel path `path` (`gemm_int8`'s `tile`, `path` and `split_k`),
     one rescale.  `use_kernel=False` takes the plain int32 product on any
     device."""
     a_q, s_a = quantize_rows(a)
     b_q, s_b = quantize_cols(b)
-    acc = _int32(a_q, b_q, tile, use_kernel)
+    acc = _int32(a_q, b_q, use_kernel,
+                 {"tile": tile, "path": path, "split_k": split_k})
     return _rescale(acc, s_a, s_b, out_dtype or a.dtype)
 
 
 def quant_gemm_w8(a: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
-                  *, tile: tuple[int, int, int] = TILES[-1],
+                  *, tile: tuple[int, int, int] | None = None,
+                  path: str = "tiled", split_k: int = 1,
                   use_kernel: bool = True,
                   out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Float activations (M, K) against pre-quantized weights
     (`quant.quantize_params` storage: w_q (K, N) int8, w_scale (1, N) or
-    (N,) float32): the serving path that never makes a float weight."""
+    (N,) float32), read as stored: the serving path that never makes a
+    float weight.  `tile`, `path` and `split_k` as in `gemm_int8`."""
     a_q, s_a = quantize_rows(a)
-    acc = _int32(a_q, w_q, tile, use_kernel)
+    acc = _int32(a_q, w_q, use_kernel,
+                 {"tile": tile, "path": path, "split_k": split_k})
     return _rescale(acc, s_a, w_scale.reshape(-1), out_dtype or a.dtype)
 
 

@@ -6,7 +6,10 @@ Every test here needs a CUDA card and skips without one; on the card run
 
 The file imports no JAX (the card's machine has none).  Tolerances are
 per output row, rel-L2 <= 1e-4 in f32 and <= 1e-2 in bf16 (PERF.md §2);
-the int8 GEMM's int32 result is held to its plain version bit for bit.
+the int8 GEMM's int32 result is held to its plain version bit for bit
+on both of its paths (the decode path at split 1, the planner's and the
+largest; every tile of the tiled menu), at ragged shapes, a misaligned
+base and the sums' extremes, its repeat launches bit for bit.
 The sparse GEMM is held at those row tolerances at every N:M spec, on
 both of its paths (every tile of the tiled menu; the decode path at
 several splits) and with any int8 index array, and its repeat launches
@@ -503,29 +506,92 @@ def test_paged_scheduler_tokens_on_the_card_equal_the_cpu(cuda):
     assert card == run("cuda", "hopper", "contiguous")
 
 
+def _int8_configs(m: int, k: int, n: int) -> list[dict]:
+    """The int8 kernel's arguments a test holds at (m, k, n): on the
+    decode path (m <= 16) split 1, the planner's split and the largest;
+    every tile of the tiled menu."""
+    configs = [{"tile": tile} for tile in quant_gemm.TILES]
+    if m <= quant_gemm.DECODE_ROWS[-1]:
+        from repro_torch.engine import HopperModel, KernelRequest
+
+        planned = HopperModel().decide(KernelRequest(
+            "gemm_w8", m, k, n, in_bytes=1, out_bytes=2)).meta_dict["split_k"]
+        configs += [{"path": "decode", "split_k": s} for s in sorted(
+            {1, planned, quant_gemm.DECODE_MAX_SPLIT})]
+    return configs
+
+
+def _int8_operands(cuda, m, k, n, seed):
+    """Random int8 operands with row 0 of A and column 0 of B at -128 (the
+    largest sum, K x 128^2) and row 1 / column 1 at +-127."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    a = torch.randint(-128, 128, (m, k), generator=gen, device=cuda,
+                      dtype=torch.int32).to(torch.int8)
+    b = torch.randint(-128, 128, (k, n), generator=gen, device=cuda,
+                      dtype=torch.int32).to(torch.int8)
+    a[0], b[:, 0] = -128, -128
+    if m > 1:
+        a[1] = 127
+    b[:, 1] = -127
+    return a, b
+
+
 @pytest.mark.card
-@pytest.mark.parametrize("m", [1, 5, 8, 33, 2048])
-@pytest.mark.parametrize("k,n", [(1000, 200), (1000, 256), (1536, 1536)])
+@pytest.mark.parametrize("m", [1, 5, 8, 16, 17, 33, 2048])
+@pytest.mark.parametrize("k,n", [(1000, 200), (1000, 256), (1536, 1536),
+                                 (1536, 256)])
 def test_int8_kernel_matches_plain_version_bitwise(cuda, m, k, n):
-    """Ragged M and N, K no multiple of any tile's bk (1000: the byte-load
-    path) and a whole one (1536: the vector path), at every menu tile;
-    values at +-127, so the sums reach their largest."""
-    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
-    a = torch.randint(-127, 128, (m, k), generator=gen, device=cuda,
-                      dtype=torch.int32).to(torch.int8)
-    b = torch.randint(-127, 128, (k, n), generator=gen, device=cuda,
-                      dtype=torch.int32).to(torch.int8)
-    a[0] = 127
-    b[:, 0] = 127
+    """Both paths (decode at M <= 16: split 1, the planner's and the
+    largest; tiled: every menu tile), ragged M and N, K no multiple of a
+    slice or chunk (1000: the byte-load path for A) and a whole one; the
+    values at -128 and +-127, so the sums reach K x 128^2; each launched
+    twice, bit for bit."""
+    a, b = _int8_operands(cuda, m, k, n, m + k + n)
     ref = quant_gemm.gemm_int8_reference(a, b)
-    quant_gemm.reset_launches()
-    for tile in quant_gemm.TILES:
-        got = quant_gemm.gemm_int8(a, b, tile=tile)
+    assert ref[0, 0].item() == k * 128 * 128
+    for kw in _int8_configs(m, k, n):
+        first = quant_gemm.gemm_int8(a, b, **kw)
+        again = quant_gemm.gemm_int8(a, b, **kw)
         torch.cuda.synchronize()
-        assert got.dtype == torch.int32
-        assert torch.equal(got, ref), tile
-    assert quant_gemm.launches == len(quant_gemm.TILES)
-    assert ref[0, 0].item() == k * 127 * 127
+        assert first.dtype == torch.int32
+        assert torch.equal(first, ref), kw
+        assert torch.equal(again, first), kw
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("m,k,n", [(8, 1536, 1536), (5, 1000, 200),
+                                   (2048, 1536, 256), (33, 1000, 200)])
+def test_int8_kernel_at_a_misaligned_base(cuda, m, k, n):
+    """Operands whose bases are not 16-byte aligned (views one and three
+    bytes into their buffers) take the byte-load branch on both paths and
+    give the plain version's bits."""
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a_buf, b_buf = (torch.randint(-128, 128, (size,), generator=gen,
+                                  device=cuda, dtype=torch.int32)
+                    .to(torch.int8) for size in (m * k + 1, k * n + 3))
+    a, b = a_buf[1:].view(m, k), b_buf[3:].view(k, n)
+    assert a.data_ptr() % 16 and b.data_ptr() % 16
+    ref = quant_gemm.gemm_int8_reference(a, b)
+    for kw in _int8_configs(m, k, n):
+        got = quant_gemm.gemm_int8(a, b, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), kw
+
+
+@pytest.mark.card
+def test_int8_kernel_counts_one_launch_a_call_by_path(cuda):
+    """Each call adds one to `launches` and one to its path's count, and
+    nothing else; the CPU path adds nothing."""
+    a, b = _int8_operands(cuda, 8, 1536, 256, 3)
+    quant_gemm.reset_launches()
+    quant_gemm.gemm_int8(a, b, path="decode", split_k=4)
+    assert quant_gemm.launches == 1
+    assert quant_gemm.path_launches == {"decode": 1, "tiled": 0}
+    quant_gemm.gemm_int8(a, b, tile=quant_gemm.TILES[0])
+    quant_gemm.gemm_int8(a.cpu(), b.cpu(), path="decode", split_k=4)
+    torch.cuda.synchronize()
+    assert quant_gemm.launches == 2
+    assert quant_gemm.path_launches == {"decode": 1, "tiled": 1}
 
 
 @pytest.mark.card
@@ -548,6 +614,17 @@ def test_int8_kernel_raises_for_a_tile_off_the_menu(cuda):
     a = torch.zeros(8, 64, dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match="menu"):
         quant_gemm.gemm_int8(a, a.T.contiguous(), tile=(16, 64, 64))
+
+
+@pytest.mark.card
+def test_int8_kernel_raises_for_a_split_off_the_menu(cuda):
+    a = torch.zeros(8, 64, dtype=torch.int8, device=cuda)
+    quant_gemm.reset_launches()
+    for split in (0, quant_gemm.DECODE_MAX_SPLIT + 1):
+        with pytest.raises(ValueError, match="split_k"):
+            quant_gemm.gemm_int8(a, a.T.contiguous(), path="decode",
+                                 split_k=split)
+    assert quant_gemm.launches == 0
 
 
 @pytest.mark.card

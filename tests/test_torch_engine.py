@@ -191,8 +191,11 @@ def test_gemm_cost_picks_hold_on_the_cards_sweep(held_out):
 
 
 def test_hopper_plans_float_gemm_only_through_the_wave_term():
-    """A float `gemm` goes to `decide_gemm`; an int8 request to the int8
-    kernel's OS menu; any other operand width is refused."""
+    """A float `gemm` goes to `decide_gemm`; an int8 request to
+    `decide_int8`; any other operand width is refused."""
+    int8 = KernelRequest("gemm_w8", 8, 1536, 1536, in_bytes=1, out_bytes=2)
+    assert HopperModel().decide(int8) == cost.decide_int8(int8,
+                                                          "hopper-h100")
     req = KernelRequest("gemm", 8, 1536, 1536)
     assert HopperModel().decide(req) == cost.decide_gemm(req, "hopper-h100")
     with pytest.raises(ValueError, match="not 2"):
@@ -233,111 +236,121 @@ def test_stream_decisions_keep_slabs_and_groups_through_json(tmp_path):
 #: as the parent commit of the wave term made them (it plans only `gemm`
 #: at in_bytes 2 and 4, and the bf16 `grouped_gemm` of the wgmma route
 #: below), and the grouped requests also in f32, whose sync route keeps
-#: the roofline: request (op, m, k, n, groups, in_bytes, density) ->
-#: (dataflow, bm, bk, bn, seconds, meta); out_bytes 2
+#: the roofline; the int8 `gemm_w8` ones as the int8 kernel's own wave
+#: terms (`decide_int8`) make them: request (op, m, k, n, groups,
+#: in_bytes, density) -> (dataflow, bm, bk, bn, seconds, meta); out_bytes 2
 PINNED_DECISIONS = {
     ('gemm_w8', 4, 1536, 1536, 1, 1, 1.0): (
-        'os', 16, 128, 64, 8.950065671641791e-07,
-        {'hbm_bytes': 2998272, 'padding_efficiency': 0.25,
-         'smem_bytes': 14336}),
+        'os', 8, 320, 64, 4.519051130434783e-06,
+        {'blocks': 120, 'fill': 0.9090909090909091,
+         'hbm_bytes': 2390016.0, 'path': 'decode', 'smem_bytes': 51840,
+         'split_k': 5}),
     ('gemm_sparse', 4, 1536, 1536, 1, 2, 0.5): (
         'os', 4, 64, 256, 2.299262089552239e-06,
         {'blocks': 144, 'density': 0.5, 'hbm_bytes': 4743168.0,
          'k_effective': 768, 'path': 'decode', 'split_k': 24,
          'workspace_bytes': 1179648}),
     ('gemm_w8', 4, 1536, 256, 1, 1, 1.0): (
-        'os', 16, 128, 64, 1.4916776119402985e-07,
-        {'hbm_bytes': 499712, 'padding_efficiency': 0.25,
-         'smem_bytes': 14336}),
+        'os', 8, 224, 64, 4.43095950310559e-06,
+        {'blocks': 28, 'fill': 0.21212121212121213,
+         'hbm_bytes': 403456.0, 'path': 'decode', 'smem_bytes': 51072,
+         'split_k': 7}),
     ('gemm_sparse', 4, 1536, 256, 1, 2, 0.5): (
         'os', 4, 64, 256, 2.0363844776119402e-06,
         {'blocks': 24, 'density': 0.5, 'hbm_bytes': 800768.0,
          'k_effective': 768, 'path': 'decode', 'split_k': 24,
          'workspace_bytes': 196608}),
     ('gemm_w8', 4, 1536, 8960, 1, 1, 1.0): (
-        'os', 16, 128, 64, 5.220871641791045e-06,
-        {'hbm_bytes': 17489920, 'padding_efficiency': 0.25,
-         'smem_bytes': 14336}),
+        'os', 8, 768, 64, 9.08272347826087e-06,
+        {'blocks': 280, 'fill': 1.0, 'hbm_bytes': 13912064.0,
+         'path': 'decode', 'smem_bytes': 55424, 'split_k': 2}),
     ('gemm_sparse', 4, 1536, 8960, 1, 2, 0.5): (
         'os', 4, 192, 256, 6.872109850746269e-06,
         {'blocks': 280, 'density': 0.5, 'hbm_bytes': 23021568.0,
          'k_effective': 768, 'path': 'decode', 'split_k': 8,
          'workspace_bytes': 2293760}),
     ('gemm_w8', 4, 8960, 1536, 1, 1, 1.0): (
-        'os', 16, 128, 64, 5.149955820895522e-06,
-        {'hbm_bytes': 17252352, 'padding_efficiency': 0.25,
-         'smem_bytes': 14336}),
+        'os', 8, 1120, 64, 9.72798956521739e-06,
+        {'blocks': 192, 'fill': 1.0, 'hbm_bytes': 13822976.0,
+         'path': 'decode', 'smem_bytes': 58240, 'split_k': 8}),
     ('gemm_sparse', 4, 8960, 1536, 1, 2, 0.5): (
         'os', 4, 204, 256, 6.832983880597015e-06,
         {'blocks': 264, 'density': 0.5, 'hbm_bytes': 22890496.0,
          'k_effective': 4480, 'path': 'decode', 'split_k': 44,
          'workspace_bytes': 2162688}),
     ('gemm_w8', 8, 1536, 1536, 1, 1, 1.0): (
-        'os', 16, 128, 64, 8.950065671641791e-07,
-        {'hbm_bytes': 2998272, 'padding_efficiency': 0.5,
-         'smem_bytes': 14336}),
+        'os', 8, 320, 64, 4.533743304347826e-06,
+        {'blocks': 120, 'fill': 0.9090909090909091,
+         'hbm_bytes': 2420736.0, 'path': 'decode', 'smem_bytes': 51840,
+         'split_k': 5}),
     ('gemm_sparse', 8, 1536, 1536, 1, 2, 0.5): (
         'os', 8, 64, 256, 2.6617886567164184e-06,
         {'blocks': 144, 'density': 0.5, 'hbm_bytes': 5947392.0,
          'k_effective': 768, 'path': 'decode', 'split_k': 24,
          'workspace_bytes': 2359296}),
     ('gemm_w8', 8, 1536, 256, 1, 1, 1.0): (
-        'os', 16, 128, 64, 1.4916776119402985e-07,
-        {'hbm_bytes': 499712, 'padding_efficiency': 0.5, 'smem_bytes': 14336}),
+        'os', 8, 224, 64, 4.451948322981367e-06,
+        {'blocks': 28, 'fill': 0.21212121212121213,
+         'hbm_bytes': 413696.0, 'path': 'decode', 'smem_bytes': 51072,
+         'split_k': 7}),
     ('gemm_sparse', 8, 1536, 256, 1, 2, 0.5): (
         'os', 8, 64, 256, 2.1360334328358213e-06,
         {'blocks': 24, 'density': 0.5, 'hbm_bytes': 1011712.0,
          'k_effective': 768, 'path': 'decode', 'split_k': 24,
          'workspace_bytes': 393216}),
     ('gemm_w8', 8, 1536, 8960, 1, 1, 1.0): (
-        'os', 16, 128, 64, 5.220871641791045e-06,
-        {'hbm_bytes': 17489920, 'padding_efficiency': 0.5,
-         'smem_bytes': 14336}),
+        'os', 8, 768, 64, 9.147725217391305e-06,
+        {'blocks': 280, 'fill': 1.0, 'hbm_bytes': 14061568.0,
+         'path': 'decode', 'smem_bytes': 55424, 'split_k': 2}),
     ('gemm_sparse', 8, 1536, 8960, 1, 2, 0.5): (
         'os', 8, 192, 256, 7.5818794029850746e-06,
         {'blocks': 280, 'density': 0.5, 'hbm_bytes': 25399296.0,
          'k_effective': 768, 'path': 'decode', 'split_k': 8,
          'workspace_bytes': 4587520}),
     ('gemm_w8', 8, 8960, 1536, 1, 1, 1.0): (
-        'os', 16, 128, 64, 5.149955820895522e-06,
-        {'hbm_bytes': 17252352, 'padding_efficiency': 0.5,
-         'smem_bytes': 14336}),
+        'os', 8, 1120, 64, 9.754257391304347e-06,
+        {'blocks': 192, 'fill': 1.0, 'hbm_bytes': 13883392.0,
+         'path': 'decode', 'smem_bytes': 58240, 'split_k': 8}),
     ('gemm_sparse', 8, 8960, 1536, 1, 2, 0.5): (
         'os', 8, 204, 256, 7.503627462686567e-06,
         {'blocks': 264, 'density': 0.5, 'hbm_bytes': 25137152.0,
          'k_effective': 4480, 'path': 'decode', 'split_k': 44,
          'workspace_bytes': 4325376}),
     ('gemm_w8', 2048, 1536, 1536, 1, 1, 1.0): (
-        'os', 128, 64, 128, 2.441460537313433e-05,
-        {'hbm_bytes': 81788928, 'padding_efficiency': 1.0,
-         'smem_bytes': 20480}),
+        'os', 64, 64, 128, 3.3713692733564014e-05,
+        {'blocks': 384, 'fill': 0.9696969696969697,
+         'hbm_bytes': 18087936.0, 'padding_efficiency': 1.0,
+         'path': 'tiled', 'smem_bytes': 49152, 'split_k': 1}),
     ('gemm_sparse', 2048, 1536, 1536, 1, 2, 0.5): (
         'os', 128, 128, 128, 2.4766739104477612e-05,
         {'density': 0.5, 'hbm_bytes': 82968576.0, 'k_effective': 768,
          'padding_efficiency': 1.0, 'path': 'tiled', 'smem_bytes': 159744,
          'split_k': 1, 'stages': 2}),
     ('gemm_w8', 2048, 1536, 256, 1, 1, 1.0): (
-        'os', 128, 64, 128, 4.069100895522388e-06,
-        {'hbm_bytes': 13631488, 'padding_efficiency': 1.0,
-         'smem_bytes': 20480}),
+        'os', 64, 64, 64, 1.1943948788927335e-05,
+        {'blocks': 128, 'fill': 0.24242424242424243,
+         'hbm_bytes': 5636096.0, 'padding_efficiency': 1.0,
+         'path': 'tiled', 'smem_bytes': 32768, 'split_k': 1}),
     ('gemm_sparse', 2048, 1536, 256, 1, 2, 0.5): (
         'os', 128, 128, 128, 4.127789850746269e-06,
         {'density': 0.5, 'hbm_bytes': 13828096.0, 'k_effective': 768,
          'padding_efficiency': 1.0, 'path': 'tiled', 'smem_bytes': 159744,
          'split_k': 1, 'stages': 2}),
     ('gemm_w8', 2048, 1536, 8960, 1, 1, 1.0): (
-        'os', 128, 64, 128, 0.00014241853134328359,
-        {'hbm_bytes': 477102080, 'padding_efficiency': 1.0,
-         'smem_bytes': 20480}),
+        'os', 64, 64, 128, 0.00020228215640138408,
+        {'blocks': 2240, 'fill': 1.0, 'hbm_bytes': 90308608.0,
+         'padding_efficiency': 1.0, 'path': 'tiled',
+         'smem_bytes': 49152, 'split_k': 1}),
     ('gemm_sparse', 2048, 1536, 8960, 1, 2, 0.5): (
         'os', 128, 128, 128, 0.0001444726447761194,
         {'density': 0.5, 'hbm_bytes': 483983360.0, 'k_effective': 768,
          'padding_efficiency': 1.0, 'path': 'tiled', 'smem_bytes': 159744,
          'split_k': 1, 'stages': 2}),
     ('gemm_w8', 2048, 8960, 1536, 1, 1, 1.0): (
-        'os', 128, 64, 128, 0.0001333413062686567,
-        {'hbm_bytes': 446693376, 'padding_efficiency': 1.0,
-         'smem_bytes': 20480}),
+        'os', 64, 64, 128, 0.00015997820761245673,
+        {'blocks': 384, 'fill': 0.9696969696969697,
+         'hbm_bytes': 44695552.0, 'padding_efficiency': 1.0,
+         'path': 'tiled', 'smem_bytes': 49152, 'split_k': 1}),
     ('gemm_sparse', 2048, 8960, 1536, 1, 2, 0.5): (
         'os', 128, 128, 128, 0.00013539541970149254,
         {'density': 0.5, 'hbm_bytes': 453574656.0, 'k_effective': 4480,

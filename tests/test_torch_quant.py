@@ -12,6 +12,7 @@ JAX package's int8 GEMM runs jitted, where XLA computes a scale as
 The port's `jitted=` argument names which of the two it reproduces.
 """
 
+import json
 import re
 from pathlib import Path
 
@@ -206,18 +207,35 @@ def test_gemm_int8_plain_version_is_exact():
                                   a.astype(np.int64) @ b.astype(np.int64))
 
 
-@pytest.mark.parametrize("bad", ["tile", "dtype", "shape"])
+@pytest.mark.parametrize("bad", ["tile", "dtype", "shape", "split",
+                                 "split_type", "decode_tile", "decode_rows",
+                                 "tiled_split", "path"])
 def test_gemm_int8_refuses_what_the_kernel_does_not_take(bad):
     a = torch.zeros(4, 32, dtype=torch.int8)
     b = torch.zeros(32, 16, dtype=torch.int8)
     tile = quant_gemm.TILES[0]
+    decode = {"path": "decode", "split_k": 2}
     with pytest.raises((ValueError, TypeError)):
         if bad == "tile":
             quant_gemm.gemm_int8(a, b, tile=(8, 8, 8))
         elif bad == "dtype":
             quant_gemm.gemm_int8(a.float(), b, tile=tile)
-        else:
+        elif bad == "shape":
             quant_gemm.gemm_int8(a, b[:16], tile=tile)
+        elif bad == "split":
+            quant_gemm.gemm_int8(a, b, path="decode",
+                                 split_k=quant_gemm.DECODE_MAX_SPLIT + 1)
+        elif bad == "split_type":
+            quant_gemm.gemm_int8(a, b, path="decode", split_k=2.0)
+        elif bad == "decode_tile":
+            quant_gemm.gemm_int8(a, b, tile=tile, **decode)
+        elif bad == "decode_rows":
+            quant_gemm.gemm_int8(torch.zeros(17, 32, dtype=torch.int8), b,
+                                 **decode)
+        elif bad == "tiled_split":
+            quant_gemm.gemm_int8(a, b, tile=tile, split_k=2)
+        else:
+            quant_gemm.gemm_int8(a, b, path="wide")
 
 
 @pytest.mark.parametrize("m,k,n", [(5, 64, 96), (8, 1000, 200), (37, 256, 64)])
@@ -253,30 +271,106 @@ def test_int32_core_equals_reference_kernel_in_interpret_mode():
     b = rng.integers(-127, 128, (256, 128)).astype(np.int8)
     want = jax_qg.gemm_int8(jnp.asarray(a), jnp.asarray(b), bm=32, bk=128,
                             bn=128, interpret=True)
-    got = quant_gemm.gemm_int8(torch.from_numpy(a), torch.from_numpy(b),
-                               tile=(32, 128, 128))
-    np.testing.assert_array_equal(got.numpy(), _np(want))
+    for kw in ({"tile": quant_gemm.TILES[-1]}, {"tile": (32, 64, 64)}):
+        got = quant_gemm.gemm_int8(torch.from_numpy(a), torch.from_numpy(b),
+                                   **kw)
+        np.testing.assert_array_equal(got.numpy(), _np(want))
+
+
+def test_gemm_int8_paths_on_the_cpu_are_the_reference_bits():
+    """On CPU tensors every path, tile and split returns the plain int32
+    product (the reference's bits) and launches nothing: the sums at the
+    extremes (-128 x -128 over all K) included."""
+    rng = np.random.default_rng(11)
+    a = rng.integers(-128, 128, (5, 1000)).astype(np.int8)
+    b = rng.integers(-128, 128, (1000, 200)).astype(np.int8)
+    a[0], b[:, 0] = -128, -128
+    want = a.astype(np.int64) @ b.astype(np.int64)
+    assert want[0, 0] == 1000 * 128 * 128
+    quant_gemm.reset_launches()
+    configs = ([{"path": "decode", "split_k": s}
+                for s in range(1, quant_gemm.DECODE_MAX_SPLIT + 1)]
+               + [{"tile": t} for t in quant_gemm.TILES] + [{}])
+    for kw in configs:
+        got = quant_gemm.gemm_int8(torch.from_numpy(a), torch.from_numpy(b),
+                                   **kw)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert quant_gemm.launches == 0
+    assert quant_gemm.path_launches == {"decode": 0, "tiled": 0}
+
+
+def _macro(src: str, name: str) -> str:
+    block = src[src.index(f"#define {name}"):]
+    return block[:block.index("\n\n")]
 
 
 def test_cuda_source_menu_equals_the_wrapper_menu():
+    """The tiled menu, the decode row buckets, block columns and most
+    splits, and the rings' depths of csrc/quant_gemm.cu are the wrapper's;
+    every tile fits the 4-warp (2 x 2) layout and a block's shared
+    memory, and qwen2-1.5b's deepest K (8960) fits a decode block at one
+    split."""
     src = CSRC.read_text()
-    block = src[src.index("#define QUANT_TILES"):]
-    block = block[:block.index("\n\n")]
-    tiles = tuple(tuple(int(v) for v in t)
-                  for t in re.findall(r"X\((\d+), (\d+), (\d+)\)", block))
+    tiles = tuple(tuple(int(v) for v in t) for t in re.findall(
+        r"X\((\d+), (\d+), (\d+)\)", _macro(src, "QUANT_TILES")))
     assert tiles == quant_gemm.TILES
+    rows = tuple(int(v) for v in re.findall(
+        r"X\((\d+)\)", _macro(src, "QUANT_DECODE_ROWS")))
+    assert rows == quant_gemm.DECODE_ROWS
+    for name, value in (("QUANT_DECODE_BN", quant_gemm.DECODE_BN),
+                        ("QUANT_DECODE_MAX_SPLIT",
+                         quant_gemm.DECODE_MAX_SPLIT)):
+        assert re.search(rf"#define {name} (\d+)", src).group(1) == str(value)
+    stages = int(re.search(r"kStages = (\d+);", src).group(1))
+    dec_stages = int(re.search(r"kDecStages = (\d+);", src).group(1))
+    slice_rows = int(re.search(r"kSlice = (\d+);", src).group(1))
+    assert slice_rows == quant_gemm.DECODE_SLICE
+    assert quant_gemm.smem_bytes(64, 64, 64) == stages * 64 * 128
+    assert quant_gemm.decode_smem_bytes(8, 32, 1) == (
+        4 * dec_stages * slice_rows * quant_gemm.DECODE_BN + 8 * (32 + 16))
     for bm, bk, bn in tiles:
-        assert (bm == 16 or bm % 32 == 0) and bk % 64 == 0 and bn % 64 == 0
+        assert bm % 32 == 0 and bk == 64 and bn in (64, 128, 256)
         assert quant_gemm.smem_bytes(bm, bk, bn) <= 232_448
+    assert quant_gemm.decode_smem_bytes(16, 8960, 1) <= 232_448
     assert "__float2int" not in src and "roundf" not in src
 
 
 def test_snap_tile_keeps_menu_tiles_and_snaps_others():
     for t in quant_gemm.TILES:
         assert quant_gemm.snap_tile(*t) == t
-    assert quant_gemm.snap_tile(16, 64, 64) == (16, 128, 64)
-    assert quant_gemm.snap_tile(256, 512, 256) == (128, 128, 128)
-    assert quant_gemm.snap_tile(32, 64, 64) in quant_gemm.TILES
+    assert quant_gemm.snap_tile(16, 64, 64) == (32, 64, 64)
+    assert quant_gemm.snap_tile(16, 128, 64) == (32, 64, 64)
+    assert quant_gemm.snap_tile(256, 512, 256) == (128, 64, 128)
+    assert quant_gemm.snap_tile(32, 128, 128) in quant_gemm.TILES
+
+
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 1000, 1536, 8960])
+def test_split_ranges_cover_k_once(k):
+    """The (base, extra) of `split_slices`, which the wrapper passes the
+    decode kernel, gives split s the 32-row slices [s base + min(s,
+    extra), + base + (s < extra)) (the kernel's formula): every row of a
+    ragged or whole K exactly once, in order, at split 1, the planner's
+    split, the largest, and splits past K's slices (empty, as the kernel
+    takes them)."""
+    planned = HopperModel().decide(KernelRequest(
+        "gemm_w8", 8, k, 1536, in_bytes=1, out_bytes=2)).meta_dict["split_k"]
+    for split in sorted({1, 2, 3, 7, planned, quant_gemm.DECODE_MAX_SPLIT}):
+        base, extra = quant_gemm.split_slices(k, split)
+        assert base * split + extra == -(-k // 32) and 0 <= extra < split
+        ranges = []
+        for s in range(split):
+            lo = (s * base + min(s, extra)) * 32
+            hi = lo + (base + (s < extra)) * 32
+            ranges.append((min(lo, k), min(hi, k)))
+        taken = [row for lo, hi in ranges for row in range(lo, hi)]
+        assert taken == list(range(k))
+        sizes = [-(-(hi - lo) // 32) for lo, hi in ranges]
+        assert max(sizes) - min(sizes) <= 1
+        if split > -(-k // 32):
+            assert sum(lo == hi for lo, hi in ranges) == split - -(-k // 32)
+    with pytest.raises(ValueError):
+        quant_gemm.split_slices(k, 0)
 
 
 # --------------------------------------------------------------------------
@@ -290,19 +384,132 @@ QWEN_KN = ((1536, 1536), (1536, 256), (1536, 8960), (8960, 1536))
 @pytest.mark.parametrize("m", [4, 8, 2048, 5])
 @pytest.mark.parametrize("op", ["gemm", "gemm_w8"])
 def test_hopper_plans_int8_on_the_kernel_menu(m, op):
+    """Decode M plans the decode path at a split on its menu, M = 2048 the
+    tiled path at a menu tile; each decision's shared memory is the
+    kernel's and fits a block; the int8 grouped GEMM plans a menu tile."""
     for k, n in QWEN_KN:
         dec = HopperModel().decide(KernelRequest(op, m, k, n, in_bytes=1,
                                                  out_bytes=2))
+        meta = dec.meta_dict
         assert dec.dataflow == "os"
-        assert (dec.bm, dec.bk, dec.bn) in quant_gemm.TILES
-        assert dec.meta_dict["smem_bytes"] == quant_gemm.smem_bytes(
-            dec.bm, dec.bk, dec.bn) <= 232_448
+        if m <= 16:
+            assert meta["path"] == "decode"
+            assert 1 <= meta["split_k"] <= quant_gemm.DECODE_MAX_SPLIT
+            assert meta["smem_bytes"] == quant_gemm.decode_smem_bytes(
+                m, k, meta["split_k"]) <= 232_448
+        else:
+            assert meta["path"] == "tiled" and meta["split_k"] == 1
+            assert (dec.bm, dec.bk, dec.bn) in quant_gemm.TILES
+            assert meta["smem_bytes"] == quant_gemm.smem_bytes(
+                dec.bm, dec.bk, dec.bn) <= 232_448
         assert dec.seconds > 0
     grouped = HopperModel().decide(KernelRequest(
         "grouped_gemm", 32, 1024, 512, groups=32, in_bytes=1, out_bytes=2))
     assert (grouped.bm, grouped.bk, grouped.bn) in quant_gemm.TILES
     assert cost.peak_flops(1) == 1979e12 == cost.PEAK_OPS_INT8
     assert cost.peak_flops(2) == 989e12
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 16, 17, 33, 512, 2048, 6144])
+def test_decide_int8_paths_splits_and_tiles(m):
+    """`decide_int8`: the decode path up to 16 rows, with the least-cost
+    split (the first of equals) filling the card as far as a cluster of
+    8 lets it (at least 0.9 of the SMs where 8 splits of the tiles reach
+    them; at N = 256, whose 4 column tiles give at most 32 blocks, 7 or 8
+    splits); the tiled path above 16 rows at the least-cost menu tile,
+    whose grid at M = 2048, N = 256 is not the 32 blocks of the old
+    (128 x 128) tile."""
+    for k, n in QWEN_KN:
+        dec = HopperModel().decide(KernelRequest("gemm_w8", m, k, n,
+                                                 in_bytes=1, out_bytes=2))
+        meta = dec.meta_dict
+        if m <= quant_gemm.DECODE_ROWS[-1]:
+            split = meta["split_k"]
+            costs = [cost.int8_decode_cost(m, k, n, s) for s in
+                     range(1, quant_gemm.DECODE_MAX_SPLIT + 1)]
+            assert meta["path"] == "decode"
+            assert dec.seconds == costs[split - 1]["seconds"] == min(
+                c["seconds"] for c in costs if c is not None)
+            assert (dec.bm, dec.bn) == (quant_gemm.decode_rows(m),
+                                        quant_gemm.DECODE_BN)
+            tiles = -(-n // quant_gemm.DECODE_BN)
+            assert meta["blocks"] == tiles * split
+            if tiles * quant_gemm.DECODE_MAX_SPLIT >= cost.SMS:
+                assert meta["blocks"] >= 0.9 * cost.SMS
+            else:
+                assert split >= quant_gemm.DECODE_MAX_SPLIT - 1
+            assert meta["hbm_bytes"] == k * n + m * k + 4 * m * n
+            continue
+        tile = (dec.bm, dec.bk, dec.bn)
+        assert meta["path"] == "tiled" and meta["split_k"] == 1
+        assert tile in quant_gemm.TILES
+        assert dec.seconds == min(cost.int8_tiled_cost(m, k, n, t)["seconds"]
+                                  for t in quant_gemm.TILES)
+        assert meta["blocks"] == -(-m // tile[0]) * -(-n // tile[2])
+        if (m, n) == (2048, 256):
+            assert meta["blocks"] > 32
+
+
+#: the card's int8 sweep (`chip_smoke.py --sweep-int8`, NVIDIA H100
+#: 80GB HBM3, 700 W): every decode split at M <= 16 and every tiled tile
+#: above, at qwen2-1.5b's (K, N); the data `decide_int8`'s constants are
+#: fitted to (`calibrate_gemm.py --int8 --fit`)
+INT8_SWEEP = Path(__file__).parent / "data" / "int8_sweep_h100.jsonl"
+
+
+def test_decide_int8_picks_hold_on_the_cards_sweep():
+    """At every shape of the committed sweep the planner's decision is a
+    measured configuration of its path and takes at most 1.25x the
+    fastest of them (as `chip_smoke.py` phase 12 holds it on the card)."""
+    shapes = {}
+    for line in INT8_SWEEP.read_text().splitlines():
+        row = json.loads(line)
+        shapes.setdefault((row["m"], row["k"], row["n"]), []).append(row)
+    assert len(shapes) == 36
+    for (m, k, n), rows in shapes.items():
+        dec = HopperModel().decide(KernelRequest(
+            "gemm_w8", m, k, n, in_bytes=1, out_bytes=2))
+        meta = dec.meta_dict
+        if meta["path"] == "decode":
+            pick = next(r for r in rows if r["path"] == "decode"
+                        and r["split_k"] == meta["split_k"])
+        else:
+            pick = next(r for r in rows if r["path"] == "tiled" and tuple(
+                r["tile"]) == (dec.bm, dec.bk, dec.bn))
+        assert len(rows) == (quant_gemm.DECODE_MAX_SPLIT if m <= 16
+                             else len(quant_gemm.TILES))
+        assert pick["us"] <= 1.25 * min(r["us"] for r in rows), (m, k, n)
+
+
+def test_int8_path_and_split_survive_json(tmp_path):
+    """A decode decision (M = 8) and a tiled one (M = 2048) keep their
+    path, split and tile through the plan's JSON and name the same kernel
+    arguments after it; a decision without a path (an older plan) runs
+    the tiled path at its tile snapped to the menu."""
+    from repro_torch.engine.backends import int8_args
+    from repro_torch.engine.plan import KernelDecision
+
+    decode = KernelRequest("gemm_w8", 8, 8960, 1536, in_bytes=1, out_bytes=2)
+    tiled = KernelRequest("gemm_w8", 2048, 1536, 256, in_bytes=1,
+                          out_bytes=2)
+    plan, model = ExecutionPlan(), HopperModel()
+    for req in (decode, tiled):
+        plan.add(req, model.decide(req))
+    plan.save(tmp_path / "plan.json")
+    loaded = ExecutionPlan.load(tmp_path / "plan.json")
+    for req in (decode, tiled):
+        before, after = plan.decisions[req.key()], loaded.lookup(req)
+        assert after == before
+        assert int8_args(after) == int8_args(before)
+    got = int8_args(loaded.lookup(decode))
+    assert got == {"path": "decode",
+                   "split_k": model.decide(decode).meta_dict["split_k"]}
+    assert int8_args(loaded.lookup(tiled))["path"] == "tiled"
+    old = KernelDecision(op="gemm_w8", dataflow="os", bm=16, bk=128, bn=64,
+                         cost_model="hopper-h100", seconds=1e-5)
+    assert int8_args(old) == {"path": "tiled", "tile": (32, 64, 64)}
+    assert ExecutionPlan.from_json(loaded.to_json()).to_json() == \
+        loaded.to_json()
 
 
 def test_int8_backends_and_their_names():
