@@ -23,10 +23,15 @@ Phases (any failed check exits non-zero; nothing falls back):
      at the wrapper's cluster size and at C = 1, 2, 4, 8 (each held to the
      plain version and timed; the pick within PAGED_PICK_LIMIT of the
      fastest C in bf16; the cluster occupancy and the host's us a call)
-     and flash attention at (4, 12, 512, 128) causal, one
-     window case, non-causal and a length `_legal_block` bends, in bf16
-     and f32; times of kernel, plain version and library yardstick beside
-     the bound; `Engine.attention` driven through the engine once;
+     and flash attention on both of its routes at head dims 16, 20, 64,
+     80, 128, 240 and 256, bf16 and f32, causal, window (rows without a
+     live key), non-causal and ragged, Sq != Sk (each call held to the
+     plain version, launched once on the route `flash_route` names, and
+     repeated bit for bit), and on a misaligned base; times of kernel,
+     plain version and SDPA beside the bound at (4, 12, 512, 128) and
+     (2, 16, 4096, 128) causal on the wgmma route, and at (4, 12, 512,
+     128) in f32 and at a misaligned base on the sync route;
+     `Engine.attention` driven through the engine once;
   4. the static serve (the first slice's path): `repro_torch.launch.serve`
      serving full-width qwen2-1.5b (4 requests x 512 prompt + 16 new
      tokens, bf16, weights from a seed) on the `hopper` backend; the GEMM
@@ -246,6 +251,18 @@ PAGED_LENS = (800, 0, 1, 16, 17, 400, 783, 255)
 SLOT_PAGES = -(-(768 + 32 + 1) // PAGE)
 POOL_PAGES = SLOTS * SLOT_PAGES + 2 * SLOT_PAGES
 FLASH_SHAPE = (4, 12, 512, 128)
+#: the operations-bound flash shape (timed beside FLASH_SHAPE, causal)
+FLASH_OPS_SHAPE = (2, 16, 4096, 128)
+#: the head dims phase 3 holds both flash routes at: the SMOKE configs'
+#: 16, hubert's 80, gemma3's 240, recurrentgemma's 256, and 20, which
+#: only the sync route takes
+FLASH_HEAD_DIMS = (16, 20, 64, 80, 128, 240, 256)
+#: (Sq, Sk, causal, window) of those checks: causal, window (its rows
+#: past Sk + window - 2 see no key and average v), non-causal, a ragged
+#: length, with Sq != Sk
+FLASH_CASES = ((384, 448, True, 0), (448, 384, True, 128),
+               (384, 320, False, 0), (500, 500, True, 0),
+               (300, 200, True, 40), (300, 260, False, 64))
 #: granite-moe-1b-a400m: the sorted serve (trace mode, paged) and the
 #: einsum serve (static: prompt 256, since the einsum dispatch holds a
 #: (B, S, E, C) one-hot per layer)
@@ -966,17 +983,6 @@ def _flash_sets(shape, dtype, count: int, seed: int = 3) -> list[tuple]:
                   for _ in range(3)) for _ in range(count)]
 
 
-def _flash_blocks(shape, itemsize: int) -> tuple[int, int]:
-    """The engine's (bq, bk) for this shape: HopperModel's decision bent
-    by `_legal_block`, as the hopper backend bends it."""
-    b, h, s, d = shape
-    dec = HopperModel().decide(KernelRequest(
-        "attention", s, d, s, groups=b * h, in_bytes=itemsize,
-        out_bytes=itemsize))
-    return (flash_attention._legal_block(s, dec.bm),
-            flash_attention._legal_block(s, dec.bn))
-
-
 #: the paged kernel's decode shapes (H, KV, D) at the serve's 8 slots,
 #: 51-page tables and PAGED_LENS: qwen2-1.5b's and granite-moe-1b-a400m's
 PAGED_SHAPES = {ARCH: (12, 2, 128), GRANITE: (16, 8, 64)}
@@ -1080,61 +1086,129 @@ def paged_kernel_rows(dtype, int8: bool, side) -> tuple[list[dict], list]:
     return rows, failures
 
 
+def _flash_call(q, k, v, causal: bool, window: int):
+    """One flash call on the operands' route; returns the output and the
+    route its launch was counted on (each call must launch once)."""
+    flash_attention.reset_launches()
+    out = flash_attention.flash_attention(q, k, v, causal=causal,
+                                          window=window)
+    launched = (flash_attention.launches, flash_attention.wgmma_launches)
+    route = {(1, 1): "wgmma", (1, 0): "sync"}.get(launched, f"{launched}")
+    return out, route
+
+
+def flash_rows(side, failures: list) -> list[dict]:
+    """The flash kernel on both routes: bf16 and f32 at every D of
+    FLASH_HEAD_DIMS over FLASH_CASES (q (2, 3, Sq, D)), each call held to
+    the plain version at the row tolerance, launched once on the route
+    `flash_route` names (bf16 with D % 8 == 0: wgmma; the rest: sync) and
+    repeated bit for bit; bf16 on operands at a misaligned base (the sync
+    route); then timed, beside the plain version, SDPA and the bound: bf16
+    at FLASH_SHAPE and FLASH_OPS_SHAPE (wgmma), f32 at FLASH_SHAPE and bf16
+    at a misaligned base (sync), all causal."""
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = BF16_ROW_TOL if dtype == torch.bfloat16 else F32_ROW_TOL
+        name = str(dtype)[6:]
+        for d in FLASH_HEAD_DIMS:
+            want = ("wgmma" if dtype == torch.bfloat16 and d % 8 == 0
+                    else "sync")
+            rel, err, bad = 0.0, 0.0, []
+            for sq, sk, causal, window in FLASH_CASES:
+                q = torch.randn(2, 3, sq, d, generator=gen, device="cuda")
+                k, v = (torch.randn(2, 3, sk, d, generator=gen, device="cuda")
+                        for _ in range(2))
+                q, k, v = (x.to(dtype) for x in (q, k, v))
+                out, route = _flash_call(q, k, v, causal, window)
+                again, _ = _flash_call(q, k, v, causal, window)
+                ref = flash_attention.flash_attention_reference(
+                    q, k, v, causal=causal, window=window)
+                torch.cuda.synchronize()
+                r = row_rel_l2(out, ref)
+                rel = max(rel, r)
+                err = max(err, (out.float() - ref.float()).abs().max().item())
+                if not (math.isfinite(r) and r <= tol and route == want
+                        and torch.equal(out, again)):
+                    bad.append(((sq, sk, causal, window), r, route,
+                                bool(torch.equal(out, again))))
+            rows.append({"kernel": "flash_attention", "dtype": name, "d": d,
+                         "route": want, "cases": [list(c) for c in FLASH_CASES],
+                         "row_rel_l2": rel, "max_abs_err": err, "tol": tol,
+                         "repeat_bitwise": not bad})
+            print(f"flash_attention {name} D={d} on the {want} route, "
+                  f"{len(FLASH_CASES)} mask cases (Sq != Sk): row rel-L2 "
+                  f"{rel:.2e} (tol {tol:g}), max|diff| {err:.3e}, one launch "
+                  f"a call on the {want} route, repeats bit for bit"
+                  + ("" if not bad else f"  FAILED {bad}"))
+            if bad:
+                failures.append(f"flash {name} D={d}: {bad}")
+
+    def misaligned(shape):
+        n = math.prod(shape)
+        flat = torch.randn(3 * n + 1, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+        return tuple(flat[1 + i * n:1 + (i + 1) * n].view(shape)
+                     for i in range(3))
+
+    timed = [("bfloat16", FLASH_SHAPE, "wgmma"),
+             ("bfloat16", FLASH_OPS_SHAPE, "wgmma"),
+             ("float32", FLASH_SHAPE, "sync"),
+             ("bfloat16 at a misaligned base", FLASH_SHAPE, "sync")]
+    for name, shape, want in timed:
+        dtype = torch.float32 if name == "float32" else torch.bfloat16
+        itemsize = torch.tensor([], dtype=dtype).element_size()
+        per = 4 * math.prod(shape) * itemsize
+        count = max(2, min(64, math.ceil(2 * L2_BYTES / per)))
+        sets = ([misaligned(shape) for _ in range(count)]
+                if "misaligned" in name else _flash_sets(shape, dtype, count))
+        tol = BF16_ROW_TOL if dtype == torch.bfloat16 else F32_ROW_TOL
+        bk = flash_attention.route_tile(want, shape[3])[1]
+        run = functools.partial(flash_attention.flash_attention, causal=True)
+        plain = functools.partial(flash_attention.flash_attention_reference,
+                                  causal=True, bk=bk)
+        (out, route), ref = _flash_call(*sets[0], True, 0), plain(*sets[0])
+        torch.cuda.synchronize()
+        rel = row_rel_l2(out, ref)
+        row = {"kernel": "flash_attention", "dtype": name,
+               "shape": list(shape), "causal": True, "route": route,
+               "row_rel_l2": rel, "tol": tol,
+               "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+               "ms": device_ms(run, sets, side),
+               "plain_ms": device_ms(plain, sets, side),
+               "library_ms": device_ms(functools.partial(
+                   F.scaled_dot_product_attention, is_causal=True), sets,
+                   side),
+               "library": "scaled_dot_product_attention"}
+        row["bound_ms"], row["bound_by"] = flash_bound(shape, True, itemsize)
+        flops = 4.0 * math.prod(shape) * shape[2] * 0.5
+        row["tflops"] = flops / row["ms"] * 1e-9
+        row["peak_share"] = row["tflops"] * 1e12 / _peak(itemsize)
+        rows.append(row)
+        ok = math.isfinite(rel) and rel <= tol and route == want
+        print(f"flash_attention {name} {shape} causal on the {route} route: "
+              f"row rel-L2 {rel:.2e} (tol {tol:g}); kernel {row['ms']:.4f} "
+              f"ms ({row['tflops']:.1f} TFLOP/s, {row['peak_share']:.3f} of "
+              f"the peak), plain {row['plain_ms']:.4f} ms, SDPA "
+              f"{row['library_ms']:.4f} ms (kernel / SDPA "
+              f"{row['ms'] / row['library_ms']:.2f}), bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+              + ("" if ok else "  FAILED"))
+        if not ok:
+            failures.append(f"flash {name} {shape}: {rel:.2e} on {route}")
+        del sets
+    return rows
+
+
 def phase_attention_kernels() -> dict:
     side = torch.cuda.Stream()
     rows, failures = [], []
     for dtype in (torch.bfloat16, torch.float32):
-        tol = BF16_ROW_TOL if dtype == torch.bfloat16 else F32_ROW_TOL
-        name = str(dtype)[6:]
-        itemsize = torch.tensor([], dtype=dtype).element_size()
         # paged attention at the paged serve's decode shapes
         paged_rows, paged_failures = paged_kernel_rows(dtype, False, side)
         rows += paged_rows
         failures += paged_failures
-        # flash attention: the timed main case, then the other masks
-        cases = [(FLASH_SHAPE, True, 0, True), (FLASH_SHAPE, True, 128, False),
-                 (FLASH_SHAPE, False, 0, False), ((4, 12, 500, 128), True, 0,
-                                                  False)]
-        for shape, causal, window, timed in cases:
-            per = 4 * math.prod(shape) * itemsize
-            sets = _flash_sets(shape, dtype, max(2, min(64, math.ceil(
-                2 * L2_BYTES / per))) if timed else 1)
-            bq, bk = _flash_blocks(shape, itemsize)
-            run = functools.partial(flash_attention.flash_attention,
-                                    causal=causal, window=window, bq=bq, bk=bk)
-            plain = functools.partial(flash_attention.flash_attention_reference,
-                                      causal=causal, window=window, bk=bk)
-            out, ref = run(*sets[0]), plain(*sets[0])
-            torch.cuda.synchronize()
-            rel = row_rel_l2(out, ref)
-            err = (out.float() - ref.float()).abs().max().item()
-            row = {"kernel": "flash_attention", "dtype": name,
-                   "shape": list(shape), "causal": causal, "window": window,
-                   "bq": bq, "bk": bk, "max_abs_err": err, "row_rel_l2": rel,
-                   "tol": tol}
-            line = (f"flash_attention {name} {shape} causal={causal} "
-                    f"window={window} blocks ({bq}, {bk}): row rel-L2 "
-                    f"{rel:.2e} (tol {tol:g}), max|diff| {err:.3e}")
-            if timed:
-                row["ms"] = device_ms(run, sets, side)
-                row["plain_ms"] = device_ms(plain, sets, side)
-                row["library_ms"] = device_ms(
-                    functools.partial(F.scaled_dot_product_attention,
-                                      is_causal=causal), sets, side)
-                row["library"] = "scaled_dot_product_attention"
-                row["bound_ms"], row["bound_by"] = flash_bound(shape, causal,
-                                                               itemsize)
-                line += (f"; kernel {row['ms']:.4f} ms, plain "
-                         f"{row['plain_ms']:.4f} ms, SDPA "
-                         f"{row['library_ms']:.4f} ms, bound "
-                         f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
-            rows.append(row)
-            ok = math.isfinite(rel) and rel <= tol
-            print(line + ("" if ok else "  FAILED"))
-            if not ok:
-                failures.append(f"flash {name} {shape} {causal} {window}: "
-                                f"{rel:.2e}")
-            del sets
+    rows += flash_rows(side, failures)
     # the engine entry point: Engine.attention plans once, then hits
     q, k, v = _flash_sets(FLASH_SHAPE, torch.bfloat16, 1, seed=4)[0]
     eng = Engine(backend="hopper")
@@ -1142,12 +1216,15 @@ def phase_attention_kernels() -> dict:
     first = eng.attention(q, k, v, causal=True)
     second = eng.attention(q, k, v, causal=True)
     torch.cuda.synchronize()
-    entry = {"launches": flash_attention.launches, "plan": eng.plan.stats,
+    entry = {"launches": flash_attention.launches,
+             "wgmma_launches": flash_attention.wgmma_launches,
+             "plan": eng.plan.stats,
              "equal": bool(torch.equal(first, second))}
     print(f"Engine.attention (hopper) twice at {FLASH_SHAPE}: flash kernel "
-          f"launches {entry['launches']}, plan {entry['plan']}, outputs "
+          f"launches {entry['launches']} ({entry['wgmma_launches']} on the "
+          f"wgmma route), plan {entry['plan']}, outputs "
           f"{'equal' if entry['equal'] else 'DIFFER'}")
-    check(entry["launches"] == 2 and entry["equal"]
+    check(entry["launches"] == entry["wgmma_launches"] == 2 and entry["equal"]
           and eng.plan.stats["misses"] == 1 and eng.plan.stats["hits"] == 1,
           f"Engine.attention entry point: {entry}")
     REPORT["attention_kernels"] = rows
@@ -3515,10 +3592,12 @@ def gemm_lines(rows: list[dict], static: dict, paged: dict,
 
 def attention_lines(attn: dict, paged: dict) -> list[dict]:
     """Per call at each kernel's main-path shape in bf16; launches from
-    the paged serve (flash sits behind Engine.attention, off the path)."""
-    def timed(kernel):
+    the paged serve (flash sits behind Engine.attention, off the path).
+    The flash line adds its operations-bound shape and its sync route."""
+    def timed(kernel, dtype="bfloat16", shape=None):
         return next(r for r in attn["rows"] if r["kernel"] == kernel
-                    and r["dtype"] == "bfloat16" and "ms" in r)
+                    and r["dtype"] == dtype and "ms" in r
+                    and (shape is None or r["shape"] == list(shape)))
 
     def err(kernel):
         return max(r["max_abs_err"] for r in attn["rows"]
@@ -3526,6 +3605,9 @@ def attention_lines(attn: dict, paged: dict) -> list[dict]:
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library")
     p, f = timed("paged_attention"), timed("flash_attention")
+    ops = timed("flash_attention", shape=FLASH_OPS_SHAPE)
+    sub = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "tflops",
+           "peak_share")
     return [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -3535,11 +3617,19 @@ def attention_lines(attn: dict, paged: dict) -> list[dict]:
          "max_abs_err": err("paged_attention"), **{k: p[k] for k in keys}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "kernel": "flash_wgmma_kernel (bf16 that TMA can describe, "
+                   "D <= 256); flash_sync_kernel (the rest)",
          "replaces": "src/repro/kernels/flash_attention.py:97",
          "launches": paged["counts"]["flash_attention"],
          "entry_point_launches": attn["entry"]["launches"],
-         "per": f"call, bf16, {list(FLASH_SHAPE)} causal",
-         "max_abs_err": err("flash_attention"), **{k: f[k] for k in keys}}]
+         "entry_point_wgmma_launches": attn["entry"]["wgmma_launches"],
+         "per": f"call, bf16, {list(FLASH_SHAPE)} causal, wgmma route",
+         "max_abs_err": err("flash_attention"), **{k: f[k] for k in keys},
+         "ops_bound": {"shape": list(FLASH_OPS_SHAPE),
+                       **{k: ops[k] for k in sub}},
+         "sync_route": {
+             name: {k: timed("flash_attention", name)[k] for k in sub}
+             for name in ("float32", "bfloat16 at a misaligned base")}}]
 
 
 def grouped_line(rows: list[dict], granite: dict) -> dict:

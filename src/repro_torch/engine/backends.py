@@ -77,17 +77,23 @@ def ref_grouped_gemm(decision: KernelDecision, x, w, *, out_dtype=None):
     return grouped_gemm.grouped_matmul_reference(x, w, out_dtype)
 
 
-def _blocks(decision: KernelDecision, q, k) -> tuple[int, int]:
-    """The decision's (bq, bk) bent to divisors of the sequence lengths,
-    as the JAX package's flash registration bends them."""
+def flash_blocks(decision: KernelDecision, q, k, v) -> tuple[int, int]:
+    """The (bq, bk) of the flash route the operands take
+    (`flash_attention.flash_route`): on the wgmma route its own tile,
+    which `decide_attention` names (the kernel masks ragged edges); on the
+    sync route the decision's blocks bent to divisors of the sequence
+    lengths, as the JAX package's flash registration bends them."""
+    if flash_attention.flash_route(q, k, v) == "wgmma":
+        return flash_attention.route_tile("wgmma", q.shape[3])
     return (flash_attention._legal_block(q.shape[2], decision.bm),
             flash_attention._legal_block(k.shape[2], decision.bn))
 
 
 def hopper_attention(decision: KernelDecision, q, k, v, *, causal=True,
                      window=0):
-    """q (B, H, Sq, D); k/v (B, H, Sk, D) on the flash kernel."""
-    bq, bk = _blocks(decision, q, k)
+    """q (B, H, Sq, D); k/v (B, H, Sk, D) on the flash kernel of the
+    operands' route, at `flash_blocks`."""
+    bq, bk = flash_blocks(decision, q, k, v)
     return flash_attention.flash_attention(q, k, v, causal=causal,
                                            window=window, bq=bq, bk=bk)
 
@@ -95,7 +101,7 @@ def hopper_attention(decision: KernelDecision, q, k, v, *, causal=True,
 def ref_attention(decision: KernelDecision, q, k, v, *, causal=True,
                   window=0):
     """The flash kernel's plain version over the same KV blocks."""
-    _, bk = _blocks(decision, q, k)
+    _, bk = flash_blocks(decision, q, k, v)
     return flash_attention.flash_attention_reference(q, k, v, causal=causal,
                                                      window=window, bk=bk)
 

@@ -46,7 +46,8 @@ import dataclasses
 import functools
 import math
 
-from ..kernels import grouped_gemm, quant_gemm, redas_gemm, sparse_gemm
+from ..kernels import (flash_attention, grouped_gemm, quant_gemm, redas_gemm,
+                       sparse_gemm)
 from ..kernels.redas_gemm import DATAFLOWS, SMEM_LIMIT, smem_bytes
 from .plan import KernelDecision, KernelRequest
 
@@ -138,8 +139,8 @@ def choose_tile(m: int, k: int, n: int, in_bytes: int = 2,
     return best
 
 
-#: the flash kernel's tile: query rows and keys per step (`kQT`, `kKT`
-#: in csrc/flash_attention.cu)
+#: the paged decision's blocks (query rows and keys a step); the paged
+#: kernel plans its own cluster, so they are planned but shape nothing
 ATTENTION_BLOCK = 64
 
 
@@ -147,16 +148,25 @@ def decide_attention(request: KernelRequest, name: str) -> KernelDecision:
     """The flash roofline of `repro/engine/cost.py::_decide_attention`
     with the H100's peaks: q/k/v/o traffic only (the online-softmax state
     stays on chip).  m = Sq, n = Sk (or the page span), k = head dim,
-    groups = batch x heads.  The blocks are the kernel's own tile, cut
-    to the sequence; the wrapper bends them to divisors."""
+    groups = batch x heads.  For the `attention` op the blocks are the
+    tile of the flash route the request's width and head dim take
+    (`flash_attention.shape_route`: the planner sees no pointers): bm the
+    query rows a CTA, bn the keys a step; `meta` names the route.  For
+    `paged_attention` they are ATTENTION_BLOCK cut to the sequence."""
     sq, sk, d, bh = request.m, request.n, request.k, request.groups
     flops = 4.0 * bh * sq * sk * d            # QK^T + PV
     hbm = request.in_bytes * bh * d * (2 * sq + 2 * sk)
     seconds = max(flops / peak_flops(request.in_bytes), hbm / HBM_BW)
+    meta = {"hbm_bytes": float(hbm), "groups": bh}
+    if request.op == "attention":
+        route = flash_attention.shape_route(request.in_bytes, d)
+        bm, bn = flash_attention.route_tile(route, d)
+        meta["route"] = route
+    else:
+        bm, bn = min(ATTENTION_BLOCK, sq), min(ATTENTION_BLOCK, sk)
     return KernelDecision(
-        op=request.op, dataflow="os", bm=min(ATTENTION_BLOCK, sq), bk=d,
-        bn=min(ATTENTION_BLOCK, sk), cost_model=name, seconds=seconds,
-        meta=tuple(sorted({"hbm_bytes": float(hbm), "groups": bh}.items())))
+        op=request.op, dataflow="os", bm=bm, bk=d, bn=bn, cost_model=name,
+        seconds=seconds, meta=tuple(sorted(meta.items())))
 
 
 def decide_grouped(request: KernelRequest, name: str) -> KernelDecision:

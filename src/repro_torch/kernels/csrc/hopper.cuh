@@ -1,6 +1,7 @@
 // Hopper (sm_90a) primitives of the wgmma kernels: mbarriers, TMA tile loads
 // (rank 2 and rank 3), and warpgroup MMA (wgmma) on 128-byte-swizzled shared
-// memory, written as inline PTX; and the warp-specialised OS ring built on
+// memory, written as inline PTX (A from shared memory or, in the RS form,
+// from registers; B N- or K-major); and the warp-specialised OS ring built on
 // them, which the ReDas GEMM's os_wgmma_kernel (redas_gemm.cu) and the
 // grouped GEMM's grouped_wgmma_kernel (grouped_gemm.cu) share.  The tensor
 // maps are encoded on the host through the driver entry point
@@ -208,14 +209,16 @@ __device__ __forceinline__ void fence_accumulator(float (&d)[R]) {
 #define WG_D32(i) WG_D16(i), WG_D16(i + 16)
 
 // d (64 x N, f32, the warpgroup's accumulator fragment: N / 2 values a
-// thread) += A (64 x 16, bf16, K-major) @ B (16 x N, bf16, N-major: the
-// transpose flag that 16-bit types allow), both read from shared memory
-// through their descriptors.
-template <int N>
+// thread) += A (64 x 16, bf16, K-major) @ B (16 x N, bf16), both read from
+// shared memory through their descriptors.  TRANS_B = 1 (the default) reads
+// B N-major (the transpose flag that 16-bit types allow: a row-major (K, N)
+// operand); TRANS_B = 0 reads it K-major (an (N, K) operand stored row by
+// row, as A is).
+template <int N, int TRANS_B = 1>
 struct Wgmma;
 
-template <>
-struct Wgmma<64> {
+template <int TRANS_B>
+struct Wgmma<64, TRANS_B> {
   __device__ __forceinline__ static void mma(float (&d)[32], uint64_t da,
                                              uint64_t db) {
     asm volatile(
@@ -227,15 +230,15 @@ struct Wgmma<64> {
         "%8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, "
         "%24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 1;\n"
+        "%32, %33, p, 1, 1, 0, %35;\n"
         "}\n"
         : WG_D32(0)
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
   }
 };
 
-template <>
-struct Wgmma<128> {
+template <int TRANS_B>
+struct Wgmma<128, TRANS_B> {
   __device__ __forceinline__ static void mma(float (&d)[64], uint64_t da,
                                              uint64_t db) {
     asm volatile(
@@ -251,15 +254,15 @@ struct Wgmma<128> {
         "%40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, "
         "%56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 1;\n"
+        "%64, %65, p, 1, 1, 0, %67;\n"
         "}\n"
         : WG_D32(0), WG_D32(32)
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
   }
 };
 
-template <>
-struct Wgmma<256> {
+template <int TRANS_B>
+struct Wgmma<256, TRANS_B> {
   __device__ __forceinline__ static void mma(float (&d)[128], uint64_t da,
                                              uint64_t db) {
     asm volatile(
@@ -283,10 +286,98 @@ struct Wgmma<256> {
         "%104, %105, %106, %107, %108, %109, %110, %111, "
         "%112, %113, %114, %115, %116, %117, %118, %119, "
         "%120, %121, %122, %123, %124, %125, %126, %127}, "
-        "%128, %129, p, 1, 1, 0, 1;\n"
+        "%128, %129, p, 1, 1, 0, %131;\n"
         "}\n"
         : WG_D32(0), WG_D32(32), WG_D32(64), WG_D32(96)
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
+  }
+};
+
+// The same with A from registers (the RS form): a[0 .. 3] hold the bf16
+// pairs of A's fragment in the accumulator's own layout (for the k16 step
+// of columns 16 s .. 16 s + 15 of a 64 x W f32 fragment e: e[8 s + 0, 1],
+// e[8 s + 2, 3], e[8 s + 4, 5], e[8 s + 6, 7]), so a product's f32 result
+// feeds the next product without a trip through shared memory; B is read
+// N-major.
+template <int N>
+struct WgmmaRS;
+
+template <>
+struct WgmmaRS<64> {
+  __device__ __forceinline__ static void mma(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+        "}\n"
+        : WG_D32(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaRS<128> {
+  __device__ __forceinline__ static void mma(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+        "}\n"
+        : WG_D32(0), WG_D32(32)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaRS<256> {
+  __device__ __forceinline__ static void mma(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, "
+        "%88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, "
+        "%104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127}, "
+        "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+        "}\n"
+        : WG_D32(0), WG_D32(32), WG_D32(64), WG_D32(96)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
 };
 

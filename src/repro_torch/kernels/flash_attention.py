@@ -1,19 +1,39 @@
-"""Flash attention on Hopper: wrapper, launch counter and plain version.
+"""Flash attention on Hopper: wrapper, route, launch counters and plain
+version.
 
 `flash_attention` computes what
 `repro.kernels.flash_attention.flash_attention_tpu` computes: softmax
 attention of q (B, H, Sq, D) over k/v (B, H, Sk, D) (GQA heads expanded
 by the caller), with the causal and sliding-window masks taken from
 absolute positions, masked scores at the finite `NEG_INF = -1e30` and
-the denominator clamped at 1e-30 — through the CUDA kernel in
-`csrc/flash_attention.cu`.
+the denominator clamped at 1e-30, at any head dim D — through the CUDA
+kernels in `csrc/flash_attention.cu`.
+
+Two routes, decided before the launch by `flash_route` from dtype, D and
+the base addresses alone (`shape_route` is what a planner, which sees no
+pointers, plans for):
+
+  wgmma  bf16 with D % 8 == 0, D <= 256 and 16-byte-aligned q, k, v
+         (TMA's rules): `flash_wgmma_kernel`, a CTA of WGMMA_ROWS query
+         rows, K and V through a ring of KV_STAGES stages of
+         `WGMMA_TILES[padded_dim(D)]` keys, the products on wgmma; P is
+         rounded to bf16 before P V, the one departure from the
+         reference's f32 arithmetic (held at row rel-L2 <= 1e-2).
+  sync   everything else (f32, D % 8 != 0, D > 256, a misaligned base):
+         `flash_sync_kernel`, f32 FFMA; a block owns bq query rows and
+         walks the keys bk at a time, V's columns in passes of the
+         least of SYNC_WIDTHS that holds D (of the widest past it).
+
+A call that fails raises; no other route is tried.
 
   flash_attention_reference  the online-softmax math of the TPU kernel's
                              body over the same KV blocks, in f32.
   flash_attention            the wrapper: on CUDA tensors it launches the
-                             kernel (or raises); on CPU tensors it
+                             route's kernel (or raises); on CPU tensors it
                              returns the plain version.  `launches`
-                             counts kernel launches and nothing else.
+                             counts kernel launches on both routes and
+                             nothing else, `wgmma_launches` those on the
+                             wgmma route.
 
 As in the JAX package, no model code calls it: it sits behind
 `Engine.attention`, and the model's prefill keeps the plain chunked scan
@@ -29,20 +49,85 @@ import math
 import torch
 
 from . import _build
+from .redas_gemm import SMEM_LIMIT
 
 NEG_INF = -1e30
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
-#: head dims the kernel is compiled for (`FLASH_HEAD_DIMS` in the source)
-HEAD_DIMS = (32, 64, 128)
+#: the wgmma route's padded head dims and the keys a ring stage holds at
+#: each (`FLASH_WGMMA_TILES` in csrc/flash_attention.cu)
+WGMMA_TILES = {64: 128, 128: 128, 256: 64}
+#: query rows a CTA of the wgmma route (two consumer warpgroups), and its
+#: K/V ring stages (`kWgRows`, `kKvStages`)
+WGMMA_ROWS = 128
+KV_STAGES = 2
+#: the sync route's output widths, columns of V a pass
+#: (`FLASH_SYNC_WIDTHS`), its query rows a sub-tile and keys a step
+#: (`kQT`, `kKT`: its default blocks), and the head-dim columns of q and k
+#: it stages at once (`kKC`)
+SYNC_WIDTHS = (32, 64, 128)
+SYNC_ROWS = SYNC_KEYS = 64
+SYNC_CHUNK = 128
 
-#: kernel launches since the last reset (the CPU path never counts).
+#: kernel launches on both routes, and those on the wgmma route, since the
+#: last reset (the CPU path and the plain version never count)
 launches = 0
+wgmma_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, wgmma_launches
+    launches = wgmma_launches = 0
+
+
+def padded_dim(d: int) -> int | None:
+    """The wgmma route's padded head dim for D: the least of WGMMA_TILES
+    that holds it (None past the widest)."""
+    return next((dp for dp in sorted(WGMMA_TILES) if d <= dp), None)
+
+
+def shape_route(itemsize: int, d: int) -> str:
+    """The route a call of this element size and head dim takes when its
+    bases are 16-byte aligned (what a planner, which sees no pointers,
+    plans for): "wgmma" for bf16 with D % 8 == 0 (TMA's 16-byte row
+    stride) and D <= 256, else "sync"."""
+    return ("wgmma" if itemsize == 2 and d % 8 == 0
+            and padded_dim(d) is not None else "sync")
+
+
+def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The route of a call on these operands: `shape_route`, and "sync"
+    as well when a base of q, k or v is not 16-byte aligned (TMA's address
+    rule).  A pure function of dtype, shape and pointers."""
+    route = shape_route(q.element_size(), q.shape[-1])
+    if route == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        return "sync"
+    return route
+
+
+def route_tile(route: str, d: int) -> tuple[int, int]:
+    """(query rows a CTA, keys a step) of a route at head dim D: the wgmma
+    route's fixed tile, or the sync route's default blocks."""
+    if route == "wgmma":
+        return WGMMA_ROWS, WGMMA_TILES[padded_dim(d)]
+    return SYNC_ROWS, SYNC_KEYS
+
+
+def wgmma_smem_bytes(dp: int) -> int:
+    """Shared memory of one wgmma CTA at padded head dim `dp` (the
+    `FlashSmem` struct of csrc/flash_attention.cu): 1 KB to align, Q,
+    KV_STAGES stages of K and V, and 1 + 4 x KV_STAGES mbarriers."""
+    bk = WGMMA_TILES[dp]
+    return (1024 + dp * WGMMA_ROWS * 2 + KV_STAGES * 2 * dp * bk * 2
+            + 8 * (1 + 4 * KV_STAGES))
+
+
+def sync_smem_bytes(dv: int) -> int:
+    """Shared memory of one sync block at pass width `dv`
+    (`sync_smem_bytes` of csrc/flash_attention.cu): Q and K chunks of
+    SYNC_CHUNK columns (rows padded by one), V's pass and P, in f32."""
+    return 4 * (SYNC_ROWS * (SYNC_CHUNK + 1) + SYNC_KEYS * (SYNC_CHUNK + 1)
+                + SYNC_KEYS * dv + SYNC_ROWS * (SYNC_KEYS + 1))
 
 
 def _legal_block(seq: int, want: int) -> int:
@@ -97,7 +182,8 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return (acc / l_run.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
-def _check(q, k, v, bq: int, bk: int) -> None:
+def _check(q, k, v, bq: int | None, bk: int | None) -> tuple[str, int, int]:
+    """The route and (bq, bk) of a call; raises on what no route takes."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention takes q (B, H, Sq, D) and k, v "
                          f"(B, H, Sk, D), got {tuple(q.shape)}, "
@@ -114,29 +200,45 @@ def _check(q, k, v, bq: int, bk: int) -> None:
         raise ValueError("q, k, v on different devices")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention takes contiguous tensors")
+    route = flash_route(q, k, v)
+    tile = route_tile(route, q.shape[3])
+    bq = tile[0] if bq is None else bq
+    bk = tile[1] if bk is None else bk
     if bq < 1 or bk < 1:
         raise ValueError(f"blocks must be >= 1, got bq={bq}, bk={bk}")
+    if route == "wgmma" and (bq, bk) != tile:
+        raise ValueError(f"the wgmma route runs its own tile {tile} at head "
+                         f"dim {q.shape[3]}, not blocks ({bq}, {bk})")
+    return route, bq, bk
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
-    lib.flash_attention_launch.argtypes = (
+    lib.flash_wgmma_launch.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        + [ctypes.c_void_p])
+    lib.flash_wgmma_launch.restype = ctypes.c_int
+    lib.flash_sync_launch.argtypes = (
         [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
         + [ctypes.c_void_p])
-    lib.flash_attention_launch.restype = ctypes.c_int
+    lib.flash_sync_launch.restype = ctypes.c_int
     return lib
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0, bq: int,
-                    bk: int) -> torch.Tensor:
-    """Attention with the kernel's (bq, bk) blocks: the kernel on CUDA
-    tensors, `flash_attention_reference` on CPU tensors.  A block of
-    the kernel owns `bq` query rows and walks the keys `bk` at a time;
-    neither needs to divide the sequence (ragged edges are masked)."""
-    global launches
-    _check(q, k, v, bq, bk)
+                    causal: bool = True, window: int = 0,
+                    bq: int | None = None,
+                    bk: int | None = None) -> torch.Tensor:
+    """Attention on the route `flash_route(q, k, v)` takes: the kernel on
+    CUDA tensors, `flash_attention_reference` (over KV blocks of bk) on
+    CPU tensors.  (bq, bk) default to `route_tile`; on the wgmma route
+    they must be its tile, on the sync route any blocks >= 1 (a block owns
+    bq query rows and walks the keys bk at a time; neither needs to divide
+    the sequence: ragged edges are masked).  The result does not depend
+    on the blocks beyond the order of f32 sums."""
+    global launches, wgmma_launches
+    route, bq, bk = _check(q, k, v, bq, bk)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal,
                                          window=window, bk=bk)
@@ -145,17 +247,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{q.device}")
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the kernel is compiled for head dims {HEAD_DIMS}, "
-                         f"not {d}")
     out = torch.empty_like(q)
     lib = _library()
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_launch(
-            _DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b * h, sq, sk, bq, bk, int(causal), int(window),
-            torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if route == "wgmma":
+            err = lib.flash_wgmma_launch(
+                d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                b * h, sq, sk, int(causal), int(window), stream)
+        else:
+            err = lib.flash_sync_launch(
+                _DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(), b * h, sq, sk, bq, bk,
+                int(causal), int(window), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attention {route} launch failed: CUDA "
+                           f"error {err}")
     launches += 1
+    if route == "wgmma":
+        wgmma_launches += 1
     return out

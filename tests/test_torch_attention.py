@@ -27,6 +27,7 @@ from repro.kernels.paged_attention import (paged_attention_reference as
                                            jax_paged_reference,
                                            paged_attention_tpu)
 from repro_torch.engine import Engine, HopperModel, KernelRequest
+from repro_torch.engine import backends
 from repro_torch.kernels import flash_attention, paged_attention
 
 FLASH_TOL = {"rtol": 1e-4, "atol": 2e-5}
@@ -95,12 +96,115 @@ def test_flash_wrapper_on_cpu_takes_plain_version_without_counting():
                                         .transpose(2, 3), k, v, bq=32, bk=32)
 
 
-def test_head_dims_match_the_cuda_source():
+def test_route_constants_match_the_cuda_source():
+    """The Python route and geometry constants are the CUDA source's: the
+    wgmma route's (padded D, keys a stage) map, query rows a CTA, ring
+    stages and mbarriers; the sync route's pass widths, rows, keys and
+    head-dim chunk."""
     src = (flash_attention._build.CSRC / "flash_attention.cu").read_text()
-    line = next(ln for ln in src.splitlines()
-                if ln.startswith("#define FLASH_HEAD_DIMS"))
-    dims = tuple(int(x) for x in re.findall(r"X\((\d+)\)", line))
-    assert dims == flash_attention.HEAD_DIMS
+
+    def macro(name):
+        line = next(ln for ln in src.splitlines()
+                    if ln.startswith(f"#define {name}(X)"))
+        return [tuple(int(v) for v in m.split(","))
+                for m in re.findall(r"X\(([\d, ]+)\)", line)]
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    assert dict(macro("FLASH_WGMMA_TILES")) == flash_attention.WGMMA_TILES
+    assert tuple(w for (w,) in macro("FLASH_SYNC_WIDTHS")) == \
+        flash_attention.SYNC_WIDTHS
+    assert const("kWgRows") == flash_attention.WGMMA_ROWS
+    assert const("kKvStages") == flash_attention.KV_STAGES
+    assert const("kQT") == flash_attention.SYNC_ROWS
+    assert const("kKT") == flash_attention.SYNC_KEYS
+    assert const("kKC") == flash_attention.SYNC_CHUNK
+    assert "(1 + 4 * kKvStages) * sizeof(uint64_t)" in src
+
+
+@pytest.mark.parametrize("d", [16, 20, 80, 240, 256])
+@pytest.mark.parametrize("sq,sk,causal,window", [
+    (48, 64, True, 0),       # causal, Sq != Sk
+    (64, 48, True, 16),      # window; rows past Sk + window - 2 see no key
+    (40, 56, False, 24),     # non-causal window, Sq != Sk
+])
+def test_flash_plain_version_matches_pallas_kernel_at_any_head_dim(
+        d, sq, sk, causal, window):
+    """The SMOKE configs' D = 16, a D no TMA row takes (20), hubert's 80,
+    gemma3's 240 and recurrentgemma's 256."""
+    q, k, v = _qkv(1, 2, sq, sk, d, seed=d)
+    bq = flash_attention._legal_block(sq, 16)
+    bk = flash_attention._legal_block(sk, 16)
+    ref = jfa.flash_attention_tpu(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal=causal,
+                                  window=window, bq=bq, bk=bk, interpret=True)
+    got = flash_attention.flash_attention_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal, window=window, bk=bk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **FLASH_TOL)
+
+
+def test_flash_route_and_shared_memory_at_every_head_dim():
+    """bf16 with D % 8 == 0 and D <= 256 takes the wgmma route, padded to
+    the least of 64, 128, 256 that holds D, every CTA within a block's
+    shared memory; everything else the sync route, whose every pass width
+    fits too; a misaligned base turns the wgmma route to sync."""
+    fa = flash_attention
+    for d in range(1, 301):
+        route = fa.shape_route(2, d)
+        assert route == ("wgmma" if d % 8 == 0 and d <= 256 else "sync"), d
+        assert fa.shape_route(4, d) == "sync"
+        if route == "wgmma":
+            dp = fa.padded_dim(d)
+            assert dp == min(p for p in fa.WGMMA_TILES if p >= d)
+            assert fa.route_tile(route, d) == (128, fa.WGMMA_TILES[dp])
+    assert fa.padded_dim(264) is None
+    assert fa.route_tile("sync", 80) == (64, 64)
+    assert {dp: fa.wgmma_smem_bytes(dp) for dp in fa.WGMMA_TILES} == {
+        64: 83016, 128: 164936, 256: 197704}
+    assert max(fa.wgmma_smem_bytes(dp) for dp in fa.WGMMA_TILES) \
+        <= fa.SMEM_LIMIT == 232_448
+    assert max(fa.sync_smem_bytes(w) for w in fa.SYNC_WIDTHS) <= fa.SMEM_LIMIT
+    q = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
+    assert fa.flash_route(q, q, q) == "wgmma"
+    assert fa.flash_route(q.float(), q.float(), q.float()) == "sync"
+    flat = torch.zeros(2 * 8 * 64 + 1, dtype=torch.bfloat16)
+    off = flat[1:].view(1, 2, 8, 64)              # base 2 bytes past 16
+    assert fa.flash_route(off, q, q) == fa.flash_route(q, q, off) == "sync"
+    assert fa.flash_route(q[..., :20].contiguous(), q[..., :20].contiguous(),
+                          q[..., :20].contiguous()) == "sync"
+
+
+def test_flash_wrapper_refusals():
+    """Blocks off the wgmma route's own tile, blocks below 1, a device
+    that is neither CUDA nor the CPU, and mixed dtypes are refused; the
+    sync route takes any blocks, and on CPU tensors the wrapper returns
+    the plain version at the route's tile."""
+    q, k, v = (torch.from_numpy(x).bfloat16()
+               for x in _qkv(1, 2, 40, 40, 80, seed=5))
+    assert flash_attention.flash_route(q, k, v) == "wgmma"
+    with pytest.raises(ValueError, match="own tile"):
+        flash_attention.flash_attention(q, k, v, bq=64, bk=64)
+    with pytest.raises(ValueError, match="own tile"):
+        flash_attention.flash_attention(q, k, v, bk=64)
+    got = flash_attention.flash_attention(q, k, v, bq=128, bk=128)
+    torch.testing.assert_close(
+        got, flash_attention.flash_attention_reference(q, k, v, bk=128),
+        rtol=0, atol=0)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    for bq, bk in ((-1, 16), (0, None), (None, 0)):
+        with pytest.raises(ValueError, match=">= 1"):
+            flash_attention.flash_attention(qf, kf, vf, bq=bq, bk=bk)
+    torch.testing.assert_close(
+        flash_attention.flash_attention(qf, kf, vf, bq=7, bk=9),
+        flash_attention.flash_attention_reference(qf, kf, vf, bk=9),
+        rtol=0, atol=0)
+    with pytest.raises(TypeError, match="one dtype"):
+        flash_attention.flash_attention(q, kf, vf)
+    meta = torch.empty(1, 2, 40, 80, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        flash_attention.flash_attention(meta, meta, meta)
 
 
 def test_engine_attention_memo_and_plan_as_in_jax_engine():
@@ -129,14 +233,66 @@ def test_engine_attention_memo_and_plan_as_in_jax_engine():
 
 @pytest.mark.parametrize("op", ["attention", "paged_attention"])
 def test_hopper_model_attention_decision(op):
+    """The flash roofline for both ops; the `attention` op's blocks are
+    the tile of the flash route its width and head dim take (query rows a
+    CTA, keys a step), the paged op's the 64-row block cut to the
+    sequence."""
     req = KernelRequest(op, 512, 128, 512, groups=48, in_bytes=2, out_bytes=2)
     dec = HopperModel().decide(req)
-    assert (dec.bm, dec.bk, dec.bn) == (64, 128, 64)
+    flash = op == "attention"
+    assert (dec.bm, dec.bk, dec.bn) == ((128, 128, 128) if flash
+                                        else (64, 128, 64))
     flops = 4.0 * 48 * 512 * 512 * 128
     hbm = 2 * 48 * 128 * (2 * 512 + 2 * 512)
     assert dec.seconds == pytest.approx(max(flops / 989e12, hbm / 3.35e12))
+    assert dec.meta_dict.get("route") == ("wgmma" if flash else None)
     small = HopperModel().decide(KernelRequest(op, 1, 128, 40, groups=96))
-    assert (small.bm, small.bn) == (1, 40)
+    assert (small.bm, small.bn) == ((128, 128) if flash else (1, 40))
+    if flash:
+        for d, in_bytes, tile, route in ((256, 2, (128, 64), "wgmma"),
+                                         (16, 2, (128, 128), "wgmma"),
+                                         (20, 2, (64, 64), "sync"),
+                                         (128, 4, (64, 64), "sync")):
+            dec = HopperModel().decide(KernelRequest(
+                op, 300, d, 200, groups=4, in_bytes=in_bytes,
+                out_bytes=in_bytes))
+            assert ((dec.bm, dec.bn), dec.bk, dec.meta_dict["route"]) == \
+                (tile, d, route)
+
+
+def test_flash_blocks_follow_the_operands_route():
+    """The hopper backend runs the wgmma route at its own tile, and the
+    sync route (f32, or a base TMA cannot take) at the decision's blocks
+    bent to divisors as the JAX package bends them; the plain version
+    walks the same KV blocks."""
+    dec = HopperModel().decide(KernelRequest("attention", 100, 64, 100,
+                                             groups=2))
+    q = torch.zeros(1, 2, 100, 64, dtype=torch.bfloat16)
+    assert backends.flash_blocks(dec, q, q, q) == (128, 128)
+    qf = q.float()
+    assert backends.flash_blocks(dec, qf, qf, qf) == (
+        flash_attention._legal_block(100, 128),) * 2 == (100, 100)
+    sync = HopperModel().decide(KernelRequest("attention", 100, 64, 100,
+                                              groups=2, in_bytes=4))
+    assert backends.flash_blocks(sync, qf, qf, qf) == (50, 50)
+    flat = torch.zeros(2 * 100 * 64 + 1, dtype=torch.bfloat16)
+    off = flat[1:].view(1, 2, 100, 64)
+    assert backends.flash_blocks(dec, off, q, q) == (100, 100)
+
+
+def test_engine_attention_at_smoke_head_dim():
+    """Engine.attention on the hopper and torch-ref backends at the SMOKE
+    configs' head dim (16), against the JAX engine in interpret
+    mode (the port's CPU path is the plain version at the route's KV
+    blocks)."""
+    q, k, v = _qkv(1, 2, 64, 64, 16, seed=6)
+    want = jax_engine.Engine(backend="pallas-interpret").attention(
+        *(jnp.asarray(x) for x in (q, k, v)), causal=True)
+    for backend in ("hopper", "torch-ref"):
+        got = Engine(backend=backend).attention(
+            *(torch.from_numpy(x) for x in (q, k, v)), causal=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   **FLASH_TOL)
 
 
 # --------------------------------------------------------------------------

@@ -23,6 +23,10 @@ kernel's f32 output from bf16 operands.  The grouped GEMM's wgmma kernel
 is held at every tile of its menu at granite's expert shapes and ragged
 ones, its capacity rows exactly zero, its repeats and each expert's
 output (whatever the other experts hold, Inf included) bit for bit.
+The flash kernel is held on both routes at D = 16, 20, 64, 80, 128, 240
+and 256 (the wgmma route for bf16 with D % 8 == 0, the sync route for the
+rest and for a misaligned base), one launch a call on the expected route
+and its repeats bit for bit.
 The paged kernel is held over float and int8 pools at cluster sizes 1,
 the wrapper's and 8, at small tables, qwen2-1.5b's decode tick and
 granite's (G = 2, D = 64), its kv_len 0 rows exactly zero and its
@@ -275,25 +279,67 @@ def test_redas_gemm_raises_for_a_tile_off_the_menu(cuda):
 
 @pytest.mark.card
 @pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("d", [16, 20, 64, 80, 128, 240, 256])
 @pytest.mark.parametrize("sq,sk,bq,bk,causal,window", [
     (100, 100, 50, 50, True, 0),
     (100, 100, 64, 64, False, 0),      # blocks that divide nothing
     (256, 256, 64, 128, True, 32),
     (128, 64, 64, 64, True, 8),        # rows with no live key average v
+    (200, 330, 64, 64, True, 0),       # Sq != Sk
+    (300, 200, 64, 64, False, 40),
 ])
-def test_flash_kernel_matches_plain_version(cuda, dtype, tol, sq, sk, bq, bk,
-                                            causal, window):
+def test_flash_kernel_matches_plain_version(cuda, dtype, tol, d, sq, sk, bq,
+                                            bk, causal, window):
+    """Both routes at every head dim the reference takes: bf16 with D % 8
+    == 0 on the wgmma route at its own tile, the rest on the sync route at
+    the given blocks; one launch a call, on the expected route, and a
+    repeat bit for bit."""
     gen = torch.Generator(device=cuda).manual_seed(0)
-    q, k, v = (torch.randn(2, 4, s, 128, generator=gen, device=cuda).to(dtype)
+    q, k, v = (torch.randn(2, 3, s, d, generator=gen, device=cuda).to(dtype)
                for s in (sq, sk, sk))
+    wgmma = flash_attention.flash_route(q, k, v) == "wgmma"
+    assert wgmma == (dtype == torch.bfloat16 and d % 8 == 0)
+    blocks = {} if wgmma else {"bq": bq, "bk": bk}
     flash_attention.reset_launches()
     got = flash_attention.flash_attention(q, k, v, causal=causal,
-                                          window=window, bq=bq, bk=bk)
+                                          window=window, **blocks)
     torch.cuda.synchronize()
     assert flash_attention.launches == 1
+    assert flash_attention.wgmma_launches == int(wgmma)
     ref = flash_attention.flash_attention_reference(q, k, v, causal=causal,
                                                     window=window, bk=bk)
     assert _row_rel_l2(got, ref) <= tol
+    assert torch.equal(got, flash_attention.flash_attention(
+        q, k, v, causal=causal, window=window, **blocks))
+
+
+@pytest.mark.card
+def test_flash_kernel_misaligned_base_takes_sync_route(cuda):
+    """bf16 operands at a base TMA cannot take run on the sync kernel,
+    counted as a launch but not as a wgmma launch, and agree with the
+    plain version."""
+    n = 2 * 4 * 200 * 128
+    flat = torch.randn(3 * n + 1, device=cuda).bfloat16()
+    q, k, v = (flat[1 + i * n:1 + (i + 1) * n].view(2, 4, 200, 128)
+               for i in range(3))
+    assert flash_attention.flash_route(q, k, v) == "sync"
+    flash_attention.reset_launches()
+    got = flash_attention.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.wgmma_launches) == (1, 0)
+    ref = flash_attention.flash_attention_reference(q, k, v, causal=True)
+    assert _row_rel_l2(got, ref) <= 1e-2
+
+
+@pytest.mark.card
+def test_flash_wgmma_route_refuses_other_blocks(cuda):
+    """The wgmma route runs its own tile: other blocks raise before any
+    launch, and nothing falls back to the sync route."""
+    q = torch.randn(1, 2, 256, 128, device=cuda).bfloat16()
+    flash_attention.reset_launches()
+    with pytest.raises(ValueError, match="own tile"):
+        flash_attention.flash_attention(q, q, q, bq=64, bk=64)
+    assert flash_attention.launches == flash_attention.wgmma_launches == 0
 
 
 #: the paged kernel's cases (page, H, KV, D, kv_len, n_bt): small tables
