@@ -172,7 +172,39 @@ Phases (any failed check exits non-zero; nothing falls back):
      cache.  Every phase reads both variants' counts
      (`sparse_gemm.launches`, `int8_launches`): each serve must launch
      the other variant 0 times;
- 24. the kernels line, then the result line.
+ 24. qwen3-14b and gemma3-12b at full width (bf16, weights from a seed),
+     each: the GEMM decisions at its layer shapes and M = 4, 8 and 2048
+     (each dataflow at the model's best configuration for it, held to the
+     plain version; the decision within GEMM_PICK_LIMIT of the fastest
+     dataflow); the static serve through `launch.serve` (4 x (512 + 16),
+     gemma3 4 x (1536 + 16), whose prompts wrap its 1024-row rings: the
+     GEMM kernel 7 x layers x 16 times, every OS call on wgmma, no other
+     kernel), its prefill logits against `torch-ref`; the paged serve
+     through the same entry point (qwen3: phase 5's trace; gemma3:
+     1536x64*4,768x32*4,256x16*8, whose ragged prompts take the ring
+     placement): the paged kernel once an "attn" layer a tick (gemma3's 8
+     global layers), the GEMM 7 x layers x (ticks + prefill calls),
+     prefix sharing on pure "attn" archs only, the cache's pool and ring
+     bytes and the peak memory, a second pass planning nothing new, 10
+     traced ticks (idle share, device ms by kernel) and one tick's logits
+     against `torch-ref`.  Phase 3 holds the paged kernel at their decode
+     shapes too (qwen3's G = 5, gemma3's D = 240);
+ 25. mistral-large-123b at its published widths with 4 of its 88 layers:
+     each GEMM decision beside the fastest dataflow (not gated), and a
+     static serve through `generate` (4 x (512 + 16); 7 x 4 x 16 GEMM
+     launches);
+ 26. the new archs' SMOKE configurations in f32 (qwen3-14b,
+     mistral-large-123b, gemma3-12b, also under --quantize, mixtral-8x7b
+     under both MoE dispatches): card tokens against the CPU's plain run,
+     static and through the Scheduler, paged and contiguous (a paged
+     ServeConfig builds the paged plane only on an arch with "attn"
+     layers: mixtral runs its contiguous path);
+ 27. granite-moe-1b-a400m under --quantize: the launcher's static serve
+     (einsum dispatch; int8 launches by path), then a short paged trace
+     through the Scheduler with the sorted dispatch (its int8 grouped op
+     loops the int8 GEMM over the 32 float expert stacks) and with
+     einsum, each with its ms a tick and int8 launches by path;
+ 28. the kernels line, then the result line.
 
 Every detail also goes to runs/chip_smoke.json.  Exits non-zero
 without a CUDA device, and outside a checkout of the repository.
@@ -202,8 +234,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.engine import Engine, KernelRequest, use_engine  # noqa: E402
-from repro_torch.engine.backends import (gemm_args, int8_args,  # noqa: E402
-                                         sparse_args)
+from repro_torch.engine.backends import (  # noqa: E402
+    gemm_args, hopper_gemm, hopper_grouped_gemm, int8_args, ref_gemm,
+    ref_grouped_gemm, sparse_args)
 from repro_torch.engine.cost import (HBM_BW, PEAK_FLOPS_BF16,  # noqa: E402
                                      PEAK_FLOPS_F32, PEAK_OPS_INT8,
                                      HopperModel, choose_tile, decide_gemm,
@@ -267,6 +300,8 @@ FLASH_CASES = ((384, 448, True, 0), (448, 384, True, 128),
 #: einsum serve (static: prompt 256, since the einsum dispatch holds a
 #: (B, S, E, C) one-hot per layer)
 GRANITE = "granite-moe-1b-a400m"
+QWEN3, GEMMA3 = "qwen3-14b", "gemma3-12b"
+MISTRAL, MIXTRAL = "mistral-large-123b", "mixtral-8x7b"
 EINSUM_PROMPT, EINSUM_GEN = 256, 16
 #: the grouped kernel's main-path shapes (E, C, D, F) at 8 slots: decode
 #: (C = 8 x 4) for wi/wg and wo, the widest prefill bucket (C = 8 x 240 at
@@ -281,6 +316,15 @@ GROUPED_SHAPES = ((32, 32, 1024, 512), (32, 32, 512, 1024),
 INT8_SHAPES = ([(m, k, n) for m in (BATCH, SLOTS, BATCH * PROMPT)
                 for k, n in LAYER_GEMMS]
                + [(16, 1536, 1536), (17, 1536, 1536), (5, 1000, 200)])
+#: granite-moe-1b-a400m's int8 shapes under --quantize (phase 27), held
+#: bit for bit but not timed: q/o and k/v at the decode (M = 8 slots) and
+#: a 256-token prefill of 8 slots (M = 2048), and the int8 grouped op's
+#: per-expert (C, D, F) and (C, F, D) calls of the sorted dispatch at
+#: decode (C = 8 slots x capacity 4) and at that prefill (8 x 80)
+GRANITE_INT8_SHAPES = [(m, k, n) for m in (SLOTS, SLOTS * 256)
+                       for k, n in GRANITE_LAYER_GEMMS] + [
+                           (c, k, n) for c in (SLOTS * 4, SLOTS * 80)
+                           for k, n in ((1024, 512), (512, 1024))]
 REPORT = {}
 
 
@@ -527,7 +571,7 @@ def paged_trace_line(prof: dict, label: str, cfg) -> dict:
     print(f"  the paged kernel in {label} 10 traced ticks: {seen['ms']:.3f} "
           f"ms of device time in {seen['count']} launches, "
           f"{seen['ms'] / 10:.3f} ms a tick")
-    want = 10 * cfg.n_layers
+    want = 10 * paged_layers(cfg)
     check(TRACE_KEPT * want <= seen["count"] <= want,
           f"{label} traced ticks show {seen['count']} paged launches, want "
           f"{want}")
@@ -984,8 +1028,11 @@ def _flash_sets(shape, dtype, count: int, seed: int = 3) -> list[tuple]:
 
 
 #: the paged kernel's decode shapes (H, KV, D) at the serve's 8 slots,
-#: 51-page tables and PAGED_LENS: qwen2-1.5b's and granite-moe-1b-a400m's
-PAGED_SHAPES = {ARCH: (12, 2, 128), GRANITE: (16, 8, 64)}
+#: 51-page tables and PAGED_LENS: qwen2-1.5b's, granite-moe-1b-a400m's,
+#: qwen3-14b's (G = 5: the kernel's padded 3 + 3 head chunks) and
+#: gemma3-12b's (D = 240)
+PAGED_SHAPES = {ARCH: (12, 2, 128), GRANITE: (16, 8, 64),
+                QWEN3: (40, 8, 128), GEMMA3: (16, 8, 240)}
 #: the cluster sizes the paged phases time, and the most the wrapper's
 #: pick (`splits_for`) may take against the fastest of them (bf16)
 PAGED_SPLITS = (1, 2, 4, 8)
@@ -1243,59 +1290,16 @@ def _serve(gen: int) -> dict:
 
 
 def phase_main_path(cfg) -> dict:
-    _serve(2)  # warm-up (allocator, first launches)
-    # prefill and the first token alone: the prefill time of a served run
-    first = _serve(1)
-    first_tokens, prefill_ms = first["tokens"], first["seconds"] * 1e3
-    del first
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()  # what the script holds already
-    reset_counts()
-    out = _serve(GEN)
-    counts = read_counts()
-    launches = dict(redas_gemm.launches)
-    passes = {BATCH * PROMPT: 1, BATCH: GEN - 1}
-    reduces = check_reductions("static serve", out["engine"], LAYER_GEMMS,
-                               cfg.n_layers, passes)
-    wgmma = check_os_routes("static serve", out["engine"], LAYER_GEMMS,
-                            cfg.n_layers, passes)
-    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
-    expected = sum(LAYER_GEMMS.values()) * cfg.n_layers * GEN
-    tokens = out["tokens"]
-    decode_ms = (out["seconds"] * 1e3 - prefill_ms) / (GEN - 1)
-    mix = decision_mix(out["engine"])
-    print(f"main path: served {BATCH} requests x ({PROMPT} prompt + {GEN} new) "
-          f"in {out['seconds']:.3f} s, {out['tokens_per_s']:.1f} tok/s; prefill "
-          f"and first token {prefill_ms:.2f} ms (a served run of 1 token), "
-          f"decode {decode_ms:.3f} ms/step (the difference, over {GEN - 1} "
-          f"steps); max memory allocated by the run {peak:.2f} GiB (weights "
-          f"included); plan {out['engine_plan']}; dataflow mix of decisions "
-          f"{dict(mix)}; kernel launches {launches}")
-    check(sum(launches.values()) == expected,
-          f"GEMM kernel launched {sum(launches.values())} times, not {expected}")
+    out, result = static_serve("static serve", cfg, _serve, PROMPT)
+    launches, reduces = result["launches"], result["reductions"]
+    prefill_ms = result["prefill_ms"]
     check(launches["os"] > 0 and launches["ws"] + launches["is"] > 0
           and reduces > 0, f"the static serve ran OS {launches['os']}, "
           f"WS/IS {launches['ws'] + launches['is']} and {reduces} "
           f"reductions: each GEMM kernel must run")
-    check(counts["paged_attention"] == counts["flash_attention"]
-          == counts["grouped_gemm"] == counts["quant_gemm"]
-          == counts["sparse_gemm"] == counts["sparse_gemm_int8"] == 0,
-          f"attention, grouped, int8 or sparse kernels on the static path: "
-          f"{counts}")
-    check(tuple(tokens.shape) == (BATCH, GEN), f"tokens {tuple(tokens.shape)}")
-    check(bool(((tokens >= 0) & (tokens < cfg.vocab)).all()), "token out of range")
-    check(torch.equal(first_tokens, tokens[:, :1]),
-          "the 1-token run's token differs from the served run's first token")
-    check(out["engine_plan"]["misses"] == out["engine_plan"]["decisions"] == 8,
-          f"plan {out['engine_plan']}: expected 8 decisions, each missed once")
     REPORT["main_path"] = {
-        "seconds": out["seconds"], "tokens_per_s": out["tokens_per_s"],
-        "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
-        "max_memory_gib": peak, "plan": out["engine_plan"],
-        "decision_mix": mix, "launches": launches, "os_wgmma": wgmma,
-        "counts": counts, "reductions": reduces, "tokens": tokens.tolist(),
-        **_traces(out, prefill_ms, decode_ms * (GEN - 1))}
+        **result, "tokens_per_s": out["tokens_per_s"],
+        **_traces(out, prefill_ms, result["decode_ms_per_step"] * (GEN - 1))}
     check_traced_reductions("static serve, traced again",
                             REPORT["main_path"]["trace_serve"], reduces)
     traced = REPORT["main_path"]["trace_prefill"]["matched"]
@@ -1397,75 +1401,7 @@ def _replay_and_trace(params, cfg, scfg, eng, trace, tokens: dict,
 def phase_scheduler(cfg) -> dict:
     """The paged serve through the entry point, then a second pass
     through the same engine, then a device trace of 10 decode ticks."""
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()
-    reset_counts()
-    out = launch_serve.main(SERVE_ARGS)
-    counts = read_counts()
-    launches = dict(redas_gemm.launches)
-    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
-    sched, eng = out["scheduler"], out["engine"]
-    st = sched.stats
-    ticks, calls = st["decode_steps"], st["prefill_calls"]
-    reduces = check_reductions("paged serve", eng, LAYER_GEMMS, cfg.n_layers,
-                               _paged_passes(sched))
-    wgmma = check_os_routes("paged serve", eng, LAYER_GEMMS, cfg.n_layers,
-                            _paged_passes(sched))
-    tick_ms = sched.timings["decode_s"] * 1e3 / ticks
-    prefill_ms = sched.timings["prefill_s"] * 1e3
-    want_paged = cfg.n_layers * ticks
-    want_gemm = sum(LAYER_GEMMS.values()) * cfg.n_layers * (ticks + calls)
-    tokens = {u: c.tokens.tolist() for u, c in sched.completions.items()}
-    print(f"paged serve: {out['requests']} requests / {out['tokens']} tokens "
-          f"in {out['seconds']:.3f} s, {out['tokens_per_s']:.1f} tok/s over "
-          f"{SLOTS} slots; {ticks} decode ticks, {tick_ms:.3f} ms per tick "
-          f"(mean); {calls} prefill calls of widths "
-          f"{sorted(st['prefill_widths'])}, {prefill_ms:.2f} ms in all, "
-          f"{st['prefill_tokens']} prompt tokens; plan {eng.plan.stats}; "
-          f"kernel launches {counts}; peak memory above what the script "
-          f"held {peak:.3f} GiB")
-    check(out["requests"] == len(launch_serve.parse_trace(TRACE)),
-          f"served {out['requests']} requests")
-    check(counts["paged_attention"] == want_paged,
-          f"paged kernel launched {counts['paged_attention']} times, not "
-          f"28 x {ticks} = {want_paged}")
-    check(counts["redas_gemm"] == want_gemm,
-          f"GEMM kernel launched {counts['redas_gemm']} times, not 7 x 28 x "
-          f"({ticks} + {calls}) = {want_gemm}")
-    check(counts["flash_attention"] == counts["grouped_gemm"]
-          == counts["quant_gemm"] == counts["sparse_gemm"]
-          == counts["sparse_gemm_int8"] == 0,
-          f"flash, grouped, int8 or sparse kernel on the paged path: {counts}")
-    for uid, toks in tokens.items():
-        check(len(toks) == out["trace"][uid][1]
-              and all(0 <= t < cfg.vocab for t in toks), f"request {uid}")
-    sched.paged.check_invariants()
-
-    print(f"paged serve decisions by dataflow and slabs: "
-          f"{decision_mix(eng)}")
-    new_misses, trace = _replay_and_trace(out["params"], cfg,
-                                          out["serve_config"], eng,
-                                          out["trace"], tokens, "",
-                                          GEMM_KERNELS + (PAGED_KERNEL,))
-    trace["gemm"] = gemm_trace_line(trace, 10, "tick")
-    trace["paged"] = paged_trace_line(trace, "the paged serve's", cfg)
-    check_traced_reductions("paged serve, 10 traced ticks", trace, 10 * (
-        _decode_reductions(eng, LAYER_GEMMS, cfg.n_layers)))
-    REPORT["paged_serve"] = {
-        "trace": TRACE, "slots": SLOTS, "page_size": PAGE,
-        "prefill_bucket": BUCKET, "seconds": out["seconds"],
-        "tokens_per_s": out["tokens_per_s"], "requests": out["requests"],
-        "tokens": out["tokens"], "decode_ticks": ticks,
-        "decode_ms_per_tick": tick_ms, "prefill_calls": calls,
-        "prefill_widths": sorted(st["prefill_widths"]),
-        "prefill_ms": prefill_ms, "stats": {k: v for k, v in st.items()
-                                            if k != "prefill_widths"},
-        "plan": eng.plan.stats, "counts": counts, "max_memory_gib": peak,
-        "launches": launches, "os_wgmma": wgmma, "reductions": reduces,
-        "decision_mix": decision_mix(eng),
-        "second_pass_new_misses": new_misses, "trace_10_ticks": trace}
-    return out
+    return paged_serve_phase(ARCH, TRACE, "paged_serve")
 
 
 def _shared_prefix_requests(cfg) -> list[Request]:
@@ -1612,12 +1548,12 @@ def _traces(out: dict, prefill_ms: float, decode_ms: float) -> dict:
             "trace_decode": decode, "trace_gemm": gemm}
 
 
-def phase_parity(cfg, served: dict) -> None:
-    """Prefill logits on the served run's own weights and prompt, and the
-    smoke configuration's tokens on the card against the CPU."""
-    params, prompt = served["params"], served["prompt"]
+def prefill_gaps(label: str, params, cfg, prompt, max_seq: int) -> dict:
+    """Prefill logits of `hopper` against `torch-ref` on the same weights
+    and prompt (and, for scale, plain bf16 `@` against `torch-ref`),
+    within LOGIT_LIMITS."""
     dev = prompt.device
-    spec = T.CacheSpec(PROMPT + GEN + 1, BATCH)
+    spec = T.CacheSpec(max_seq, prompt.shape[0])
 
     def run_prefill(backend):
         cache = T.init_cache(cfg, spec, dtype=torch.bfloat16, device=dev)
@@ -1632,7 +1568,7 @@ def phase_parity(cfg, served: dict) -> None:
     gap = _logit_gap(hop_logits, ref_logits)
     lib_gap = _logit_gap(lib_logits, ref_logits)
     hop_lib_equal = torch.equal(hop_logits, lib_logits)
-    print(f"full-width prefill logits, hopper vs torch-ref on the card: "
+    print(f"{label}: prefill logits, hopper vs torch-ref on the card: "
           f"rel-L2 {gap['rel_l2']:.4e}, max|diff|/max|ref| {gap['rel_max']:.4e}, "
           f"argmax agreement {gap['argmax_agreement']:.2f} (limits {LOGIT_LIMITS}); "
           f"for scale, plain bf16 @ vs torch-ref: rel-L2 {lib_gap['rel_l2']:.4e}, "
@@ -1643,6 +1579,17 @@ def phase_parity(cfg, served: dict) -> None:
     check(gap["rel_l2"] <= LOGIT_LIMITS["rel_l2"]
           and gap["rel_max"] <= LOGIT_LIMITS["rel_max"], f"logit gap {gap}")
     check(gap["top_within_bound"], f"top token outside the bound: {gap}")
+    return {"prefill_logits": gap, "plain_bf16_matmul_logits": lib_gap,
+            "hopper_equals_plain_bf16_matmul": hop_lib_equal,
+            "limits": LOGIT_LIMITS}
+
+
+def phase_parity(cfg, served: dict) -> None:
+    """Prefill logits on the served run's own weights and prompt, and the
+    smoke configuration's tokens on the card against the CPU."""
+    gaps = prefill_gaps("full width", served["params"], cfg, served["prompt"],
+                        PROMPT + GEN + 1)
+    dev = served["prompt"].device
 
     # smoke configuration in f32: tokens on the card == plain versions on CPU
     smoke = get_config(ARCH, smoke=True)
@@ -1662,9 +1609,16 @@ def phase_parity(cfg, served: dict) -> None:
     print(f"smoke config f32, 2 x (24 + 8): tokens on the card "
           f"{'identical to' if same else 'DIFFER from'} the plain versions on the CPU")
     check(same, "smoke tokens differ")
-    REPORT["parity"] = {"prefill_logits": gap, "plain_bf16_matmul_logits": lib_gap,
-                        "hopper_equals_plain_bf16_matmul": hop_lib_equal,
-                        "limits": LOGIT_LIMITS, "smoke_tokens_identical": same}
+    REPORT["parity"] = {**gaps, "smoke_tokens_identical": same}
+
+
+def paged_tick_gap(label: str, cfg, paged_out: dict) -> dict:
+    """One paged decode tick of a served trace's first 8 requests at full
+    width, `hopper` against `torch-ref` from the same state, within
+    LOGIT_LIMITS' rel-L2."""
+    return tick_gap(f"{label}: paged", paged_out["params"], cfg,
+                    paged_out["serve_config"], paged_out["engine"],
+                    paged_out["trace"])
 
 
 def phase_paged_parity(cfg, paged_out: dict) -> None:
@@ -1672,36 +1626,7 @@ def phase_paged_parity(cfg, paged_out: dict) -> None:
     from the same state; then the smoke configuration in f32 through the
     Scheduler: the card's tokens (paged and contiguous) against the plain
     versions' on the CPU."""
-    params, scfg = paged_out["params"], paged_out["serve_config"]
-    sched = Scheduler(params, cfg, scfg, engine=paged_out["engine"],
-                      prefill_bucket=BUCKET)
-    for r in launch_serve.trace_requests(cfg, paged_out["trace"], SEED):
-        sched.submit(r)
-    sched.step()                                  # admit 8, first tick
-    for i, s in enumerate(sched.slots):
-        sched.paged.ensure_decode_page(i, s.req.prompt.size + len(s.emitted) - 1)
-    toks = torch.tensor([[s.last_token] for s in sched.slots],
-                        dtype=torch.int32, device="cuda")
-    active = torch.ones(SLOTS, dtype=torch.bool, device="cuda")
-    bt = torch.from_numpy(sched.paged.tables).cuda()
-    logits = {}
-    # both ticks start from the same state: decode_step writes only each
-    # slot's row at its clock (the second tick overwrites the first's) and
-    # returns the advanced clock in a new dict, leaving sched.cache as it was
-    for backend in ("torch-ref", "hopper"):
-        with torch.inference_mode(), use_engine(Engine(backend=backend)):
-            logits[backend] = T.decode_step(
-                params, cfg, sched.cache, toks, active=active,
-                block_tables=bt)[0]
-    gap = _logit_gap(logits["hopper"], logits["torch-ref"])
-    print(f"full-width paged decode tick logits (8 slots, kv_len "
-          f"{(sched.cache['t'] + 1).tolist()}), hopper vs torch-ref: rel-L2 "
-          f"{gap['rel_l2']:.4e}, max|diff|/max|ref| {gap['rel_max']:.4e}, "
-          f"argmax agreement {gap['argmax_agreement']:.2f} (limit rel-L2 "
-          f"{LOGIT_LIMITS['rel_l2']})")
-    check(math.isfinite(gap["rel_l2"]) and gap["rel_l2"] <= LOGIT_LIMITS["rel_l2"],
-          f"paged decode logit gap {gap}")
-    del sched, logits
+    gap = paged_tick_gap("full width", cfg, paged_out)
 
     smoke = get_config(ARCH, smoke=True)
     cpu_params = T.init_params(smoke, generator=torch.Generator().manual_seed(SEED),
@@ -1826,7 +1751,8 @@ INT8_TIMED_M = (BATCH, SLOTS, BATCH * PROMPT)
 
 def phase_int8_kernel() -> list[dict]:
     """The int8 kernel at qwen's dense shapes (the static decode M = 4, the
-    paged decode M = 8, the prefill M = 2048) and a ragged one, against its
+    paged decode M = 8, the prefill M = 2048), granite's under --quantize
+    (GRANITE_INT8_SHAPES) and a ragged one, against its
     plain version bit for bit at every configuration of both paths (each
     split of the decode path at M <= 16, every tile of the tiled menu),
     each launched twice; at qwen's shapes the time of the engine's
@@ -1836,7 +1762,7 @@ def phase_int8_kernel() -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(6)
     side = torch.cuda.Stream()
     rows, failures = [], []
-    for m, k, n in INT8_SHAPES:
+    for m, k, n in INT8_SHAPES + GRANITE_INT8_SHAPES:
         sets = _int8_sets(m, k, n, gen)
         a, b = sets[0]
         ref = quant_gemm.gemm_int8_reference(a, b)
@@ -1854,7 +1780,7 @@ def phase_int8_kernel() -> list[dict]:
         out = quant_gemm.gemm_int8(a, b, **pick)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
-        timed = m in INT8_TIMED_M
+        timed = m in INT8_TIMED_M and (k, n) in LAYER_GEMMS
         run = functools.partial(quant_gemm.gemm_int8, **pick)
         row = {"m": m, "k": k, "n": n, "path": pick["path"],
                "split_k": pick.get("split_k", 1),
@@ -2217,27 +2143,85 @@ def phase_quantize_static(cfg) -> None:
 
 def _decode_tick_gap(params, cfg, scfg, eng, trace,
                      backends=("torch-ref-int8", "hopper-int8")) -> dict:
-    """One paged decode tick at full width from one state, the kernels'
-    backend against its plain twin (`backends` = (plain, kernels)): the
-    slots admitted by the trace's first Scheduler step, each at its
-    decode frontier."""
+    """One decode tick at full width from one state, the kernels' backend
+    against its plain twin (`backends` = (plain, kernels)): the slots
+    admitted by the trace's first Scheduler step, each at its decode
+    frontier (on a paged plane, with its next page ensured).  Both ticks
+    start from the same state: decode_step writes only each slot's row at
+    its clock (the second tick overwrites the first's) and returns the
+    advanced clock in a new dict, leaving the cache as it was.  Each
+    tick's kernel launches are kept.  For a MoE model the kernels' tick
+    runs twice: free (its routers' top-k sets that differ from the plain
+    tick's are counted) and on the plain tick's expert choices
+    (`_PinTopk`; the gap under "pinned")."""
     probe = Scheduler(params, cfg, scfg, engine=eng, prefill_bucket=BUCKET)
     for r in launch_serve.trace_requests(cfg, trace, SEED):
         probe.submit(r)
     probe.step()                                  # admit 8, first tick
-    for i, s in enumerate(probe.slots):
-        probe.paged.ensure_decode_page(i, s.req.prompt.size + len(s.emitted) - 1)
+    bt = None
+    if probe.paged is not None:
+        for i, s in enumerate(probe.slots):
+            probe.paged.ensure_decode_page(
+                i, s.req.prompt.size + len(s.emitted) - 1)
+        bt = torch.from_numpy(probe.paged.tables).cuda()
     toks = torch.tensor([[s.last_token] for s in probe.slots],
                         dtype=torch.int32, device="cuda")
     active = torch.ones(SLOTS, dtype=torch.bool, device="cuda")
-    bt = torch.from_numpy(probe.paged.tables).cuda()
-    logits = {}
-    for backend in backends:
-        # both ticks start from the same state (see phase_paged_parity)
-        with torch.inference_mode(), use_engine(Engine(backend=backend)):
-            logits[backend] = T.decode_step(params, cfg, probe.cache, toks,
-                                            active=active, block_tables=bt)[0]
-    return _logit_gap(logits[backends[1]], logits[backends[0]])
+    def tick(backend, mode):
+        before = read_counts()
+        with torch.inference_mode(), use_engine(Engine(backend=backend)), \
+                mode:
+            out = T.decode_step(params, cfg, probe.cache, toks,
+                                active=active, block_tables=bt)[0]
+        after = read_counts()
+        return out, {k: after[k] - before[k] for k in after}
+
+    plain, kernels = backends
+    ref, launches = tick(plain, rec := _TopkSets())
+    got, launches_k = tick(kernels, rec_k := _TopkSets())
+    gap = _logit_gap(got, ref)
+    gap["kv_len"] = (probe.cache["t"] + 1).tolist()
+    gap["paged_plane"] = probe.paged is not None
+    gap["launches"] = {plain: launches, kernels: launches_k}
+    if cfg.moe is not None:
+        gap["topk_sets_differing"] = sum(
+            int((a != b).any(dim=-1).sum())
+            for a, b in zip(rec_k.sets, rec.sets, strict=True))
+        gap["token_layer_pairs"] = SLOTS * len(rec.sets)
+        gap["pinned"] = _logit_gap(tick(kernels, _PinTopk(rec.raw))[0], ref)
+    return gap
+
+
+def tick_gap(label: str, params, cfg, scfg, eng, trace,
+             backends=("torch-ref", "hopper")) -> dict:
+    """`_decode_tick_gap`, printed and held within LOGIT_LIMITS' rel-L2 (a
+    MoE model's on the plain tick's expert choices, its free gap and the
+    top-k sets that differ printed beside), the plain tick launching no
+    kernel and the kernels' tick launching some, the paged kernel once a
+    paged layer where there is a paged plane."""
+    gap = _decode_tick_gap(params, cfg, scfg, eng, trace, backends)
+    plain, kernels = (gap["launches"][b] for b in backends)
+    held = gap.get("pinned", gap)
+    moe = ("" if "pinned" not in gap else
+           f"; on the plain tick's expert choices rel-L2 "
+           f"{held['rel_l2']:.4e}, max|diff|/max|ref| {held['rel_max']:.4e}"
+           f" ({gap['topk_sets_differing']} of {gap['token_layer_pairs']} "
+           f"(token, layer) top-k sets differ in the free tick)")
+    print(f"{label}: decode tick logits ({SLOTS} slots, kv_len "
+          f"{gap['kv_len']}), {backends[1]} vs {backends[0]}: rel-L2 "
+          f"{gap['rel_l2']:.4e}, max|diff|/max|ref| {gap['rel_max']:.4e}, "
+          f"argmax agreement {gap['argmax_agreement']:.2f}{moe} (limit "
+          f"rel-L2 {LOGIT_LIMITS['rel_l2']}); kernel launches "
+          f"{ {k: v for k, v in kernels.items() if v} }")
+    check(math.isfinite(held["rel_l2"])
+          and held["rel_l2"] <= LOGIT_LIMITS["rel_l2"],
+          f"{label}: decode tick logit gap {gap}")
+    paged = paged_layers(cfg) if gap["paged_plane"] else 0
+    check(not any(plain.values()) and any(kernels.values())
+          and kernels["paged_attention"] == paged,
+          f"{label}: the tick's launches, {backends[0]} {plain}, "
+          f"{backends[1]} {kernels} (want the paged kernel {paged} times)")
+    return gap
 
 
 def phase_quantize_paged(cfg) -> dict:
@@ -2327,6 +2311,11 @@ def paged_int8_line(rows: list[dict], qpaged: dict) -> dict:
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention.py:195",
             "launches": qpaged["counts"]["paged_attention"],
+            "launches_by_serve": {
+                "quantize_paged_serve": qpaged["counts"]["paged_attention"],
+                **{f"granite_quantize_{serve}":
+                   run["counts"]["paged_attention"] for serve, run
+                   in REPORT["granite_quantize"].items()}},
             "per": f"call, bf16 q, {main['shape']}, kv_len {main['kv_len']}",
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{k: main[k] for k in keys}}
@@ -2370,7 +2359,9 @@ def int8_lines(rows: list[dict]) -> list[dict]:
                 "int8_static_serve": static["int8_paths"][path],
                 "int8_paged_serve": paged["int8_paths"][path],
                 "quantize_static_serve": qstatic["int8_paths"][path],
-                "quantize_paged_serve": qpaged["int8_paths"][path]},
+                "quantize_paged_serve": qpaged["int8_paths"][path],
+                **{f"granite_quantize_{serve}": run["int8_paths"][path]
+                   for serve, run in REPORT["granite_quantize"].items()}},
             "traced_10_quantize_ticks_ms":
                 qpaged["trace_10_ticks"]["int8_kernel"][kernel]["ms"],
             "per": f"the int8 static serve's {static['int8_paths'][path]} "
@@ -3327,17 +3318,36 @@ def phase_granite_sorted() -> dict:
 
 
 class _TopkSets(torch.overrides.TorchFunctionMode):
-    """Records the sorted index set of every `torch.topk` call inside it:
-    in a decode tick the only one is each MoE layer's router."""
+    """Records the indices of every `torch.topk` call inside it (`raw`) and
+    their sorted sets (`sets`): in a decode tick the only one is each MoE
+    layer's router."""
 
     def __enter__(self):
-        self.sets = []
+        self.sets, self.raw = [], []
         return super().__enter__()
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         if func is torch.topk:
+            self.raw.append(out[1])
             self.sets.append(out[1].sort(dim=-1).values)
+        return out
+
+
+class _PinTopk(torch.overrides.TorchFunctionMode):
+    """Replays recorded `torch.topk` indices in order: each call returns
+    them with its own input's values at them (a router's expert choices
+    pinned, its gates its own)."""
+
+    def __init__(self, raw: list):
+        super().__init__()
+        self.raw = list(raw)
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func is torch.topk:
+            idx = self.raw.pop(0)
+            return torch.return_types.topk((args[0].gather(-1, idx), idx))
         return out
 
 
@@ -3486,6 +3496,652 @@ def phase_granite_smoke_parity() -> None:
     check(all(result.values()), f"granite smoke tokens differ: {result}")
 
 
+# --------------------------------------------------------------------------
+# qwen3-14b and gemma3-12b at full width, mistral-large-123b at its
+# published widths over 4 layers, the new archs' SMOKE configurations, and
+# granite-moe-1b-a400m under --quantize
+# --------------------------------------------------------------------------
+
+#: the full-width serves: the static prompt (4 requests, GEN new tokens
+#: each) and the paged trace over SLOTS slots; gemma3's prompts are longer
+#: than its 1024-row window, so its rings wrap
+WIDE = {QWEN3: {"prompt": PROMPT, "trace": TRACE},
+        GEMMA3: {"prompt": 1536, "trace": "1536x64*4,768x32*4,256x16*8"}}
+#: mistral-large-123b at its published widths, its 88 layers cut to 4
+MISTRAL_LAYERS = 4
+#: mixtral-8x7b at its published widths, its 32 layers cut to 4 (11.5 GiB
+#: of bf16 weights; all 32 take 87.0 GiB): a static serve and this trace
+#: under a paged ServeConfig, all 8 requests admitted in the first step
+MIXTRAL_LAYERS, MIXTRAL_TRACE = 4, "512x16*4,256x24*4"
+#: the M at which the GEMM decisions are gated at the new archs' shapes:
+#: the static decode, the paged decode and a 2048-row prefill
+DECISION_M = (BATCH, SLOTS, 2048)
+#: granite under --quantize: the paged trace of the sorted dispatch, whose
+#: int8 grouped op loops the int8 GEMM over the experts
+GRANITE_QUANT_TRACE = "256x16*8"
+
+
+def layer_gemms(cfg) -> dict:
+    """The engine GEMMs of one layer, (K, N) -> calls: q, k, v and o and,
+    for a dense feed-forward, wi, wg and wo (a MoE layer's experts are
+    grouped or einsum matmuls)."""
+    d, q = cfg.d_model, cfg.n_heads * cfg.head_dim_
+    calls = collections.Counter()
+    calls[d, q] += 1                                  # q
+    calls[d, cfg.n_kv * cfg.head_dim_] += 2           # k, v
+    calls[q, d] += 1                      # o: q's key too where q == d_model
+    if cfg.moe is None:
+        calls[d, cfg.d_ff] += 2
+        calls[cfg.d_ff, d] += 1
+    return dict(calls)
+
+
+def paged_layers(cfg) -> int:
+    """The layers whose KV is paged: the "attn" ones (a "local" layer
+    keeps a ring)."""
+    period = cfg.layer_pattern
+    return sum(period[i % len(period)] == "attn" for i in range(cfg.n_layers))
+
+
+def phase_decisions(arch: str, cfg, gated: bool) -> list[dict]:
+    """The ReDas GEMM's three dataflows, each at the cost model's best
+    configuration for it, at `cfg`'s layer GEMMs in bf16 and each M of
+    DECISION_M: held to the plain version, timed beside torch.matmul, and
+    the model's decision against the fastest dataflow (within
+    GEMM_PICK_LIMIT where `gated`)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    side = torch.cuda.Stream()
+    model = HopperModel()
+    picks, failures = [], []
+    for m in DECISION_M:
+        for k, n in layer_gemms(cfg):
+            sets = _operand_sets(m, k, n, torch.bfloat16, gen)
+            a, b = sets[0]
+            ref = redas_gemm.gemm_reference(a, b)
+            request = KernelRequest("gemm", m, k, n, in_bytes=2, out_bytes=2)
+            main = model.decide(request)
+            by = {}
+            for df in redas_gemm.DATAFLOWS:
+                conf = gemm_args(decide_gemm(request, model.name,
+                                             dataflows=(df,)))
+                rel = row_rel_l2(redas_gemm.gemm(a, b, **conf), ref)
+                if not (math.isfinite(rel) and rel <= BF16_ROW_TOL):
+                    failures.append(f"{m}x{k}x{n} {df}: row rel-L2 {rel:.2e}")
+                by[df] = {"tile": [conf["bm"], conf["bk"], conf["bn"]],
+                          "row_rel_l2": rel, "ms": device_ms(
+                              lambda x, y, conf=conf: redas_gemm.gemm(
+                                  x, y, **conf), sets, side)}
+            fastest = min(by, key=lambda df: by[df]["ms"])
+            pick = {"m": m, "k": k, "n": n, "decision": main.dataflow,
+                    "tile": [main.bm, main.bk, main.bn],
+                    "slabs": main.meta_dict.get("slabs", 1),
+                    "ms": by[main.dataflow]["ms"], "fastest": fastest,
+                    "fastest_ms": by[fastest]["ms"],
+                    "library_ms": device_ms(torch.matmul, sets, side),
+                    "by_dataflow": by}
+            pick["ratio"] = pick["ms"] / pick["fastest_ms"]
+            picks.append(pick)
+            print(f"{arch} gemm {m}x{k}x{n}: decision {main.dataflow} "
+                  f"{tuple(pick['tile'])} x{pick['slabs']} {pick['ms']:.4f} "
+                  f"ms; " + ", ".join(f"{df} {tuple(r['tile'])} {r['ms']:.4f}"
+                                      for df, r in by.items())
+                  + f"; torch.matmul {pick['library_ms']:.4f} ms; decision / "
+                  f"fastest {pick['ratio']:.2f}x"
+                  + (f" (limit {GEMM_PICK_LIMIT}x)" if gated
+                     else " (not gated)"))
+            del sets
+    REPORT.setdefault("decisions", {})[arch] = picks
+    check(not failures, f"{arch}: kernel disagrees with its plain version: "
+          f"{failures}")
+    if gated:
+        slow = [p for p in picks if p["ratio"] > GEMM_PICK_LIMIT]
+        check(not slow, f"{arch}: the model's decision is slower than "
+              f"{GEMM_PICK_LIMIT}x the fastest dataflow: "
+              + "; ".join(f"{p['m']}x{p['k']}x{p['n']} {p['ratio']:.2f}x"
+                          for p in slow))
+    return picks
+
+
+def grouped_calls(cfg) -> int:
+    """The grouped GEMM calls of one layer a pass: wi, wg and wo for a
+    sorted MoE dispatch, none for einsum or a dense feed-forward."""
+    return 3 if cfg.moe is not None and cfg.moe.impl == "sort" else 0
+
+
+def check_static_serve(label: str, cfg, out: dict, prefill_ms: float,
+                       first_tokens, prompt: int) -> dict:
+    """A static serve of BATCH x (`prompt` + GEN): every layer GEMM on the
+    ReDas kernel (7 a layer a pass, 4 for MoE), every OS call on the
+    wgmma kernel, the reductions the plan implies, the experts of a
+    sorted MoE on the grouped kernel's wgmma route (3 a layer a pass), no
+    other kernel; tokens in range, the first equal to a 1-token run's;
+    each decision missed once."""
+    counts = read_counts()
+    launches = dict(redas_gemm.launches)
+    per_layer = layer_gemms(cfg)
+    grouped = grouped_calls(cfg) * cfg.n_layers * GEN
+    grouped_wgmma = grouped_gemm.wgmma_launches
+    passes = {BATCH * prompt: 1, BATCH: GEN - 1}
+    reduces = check_reductions(label, out["engine"], per_layer, cfg.n_layers,
+                               passes)
+    wgmma = check_os_routes(label, out["engine"], per_layer, cfg.n_layers,
+                            passes)
+    want = {"redas_gemm": sum(per_layer.values()) * cfg.n_layers * GEN,
+            "grouped_gemm": grouped}
+    # each grouped shape (E, C, D, F) and (E, C, F, D) at both passes
+    decisions = 2 * (len(per_layer) + (2 if grouped else 0))
+    tokens = out["tokens"]
+    decode_ms = (out["seconds"] * 1e3 - prefill_ms) / (GEN - 1)
+    plan = out["engine"].plan.stats
+    print(f"{label}: {BATCH} requests x ({prompt} prompt + {GEN} new) in "
+          f"{out['seconds']:.3f} s, {BATCH * GEN / out['seconds']:.1f} tok/s; "
+          f"prefill and first token {prefill_ms:.2f} ms (a served run of 1 "
+          f"token), decode {decode_ms:.3f} ms/step (the difference); plan "
+          f"{plan}; decisions {decision_mix(out['engine'])}; launches "
+          f"{launches}, grouped {counts['grouped_gemm']} ({grouped_wgmma} "
+          f"on wgmma), want {want}")
+    check(all(counts[k] == v for k, v in want.items()),
+          f"{label}: kernels launched {counts}, not {want}")
+    check(all(v == 0 for k, v in counts.items() if k not in want),
+          f"{label}: another kernel on the static path: {counts}")
+    check(grouped_wgmma == grouped,
+          f"{label}: {grouped_wgmma} of {grouped} grouped calls on wgmma")
+    check(tuple(tokens.shape) == (BATCH, GEN)
+          and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()),
+          f"{label}: tokens {tuple(tokens.shape)} out of shape or range")
+    check(torch.equal(first_tokens.cpu(), tokens[:, :1].cpu()),
+          f"{label}: the 1-token run's token differs from the served run's")
+    check(plan["misses"] == plan["decisions"] == decisions,
+          f"{label}: plan {plan}, want each of {decisions} decisions missed "
+          f"once")
+    return {"seconds": out["seconds"], "prefill_ms": prefill_ms,
+            "decode_ms_per_step": decode_ms, "plan": plan,
+            "decision_mix": decision_mix(out["engine"]), "counts": counts,
+            "launches": launches, "os_wgmma": wgmma, "reductions": reduces,
+            "tokens": tokens.tolist()}
+
+
+def static_serve(label: str, cfg, serve, prompt: int) -> tuple[dict, dict]:
+    """A static serve of BATCH x (`prompt` + GEN) by `serve(n)`, which
+    serves n new tokens a request and returns the run's tokens, seconds,
+    engine, params and prompt: a warm-up, a 1-token run (the prefill and
+    first token), then the timed run, checked by `check_static_serve`,
+    with its peak memory above what was held before it.  Returns the
+    timed run and its result."""
+    serve(1)                                             # warm-up
+    first = serve(1)
+    first_tokens, prefill_ms = first["tokens"], first["seconds"] * 1e3
+    del first
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counts()
+    out = serve(GEN)
+    result = check_static_serve(label, cfg, out, prefill_ms, first_tokens,
+                                prompt)
+    result["max_memory_gib"] = (torch.cuda.max_memory_allocated()
+                                - held) / 2**30
+    result["weights_gib"] = tree_bytes(out["params"]) / 2**30
+    print(f"{label}: weights {result['weights_gib']:.2f} GiB, peak memory "
+          f"{result['max_memory_gib']:.2f} GiB above what was held before "
+          f"the run")
+    return out, result
+
+
+def generate_serve(params, cfg):
+    """`serve(n)` for `static_serve` through `generate` on `hopper`: a
+    BATCH x PROMPT prompt from SEED, one engine for every run."""
+    prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(SEED + 1), dtype=torch.int32)
+    scfg = serve_lib.ServeConfig(max_seq=PROMPT + GEN + 1, batch=BATCH,
+                                 kernel_backend="hopper")
+    eng = Engine(backend="hopper")
+
+    def serve(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens = serve_lib.generate(params, cfg, scfg, prompt, n, engine=eng)
+        torch.cuda.synchronize()
+        return {"tokens": tokens, "seconds": time.perf_counter() - t0,
+                "engine": eng, "params": params, "prompt": prompt}
+    return serve
+
+
+def phase_wide_static(arch: str) -> dict:
+    """`launch.serve` at full width, static mode: BATCH x (prompt + GEN),
+    bf16, weights from SEED, `hopper`; prefill logits against
+    `torch-ref`.  Returns the served run."""
+    cfg, prompt = get_config(arch), WIDE[arch]["prompt"]
+    serve_lib._ENGINES.clear()      # its own engine (see paged_serve_phase)
+    args = ["--arch", arch, "--kernel-backend", "hopper", "--batch",
+            str(BATCH), "--prompt-len", str(prompt), "--seed", str(SEED)]
+    out, result = static_serve(
+        f"{arch} static serve", cfg,
+        lambda n: launch_serve.main(args + ["--gen", str(n)]), prompt)
+    result["parity"] = prefill_gaps(f"{arch} full width", out["params"], cfg,
+                                    out["prompt"], prompt + GEN + 1)
+    REPORT[f"{arch}_static"] = result
+    return out
+
+
+def _cache_bytes(cache: dict) -> dict:
+    """A cache's bytes: the paged pools ("attn" layers) and the rings
+    ("local" layers), scales included."""
+    out = collections.Counter()
+    for c in [*cache["slots"].values(), *cache["tail"]]:
+        kind = "pool" if "k_pages" in c else "ring"
+        out[kind] += sum(t.numel() * t.element_size() for t in c.values())
+    return dict(out)
+
+
+def paged_serve_phase(arch: str, trace: str, report: str,
+                      tick_parity: bool = False) -> dict:
+    """`launch.serve` at full width in trace mode, paged, over SLOTS slots:
+    the paged kernel once a paged layer a tick, 7 GEMMs a layer a pass
+    (every OS call on wgmma), prefix sharing on pure "attn" archs only; a
+    second pass planning nothing new; 10 traced ticks; the cache's bytes
+    and the peak; with `tick_parity`, one tick's logits against
+    `torch-ref`.  Kept in REPORT[report]; returns the served run."""
+    cfg = get_config(arch)
+    # an engine of this serve's own: the per-ServeConfig memo would hand
+    # it an earlier arch's engine where their ServeConfigs are equal
+    serve_lib._ENGINES.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counts()
+    out = launch_serve.main(
+        ["--arch", arch, "--kernel-backend", "hopper", "--batch", str(SLOTS),
+         "--cache-layout", "paged", "--page-size", str(PAGE),
+         "--prefill-bucket", str(BUCKET), "--seed", str(SEED), "--trace",
+         trace])
+    counts = read_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    sched, eng = out["scheduler"], out["engine"]
+    st, per_layer, layers = sched.stats, layer_gemms(cfg), cfg.n_layers
+    ticks, calls = st["decode_steps"], st["prefill_calls"]
+    passes = _paged_passes(sched)
+    reduces = check_reductions(f"{arch} paged serve", eng, per_layer, layers,
+                               passes)
+    wgmma = check_os_routes(f"{arch} paged serve", eng, per_layer, layers,
+                            passes)
+    want = {"redas_gemm": sum(per_layer.values()) * layers * (ticks + calls),
+            "paged_attention": paged_layers(cfg) * ticks}
+    cache = _cache_bytes(sched.cache)
+    sharing = sched.paged.index is not None
+    tick_ms = sched.timings["decode_s"] * 1e3 / ticks
+    print(f"{arch} paged serve: {out['requests']} requests / {out['tokens']} "
+          f"tokens in {out['seconds']:.3f} s, {out['tokens_per_s']:.1f} tok/s "
+          f"over {SLOTS} slots; {ticks} decode ticks, {tick_ms:.3f} ms a tick "
+          f"(mean); {calls} prefill calls of widths "
+          f"{sorted(st['prefill_widths'])}, "
+          f"{sched.timings['prefill_s'] * 1e3:.2f} ms in all; plan "
+          f"{eng.plan.stats}; launches {counts} (want {want}); prefix sharing "
+          f"{'on' if sharing else 'off'}; cache bytes {cache}; peak memory "
+          f"above what the script held {peak:.3f} GiB")
+    check(out["requests"] == len(launch_serve.parse_trace(trace)),
+          f"{arch}: served {out['requests']} requests")
+    check(all(counts[k] == v for k, v in want.items()),
+          f"{arch} paged serve launches {counts}, not {want}")
+    check(all(v == 0 for k, v in counts.items() if k not in want),
+          f"{arch}: another kernel on the paged path: {counts}")
+    check(sharing == (set(cfg.layer_pattern) == {"attn"}),
+          f"{arch}: prefix sharing {'on' if sharing else 'off'} for the "
+          f"layer pattern {cfg.layer_pattern}")
+    tokens = {u: c.tokens.tolist() for u, c in sched.completions.items()}
+    for uid, toks in tokens.items():
+        check(len(toks) == out["trace"][uid][1]
+              and all(0 <= t < cfg.vocab for t in toks),
+              f"{arch} request {uid}")
+    sched.paged.check_invariants()
+    new_misses, prof = _replay_and_trace(
+        out["params"], cfg, out["serve_config"], eng, out["trace"], tokens,
+        f"{arch} ", GEMM_KERNELS + (PAGED_KERNEL,))
+    prof["gemm"] = gemm_trace_line(prof, 10, "tick")
+    prof["paged"] = paged_trace_line(prof, f"{arch}'s", cfg)
+    check_traced_reductions(f"{arch} paged serve, 10 traced ticks", prof,
+                            10 * _decode_reductions(eng, per_layer, layers))
+    REPORT[report] = {
+        "trace": trace, "slots": SLOTS, "page_size": PAGE,
+        "prefill_bucket": BUCKET, "seconds": out["seconds"],
+        "tokens_per_s": out["tokens_per_s"], "requests": out["requests"],
+        "tokens": out["tokens"],
+        "decode_ticks": ticks, "decode_ms_per_tick": tick_ms,
+        "prefill_calls": calls, "prefill_widths": sorted(st["prefill_widths"]),
+        "prefill_ms": sched.timings["prefill_s"] * 1e3,
+        "stats": {k: v for k, v in st.items() if k != "prefill_widths"},
+        "plan": eng.plan.stats, "counts": counts, "launches":
+        dict(redas_gemm.launches), "os_wgmma": wgmma, "reductions": reduces,
+        "prefix_sharing": sharing, "cache_bytes": cache,
+        "max_memory_gib": peak, "decision_mix": decision_mix(eng),
+        "second_pass_new_misses": new_misses, "trace_10_ticks": prof}
+    if tick_parity:
+        REPORT[report]["tick_logits"] = paged_tick_gap(f"{arch} full width",
+                                                       cfg, out)
+    return out
+
+
+def seeded_params(cfg) -> dict:
+    return T.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(SEED), device="cuda", dtype=torch.bfloat16)
+
+
+def phase_mistral() -> None:
+    """mistral-large-123b at its published widths with its 88 layers cut
+    to MISTRAL_LAYERS: a static serve through `generate`, BATCH x (PROMPT
+    + GEN), checked as the wide static serves are; each decision printed
+    beside the fastest dataflow (not gated)."""
+    cfg = dataclasses.replace(get_config(MISTRAL), n_layers=MISTRAL_LAYERS)
+    phase_decisions(MISTRAL, cfg, gated=False)
+    _, result = static_serve(
+        f"{MISTRAL} x {MISTRAL_LAYERS} layers static serve", cfg,
+        generate_serve(seeded_params(cfg), cfg), PROMPT)
+    REPORT[f"{MISTRAL}_static"] = {"n_layers": MISTRAL_LAYERS, **result}
+
+
+def hold_plan_kernels(label: str, eng) -> list[dict]:
+    """Every GEMM and grouped GEMM decision in `eng`'s plan through the
+    `hopper` backend's entry for it (the kernel at the decision's
+    configuration) against the plain version, on random bf16 operands of
+    its shape: row rel-L2 within BF16_ROW_TOL."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    rows = []
+    for req, dec in eng.plan:
+        if req.op == "gemm":
+            a, b = randn(req.m, req.k), randn(req.k, req.n,
+                                              scale=req.k ** -0.5)
+            got, ref = hopper_gemm(dec, a, b), ref_gemm(dec, a, b)
+        elif req.op == "grouped_gemm":
+            a = randn(req.groups, req.m, req.k)
+            b = randn(req.groups, req.k, req.n, scale=req.k ** -0.5)
+            got, ref = (hopper_grouped_gemm(dec, a, b),
+                        ref_grouped_gemm(dec, a, b))
+        else:
+            continue
+        rows.append({"op": req.op, "shape": [req.groups, req.m, req.k, req.n],
+                     "dataflow": dec.dataflow,
+                     "row_rel_l2": row_rel_l2(got, ref)})
+        del a, b, got, ref
+    print(f"{label}: the plan's {len(rows)} GEMM and grouped decisions on "
+          f"their kernels against the plain versions, row rel-L2 at most "
+          f"{max(r['row_rel_l2'] for r in rows):.2e} (tol {BF16_ROW_TOL:g}): "
+          + ", ".join(f"{r['op']} {tuple(r['shape'])} {r['row_rel_l2']:.1e}"
+                      for r in rows))
+    bad = [r for r in rows if not (math.isfinite(r["row_rel_l2"])
+                                   and r["row_rel_l2"] <= BF16_ROW_TOL)]
+    check(rows and not bad, f"{label}: kernels disagree with their plain "
+          f"versions: {bad}")
+    return rows
+
+
+def phase_mixtral() -> None:
+    """mixtral-8x7b at its published widths with its 32 layers cut to
+    MIXTRAL_LAYERS, sorted dispatch (the grouped kernel at E = 8, top-2,
+    D = 4096, F = 14336): a static serve through `generate`, checked as
+    the wide static serves are; then MIXTRAL_TRACE through the Scheduler
+    under a paged ServeConfig, which builds no paged plane (every block is
+    "local") and runs the contiguous path on per-slot rings: exact GEMM
+    and grouped launches, every grouped call on wgmma, no other kernel,
+    every decision of the plan held on its kernel against the plain
+    version, and one decode tick's logits against `torch-ref` from the
+    same state."""
+    cfg = _sorted(dataclasses.replace(get_config(MIXTRAL),
+                                      n_layers=MIXTRAL_LAYERS))
+    label = f"{MIXTRAL} x {MIXTRAL_LAYERS} layers"
+    params = seeded_params(cfg)
+    out, static = static_serve(f"{label} static serve (sorted)", cfg,
+                               generate_serve(params, cfg), PROMPT)
+    static_engine = out["engine"]
+    del out
+    trace = launch_serve.parse_trace(MIXTRAL_TRACE)
+    scfg = serve_lib.ServeConfig(
+        max_seq=max(p + g for p, g in trace) + 1, batch=SLOTS,
+        kernel_backend="hopper", cache_layout="paged", page_size=PAGE)
+    eng = Engine(backend="hopper")
+    sched = Scheduler(params, cfg, scfg, engine=eng, prefill_bucket=BUCKET)
+    check(sched.paged is None, f"{label}: a paged plane for the layer "
+          f"pattern {cfg.layer_pattern}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    sched.run(launch_serve.trace_requests(cfg, trace, SEED))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts, grouped_wgmma = read_counts(), grouped_gemm.wgmma_launches
+    launches = dict(redas_gemm.launches)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    st, per_layer, layers = sched.stats, layer_gemms(cfg), cfg.n_layers
+    ticks, calls = st["decode_steps"], st["prefill_calls"]
+    passes = _paged_passes(sched)
+    reduces = check_reductions(f"{label} serve", eng, per_layer, layers,
+                               passes)
+    wgmma = check_os_routes(f"{label} serve", eng, per_layer, layers, passes)
+    want = {"redas_gemm": sum(per_layer.values()) * layers * (ticks + calls),
+            "grouped_gemm": grouped_calls(cfg) * layers * (ticks + calls)}
+    cache = _cache_bytes(sched.cache)
+    tick_ms = sched.timings["decode_s"] * 1e3 / ticks
+    print(f"{label} serve under a paged ServeConfig (contiguous rings): "
+          f"{len(sched.completions)} requests in {seconds:.3f} s over {SLOTS} "
+          f"slots; {ticks} decode ticks, {tick_ms:.3f} ms a tick (mean); "
+          f"{calls} prefill calls of widths {sorted(st['prefill_widths'])}, "
+          f"{sched.timings['prefill_s'] * 1e3:.2f} ms in all; plan "
+          f"{eng.plan.stats}; launches {counts} (want {want}), "
+          f"{grouped_wgmma} grouped on wgmma; cache bytes {cache}; peak "
+          f"memory above what the script held {peak:.3f} GiB")
+    check(len(sched.completions) == len(trace), f"{label}: served too few")
+    check(all(counts[k] == v for k, v in want.items())
+          and all(v == 0 for k, v in counts.items() if k not in want),
+          f"{label} serve launches {counts}, not {want}")
+    check(grouped_wgmma == want["grouped_gemm"],
+          f"{label}: {grouped_wgmma} of {want['grouped_gemm']} grouped calls "
+          f"on wgmma")
+    check(set(cache) == {"ring"}, f"{label}: cache {cache}, want rings only")
+    for uid, c in sched.completions.items():
+        check(len(c.tokens) == trace[uid][1]
+              and all(0 <= t < cfg.vocab for t in c.tokens.tolist()),
+              f"{label} request {uid}")
+    held = (hold_plan_kernels(f"{label} static serve", static_engine)
+            + hold_plan_kernels(f"{label} serve", eng))
+    gap = tick_gap(f"{label} (contiguous rings)", params, cfg, scfg, eng,
+                   trace)
+    REPORT[MIXTRAL] = {
+        "n_layers": MIXTRAL_LAYERS, "static": static, "trace": MIXTRAL_TRACE,
+        "seconds": seconds, "decode_ticks": ticks,
+        "decode_ms_per_tick": tick_ms, "prefill_calls": calls,
+        "prefill_ms": sched.timings["prefill_s"] * 1e3, "counts": counts,
+        "launches": launches, "grouped_wgmma": grouped_wgmma, "os_wgmma": wgmma,
+        "reductions": reduces, "plan": eng.plan.stats, "cache_bytes": cache,
+        "max_memory_gib": peak, "kernels_held": held, "tick_logits": gap}
+
+
+def _smoke_cases() -> list[tuple]:
+    """(label, cfg, quantize) of the new archs' SMOKE configurations:
+    qwen3-14b, mistral-large-123b, gemma3-12b (also under --quantize) and
+    mixtral-8x7b under both MoE dispatches."""
+    cases = [(a, get_config(a, smoke=True), False)
+             for a in (QWEN3, MISTRAL, GEMMA3)]
+    cases.append((f"{GEMMA3} --quantize", get_config(GEMMA3, smoke=True),
+                  True))
+    mix = get_config(MIXTRAL, smoke=True)
+    cases += [(f"{MIXTRAL} {impl}", dataclasses.replace(
+        mix, moe=dataclasses.replace(mix.moe, impl=impl)), False)
+        for impl in ("einsum", "sort")]
+    return cases
+
+
+def phase_new_smoke_parity() -> None:
+    """The new archs' SMOKE configurations in f32: the card's greedy
+    tokens (`hopper`) equal the CPU's plain run (`torch-ref`), static
+    (`generate`, 2 x (40 + 8): longer than the 16-row windows) and through
+    the Scheduler (8 requests of 5-40 tokens over 3 slots), paged and
+    contiguous; each card run launches the kernels `smoke_kernels` names;
+    a paged ServeConfig builds the paged plane only on an arch with
+    "attn" layers."""
+    rng = np.random.default_rng(SEED)
+    spec = [(uid, rng.integers(0, 128, int(rng.integers(5, 41))).astype(
+        np.int32), int(rng.integers(3, 9))) for uid in range(8)]
+    prompt = torch.randint(0, 128, (2, 40), generator=torch.Generator()
+                           .manual_seed(SEED + 1), dtype=torch.int32)
+    result, counts = {}, {}
+    for label, cfg, quant in _smoke_cases():
+        cpu_params = T.init_params(
+            cfg, generator=torch.Generator().manual_seed(SEED),
+            dtype=torch.float32)
+        if quant:
+            cpu_params = quantize_params(cpu_params)
+        card_params = _to(cpu_params, "cuda")
+        kw = {"compute_dtype": "float32", "quantize": quant,
+              "cache_dtype": "int8" if quant else "float32"}
+        tokens, counts[label] = {}, {}
+        for device, backend in (("cpu", "torch-ref"), ("cuda", "hopper")):
+            params = cpu_params if device == "cpu" else card_params
+            reset_counts()
+            tokens[device, "static"] = serve_lib.generate(
+                params, cfg, serve_lib.ServeConfig(
+                    max_seq=49, batch=2, kernel_backend=backend,
+                    device=device, **kw), prompt.to(device), 8).cpu().tolist()
+            if device == "cuda":
+                counts[label]["static"] = read_counts()
+            for layout in ("paged", "contiguous"):
+                sched = Scheduler(params, cfg, serve_lib.ServeConfig(
+                    max_seq=56, batch=3, kernel_backend=backend,
+                    device=device, cache_layout=layout, page_size=8, **kw))
+                reset_counts()
+                done = sched.run([Request(uid=u, prompt=x, max_new_tokens=g)
+                                  for u, x, g in spec])
+                if device == "cuda":
+                    counts[label][layout] = read_counts()
+                tokens[device, layout] = {u: c.tokens.tolist()
+                                          for u, c in done.items()}
+                if layout == "paged":
+                    check((sched.paged is not None)
+                          == ("attn" in cfg.layer_pattern),
+                          f"{label}: paged plane {sched.paged is not None} "
+                          f"for the layer pattern {cfg.layer_pattern}")
+        result[label] = {run: tokens["cuda", run] == tokens["cpu", run]
+                         for run in ("static", "paged", "contiguous")}
+        for run, want in smoke_kernels(cfg, quant).items():
+            idle = [k for k in want if counts[label][run][k] == 0]
+            check(not idle, f"{label} {run} on the card launched no {idle}: "
+                  f"{counts[label][run]}")
+    print(f"new archs' SMOKE f32: card tokens identical to the CPU's plain "
+          f"run: {result}; the card's launches {counts}")
+    REPORT["new_smoke_parity"] = {"tokens_identical": result,
+                                  "card_launches": counts}
+    check(all(all(r.values()) for r in result.values()),
+          f"new archs' SMOKE tokens differ: {result}")
+
+
+def smoke_kernels(cfg, quant: bool) -> dict:
+    """The kernels each of a SMOKE case's card runs must launch: the GEMM
+    (the int8 GEMM under --quantize) on every run, the grouped kernel on
+    every run of a sorted MoE, the paged kernel on the paged run of an
+    arch with "attn" blocks (f32 SMOKE: the sync routes)."""
+    gemm = ["quant_gemm" if quant else "redas_gemm"]
+    if grouped_calls(cfg):
+        gemm.append("grouped_gemm")
+    want = {run: list(gemm) for run in ("static", "paged", "contiguous")}
+    if "attn" in cfg.layer_pattern:
+        want["paged"].append("paged_attention")
+    return want
+
+
+def phase_granite_quantize() -> dict:
+    """granite-moe-1b-a400m under --quantize at full width: the launcher's
+    static serve (einsum dispatch, SLOTS x (EINSUM_PROMPT + EINSUM_GEN));
+    then GRANITE_QUANT_TRACE through the Scheduler, paged, with the sorted
+    dispatch (its int8 grouped op loops the int8 GEMM over the experts,
+    whose stacks stay float) and with einsum, each tick's ms beside the
+    int8 launches by path, and one paged decode tick's logits of each
+    dispatch, `hopper-int8` against `torch-ref-int8` from the same
+    state (phase 12 holds the int8 kernel bit for bit at granite's
+    shapes)."""
+    cfg = get_config(GRANITE)
+    layers, experts = cfg.n_layers, cfg.moe.n_experts
+    serve_lib._ENGINES.clear()
+    args = ["--arch", GRANITE, "--quantize", "--batch", str(SLOTS),
+            "--prompt-len", str(EINSUM_PROMPT), "--seed", str(SEED)]
+    launch_serve.main(args + ["--gen", "1"])             # warm-up
+    reset_counts()
+    out = launch_serve.main(args + ["--gen", str(EINSUM_GEN)])
+    counts, paths = read_counts(), dict(quant_gemm.path_launches)
+    want = {"decode": 4 * layers * (EINSUM_GEN - 1), "tiled": 4 * layers}
+    print(f"granite --quantize static serve (einsum): {SLOTS} x "
+          f"({EINSUM_PROMPT} + {EINSUM_GEN}) in {out['seconds']:.3f} s; int8 "
+          f"launches by path {paths} (want {want}); launches {counts}")
+    check(paths == want and counts["quant_gemm"] == sum(want.values())
+          and all(v == 0 for k, v in counts.items() if k != "quant_gemm"),
+          f"granite --quantize static serve: paths {paths}, counts {counts}")
+    result = {"static": {"seconds": out["seconds"], "int8_paths": paths,
+                         "counts": counts}}
+    del out
+    trace = launch_serve.parse_trace(GRANITE_QUANT_TRACE)
+    scfg = serve_lib.ServeConfig(
+        max_seq=max(p + g for p, g in trace) + 1, batch=SLOTS,
+        kernel_backend="hopper", quantize=True, cache_dtype="int8",
+        cache_layout="paged", page_size=PAGE)
+    params = quantize_params(T.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(SEED), device="cuda", dtype=torch.bfloat16))
+    for impl in ("sort", "einsum"):
+        icfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                                impl=impl))
+        sched = Scheduler(params, icfg, scfg,
+                          engine=Engine(backend=scfg.kernel_backend),
+                          prefill_bucket=BUCKET)
+        reqs = launch_serve.trace_requests(icfg, trace, SEED)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sched.run(reqs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts, paths = read_counts(), dict(quant_gemm.path_launches)
+        ticks, calls = (sched.stats["decode_steps"],
+                        sched.stats["prefill_calls"])
+        grouped = 3 * layers * experts if impl == "sort" else 0
+        want = {"decode": 4 * layers * ticks,
+                "tiled": 4 * layers * calls + grouped * (ticks + calls)}
+        tick_ms = sched.timings["decode_s"] * 1e3 / ticks
+        print(f"granite --quantize paged serve ({impl}): {len(trace)} "
+              f"requests in {seconds:.3f} s; {ticks} ticks, {tick_ms:.2f} ms "
+              f"a tick (mean), {calls} prefill calls "
+              f"({sched.timings['prefill_s'] * 1e3:.1f} ms); int8 launches by "
+              f"path {paths} (want {want}), {grouped} of them a tick the "
+              f"grouped op's per-expert calls; launches {counts}")
+        check(paths == want
+              and counts["paged_attention"] == layers * ticks
+              and counts["quant_gemm"] == sum(want.values())
+              and counts["redas_gemm"] == counts["grouped_gemm"] == 0,
+              f"granite --quantize paged serve ({impl}): paths {paths}, "
+              f"counts {counts}")
+        check(len(sched.completions) == len(trace),
+              f"granite --quantize paged serve ({impl}) served too few")
+        gap = tick_gap(f"granite --quantize ({impl})", params, icfg, scfg,
+                       sched.engine, trace,
+                       ("torch-ref-int8", "hopper-int8"))
+        result[f"paged_{impl}"] = {
+            "trace": GRANITE_QUANT_TRACE, "seconds": seconds,
+            "decode_ticks": ticks, "decode_ms_per_tick": tick_ms,
+            "prefill_calls": calls,
+            "prefill_ms": sched.timings["prefill_s"] * 1e3,
+            "int8_paths": paths, "counts": counts,
+            "grouped_int8_calls_per_tick": grouped, "tick_logits": gap}
+        del sched
+    REPORT["granite_quantize"] = result
+    return result
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -3543,6 +4199,19 @@ def gemm_lines(rows: list[dict], static: dict, paged: dict,
                 bytes_["reduce"] += calls * (slabs * 4 + 2) * m * n / HBM_BW
                 errs["reduce"].append(row["reduce_max_abs_err"])
     by_df, paged_df = static["launches"], paged["launches"]
+    wide = {name: REPORT[key] for name, key in (
+        ("qwen3_14b_static_serve", f"{QWEN3}_static"),
+        ("qwen3_14b_paged_serve", f"{QWEN3}_paged"),
+        ("gemma3_12b_static_serve", f"{GEMMA3}_static"),
+        ("gemma3_12b_paged_serve", f"{GEMMA3}_paged"),
+        ("mistral_large_123b_4_layers_static_serve", f"{MISTRAL}_static"))}
+    wide["mixtral_8x7b_4_layers_static_serve"] = REPORT[MIXTRAL]["static"]
+    wide["mixtral_8x7b_4_layers_serve"] = REPORT[MIXTRAL]
+    of_wide = {
+        "os": lambda r: r["os_wgmma"],
+        "sync": lambda r: r["launches"]["os"] - r["os_wgmma"],
+        "stream": lambda r: r["launches"]["ws"] + r["launches"]["is"],
+        "reduce": lambda r: r["reductions"]}
     common = {"route": "cuda",
               "source": "src/repro_torch/kernels/csrc/redas_gemm.cu"}
     os_site = "src/repro/kernels/redas_gemm.py:169 (OS, _os_kernel :108)"
@@ -3574,6 +4243,7 @@ def gemm_lines(rows: list[dict], static: dict, paged: dict,
               "paged_serve": paged["reductions"]}, "reductions")):
         key = name.split("_")[-1]
         calls = by_df["os"] if key == "sync" else launches
+        by_path.update({path: of_wide[key](r) for path, r in wide.items()})
         lines.append({
             "name": name, **common, "kernel": kernel, "replaces": replaces,
             "launches": launches, "launches_by_path": by_path,
@@ -3613,6 +4283,19 @@ def attention_lines(attn: dict, paged: dict) -> list[dict]:
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:195",
          "launches": paged["counts"]["paged_attention"],
+         "launches_by_path": {
+             "paged_serve": paged["counts"]["paged_attention"],
+             "granite_sorted_serve":
+                 REPORT["granite_sorted"]["counts"]["paged_attention"],
+             "qwen3_14b_paged_serve":
+                 REPORT[f"{QWEN3}_paged"]["counts"]["paged_attention"],
+             "gemma3_12b_paged_serve":
+                 REPORT[f"{GEMMA3}_paged"]["counts"]["paged_attention"]},
+         "by_shape": {r["arch"]: {k: r[k] for k in (
+             "splits", "ms", "plain_ms", "library_ms", "bound_ms",
+             "bound_by", "fastest_split", "pick_over_fastest")}
+             for r in attn["rows"] if r["kernel"] == "paged_attention"
+             and r["dtype"] == "bfloat16"},
          "per": f"call, bf16, {p['shape']}, kv_len {p['kv_len']}",
          "max_abs_err": err("paged_attention"), **{k: p[k] for k in keys}},
         {"name": "flash_attention", "route": "cuda",
@@ -3651,6 +4334,15 @@ def grouped_line(rows: list[dict], granite: dict) -> dict:
             "launches": launches,
             "launches_by_route": {"wgmma": granite["grouped_wgmma"],
                                   "sync": launches - granite["grouped_wgmma"]},
+            "launches_by_path": {
+                "granite_sorted_serve": launches,
+                "mixtral_8x7b_4_layers_static_serve":
+                    REPORT[MIXTRAL]["static"]["counts"]["grouped_gemm"],
+                "mixtral_8x7b_4_layers_serve":
+                    REPORT[MIXTRAL]["counts"]["grouped_gemm"],
+                "mixtral_8x7b_smoke_sort": sum(
+                    run["grouped_gemm"] for run in REPORT["new_smoke_parity"][
+                        "card_launches"][f"{MIXTRAL} sort"].values())},
             "per": f"call, bf16, (E, C, D, F) = {tuple(main['shape'])}, "
                    f"wgmma tile {tuple(main['tile'])}",
             "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -3671,41 +4363,69 @@ def main() -> int:
     if sys.argv[1:] == ["--sweep-int8"]:
         return sweep_int8()
     t0 = time.perf_counter()
-    phase_setup()
-    rows = phase_kernels()
-    attn = phase_attention_kernels()
-    grouped_rows = phase_grouped_kernel()
-    int8_rows = phase_int8_kernel()
-    paged_int8_rows = phase_paged_int8_kernel()
-    sparse_rows = phase_sparse_kernel(FLOAT_SPARSE)
+    seconds = REPORT["phase_seconds"] = {}
+
+    def run(name, fn, *args):
+        """One phase, its seconds kept in REPORT["phase_seconds"]."""
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
+        return out
+
+    run("1 setup", phase_setup)
+    rows = run("2 gemm kernels", phase_kernels)
+    attn = run("3 attention kernels", phase_attention_kernels)
+    grouped_rows = run("8 grouped kernel", phase_grouped_kernel)
+    int8_rows = run("12 int8 kernel", phase_int8_kernel)
+    paged_int8_rows = run("14 int8-pool paged kernel",
+                          phase_paged_int8_kernel)
+    sparse_rows = run("17 sparse kernel", phase_sparse_kernel, FLOAT_SPARSE)
     cfg = get_config(ARCH)
-    served = phase_main_path(cfg)
-    phase_parity(cfg, served)
+    served = run("4 static serve", phase_main_path, cfg)
+    run("7 parity", phase_parity, cfg, served)
     del served
-    paged = phase_scheduler(cfg)
-    phase_shared_prefix(cfg, paged)
-    phase_paged_parity(cfg, paged)
+    paged = run("5 paged serve", phase_scheduler, cfg)
+    run("6 shared prefix", phase_shared_prefix, cfg, paged)
+    run("7 parity", phase_paged_parity, cfg, paged)
     del paged                              # free qwen before the int8 serves
     torch.cuda.empty_cache()
-    qparams = phase_int8_static(cfg)
-    phase_int8_paged(cfg, qparams)
+    qparams = run("13 int8 serves", phase_int8_static, cfg)
+    run("13 int8 serves", phase_int8_paged, cfg, qparams)
     del qparams                            # free qwen before granite
     torch.cuda.empty_cache()
-    phase_int8_smoke_parity()
-    phase_quantize_static(cfg)
+    run("13 int8 serves", phase_int8_smoke_parity)
+    run("15 --quantize serves", phase_quantize_static, cfg)
     torch.cuda.empty_cache()
-    qpaged = phase_quantize_paged(cfg)
+    qpaged = run("15 --quantize serves", phase_quantize_paged, cfg)
     torch.cuda.empty_cache()
-    phase_int8_smoke_parity("int8")
-    phase_sparse_serves(cfg, FLOAT_SPARSE)
-    sparse_int8_rows = phase_sparse_kernel(INT8_SPARSE)
-    phase_sparse_serves(cfg, INT8_SPARSE)
-    granite = phase_granite_sorted()
-    phase_granite_parity(granite)
+    run("16 --quantize SMOKE parity", phase_int8_smoke_parity, "int8")
+    run("18-19 --sparsity serves", phase_sparse_serves, cfg, FLOAT_SPARSE)
+    sparse_int8_rows = run("20 sparse x int8 kernel", phase_sparse_kernel,
+                           INT8_SPARSE)
+    run("21-23 sparse x int8 serves", phase_sparse_serves, cfg, INT8_SPARSE)
+    granite = run("9 granite sorted serve", phase_granite_sorted)
+    run("11 granite parity", phase_granite_parity, granite)
     del granite
     torch.cuda.empty_cache()
-    phase_granite_einsum()
-    phase_granite_smoke_parity()
+    run("10 granite einsum serve", phase_granite_einsum)
+    run("11 granite parity", phase_granite_smoke_parity)
+    for arch in (QWEN3, GEMMA3):
+        run(f"24 {arch}", phase_decisions, arch, get_config(arch), True)
+        out = run(f"24 {arch}", phase_wide_static, arch)
+        del out
+        torch.cuda.empty_cache()
+        out = run(f"24 {arch}", paged_serve_phase, arch, WIDE[arch]["trace"],
+                  f"{arch}_paged", True)
+        del out
+        torch.cuda.empty_cache()
+    run("25 mistral-large-123b", phase_mistral)
+    torch.cuda.empty_cache()
+    run("28 mixtral-8x7b", phase_mixtral)
+    torch.cuda.empty_cache()
+    run("26 new SMOKE parity", phase_new_smoke_parity)
+    run("27 granite --quantize", phase_granite_quantize)
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                        for k, v in seconds.items()))
     lines = [*gemm_lines(rows, REPORT["main_path"], REPORT["paged_serve"],
                          REPORT["granite_sorted"]),
              *attention_lines(attn, REPORT["paged_serve"]),

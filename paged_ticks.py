@@ -2,6 +2,7 @@
 the port in one machine.
 
     python3 paged_ticks.py [--src DIR] [--granite-sorted | --quantize]
+    python3 paged_ticks.py --summary FILE...
 
 Serves `chip_smoke.py`'s paged trace (qwen2-1.5b at full width, bf16,
 random weights from seed 0, 8 slots, pages of 16) through the launcher
@@ -16,15 +17,21 @@ serves qwen2-1.5b through the launcher's --quantize (int8 weights on the
 int8 GEMM, int8 KV pools on the paged kernel) on the same trace and
 windows.
 Prints, per round, the serve's mean ms per tick and each window's ms per
-tick, then one JSON line.
+tick, wall and the process's CPU time (which does not count the time the
+process waits for a core another process holds), then one JSON line.
 Needs a CUDA device.  Run it for each tree in turns (A, B, B, A) within
 one machine: host times move between machines and over a call.
+--summary reads the JSON lines of such runs' outputs and prints, per
+tree and mode, the median and quartiles of the windows' wall and CPU ms
+a tick and of the serves' ms a tick (no device needed).
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
+import statistics
 import sys
 import time
 from pathlib import Path
@@ -67,8 +74,34 @@ def granite_sorted_serve() -> dict:
             "serve_config": scfg, "engine": sched.engine, "trace": trace}
 
 
+def summary(files: list[str]) -> int:
+    """Median and quartiles, per (tree, mode), over every round of the
+    runs whose outputs are `files`."""
+    runs = collections.defaultdict(lambda: collections.defaultdict(list))
+    for name in files:
+        out = json.loads(Path(name).read_text().strip().splitlines()[-1])
+        mode = ("granite-sorted" if out["granite_sorted"] else
+                "quantize" if out.get("quantize") else "qwen2")
+        key = (out["src"], mode)
+        runs[key]["runs"].append(name)
+        for r in out["rounds"]:
+            runs[key]["wall"] += r["window_ms_per_tick"]
+            runs[key]["cpu"] += r.get("window_cpu_ms_per_tick", [])
+            runs[key]["serve"].append(r["serve_ms_per_tick"])
+    for (src, mode), got in sorted(runs.items()):
+        line = f"{mode} {src} ({len(got['runs'])} runs):"
+        for what in ("wall", "cpu", "serve"):
+            if len(got[what]) > 1:
+                q1, q2, q3 = statistics.quantiles(got[what], n=4)
+                line += (f" {what} median {statistics.median(got[what]):.2f} "
+                         f"(IQR {q1:.2f}-{q3:.2f}, n {len(got[what])});")
+        print(line)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--summary", nargs="+", metavar="FILE")
     ap.add_argument("--src", default=str(ROOT / "src"))
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--granite-sorted", action="store_true",
@@ -76,6 +109,8 @@ def main(argv=None) -> int:
     mode.add_argument("--quantize", action="store_true",
                       help="serve qwen2-1.5b under --quantize")
     args = ap.parse_args(argv)
+    if args.summary:
+        return summary(args.summary)
     sys.path.insert(0, args.src)
     import torch
 
@@ -106,19 +141,21 @@ def main(argv=None) -> int:
                                                SEED):
             probe.submit(req)
         probe.step()                       # admit 8, the first tick
-        windows = []
+        windows, cpu = [], []
         for _ in range(3):
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
+            t0, c0 = time.perf_counter(), time.process_time()
             for _ in range(10):
                 probe.step()
             torch.cuda.synchronize()
             windows.append((time.perf_counter() - t0) * 1e2)
+            cpu.append((time.process_time() - c0) * 1e2)
         print(f"{args.src}: serve {serve_ms:.3f} ms a tick; untraced "
-              f"windows {', '.join(f'{w:.3f}' for w in windows)} ms a tick",
-              flush=True)
+              f"windows {', '.join(f'{w:.3f}' for w in windows)} ms a tick "
+              f"(CPU {', '.join(f'{c:.3f}' for c in cpu)})", flush=True)
         rounds.append({"serve_ms_per_tick": serve_ms,
-                       "window_ms_per_tick": windows})
+                       "window_ms_per_tick": windows,
+                       "window_cpu_ms_per_tick": cpu})
         del out, sched, probe
         torch.cuda.empty_cache()
     print(json.dumps({"src": args.src, "granite_sorted": args.granite_sorted,

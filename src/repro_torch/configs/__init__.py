@@ -13,6 +13,10 @@ from ..models.config import ArchConfig
 
 _MODULES = {
     "qwen2-1.5b": "qwen2_1_5b",
+    "mistral-large-123b": "mistral_large_123b",
+    "gemma3-12b": "gemma3_12b",
+    "qwen3-14b": "qwen3_14b",
+    "mixtral-8x7b": "mixtral_8x7b",
     "granite-moe-1b-a400m": "granite_moe_1b",
 }
 

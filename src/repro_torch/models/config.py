@@ -3,9 +3,11 @@
 
 One dataclass describes every family; per-arch modules in
 `repro_torch.configs` instantiate it.  `layer_pattern` is the repeating
-block-kind period, e.g. ("attn",) for a homogeneous decoder.  The port
-runs attention decoders with a dense or a MoE feed-forward so far; the
-SSM type is kept so that every field of a configuration has its type.
+block-kind period, e.g. ("attn",) for a homogeneous decoder or
+("local",) * 5 + ("attn",) for gemma3's 5:1 sliding-window:global
+period.  The port runs decoders of "attn" and "local" blocks with a dense
+or a MoE feed-forward so far; the SSM type is kept so that every field
+of a configuration has its type.
 """
 
 from __future__ import annotations

@@ -1,12 +1,14 @@
 """Core model layers on PyTorch tensors (the port of
-`repro/models/layers.py`, dense-decoder subset): params are plain dicts.
+`repro/models/layers.py`, attention-decoder subset): params are plain
+dicts.
 
 Numerics follow the JAX package: RMSNorm scaling by `1 + scale`, rotary
 embeddings over interleaved pairs, grouped-query attention with optional
-QKV bias, SwiGLU MLPs.  Full-sequence attention is the chunked online
-softmax of `_flash_scan` (forward only), decode attention a plain masked
-softmax over the cache, or over the paged pool through the engine's
-`paged_attention` kernel.
+QKV bias and qk-norm, SwiGLU MLPs.  Full-sequence attention is the
+chunked online softmax of `_flash_scan` (forward only), or, for causal
+sliding-window ("local") blocks, the exact two-chunk `local_attention`;
+decode attention is a plain masked softmax over the cache (or its ring),
+or over the paged pool through the engine's `paged_attention` kernel.
 """
 
 from __future__ import annotations
@@ -204,6 +206,48 @@ def flash_attention(q, k, v, q_pos, kv_len, causal: bool = True,
 
 
 # --------------------------------------------------------------------------
+# Exact sliding-window attention: O(S * window) via two-chunk slices
+# --------------------------------------------------------------------------
+
+
+def local_attention(q, k, v, window: int) -> torch.Tensor:
+    """Causal sliding-window attention with chunk == window: each query
+    chunk attends (previous chunk, own chunk) only.  q (B, S, H, D); k, v
+    (B, S, KV, D).  Scores in f32, as the JAX function computes them; the
+    score tensor is (B, S / window, KV, G, window, 2 x window).  A prompt
+    no longer than the window is one chunk of S rows: the JAX function
+    pads it to the window, and the padded keys are masked from every
+    valid row, so the result is the same without the (window, 2 x window)
+    scores (34 GB at mixtral-8x7b's window of 4096 over 4 x 512)."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    c = window if s > window else s
+    nc = -(-s // c)
+    pad = nc * c - s
+    if pad:
+        q, k, v = (F.pad(x, (0, 0, 0, 0, 0, pad)) for x in (q, k, v))
+    qc = q.reshape(b, nc, c, kv, g, d).float() / math.sqrt(d)
+    kc = k.reshape(b, nc, c, kv, d)
+    vc = v.reshape(b, nc, c, kv, d)
+    # chunk n's previous chunk; chunk 0's is zeros (and masked)
+    prev = lambda x: F.pad(x, (0, 0) * (x.dim() - 2) + (1, 0))[:, :-1]
+    k2 = torch.cat([prev(kc), kc], dim=2).float()  # (B, nc, 2C, KV, D)
+    v2 = torch.cat([prev(vc), vc], dim=2).float()
+    srel = torch.einsum("bnqkgd,bnckd->bnkgqc", qc, k2)
+    q_idx = torch.arange(c, device=q.device)[:, None] + c  # in [prev|own]
+    k_idx = torch.arange(2 * c, device=q.device)[None, :]
+    first = torch.arange(nc, device=q.device) == 0       # no prev chunk
+    mask = (k_idx <= q_idx) & (q_idx - k_idx < window)
+    mask = mask[None] & ~(first[:, None, None] & (k_idx < c))
+    srel.masked_fill_(~mask[None, :, None, None], NEG_INF)
+    p = torch.softmax(srel, dim=-1)
+    del srel
+    o = torch.einsum("bnkgqc,bnckd->bnqkgd", p, v2)
+    return o.reshape(b, nc * c, h, d)[:, :s].to(q.dtype)
+
+
+# --------------------------------------------------------------------------
 # MLP
 # --------------------------------------------------------------------------
 
@@ -263,17 +307,27 @@ def attn_qkv(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
 
 def attention_block(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor, *,
                     window: int = 0) -> torch.Tensor:
-    """Self-attention over the full sequence (forward path)."""
+    """Self-attention over the full sequence (forward path): the exact
+    sliding window for a causal `window > 0`, the flash scan otherwise."""
     b, s, _ = x.shape
-    if window > 0 and cfg.is_causal:
-        raise NotImplementedError(
-            "sliding-window attention (layers.local_attention) is not "
-            "ported yet")
     q, k, v = attn_qkv(p, cfg, x, positions)
-    kv_len = torch.full((b,), s, dtype=torch.int32, device=x.device)
-    o = flash_attention(q, k, v, positions, kv_len, cfg.is_causal, window,
-                        min(512, s))
+    o = full_attention(cfg, q, k, v, positions, window)
     return dense(p["wo"], o.reshape(b, s, cfg.n_heads * cfg.head_dim_))
+
+
+def full_attention(cfg, q, k, v, positions, window: int, kv_len=None):
+    """Prompt attention of a block, as the JAX `attention_block` and
+    `_prefill_block` dispatch it: `local_attention` when the block has a
+    causal window (it reads no lengths: a right-padded slot's valid rows
+    see only earlier rows), else the flash scan over `kv_len` (B,)
+    valid keys (all S by default)."""
+    b, s = q.shape[0], q.shape[1]
+    if window > 0 and cfg.is_causal:
+        return local_attention(q, k, v, window)
+    if kv_len is None:
+        kv_len = torch.full((b,), s, dtype=torch.int32, device=q.device)
+    return flash_attention(q, k, v, positions, kv_len, cfg.is_causal, window,
+                           min(512, s))
 
 
 def cached_attention(p: dict, cfg, q: torch.Tensor, k_cache: torch.Tensor,

@@ -1,6 +1,6 @@
 """Model assembly for the attention decoder (the port of
-`repro/models/transformer.py`, block kind "attn", with a dense or a MoE
-feed-forward).
+`repro/models/transformer.py`, block kinds "attn" and "local", with a
+dense or a MoE feed-forward).
 
 Parameters keep the JAX pytree's layout: `stack["b{j}"]` leaves carry
 the leading period axis, `tail` is a list of blocks past the last whole
@@ -11,6 +11,10 @@ JAX `lax.scan` over periods is a Python loop over views of the stack.
   prefill()       forward + KV cache construction (ragged, paged)
   decode_step()   one token against the cache (vector clock `t`, an
                   `active` mask, block tables on the paged layout)
+
+A "local" block attends a sliding window of `cfg.window` keys: its
+cache is a per-slot ring of min(window, max_seq) rows on either layout
+(only "attn" blocks are paged), written at `t % size`.
 
 `prefill` and `decode_step` write the cache tensors in place and return
 the cache dict with its new clock.  Where the JAX package merges the old
@@ -35,12 +39,18 @@ from .config import ArchConfig
 from .layers import dense, mlp, rms_norm
 
 
+#: the block kinds the port runs so far
+KINDS = ("attn", "local")
+
+
 def _check_kinds(cfg: ArchConfig) -> None:
-    if (set(cfg.layer_pattern) != {"attn"} or cfg.embed_inputs
+    if (not set(cfg.layer_pattern) <= set(KINDS) or cfg.embed_inputs
             or cfg.prefix_tokens):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs token-input decoders of 'attn' "
-            f"blocks (dense or MoE feed-forward) only so far")
+            f"{cfg.name}: the port runs token-input decoders of 'attn' and "
+            f"'local' blocks (dense or MoE feed-forward) only so far; the "
+            f"'ssm' and 'rglru' kinds and embedding inputs are ROADMAP.md "
+            f"queue 1 item 4")
 
 
 def _ffn(p, cfg: ArchConfig, x):
@@ -53,6 +63,26 @@ def _ffn(p, cfg: ArchConfig, x):
 def _period_split(cfg: ArchConfig) -> tuple[int, int]:
     period = len(cfg.layer_pattern)
     return cfg.n_layers // period, cfg.n_layers % period
+
+
+def _blocks(cfg: ArchConfig, stack: dict, tail: list) -> list[tuple]:
+    """(kind, block) in layer order: each period's `b{j}` views, then the
+    tail, whose block t has the kind of the pattern's position t."""
+    n_periods, _ = _period_split(cfg)
+    return ([(kind, pp[f"b{j}"]) for pp in _periods(stack, n_periods)
+             for j, kind in enumerate(cfg.layer_pattern)]
+            + [(cfg.layer_pattern[t], blk) for t, blk in enumerate(tail)])
+
+
+def _layers(params, cfg: ArchConfig, cache: dict) -> list[tuple]:
+    """(kind, block params, block cache) in layer order."""
+    return [(kind, p, c) for (kind, p), (_, c) in zip(
+        _blocks(cfg, params["stack"], params["tail"]),
+        _blocks(cfg, cache["slots"], cache["tail"]), strict=True)]
+
+
+def _window(cfg: ArchConfig, kind: str) -> int:
+    return cfg.window if kind == "local" else 0
 
 
 # --------------------------------------------------------------------------
@@ -120,12 +150,12 @@ def _periods(stack: dict, n_periods: int) -> list[dict]:
 # --------------------------------------------------------------------------
 
 
-def _block_apply(p, cfg: ArchConfig, x, positions):
+def _block_apply(kind: str, p, cfg: ArchConfig, x, positions):
     """One block of the full-sequence path: (x, MoE aux loss or None)."""
     norm = lambda scale, h: rms_norm(scale, h, cfg.norm_eps,
                                      cast_early=cfg.norm_cast_early)
     x = x + layers.attention_block(p["attn"], cfg, norm(p["norm1"], x),
-                                   positions)
+                                   positions, window=_window(cfg, kind))
     h, aux = _ffn(p, cfg, norm(p["norm2"], x))
     return x + h, aux
 
@@ -148,12 +178,9 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
     x = params["embed"].to(compute_dtype)[tokens.long()]
     b, s = tokens.shape
     positions = _positions(b, s, x.device)
-    n_periods, _ = _period_split(cfg)
-    blocks = [pp[f"b{j}"] for pp in _periods(params["stack"], n_periods)
-              for j in range(len(cfg.layer_pattern))] + list(params["tail"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in blocks:
-        x, a = _block_apply(p, cfg, x, positions)
+    for kind, p in _blocks(cfg, params["stack"], params["tail"]):
+        x, a = _block_apply(kind, p, cfg, x, positions)
         if a is not None:
             aux = aux + a
     return _logits_out(params, cfg, x), aux
@@ -167,20 +194,22 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
 @dataclasses.dataclass(frozen=True)
 class CacheSpec:
     """Static description of the per-block KV cache.  `page_size` and
-    `n_pages` select the paged layout: KV moves from per-slot
-    `(B, max_seq, ...)` regions into one pool of `n_pages` fixed pages
-    addressed through per-slot block tables."""
+    `n_pages` select the paged layout: full-attention KV moves from
+    per-slot `(B, max_seq, ...)` regions into one pool of `n_pages` fixed
+    pages addressed through per-slot block tables; sliding-window rings
+    keep their slot layout (they are O(window) already)."""
     max_seq: int
     batch: int
     page_size: int | None = None
     n_pages: int | None = None
 
 
-def _slot_cache(cfg: ArchConfig, spec: CacheSpec, lead, dtype, device) -> dict:
+def _slot_cache(kind: str, cfg: ArchConfig, spec: CacheSpec, lead, dtype,
+                device) -> dict:
     kv, hd = cfg.n_kv, cfg.head_dim_
     quant = dtype == torch.int8
     zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
-    if spec.page_size:
+    if kind == "attn" and spec.page_size:
         if not spec.n_pages:
             raise ValueError("paged CacheSpec needs n_pages")
         # physical page p of every layer lives in that layer's own pool at
@@ -197,7 +226,9 @@ def _slot_cache(cfg: ArchConfig, spec: CacheSpec, lead, dtype, device) -> dict:
             c["k_scale_pages"] = zeros(rows, torch.float32)[cut]
             c["v_scale_pages"] = zeros(rows, torch.float32)[cut]
         return c
-    rows = (*lead, spec.batch, spec.max_seq, kv)
+    # a "local" block keeps a ring of its window's rows
+    size = spec.max_seq if kind == "attn" else min(cfg.window, spec.max_seq)
+    rows = (*lead, spec.batch, size, kv)
     c = {"k": zeros((*rows, hd), dtype), "v": zeros((*rows, hd), dtype)}
     if quant:
         # one f32 scale per stored row per KV head, beside the int8 rows
@@ -210,21 +241,23 @@ def init_cache(cfg: ArchConfig, spec: CacheSpec, dtype=torch.bfloat16,
                device=None) -> dict:
     """{"t": (B,) int32 per-slot clock, "slots": {"b{j}": {...}} with the
     leading period axis, "tail": [...]}.  Contiguous: k/v (B, max_seq,
-    KV, hd) per layer; paged: k_pages/v_pages (n_pages, page, KV, hd).
-    `dtype=torch.int8` selects the int8 codec: the rows are int8 and
-    k_scale/v_scale (B, max_seq, KV), or k_scale_pages/v_scale_pages
-    (n_pages, page, KV), hold their f32 scales."""
+    KV, hd) per "attn" layer; paged: k_pages/v_pages (n_pages, page, KV,
+    hd) per "attn" layer; a "local" layer's ring k/v (B, min(window,
+    max_seq), KV, hd) on either layout.  `dtype=torch.int8` selects the
+    int8 codec for both kinds: the rows are int8 and k_scale/v_scale
+    (B, rows, KV), or k_scale_pages/v_scale_pages (n_pages, page, KV),
+    hold their f32 scales."""
     _check_kinds(cfg)
     if not (dtype.is_floating_point or dtype == torch.int8):
         raise ValueError(f"cache dtype {dtype}: a float dtype or int8 (the "
                          f"KV codec)")
     n_periods, n_tail = _period_split(cfg)
     return {"t": torch.zeros(spec.batch, dtype=torch.int32, device=device),
-            "slots": {f"b{j}": _slot_cache(cfg, spec, (n_periods,), dtype,
-                                           device)
-                      for j in range(len(cfg.layer_pattern))},
-            "tail": [_slot_cache(cfg, spec, (), dtype, device)
-                     for _ in range(n_tail)]}
+            "slots": {f"b{j}": _slot_cache(kind, cfg, spec, (n_periods,),
+                                           dtype, device)
+                      for j, kind in enumerate(cfg.layer_pattern)},
+            "tail": [_slot_cache(cfg.layer_pattern[t], cfg, spec, (), dtype,
+                                 device) for t in range(n_tail)]}
 
 
 def _store(c: dict, k: torch.Tensor, v: torch.Tensor, paged: bool) -> dict:
@@ -247,7 +280,9 @@ def _decode_block(p, cfg: ArchConfig, x, t, c: dict, active=None,
     active slot at its own clock position, then attends its valid
     prefix.  Paged blocks (`"k_pages" in c`) resolve the write position
     through `block_tables` (B, n_bt); inactive slots and table holes
-    write nowhere."""
+    write nowhere.  A contiguous cache shorter than the clock (a "local"
+    block's ring) is written at `t % size` and attends its last `size`
+    rows."""
     pos = t[:, None]
     q, k_new, v_new = layers.attn_qkv(p["attn"], cfg,
                                       rms_norm(p["norm1"], x, cfg.norm_eps), pos)
@@ -292,39 +327,58 @@ def decode_step(params, cfg: ArchConfig, cache: dict, token: torch.Tensor, *,
     table."""
     t = cache["t"]
     x = params["embed"].to(compute_dtype)[token.long()]
-    n_periods, _ = _period_split(cfg)
-    for i, pp in enumerate(_periods(params["stack"], n_periods)):
-        cc = _index(cache["slots"], i)
-        for j in range(len(cfg.layer_pattern)):
-            x = _decode_block(pp[f"b{j}"], cfg, x, t, cc[f"b{j}"], active,
-                              block_tables)
-    for p_tail, c_tail in zip(params["tail"], cache["tail"], strict=True):
-        x = _decode_block(p_tail, cfg, x, t, c_tail, active, block_tables)
+    for _, p, c in _layers(params, cfg, cache):
+        x = _decode_block(p, cfg, x, t, c, active, block_tables)
     new_t = t + 1 if active is None else torch.where(active, t + 1, t)
     return _logits_out(params, cfg, x), {**cache, "t": new_t}
 
 
-def _contiguous_prefill_write(c: dict, k, v, lengths, update_mask) -> None:
-    """Write the prompt rows (on an int8 cache their codes and scales)
-    into a contiguous cache, in place: rows [0, S) when the cache holds
-    them, else the last rows rolled to their ring positions.  Slots
-    outside `update_mask` are not written (the JAX package merges their
-    old rows back)."""
+def _ring_place(k: torch.Tensor, lengths: torch.Tensor,
+                size: int) -> torch.Tensor:
+    """Per-slot ring placement: each slot's last `size` valid rows at
+    their ring positions (pos % size).  k (B, S, ...): rows (KV, hd) or
+    the int8 codec's scales (KV,).  A slot shorter than the ring keeps
+    rows [0, L) at their own positions (rows >= L are pad rows, masked by
+    the slot's clock at decode)."""
     s = k.shape[1]
+    r = torch.arange(size, device=k.device)[None, :]
+    ll = lengths.long()[:, None]
+    pos = torch.where(ll >= size, ll - size + torch.remainder(r - ll, size),
+                      r).clamp(0, s - 1)
+    idx = pos.reshape(pos.shape + (1,) * (k.dim() - 2)).expand(
+        -1, -1, *k.shape[2:])
+    return torch.gather(k, 1, idx)
+
+
+def _contiguous_prefill_write(c: dict, store: dict, lengths, update_mask,
+                              live_only: bool = False) -> None:
+    """Write the prompt rows `store` (`_store`: on an int8 cache their
+    codes and scales) into a contiguous cache, in place: rows [0, S) when
+    the cache holds them; else a ring: the last rows rolled to their ring
+    positions, or, for a ragged batch, each slot's own last rows
+    (`_ring_place`).  Slots outside `update_mask` are not written (the
+    JAX package merges their old rows back); with `live_only` neither are
+    the rows past a slot's length (the JAX chunk continuation writes a
+    slot's rows one by one and skips the pad rows)."""
+    s = store["k"].shape[1]
     size = c["k"].shape[1]
-    if size < s and lengths is not None:
-        raise NotImplementedError(
-            f"a ragged prompt of width {s} longer than the cache ({size} "
-            f"rows) is not ported yet")
-    for name, val in _store(c, k, v, False).items():
+    keep = None if update_mask is None else update_mask[:, None]
+    if live_only:
+        r = torch.arange(min(size, s), device=lengths.device)[None, :]
+        ll = lengths.long()[:, None]
+        live = (r < ll) | (ll >= size)
+        keep = live if keep is None else keep & live
+    for name, val in store.items():
         dst = c[name]
         if size >= s:
             new, view = val, dst[:, :s]
-        else:  # ring: the last `size` rows, rolled to pos % size
+        elif lengths is None:  # the last `size` rows, rolled to pos % size
             new, view = torch.roll(val[:, -size:], s % size, dims=1), dst
-        if update_mask is not None:
-            keep = update_mask.reshape((-1,) + (1,) * (val.dim() - 1))
-            new = torch.where(keep, new.to(dst.dtype), view)
+        else:
+            new, view = _ring_place(val, lengths, size), dst
+        if keep is not None:
+            mask = keep.reshape(keep.shape + (1,) * (val.dim() - 2))
+            new = torch.where(mask, new.to(dst.dtype), view)
         view.copy_(new)
 
 
@@ -384,9 +438,9 @@ def _paged_prefill_attn(cfg: ArchConfig, q, k, v, c: dict, positions,
                                   min(512, h0 + s))
 
 
-def _prefill_block(p, cfg: ArchConfig, x, positions, c: dict, lengths=None,
-                   update_mask=None, block_tables=None, hist_len=None,
-                   hist_pages: int = 0):
+def _prefill_block(kind: str, p, cfg: ArchConfig, x, positions, c: dict,
+                   lengths=None, update_mask=None, block_tables=None,
+                   hist_len=None, hist_pages: int = 0):
     b, s = x.shape[0], x.shape[1]
     xin = rms_norm(p["norm1"], x, cfg.norm_eps)
     q, k, v = layers.attn_qkv(p["attn"], cfg, xin, positions)
@@ -397,11 +451,19 @@ def _prefill_block(p, cfg: ArchConfig, x, positions, c: dict, lengths=None,
                                 update_mask, block_tables, hist_len,
                                 hist_pages)
     else:
-        _contiguous_prefill_write(c, k, v, lengths, update_mask)
-        kv_len = (torch.full((b,), s, dtype=torch.int32, device=x.device)
-                  if lengths is None else lengths)
-        o = layers.flash_attention(q, k, v, positions, kv_len, cfg.is_causal,
-                                   0, min(512, s))
+        store = _store(c, k, v, False)
+        _contiguous_prefill_write(c, store, lengths, update_mask,
+                                  live_only=hist_len is not None)
+        if hist_len is not None:
+            # a ring block in a paged prefill (`prefill` checked that no
+            # slot has history): the JAX package runs its chunk
+            # continuation, each query over the ring as stored, so attend
+            # the rows as stored (int8: their codes times their scales)
+            k, v = ((kv_dequantize(store[n], store[f"{n}_scale"])
+                     if f"{n}_scale" in store else store[n].to(c[n].dtype))
+                    for n in ("k", "v"))
+        o = layers.full_attention(cfg, q, k, v, positions,
+                                  _window(cfg, kind), lengths)
     x = x + dense(p["attn"]["wo"], o.reshape(b, s, cfg.n_heads * cfg.head_dim_))
     return x + _ffn(p, cfg, rms_norm(p["norm2"], x, cfg.norm_eps))[0]
 
@@ -423,8 +485,15 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, cache: dict, *,
     prefix pages: `tokens` then holds only the suffix, queries take
     absolute positions `hist_len + i`, and the clock counts the history
     too.  `hist_pages` bounds the history gather: max(hist_len) // page.
-    `hist_len` on the contiguous layout (chunked prefill) is not ported
-    yet."""
+    A history on a contiguous block (chunked prefill; in a paged
+    prefill, a "local" block's ring) is not ported yet: only pure "attn"
+    patterns share prefixes, so a mixed pattern's paged prefill passes
+    zeros, and its ring blocks then attend their rows as stored, as the
+    JAX package's chunk continuation reads them.
+
+    A "local" block attends its prompt with `layers.local_attention` and
+    keeps its last `size` rows in its ring (`_ring_place` per slot for a
+    ragged batch)."""
     _check_kinds(cfg)
     if block_tables is not None and lengths is None:
         raise NotImplementedError("paged prefill is ragged-only (pass lengths)")
@@ -439,6 +508,12 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, cache: dict, *,
         raise ValueError("hist_pages needs hist_len")
     if hist_pages and block_tables is None:
         raise ValueError("hist_pages needs block_tables (paged cache)")
+    layer_list = _layers(params, cfg, cache)
+    if (hist_len is not None and any("k" in c for _, _, c in layer_list)
+            and bool(hist_len.any())):
+        raise NotImplementedError(
+            "a history on a ring block is chunked prefill, which is not "
+            "ported yet (ROADMAP.md queue 1 item 5)")
     if block_tables is not None and hist_pages > block_tables.shape[1]:
         raise ValueError(f"hist_pages {hist_pages} exceeds block table "
                          f"span {block_tables.shape[1]}")
@@ -447,17 +522,11 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, cache: dict, *,
     positions = _positions(b, s, x.device)
     if hist_len is not None:
         positions = positions + hist_len[:, None].to(positions.dtype)
-    n_periods, _ = _period_split(cfg)
     kw = {"lengths": lengths, "update_mask": update_mask,
           "block_tables": block_tables, "hist_len": hist_len,
           "hist_pages": hist_pages}
-    for i, pp in enumerate(_periods(params["stack"], n_periods)):
-        cc = _index(cache["slots"], i)
-        for j in range(len(cfg.layer_pattern)):
-            x = _prefill_block(pp[f"b{j}"], cfg, x, positions, cc[f"b{j}"],
-                               **kw)
-    for p_tail, c_tail in zip(params["tail"], cache["tail"], strict=True):
-        x = _prefill_block(p_tail, cfg, x, positions, c_tail, **kw)
+    for kind, p, c in layer_list:
+        x = _prefill_block(kind, p, cfg, x, positions, c, **kw)
     if lengths is None:
         logits = _logits_out(params, cfg, x[:, -1:])
         new_t = torch.full((b,), s, dtype=torch.int32, device=x.device)

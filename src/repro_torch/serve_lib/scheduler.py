@@ -15,12 +15,14 @@ persistent cache, contiguous or paged:
   evict   EOS / max-tokens frees the slot at once for the next queued
           request; a slot's clock masks its stale rows.
 
-On the paged layout (`cache_layout="paged"`) the host plane `PagedKV`
-builds each slot's block table at admission, reuses full prompt pages
-that an earlier request already prefilled (prefix sharing: only the
-suffix is prefilled, bucketed by the number of shared pages), allocates
-the decode frontier page before each step writes it, and releases the
-slot's pages on eviction.  Decode attention then runs the engine's
+On the paged layout (`cache_layout="paged"`, on an arch with "attn"
+layers; a sliding-window-only arch runs the contiguous path, as in the
+JAX package) the host plane `PagedKV` builds each slot's block table at
+admission, reuses full prompt pages that an earlier request already
+prefilled (prefix sharing, on pure "attn" archs: only the suffix is
+prefilled, bucketed by the number of shared pages), allocates the decode
+frontier page before each step writes it, and releases the slot's pages
+on eviction.  Decode attention then runs the engine's
 `paged_attention` kernel.  An int8 KV cache (`cache_dtype="int8"`) keeps
 each layer's scale leaves in the same cache dict as its rows, placed by
 the same indices, so admission, eviction and prefix sharing treat them
@@ -120,8 +122,13 @@ class Scheduler:
         self.engine = (engine if engine is not None
                        else serve_lib.warm_start_engine(scfg))
         self.cache = serve_lib.init_cache(cfg, scfg)
+        # the paged plane is live only when the arch has full-attention
+        # layers to page: on a sliding-window-only arch a paged
+        # ServeConfig builds the contiguous cache (rings) and runs the
+        # contiguous path, as in the JAX package.  Prefix sharing needs
+        # every layer's prompt rows in shareable pages: pure "attn" only.
         self.paged: PagedKV | None = None
-        if scfg.cache_layout == "paged":
+        if scfg.cache_layout == "paged" and "attn" in cfg.layer_pattern:
             self.paged = PagedKV(
                 batch=scfg.batch, max_seq=scfg.max_seq,
                 page_size=scfg.page_size, n_pages=scfg.resolved_n_pages,

@@ -426,7 +426,8 @@ def test_engine_paged_attention_memo_and_plan_as_in_jax_engine():
 
 @pytest.mark.parametrize("b,kv,n_bt,want", [
     (8, 2, 51, 8),     # qwen2-1.5b's decode tick: 16 pairs -> 128 blocks
-    (8, 8, 51, 2),     # granite-moe-1b-a400m's: 64 pairs -> 128 blocks
+    (8, 8, 51, 4),     # granite-moe-1b-a400m's, qwen3-14b's and
+                       # gemma3-12b's: 64 pairs -> 256 blocks
     (2, 2, 2, 2),      # SMOKE (2 KV heads) at the launcher's --batch 2,
                        # pages of 8 and 8 + 4 tokens: capped by n_bt
     (4, 2, 13, 8),     # SMOKE at 4 slots, a longer table
@@ -444,11 +445,12 @@ def test_splits_for_bounds():
                 assert 1 <= c <= paged_attention.MAX_SPLITS
                 assert c & (c - 1) == 0                    # a power of two
                 assert c <= max(1, n_bt)
-                assert c == 1 or c * b * kv <= paged_attention.SMS
-                # the largest such power of two
-                twice = 2 * c
-                assert not (twice <= min(paged_attention.MAX_SPLITS, n_bt)
-                            and twice * b * kv <= paged_attention.SMS)
+                cap = min(paged_attention.MAX_SPLITS, n_bt)
+                # the least power of two that fills every SM once, or
+                # the largest one under the cap
+                assert (c * b * kv >= paged_attention.SMS
+                        or 2 * c > cap)
+                assert c == 1 or (c // 2) * b * kv < paged_attention.SMS
 
 
 #: where the kernel states the page-range rule that `_page_range` mirrors

@@ -30,7 +30,9 @@ and its repeats bit for bit.
 The paged kernel is held over float and int8 pools at cluster sizes 1,
 the wrapper's and 8, at small tables, qwen2-1.5b's decode tick and
 granite's (G = 2, D = 64), its kv_len 0 rows exactly zero and its
-repeats bit for bit.
+repeats bit for bit.  The SMOKE configurations of qwen3-14b,
+mistral-large-123b, gemma3-12b (also under --quantize) and mixtral-8x7b
+(both MoE dispatches) give the CPU plain run's tokens on the card.
 """
 
 import dataclasses
@@ -1042,6 +1044,58 @@ def test_sparse_int8_launcher_on_the_card_serves_the_cpus_tokens(cuda, trace):
     card = out["scheduler"].completions
     assert {u: c.tokens.tolist() for u, c in done.items()} == {
         u: c.tokens.tolist() for u, c in card.items()}
+
+
+#: the SMOKE configurations of qwen3-14b, mistral-large-123b, gemma3-12b
+#: (also under --quantize) and mixtral-8x7b (both MoE dispatches)
+NEW_SMOKE = [("qwen3-14b", None), ("mistral-large-123b", None),
+             ("gemma3-12b", None), ("gemma3-12b", "quantize"),
+             ("mixtral-8x7b", "einsum"), ("mixtral-8x7b", "sort")]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("arch,posture", NEW_SMOKE,
+                         ids=[f"{a}-{p}" if p else a for a, p in NEW_SMOKE])
+def test_new_smoke_archs_tokens_on_the_card_equal_the_cpu(cuda, arch,
+                                                          posture):
+    """SMOKE f32: the card's greedy tokens (the hand-written kernels) equal
+    the CPU plain run's, static (2 x (40 + 6), past the 16-row windows)
+    and through the Scheduler, paged and contiguous; a paged ServeConfig
+    builds the paged plane only where the arch has "attn" layers."""
+    cfg = get_config(arch, smoke=True)
+    if posture in ("einsum", "sort"):
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, impl=posture))
+    quant = posture == "quantize"
+    params = T.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    if quant:
+        params = quantize_params(params)
+    kw = dict(compute_dtype="float32", quantize=quant,
+              cache_dtype="int8" if quant else "float32")
+    rng = np.random.default_rng(3)
+    spec = [(uid, rng.integers(0, cfg.vocab, 5 + 7 * uid).astype(np.int32),
+             3 + uid % 4) for uid in range(6)]
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40)).astype(
+        np.int32))
+
+    def run(device, backend, layout):
+        p = _to(params, device)
+        if layout is None:
+            return serve.generate(p, cfg, serve.ServeConfig(
+                max_seq=47, batch=2, kernel_backend=backend, device=device,
+                **kw), prompt.to(device), 6).cpu().tolist()
+        sched = Scheduler(p, cfg, serve.ServeConfig(
+            max_seq=48, batch=2, kernel_backend=backend, device=device,
+            cache_layout=layout, page_size=8, **kw))
+        assert (layout == "paged" and "attn" in cfg.layer_pattern) == (
+            sched.paged is not None)
+        done = sched.run([Request(uid=u, prompt=x, max_new_tokens=g)
+                          for u, x, g in spec])
+        return {u: c.tokens.tolist() for u, c in done.items()}
+
+    for layout in (None, "paged", "contiguous"):
+        assert run("cuda", "hopper", layout) == run("cpu", "torch-ref",
+                                                    layout), layout
 
 
 def _to(tree, dev):

@@ -14,7 +14,7 @@ from repro.engine import use_engine as jax_use_engine
 from repro.models import transformer as JT
 from repro.serve_lib import serve as jax_serve
 from repro_torch.bridge import params_from_numpy
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.engine import use_engine
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import transformer as T
@@ -37,12 +37,13 @@ def _tokens(b, s, vocab, seed=1):
     return np.random.default_rng(seed).integers(0, vocab, (b, s)).astype(np.int32)
 
 
-def test_config_is_a_copy_of_the_reference():
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_config_is_a_copy_of_the_reference(arch):
     import dataclasses
 
     for smoke in (False, True):
-        assert (dataclasses.asdict(get_config(ARCH, smoke))
-                == dataclasses.asdict(jax_get_config(ARCH, smoke)))
+        assert (dataclasses.asdict(get_config(arch, smoke))
+                == dataclasses.asdict(jax_get_config(arch, smoke)))
 
 
 def test_bridge_round_trips_every_leaf(weights):
