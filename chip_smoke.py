@@ -269,15 +269,30 @@ GEMM_PICK_LIMIT = 1.25
 #: 768); 512 and 6144 are held out of the cost model's fit
 GEMM_MAIN_M = (4, 8, 512, 2048, 6144)
 LOGIT_LIMITS = {"rel_l2": 0.035, "rel_max": 0.035}
+#: where two bf16 runs of a model differ by more than LOGIT_LIMITS on
+#: their own (recurrentgemma-2b: through 26 layers the plain bf16 `@`
+#: and the plain versions differ by 4.3e-2 rel-L2, growing with depth
+#: from 1.1e-2 at 3 layers; PERF.md, PR 33), the kernels' prefill logits
+#: are held against the f32 model (f32 weights and compute, the plain
+#: versions): no farther from it than this times the plain versions' bf16
+#: logits are
+F32_ANCHOR_LIMIT = 1.15
 KERNELS = ("redas_gemm", "paged_attention", "flash_attention", "grouped_gemm",
            "quant_gemm", "sparse_gemm")
 #: the paged serve: 24 requests over 8 slots (prompt x new tokens * count)
 SLOTS, PAGE, BUCKET = 8, 16, 16
 TRACE = "768x32*4,512x64*4,256x16*8,64x48*8"
+#: the qwen2 posture serves' paged trace (int8 weights, --quantize,
+#: --sparsity, sparse x int8: phases 13, 15, 18-23), cut from TRACE's 24
+#: requests and 110 ticks to 12 requests and 31 ticks to make room in the
+#: run's time: the same max_seq (the same pools), 8 slots admitted at
+#: once whose 512x24 requests outlive the 21 probe ticks of
+#: `_replay_and_trace`, then 4 admitted into the freed slots
+POSTURE_TRACE = "768x32*4,512x24*4,256x8*4"
 SERVE_ARGS = ["--arch", ARCH, "--kernel-backend", "hopper", "--batch",
               str(SLOTS), "--cache-layout", "paged", "--page-size", str(PAGE),
               "--prefill-bucket", str(BUCKET), "--seed", str(SEED),
-              "--trace", TRACE]
+              "--trace", POSTURE_TRACE]
 #: the paged kernel's main-path shape: the serve's decode tick (max_seq
 #: 801 -> 51 pages a slot, 510 in the pool) at these kv_len
 PAGED_LENS = (800, 0, 1, 16, 17, 400, 783, 255)
@@ -1355,11 +1370,13 @@ def _untraced_ticks(sched, n: int) -> float:
 
 
 def _replay_and_trace(params, cfg, scfg, eng, trace, tokens: dict,
-                      label: str, match: tuple = ()) -> tuple[int, dict]:
+                      label: str, match: tuple = (),
+                      ticks: int = 10) -> tuple[int, dict]:
     """The served trace again through the same engine (nothing new to
-    plan, the same tokens), then 10 decode ticks untraced and 10 traced
-    (all 8 slots decoding: the first request finishes after 32 tokens).
-    Returns the new plan misses and the trace's summary."""
+    plan, the same tokens), then `ticks` decode ticks untraced and as
+    many traced (all 8 slots decoding: the trace's first 8 requests
+    outlive 2 x `ticks` + 1 ticks).  Returns the new plan misses and the
+    trace's summary."""
     misses = eng.plan.misses
     again = Scheduler(params, cfg, scfg, engine=eng, prefill_bucket=BUCKET)
     again.run(launch_serve.trace_requests(cfg, trace, SEED))
@@ -1375,10 +1392,10 @@ def _replay_and_trace(params, cfg, scfg, eng, trace, tokens: dict,
     for r in launch_serve.trace_requests(cfg, trace, SEED):
         probe.submit(r)
     probe.step()                                   # admit 8, first tick
-    untraced = _untraced_ticks(probe, 10)
+    untraced = _untraced_ticks(probe, ticks)
     before = (redas_gemm.reduce_launches, grouped_gemm.launches,
               grouped_gemm.wgmma_launches)
-    prof = _profile(lambda: _untraced_ticks(probe, 10), match)
+    prof = _profile(lambda: _untraced_ticks(probe, ticks), match)
     prof.pop("result")
     prof["reduce_launches"] = redas_gemm.reduce_launches - before[0]
     prof["grouped_launches"] = grouped_gemm.launches - before[1]
@@ -1388,10 +1405,10 @@ def _replay_and_trace(params, cfg, scfg, eng, trace, tokens: dict,
                                       / untraced)
     check(probe.stats["admitted"] == SLOTS and probe.stats["finished"] == 0,
           f"the traced ticks were not pure decode: {probe.stats}")
-    print(f"trace of 10 {label}decode ticks: wall {prof['wall_ms']:.2f} ms, "
+    print(f"trace of {ticks} {label}decode ticks: wall {prof['wall_ms']:.2f} ms, "
           f"device busy {prof['device_busy_ms']:.2f} ms, idle share "
           f"{prof['idle_share']:.2f}; against the untraced {untraced:.2f} ms "
-          f"of the 10 ticks before, idle share "
+          f"of the {ticks} ticks before, idle share "
           f"{prof['idle_share_untraced']:.2f}")
     for k in prof["top"]:
         print(f"    {k['ms']:9.3f} ms {k['count']:5d} x {k['name']}")
@@ -1513,7 +1530,8 @@ def _traces(out: dict, prefill_ms: float, decode_ms: float) -> dict:
     def run(n):
         return lambda: serve_lib.generate(out["params"], out["cfg"],
                                           out["serve_config"], out["prompt"],
-                                          n, engine=out["engine"])
+                                          n, embeds=out.get("embeds"),
+                                          engine=out["engine"])
 
     prefill = _profile(run(1), GEMM_KERNELS)
     before = redas_gemm.reduce_launches
@@ -1548,10 +1566,13 @@ def _traces(out: dict, prefill_ms: float, decode_ms: float) -> dict:
             "trace_decode": decode, "trace_gemm": gemm}
 
 
-def prefill_gaps(label: str, params, cfg, prompt, max_seq: int) -> dict:
+def prefill_gaps(label: str, params, cfg, prompt, max_seq: int,
+                 embeds=None, f32_anchor: bool = False) -> dict:
     """Prefill logits of `hopper` against `torch-ref` on the same weights
     and prompt (and, for scale, plain bf16 `@` against `torch-ref`),
-    within LOGIT_LIMITS."""
+    within LOGIT_LIMITS; with `f32_anchor`, both bf16 runs against the
+    f32 model instead (the weights cast to f32, f32 compute, `torch-ref`),
+    the kernels' gap within F32_ANCHOR_LIMIT x the plain versions'."""
     dev = prompt.device
     spec = T.CacheSpec(max_seq, prompt.shape[0])
 
@@ -1559,9 +1580,11 @@ def prefill_gaps(label: str, params, cfg, prompt, max_seq: int) -> dict:
         cache = T.init_cache(cfg, spec, dtype=torch.bfloat16, device=dev)
         with torch.inference_mode():
             if backend is None:  # plain bf16 `@`, no engine
-                return T.prefill(params, cfg, prompt, cache)[0]
+                return T.prefill(params, cfg, prompt, cache,
+                                 embeds=embeds)[0]
             with use_engine(Engine(backend=backend)):
-                return T.prefill(params, cfg, prompt, cache)[0]
+                return T.prefill(params, cfg, prompt, cache,
+                                 embeds=embeds)[0]
 
     ref_logits, hop_logits = run_prefill("torch-ref"), run_prefill("hopper")
     lib_logits = run_prefill(None)
@@ -1570,18 +1593,40 @@ def prefill_gaps(label: str, params, cfg, prompt, max_seq: int) -> dict:
     hop_lib_equal = torch.equal(hop_logits, lib_logits)
     print(f"{label}: prefill logits, hopper vs torch-ref on the card: "
           f"rel-L2 {gap['rel_l2']:.4e}, max|diff|/max|ref| {gap['rel_max']:.4e}, "
-          f"argmax agreement {gap['argmax_agreement']:.2f} (limits {LOGIT_LIMITS}); "
+          f"argmax agreement {gap['argmax_agreement']:.2f} (limits {LOGIT_LIMITS}"
+          f"{', not gated: held to the f32 model' if f32_anchor else ''}); "
           f"for scale, plain bf16 @ vs torch-ref: rel-L2 {lib_gap['rel_l2']:.4e}, "
           f"max {lib_gap['rel_max']:.4e}; hopper and plain bf16 @ logits "
           f"{'bitwise equal' if hop_lib_equal else 'differ'}")
     check(all(math.isfinite(v) for v in (gap["rel_l2"], gap["rel_max"])),
           "non-finite logits")
-    check(gap["rel_l2"] <= LOGIT_LIMITS["rel_l2"]
-          and gap["rel_max"] <= LOGIT_LIMITS["rel_max"], f"logit gap {gap}")
+    out = {"prefill_logits": gap, "plain_bf16_matmul_logits": lib_gap,
+           "hopper_equals_plain_bf16_matmul": hop_lib_equal,
+           "limits": LOGIT_LIMITS}
+    if f32_anchor:
+        cache = T.init_cache(cfg, spec, dtype=torch.float32, device=dev)
+        f32 = _to(params, torch.float32)
+        with torch.inference_mode(), use_engine(Engine(backend="torch-ref")):
+            exact = T.prefill(f32, cfg, prompt, cache, embeds=embeds,
+                              compute_dtype=torch.float32)[0]
+        del f32, cache
+        out["hopper_vs_f32"] = _logit_gap(hop_logits, exact)
+        out["plain_vs_f32"] = _logit_gap(ref_logits, exact)
+        out["f32_ratio"] = (out["hopper_vs_f32"]["rel_l2"]
+                            / out["plain_vs_f32"]["rel_l2"])
+        print(f"{label}: against the f32 model, hopper's bf16 prefill "
+              f"logits rel-L2 {out['hopper_vs_f32']['rel_l2']:.4e}, the "
+              f"plain versions' {out['plain_vs_f32']['rel_l2']:.4e}: ratio "
+              f"{out['f32_ratio']:.3f} (limit {F32_ANCHOR_LIMIT})")
+        check(out["f32_ratio"] <= F32_ANCHOR_LIMIT,
+              f"{label}: the kernels' logits are {out['f32_ratio']:.3f}x as "
+              f"far from the f32 model as the plain versions'")
+    else:
+        check(gap["rel_l2"] <= LOGIT_LIMITS["rel_l2"]
+              and gap["rel_max"] <= LOGIT_LIMITS["rel_max"],
+              f"logit gap {gap}")
     check(gap["top_within_bound"], f"top token outside the bound: {gap}")
-    return {"prefill_logits": gap, "plain_bf16_matmul_logits": lib_gap,
-            "hopper_equals_plain_bf16_matmul": hop_lib_equal,
-            "limits": LOGIT_LIMITS}
+    return out
 
 
 def phase_parity(cfg, served: dict) -> None:
@@ -1939,7 +1984,7 @@ def phase_int8_paged(cfg, qparams) -> None:
     quantize=True (bf16 cache): launch counts, a second pass, a device
     trace of 10 decode ticks, and one decode tick's logits against
     "torch-ref-int8"."""
-    trace = launch_serve.parse_trace(TRACE)
+    trace = launch_serve.parse_trace(POSTURE_TRACE)
     scfg = serve_lib.ServeConfig(
         max_seq=max(p + g for p, g in trace) + 1, batch=SLOTS,
         compute_dtype="bfloat16", cache_dtype="bfloat16", quantize=True,
@@ -1996,7 +2041,7 @@ def phase_int8_paged(cfg, qparams) -> None:
           f"{gap['argmax_agreement']:.2f} (limit rel-L2 "
           f"{LOGIT_LIMITS['rel_l2']}; the paged kernel sums in another order)")
     REPORT["int8_paged"] = {
-        "trace": TRACE, "slots": SLOTS, "seconds": seconds,
+        "trace": POSTURE_TRACE, "slots": SLOTS, "seconds": seconds,
         "tokens_per_s": n_tok / seconds, "tokens": n_tok,
         "decode_ticks": ticks, "decode_ms_per_tick": tick_ms,
         "prefill_calls": calls, "prefill_widths": sorted(st["prefill_widths"]),
@@ -2149,7 +2194,8 @@ def _decode_tick_gap(params, cfg, scfg, eng, trace,
     frontier (on a paged plane, with its next page ensured).  Both ticks
     start from the same state: decode_step writes only each slot's row at
     its clock (the second tick overwrites the first's) and returns the
-    advanced clock in a new dict, leaving the cache as it was.  Each
+    advanced clock in a new dict, and a recurrent block's state, which
+    a tick updates in place, is restored before each tick.  Each
     tick's kernel launches are kept.  For a MoE model the kernels' tick
     runs twice: free (its routers' top-k sets that differ from the plain
     tick's are counted) and on the plain tick's expert choices
@@ -2167,7 +2213,13 @@ def _decode_tick_gap(params, cfg, scfg, eng, trace,
     toks = torch.tensor([[s.last_token] for s in probe.slots],
                         dtype=torch.int32, device="cuda")
     active = torch.ones(SLOTS, dtype=torch.bool, device="cuda")
+    states = [(c, {n: c[n].clone() for n in ("conv", "state", "h") if n in c})
+              for c in [*probe.cache["slots"].values(), *probe.cache["tail"]]]
+
     def tick(backend, mode):
+        for c, saved in states:
+            for name, value in saved.items():
+                c[name].copy_(value)
         before = read_counts()
         with torch.inference_mode(), use_engine(Engine(backend=backend)), \
                 mode:
@@ -2265,7 +2317,7 @@ def phase_quantize_paged(cfg) -> dict:
     check(pools["k_pages"].dtype == torch.int8
           and pools["k_scale_pages"].dtype == torch.float32,
           f"pools {pools['k_pages'].dtype}")
-    check(out["requests"] == len(launch_serve.parse_trace(TRACE)),
+    check(out["requests"] == len(launch_serve.parse_trace(POSTURE_TRACE)),
           f"served {out['requests']} requests")
     check(counts == want, f"--quantize paged launches {counts}, not {want}")
     paths = check_int8_paths("--quantize paged serve",
@@ -2286,7 +2338,7 @@ def phase_quantize_paged(cfg) -> dict:
           f"argmax agreement {gap['argmax_agreement']:.2f} (limit rel-L2 "
           f"{LOGIT_LIMITS['rel_l2']})")
     REPORT["quantize_paged"] = {
-        "trace": TRACE, "slots": SLOTS, "seconds": out["seconds"],
+        "trace": POSTURE_TRACE, "slots": SLOTS, "seconds": out["seconds"],
         "tokens_per_s": out["tokens_per_s"], "tokens": out["tokens"],
         "decode_ticks": ticks, "decode_ms_per_tick": tick_ms,
         "prefill_calls": calls, "prefill_widths": sorted(st["prefill_widths"]),
@@ -2361,7 +2413,11 @@ def int8_lines(rows: list[dict]) -> list[dict]:
                 "quantize_static_serve": qstatic["int8_paths"][path],
                 "quantize_paged_serve": qpaged["int8_paths"][path],
                 **{f"granite_quantize_{serve}": run["int8_paths"][path]
-                   for serve, run in REPORT["granite_quantize"].items()}},
+                   for serve, run in REPORT["granite_quantize"].items()},
+                **{f"{label.split()[0]}_smoke_quantize_card": sum(
+                    run.get(path, 0) for run in by_run.values())
+                   for label, by_run in REPORT["new_smoke_parity"][
+                       "card_int8_paths"].items() if "--quantize" in label}},
             "traced_10_quantize_ticks_ms":
                 qpaged["trace_10_ticks"]["int8_kernel"][kernel]["ms"],
             "per": f"the int8 static serve's {static['int8_paths'][path]} "
@@ -2836,7 +2892,7 @@ def phase_sparse_paged(cfg, p: Posture) -> None:
     check(scfg.kernel_backend == "hopper-sparse", f"{scfg.kernel_backend}")
     check(pools["k_pages"].dtype == p.cache,
           f"pools {pools['k_pages'].dtype}, not {p.cache}")
-    check(out["requests"] == len(launch_serve.parse_trace(TRACE)),
+    check(out["requests"] == len(launch_serve.parse_trace(POSTURE_TRACE)),
           f"served {out['requests']} requests")
     check(counts == want, f"{p.label} paged launches {counts}, not {want}")
     if p.quantize:
@@ -2875,7 +2931,7 @@ def phase_sparse_paged(cfg, p: Posture) -> None:
           f"argmax agreement {gap['argmax_agreement']:.2f} (limit rel-L2 "
           f"{LOGIT_LIMITS['rel_l2']})")
     REPORT[f"{p.report}_paged"] = {
-        "trace": TRACE, "slots": SLOTS, "seconds": out["seconds"],
+        "trace": POSTURE_TRACE, "slots": SLOTS, "seconds": out["seconds"],
         "tokens_per_s": out["tokens_per_s"], "tokens": out["tokens"],
         "decode_ticks": ticks, "decode_ms_per_tick": tick_ms,
         "prefill_calls": calls, "prefill_widths": sorted(st["prefill_widths"]),
@@ -3521,18 +3577,38 @@ DECISION_M = (BATCH, SLOTS, 2048)
 GRANITE_QUANT_TRACE = "256x16*8"
 
 
-def layer_gemms(cfg) -> dict:
-    """The engine GEMMs of one layer, (K, N) -> calls: q, k, v and o and,
-    for a dense feed-forward, wi, wg and wo (a MoE layer's experts are
-    grouped or einsum matmuls)."""
+def layer_gemms(cfg, kind: str = "attn") -> dict:
+    """The engine GEMMs of one layer of `kind`, (K, N) -> calls: an
+    attention layer's q, k, v and o, an "rglru" layer's lin_x, lin_y,
+    w_a, w_x and lin_out, and either's dense feed-forward, wi, wg (when
+    gated) and wo (a MoE layer's experts are grouped or einsum matmuls);
+    none for an "ssm" layer, whose projections are plain matmuls."""
     d, q = cfg.d_model, cfg.n_heads * cfg.head_dim_
     calls = collections.Counter()
-    calls[d, q] += 1                                  # q
-    calls[d, cfg.n_kv * cfg.head_dim_] += 2           # k, v
-    calls[q, d] += 1                      # o: q's key too where q == d_model
+    if kind == "ssm":
+        return {}
+    if kind == "rglru":
+        w = cfg.rglru_width or d
+        calls[d, w] += 2                              # lin_x, lin_y
+        calls[w, w] += 2                              # w_a, w_x
+        calls[w, d] += 1                              # lin_out
+    else:
+        calls[d, q] += 1                              # q
+        calls[d, cfg.n_kv * cfg.head_dim_] += 2       # k, v
+        calls[q, d] += 1                  # o: q's key too where q == d_model
     if cfg.moe is None:
-        calls[d, cfg.d_ff] += 2
+        calls[d, cfg.d_ff] += 2 if cfg.gated_mlp else 1
         calls[cfg.d_ff, d] += 1
+    return dict(calls)
+
+
+def model_gemms(cfg) -> dict:
+    """The engine GEMMs of one forward pass through every layer, (K, N) ->
+    calls, each layer by its kind."""
+    calls = collections.Counter()
+    for i in range(cfg.n_layers):
+        kind = cfg.layer_pattern[i % len(cfg.layer_pattern)]
+        calls.update(layer_gemms(cfg, kind))
     return dict(calls)
 
 
@@ -3611,25 +3687,25 @@ def grouped_calls(cfg) -> int:
 def check_static_serve(label: str, cfg, out: dict, prefill_ms: float,
                        first_tokens, prompt: int) -> dict:
     """A static serve of BATCH x (`prompt` + GEN): every layer GEMM on the
-    ReDas kernel (7 a layer a pass, 4 for MoE), every OS call on the
-    wgmma kernel, the reductions the plan implies, the experts of a
-    sorted MoE on the grouped kernel's wgmma route (3 a layer a pass), no
-    other kernel; tokens in range, the first equal to a 1-token run's;
-    each decision missed once."""
+    ReDas kernel (`model_gemms`: 7 an attention layer a pass, 4 for MoE,
+    8 an "rglru" layer, none an "ssm" layer), every OS call on the wgmma
+    kernel, the reductions the plan implies, the experts of a sorted MoE
+    on the grouped kernel's wgmma route (3 a layer a pass), no other
+    kernel; tokens in range, the first equal to a 1-token run's; each
+    decision missed once.  `prompt` is a request's prefill rows (a VLM's
+    prefix included)."""
     counts = read_counts()
     launches = dict(redas_gemm.launches)
-    per_layer = layer_gemms(cfg)
+    per_pass = model_gemms(cfg)
     grouped = grouped_calls(cfg) * cfg.n_layers * GEN
     grouped_wgmma = grouped_gemm.wgmma_launches
     passes = {BATCH * prompt: 1, BATCH: GEN - 1}
-    reduces = check_reductions(label, out["engine"], per_layer, cfg.n_layers,
-                               passes)
-    wgmma = check_os_routes(label, out["engine"], per_layer, cfg.n_layers,
-                            passes)
-    want = {"redas_gemm": sum(per_layer.values()) * cfg.n_layers * GEN,
+    reduces = check_reductions(label, out["engine"], per_pass, 1, passes)
+    wgmma = check_os_routes(label, out["engine"], per_pass, 1, passes)
+    want = {"redas_gemm": sum(per_pass.values()) * GEN,
             "grouped_gemm": grouped}
     # each grouped shape (E, C, D, F) and (E, C, F, D) at both passes
-    decisions = 2 * (len(per_layer) + (2 if grouped else 0))
+    decisions = 2 * (len(per_pass) + (2 if grouped else 0))
     tokens = out["tokens"]
     decode_ms = (out["seconds"] * 1e3 - prefill_ms) / (GEN - 1)
     plan = out["engine"].plan.stats
@@ -3709,17 +3785,22 @@ def generate_serve(params, cfg):
     return serve
 
 
+def _launch_static(arch: str, prompt: int):
+    """`serve(n)` for `static_serve` through `launch.serve` static mode:
+    BATCH x `prompt` tokens, weights from SEED, `hopper`."""
+    args = ["--arch", arch, "--kernel-backend", "hopper", "--batch",
+            str(BATCH), "--prompt-len", str(prompt), "--seed", str(SEED)]
+    return lambda n: launch_serve.main(args + ["--gen", str(n)])
+
+
 def phase_wide_static(arch: str) -> dict:
     """`launch.serve` at full width, static mode: BATCH x (prompt + GEN),
     bf16, weights from SEED, `hopper`; prefill logits against
     `torch-ref`.  Returns the served run."""
     cfg, prompt = get_config(arch), WIDE[arch]["prompt"]
     serve_lib._ENGINES.clear()      # its own engine (see paged_serve_phase)
-    args = ["--arch", arch, "--kernel-backend", "hopper", "--batch",
-            str(BATCH), "--prompt-len", str(prompt), "--seed", str(SEED)]
-    out, result = static_serve(
-        f"{arch} static serve", cfg,
-        lambda n: launch_serve.main(args + ["--gen", str(n)]), prompt)
+    out, result = static_serve(f"{arch} static serve", cfg,
+                               _launch_static(arch, prompt), prompt)
     result["parity"] = prefill_gaps(f"{arch} full width", out["params"], cfg,
                                     out["prompt"], prompt + GEN + 1)
     REPORT[f"{arch}_static"] = result
@@ -3727,11 +3808,12 @@ def phase_wide_static(arch: str) -> dict:
 
 
 def _cache_bytes(cache: dict) -> dict:
-    """A cache's bytes: the paged pools ("attn" layers) and the rings
-    ("local" layers), scales included."""
+    """A cache's bytes: the paged pools ("attn" layers), the rows
+    ("local" layers' rings) and the recurrent state ("ssm", "rglru"),
+    scales included."""
     out = collections.Counter()
     for c in [*cache["slots"].values(), *cache["tail"]]:
-        kind = "pool" if "k_pages" in c else "ring"
+        kind = "pool" if "k_pages" in c else "ring" if "k" in c else "state"
         out[kind] += sum(t.numel() * t.element_size() for t in c.values())
     return dict(out)
 
@@ -3965,14 +4047,292 @@ def phase_mixtral() -> None:
         "max_memory_gib": peak, "kernels_held": held, "tick_logits": gap}
 
 
+# --------------------------------------------------------------------------
+# The recurrent kinds and the embedding inputs: mamba2-780m ("ssm") and
+# recurrentgemma-2b ("rglru" + "local") at full width, hubert-xlarge
+# (frame embeddings into an encoder) and internvl2-1b (a patch-embedding
+# prefix)
+# --------------------------------------------------------------------------
+
+MAMBA, RGEMMA = "mamba2-780m", "recurrentgemma-2b"
+HUBERT, INTERNVL = "hubert-xlarge", "internvl2-1b"
+#: the recurrent archs' full-width serves: the static prompt (BATCH
+#: requests, GEN new tokens each) and the Scheduler's trace over SLOTS
+#: slots under a paged ServeConfig (no "attn" layer: the contiguous
+#: path), with `ticks` traced decode ticks (the trace's first 8 requests
+#: outlive 2 x ticks + 1 ticks).  mamba2's 2048 tokens are 8 SSD chunks
+#: of 256; recurrentgemma's 2560-token prompts wrap its 2048-row rings
+RECURRENT = {MAMBA: {"prompt": 2048, "trace": TRACE, "ticks": 10},
+             RGEMMA: {"prompt": 2560, "trace": "2560x32*2,768x32*4,256x16*8",
+                      "ticks": 6}}
+#: hubert's (batch, frames) through `forward`; internvl2's text prompt,
+#: after its 256 prefix rows
+HUBERT_FRAMES, VLM_TEXT = (BATCH, 1024), 512
+
+
+def phase_recurrent(arch: str) -> None:
+    """`launch.serve` at full width in bf16: the static serve, checked as
+    the wide static serves are (recurrentgemma's GEMMs 8 an "rglru" layer
+    and 7 a "local" layer a pass, (8 x 18 + 7 x 8) x GEN; mamba2's none:
+    its projections and head are plain matmuls, so every kernel count is
+    0 and nothing is planned), and, for recurrentgemma, its prefill
+    logits against `torch-ref` and the f32 model (`prefill_gaps`'
+    `f32_anchor`); then the
+    trace through the Scheduler under a paged ServeConfig, which builds no
+    paged plane and runs the contiguous path on ragged prompts: exact
+    launches, no other kernel, a second pass planning nothing new, traced
+    ticks, the cache's bytes equal at max_seq and 4 x max_seq (the
+    recurrent state is O(1), the rings O(window)), and, for
+    recurrentgemma, one decode tick's logits against `torch-ref` from the
+    same state."""
+    cfg, spec = get_config(arch), RECURRENT[arch]
+    prompt, n_ticks = spec["prompt"], spec["ticks"]
+    serve_lib._ENGINES.clear()      # its own engine (see paged_serve_phase)
+    out, static = static_serve(f"{arch} static serve", cfg,
+                               _launch_static(arch, prompt), prompt)
+    if model_gemms(cfg):
+        static["parity"] = prefill_gaps(f"{arch} full width", out["params"],
+                                        cfg, out["prompt"], prompt + GEN + 1,
+                                        f32_anchor=True)
+    else:
+        check(len(out["engine"].plan) == 0, f"{arch}: the engine planned "
+              f"{len(out['engine'].plan)} decisions for plain matmuls")
+    REPORT[f"{arch}_static"] = static
+    params = out["params"]
+    del out
+    torch.cuda.empty_cache()
+
+    label = f"{arch} serve"
+    trace = launch_serve.parse_trace(spec["trace"])
+    scfg = serve_lib.ServeConfig(
+        max_seq=max(p + g for p, g in trace) + 1, batch=SLOTS,
+        kernel_backend="hopper", cache_layout="paged", page_size=PAGE)
+    eng = Engine(backend="hopper")
+    sched = Scheduler(params, cfg, scfg, engine=eng, prefill_bucket=BUCKET)
+    check(sched.paged is None, f"{label}: a paged plane for the layer "
+          f"pattern {cfg.layer_pattern}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    sched.run(launch_serve.trace_requests(cfg, trace, SEED))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts, launches = read_counts(), dict(redas_gemm.launches)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    st, per_pass = sched.stats, model_gemms(cfg)
+    ticks, calls = st["decode_steps"], st["prefill_calls"]
+    passes = _paged_passes(sched)
+    reduces = check_reductions(label, eng, per_pass, 1, passes)
+    wgmma = check_os_routes(label, eng, per_pass, 1, passes)
+    want = {"redas_gemm": sum(per_pass.values()) * (ticks + calls)}
+    cache = _cache_bytes(sched.cache)
+    longer = _cache_bytes(T.init_cache(
+        cfg, T.CacheSpec(4 * scfg.max_seq, SLOTS), dtype=torch.bfloat16,
+        device="cuda"))
+    n_tok = sum(len(c.tokens) for c in sched.completions.values())
+    tick_ms = sched.timings["decode_s"] * 1e3 / ticks
+    print(f"{label} under a paged ServeConfig (contiguous path): "
+          f"{len(sched.completions)} requests / {n_tok} tokens in "
+          f"{seconds:.3f} s, {n_tok / seconds:.1f} tok/s over {SLOTS} slots; "
+          f"{ticks} decode ticks, {tick_ms:.3f} ms a tick (mean); {calls} "
+          f"prefill calls of widths {sorted(st['prefill_widths'])}, "
+          f"{sched.timings['prefill_s'] * 1e3:.2f} ms in all; plan "
+          f"{eng.plan.stats}; launches {counts} (want {want}); cache bytes "
+          f"{cache}, at 4 x max_seq {longer}; peak memory above what the "
+          f"script held {peak:.3f} GiB")
+    check(len(sched.completions) == len(trace), f"{label}: served too few")
+    check(all(counts[k] == v for k, v in want.items())
+          and all(v == 0 for k, v in counts.items() if k not in want),
+          f"{label} launches {counts}, not {want}")
+    check(cache == longer and "pool" not in cache,
+          f"{label}: cache bytes {cache} at max_seq {scfg.max_seq}, {longer} "
+          f"at 4 x: the recurrent state and the rings must not grow")
+    tokens = {u: c.tokens.tolist() for u, c in sched.completions.items()}
+    for uid, toks in tokens.items():
+        check(len(toks) == trace[uid][1]
+              and all(0 <= t < cfg.vocab for t in toks),
+              f"{label} request {uid}")
+    new_misses, prof = _replay_and_trace(params, cfg, scfg, eng, trace,
+                                         tokens, f"{arch} ", GEMM_KERNELS,
+                                         n_ticks)
+    prof["gemm"] = gemm_trace_line(prof, n_ticks, "tick")
+    check_traced_reductions(f"{label}, {n_ticks} traced ticks", prof,
+                            n_ticks * _decode_reductions(eng, per_pass, 1))
+    REPORT[arch] = {
+        "trace": spec["trace"], "slots": SLOTS, "seconds": seconds,
+        "tokens_per_s": n_tok / seconds, "tokens": n_tok,
+        "decode_ticks": ticks, "decode_ms_per_tick": tick_ms,
+        "prefill_calls": calls, "prefill_widths": sorted(st["prefill_widths"]),
+        "prefill_ms": sched.timings["prefill_s"] * 1e3,
+        "stats": {k: v for k, v in st.items() if k != "prefill_widths"},
+        "plan": eng.plan.stats, "counts": counts, "launches": launches,
+        "os_wgmma": wgmma, "reductions": reduces, "cache_bytes": cache,
+        "cache_bytes_4x_max_seq": longer, "max_memory_gib": peak,
+        "decision_mix": decision_mix(eng), "second_pass_new_misses":
+        new_misses, f"trace_{n_ticks}_ticks": prof}
+    if per_pass:
+        REPORT[arch]["tick_logits"] = tick_gap(f"{arch} full width", params,
+                                               cfg, scfg, eng, trace)
+
+
+def phase_hubert() -> None:
+    """hubert-xlarge at full width in bf16: `forward` over HUBERT_FRAMES
+    frame embeddings (drawn from SEED) inside a `hopper` engine's scope:
+    6 GEMMs a layer (q, k, v, o and the GELU feed-forward's wi and wo),
+    6 x 48 = 288, every OS call on wgmma, no other kernel, nothing new
+    planned on a second call; logits (B, frames, 504) finite and within
+    LOGIT_LIMITS' rel-L2 of `torch-ref`'s; a device trace's idle share."""
+    cfg = get_config(HUBERT)
+    params = seeded_params(cfg)
+    frames = torch.randn(*HUBERT_FRAMES, cfg.d_model, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(
+                             SEED + 1)).to(torch.bfloat16)
+    eng = Engine(backend="hopper")
+
+    def run(engine):
+        with torch.inference_mode(), use_engine(engine):
+            return T.forward(params, cfg, None, embeds=frames)[0]
+
+    run(eng)                                        # warm-up: plans it all
+    misses = eng.plan.misses
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits = run(eng)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts, launches = read_counts(), dict(redas_gemm.launches)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    per_pass = model_gemms(cfg)
+    rows = HUBERT_FRAMES[0] * HUBERT_FRAMES[1]
+    reduces = check_reductions("hubert forward", eng, per_pass, 1, {rows: 1})
+    wgmma = check_os_routes("hubert forward", eng, per_pass, 1, {rows: 1})
+    want = {"redas_gemm": sum(per_pass.values())}
+    ref = run(Engine(backend="torch-ref"))
+    gap = _logit_gap(logits, ref)
+    del ref
+    prof = _profile(lambda: run(eng), GEMM_KERNELS)
+    prof.pop("result")
+    prof["gemm"] = gemm_trace_line(prof, 1, "forward")
+    print(f"hubert-xlarge forward over {HUBERT_FRAMES} frames: {ms:.2f} ms "
+          f"({rows / ms * 1e3:.0f} frames/s); launches {counts} (want "
+          f"{want}); plan {eng.plan.stats}; decisions {decision_mix(eng)}; "
+          f"logits {tuple(logits.shape)}, hopper vs torch-ref rel-L2 "
+          f"{gap['rel_l2']:.4e}, max|diff|/max|ref| {gap['rel_max']:.4e}, "
+          f"argmax agreement {gap['argmax_agreement']:.4f} (limit rel-L2 "
+          f"{LOGIT_LIMITS['rel_l2']}); traced: wall {prof['wall_ms']:.2f} "
+          f"ms, device busy {prof['device_busy_ms']:.2f} ms, idle share "
+          f"{prof['idle_share']:.2f}; peak memory above the weights "
+          f"{peak:.3f} GiB")
+    check(all(counts[k] == v for k, v in want.items())
+          and all(v == 0 for k, v in counts.items() if k not in want),
+          f"hubert forward launches {counts}, not {want}")
+    check(eng.plan.misses == misses, f"hubert: {eng.plan.misses - misses} "
+          f"new plan misses on the second forward")
+    check(tuple(logits.shape) == (*HUBERT_FRAMES, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"hubert logits {tuple(logits.shape)}")
+    check(math.isfinite(gap["rel_l2"])
+          and gap["rel_l2"] <= LOGIT_LIMITS["rel_l2"],
+          f"hubert logit gap {gap}")
+    REPORT[HUBERT] = {
+        "frames": list(HUBERT_FRAMES), "forward_ms": ms, "counts": counts,
+        "launches": launches, "os_wgmma": wgmma, "reductions": reduces,
+        "plan": eng.plan.stats, "decision_mix": decision_mix(eng),
+        "logits": gap, "max_memory_gib": peak,
+        "weights_gib": tree_bytes(params) / 2**30, "trace_forward": prof}
+
+
+def phase_internvl() -> None:
+    """internvl2-1b at full width in bf16 through `launch.serve` static
+    mode: BATCH x (256 prefix rows drawn from SEED + VLM_TEXT tokens +
+    GEN), checked as the wide static serves are (7 x 24 x GEN GEMMs at
+    the prefill's 4 x 768 rows and decode's 4), its traces' idle shares,
+    and its prefill logits against `torch-ref` on the same prefix."""
+    cfg = get_config(INTERNVL)
+    rows = cfg.prefix_tokens + VLM_TEXT
+    serve_lib._ENGINES.clear()
+    out, result = static_serve(f"{INTERNVL} static serve", cfg,
+                               _launch_static(INTERNVL, VLM_TEXT), rows)
+    check(tuple(out["embeds"].shape) == (BATCH, cfg.prefix_tokens,
+                                         cfg.d_model),
+          f"{INTERNVL}: prefix {tuple(out['embeds'].shape)}")
+    result.update(_traces(out, result["prefill_ms"],
+                          result["decode_ms_per_step"] * (GEN - 1)))
+    result["parity"] = prefill_gaps(f"{INTERNVL} full width", out["params"],
+                                    cfg, out["prompt"], rows + GEN + 1,
+                                    embeds=out["embeds"])
+    REPORT[f"{INTERNVL}_static"] = result
+
+
+def phase_embeds_smoke_parity() -> None:
+    """internvl2-1b and hubert-xlarge SMOKE in f32, the card (`hopper`)
+    against the CPU's plain run (`torch-ref`): internvl2's greedy tokens
+    after an 8-row prefix, 2 x (8 + 40 + 8), identical; hubert's forward
+    logits over 2 x 40 frames within 1e-4 rel-L2; each card run on the
+    ReDas GEMM."""
+    result = {}
+    for arch in (INTERNVL, HUBERT):
+        cfg = get_config(arch, smoke=True)
+        cpu_params = T.init_params(
+            cfg, generator=torch.Generator().manual_seed(SEED),
+            dtype=torch.float32)
+        gen = torch.Generator().manual_seed(SEED + 1)
+        prompt = torch.randint(0, cfg.vocab, (2, 40), generator=gen,
+                               dtype=torch.int32)
+        rows = 40 if cfg.embed_inputs else cfg.prefix_tokens
+        embeds = torch.randn(2, rows, cfg.d_model, generator=gen)
+        if not cfg.embed_inputs:
+            embeds = 0.02 * embeds
+        out = {}
+        for device, backend in (("cpu", "torch-ref"), ("cuda", "hopper")):
+            params = cpu_params if device == "cpu" else _to(cpu_params,
+                                                            "cuda")
+            reset_counts()
+            if cfg.embed_inputs:
+                with torch.inference_mode(), use_engine(Engine(backend=backend)):
+                    out[device] = T.forward(params, cfg, None,
+                                            embeds=embeds.to(device),
+                                            compute_dtype=torch.float32)[0]
+            else:
+                out[device] = serve_lib.generate(
+                    params, cfg, serve_lib.ServeConfig(
+                        max_seq=rows + 48 + 1, batch=2,
+                        compute_dtype="float32", cache_dtype="float32",
+                        kernel_backend=backend, device=device),
+                    prompt.to(device), 8, embeds=embeds.to(device))
+            if device == "cuda":
+                launched = read_counts()["redas_gemm"]
+        if cfg.embed_inputs:
+            got, want = out["cuda"].cpu(), out["cpu"]
+            rel = ((got - want).norm() / want.norm()).item()
+            result[arch] = {"logits_rel_l2": rel, "redas_gemm": launched}
+            check(rel <= 1e-4, f"{arch} SMOKE logits, card vs CPU: rel-L2 "
+                  f"{rel:.3e}")
+        else:
+            same = torch.equal(out["cuda"].cpu(), out["cpu"])
+            result[arch] = {"tokens_identical": same, "redas_gemm": launched}
+            check(same, f"{arch} SMOKE tokens differ, card vs CPU")
+        check(launched > 0, f"{arch} SMOKE on the card launched no GEMM")
+    print(f"embedding-input SMOKE f32, card vs the CPU's plain run: {result}")
+    REPORT["embeds_smoke_parity"] = result
+
+
 def _smoke_cases() -> list[tuple]:
-    """(label, cfg, quantize) of the new archs' SMOKE configurations:
-    qwen3-14b, mistral-large-123b, gemma3-12b (also under --quantize) and
-    mixtral-8x7b under both MoE dispatches."""
+    """(label, cfg, quantize) of the newer archs' SMOKE configurations:
+    qwen3-14b, mistral-large-123b, gemma3-12b and recurrentgemma-2b (both
+    also under --quantize: int8 rings, recurrentgemma's conv and h bf16),
+    mamba2-780m, and mixtral-8x7b under both MoE dispatches."""
     cases = [(a, get_config(a, smoke=True), False)
-             for a in (QWEN3, MISTRAL, GEMMA3)]
-    cases.append((f"{GEMMA3} --quantize", get_config(GEMMA3, smoke=True),
-                  True))
+             for a in (QWEN3, MISTRAL, GEMMA3, MAMBA, RGEMMA)]
+    cases += [(f"{a} --quantize", get_config(a, smoke=True), True)
+              for a in (GEMMA3, RGEMMA)]
     mix = get_config(MIXTRAL, smoke=True)
     cases += [(f"{MIXTRAL} {impl}", dataclasses.replace(
         mix, moe=dataclasses.replace(mix.moe, impl=impl)), False)
@@ -3981,7 +4341,7 @@ def _smoke_cases() -> list[tuple]:
 
 
 def phase_new_smoke_parity() -> None:
-    """The new archs' SMOKE configurations in f32: the card's greedy
+    """The newer archs' SMOKE configurations in f32: the card's greedy
     tokens (`hopper`) equal the CPU's plain run (`torch-ref`), static
     (`generate`, 2 x (40 + 8): longer than the 16-row windows) and through
     the Scheduler (8 requests of 5-40 tokens over 3 slots), paged and
@@ -3993,7 +4353,7 @@ def phase_new_smoke_parity() -> None:
         np.int32), int(rng.integers(3, 9))) for uid in range(8)]
     prompt = torch.randint(0, 128, (2, 40), generator=torch.Generator()
                            .manual_seed(SEED + 1), dtype=torch.int32)
-    result, counts = {}, {}
+    result, counts, paths = {}, {}, {}
     for label, cfg, quant in _smoke_cases():
         cpu_params = T.init_params(
             cfg, generator=torch.Generator().manual_seed(SEED),
@@ -4003,7 +4363,7 @@ def phase_new_smoke_parity() -> None:
         card_params = _to(cpu_params, "cuda")
         kw = {"compute_dtype": "float32", "quantize": quant,
               "cache_dtype": "int8" if quant else "float32"}
-        tokens, counts[label] = {}, {}
+        tokens, counts[label], paths[label] = {}, {}, {}
         for device, backend in (("cpu", "torch-ref"), ("cuda", "hopper")):
             params = cpu_params if device == "cpu" else card_params
             reset_counts()
@@ -4013,6 +4373,7 @@ def phase_new_smoke_parity() -> None:
                     device=device, **kw), prompt.to(device), 8).cpu().tolist()
             if device == "cuda":
                 counts[label]["static"] = read_counts()
+                paths[label]["static"] = dict(quant_gemm.path_launches)
             for layout in ("paged", "contiguous"):
                 sched = Scheduler(params, cfg, serve_lib.ServeConfig(
                     max_seq=56, batch=3, kernel_backend=backend,
@@ -4022,6 +4383,7 @@ def phase_new_smoke_parity() -> None:
                                   for u, x, g in spec])
                 if device == "cuda":
                     counts[label][layout] = read_counts()
+                    paths[label][layout] = dict(quant_gemm.path_launches)
                 tokens[device, layout] = {u: c.tokens.tolist()
                                           for u, c in done.items()}
                 if layout == "paged":
@@ -4038,17 +4400,19 @@ def phase_new_smoke_parity() -> None:
     print(f"new archs' SMOKE f32: card tokens identical to the CPU's plain "
           f"run: {result}; the card's launches {counts}")
     REPORT["new_smoke_parity"] = {"tokens_identical": result,
-                                  "card_launches": counts}
+                                  "card_launches": counts,
+                                  "card_int8_paths": paths}
     check(all(all(r.values()) for r in result.values()),
           f"new archs' SMOKE tokens differ: {result}")
 
 
 def smoke_kernels(cfg, quant: bool) -> dict:
     """The kernels each of a SMOKE case's card runs must launch: the GEMM
-    (the int8 GEMM under --quantize) on every run, the grouped kernel on
-    every run of a sorted MoE, the paged kernel on the paged run of an
-    arch with "attn" blocks (f32 SMOKE: the sync routes)."""
-    gemm = ["quant_gemm" if quant else "redas_gemm"]
+    (the int8 GEMM under --quantize) on every run of an arch with engine
+    GEMMs (mamba2 has none), the grouped kernel on every run of a sorted
+    MoE, the paged kernel on the paged run of an arch with "attn" blocks
+    (f32 SMOKE: the sync routes)."""
+    gemm = ["quant_gemm" if quant else "redas_gemm"] if model_gemms(cfg) else []
     if grouped_calls(cfg):
         gemm.append("grouped_gemm")
     want = {run: list(gemm) for run in ("static", "paged", "contiguous")}
@@ -4207,6 +4571,12 @@ def gemm_lines(rows: list[dict], static: dict, paged: dict,
         ("mistral_large_123b_4_layers_static_serve", f"{MISTRAL}_static"))}
     wide["mixtral_8x7b_4_layers_static_serve"] = REPORT[MIXTRAL]["static"]
     wide["mixtral_8x7b_4_layers_serve"] = REPORT[MIXTRAL]
+    for arch in (MAMBA, RGEMMA):
+        name = arch.replace("-", "_").replace(".", "_")
+        wide[f"{name}_static_serve"] = REPORT[f"{arch}_static"]
+        wide[f"{name}_serve"] = REPORT[arch]
+    wide["hubert_xlarge_forward"] = REPORT[HUBERT]
+    wide["internvl2_1b_static_serve"] = REPORT[f"{INTERNVL}_static"]
     of_wide = {
         "os": lambda r: r["os_wgmma"],
         "sync": lambda r: r["launches"]["os"] - r["os_wgmma"],
@@ -4422,7 +4792,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     run("28 mixtral-8x7b", phase_mixtral)
     torch.cuda.empty_cache()
+    for number, arch in (("29", MAMBA), ("30", RGEMMA)):
+        run(f"{number} {arch}", phase_recurrent, arch)
+        torch.cuda.empty_cache()
+    run(f"31 {HUBERT}", phase_hubert)
+    torch.cuda.empty_cache()
+    run(f"32 {INTERNVL}", phase_internvl)
+    torch.cuda.empty_cache()
     run("26 new SMOKE parity", phase_new_smoke_parity)
+    run("26 new SMOKE parity", phase_embeds_smoke_parity)
     run("27 granite --quantize", phase_granite_quantize)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in seconds.items()))

@@ -30,6 +30,14 @@ quantize=True)`, and no `quantize_params`), the KV cache int8, and
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         --sparsity 2:4 --quantize --batch 4 --prompt-len 512 --gen 16
 
+Every decoder of `configs.ARCH_NAMES` serves in either mode: the
+recurrent mamba2-780m ("ssm") and recurrentgemma-2b ("rglru" and
+"local"), whose paged ServeConfig runs the contiguous path, and, in
+static mode, internvl2-1b with `prefix_tokens` patch embeddings drawn
+from the seed before its text prompt.  An encoder (hubert-xlarge) has no
+decode step and is refused; run it through `transformer.forward` with
+frame embeddings.
+
 Both run on the card; `--device cpu --smoke` runs the reduced
 configuration on the CPU (there the "hopper" backend takes the kernels'
 plain versions).
@@ -154,13 +162,15 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.kind == "encoder":
+        raise SystemExit("encoder-only arch: no decode step (see DESIGN.md)")
     dtype = torch.float32 if args.smoke else torch.bfloat16
     trace = parse_trace(args.trace) if args.trace else None
     if args.cache_layout == "paged" and trace is None:
         raise SystemExit("--cache-layout paged needs --trace (the block-table "
                          "plane lives in the continuous-batching scheduler)")
     max_seq = (max(p + g for p, g in trace) + 1 if trace
-               else args.prompt_len + args.gen + 1)
+               else cfg.prefix_tokens + args.prompt_len + args.gen + 1)
     scfg = serve_lib.ServeConfig(
         max_seq=max_seq, batch=args.batch,
         compute_dtype=dtype,
@@ -181,15 +191,20 @@ def main(argv=None) -> dict:
         params = quantize_params(params)
     if trace is not None:
         return _run_trace(params, cfg, scfg, args, trace)
-    prompt = torch.randint(
-        0, cfg.vocab, (args.batch, args.prompt_len), device=dev,
-        generator=torch.Generator(device=dev).manual_seed(args.seed + 1),
-        dtype=torch.int32)
+    draw = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                           device=dev, generator=draw, dtype=torch.int32)
+    embeds = None
+    if cfg.prefix_tokens:
+        # the stub vision frontend's patch embeddings, from the same seed
+        embeds = 0.02 * torch.randn(args.batch, cfg.prefix_tokens,
+                                    cfg.d_model, device=dev, generator=draw,
+                                    dtype=dtype)
     engine = serve_lib.warm_start_engine(scfg)
     _sync(dev)
     t0 = time.perf_counter()
     tokens = serve_lib.generate(params, cfg, scfg, prompt, args.gen,
-                                engine=engine)
+                                embeds=embeds, engine=engine)
     _sync(dev)
     dt = time.perf_counter() - t0
     print(f"generated {tuple(tokens.shape)} in {dt:.2f}s "
@@ -198,7 +213,7 @@ def main(argv=None) -> dict:
     out = {"tokens_per_s": args.batch * args.gen / dt, "seconds": dt,
            "shape": tuple(tokens.shape), "tokens": tokens.cpu(),
            "engine": engine, "cfg": cfg, "serve_config": scfg,
-           "params": params, "prompt": prompt}
+           "params": params, "prompt": prompt, "embeds": embeds}
     if engine is not None:
         print(f"engine plan: {engine.plan.stats}")
         out["engine_plan"] = engine.plan.stats

@@ -1,13 +1,15 @@
 """Architecture configuration schema (the port's own copy of
 `repro/models/config.py`).
 
-One dataclass describes every family; per-arch modules in
-`repro_torch.configs` instantiate it.  `layer_pattern` is the repeating
-block-kind period, e.g. ("attn",) for a homogeneous decoder or
-("local",) * 5 + ("attn",) for gemma3's 5:1 sliding-window:global
-period.  The port runs decoders of "attn" and "local" blocks with a dense
-or a MoE feed-forward so far; the SSM type is kept so that every field
-of a configuration has its type.
+One dataclass describes every family (dense, MoE, SSM, hybrid,
+encoder-only, VLM); per-arch modules in `repro_torch.configs`
+instantiate it.  `layer_pattern` is the repeating block-kind period,
+e.g.:
+
+    ("attn",)                      homogeneous decoder (qwen2, mistral, ...)
+    ("local",) * 5 + ("attn",)     gemma3's 5:1 local:global
+    ("rglru", "rglru", "local")    recurrentgemma's 1:2 attn:RG-LRU
+    ("ssm",)                       mamba2
 """
 
 from __future__ import annotations

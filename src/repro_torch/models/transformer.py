@@ -1,6 +1,7 @@
-"""Model assembly for the attention decoder (the port of
-`repro/models/transformer.py`, block kinds "attn" and "local", with a
-dense or a MoE feed-forward).
+"""Model assembly: decoder / encoder / hybrid / SSM / VLM from ArchConfig
+(the port of `repro/models/transformer.py`): block kinds "attn",
+"local" (each with a dense or a MoE feed-forward), "ssm" and "rglru",
+token or embedding inputs.
 
 Parameters keep the JAX pytree's layout: `stack["b{j}"]` leaves carry
 the leading period axis, `tail` is a list of blocks past the last whole
@@ -14,15 +15,26 @@ JAX `lax.scan` over periods is a Python loop over views of the stack.
 
 A "local" block attends a sliding window of `cfg.window` keys: its
 cache is a per-slot ring of min(window, max_seq) rows on either layout
-(only "attn" blocks are paged), written at `t % size`.
+(only "attn" blocks are paged), written at `t % size`.  An "ssm" block
+(`models.ssm`) keeps a conv window and an f32 SSD state per slot, an
+"rglru" block (`models.rglru`) a conv window and its h; both are O(1)
+in the sequence and keep their slot layout on either layout.
 
 `prefill` and `decode_step` write the cache tensors in place and return
 the cache dict with its new clock.  Where the JAX package merges the old
 rows of masked slots back (`_merge_slot`, `mode="drop"` scatters), the
-port simply never writes them.  An int8 cache (`init_cache(dtype=
+port simply never writes them.  A recurrent update computes every slot,
+so its new state is written only where the slot is in `active` (decode)
+or `update_mask` (prefill): other slots' state stays bit for bit.  An
+int8 cache (`init_cache(dtype=
 torch.int8)`) stores each K/V row quantized (`quant.kv_quantize`, in the
 form the reference computes inside `jax.jit`) with its f32 scale beside
-it, written by the same indices as the row.
+it, written by the same indices as the row; recurrent state stays
+bf16 under it, as in the JAX package.
+
+`forward` and `prefill` take `embeds=`: (B, S, D) frame embeddings for
+an `embed_inputs` arch (hubert, an encoder: no decode step), or a
+(B, P, D) prefix before the tokens for a VLM (internvl2).
 """
 
 from __future__ import annotations
@@ -34,23 +46,9 @@ import torch
 
 from ..quant.quantize import QuantizedTensor, kv_dequantize, kv_quantize
 from ..sparse.nm import SparseTensor
-from . import layers, moe
+from . import layers, moe, rglru, ssm
 from .config import ArchConfig
 from .layers import dense, mlp, rms_norm
-
-
-#: the block kinds the port runs so far
-KINDS = ("attn", "local")
-
-
-def _check_kinds(cfg: ArchConfig) -> None:
-    if (not set(cfg.layer_pattern) <= set(KINDS) or cfg.embed_inputs
-            or cfg.prefix_tokens):
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs token-input decoders of 'attn' and "
-            f"'local' blocks (dense or MoE feed-forward) only so far; the "
-            f"'ssm' and 'rglru' kinds and embedding inputs are ROADMAP.md "
-            f"queue 1 item 4")
 
 
 def _ffn(p, cfg: ArchConfig, x):
@@ -90,17 +88,28 @@ def _window(cfg: ArchConfig, kind: str) -> int:
 # --------------------------------------------------------------------------
 
 
-def _block_init(generator, cfg: ArchConfig, lead, device, dtype) -> dict:
+def _block_init(generator, cfg: ArchConfig, kind: str, lead, device,
+                dtype) -> dict:
     kw = {"lead": lead, "device": device, "dtype": dtype}
     zeros = lambda: torch.zeros(*lead, cfg.d_model, device=device, dtype=dtype)
-    p = {"norm1": zeros(),
-         "attn": layers.attn_init(generator, cfg, **kw),
-         "norm2": zeros()}
-    if cfg.moe is not None:
-        p["moe"] = moe.moe_init(generator, cfg, **kw)
-    else:
+    p = {"norm1": zeros()}
+    if kind in ("attn", "local"):
+        p["attn"] = layers.attn_init(generator, cfg, **kw)
+        p["norm2"] = zeros()
+        if cfg.moe is not None:
+            p["moe"] = moe.moe_init(generator, cfg, **kw)
+        else:
+            p["mlp"] = layers.mlp_init(generator, cfg.d_model, cfg.d_ff,
+                                       cfg.gated_mlp, **kw)
+    elif kind == "ssm":
+        p["ssm"] = ssm.ssm_init(generator, cfg, **kw)
+    elif kind == "rglru":
+        p["rec"] = rglru.rglru_init(generator, cfg, **kw)
+        p["norm2"] = zeros()
         p["mlp"] = layers.mlp_init(generator, cfg.d_model, cfg.d_ff,
                                    cfg.gated_mlp, **kw)
+    else:
+        raise ValueError(kind)
     return p
 
 
@@ -108,19 +117,22 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator, device=None,
                 dtype=torch.float32) -> dict:
     """Random parameters with the JAX `init_params` shapes and scales
     (N(0, 1/fan_in) matrices, N(0, 1/d_model) embeddings, zero biases and
-    norm scales), drawn from `generator` in `dtype` — the values differ
-    from JAX's."""
-    _check_kinds(cfg)
+    norm scales, the recurrent blocks' fixed leaves as `ssm.ssm_init` and
+    `rglru.rglru_init` make them), drawn from `generator` in `dtype` — the
+    values differ from JAX's.  An `embed_inputs` arch has no `embed`."""
     n_periods, n_tail = _period_split(cfg)
     inv = 1.0 / math.sqrt(cfg.d_model)
     normal = lambda *shape: torch.randn(*shape, generator=generator,
                                         device=device, dtype=dtype).mul_(inv)
-    params = {"embed": normal(cfg.vocab, cfg.d_model)}
+    params = {}
+    if not cfg.embed_inputs:
+        params["embed"] = normal(cfg.vocab, cfg.d_model)
     params["stack"] = {
-        f"b{j}": _block_init(generator, cfg, (max(n_periods, 1),), device, dtype)
-        for j in range(len(cfg.layer_pattern))}
-    params["tail"] = [_block_init(generator, cfg, (), device, dtype)
-                      for _ in range(n_tail)]
+        f"b{j}": _block_init(generator, cfg, kind, (max(n_periods, 1),),
+                             device, dtype)
+        for j, kind in enumerate(cfg.layer_pattern)}
+    params["tail"] = [_block_init(generator, cfg, cfg.layer_pattern[t], (),
+                                  device, dtype) for t in range(n_tail)]
     params["final_norm"] = torch.zeros(cfg.d_model, device=device, dtype=dtype)
     if not cfg.tie_embeddings:
         params["lm_head"] = normal(cfg.d_model, cfg.vocab)
@@ -154,10 +166,31 @@ def _block_apply(kind: str, p, cfg: ArchConfig, x, positions):
     """One block of the full-sequence path: (x, MoE aux loss or None)."""
     norm = lambda scale, h: rms_norm(scale, h, cfg.norm_eps,
                                      cast_early=cfg.norm_cast_early)
-    x = x + layers.attention_block(p["attn"], cfg, norm(p["norm1"], x),
-                                   positions, window=_window(cfg, kind))
-    h, aux = _ffn(p, cfg, norm(p["norm2"], x))
-    return x + h, aux
+    if kind in ("attn", "local"):
+        x = x + layers.attention_block(p["attn"], cfg, norm(p["norm1"], x),
+                                       positions, window=_window(cfg, kind))
+        h, aux = _ffn(p, cfg, norm(p["norm2"], x))
+        return x + h, aux
+    if kind == "ssm":
+        return x + ssm.ssm_block(p["ssm"], cfg, norm(p["norm1"], x)), None
+    if kind == "rglru":
+        x = x + rglru.rglru_block(p["rec"], cfg, norm(p["norm1"], x))
+        return x + mlp(p["mlp"], norm(p["norm2"], x)), None
+    raise ValueError(kind)
+
+
+def _embed_in(params, cfg: ArchConfig, tokens, embeds, compute_dtype):
+    """The model's input rows: the frame embeddings of an `embed_inputs`
+    arch, else the token embeddings, after a VLM's prefix embeddings
+    when `embeds` is given."""
+    if cfg.embed_inputs:
+        if embeds is None:
+            raise ValueError(f"{cfg.name} takes frame embeddings (embeds=)")
+        return embeds.to(compute_dtype)
+    x = params["embed"].to(compute_dtype)[tokens.long()]
+    if embeds is not None:
+        x = torch.cat([embeds.to(compute_dtype), x], dim=1)
+    return x
 
 
 def _logits_out(params, cfg: ArchConfig, x):
@@ -170,13 +203,13 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
 
-def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
-            compute_dtype=torch.bfloat16):
-    """tokens (B, S) -> (logits (B, S, V), aux scalar): the sum over
-    blocks of the MoE balance loss (0 for a dense model)."""
-    _check_kinds(cfg)
-    x = params["embed"].to(compute_dtype)[tokens.long()]
-    b, s = tokens.shape
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor | None = None, *,
+            embeds=None, compute_dtype=torch.bfloat16):
+    """tokens (B, S); embeds (B, P, D) for the VLM prefix or (B, S, D) for
+    audio (`embed_inputs`) -> (logits (B, S_total, V), aux scalar): the
+    sum over blocks of the MoE balance loss (0 without MoE)."""
+    x = _embed_in(params, cfg, tokens, embeds, compute_dtype)
+    b, s = x.shape[0], x.shape[1]
     positions = _positions(b, s, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, p in _blocks(cfg, params["stack"], params["tail"]):
@@ -193,11 +226,12 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
 
 @dataclasses.dataclass(frozen=True)
 class CacheSpec:
-    """Static description of the per-block KV cache.  `page_size` and
+    """Static description of the per-block cache.  `page_size` and
     `n_pages` select the paged layout: full-attention KV moves from
     per-slot `(B, max_seq, ...)` regions into one pool of `n_pages` fixed
     pages addressed through per-slot block tables; sliding-window rings
-    keep their slot layout (they are O(window) already)."""
+    and recurrent state keep their slot layout (they are O(window) and
+    O(1) already)."""
     max_seq: int
     batch: int
     page_size: int | None = None
@@ -209,6 +243,22 @@ def _slot_cache(kind: str, cfg: ArchConfig, spec: CacheSpec, lead, dtype,
     kv, hd = cfg.n_kv, cfg.head_dim_
     quant = dtype == torch.int8
     zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
+    if kind in ("ssm", "rglru"):
+        # int8 quantizes attention rows only: recurrent state is read,
+        # updated and written every step and stays bf16
+        sdt = torch.bfloat16 if quant else dtype
+        if kind == "ssm":
+            sc, d_in = cfg.ssm, cfg.ssm.expand * cfg.d_model
+            conv_ch = d_in + 2 * sc.n_groups * sc.d_state
+            return {"conv": zeros((*lead, spec.batch, sc.conv_width - 1,
+                                   conv_ch), sdt),
+                    "state": zeros((*lead, spec.batch, d_in // sc.head_dim,
+                                    sc.d_state, sc.head_dim), torch.float32)}
+        w = cfg.rglru_width or cfg.d_model
+        return {"conv": zeros((*lead, spec.batch, 3, w), sdt),
+                "h": zeros((*lead, spec.batch, w), sdt)}
+    if kind not in ("attn", "local"):
+        raise ValueError(kind)
     if kind == "attn" and spec.page_size:
         if not spec.n_pages:
             raise ValueError("paged CacheSpec needs n_pages")
@@ -243,11 +293,12 @@ def init_cache(cfg: ArchConfig, spec: CacheSpec, dtype=torch.bfloat16,
     leading period axis, "tail": [...]}.  Contiguous: k/v (B, max_seq,
     KV, hd) per "attn" layer; paged: k_pages/v_pages (n_pages, page, KV,
     hd) per "attn" layer; a "local" layer's ring k/v (B, min(window,
-    max_seq), KV, hd) on either layout.  `dtype=torch.int8` selects the
-    int8 codec for both kinds: the rows are int8 and k_scale/v_scale
-    (B, rows, KV), or k_scale_pages/v_scale_pages (n_pages, page, KV),
-    hold their f32 scales."""
-    _check_kinds(cfg)
+    max_seq), KV, hd) on either layout; an "ssm" layer's conv (B, W - 1,
+    conv_ch) and f32 state (B, H, N, P); an "rglru" layer's conv (B, 3,
+    W) and h (B, W).  `dtype=torch.int8` selects the int8 codec for the
+    attention kinds: the rows are int8 and k_scale/v_scale (B, rows,
+    KV), or k_scale_pages/v_scale_pages (n_pages, page, KV), hold their
+    f32 scales; recurrent state is then bf16."""
     if not (dtype.is_floating_point or dtype == torch.int8):
         raise ValueError(f"cache dtype {dtype}: a float dtype or int8 (the "
                          f"KV codec)")
@@ -274,9 +325,41 @@ def _store(c: dict, k: torch.Tensor, v: torch.Tensor, paged: bool) -> dict:
     return dict(zip(names, (kq, vq, ks, vs), strict=True))
 
 
-def _decode_block(p, cfg: ArchConfig, x, t, c: dict, active=None,
+def _write_state(c: dict, new: dict, mask) -> None:
+    """Write a recurrent block's new state (every slot computed) into its
+    cache leaves in place, in their dtypes, only for the slots in `mask`
+    (B,) (all when None): the other slots keep theirs bit for bit."""
+    for name, val in new.items():
+        val = val.to(c[name].dtype)
+        if mask is not None:
+            val = torch.where(mask.reshape((-1,) + (1,) * (val.dim() - 1)),
+                              val, c[name])
+        c[name].copy_(val)
+
+
+def _decode_block(kind: str, p, cfg: ArchConfig, x, t, c: dict, active=None,
                   block_tables=None):
-    """One-token step for one block: writes the new KV row of every
+    """One-token step for one block of any kind."""
+    if kind in ("attn", "local"):
+        return _decode_attn(p, cfg, x, t, c, active, block_tables)
+    xin = rms_norm(p["norm1"], x, cfg.norm_eps)
+    if kind == "ssm":
+        h, conv, state = ssm.ssm_decode_step(p["ssm"], cfg, xin, c["conv"],
+                                             c["state"])
+        _write_state(c, {"conv": conv, "state": state}, active)
+        return x + h
+    if kind == "rglru":
+        h, conv, hstate = rglru.rglru_decode_step(p["rec"], cfg, xin,
+                                                  c["conv"], c["h"])
+        x = x + h
+        _write_state(c, {"conv": conv, "h": hstate}, active)
+        return x + mlp(p["mlp"], rms_norm(p["norm2"], x, cfg.norm_eps))
+    raise ValueError(kind)
+
+
+def _decode_attn(p, cfg: ArchConfig, x, t, c: dict, active=None,
+                 block_tables=None):
+    """One-token step for one attention block: writes the new KV row of every
     active slot at its own clock position, then attends its valid
     prefix.  Paged blocks (`"k_pages" in c`) resolve the write position
     through `block_tables` (B, n_bt); inactive slots and table holes
@@ -324,11 +407,14 @@ def decode_step(params, cfg: ArchConfig, cache: dict, token: torch.Tensor, *,
     keep their cache rows and clock, and their logits rows are garbage to
     discard.  `block_tables` (B, n_bt) int32 addresses the paged pools
     (required iff the cache is paged); every layer reads the same
-    table."""
+    table.  A recurrent block updates its state for the active slots
+    only."""
+    if cfg.embed_inputs:
+        raise ValueError("encoder-only arch: no decode step")
     t = cache["t"]
     x = params["embed"].to(compute_dtype)[token.long()]
-    for _, p, c in _layers(params, cfg, cache):
-        x = _decode_block(p, cfg, x, t, c, active, block_tables)
+    for kind, p, c in _layers(params, cfg, cache):
+        x = _decode_block(kind, p, cfg, x, t, c, active, block_tables)
     new_t = t + 1 if active is None else torch.where(active, t + 1, t)
     return _logits_out(params, cfg, x), {**cache, "t": new_t}
 
@@ -443,6 +529,15 @@ def _prefill_block(kind: str, p, cfg: ArchConfig, x, positions, c: dict,
                    hist_len=None, hist_pages: int = 0):
     b, s = x.shape[0], x.shape[1]
     xin = rms_norm(p["norm1"], x, cfg.norm_eps)
+    if kind == "ssm":
+        h, conv, state = ssm.ssm_prefill(p["ssm"], cfg, xin, lengths)
+        _write_state(c, {"conv": conv, "state": state}, update_mask)
+        return x + h
+    if kind == "rglru":
+        h, conv, hstate = rglru.rglru_prefill(p["rec"], cfg, xin, lengths)
+        x = x + h
+        _write_state(c, {"conv": conv, "h": hstate}, update_mask)
+        return x + mlp(p["mlp"], rms_norm(p["norm2"], x, cfg.norm_eps))
     q, k, v = layers.attn_qkv(p["attn"], cfg, xin, positions)
     if "k_pages" in c:
         if block_tables is None:
@@ -468,11 +563,14 @@ def _prefill_block(kind: str, p, cfg: ArchConfig, x, positions, c: dict,
     return x + _ffn(p, cfg, rms_norm(p["norm2"], x, cfg.norm_eps))[0]
 
 
-def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, cache: dict, *,
-            compute_dtype=torch.bfloat16, lengths=None, update_mask=None,
-            block_tables=None, hist_len=None, hist_pages: int = 0):
+def prefill(params, cfg: ArchConfig, tokens: torch.Tensor | None,
+            cache: dict, *, embeds=None, compute_dtype=torch.bfloat16,
+            lengths=None, update_mask=None, block_tables=None, hist_len=None,
+            hist_pages: int = 0):
     """Run the prompt (B, S), filling `cache` in place; returns (last-token
-    logits (B, 1, V), cache with its new clock).
+    logits (B, 1, V), cache with its new clock).  `embeds` as `forward`
+    takes them: a VLM's (B, P, D) prefix runs before the tokens and the
+    clock is then P + S.
 
     Ragged mode: `lengths` (B,) marks each slot's valid prefix of a
     right-padded `tokens` batch; logits come from each slot's own last
@@ -486,15 +584,19 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, cache: dict, *,
     absolute positions `hist_len + i`, and the clock counts the history
     too.  `hist_pages` bounds the history gather: max(hist_len) // page.
     A history on a contiguous block (chunked prefill; in a paged
-    prefill, a "local" block's ring) is not ported yet: only pure "attn"
-    patterns share prefixes, so a mixed pattern's paged prefill passes
-    zeros, and its ring blocks then attend their rows as stored, as the
-    JAX package's chunk continuation reads them.
+    prefill, a "local" block's ring or a recurrent block's state) is not
+    ported yet: only pure "attn" patterns share prefixes, so a mixed
+    pattern's paged prefill passes zeros, and its ring blocks then attend
+    their rows as stored, as the JAX package's chunk continuation reads
+    them.  A ragged prefill takes no `embeds`, as in the JAX package.
 
     A "local" block attends its prompt with `layers.local_attention` and
     keeps its last `size` rows in its ring (`_ring_place` per slot for a
-    ragged batch)."""
-    _check_kinds(cfg)
+    ragged batch); a recurrent block scans the prompt and keeps the state
+    at each slot's last valid token."""
+    if lengths is not None and (embeds is not None or cfg.prefix_tokens):
+        raise NotImplementedError(
+            "ragged prefill does not support embeds / VLM prefix archs")
     if block_tables is not None and lengths is None:
         raise NotImplementedError("paged prefill is ragged-only (pass lengths)")
     if hist_len is not None and lengths is None:
@@ -509,16 +611,17 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, cache: dict, *,
     if hist_pages and block_tables is None:
         raise ValueError("hist_pages needs block_tables (paged cache)")
     layer_list = _layers(params, cfg, cache)
-    if (hist_len is not None and any("k" in c for _, _, c in layer_list)
+    if (hist_len is not None
+            and any("k_pages" not in c for _, _, c in layer_list)
             and bool(hist_len.any())):
         raise NotImplementedError(
-            "a history on a ring block is chunked prefill, which is not "
-            "ported yet (ROADMAP.md queue 1 item 5)")
+            "a history on a ring or recurrent block is chunked prefill, "
+            "which is not ported yet (ROADMAP.md queue 1 item 5)")
     if block_tables is not None and hist_pages > block_tables.shape[1]:
         raise ValueError(f"hist_pages {hist_pages} exceeds block table "
                          f"span {block_tables.shape[1]}")
-    x = params["embed"].to(compute_dtype)[tokens.long()]
-    b, s = tokens.shape
+    x = _embed_in(params, cfg, tokens, embeds, compute_dtype)
+    b, s = x.shape[0], x.shape[1]
     positions = _positions(b, s, x.device)
     if hist_len is not None:
         positions = positions + hist_len[:, None].to(positions.dtype)

@@ -15,9 +15,15 @@ persistent cache, contiguous or paged:
   evict   EOS / max-tokens frees the slot at once for the next queued
           request; a slot's clock masks its stale rows.
 
+It serves every token-input decoder: "attn", "local", "ssm" and
+"rglru" blocks; a recurrent block's state is written only for the slots
+that step (admitted, or active).  Encoders (no decode step) and archs
+that take embeddings (a VLM's prefix) are refused, as in the JAX
+package.
+
 On the paged layout (`cache_layout="paged"`, on an arch with "attn"
-layers; a sliding-window-only arch runs the contiguous path, as in the
-JAX package) the host plane `PagedKV` builds each slot's block table at
+layers; an arch of sliding-window and recurrent blocks only runs the
+contiguous path, as in the JAX package) the host plane `PagedKV` builds each slot's block table at
 admission, reuses full prompt pages that an earlier request already
 prefilled (prefix sharing, on pure "attn" archs: only the suffix is
 prefilled, bucketed by the number of shared pages), allocates the decode
@@ -123,9 +129,10 @@ class Scheduler:
                        else serve_lib.warm_start_engine(scfg))
         self.cache = serve_lib.init_cache(cfg, scfg)
         # the paged plane is live only when the arch has full-attention
-        # layers to page: on a sliding-window-only arch a paged
-        # ServeConfig builds the contiguous cache (rings) and runs the
-        # contiguous path, as in the JAX package.  Prefix sharing needs
+        # layers to page: on an arch of sliding-window and recurrent
+        # blocks only a paged ServeConfig builds the contiguous cache
+        # (rings, states) and runs the contiguous path, as in the JAX
+        # package.  Prefix sharing needs
         # every layer's prompt rows in shareable pages: pure "attn" only.
         self.paged: PagedKV | None = None
         if scfg.cache_layout == "paged" and "attn" in cfg.layer_pattern:

@@ -232,16 +232,22 @@ def init_cache(cfg: ArchConfig, scfg: ServeConfig) -> dict:
 
 
 def generate(params, cfg: ArchConfig, scfg: ServeConfig, prompt,
-             n_tokens: int, *, engine: Engine | None = None) -> torch.Tensor:
+             n_tokens: int, *, embeds=None,
+             engine: Engine | None = None) -> torch.Tensor:
     """prompt (B, S_prompt) -> (B, n_tokens) greedy tokens.
 
     The first token is the argmax of the prefill logits, so `n_tokens`
-    outputs cost `n_tokens - 1` decode steps.  Runs where `params` live,
-    which must be `scfg.device`.  `engine` overrides the
-    `ServeConfig`-derived one (pass a shared Engine to keep one decision
-    cache across calls)."""
+    outputs cost `n_tokens - 1` decode steps.  `embeds` go to the prefill
+    as `transformer.prefill` takes them (a VLM's (B, P, D) prefix; the
+    cache then holds P + S_prompt + n_tokens - 1 rows).  An encoder has
+    no decode step: it serves one token, the argmax of its last frame.
+    Runs where `params` live, which must be `scfg.device`.  `engine`
+    overrides the `ServeConfig`-derived one (pass a shared Engine to keep
+    one decision cache across calls)."""
     if n_tokens < 1:
         raise ValueError(f"n_tokens must be >= 1, got {n_tokens}")
+    if cfg.kind == "encoder" and n_tokens > 1:
+        raise ValueError("encoder-only arch: no decode step")
     if scfg.cache_layout == "paged":
         raise NotImplementedError(
             "generate() serves the contiguous layout only; the paged layout "
@@ -252,10 +258,11 @@ def generate(params, cfg: ArchConfig, scfg: ServeConfig, prompt,
             "speculative decoding and chunked prefill are not ported yet "
             "(ROADMAP.md queue 1 item 5)")
     dev = resolve_device(scfg)
-    if params["embed"].device.type != dev.type:
-        raise ValueError(f"params live on {params['embed'].device} but "
-                         f"ServeConfig.device is {scfg.device!r}")
-    prompt = torch.as_tensor(prompt, device=params["embed"].device)
+    where = params["final_norm"].device
+    if where.type != dev.type:
+        raise ValueError(f"params live on {where} but ServeConfig.device is "
+                         f"{scfg.device!r}")
+    prompt = torch.as_tensor(prompt, device=where)
     if prompt.dim() != 2 or prompt.shape[0] != scfg.batch:
         raise ValueError(f"prompt {tuple(prompt.shape)} is not "
                          f"(batch={scfg.batch}, S)")
@@ -263,7 +270,7 @@ def generate(params, cfg: ArchConfig, scfg: ServeConfig, prompt,
     scope = use_engine(eng) if eng is not None else contextlib.nullcontext()
     with scope, torch.inference_mode():
         cache = init_cache(cfg, scfg)
-        logits, cache = T.prefill(params, cfg, prompt, cache,
+        logits, cache = T.prefill(params, cfg, prompt, cache, embeds=embeds,
                                   compute_dtype=scfg.compute_dtype)
         tok = logits[:, -1].argmax(dim=-1, keepdim=True).to(torch.int32)
         outs = [tok]

@@ -31,8 +31,11 @@ The paged kernel is held over float and int8 pools at cluster sizes 1,
 the wrapper's and 8, at small tables, qwen2-1.5b's decode tick and
 granite's (G = 2, D = 64), its kv_len 0 rows exactly zero and its
 repeats bit for bit.  The SMOKE configurations of qwen3-14b,
-mistral-large-123b, gemma3-12b (also under --quantize) and mixtral-8x7b
-(both MoE dispatches) give the CPU plain run's tokens on the card.
+mistral-large-123b, gemma3-12b and recurrentgemma-2b (both also under
+--quantize), mamba2-780m and mixtral-8x7b (both MoE dispatches) give the
+CPU plain run's tokens on the card; internvl2-1b's after its prefix
+embeddings too, and hubert-xlarge's forward logits are within 1e-4
+rel-L2 of the CPU's.
 """
 
 import dataclasses
@@ -1047,10 +1050,13 @@ def test_sparse_int8_launcher_on_the_card_serves_the_cpus_tokens(cuda, trace):
 
 
 #: the SMOKE configurations of qwen3-14b, mistral-large-123b, gemma3-12b
-#: (also under --quantize) and mixtral-8x7b (both MoE dispatches)
+#: and recurrentgemma-2b (both also under --quantize), mamba2-780m and
+#: mixtral-8x7b (both MoE dispatches)
 NEW_SMOKE = [("qwen3-14b", None), ("mistral-large-123b", None),
              ("gemma3-12b", None), ("gemma3-12b", "quantize"),
-             ("mixtral-8x7b", "einsum"), ("mixtral-8x7b", "sort")]
+             ("mixtral-8x7b", "einsum"), ("mixtral-8x7b", "sort"),
+             ("mamba2-780m", None), ("recurrentgemma-2b", None),
+             ("recurrentgemma-2b", "quantize")]
 
 
 @pytest.mark.card
@@ -1104,3 +1110,41 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("arch", ["internvl2-1b", "hubert-xlarge"])
+def test_embedding_input_archs_on_the_card_equal_the_cpu(cuda, arch):
+    """SMOKE f32: internvl2-1b's greedy tokens after an 8-row prefix of
+    patch embeddings, and hubert-xlarge's forward logits over 40 frames
+    (within 1e-4 rel-L2), on the card (`hopper`) against the CPU's plain
+    run (`torch-ref`)."""
+    from repro_torch.engine import Engine, use_engine
+
+    cfg = get_config(arch, smoke=True)
+    params = T.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (2, 40), generator=gen,
+                           dtype=torch.int32)
+    rows = 40 if cfg.embed_inputs else cfg.prefix_tokens
+    embeds = torch.randn(2, rows, cfg.d_model, generator=gen)
+
+    def run(device, backend):
+        p = _to(params, device)
+        if cfg.embed_inputs:
+            with torch.inference_mode(), use_engine(Engine(backend=backend)):
+                return T.forward(p, cfg, None, embeds=embeds.to(device),
+                                 compute_dtype=torch.float32)[0].cpu()
+        return serve.generate(p, cfg, serve.ServeConfig(
+            max_seq=rows + 48 + 1, batch=2, compute_dtype="float32",
+            cache_dtype="float32", kernel_backend=backend, device=device),
+            prompt.to(device), 8, embeds=0.02 * embeds.to(device)).cpu()
+
+    redas_gemm.reset_launches()
+    got = run("cuda", "hopper")
+    assert sum(redas_gemm.launches.values()) > 0
+    want = run("cpu", "torch-ref")
+    if cfg.embed_inputs:
+        assert ((got - want).norm() / want.norm()).item() <= 1e-4
+    else:
+        assert torch.equal(got, want)

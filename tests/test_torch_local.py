@@ -241,14 +241,3 @@ def test_history_on_a_ring_block_is_refused(gemma3):
                   lengths=torch.full((2,), 6, dtype=torch.int32),
                   block_tables=bt, hist_len=torch.tensor([4, 0]),
                   hist_pages=1)
-
-
-@pytest.mark.parametrize("kw", [dict(layer_pattern=("ssm",)),
-                                dict(layer_pattern=("rglru", "local")),
-                                dict(embed_inputs=True),
-                                dict(prefix_tokens=4)],
-                         ids=["ssm", "rglru", "embeds", "prefix"])
-def test_unported_kinds_are_refused(kw):
-    cfg = dataclasses.replace(get_config(GEMMA3, True), **kw)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        T.init_params(cfg, generator=torch.Generator().manual_seed(0))
