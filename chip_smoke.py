@@ -66,7 +66,8 @@ Phases (any failed check exits non-zero; nothing falls back):
      the bound;
   9. granite-moe-1b-a400m, sorted dispatch (`impl="sort"`, chosen in the
      configuration as in the JAX package), full width, through the
-     Scheduler on the paged layout with the paged serve's trace; grouped
+     Scheduler on the paged layout with POSTURE_TRACE (since PR 34;
+     the paged serve's 110-tick trace before); grouped
      launches must equal 3 x 24 x (decode ticks + prefill calls), every one
      on the wgmma kernel, GEMM 4 x 24 x (ticks + calls) with every OS call
      on the wgmma kernel, paged 24 x ticks; a second pass plans nothing
@@ -180,9 +181,10 @@ Phases (any failed check exits non-zero; nothing falls back):
      gemma3 4 x (1536 + 16), whose prompts wrap its 1024-row rings: the
      GEMM kernel 7 x layers x 16 times, every OS call on wgmma, no other
      kernel), its prefill logits against `torch-ref`; the paged serve
-     through the same entry point (qwen3: phase 5's trace; gemma3:
-     1536x64*4,768x32*4,256x16*8, whose ragged prompts take the ring
-     placement): the paged kernel once an "attn" layer a tick (gemma3's 8
+     through the same entry point (since PR 34, cut to make room for
+     phases 33-37: qwen3 POSTURE_TRACE, 31 ticks (phase 5's 110 before);
+     gemma3 1536x32*4,768x24*4,256x8*4 (1536x64*4,768x32*4,256x16*8
+     before), whose ragged prompts take the ring placement): the paged kernel once an "attn" layer a tick (gemma3's 8
      global layers), the GEMM 7 x layers x (ticks + prefill calls),
      prefix sharing on pure "attn" archs only, the cache's pool and ring
      bytes and the peak memory, a second pass planning nothing new, 10
@@ -204,6 +206,41 @@ Phases (any failed check exits non-zero; nothing falls back):
      through the Scheduler with the sorted dispatch (its int8 grouped op
      loops the int8 GEMM over the 32 float expert stacks) and with
      einsum, each with its ms a tick and int8 launches by path;
+ 33. qwen2-1.5b at full width, speculative (`--speculate 4 --draft self`,
+     paged, POSTURE_TRACE) through the Scheduler, tick by tick: the
+     paged plane's invariants after every tick, each tick's tokens the
+     head of its verify pass's argmax, GEMM launches exactly 7 x 28 x
+     (target prefill calls + draft prefill calls + spec ticks x (k + 2)),
+     every OS call on wgmma, the paged kernel 0 times (the (k + 1)-wide
+     verify takes the plain gather; the draft's cache is contiguous), a
+     second pass planning nothing new; one verify pass's (8, 5, V)
+     logits against `torch-ref`; the acceptance share, tokens/s and ms a
+     tick beside the non-speculative serve's on the same trace; the same
+     trace with `--draft self-int8` (its weights dequantized every call
+     under the float engine, as the reference does), timed;
+ 34. qwen2-1.5b under `--quantize --speculate 4` (SPEC_QUANT_TRACE): the
+     int8 kernel's launches by path (the draft's proposals at M = 8 on
+     the decode path, the verify, the replay and the prefills tiled), no
+     other kernel, one verify pass's logits against `torch-ref-int8`;
+ 35. qwen2-1.5b at full width, chunked (`--prefill-chunk 256`, paged,
+     CHUNK_TRACE): a 2048-token prompt's last chunk's logits against its
+     one-call prefill's, the serve's prefill calls, widths and tokens, its
+     decode tokens emitted on ticks where a slot was ingesting, GEMM 7 x
+     28 x (ticks + calls), paged 28 x ticks, a second pass planning
+     nothing new; then the trace through `serve_async`, its completions
+     equal to `run()`'s;
+ 36. recurrentgemma-2b at full width (contiguous, window 2048):
+     `--prefill-chunk 512` (2560-token prompts: the rings wrap across the
+     chunks) and `--speculate 4` (the ring undo and the recurrent stash),
+     each with exact launch counts (a speculative pass steps the RG-LRU
+     recurrence token by token at M = 8, as the JAX package does) and
+     logits held by PR 33's rule against the f32 model;
+ 37. SMOKE in f32: speculation (self, disagreeing and self-int8 drafts)
+     and chunking on the four cache kinds, granite sorted speculation,
+     qwen chunked paged and under an int8 cache, gemma3 chunked paged,
+     chunking with speculation: the card's tokens equal the CPU's per
+     uid, and the card's speculative or chunked tokens its plain serve's;
+     `generate(temperature=0.7, key=)` repeats its tokens for the seed;
  28. the kernels line, then the result line.
 
 Every detail also goes to runs/chip_smoke.json.  Exits non-zero
@@ -248,6 +285,7 @@ from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.quant import quantize_params, tree_bytes  # noqa: E402
 from repro_torch.serve_lib import serve as serve_lib  # noqa: E402
+from repro_torch.serve_lib.paged import PagedKV  # noqa: E402
 from repro_torch.serve_lib.scheduler import Request, Scheduler  # noqa: E402
 from repro_torch.sparse import (SparseTensor, prune_params,  # noqa: E402
                                 sparsify)
@@ -266,8 +304,9 @@ BF16_ROW_TOL, F32_ROW_TOL = 1e-2, 1e-4
 GEMM_PICK_LIMIT = 1.25
 #: the bf16 GEMM's M on the main paths: the static decode (4) and prefill
 #: (2048), the paged decode (8) and prefill (8 slots x widths 64, 256 and
-#: 768); 512 and 6144 are held out of the cost model's fit
-GEMM_MAIN_M = (4, 8, 512, 2048, 6144)
+#: 768), the speculative verify (8 slots x 5); 40, 512 and 6144 are
+#: outside the cost model's fit
+GEMM_MAIN_M = (4, 8, 40, 512, 2048, 6144)
 LOGIT_LIMITS = {"rel_l2": 0.035, "rel_max": 0.035}
 #: where two bf16 runs of a model differ by more than LOGIT_LIMITS on
 #: their own (recurrentgemma-2b: through 26 layers the plain bf16 `@`
@@ -283,7 +322,9 @@ KERNELS = ("redas_gemm", "paged_attention", "flash_attention", "grouped_gemm",
 SLOTS, PAGE, BUCKET = 8, 16, 16
 TRACE = "768x32*4,512x64*4,256x16*8,64x48*8"
 #: the qwen2 posture serves' paged trace (int8 weights, --quantize,
-#: --sparsity, sparse x int8: phases 13, 15, 18-23), cut from TRACE's 24
+#: --sparsity, sparse x int8: phases 13, 15, 18-23; since PR 34 also
+#: qwen3-14b's and granite's paged serves and mamba2-780m's Scheduler
+#: trace), cut from TRACE's 24
 #: requests and 110 ticks to 12 requests and 31 ticks to make room in the
 #: run's time: the same max_seq (the same pools), 8 slots admitted at
 #: once whose 512x24 requests outlive the 21 probe ticks of
@@ -3286,11 +3327,11 @@ def _sorted(cfg):
 
 def phase_granite_sorted() -> dict:
     """Full-width granite with sorted dispatch through the Scheduler on
-    the paged layout: the paged serve's trace, launch counts, a second
+    the paged layout: POSTURE_TRACE, launch counts, a second
     pass through the same engine, and a device trace of 10 decode
     ticks."""
     cfg = _sorted(get_config(GRANITE))
-    trace = launch_serve.parse_trace(TRACE)
+    trace = launch_serve.parse_trace(POSTURE_TRACE)
     scfg = serve_lib.ServeConfig(
         max_seq=max(p + g for p, g in trace) + 1, batch=SLOTS,
         kernel_backend="hopper", cache_layout="paged", page_size=PAGE)
@@ -3561,8 +3602,8 @@ def phase_granite_smoke_parity() -> None:
 #: the full-width serves: the static prompt (4 requests, GEN new tokens
 #: each) and the paged trace over SLOTS slots; gemma3's prompts are longer
 #: than its 1024-row window, so its rings wrap
-WIDE = {QWEN3: {"prompt": PROMPT, "trace": TRACE},
-        GEMMA3: {"prompt": 1536, "trace": "1536x64*4,768x32*4,256x16*8"}}
+WIDE = {QWEN3: {"prompt": PROMPT, "trace": POSTURE_TRACE},
+        GEMMA3: {"prompt": 1536, "trace": "1536x32*4,768x24*4,256x8*4"}}
 #: mistral-large-123b at its published widths, its 88 layers cut to 4
 MISTRAL_LAYERS = 4
 #: mixtral-8x7b at its published widths, its 32 layers cut to 4 (11.5 GiB
@@ -3574,7 +3615,7 @@ MIXTRAL_LAYERS, MIXTRAL_TRACE = 4, "512x16*4,256x24*4"
 DECISION_M = (BATCH, SLOTS, 2048)
 #: granite under --quantize: the paged trace of the sorted dispatch, whose
 #: int8 grouped op loops the int8 GEMM over the experts
-GRANITE_QUANT_TRACE = "256x16*8"
+GRANITE_QUANT_TRACE = "256x8*8"
 
 
 def layer_gemms(cfg, kind: str = "attn") -> dict:
@@ -4062,7 +4103,7 @@ HUBERT, INTERNVL = "hubert-xlarge", "internvl2-1b"
 #: path), with `ticks` traced decode ticks (the trace's first 8 requests
 #: outlive 2 x ticks + 1 ticks).  mamba2's 2048 tokens are 8 SSD chunks
 #: of 256; recurrentgemma's 2560-token prompts wrap its 2048-row rings
-RECURRENT = {MAMBA: {"prompt": 2048, "trace": TRACE, "ticks": 10},
+RECURRENT = {MAMBA: {"prompt": 2048, "trace": POSTURE_TRACE, "ticks": 10},
              RGEMMA: {"prompt": 2560, "trace": "2560x32*2,768x32*4,256x16*8",
                       "ticks": 6}}
 #: hubert's (batch, frames) through `forward`; internvl2's text prompt,
@@ -4506,6 +4547,832 @@ def phase_granite_quantize() -> dict:
     return result
 
 
+# --------------------------------------------------------------------------
+# speculative decoding, chunked prefill, async serving and sampling
+# --------------------------------------------------------------------------
+
+#: the draft's tokens a speculative tick: the verify is k + 1 = 5 wide
+SPEC_K = 4
+#: qwen2's chunked serve: two 2048-token prompts stream in 8 chunks of
+#: 256 beside 8 short requests (6 admitted at once, 2 when they finish)
+QWEN_CHUNK, CHUNK_TRACE = 256, "2048x16*2,256x16*8"
+#: recurrentgemma-2b's chunked serve: 2560-token prompts in 5 chunks of
+#: 512, whose 2048-row rings wrap across the chunks; its speculative
+#: serve's trace
+RGEMMA_CHUNK, RGEMMA_CHUNK_TRACE = 512, "2560x16*2,256x16*6"
+RGEMMA_SPEC_TRACE = "512x16*8"
+#: qwen2 under --quantize --speculate 4: a short trace
+SPEC_QUANT_TRACE = "256x16*8"
+#: the wait for an async serve's futures
+ASYNC_WAIT_S = 600
+
+
+class _VerifySpy:
+    """While installed, keeps each `transformer.verify_step` call's
+    greedy tokens g (B, W), accepted counts and active mask on the host
+    (the Scheduler reads them back anyway)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        self._orig = T.verify_step
+
+        def spy(*args, **kw):
+            g, n_acc, cache = self._orig(*args, **kw)
+            self.calls.append((g.cpu(), n_acc.cpu(), kw["active"].cpu()))
+            return g, n_acc, cache
+
+        T.verify_step = spy
+        return self
+
+    def __exit__(self, *exc):
+        T.verify_step = self._orig
+
+
+def drive(sched, reqs, label: str, spy: _VerifySpy | None = None) -> dict:
+    """Serve `reqs` through `sched` tick by tick, checking after every
+    tick the paged plane's invariants (when it has one) and, with `spy`,
+    that each slot's tokens of the tick are the head of that tick's
+    verify argmax (all of the accepted prefix and the correction, unless
+    the request ended in it).  Returns the seconds, and the ticks on
+    which a slot was ingesting with the decode tokens they emitted."""
+    for r in reqs:
+        sched.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ticks, ingest_ticks, ingest_decode_tokens, bad = 0, 0, 0, []
+    while sched.queue or sched.n_active:
+        before = {i: (s.req.uid, len(s.emitted))
+                  for i, s in enumerate(sched.slots)
+                  if s is not None and not s.ingesting}
+        ingesting = any(s is not None and s.ingesting for s in sched.slots)
+        decoded = sched.stats["decode_tokens"]
+        calls = len(spy.calls) if spy is not None else 0
+        sched.step()
+        ticks += 1
+        # a slot admitted this tick ingests its first chunk in it
+        ingesting |= any(s is not None and s.ingesting for s in sched.slots)
+        if ingesting:
+            ingest_ticks += 1
+            ingest_decode_tokens += sched.stats["decode_tokens"] - decoded
+        if sched.paged is not None:
+            sched.paged.check_invariants()
+        if spy is not None and before:
+            check(len(spy.calls) == calls + 1, f"{label}: tick {ticks} ran "
+                  f"{len(spy.calls) - calls} verify passes")
+            g, n_acc, active = spy.calls[-1]
+            for i, (uid, n) in before.items():
+                s = sched.slots[i]
+                toks = (s.emitted if s is not None and s.req.uid == uid
+                        else sched.completions[uid].tokens.tolist())[n:]
+                done = s is None or s.req.uid != uid
+                if not (bool(active[i]) and toks == g[i, :len(toks)].tolist()
+                        and (len(toks) == int(n_acc[i]) + 1
+                             or (done and len(toks) <= int(n_acc[i]) + 1))):
+                    bad.append((ticks, uid, toks, g[i].tolist(),
+                                int(n_acc[i])))
+        check(ticks < 10_000, f"{label}: the Scheduler did not drain")
+    torch.cuda.synchronize()
+    check(not bad, f"{label}: ticks whose tokens are not the verify's "
+          f"argmax: {bad[:3]}")
+    return {"seconds": time.perf_counter() - t0, "ticks": ticks,
+            "ingest_ticks": ingest_ticks,
+            "ingest_decode_tokens": ingest_decode_tokens}
+
+
+def _rglru_split(cfg) -> tuple[dict, dict]:
+    """An "rglru" layer's engine GEMMs, (K, N) -> calls, split into its
+    recurrence's (lin_x, lin_y, w_a, w_x, lin_out: stepped token by token
+    in a speculative pass) and its feed-forward's (token-wide)."""
+    d, w = cfg.d_model, cfg.rglru_width or cfg.d_model
+    rec = collections.Counter()
+    for kn, c in (((d, w), 2), ((w, w), 2), ((w, d), 1)):  # d may equal w
+        rec[kn] += c
+    ffn = collections.Counter(layer_gemms(cfg, "rglru"))
+    ffn.subtract(rec)
+    return dict(rec), {kn: c for kn, c in ffn.items() if c}
+
+
+def spec_calls(sched) -> collections.Counter:
+    """The engine GEMM calls of a speculative serve, (M, K, N) -> calls:
+    every prefill (the target's and the draft's) one pass at M = SLOTS x
+    width; the draft's k proposals a tick one pass each at M = SLOTS; the
+    verify and the draft's replay a tick each one (k + 1)-wide pass at M
+    = SLOTS (k + 1), whose "rglru" recurrences step the k + 1 tokens one
+    at a time at M = SLOTS (the decode step's GEMMs, as the JAX
+    package's `_spec_block` scans them)."""
+    cfg, st, k = sched.cfg, sched.stats, sched.spec_k
+    wide, calls = SLOTS * (k + 1), collections.Counter()
+
+    def add(m, gemms, times):
+        for (kk, n), c in gemms.items():
+            calls[m, kk, n] += c * times
+
+    per_pass = model_gemms(cfg)
+    for widths in (sched.prefill_width_calls, sched.draft_prefill_width_calls):
+        for w, c in widths.items():
+            add(SLOTS * w, per_pass, c)
+    add(SLOTS, per_pass, k * st["spec_ticks"])
+    rec, ffn = _rglru_split(cfg)
+    for i in range(cfg.n_layers):
+        kind = cfg.layer_pattern[i % len(cfg.layer_pattern)]
+        if kind == "rglru":
+            add(SLOTS, rec, (k + 1) * 2 * st["spec_ticks"])
+            add(wide, ffn, 2 * st["spec_ticks"])
+        else:
+            add(wide, layer_gemms(cfg, kind), 2 * st["spec_ticks"])
+    return calls
+
+
+def check_plan_calls(label: str, eng, calls: collections.Counter
+                     ) -> tuple[int, int]:
+    """`check_reductions` and `check_os_routes` for a serve whose GEMM
+    calls are given by (M, K, N): the streaming reductions equal the calls
+    at the plan's multi-slab decisions, and the OS GEMMs the calls at its
+    OS decisions, every one on the wgmma kernel.  Returns (reductions,
+    wgmma OS calls)."""
+    shapes = {(req.m, req.k, req.n): dec for req, dec in eng.plan
+              if req.op == "gemm"}
+    check(set(shapes) == {mkn for mkn, c in calls.items() if c},
+          f"{label}: the plan's GEMM shapes {sorted(shapes)} are not the "
+          f"serve's {sorted(calls)}")
+    want_red = sum(calls[mkn] for mkn, dec in shapes.items()
+                   if dec.meta_dict.get("slabs", 1) > 1)
+    want_os = sum(calls[mkn] for mkn, dec in shapes.items()
+                  if dec.dataflow == "os")
+    red, os_, wgmma = (redas_gemm.reduce_launches, redas_gemm.launches["os"],
+                       redas_gemm.os_wgmma_launches)
+    print(f"{label}: {red} streaming reductions (the plan's multi-slab "
+          f"decisions make {want_red}); {os_} OS GEMMs, {wgmma} on the wgmma "
+          f"kernel (its OS decisions make {want_os})")
+    check(red == want_red and os_ == wgmma == want_os,
+          f"{label}: reductions {red} (want {want_red}), OS {os_} on wgmma "
+          f"{wgmma} (want {want_os})")
+    return red, wgmma
+
+
+def _spec_serve(label: str, params, cfg, scfg, trace: str, eng,
+                paged_kernel: int = 0) -> dict:
+    """A speculative serve of `trace` through the Scheduler on `eng`,
+    driven with the verify spy: the GEMM kernel exactly `spec_calls`'
+    count (on an attention-only arch per_pass x (target prefill calls +
+    draft prefill calls + spec ticks x (k + 2))), every OS call of the
+    plan on wgmma, the paged kernel `paged_kernel` times (the verify
+    takes the plain gather), no other kernel; a second pass through the
+    same engine planning nothing new and serving the same tokens."""
+    reqs = launch_serve.trace_requests(cfg, launch_serve.parse_trace(trace),
+                                       SEED)
+    sched = Scheduler(params, cfg, scfg, engine=eng, prefill_bucket=BUCKET)
+    reset_counts()
+    with _VerifySpy() as spy:
+        run = drive(sched, reqs, label, spy)
+    counts = read_counts()
+    st = sched.stats
+    ticks, calls = st["spec_ticks"], st["prefill_calls"]
+    dcalls = sum(sched.draft_prefill_width_calls.values())
+    gemms = spec_calls(sched)
+    reduces, wgmma = check_plan_calls(label, eng, gemms)
+    want = {"redas_gemm": sum(gemms.values()),
+            "paged_attention": paged_kernel}
+    if set(cfg.layer_pattern) <= {"attn", "local"}:
+        # 7 a layer a pass: per_pass x (prefills + ticks x (k + 2))
+        check(want["redas_gemm"] == sum(model_gemms(cfg).values())
+              * (calls + dcalls + ticks * (SPEC_K + 2)),
+              f"{label}: the GEMM formula")
+    n_tok = sum(len(c.tokens) for c in sched.completions.values())
+    accept = st["accepted_draft_tokens"] / max(st["draft_tokens"], 1)
+    tick_ms = sched.timings["spec_s"] * 1e3 / max(ticks, 1)
+    print(f"{label}: {len(reqs)} requests / {n_tok} tokens in "
+          f"{run['seconds']:.3f} s, {n_tok / run['seconds']:.1f} tok/s over "
+          f"{SLOTS} slots; {ticks} speculative ticks of k = {SPEC_K}, "
+          f"{tick_ms:.3f} ms a tick (mean), {n_tok / ticks:.2f} tokens a tick "
+          f"beside the prefills' first tokens; acceptance {accept:.3f} "
+          f"({st['accepted_draft_tokens']} of {st['draft_tokens']} drafts); "
+          f"{calls} target prefill calls, {dcalls} draft prefill calls; plan "
+          f"{eng.plan.stats}; launches {counts} (want {want})")
+    check(len(sched.completions) == len(reqs), f"{label}: served too few")
+    check(all(counts[k] == v for k, v in want.items())
+          and all(v == 0 for k, v in counts.items() if k not in want),
+          f"{label} launches {counts}, not {want}")
+    tokens = {u: c.tokens.tolist() for u, c in sched.completions.items()}
+    for r in reqs:
+        check(len(tokens[r.uid]) == r.max_new_tokens
+              and all(0 <= t < cfg.vocab for t in tokens[r.uid]),
+              f"{label} request {r.uid}")
+    misses = eng.plan.misses
+    again = Scheduler(params, cfg, scfg, engine=eng, prefill_bucket=BUCKET)
+    again.run(launch_serve.trace_requests(cfg, launch_serve.parse_trace(
+        trace), SEED))
+    new_misses = eng.plan.misses - misses
+    same = {u: c.tokens.tolist() for u, c in again.completions.items()} \
+        == tokens
+    print(f"{label}, second pass through the same engine: {new_misses} new "
+          f"plan misses, tokens {'identical' if same else 'DIFFER'}")
+    check(new_misses == 0 and same, f"{label}: second pass {new_misses} new "
+          f"misses, tokens {'same' if same else 'differ'}")
+    del again
+    return {"trace": trace, "k": SPEC_K, "seconds": run["seconds"],
+            "tokens": n_tok, "tokens_per_s": n_tok / run["seconds"],
+            "spec_ticks": ticks, "ms_per_tick": tick_ms,
+            "tokens_per_tick": n_tok / ticks, "acceptance": accept,
+            "prefill_calls": calls, "draft_prefill_calls": dcalls,
+            "prefill_ms": sched.timings["prefill_s"] * 1e3,
+            "stats": {k: v for k, v in st.items() if k != "prefill_widths"},
+            "plan": eng.plan.stats, "counts": counts, "os_wgmma": wgmma,
+            "reductions": reduces, "decision_mix": decision_mix(eng),
+            "second_pass_new_misses": new_misses, "sched": sched}
+
+
+def _plain_serve(label: str, params, cfg, scfg, trace: str) -> dict:
+    """The non-speculative serve of the same trace on its own engine, for
+    scale: tokens/s and ms a tick (its first pass plans; the second is
+    timed)."""
+    reqs = lambda: launch_serve.trace_requests(  # noqa: E731
+        cfg, launch_serve.parse_trace(trace), SEED)
+    eng = Engine(backend=scfg.kernel_backend)
+    Scheduler(params, cfg, scfg, engine=eng, prefill_bucket=BUCKET).run(reqs())
+    sched = Scheduler(params, cfg, scfg, engine=eng, prefill_bucket=BUCKET)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sched.run(reqs())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    n_tok = sum(len(c.tokens) for c in sched.completions.values())
+    ticks = sched.stats["decode_steps"]
+    out = {"seconds": seconds, "tokens_per_s": n_tok / seconds,
+           "decode_ticks": ticks,
+           "ms_per_tick": sched.timings["decode_s"] * 1e3 / ticks,
+           "prefill_ms": sched.timings["prefill_s"] * 1e3,
+           "tokens": {u: c.tokens.tolist()
+                      for u, c in sched.completions.items()}}
+    print(f"{label}, the same trace without speculation (second pass): "
+          f"{n_tok} tokens in {seconds:.3f} s, {out['tokens_per_s']:.1f} "
+          f"tok/s; {ticks} decode ticks, {out['ms_per_tick']:.3f} ms a tick")
+    return out
+
+
+def verify_gap(label: str, params, cfg, scfg, trace: str,
+               backends=("torch-ref", "hopper"), f32_anchor: bool = False
+               ) -> dict:
+    """One verify pass's (SLOTS, k + 1, V) logits at full width from one
+    state, the kernels' backend against its plain twin (`backends` =
+    (plain, kernels)): the slots the trace's first Scheduler tick admits,
+    after that tick, each scoring its last token and the draft's next k
+    proposals.  `spec_commit` with keep 0 after each pass leaves the
+    state as it was (rings and recurrent state restored; rows past the
+    clock are written alike by every pass).  Held within LOGIT_LIMITS'
+    rel-L2, or with `f32_anchor` no farther from the f32 model's pass
+    (f32 weights, an f32 copy of the state, the plain versions) than
+    F32_ANCHOR_LIMIT x the plain pass is."""
+    probe = Scheduler(params, cfg, scfg, engine=Engine(backend=backends[1]),
+                      prefill_bucket=BUCKET)
+    for r in launch_serve.trace_requests(cfg, launch_serve.parse_trace(
+            trace), SEED):
+        probe.submit(r)
+    probe.step()
+    check(all(s is not None for s in probe.slots),
+          f"{label}: the first tick did not fill the slots")
+    active = torch.ones(SLOTS, dtype=torch.bool, device="cuda")
+    last = torch.tensor([s.last_token for s in probe.slots],
+                        dtype=torch.int32, device="cuda")
+    kw = {}
+    if probe.paged is not None:
+        for i in range(SLOTS):
+            pos = probe._frontier(i)
+            for pg in range(pos // PAGE, (pos + SPEC_K) // PAGE + 1):
+                probe.paged.ensure_decode_page(i, max(pos, pg * PAGE))
+        kw["block_tables"] = torch.from_numpy(probe.paged.tables).cuda()
+    with probe._scope():
+        toks = torch.cat([last[:, None], T.draft_propose(
+            probe.draft_params, probe.draft_cfg, probe.draft_cache, last,
+            SPEC_K, compute_dtype=scfg.compute_dtype, active=active)], 1)
+
+    def verify(p, cache, backend, dtype):
+        before = read_counts()
+        with torch.inference_mode(), use_engine(Engine(backend=backend)):
+            logits, cache, undo = T.spec_forward(
+                p, cfg, cache, toks, compute_dtype=dtype, active=active, **kw)
+            T.spec_commit(cfg, cache, undo, torch.zeros_like(last))
+        after = read_counts()
+        return logits, {k: after[k] - before[k] for k in after}
+
+    ref, plain_counts = verify(params, probe.cache, backends[0],
+                               scfg.compute_dtype)
+    got, counts = verify(params, probe.cache, backends[1],
+                         scfg.compute_dtype)
+    gap = _logit_gap(got, ref)
+    gap["launches"] = {backends[0]: plain_counts, backends[1]: counts}
+    check(tuple(got.shape) == (SLOTS, SPEC_K + 1, cfg.vocab)
+          and bool(torch.isfinite(got).all()), f"{label}: verify logits "
+          f"{tuple(got.shape)}")
+    check(not any(plain_counts.values()) and any(counts.values())
+          and counts["paged_attention"] == 0,
+          f"{label}: the verify's launches {gap['launches']}")
+    line = (f"{label}: one verify pass's ({SLOTS}, {SPEC_K + 1}, V) logits, "
+            f"{backends[1]} vs {backends[0]}: rel-L2 {gap['rel_l2']:.4e}, "
+            f"max|diff|/max|ref| {gap['rel_max']:.4e}, argmax agreement "
+            f"{gap['argmax_agreement']:.3f}")
+    if not f32_anchor:
+        print(f"{line} (limit rel-L2 {LOGIT_LIMITS['rel_l2']})")
+        check(math.isfinite(gap["rel_l2"])
+              and gap["rel_l2"] <= LOGIT_LIMITS["rel_l2"],
+              f"{label}: verify logit gap {gap}")
+        return gap
+    f32 = _to(params, torch.float32)
+    cache32 = {"t": probe.cache["t"],
+               "slots": _to(probe.cache["slots"], torch.float32),
+               "tail": _to(probe.cache["tail"], torch.float32)}
+    exact, _ = verify(f32, cache32, backends[0], torch.float32)
+    del f32, cache32
+    gap["hopper_vs_f32"] = _logit_gap(got, exact)
+    gap["plain_vs_f32"] = _logit_gap(ref, exact)
+    gap["f32_ratio"] = (gap["hopper_vs_f32"]["rel_l2"]
+                        / gap["plain_vs_f32"]["rel_l2"])
+    print(f"{line} (not gated); against the f32 model's pass rel-L2 "
+          f"{gap['hopper_vs_f32']['rel_l2']:.4e}, the plain versions' "
+          f"{gap['plain_vs_f32']['rel_l2']:.4e}: ratio {gap['f32_ratio']:.3f} "
+          f"(limit {F32_ANCHOR_LIMIT})")
+    check(gap["f32_ratio"] <= F32_ANCHOR_LIMIT, f"{label}: the kernels' "
+          f"verify logits are {gap['f32_ratio']:.3f}x as far from the f32 "
+          f"model as the plain versions'")
+    return gap
+
+
+def phase_spec_qwen(cfg) -> None:
+    """qwen2-1.5b at full width, `--speculate 4 --draft self` on the paged
+    layout over POSTURE_TRACE (bf16, `hopper`): `_spec_serve`'s checks
+    (the paged kernel 0 times: the verify takes the plain gather, the
+    draft's cache is contiguous), one verify pass's logits against
+    `torch-ref`, and the acceptance share, tokens/s and ms a tick beside
+    the non-speculative paged serve's on the same trace."""
+    params = seeded_params(cfg)
+    trace = launch_serve.parse_trace(POSTURE_TRACE)
+    scfg = serve_lib.ServeConfig(
+        max_seq=max(p + g for p, g in trace) + 1 + SPEC_K, batch=SLOTS,
+        kernel_backend="hopper", cache_layout="paged", page_size=PAGE,
+        speculate_k=SPEC_K, draft="self")
+    label = f"{ARCH} --speculate {SPEC_K}"
+    spec = _spec_serve(label, params, cfg, scfg, POSTURE_TRACE,
+                       Engine(backend="hopper"))
+    sched = spec.pop("sched")
+    plain = _plain_serve(label, params, cfg, dataclasses.replace(
+        scfg, speculate_k=0, draft=None), POSTURE_TRACE)
+    agree = sum(plain["tokens"][u] == c.tokens.tolist()
+                for u, c in sched.completions.items())
+    print(f"{label}: {spec['tokens_per_s']:.1f} tok/s against "
+          f"{plain['tokens_per_s']:.1f} without speculation "
+          f"({spec['tokens_per_s'] / plain['tokens_per_s']:.2f}x); "
+          f"{spec['ms_per_tick']:.3f} ms a speculative tick against "
+          f"{plain['ms_per_tick']:.3f} a decode tick; acceptance "
+          f"{spec['acceptance']:.3f}; tokens equal to the plain serve's for "
+          f"{agree}/{len(trace)} requests (bf16: the verify's and decode's "
+          f"GEMMs run at other M)")
+    del sched
+    spec["verify_logits"] = verify_gap(label, params, cfg, scfg,
+                                       POSTURE_TRACE)
+    plain.pop("tokens")
+    REPORT["spec_qwen"] = {**spec, "plain": plain,
+                           "requests_equal_to_plain": agree,
+                           "self_int8": _self_int8_serve(params, cfg, scfg)}
+
+
+def _self_int8_serve(params, cfg, scfg) -> dict:
+    """The same trace with `--draft self-int8`: the draft's int8 copy of
+    the weights, dequantized to bf16 at every call under the float engine
+    (as the reference's `dense` does; slow on purpose, recorded and not
+    gated), every GEMM on the ReDas kernel by `spec_calls`, each tick's
+    tokens the head of its verify argmax."""
+    label = f"{ARCH} --speculate {SPEC_K} --draft self-int8"
+    sched = Scheduler(params, cfg, dataclasses.replace(scfg,
+                                                       draft="self-int8"),
+                      engine=Engine(backend="hopper"), prefill_bucket=BUCKET)
+    reset_counts()
+    with _VerifySpy() as spy:
+        run = drive(sched, launch_serve.trace_requests(
+            cfg, launch_serve.parse_trace(POSTURE_TRACE), SEED), label, spy)
+    counts, st = read_counts(), sched.stats
+    want = sum(spec_calls(sched).values())
+    n_tok = sum(len(c.tokens) for c in sched.completions.values())
+    out = {"seconds": run["seconds"], "tokens_per_s": n_tok / run["seconds"],
+           "spec_ticks": st["spec_ticks"],
+           "ms_per_tick": sched.timings["spec_s"] * 1e3 / st["spec_ticks"],
+           "acceptance": st["accepted_draft_tokens"] / st["draft_tokens"],
+           "counts": counts}
+    print(f"{label}: {n_tok} tokens in {run['seconds']:.3f} s, "
+          f"{out['tokens_per_s']:.1f} tok/s; {st['spec_ticks']} ticks, "
+          f"{out['ms_per_tick']:.3f} ms a tick; acceptance "
+          f"{out['acceptance']:.3f}; launches {counts} (want GEMM {want})")
+    check(counts["redas_gemm"] == want
+          and all(v == 0 for k, v in counts.items() if k != "redas_gemm"),
+          f"{label}: launches {counts}, want GEMM {want}")
+    return out
+
+
+def phase_spec_quantize(cfg) -> None:
+    """qwen2-1.5b under `--quantize --speculate 4` (int8 weights and KV
+    cache, the draft the same int8 params) on SPEC_QUANT_TRACE, paged:
+    the int8 kernel's launches by path exact (the draft's k proposals a
+    tick at M = 8 on the decode path; the verify, the replay and every
+    prefill on the tiled path), the int8-pool paged kernel 0 times, no
+    float GEMM; one verify pass's logits against `torch-ref-int8`."""
+    trace = launch_serve.parse_trace(SPEC_QUANT_TRACE)
+    params = quantize_params(seeded_params(cfg))
+    scfg = serve_lib.ServeConfig(
+        max_seq=max(p + g for p, g in trace) + 1 + SPEC_K, batch=SLOTS,
+        kernel_backend="hopper", quantize=True, cache_dtype="int8",
+        cache_layout="paged", page_size=PAGE, speculate_k=SPEC_K,
+        draft="self")
+    label = f"{ARCH} --quantize --speculate {SPEC_K}"
+    eng = Engine(backend=scfg.kernel_backend)
+    sched = Scheduler(params, cfg, scfg, engine=eng, prefill_bucket=BUCKET)
+    reset_counts()
+    with _VerifySpy() as spy:
+        run = drive(sched, launch_serve.trace_requests(cfg, trace, SEED),
+                    label, spy)
+    counts, paths = read_counts(), dict(quant_gemm.path_launches)
+    st = sched.stats
+    ticks, calls = st["spec_ticks"], st["prefill_calls"]
+    dcalls = sum(sched.draft_prefill_width_calls.values())
+    per = 7 * cfg.n_layers
+    want = {"decode": per * SPEC_K * ticks,
+            "tiled": per * (calls + dcalls + 2 * ticks)}
+    print(f"{label}: {len(trace)} requests in {run['seconds']:.3f} s; "
+          f"{ticks} speculative ticks, "
+          f"{sched.timings['spec_s'] * 1e3 / ticks:.2f} ms a tick, acceptance "
+          f"{st['accepted_draft_tokens']}/{st['draft_tokens']}; int8 launches "
+          f"by path {paths} (want {want}); launches {counts}")
+    check(paths == want and counts["quant_gemm"] == sum(want.values())
+          and all(v == 0 for k, v in counts.items() if k != "quant_gemm"),
+          f"{label}: paths {paths}, counts {counts}")
+    check(len(sched.completions) == len(trace), f"{label}: served too few")
+    gap = verify_gap(label, params, cfg, scfg, SPEC_QUANT_TRACE,
+                     ("torch-ref-int8", "hopper-int8"))
+    REPORT["spec_quantize"] = {
+        "trace": SPEC_QUANT_TRACE, "seconds": run["seconds"],
+        "spec_ticks": ticks,
+        "ms_per_tick": sched.timings["spec_s"] * 1e3 / ticks,
+        "stats": {k: v for k, v in st.items() if k != "prefill_widths"},
+        "int8_paths": paths, "counts": counts, "verify_logits": gap}
+
+
+def _chunked_prefill(params, cfg, scfg, prompt, chunk: int | None,
+                     backend: str = "hopper"):
+    """The last-row logits (B, 1, V) of `prompt` (B, S) prefilled into a
+    fresh cache of `scfg` on `backend`, in one call or in chunks of
+    `chunk` (`prefill(hist_len=...)`), through block tables from a
+    `PagedKV` on the paged layout."""
+    b, s = prompt.shape
+    cache = serve_lib.init_cache(cfg, scfg)
+    kw = {}
+    if scfg.cache_layout == "paged" and "attn" in cfg.layer_pattern:
+        pkv = PagedKV(batch=b, max_seq=scfg.max_seq, page_size=scfg.page_size,
+                      n_pages=scfg.resolved_n_pages, prefix_sharing=False)
+        for i in range(b):
+            pkv.admit(i, prompt[i].tolist())
+        kw["block_tables"] = torch.from_numpy(pkv.tables).cuda()
+    step = chunk or s
+    with torch.inference_mode(), use_engine(Engine(backend=backend)):
+        for h in range(0, s, step):
+            hist = torch.full((b,), h, dtype=torch.int32, device="cuda")
+            part = prompt[:, h:h + step]
+            extra = {}
+            if chunk is not None or "block_tables" in kw:
+                extra = {"hist_len": hist}
+                if "block_tables" in kw:
+                    extra["hist_pages"] = h // scfg.page_size
+            logits, cache = T.prefill(
+                params, cfg, part, cache, compute_dtype=scfg.compute_dtype,
+                lengths=torch.full((b,), part.shape[1], dtype=torch.int32,
+                                   device="cuda"), **kw, **extra)
+    return logits
+
+
+def _chunk_serve(label: str, params, cfg, scfg, trace: str, chunk: int,
+                 eng) -> dict:
+    """A chunked serve of `trace` through the Scheduler, driven tick by
+    tick: the GEMM kernel per_pass x (ticks + prefill calls), the paged
+    kernel once a paged layer a decode tick, no other kernel; the prefill
+    calls, widths and tokens the trace's schedule gives (the long prompts
+    in ceil(S / chunk) calls of width `chunk`, the short ones admitted in
+    groups of their bucketed width), decode tokens emitted on ticks where
+    a slot was ingesting; a second pass planning nothing new."""
+    trace_list = launch_serve.parse_trace(trace)
+    reqs = launch_serve.trace_requests(cfg, trace_list, SEED)
+    sched = Scheduler(params, cfg, scfg, engine=eng, prefill_bucket=BUCKET)
+    reset_counts()
+    run = drive(sched, reqs, label)
+    counts = read_counts()
+    st, per_pass = sched.stats, model_gemms(cfg)
+    ticks, calls = st["decode_steps"], st["prefill_calls"]
+    passes = _paged_passes(sched)
+    reduces = check_reductions(label, eng, per_pass, 1, passes)
+    wgmma = check_os_routes(label, eng, per_pass, 1, passes)
+    paged = paged_layers(cfg) if sched.paged is not None else 0
+    want = {"redas_gemm": sum(per_pass.values()) * (ticks + calls),
+            "paged_attention": paged * ticks}
+    long = [p for p, _ in trace_list if p > chunk]
+    chunk_calls = max(-(-p // chunk) for p in long)
+    widths = {chunk} | {-(-p // BUCKET) * BUCKET for p, _ in trace_list
+                        if p <= chunk}
+    tokens_in = sum(p for p, _ in trace_list)
+    n_tok = sum(len(c.tokens) for c in sched.completions.values())
+    print(f"{label}: {len(reqs)} requests / {n_tok} tokens in "
+          f"{run['seconds']:.3f} s, {n_tok / run['seconds']:.1f} tok/s over "
+          f"{SLOTS} slots; {ticks} decode ticks "
+          f"({sched.timings['decode_s'] * 1e3 / ticks:.3f} ms a tick), "
+          f"{calls} prefill calls ({chunk_calls} chunk calls of {chunk}) of "
+          f"widths {sorted(st['prefill_widths'])}, "
+          f"{sched.timings['prefill_s'] * 1e3:.2f} ms in all, "
+          f"{st['prefill_tokens']} prefill tokens (want {tokens_in}); "
+          f"{run['ingest_decode_tokens']} decode tokens emitted on the "
+          f"{run['ingest_ticks']} ticks a slot was ingesting; plan "
+          f"{eng.plan.stats}; launches {counts} (want {want})")
+    check(len(sched.completions) == len(reqs), f"{label}: served too few")
+    check(all(counts[k] == v for k, v in want.items())
+          and all(v == 0 for k, v in counts.items() if k not in want),
+          f"{label} launches {counts}, not {want}")
+    check(st["prefill_widths"] == widths and st["prefill_tokens"] == tokens_in
+          and sched.prefill_width_calls[chunk] >= chunk_calls
+          and run["ingest_ticks"] == chunk_calls,
+          f"{label}: prefill widths {st['prefill_widths']} (want {widths}), "
+          f"tokens {st['prefill_tokens']} (want {tokens_in}), "
+          f"{run['ingest_ticks']} ingesting ticks (want {chunk_calls})")
+    check(run["ingest_decode_tokens"] > 0,
+          f"{label}: no decode token on a tick where a slot was ingesting")
+    tokens = {u: c.tokens.tolist() for u, c in sched.completions.items()}
+    for r in reqs:
+        check(len(tokens[r.uid]) == r.max_new_tokens
+              and all(0 <= t < cfg.vocab for t in tokens[r.uid]),
+              f"{label} request {r.uid}")
+    misses = eng.plan.misses
+    again = Scheduler(params, cfg, scfg, engine=eng, prefill_bucket=BUCKET)
+    again.run(launch_serve.trace_requests(cfg, trace_list, SEED))
+    new_misses = eng.plan.misses - misses
+    same = {u: c.tokens.tolist() for u, c in again.completions.items()} \
+        == tokens
+    print(f"{label}, second pass through the same engine: {new_misses} new "
+          f"plan misses, tokens {'identical' if same else 'DIFFER'}")
+    check(new_misses == 0 and same, f"{label}: second pass {new_misses} new "
+          f"misses, tokens {'same' if same else 'differ'}")
+    return {"trace": trace, "chunk": chunk, "seconds": run["seconds"],
+            "tokens_per_s": n_tok / run["seconds"], "decode_ticks": ticks,
+            "ms_per_tick": sched.timings["decode_s"] * 1e3 / ticks,
+            "prefill_calls": calls, "chunk_calls": chunk_calls,
+            "prefill_widths": sorted(st["prefill_widths"]),
+            "prefill_ms": sched.timings["prefill_s"] * 1e3,
+            "ingest_ticks": run["ingest_ticks"],
+            "ingest_decode_tokens": run["ingest_decode_tokens"],
+            "stats": {k: v for k, v in st.items() if k != "prefill_widths"},
+            "plan": eng.plan.stats, "counts": counts, "os_wgmma": wgmma,
+            "reductions": reduces, "second_pass_new_misses": new_misses,
+            "tokens_by_uid": tokens}
+
+
+def phase_chunk_qwen(cfg) -> None:
+    """qwen2-1.5b at full width, chunked (`--prefill-chunk 256`) on the
+    paged layout over CHUNK_TRACE: a 2048-token prompt's last chunk's
+    last-row logits against its unchunked prefill's (both `hopper`,
+    within LOGIT_LIMITS); `_chunk_serve`'s checks; then the same trace
+    through `serve_async` on the same engine: every future awaited under
+    a timeout, the completions equal to `run()`'s per uid, bit for bit."""
+    params = seeded_params(cfg)
+    trace = launch_serve.parse_trace(CHUNK_TRACE)
+    scfg = serve_lib.ServeConfig(
+        max_seq=max(p + g for p, g in trace) + 1, batch=SLOTS,
+        kernel_backend="hopper", cache_layout="paged", page_size=PAGE,
+        prefill_chunk=QWEN_CHUNK)
+    label = f"{ARCH} --prefill-chunk {QWEN_CHUNK}"
+    prompt = torch.from_numpy(launch_serve.trace_requests(
+        cfg, trace, SEED)[0].prompt).cuda()[None].expand(2, -1).contiguous()
+    one = dataclasses.replace(scfg, batch=2, prefill_chunk=None)
+    whole = _chunked_prefill(params, cfg, one, prompt, None)
+    parts = _chunked_prefill(params, cfg, one, prompt, QWEN_CHUNK)
+    gap = _logit_gap(parts, whole)
+    print(f"{label}: a {prompt.shape[1]}-token prompt's last-row logits "
+          f"after {prompt.shape[1] // QWEN_CHUNK} chunks vs one prefill "
+          f"(hopper, paged): rel-L2 {gap['rel_l2']:.4e}, max|diff|/max|ref| "
+          f"{gap['rel_max']:.4e}, argmax agreement "
+          f"{gap['argmax_agreement']:.2f} (limits {LOGIT_LIMITS})")
+    check(gap["rel_l2"] <= LOGIT_LIMITS["rel_l2"]
+          and gap["rel_max"] <= LOGIT_LIMITS["rel_max"],
+          f"{label}: chunked vs unchunked logits {gap}")
+    eng = Engine(backend="hopper")
+    out = _chunk_serve(label, params, cfg, scfg, CHUNK_TRACE, QWEN_CHUNK, eng)
+    sched = Scheduler(params, cfg, scfg, engine=eng, prefill_bucket=BUCKET)
+    reqs = launch_serve.trace_requests(cfg, trace, SEED)
+    reset_counts()
+    t0 = time.perf_counter()
+    with sched.serve_async(max_queue=len(reqs)) as srv:
+        futs = {r.uid: srv.submit(r) for r in reqs}
+        comps = {u: f.result(timeout=ASYNC_WAIT_S) for u, f in futs.items()}
+    seconds = time.perf_counter() - t0
+    same = {u: c.tokens.tolist() for u, c in comps.items()} \
+        == out["tokens_by_uid"]
+    print(f"{label} through serve_async: {len(comps)} futures in "
+          f"{seconds:.3f} s, completions "
+          f"{'identical to' if same else 'DIFFER from'} run()'s; launches "
+          f"{read_counts()}")
+    check(same, f"{label}: serve_async's completions differ from run()'s")
+    check(not sched.n_active and not sched.queue and srv.error is None,
+          f"{label}: serve_async left work or died")
+    out.pop("tokens_by_uid")
+    REPORT["chunk_qwen"] = {**out, "chunk_vs_whole_logits": gap,
+                            "async_seconds": seconds,
+                            "async_equals_run": same}
+
+
+def phase_rgemma_spec_chunk() -> None:
+    """recurrentgemma-2b at full width (bf16, contiguous; window 2048):
+    `--prefill-chunk 512` over RGEMMA_CHUNK_TRACE (rings wrap across the
+    chunks, the RG-LRU state continues): the chunked prefill's last-row
+    logits of two 2560-token prompts, `hopper` and `torch-ref`, each
+    against the f32 model's one-call prefill (PR 33's rule: the kernels
+    no farther than F32_ANCHOR_LIMIT x the plain versions), and
+    `_chunk_serve`'s checks; then `--speculate 4` over RGEMMA_SPEC_TRACE
+    (the ring undo and the recurrent stash): `_spec_serve`'s checks and
+    one verify pass's logits by the same rule."""
+    cfg = get_config(RGEMMA)
+    params = seeded_params(cfg)
+    trace = launch_serve.parse_trace(RGEMMA_CHUNK_TRACE)
+    scfg = serve_lib.ServeConfig(
+        max_seq=max(p + g for p, g in trace) + 1, batch=SLOTS,
+        kernel_backend="hopper", prefill_chunk=RGEMMA_CHUNK)
+    label = f"{RGEMMA} --prefill-chunk {RGEMMA_CHUNK}"
+    reqs = launch_serve.trace_requests(cfg, trace, SEED)
+    prompt = torch.from_numpy(np.stack([r.prompt for r in reqs[:2]])).cuda()
+    one = dataclasses.replace(scfg, batch=2, prefill_chunk=None)
+    got = _chunked_prefill(params, cfg, one, prompt, RGEMMA_CHUNK)
+    ref = _chunked_prefill(params, cfg, one, prompt, RGEMMA_CHUNK,
+                           "torch-ref")
+    with torch.inference_mode(), use_engine(Engine(backend="torch-ref")):
+        f32 = _to(params, torch.float32)
+        cache = T.init_cache(cfg, T.CacheSpec(one.max_seq, 2),
+                             dtype=torch.float32, device="cuda")
+        exact = T.prefill(f32, cfg, prompt, cache,
+                          compute_dtype=torch.float32)[0]
+        del f32, cache
+    chunk_gap = {"hopper_vs_f32": _logit_gap(got, exact),
+                 "plain_vs_f32": _logit_gap(ref, exact),
+                 "hopper_vs_plain": _logit_gap(got, ref)}
+    chunk_gap["f32_ratio"] = (chunk_gap["hopper_vs_f32"]["rel_l2"]
+                              / chunk_gap["plain_vs_f32"]["rel_l2"])
+    print(f"{label}: two {prompt.shape[1]}-token prompts in chunks of "
+          f"{RGEMMA_CHUNK}, last-row logits against the f32 model's one-call "
+          f"prefill: hopper rel-L2 {chunk_gap['hopper_vs_f32']['rel_l2']:.4e}, "
+          f"the plain versions' {chunk_gap['plain_vs_f32']['rel_l2']:.4e}: "
+          f"ratio {chunk_gap['f32_ratio']:.3f} (limit {F32_ANCHOR_LIMIT}); "
+          f"hopper vs plain {chunk_gap['hopper_vs_plain']['rel_l2']:.4e}")
+    check(chunk_gap["f32_ratio"] <= F32_ANCHOR_LIMIT,
+          f"{label}: chunked logits {chunk_gap}")
+    chunked = _chunk_serve(label, params, cfg, scfg, RGEMMA_CHUNK_TRACE,
+                           RGEMMA_CHUNK, Engine(backend="hopper"))
+    chunked.pop("tokens_by_uid")
+    torch.cuda.empty_cache()
+    strace = launch_serve.parse_trace(RGEMMA_SPEC_TRACE)
+    sscfg = serve_lib.ServeConfig(
+        max_seq=max(p + g for p, g in strace) + 1 + SPEC_K, batch=SLOTS,
+        kernel_backend="hopper", speculate_k=SPEC_K, draft="self")
+    slabel = f"{RGEMMA} --speculate {SPEC_K}"
+    spec = _spec_serve(slabel, params, cfg, sscfg, RGEMMA_SPEC_TRACE,
+                       Engine(backend="hopper"))
+    spec.pop("sched")
+    plain = _plain_serve(slabel, params, cfg, dataclasses.replace(
+        sscfg, speculate_k=0, draft=None), RGEMMA_SPEC_TRACE)
+    plain.pop("tokens")
+    spec["verify_logits"] = verify_gap(slabel, params, cfg, sscfg,
+                                       RGEMMA_SPEC_TRACE, f32_anchor=True)
+    REPORT["rgemma_chunk_spec"] = {"chunk_logits": chunk_gap,
+                                   "chunked": chunked, "spec": spec,
+                                   "plain": plain}
+
+
+def _spec_smoke_cases() -> list[tuple]:
+    """(label, arch, cfg, ServeConfig keywords, draft seed or None) of the
+    SMOKE speculative and chunked serves."""
+    kinds = [ARCH, MIXTRAL, MAMBA, RGEMMA]
+    cases = []
+    for arch in kinds:
+        cfg = get_config(arch, smoke=True)
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=8.0))
+        spec = {"speculate_k": SPEC_K, "draft": "self"}
+        cases += [(f"{arch} spec self", arch, cfg, spec, None),
+                  (f"{arch} spec disagreeing", arch, cfg, spec, SEED + 7),
+                  (f"{arch} spec self-int8", arch, cfg,
+                   {**spec, "draft": "self-int8"}, None),
+                  (f"{arch} chunk", arch, cfg, {"prefill_chunk": 8}, None)]
+    granite = _sorted(get_config(GRANITE, smoke=True))
+    cases += [(f"{GRANITE} sorted spec self", GRANITE,
+               dataclasses.replace(granite, moe=dataclasses.replace(
+                   granite.moe, capacity_factor=8.0)),
+               {"speculate_k": SPEC_K, "draft": "self"}, None)]
+    qwen = get_config(ARCH, smoke=True)
+    paged = {"cache_layout": "paged", "page_size": 8}
+    cases += [(f"{ARCH} chunk paged", ARCH, qwen,
+               {**paged, "prefill_chunk": 8}, None),
+              (f"{ARCH} chunk int8", ARCH, qwen,
+               {"prefill_chunk": 8, "cache_dtype": "int8"}, None),
+              (f"{GEMMA3} chunk paged", GEMMA3, get_config(GEMMA3, smoke=True),
+               {**paged, "prefill_chunk": 8}, None),
+              (f"{ARCH} chunk paged spec", ARCH, qwen,
+               {**paged, "prefill_chunk": 8, "speculate_k": SPEC_K,
+                "draft": "self"}, None)]
+    return cases
+
+
+def phase_spec_chunk_smoke() -> None:
+    """The SMOKE configurations in f32: speculation (self, disagreeing and
+    self-int8 drafts) and chunking on the four cache kinds (qwen2-1.5b,
+    mixtral-8x7b, mamba2-780m, recurrentgemma-2b), speculation on granite
+    sorted, chunking on qwen paged and under an int8 cache and on gemma3
+    paged, chunking with speculation: the card's tokens (`hopper`) equal
+    the CPU's plain run (`torch-ref`) per uid, and on the card a
+    speculative or chunked serve's tokens equal the plain serve's (a
+    float cache: the int8 cache's chunked tokens are held to the CPU's
+    chunked run only).  Then `generate(temperature=0.7, key=)` on the
+    card repeats its tokens for the same seed."""
+    rng = np.random.default_rng(SEED)
+    spec = [(uid, rng.integers(0, 128, int(rng.integers(5, 31))).astype(
+        np.int32), int(rng.integers(3, 9))) for uid in range(6)]
+    base = {"max_seq": 48, "batch": 3, "compute_dtype": "float32",
+            "cache_dtype": "float32"}
+    weights, plains, result, counts = {}, {}, {}, {}
+
+    def serve_on(device, cfg, arch, kw, draft_seed):
+        key = (arch, cfg.moe.impl if cfg.moe else None)
+        if key not in weights:
+            cpu = T.init_params(cfg, generator=torch.Generator().manual_seed(
+                SEED), dtype=torch.float32)
+            weights[key] = {"cpu": cpu, "cuda": _to(cpu, "cuda")}
+        params = weights[key][device]
+        extra = {}
+        if draft_seed is not None:
+            draft = T.init_params(cfg, generator=torch.Generator().manual_seed(
+                draft_seed), dtype=torch.float32)
+            extra = {"draft_params": _to(draft, device), "draft_cfg": cfg}
+        scfg = serve_lib.ServeConfig(**{**base, **kw}, device=device,
+                                     kernel_backend="hopper" if device
+                                     == "cuda" else "torch-ref")
+        sched = Scheduler(params, cfg, scfg, **extra)
+        done = sched.run([Request(uid=u, prompt=x, max_new_tokens=g)
+                          for u, x, g in spec], max_steps=500)
+        if sched.paged is not None:
+            sched.paged.check_invariants()
+        return {u: c.tokens.tolist() for u, c in done.items()}, sched.stats
+
+    for label, arch, cfg, kw, draft_seed in _spec_smoke_cases():
+        tokens = {}
+        for device in ("cpu", "cuda"):
+            reset_counts()
+            tokens[device], stats = serve_on(device, cfg, arch, kw,
+                                             draft_seed)
+            if device == "cuda":
+                counts[label] = read_counts()
+        plain_kw = {k: v for k, v in kw.items()
+                    if k not in ("speculate_k", "draft", "prefill_chunk")}
+        pkey = (label.split(" ")[0], tuple(sorted(plain_kw.items())))
+        if pkey not in plains:
+            plains[pkey] = serve_on("cuda", cfg, arch, plain_kw, None)[0]
+        result[label] = {
+            "card_equals_cpu": tokens["cuda"] == tokens["cpu"],
+            "card_equals_card_plain": (tokens["cuda"] == plains[pkey]
+                                       if kw.get("cache_dtype") != "int8"
+                                       else None),
+            "spec_ticks": stats["spec_ticks"],
+            "accepted": [stats["accepted_draft_tokens"],
+                         stats["draft_tokens"]]}
+        check(sum(counts[label].values()) > 0 or not model_gemms(cfg),
+              f"{label}: the card serve launched no kernel")
+    print("speculative and chunked SMOKE f32, card vs the CPU's plain run "
+          "and vs the card's plain serve: "
+          + "; ".join(f"{k}: {v}" for k, v in result.items()))
+    bad = [k for k, v in result.items()
+           if not v["card_equals_cpu"] or v["card_equals_card_plain"] is False]
+    check(not bad, f"speculative / chunked SMOKE tokens differ: {bad}")
+    cfg = get_config(ARCH, smoke=True)
+    params = weights[(ARCH, None)]["cuda"]
+    scfg = serve_lib.ServeConfig(**{**base, "batch": 2}, device="cuda",
+                                 kernel_backend="hopper")
+    prompt = torch.randint(0, cfg.vocab, (2, 12), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(SEED + 1), dtype=torch.int32)
+    sampled = [serve_lib.generate(
+        params, cfg, scfg, prompt, 8, temperature=0.7,
+        key=torch.Generator(device="cuda").manual_seed(seed)).cpu()
+        for seed in (SEED, SEED, SEED + 1)]
+    repeat = torch.equal(sampled[0], sampled[1])
+    print(f"generate(temperature=0.7) on the card: tokens "
+          f"{sampled[0].tolist()}; the same seed "
+          f"{'repeats them' if repeat else 'DOES NOT repeat them'}, another "
+          f"seed gives {sampled[2].tolist()}")
+    check(repeat and bool(((sampled[0] >= 0) & (sampled[0] < cfg.vocab))
+                          .all()), "sampled generate did not repeat")
+    REPORT["spec_chunk_smoke"] = {"cases": result, "card_launches": counts,
+                                  "sampled_repeat": repeat}
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -4802,6 +5669,16 @@ def main() -> int:
     run("26 new SMOKE parity", phase_new_smoke_parity)
     run("26 new SMOKE parity", phase_embeds_smoke_parity)
     run("27 granite --quantize", phase_granite_quantize)
+    torch.cuda.empty_cache()
+    run("33 qwen2 --speculate", phase_spec_qwen, cfg)
+    torch.cuda.empty_cache()
+    run("34 qwen2 --quantize --speculate", phase_spec_quantize, cfg)
+    torch.cuda.empty_cache()
+    run("35 qwen2 --prefill-chunk", phase_chunk_qwen, cfg)
+    torch.cuda.empty_cache()
+    run(f"36 {RGEMMA} chunk and spec", phase_rgemma_spec_chunk)
+    torch.cuda.empty_cache()
+    run("37 spec and chunk SMOKE", phase_spec_chunk_smoke)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in seconds.items()))
     lines = [*gemm_lines(rows, REPORT["main_path"], REPORT["paged_serve"],

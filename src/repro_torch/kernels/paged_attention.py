@@ -79,9 +79,10 @@ def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
                               k_scale: torch.Tensor | None = None,
                               v_scale: torch.Tensor | None = None
                               ) -> torch.Tensor:
-    """q (B, 1, H, D); k/v pools (P, page, KV, D); block_tables (B, n_bt)
-    int32 (-1 = hole); kv_len (B,); for int8 pools the scale pools
-    k_scale/v_scale (P, page, KV).  Returns o (B, 1, H, D) before `wo`.
+    """q (B, Sq, H, D); k/v pools (P, page, KV, D); block_tables (B, n_bt)
+    int32 (-1 = hole); kv_len (B,), or (B, Sq) a length per query (the
+    W-wide speculative verify); for int8 pools the scale pools
+    k_scale/v_scale (P, page, KV).  Returns o (B, Sq, H, D) before `wo`.
 
     The gather reproduces each slot's logical rows [0, n_bt * page) in
     order; then the math is `cached_attention`'s: rows at positions >=
@@ -102,7 +103,10 @@ def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
     if k_scale is not None:
         s = s * row(k_scale)
     srange = torch.arange(s_rows, device=q.device)
-    valid = (srange[None, :] < kv_len[:, None])[:, None, :]     # (B, 1, S)
+    if kv_len.dim() == 1:
+        valid = (srange[None, :] < kv_len[:, None])[:, None, :]  # (B, 1, S)
+    else:  # a length per query (B, Sq)
+        valid = srange[None, None, :] < kv_len[:, :, None]       # (B, Sq, S)
     s = torch.where(valid[:, None, None], s, NEG_INF)
     p_attn = torch.softmax(s, dim=-1)
     if v_scale is not None:
@@ -110,7 +114,7 @@ def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
     o = torch.einsum("bkgqs,bskd->bqkgd", p_attn, v.float())
     o = o.reshape(b, sq, h, d)
     # a fully masked slot: exact zeros (the kernels' m == NEG_INF guard)
-    o = o.masked_fill((kv_len == 0).view(b, 1, 1, 1), 0.0)
+    o = o.masked_fill((kv_len == 0).view(b, -1, 1, 1), 0.0)
     return o.to(q.dtype)
 
 

@@ -1,8 +1,8 @@
 """Serving launcher of the port (the port of `repro/launch/serve.py`):
 random weights from `--seed`.
 
-Static one-batch mode (every prompt the same length, one greedy
-`generate` call):
+Static one-batch mode (every prompt the same length, one `generate`
+call):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         --kernel-backend hopper --batch 4 --prompt-len 512 --gen 16
@@ -29,6 +29,15 @@ quantize=True)`, and no `quantize_params`), the KV cache int8, and
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         --sparsity 2:4 --quantize --batch 4 --prompt-len 512 --gen 16
+
+Trace mode also serves speculative decoding (`--speculate K`, with
+`--draft self` or `self-int8`; max_seq grows by K for the verify's rows),
+chunked prefill (`--prefill-chunk C`) and the async ingestion plane
+(`--async-ingest`); `--temperature T` samples in either mode:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
+        --kernel-backend hopper --batch 8 --cache-layout paged \
+        --speculate 4 --trace "768x32*4,512x24*4,256x8*4"
 
 Every decoder of `configs.ARCH_NAMES` serves in either mode: the
 recurrent mamba2-780m ("ssm") and recurrentgemma-2b ("rglru" and
@@ -83,23 +92,38 @@ def parse_trace(spec: str) -> list[tuple[int, int]]:
     return out
 
 
-def trace_requests(cfg, trace, seed: int) -> list[Request]:
+def trace_requests(cfg, trace, seed: int,
+                   temperature: float = 0.0) -> list[Request]:
     """The trace's requests, prompts drawn from `seed` as the JAX
-    package's launcher draws them."""
+    package's launcher draws them.  With `temperature > 0` request `uid`
+    samples with its own host generator, seeded `seed + 3 + uid`."""
     rng = np.random.default_rng(seed + 2)
     return [Request(uid=uid,
                     prompt=rng.integers(0, cfg.vocab, plen).astype(np.int32),
-                    max_new_tokens=gen)
+                    max_new_tokens=gen, temperature=temperature,
+                    key=(torch.Generator().manual_seed(seed + 3 + uid)
+                         if temperature > 0 else None))
             for uid, (plen, gen) in enumerate(trace)]
+
+
+#: seconds a trace served through `--async-ingest` may take a request
+ASYNC_TIMEOUT_S = 3600.0
 
 
 def _run_trace(params, cfg, scfg, args, trace) -> dict:
     dev = serve_lib.resolve_device(scfg)
-    reqs = trace_requests(cfg, trace, args.seed)
+    reqs = trace_requests(cfg, trace, args.seed, args.temperature)
     sched = Scheduler(params, cfg, scfg, prefill_bucket=args.prefill_bucket)
     _sync(dev)
     t0 = time.perf_counter()
-    comps = sched.run(reqs)
+    if args.async_ingest:
+        with sched.serve_async(max_queue=max(len(reqs), 1)) as srv:
+            futs = [srv.submit(r) for r in reqs]
+            for f in futs:
+                f.result(timeout=ASYNC_TIMEOUT_S)
+        comps = sched.completions
+    else:
+        comps = sched.run(reqs)
     _sync(dev)
     dt = time.perf_counter() - t0
     n_tok = sum(len(c.tokens) for c in comps.values())
@@ -159,6 +183,29 @@ def main(argv=None) -> dict:
                     help="ExecutionPlan JSON to warm-start the decision cache")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sample at this temperature (0: greedy); static "
+                         "mode draws from a generator seeded --seed + 3, "
+                         "trace mode gives request uid its own, seeded "
+                         "--seed + 3 + uid")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="chunked prefill (trace mode only): stream "
+                         "prompts longer than this into their slot CHUNK "
+                         "tokens per tick, interleaved with decode; a "
+                         "multiple of --prefill-bucket (and of --page-size "
+                         "when paged)")
+    ap.add_argument("--async-ingest", action="store_true",
+                    help="drive the trace through Scheduler.serve_async "
+                         "(a worker thread behind a bounded request queue) "
+                         "instead of the synchronous run loop")
+    ap.add_argument("--speculate", type=int, default=0, metavar="K",
+                    help="speculative decoding (trace mode only): draft K "
+                         "tokens per tick and verify them in one K+1-wide "
+                         "pass; greedy only, the tokens of --speculate 0")
+    ap.add_argument("--draft", default="self", choices=("self", "self-int8"),
+                    help="draft model for --speculate: 'self' shares the "
+                         "target params, 'self-int8' drafts with their "
+                         "int8-quantized copy")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -169,15 +216,30 @@ def main(argv=None) -> dict:
     if args.cache_layout == "paged" and trace is None:
         raise SystemExit("--cache-layout paged needs --trace (the block-table "
                          "plane lives in the continuous-batching scheduler)")
+    if (args.prefill_chunk or args.async_ingest) and trace is None:
+        raise SystemExit("--prefill-chunk / --async-ingest need --trace "
+                         "(chunked ingestion lives in the continuous-"
+                         "batching scheduler)")
     max_seq = (max(p + g for p, g in trace) + 1 if trace
                else cfg.prefix_tokens + args.prompt_len + args.gen + 1)
+    if args.speculate:
+        if trace is None:
+            raise SystemExit("--speculate needs --trace (the draft/verify "
+                             "tick lives in the continuous-batching "
+                             "scheduler)")
+        if args.temperature > 0:
+            raise SystemExit("--speculate is greedy-only (temperature 0)")
+        max_seq += args.speculate  # verify writes k rows past the last token
     scfg = serve_lib.ServeConfig(
         max_seq=max_seq, batch=args.batch,
         compute_dtype=dtype,
         cache_dtype=torch.int8 if args.quantize else dtype,
         kernel_backend=args.kernel_backend, plan_path=args.plan,
         quantize=args.quantize, sparsity=args.sparsity, device=args.device,
-        cache_layout=args.cache_layout, page_size=args.page_size)
+        cache_layout=args.cache_layout, page_size=args.page_size,
+        speculate_k=args.speculate,
+        draft=args.draft if args.speculate else None,
+        prefill_chunk=args.prefill_chunk)
     dev = serve_lib.resolve_device(scfg)
     params = T.init_params(
         cfg, generator=torch.Generator(device=dev).manual_seed(args.seed),
@@ -201,9 +263,12 @@ def main(argv=None) -> dict:
                                     cfg.d_model, device=dev, generator=draw,
                                     dtype=dtype)
     engine = serve_lib.warm_start_engine(scfg)
+    key = (torch.Generator(device=dev).manual_seed(args.seed + 3)
+           if args.temperature > 0 else None)
     _sync(dev)
     t0 = time.perf_counter()
     tokens = serve_lib.generate(params, cfg, scfg, prompt, args.gen,
+                                temperature=args.temperature, key=key,
                                 embeds=embeds, engine=engine)
     _sync(dev)
     dt = time.perf_counter() - t0

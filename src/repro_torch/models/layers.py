@@ -112,6 +112,17 @@ def slot_update(cache: torch.Tensor, idx: torch.Tensor, new: torch.Tensor,
     return cache
 
 
+def slot_update_many(cache: torch.Tensor, idx: torch.Tensor,
+                     new: torch.Tensor) -> torch.Tensor:
+    """Write W rows per batch slot, in place: cache (B, S, ...), idx (B, W),
+    new (B, W, ...).  The speculative verify writes a slot's k + 1 rows at
+    once; a caller that must leave a row as it was passes its old value
+    (with W > 1 an index sentinel would need W parking rows)."""
+    bidx = torch.arange(cache.shape[0], device=cache.device)[:, None]
+    cache[bidx, idx.long()] = new.to(cache.dtype)
+    return cache
+
+
 def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Per-slot row gather: x (B, S, ...), idx (B,) -> (B, 1, ...)."""
     rows = torch.arange(x.shape[0], device=x.device)
@@ -333,16 +344,32 @@ def full_attention(cfg, q, k, v, positions, window: int, kv_len=None):
 def cached_attention(p: dict, cfg, q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, q_pos: torch.Tensor,
                      kv_len: torch.Tensor, *, k_scale=None,
-                     v_scale=None) -> torch.Tensor:
+                     v_scale=None, exclude=None) -> torch.Tensor:
     """Decode attention: q (B,Sq,H,D) over a cache (B,Smax,KV,D) whose rows
-    at or past kv_len (B,) are masked; the caller has written the new rows
+    at or past kv_len are masked; the caller has written the new rows
     first.  Returns the `wo` projection.
+
+    `kv_len` is (B,), or (B, Sq): a valid length per query, which makes a
+    W-wide pass over rows written all at once causal (the speculative
+    verify, a chunk continuation).  `exclude` (B, Sq, Smax) bool masks
+    further rows per query.
 
     An int8 cache passes its rows raw with their per-row scales
     `k_scale`/`v_scale` (B, Smax, KV): the scales are constant along the
     head dim, so the scores are scaled after the QK^T einsum and v_scale
     folds into the softmax weights; no dequantized copy of the cache is
     made."""
+    b, sq = q.shape[0], q.shape[1]
+    o = cached_heads(q, k_cache, v_cache, kv_len, k_scale=k_scale,
+                     v_scale=v_scale, exclude=exclude)
+    return dense(p["wo"], o.reshape(b, sq, cfg.n_heads * cfg.head_dim_))
+
+
+def cached_heads(q, k_cache, v_cache, kv_len, *, k_scale=None, v_scale=None,
+                 exclude=None) -> torch.Tensor:
+    """`cached_attention` before the `wo` projection: o (B, Sq, H, D).  A
+    caller that attends one query at a time (a ring's sequential scan)
+    projects the stacked heads once."""
     b, sq, h, d = q.shape
     kv = k_cache.shape[2]
     g = h // kv
@@ -352,14 +379,18 @@ def cached_attention(p: dict, cfg, q: torch.Tensor, k_cache: torch.Tensor,
     if k_scale is not None:
         s = s * row(k_scale)
     srange = torch.arange(k_cache.shape[1], device=q.device)
-    valid = srange[None, :] < kv_len[:, None]                   # (B, S)
-    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+    if kv_len.dim() == 1:
+        valid = (srange[None, :] < kv_len[:, None])[:, None, :]  # (B, 1, S)
+    else:  # a length per query (B, Sq)
+        valid = srange[None, None, :] < kv_len[:, :, None]       # (B, Sq, S)
+    if exclude is not None:
+        valid = valid & ~exclude
+    s = torch.where(valid[:, None, None], s, NEG_INF)
     p_attn = torch.softmax(s, dim=-1)
     if v_scale is not None:
         p_attn = p_attn * row(v_scale)
     o = torch.einsum("bkgqs,bskd->bqkgd", p_attn, v_cache.float())
-    o = o.reshape(b, sq, h, d).to(q.dtype)
-    return dense(p["wo"], o.reshape(b, sq, cfg.n_heads * cfg.head_dim_))
+    return o.reshape(b, sq, h, d).to(q.dtype)
 
 
 def paged_cached_attention(p: dict, cfg, q: torch.Tensor, c: dict,
@@ -371,7 +402,11 @@ def paged_cached_attention(p: dict, cfg, q: torch.Tensor, c: dict,
     `v_scale_pages` through the same table.  Inside an engine whose
     backend registers the `paged_attention` op the planned kernel runs;
     otherwise the plain gather, which equals `cached_attention` on the
-    same live rows.  Returns the `wo` projection."""
+    same live rows.  Returns the `wo` projection.
+
+    The W-wide speculative verify (Sq > 1, a per-query `kv_len` (B, W))
+    always takes the plain gather, as in the JAX package: the kernel is
+    Sq == 1 only, and the verify then plans no `paged_attention` key."""
     b, sq, h, d = q.shape
     k_scale, v_scale = c.get("k_scale_pages"), c.get("v_scale_pages")
     eng = active_engine()

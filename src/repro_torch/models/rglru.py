@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import dense, dense_init
-from .ssm import _causal_conv, ragged_conv_state
+from .ssm import _causal_conv, _ragged_conv_state
 
 _C = 8.0
 
@@ -94,21 +94,27 @@ def rglru_scan(p, u, h0=None, valid=None):
     return h.to(u.dtype), h[:, -1]
 
 
-def rglru_prefill(p, cfg, x, lengths=None):
+def rglru_prefill(p, cfg, x, lengths=None, state=None):
     """Full-sequence temporal-mixing block (forward / prefill) that also
     returns the decode state: (out, conv state (B, 3, W), h at each
     slot's last valid token (B, W) f32).  Ragged (`lengths` (B,)): pad
     rows are the scan's identity and the conv state is re-gathered at
-    per-slot offsets."""
+    per-slot offsets.  `state` {"conv", "h"} continues a chunked prefill
+    from the stored conv window and h (`ssm.ssm_prefill`'s rule for the
+    conv state)."""
     y = F.gelu(dense(p["lin_y"], x), approximate="tanh")
     u_in = dense(p["lin_x"], x)
-    u, conv_state = _causal_conv(p["conv_w"], p["conv_b"], u_in, act=False)
+    conv_in = None if state is None else state["conv"]
+    u, conv_state = _causal_conv(p["conv_w"], p["conv_b"], u_in, conv_in,
+                                 act=False)
     valid = None
     if lengths is not None:
         valid = (torch.arange(x.shape[1], device=x.device)[None, :]
                  < lengths[:, None])
-        conv_state = ragged_conv_state(u_in, lengths, p["conv_w"].shape[0])
-    h, h_last = rglru_scan(p, u, valid=valid)
+        conv_state = _ragged_conv_state(u_in, lengths, p["conv_w"].shape[0],
+                                        conv_in)
+    h, h_last = rglru_scan(p, u, h0=None if state is None else state["h"],
+                           valid=valid)
     return dense(p["lin_out"], h * y), conv_state, h_last
 
 

@@ -87,6 +87,16 @@ def ragged_conv_state(x, lengths, width: int):
     return torch.where((idx >= 0)[:, :, None], st, 0).to(x.dtype)
 
 
+def _ragged_conv_state(x, lengths, width: int, conv_in=None):
+    """`ragged_conv_state` of a prefill, or of a chunk continuation from
+    the stored window `conv_in` (B, W-1, C): gathered over [conv_in ‖ x]
+    with each slot's valid prefix shifted by the W-1 stored rows."""
+    if conv_in is None:
+        return ragged_conv_state(x, lengths, width)
+    return ragged_conv_state(torch.cat([conv_in.to(x.dtype), x], dim=1),
+                             lengths + (width - 1), width)
+
+
 def _split(p, cfg, u):
     """u (..., d_proj) -> z (d_in), xbc (d_in + 2 G N), dt (H): the JAX
     `jnp.split` at indices [d_in, 2 d_in + 2 G N], as sizes."""
@@ -178,17 +188,21 @@ def ssd_chunked(x, dt, a_log, b_mat, c_mat, d_skip, chunk: int, h0=None):
     return y[:, :slen].float(), state
 
 
-def ssm_prefill(p, cfg, x, lengths=None):
+def ssm_prefill(p, cfg, x, lengths=None, state=None):
     """Full-sequence SSD block (forward / prefill) that also returns the
     decode state: (out (B, S, D), conv state (B, W-1, conv_ch), SSD state
     (B, H, N, P) f32).  Ragged (`lengths` (B,)): dt = 0 past a slot's
     length makes each pad step the identity on the SSD state (decay
     exp(0) = 1, input x dt = 0), so the final state is the state at the
     slot's last valid token; the conv state is re-gathered at per-slot
-    offsets."""
+    offsets.  `state` {"conv", "state"} continues a chunked prefill from
+    the stored conv window and SSD state; the conv state after the chunk
+    is then gathered over [stored window ‖ chunk], as a chunk may be
+    shorter than the conv window."""
     u = x @ p["in_proj"]["w"].to(x.dtype)
     z, xbc, dt, (s, d_in, heads, gn) = _split(p, cfg, u)
-    xbc_c, conv_state = _causal_conv(p["conv_w"], p["conv_b"], xbc)
+    conv_in = None if state is None else state["conv"]
+    xbc_c, conv_state = _causal_conv(p["conv_w"], p["conv_b"], xbc, conv_in)
     xs, b_mat, c_mat = _split_xbc(xbc_c, d_in, gn)
     bsz, length = x.shape[0], x.shape[1]
     xs = xs.reshape(bsz, length, heads, s.head_dim)
@@ -199,12 +213,13 @@ def ssm_prefill(p, cfg, x, lengths=None):
         valid = (torch.arange(length, device=x.device)[None, :, None]
                  < lengths[:, None, None])
         dt_full = torch.where(valid, dt_full, 0.0)
-        conv_state = ragged_conv_state(xbc, lengths, s.conv_width)
-    y, state = ssd_chunked(xs, dt_full, p["A_log"], b_mat, c_mat, p["D"],
-                           s.chunk)
+        conv_state = _ragged_conv_state(xbc, lengths, s.conv_width, conv_in)
+    y, state_out = ssd_chunked(xs, dt_full, p["A_log"], b_mat, c_mat, p["D"],
+                               s.chunk,
+                               h0=None if state is None else state["state"])
     y = y.reshape(bsz, length, d_in).to(x.dtype)
     y = rms_norm(p["norm"], y * F.silu(z), cfg.norm_eps)
-    return y @ p["out_proj"]["w"].to(x.dtype), conv_state, state
+    return y @ p["out_proj"]["w"].to(x.dtype), conv_state, state_out
 
 
 def ssm_block(p, cfg, x):

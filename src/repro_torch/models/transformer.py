@@ -9,9 +9,14 @@ period, `embed` is (vocab, d_model) and `lm_head` (d_model, vocab).  The
 JAX `lax.scan` over periods is a Python loop over views of the stack.
 
   forward()       full-sequence logits
-  prefill()       forward + KV cache construction (ragged, paged)
+  prefill()       forward + KV cache construction (ragged, paged, and
+                  chunked: `hist_len` continues each slot's cache)
   decode_step()   one token against the cache (vector clock `t`, an
                   `active` mask, block tables on the paged layout)
+  verify_step()   speculative decoding: a W-wide teacher-forced pass,
+                  greedy acceptance and the rollback of what it rejects
+                  (`spec_forward`, `spec_commit`, `spec_advance`,
+                  `draft_propose`)
 
 A "local" block attends a sliding window of `cfg.window` keys: its
 cache is a per-slot ring of min(window, max_seq) rows on either layout
@@ -524,19 +529,88 @@ def _paged_prefill_attn(cfg: ArchConfig, q, k, v, c: dict, positions,
                                   min(512, h0 + s))
 
 
+def _chunk_state(c: dict, hist_len, names: tuple[str, ...]) -> dict:
+    """The recurrent state a chunk continuation seeds its scan with: the
+    slot's stored state, zero for a slot with no history (a first chunk
+    starts from the fresh state, not the slot's previous occupant's; zero
+    is the fresh conv window, SSD state and h alike), so one call mixes
+    first and continuation chunks."""
+    live = hist_len > 0
+    return {nm: torch.where(live.reshape((-1,) + (1,) * (c[nm].dim() - 1)),
+                            c[nm], torch.zeros((), dtype=c[nm].dtype,
+                                               device=c[nm].device))
+            for nm in names}
+
+
+def _chunk_write_mask(lengths, update_mask, s: int):
+    """(B, S) rows of a chunk that are written: a slot's first `lengths`
+    rows, in the slots of `update_mask`."""
+    valid = torch.arange(s, device=lengths.device)[None, :] < lengths[:, None]
+    return valid if update_mask is None else valid & update_mask[:, None]
+
+
+def _chunk_prefill_attn(cfg: ArchConfig, kind: str, q, store: dict, c: dict,
+                        positions, lengths, update_mask):
+    """Contiguous chunk continuation of an attention block: the chunk's
+    rows join a cache that holds each slot's earlier chunks at rows
+    [0, hist), `positions` (B, S) carrying the absolute positions.
+    Returns the heads (B, S, H, D) before `wo`.
+
+    "attn": every written row lands at its absolute row in one shot, and
+    the chunk attends with the per-query `kv_len = min(pos + 1, size)`,
+    the decode step's masked read.  "local": a write at position p
+    overwrites the ring row of p - size, which is still in the window of
+    every earlier query of the chunk, so the ring steps write-then-attend
+    one query at a time (only the attention: QKV and the feed-forward stay
+    chunk-wide), the decode step's order of operations; rows past a
+    slot's chunk length write nothing, so live window rows survive.  The
+    JAX package's `_chunk_prefill_attn` does the same."""
+    b, s = q.shape[0], q.shape[1]
+    size = c["k"].shape[1]
+    write = _chunk_write_mask(lengths, update_mask, s)
+    scales = lambda: {"k_scale": c.get("k_scale"), "v_scale": c.get("v_scale")}
+    if kind == "attn":
+        rows = positions.clamp(0, size - 1).long()
+        bidx = torch.arange(b, device=q.device)[:, None]
+        for name, val in store.items():
+            mask = write.reshape(write.shape + (1,) * (val.dim() - 2))
+            layers.slot_update_many(
+                c[name], rows,
+                torch.where(mask, val.to(c[name].dtype), c[name][bidx, rows]))
+        return layers.cached_heads(q, c["k"], c["v"],
+                                   torch.clamp(positions + 1, max=size),
+                                   **scales())
+    heads = []
+    for i in range(s):
+        pos_i = positions[:, i]
+        for name, val in store.items():
+            layers.slot_update(c[name], pos_i % size, val[:, i], write[:, i])
+        heads.append(layers.cached_heads(q[:, i:i + 1], c["k"], c["v"],
+                                         torch.clamp(pos_i + 1, max=size),
+                                         **scales()))
+    return torch.cat(heads, dim=1)
+
+
 def _prefill_block(kind: str, p, cfg: ArchConfig, x, positions, c: dict,
                    lengths=None, update_mask=None, block_tables=None,
-                   hist_len=None, hist_pages: int = 0):
+                   hist_len=None, hist_pages: int = 0, history: bool = False):
+    """One block of `prefill`.  With `hist_len` a contiguous block
+    continues from each slot's resident rows or state (`history`: some
+    slot of the call has a nonzero history)."""
     b, s = x.shape[0], x.shape[1]
     xin = rms_norm(p["norm1"], x, cfg.norm_eps)
-    if kind == "ssm":
-        h, conv, state = ssm.ssm_prefill(p["ssm"], cfg, xin, lengths)
-        _write_state(c, {"conv": conv, "state": state}, update_mask)
-        return x + h
-    if kind == "rglru":
-        h, conv, hstate = rglru.rglru_prefill(p["rec"], cfg, xin, lengths)
+    if kind in ("ssm", "rglru"):
+        names = ("conv", "state") if kind == "ssm" else ("conv", "h")
+        st = None if hist_len is None else _chunk_state(c, hist_len, names)
+        if kind == "ssm":
+            h, *new = ssm.ssm_prefill(p["ssm"], cfg, xin, lengths, state=st)
+        else:
+            h, *new = rglru.rglru_prefill(p["rec"], cfg, xin, lengths,
+                                          state=st)
         x = x + h
-        _write_state(c, {"conv": conv, "h": hstate}, update_mask)
+        _write_state(c, dict(zip(names, new, strict=True)), update_mask)
+        if kind == "ssm":
+            return x
         return x + mlp(p["mlp"], rms_norm(p["norm2"], x, cfg.norm_eps))
     q, k, v = layers.attn_qkv(p["attn"], cfg, xin, positions)
     if "k_pages" in c:
@@ -545,15 +619,20 @@ def _prefill_block(kind: str, p, cfg: ArchConfig, x, positions, c: dict,
         o = _paged_prefill_attn(cfg, q, k, v, c, positions, lengths,
                                 update_mask, block_tables, hist_len,
                                 hist_pages)
+    elif hist_len is not None and (history or kind == "attn"):
+        # chunk continuation
+        o = _chunk_prefill_attn(cfg, kind, q, _store(c, k, v, False), c,
+                                positions, lengths, update_mask)
     else:
         store = _store(c, k, v, False)
         _contiguous_prefill_write(c, store, lengths, update_mask,
                                   live_only=hist_len is not None)
         if hist_len is not None:
-            # a ring block in a paged prefill (`prefill` checked that no
-            # slot has history): the JAX package runs its chunk
-            # continuation, each query over the ring as stored, so attend
-            # the rows as stored (int8: their codes times their scales)
+            # a ring block where no slot has history: the continuation
+            # would step each query over the ring as stored, which holds
+            # only this chunk's rows of a slot (earlier rows are masked
+            # by the clock), so attend the rows as stored at once (int8:
+            # their codes times their scales)
             k, v = ((kv_dequantize(store[n], store[f"{n}_scale"])
                      if f"{n}_scale" in store else store[n].to(c[n].dtype))
                     for n in ("k", "v"))
@@ -583,12 +662,16 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor | None,
     prefix pages: `tokens` then holds only the suffix, queries take
     absolute positions `hist_len + i`, and the clock counts the history
     too.  `hist_pages` bounds the history gather: max(hist_len) // page.
-    A history on a contiguous block (chunked prefill; in a paged
-    prefill, a "local" block's ring or a recurrent block's state) is not
-    ported yet: only pure "attn" patterns share prefixes, so a mixed
-    pattern's paged prefill passes zeros, and its ring blocks then attend
-    their rows as stored, as the JAX package's chunk continuation reads
-    them.  A ragged prefill takes no `embeds`, as in the JAX package.
+
+    Chunked mode: on a contiguous block (any block of a contiguous cache;
+    a ring or recurrent block of a paged one) `hist_len` (B,) counts the
+    tokens a slot already prefilled in earlier chunk calls: `tokens`
+    holds the next chunk, and every kind continues from the slot's
+    resident state ("attn" rows land at their absolute rows, a ring steps
+    write-then-attend as decode does, a recurrent scan seeds from the
+    stored state; `_chunk_prefill_attn`, `_chunk_state`).  A slot with
+    `hist_len` 0 starts afresh, so one call mixes first and continuation
+    chunks.  A ragged prefill takes no `embeds`, as in the JAX package.
 
     A "local" block attends its prompt with `layers.local_attention` and
     keeps its last `size` rows in its ring (`_ring_place` per slot for a
@@ -601,22 +684,13 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor | None,
         raise NotImplementedError("paged prefill is ragged-only (pass lengths)")
     if hist_len is not None and lengths is None:
         raise NotImplementedError(
-            "hist_len (suffix continuation) is ragged-only (pass lengths)")
-    if hist_len is not None and block_tables is None:
-        raise NotImplementedError(
-            "hist_len on the contiguous layout is chunked prefill, which is "
-            "not ported yet (ROADMAP.md queue 1 item 5)")
+            "hist_len (chunked/suffix continuation) is ragged-only (pass "
+            "lengths)")
     if hist_pages and hist_len is None:
         raise ValueError("hist_pages needs hist_len")
     if hist_pages and block_tables is None:
         raise ValueError("hist_pages needs block_tables (paged cache)")
     layer_list = _layers(params, cfg, cache)
-    if (hist_len is not None
-            and any("k_pages" not in c for _, _, c in layer_list)
-            and bool(hist_len.any())):
-        raise NotImplementedError(
-            "a history on a ring or recurrent block is chunked prefill, "
-            "which is not ported yet (ROADMAP.md queue 1 item 5)")
     if block_tables is not None and hist_pages > block_tables.shape[1]:
         raise ValueError(f"hist_pages {hist_pages} exceeds block table "
                          f"span {block_tables.shape[1]}")
@@ -625,9 +699,13 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor | None,
     positions = _positions(b, s, x.device)
     if hist_len is not None:
         positions = positions + hist_len[:, None].to(positions.dtype)
+    # a ring continues write-then-attend only where some slot has history
+    history = (hist_len is not None
+               and any(k == "local" for k, _, _ in layer_list)
+               and bool(hist_len.any()))
     kw = {"lengths": lengths, "update_mask": update_mask,
           "block_tables": block_tables, "hist_len": hist_len,
-          "hist_pages": hist_pages}
+          "hist_pages": hist_pages, "history": history}
     for kind, p, c in layer_list:
         x = _prefill_block(kind, p, cfg, x, positions, c, **kw)
     if lengths is None:
@@ -643,3 +721,271 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor | None,
     if update_mask is not None:
         new_t = torch.where(update_mask, new_t, cache["t"])
     return logits, {**cache, "t": new_t}
+
+
+# --------------------------------------------------------------------------
+# Speculative decoding
+# --------------------------------------------------------------------------
+#
+#   spec_forward   one W-wide teacher-forced pass (W = k + 1 verify tokens)
+#                  that writes all W rows or states of every slot in place
+#                  and returns an `undo` record: copies taken before the
+#                  writes, sized to what a rollback of each kind needs;
+#   spec_commit    clock = t0 + keep per slot, and the repair: nothing for
+#                  full attention (rejected rows sit past the clock,
+#                  masked everywhere), the overwritten ring rows past
+#                  `keep` restored for a sliding window, the state after
+#                  `keep` tokens taken from a (W + 1)-stash for "ssm" and
+#                  "rglru".
+#
+# `verify_step` composes them with the greedy accept rule; `spec_advance`
+# replays the verify window through the draft's cache with the target's
+# `keep`; `draft_propose` drafts k tokens with k decode steps and puts
+# back what they overwrote.  The recurrent kinds step the same
+# `*_decode_step` functions the decode path uses, and attention reads the
+# rows a sequence of 1-wide steps would have written, as in the JAX
+# package.
+
+
+def _spec_attn(p, cfg: ArchConfig, kind: str, x, pos, c: dict, active,
+               block_tables):
+    """The W-wide verify of an attention block: (its output after `wo`,
+    undo)."""
+    b, w = x.shape[0], x.shape[1]
+    q, k_new, v_new = layers.attn_qkv(p["attn"], cfg,
+                                      rms_norm(p["norm1"], x, cfg.norm_eps),
+                                      pos)
+    if "k_pages" in c:
+        if block_tables is None:
+            raise ValueError("paged cache decode needs block_tables")
+        page, n_bt = c["k_pages"].shape[1], block_tables.shape[1]
+        pidx = (pos // page).long()
+        phys = block_tables.gather(1, pidx.clamp(max=n_bt - 1))    # (B, W)
+        write = pidx < n_bt
+        if active is not None:
+            write = write & active[:, None]
+        phys = torch.where(write, phys, -1)            # -1: the sink page
+        for name, val in _store(c, k_new, v_new, True).items():
+            layers.paged_slot_update(c[name], phys, pos % page, val)
+        # a per-query valid length pos + 1 makes the pass causal (the
+        # plain gather: the paged kernel is Sq == 1 only); full attention
+        # never wraps, so rejected rows sit past the rolled-back clock
+        # (their pages are released on the host): no undo
+        return layers.paged_cached_attention(p["attn"], cfg, q, c,
+                                             block_tables, pos + 1), {}
+    size = c["k"].shape[1]
+    idx = (pos % size).long()                                     # (B, W)
+    store = _store(c, k_new, v_new, False)
+    scales = {"k_scale": c.get("k_scale"), "v_scale": c.get("v_scale")}
+    if kind == "attn":
+        # full attention never wraps (headroom is checked at submit): all
+        # W rows land before one pass with a per-query valid length
+        for name, val in store.items():
+            layers.slot_update_many(c[name], idx, val)
+        return layers.cached_attention(p["attn"], cfg, q, c["k"], c["v"], pos,
+                                       torch.clamp(pos + 1, max=size),
+                                       **scales), {}
+    # A ring cannot take the W writes at once: the write of token i
+    # overwrites the row of position t + i - size, still in the window of
+    # every earlier query.  So the attention steps the ring one query at
+    # a time (the decode step's write-then-attend), after copying the W
+    # rows it overwrites for the rollback (W <= the ring's rows, checked
+    # by the Scheduler, so no row is written twice).
+    bidx = torch.arange(b, device=x.device)[:, None]
+    undo = {"idx": idx, "rows": {name: c[name][bidx, idx] for name in store}}
+    heads = []
+    for i in range(w):
+        for name, val in store.items():
+            layers.slot_update(c[name], idx[:, i], val[:, i])
+        heads.append(layers.cached_heads(
+            q[:, i:i + 1], c["k"], c["v"],
+            torch.clamp(pos[:, i] + 1, max=size), **scales))
+    o = torch.cat(heads, dim=1).reshape(b, w, cfg.n_heads * cfg.head_dim_)
+    return dense(p["attn"]["wo"], o), undo
+
+
+def _spec_recurrent(kind: str, p, cfg: ArchConfig, xin, c: dict):
+    """Step a recurrent block's decode update over the W tokens of xin
+    (B, W, D): (outputs (B, W, D), undo), the undo a (W + 1)-stash per
+    state leaf, stash[i] the state after i tokens.  The final state is
+    written in place for every slot (`spec_commit` picks each slot's)."""
+    names = ("conv", "state") if kind == "ssm" else ("conv", "h")
+    cur = {name: c[name] for name in names}
+    stash = {name: [cur[name]] for name in names}
+    ys = []
+    for i in range(xin.shape[1]):
+        xt = xin[:, i:i + 1]
+        if kind == "ssm":
+            y, *new = ssm.ssm_decode_step(p["ssm"], cfg, xt, cur["conv"],
+                                          cur["state"])
+        else:
+            y, *new = rglru.rglru_decode_step(p["rec"], cfg, xt, cur["conv"],
+                                              cur["h"])
+        cur = {name: val.to(c[name].dtype)
+               for name, val in zip(names, new, strict=True)}
+        for name in names:
+            stash[name].append(cur[name])
+        ys.append(y)
+    undo = {name: torch.stack(vals) for name, vals in stash.items()}
+    _write_state(c, cur, None)
+    return torch.cat(ys, dim=1), undo
+
+
+def _spec_block(kind: str, p, cfg: ArchConfig, x, t, c: dict, active=None,
+                block_tables=None):
+    """The W-wide teacher-forced step of one block at positions t .. t + W
+    - 1 per slot: (x, undo), the cache written in place, `undo` what
+    `_commit_block` needs to roll the block back to any prefix of [0, W]."""
+    w = x.shape[1]
+    pos = t[:, None] + torch.arange(w, dtype=t.dtype, device=x.device)[None]
+    if kind in ("attn", "local"):
+        h, undo = _spec_attn(p, cfg, kind, x, pos, c, active, block_tables)
+        x = x + h
+        return x + _ffn(p, cfg, rms_norm(p["norm2"], x, cfg.norm_eps))[0], undo
+    if kind not in ("ssm", "rglru"):
+        raise ValueError(kind)
+    h, undo = _spec_recurrent(kind, p, cfg,
+                              rms_norm(p["norm1"], x, cfg.norm_eps), c)
+    x = x + h
+    if kind == "rglru":
+        x = x + mlp(p["mlp"], rms_norm(p["norm2"], x, cfg.norm_eps))
+    return x, undo
+
+
+def spec_forward(params, cfg: ArchConfig, cache: dict, tokens, *,
+                 compute_dtype=torch.bfloat16, active=None,
+                 block_tables=None):
+    """tokens (B, W) teacher-forced at positions t .. t + W - 1 -> (logits
+    (B, W, V), cache, undo).  All W rows and states are written in place;
+    the clock is not advanced: `spec_commit` with `undo` keeps each
+    slot's accepted prefix.  `undo` holds copies taken before the writes
+    (never views of the cache)."""
+    if cfg.embed_inputs:
+        raise ValueError("encoder-only arch: no decode step")
+    t = cache["t"]
+    x = params["embed"].to(compute_dtype)[tokens.long()]
+    undo = []
+    for kind, p, c in _layers(params, cfg, cache):
+        x, u = _spec_block(kind, p, cfg, x, t, c, active, block_tables)
+        undo.append(u)
+    return _logits_out(params, cfg, x), cache, {"t0": t, "blocks": undo}
+
+
+def _commit_block(kind: str, c: dict, undo: dict, keep) -> None:
+    """Roll one block's speculative writes back to `keep` (B,) tokens, in
+    place."""
+    if not undo:  # full attention: the clock masks the rejected rows
+        return
+    if kind == "local":  # put back the ring rows past each slot's keep
+        idx = undo["idx"]                                           # (B, W)
+        bidx = torch.arange(idx.shape[0], device=idx.device)[:, None]
+        kept = (torch.arange(idx.shape[1], device=idx.device)[None, :]
+                < keep[:, None])
+        for name, old in undo["rows"].items():
+            cur = c[name][bidx, idx]
+            mask = kept.reshape(kept.shape + (1,) * (cur.dim() - 2))
+            c[name][bidx, idx] = torch.where(mask, cur, old)
+        return
+    # recurrent: the state after `keep` tokens, from the (W + 1)-stash
+    slots = torch.arange(keep.shape[0], device=keep.device)
+    for name, stash in undo.items():
+        c[name].copy_(stash[keep.long(), slots])
+
+
+def spec_commit(cfg: ArchConfig, cache: dict, undo: dict, keep) -> dict:
+    """Accept each slot's first `keep` (B,) of the W speculative tokens:
+    the clock t0 + keep, and `_commit_block`'s repairs in place.  keep == 0
+    leaves a slot as it was: its rows below the clock, its ring rows and
+    its recurrent state bit for bit."""
+    keep = keep.to(torch.int32)
+    for (kind, c), u in zip(_blocks(cfg, cache["slots"], cache["tail"]),
+                            undo["blocks"], strict=True):
+        _commit_block(kind, c, u, keep)
+    return {**cache, "t": undo["t0"] + keep}
+
+
+def verify_step(params, cfg: ArchConfig, cache: dict, tokens, *,
+                compute_dtype=torch.bfloat16, active=None, block_tables=None):
+    """Score W = k + 1 verify tokens (each slot's last token and its k
+    drafts) in one pass and accept greedily the longest matching prefix.
+
+    Returns (g (B, W) int32, n_acc (B,), cache): g[b, :n_acc[b] + 1] is
+    the stream target-only greedy decode emits (the accepted drafts and
+    one correction or bonus token), and the cache is committed to keep =
+    n_acc + 1 rows per active slot (0 for the others)."""
+    logits, cache, undo = spec_forward(
+        params, cfg, cache, tokens, compute_dtype=compute_dtype,
+        active=active, block_tables=block_tables)
+    g = logits.argmax(dim=-1).to(torch.int32)                      # (B, W)
+    match = (g[:, :-1] == tokens[:, 1:]).to(torch.int32)
+    n_acc = torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32)  # (B,)
+    keep = n_acc + 1
+    if active is not None:
+        keep = torch.where(active, keep, 0)
+        n_acc = torch.where(active, n_acc, 0)
+    return g, n_acc, spec_commit(cfg, cache, undo, keep)
+
+
+def spec_advance(params, cfg: ArchConfig, cache: dict, tokens, keep, *,
+                 compute_dtype=torch.bfloat16, active=None,
+                 block_tables=None) -> dict:
+    """Replay `tokens` (B, W) through `cache` and commit `keep` (B,) of
+    them: the draft's half of a speculative tick, its cache taking the
+    verify window the target scored, cut to what the target accepted."""
+    _, cache, undo = spec_forward(
+        params, cfg, cache, tokens, compute_dtype=compute_dtype,
+        active=active, block_tables=block_tables)
+    keep = keep.to(torch.int32)
+    if active is not None:
+        keep = torch.where(active, keep, 0)
+    return spec_commit(cfg, cache, undo, keep)
+
+
+def _propose_saves(cfg: ArchConfig, cache: dict, n: int) -> list:
+    """Copies of what `n` decode steps from the clock overwrite in a
+    contiguous cache: each attention block's rows (t + j) % size, j < n,
+    and each recurrent block's state."""
+    t = cache["t"]
+    saves = []
+    for _, c in _blocks(cfg, cache["slots"], cache["tail"]):
+        if "k_pages" in c:
+            raise ValueError("draft_propose runs on a contiguous cache")
+        if "k" in c:
+            size = c["k"].shape[1]
+            idx = ((t[:, None] + torch.arange(n, dtype=t.dtype,
+                                              device=t.device)) % size).long()
+            bidx = torch.arange(t.shape[0], device=t.device)[:, None]
+            saves.append((c, (bidx, idx), {name: val[bidx, idx]
+                                           for name, val in c.items()}))
+        else:
+            saves.append((c, None, {name: val.clone()
+                                    for name, val in c.items()}))
+    return saves
+
+
+def draft_propose(params, cfg: ArchConfig, cache: dict, token, n: int, *,
+                  compute_dtype=torch.bfloat16, active=None):
+    """Greedily propose `n` draft tokens from `token` (B,): `n` decode
+    steps with argmax feedback.  The caller's cache is not advanced: the
+    steps write in place, and what they overwrote is put back after them
+    (the persistent draft cache advances by `spec_advance` replaying the
+    verify window).  Returns (B, n) int32."""
+    saves = _propose_saves(cfg, cache, n)
+    tok = token.to(torch.int32)
+    drafts = []
+    try:
+        cc = cache
+        for _ in range(n):
+            logits, cc = decode_step(params, cfg, cc, tok[:, None],
+                                     compute_dtype=compute_dtype,
+                                     active=active)
+            tok = logits[:, -1].argmax(dim=-1).to(torch.int32)
+            drafts.append(tok)
+    finally:
+        for c, where, vals in saves:
+            for name, val in vals.items():
+                if where is None:
+                    c[name].copy_(val)
+                else:
+                    c[name][where] = val
+    return torch.stack(drafts, dim=1)

@@ -1,5 +1,5 @@
-"""Serving: batched prefill + greedy decode over the KV cache (the port
-of `repro/serve_lib/serve.py`).
+"""Serving: batched prefill + greedy or sampled decode over the KV cache
+(the port of `repro/serve_lib/serve.py`).
 
 `generate` serves one batch end to end over the contiguous cache; the
 paged layout (`cache_layout="paged"`) needs the block-table plane that
@@ -118,9 +118,18 @@ class ServeConfig:
     page_size: int = 16
     # pool size in pages; None -> batch * slot_pages + 2 * slot_pages
     n_pages: int | None = None
-    # speculative decoding and chunked prefill: fields of the JAX
-    # package's configuration that the port does not serve yet
+    # speculative decoding (Scheduler only): k > 0 makes every tick
+    # propose k draft tokens and verify them in one (k + 1)-wide pass;
+    # greedy only, and the tokens are those of plain greedy decode.
     speculate_k: int = 0
+    # the draft: None / "self" shares the target's params, "self-int8"
+    # drafts with their `quantize_params` copy; `Scheduler(draft_params=,
+    # draft_cfg=)` passes another model.
+    draft: str | None = None
+    # chunked prefill (Scheduler only): a prompt whose un-resident part is
+    # longer than this streams into its slot one chunk of this width a
+    # tick, beside the pool's decode; None admits every prompt in one
+    # prefill.  On the paged layout a multiple of page_size.
     prefill_chunk: int | None = None
 
     def __post_init__(self):
@@ -155,10 +164,32 @@ class ServeConfig:
                     f"n_pages={self.n_pages} cannot hold even one full slot "
                     f"({self.slot_pages} pages for max_seq={self.max_seq} at "
                     f"page_size={self.page_size})")
+        if self.prefill_chunk is not None:
+            if self.prefill_chunk < 1:
+                raise ValueError(
+                    f"prefill_chunk must be >= 1: {self.prefill_chunk}")
+            if self.prefill_chunk > self.max_seq:
+                raise ValueError(
+                    f"prefill_chunk {self.prefill_chunk} exceeds max_seq "
+                    f"{self.max_seq} — a chunk wider than the cache can "
+                    f"never fill")
+            if (self.cache_layout == "paged"
+                    and self.prefill_chunk % self.page_size):
+                raise ValueError(
+                    f"prefill_chunk {self.prefill_chunk} is not a multiple "
+                    f"of page_size {self.page_size}: paged chunk "
+                    f"continuation gathers whole resident pages, so every "
+                    f"chunk boundary must be a page boundary")
         if self.speculate_k < 0:
             raise ValueError(f"speculate_k must be >= 0: {self.speculate_k}")
-        if self.prefill_chunk is not None and self.prefill_chunk < 1:
-            raise ValueError(f"prefill_chunk must be >= 1: {self.prefill_chunk}")
+        if self.draft is not None:
+            if self.speculate_k == 0:
+                raise ValueError("draft= needs speculate_k > 0")
+            if self.draft not in ("self", "self-int8"):
+                raise ValueError(
+                    f"draft {self.draft!r} is not one of ('self', "
+                    f"'self-int8'); pass an explicit small arch via "
+                    f"Scheduler(draft_params=, draft_cfg=)")
 
     @property
     def slot_pages(self) -> int:
@@ -231,19 +262,39 @@ def init_cache(cfg: ArchConfig, scfg: ServeConfig) -> dict:
                         device=resolve_device(scfg))
 
 
-def generate(params, cfg: ArchConfig, scfg: ServeConfig, prompt,
-             n_tokens: int, *, embeds=None,
-             engine: Engine | None = None) -> torch.Tensor:
-    """prompt (B, S_prompt) -> (B, n_tokens) greedy tokens.
+def sample(logits: torch.Tensor, temperature: float,
+           generator: torch.Generator | None = None) -> torch.Tensor:
+    """(..., V) logits -> (...,) int64 tokens: the argmax at temperature 0,
+    else a categorical draw from softmax(logits / temperature) with
+    `generator`, which lives on the logits' device.  torch has no JAX
+    PRNG: a sampled token follows the same distribution as the JAX
+    package's, not its bits."""
+    if temperature <= 0.0:
+        return logits.argmax(dim=-1)
+    probs = torch.softmax(logits.double() / temperature, dim=-1)
+    flat = probs.reshape(-1, probs.shape[-1])
+    return torch.multinomial(flat, 1, generator=generator).reshape(
+        probs.shape[:-1])
 
-    The first token is the argmax of the prefill logits, so `n_tokens`
-    outputs cost `n_tokens - 1` decode steps.  `embeds` go to the prefill
-    as `transformer.prefill` takes them (a VLM's (B, P, D) prefix; the
-    cache then holds P + S_prompt + n_tokens - 1 rows).  An encoder has
-    no decode step: it serves one token, the argmax of its last frame.
-    Runs where `params` live, which must be `scfg.device`.  `engine`
-    overrides the `ServeConfig`-derived one (pass a shared Engine to keep
-    one decision cache across calls)."""
+
+def generate(params, cfg: ArchConfig, scfg: ServeConfig, prompt,
+             n_tokens: int, *, temperature: float = 0.0,
+             key: torch.Generator | None = None, embeds=None,
+             engine: Engine | None = None) -> torch.Tensor:
+    """prompt (B, S_prompt) -> (B, n_tokens) greedy or sampled tokens.
+
+    The first token comes from the prefill logits (sampled at the same
+    temperature as the rest), so `n_tokens` outputs cost `n_tokens - 1`
+    decode steps.  `temperature > 0` samples each token from
+    softmax(logits / temperature) with `key`, a `torch.Generator` on the
+    params' device.  `embeds` go to the prefill as `transformer.prefill`
+    takes them (a VLM's (B, P, D) prefix; the cache then holds P +
+    S_prompt + n_tokens - 1 rows).  An encoder has no decode step: it
+    serves one token, from its last frame.  Runs where `params` live,
+    which must be `scfg.device`.  `engine` overrides the
+    `ServeConfig`-derived one (pass a shared Engine to keep one decision
+    cache across calls).  `speculate_k` and `prefill_chunk` are the
+    Scheduler's: the static batch ignores them, as in the JAX package."""
     if n_tokens < 1:
         raise ValueError(f"n_tokens must be >= 1, got {n_tokens}")
     if cfg.kind == "encoder" and n_tokens > 1:
@@ -253,10 +304,11 @@ def generate(params, cfg: ArchConfig, scfg: ServeConfig, prompt,
             "generate() serves the contiguous layout only; the paged layout "
             "needs the block-table plane the continuous-batching Scheduler "
             "owns (serve_lib.scheduler.Scheduler)")
-    if scfg.speculate_k or scfg.prefill_chunk is not None:
-        raise NotImplementedError(
-            "speculative decoding and chunked prefill are not ported yet "
-            "(ROADMAP.md queue 1 item 5)")
+    if temperature > 0.0 and key is None:
+        raise ValueError(
+            "generate(temperature>0) samples and needs a PRNG key — pass "
+            "key=torch.Generator(device).manual_seed(...) (or "
+            "temperature=0.0 for greedy)")
     dev = resolve_device(scfg)
     where = params["final_norm"].device
     if where.type != dev.type:
@@ -272,11 +324,13 @@ def generate(params, cfg: ArchConfig, scfg: ServeConfig, prompt,
         cache = init_cache(cfg, scfg)
         logits, cache = T.prefill(params, cfg, prompt, cache, embeds=embeds,
                                   compute_dtype=scfg.compute_dtype)
-        tok = logits[:, -1].argmax(dim=-1, keepdim=True).to(torch.int32)
+        pick = lambda lg: sample(lg[:, -1], temperature, key)[:, None].to(
+            torch.int32)
+        tok = pick(logits)
         outs = [tok]
         for _ in range(n_tokens - 1):
             logits, cache = T.decode_step(params, cfg, cache, tok,
                                           compute_dtype=scfg.compute_dtype)
-            tok = logits[:, -1].argmax(dim=-1, keepdim=True).to(torch.int32)
+            tok = pick(logits)
             outs.append(tok)
         return torch.cat(outs, dim=1)

@@ -26,7 +26,9 @@ output (whatever the other experts hold, Inf included) bit for bit.
 The flash kernel is held on both routes at D = 16, 20, 64, 80, 128, 240
 and 256 (the wgmma route for bf16 with D % 8 == 0, the sync route for the
 rest and for a misaligned base), one launch a call on the expected route
-and its repeats bit for bit.
+and its repeats bit for bit.  Rows 1 and 2 are also held at the rows of
+the speculative verify (M = 8 x 5) and of a 256-token chunk (M = 8 x
+256) at qwen2-1.5b's layer shapes, the engine's decision among them.
 The paged kernel is held over float and int8 pools at cluster sizes 1,
 the wrapper's and 8, at small tables, qwen2-1.5b's decode tick and
 granite's (G = 2, D = 64), its kv_len 0 rows exactly zero and its
@@ -127,6 +129,43 @@ def test_redas_gemm_matches_plain_version(cuda, dtype, tol, m, k, n):
         torch.cuda.synchronize()
         assert got.dtype == dtype and got.shape == (m, n)
         assert _row_rel_l2(got, ref) <= tol, conf
+        assert torch.equal(got, again), conf
+
+
+#: qwen2-1.5b's layer GEMMs (K, N): q and o, k and v, wi and wg, wo
+QWEN_LAYER_KN = [(1536, 1536), (1536, 256), (1536, 8960), (8960, 1536)]
+#: the speculative verify's GEMM rows at 8 slots and k = 4 (B (k + 1))
+#: and a 256-token chunk's at 8 slots (B x chunk)
+SPEC_CHUNK_M = [8 * 5, 8 * 256]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("m", SPEC_CHUNK_M)
+@pytest.mark.parametrize("k,n", QWEN_LAYER_KN)
+def test_redas_gemm_at_the_verify_and_chunk_rows(cuda, m, k, n):
+    """Rows 1 and 2 (OS, WS and IS) in bf16 at the rows a speculative
+    verify (M = 40) and a chunked prefill (M = 2048) give qwen2-1.5b's
+    layer GEMMs: each against `gemm_reference` within the bf16 row
+    tolerance, repeats bit for bit, and the engine's decision among
+    them."""
+    from repro_torch.engine import KernelRequest
+    from repro_torch.engine.backends import gemm_args
+    from repro_torch.engine.cost import HopperModel
+
+    gen = torch.Generator(device=cuda).manual_seed(m + n)
+    a = torch.randn(m, k, generator=gen, device=cuda).to(torch.bfloat16)
+    b = (torch.randn(k, n, generator=gen, device=cuda) / k ** 0.5).to(
+        torch.bfloat16)
+    ref = redas_gemm.gemm_reference(a, b)
+    configs = _gemm_configs(m, k, n, 2)
+    decision = gemm_args(HopperModel().decide(
+        KernelRequest("gemm", m, k, n, in_bytes=2, out_bytes=2)))
+    for conf in configs + [decision]:
+        got = redas_gemm.gemm(a, b, **conf)
+        again = redas_gemm.gemm(a, b, **conf)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+        assert _row_rel_l2(got, ref) <= 1e-2, conf
         assert torch.equal(got, again), conf
 
 

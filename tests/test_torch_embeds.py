@@ -242,19 +242,40 @@ def test_ragged_prefill_with_embeds_is_refused_as_the_reference(arch):
 @pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-2b"])
 @pytest.mark.parametrize("layout", ["contiguous", "paged"])
 def test_history_on_a_recurrent_block_is_refused(arch, layout):
-    """A resident history (`hist_len` > 0) would continue a recurrent
-    block's state: that is chunked prefill, ROADMAP.md queue 1 item 5 (the
-    JAX package runs its chunk continuation there)."""
-    cfg = get_config(arch, smoke=True)
-    params = T.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    """A resident history (`hist_len` > 0) continues a recurrent block's
+    state (chunked prefill; once refused, now ported): 4 tokens
+    prefilled into slot 0, then a call continuing slot 0 by 6 tokens and
+    starting slot 1 afresh.  Logits and every cache leaf equal the JAX
+    package's, on either layout (a paged CacheSpec pages nothing without
+    "attn" layers; the block tables then address no pool)."""
+    jcfg, jparams, cfg, params = _weights(arch)
     spec = dict(page_size=4, n_pages=30) if layout == "paged" else {}
+    jcache = JT.init_cache(jcfg, JT.CacheSpec(48, 2, **spec),
+                           dtype=jnp.float32)
     cache = T.init_cache(cfg, T.CacheSpec(48, 2, **spec), dtype=torch.float32)
+    rng = np.random.default_rng(7)
     kw = {}
     if layout == "paged":
-        kw = {"block_tables": torch.arange(24, dtype=torch.int32).reshape(
-            2, 12), "hist_pages": 1}
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        T.prefill(params, cfg, torch.zeros((2, 6), dtype=torch.int32), cache,
-                  compute_dtype=torch.float32,
-                  lengths=torch.full((2,), 6, dtype=torch.int32),
-                  hist_len=torch.tensor([4, 0]), **kw)
+        kw = {"block_tables": np.arange(24, dtype=np.int32).reshape(2, 12)}
+    for hist, lengths, pages in (([0, 0], [4, 3], 0), ([4, 0], [6, 6], 1)):
+        toks = rng.integers(0, cfg.vocab, (2, 6)).astype(np.int32)
+        call = {**kw, "lengths": np.asarray(lengths, np.int32),
+                "hist_len": np.asarray(hist, np.int32)}
+        extra = {"hist_pages": pages} if layout == "paged" else {}
+        want, jcache = JT.prefill(jparams, jcfg, jnp.asarray(toks), jcache,
+                                  compute_dtype=jnp.float32, **extra,
+                                  **{k: jnp.asarray(v)
+                                     for k, v in call.items()})
+        got, cache = T.prefill(params, cfg, _t(toks), cache,
+                               compute_dtype=torch.float32, **extra,
+                               **{k: _t(v) for k, v in call.items()})
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert cache["t"].tolist() == [10, 6]
+    mine, ref = jax.tree.leaves(jax.tree.map(
+        np.asarray, {"s": cache["slots"], "t": cache["tail"]},
+        is_leaf=lambda x: isinstance(x, torch.Tensor))), jax.tree.leaves(
+        {"s": jcache["slots"], "t": jcache["tail"]})
+    for a, b in zip(mine, ref, strict=True):
+        np.testing.assert_allclose(np.asarray(a, np.float32),
+                                   np.asarray(b, np.float32), rtol=1e-5,
+                                   atol=1e-5)

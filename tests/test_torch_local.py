@@ -228,16 +228,31 @@ def test_ragged_ring_prefill_and_masked_decode_match_reference(gemma3,
 
 
 def test_history_on_a_ring_block_is_refused(gemma3):
-    """A shared history on a paged mixed-pattern cache would continue the
-    rings of the local blocks (the JAX package's chunk continuation):
-    that is chunked prefill, not ported yet."""
-    _, _, cfg, params = gemma3
-    cache = T.init_cache(cfg, T.CacheSpec(48, 2, page_size=4, n_pages=30),
-                         dtype=torch.float32)
-    bt = torch.arange(24, dtype=torch.int32).reshape(2, 12)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        T.prefill(params, cfg, torch.zeros((2, 6), dtype=torch.int32), cache,
-                  compute_dtype=torch.float32,
-                  lengths=torch.full((2,), 6, dtype=torch.int32),
-                  block_tables=bt, hist_len=torch.tensor([4, 0]),
-                  hist_pages=1)
+    """A history on a paged mixed-pattern cache (once refused, now
+    ported): the paged "attn" blocks gather their history pages while the
+    local blocks' rings continue write-then-attend, in one call.  8 rows
+    prefilled into slot 0, then 10 more into slot 0 (its 16-row ring
+    wraps) beside a fresh slot 1: logits and every cache leaf equal the
+    JAX package's."""
+    jcfg, jparams, cfg, params = gemma3
+    spec = T.CacheSpec(48, 2, page_size=4, n_pages=30)
+    jcache = JT.init_cache(jcfg, JT.CacheSpec(48, 2, page_size=4,
+                                              n_pages=30), dtype=jnp.float32)
+    cache = T.init_cache(cfg, spec, dtype=torch.float32)
+    bt = np.arange(24, dtype=np.int32).reshape(2, 12)
+    rng = np.random.default_rng(9)
+    for hist, lengths, pages in (([0, 0], [8, 5], 0), ([8, 0], [10, 7], 2)):
+        toks = rng.integers(0, cfg.vocab, (2, 10)).astype(np.int32)
+        kw = {"lengths": np.asarray(lengths, np.int32), "block_tables": bt,
+              "hist_len": np.asarray(hist, np.int32)}
+        want, jcache = JT.prefill(jparams, jcfg, jnp.asarray(toks), jcache,
+                                  compute_dtype=jnp.float32, hist_pages=pages,
+                                  **{k: jnp.asarray(v) for k, v in kw.items()})
+        got, cache = T.prefill(params, cfg, _t(toks), cache,
+                               compute_dtype=torch.float32, hist_pages=pages,
+                               **{k: _t(v) for k, v in kw.items()})
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert cache["t"].tolist() == [18, 7]
+    for mine, ref in zip(_cache_leaves(cache), _cache_leaves(jcache),
+                         strict=True):
+        np.testing.assert_allclose(mine, ref, rtol=1e-5, atol=1e-5)

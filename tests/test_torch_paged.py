@@ -304,10 +304,21 @@ def test_paged_prefill_rejections_as_in_reference(weights):
     bt = torch.arange(8, dtype=torch.int32).reshape(2, 4)
     with pytest.raises(NotImplementedError, match="ragged"):
         T.prefill(params, cfg, toks, cache, block_tables=bt)
+    # a history on the contiguous layout is chunked prefill (once
+    # refused, now ported): zeros start each slot afresh, as a ragged
+    # prefill does
     contiguous = T.init_cache(cfg, T.CacheSpec(32, 2), dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    fresh = T.init_cache(cfg, T.CacheSpec(32, 2), dtype=torch.float32)
+    lengths = torch.tensor([8, 5], dtype=torch.int32)
+    got, contiguous = T.prefill(params, cfg, toks, contiguous,
+                                compute_dtype=torch.float32, lengths=lengths,
+                                hist_len=torch.zeros(2, dtype=torch.int32))
+    want, fresh = T.prefill(params, cfg, toks, fresh,
+                            compute_dtype=torch.float32, lengths=lengths)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    assert contiguous["t"].tolist() == fresh["t"].tolist() == [8, 5]
+    with pytest.raises(NotImplementedError, match="ragged"):
         T.prefill(params, cfg, toks, contiguous,
-                  lengths=torch.full((2,), 8, dtype=torch.int32),
                   hist_len=torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError, match="block_tables"):
         T.decode_step(params, cfg, cache, toks[:, :1])
@@ -433,16 +444,31 @@ def test_pool_that_cannot_hold_a_prompt_fails_with_intent(weights):
 
 
 def test_unported_features_raise(weights):
-    _, _, cfg, params = weights
+    """What once raised as not ported (sampling, `serve_async`,
+    speculation, chunked prefill) now serves, with the JAX Scheduler's
+    checks: a positive temperature needs a key, as it does there; the
+    duplicate-uid and int8-cache checks stay."""
+    jcfg, jparams, cfg, params = weights
     sched = Scheduler(params, cfg, _scfg())
-    with pytest.raises(NotImplementedError, match="item 5"):
-        sched.submit(Request(uid=0, prompt=np.ones(4, np.int32),
-                             max_new_tokens=2, temperature=0.7))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        sched.serve_async()
+    req = dict(uid=0, prompt=np.ones(4, np.int32), max_new_tokens=2,
+               temperature=0.7)
+    with pytest.raises(ValueError, match="PRNG key"):
+        sched.submit(Request(**req))
+    with pytest.raises(ValueError, match="PRNG key"):
+        JaxScheduler(jparams, jcfg, jax_serve.ServeConfig(
+            max_seq=48, batch=2, compute_dtype=jnp.float32)).submit(
+                JaxRequest(**req))
+    sched.submit(Request(**req, key=torch.Generator().manual_seed(0)))
+    with sched.serve_async() as srv:
+        fut = srv.submit(Request(uid=5, prompt=np.ones(3, np.int32),
+                                 max_new_tokens=2))
+        assert len(fut.result(timeout=120).tokens) == 2
+    assert len(sched.completions[0].tokens) == 2
+    spec = _random_spec(cfg.vocab, 3, np.random.default_rng(0))
+    plain = Scheduler(params, cfg, _scfg()).run(_port_reqs(spec))
     for kw in ({"speculate_k": 2}, {"prefill_chunk": 8}):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            Scheduler(params, cfg, _scfg(**kw))
+        _same_tokens(Scheduler(params, cfg, _scfg(**kw)).run(
+            _port_reqs(spec)), plain)
     # the int8 KV cache is ported: the config that raised now holds it
     assert serve.ServeConfig(max_seq=8, batch=1,
                              cache_dtype="int8").cache_dtype == torch.int8
