@@ -241,6 +241,29 @@ Phases (any failed check exits non-zero; nothing falls back):
      chunking with speculation: the card's tokens equal the CPU's per
      uid, and the card's speculative or chunked tokens its plain serve's;
      `generate(temperature=0.7, key=)` repeats its tokens for the seed;
+ 38. the accelerator plane (the paper's own contribution): the mapper's
+     pick for the quickstart request (TinyYOLO-V2 conv2, 43264 x 144 @
+     144 x 32) on ReDas and on the fixed TPU-like array, with the modeled
+     speedup and PE utilization; `map_model` over the paper's eight
+     workloads on both, the modeled speedup and EDP ratio of each and
+     their geometric means beside the paper's 4.6x and 8.3x, and the
+     host seconds of the mapping (all of these the analytical model's
+     modeled cycles for the paper's 128 x 128 array, not times of the
+     card); the cycle-level simulator at OS, WS and IS and batched on
+     CUDA tensors, within 1e-6 of the same calls on CPU tensors with
+     equal cycles; `Engine(AnalyticalCostModel()).matmul` of the whole
+     conv2 GEMM on the card (the "simulator" backend) within rtol/atol
+     1e-4 of float64, its wall ms, device-busy ms and modeled cycles;
+     qwen2-1.5b SMOKE's f32 forward with every engine GEMM on the
+     simulator, its logits within rtol/atol 1e-4 of `torch-ref`'s;
+ 39. warm start at full width: qwen2-1.5b in bf16 and under --quantize,
+     `plan_arch` for the paged Scheduler posture of WARM_TRACE (8 slots,
+     pages of 16, every admit width of the 16-row bucket) with its host
+     seconds, saved and loaded through `ServeConfig(plan_path=)`: the
+     warm serve adds no plan miss and gives the cold serve's tokens per
+     uid; the first tick's host ms of serves in turns cold, warm, cold,
+     warm (the first also pays first-use costs); an AnalyticalCostModel
+     plan loaded into a hopper engine refused with the ASIC message;
  28. the kernels line, then the result line.
 
 Every detail also goes to runs/chip_smoke.json.  Exits non-zero
@@ -270,7 +293,13 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.engine import Engine, KernelRequest, use_engine  # noqa: E402
+from repro_torch.core import (SPECS, WORKLOADS, ReDasMapper,  # noqa: E402
+                              simulator)
+from repro_torch.core.dataflow import Dataflow, LogicalShape  # noqa: E402
+from repro_torch.core.energy import model_energy  # noqa: E402
+from repro_torch.engine import (AnalyticalCostModel, Engine,  # noqa: E402
+                                ExecutionPlan, KernelRequest, plan_arch,
+                                use_engine)
 from repro_torch.engine.backends import (  # noqa: E402
     gemm_args, hopper_gemm, hopper_grouped_gemm, int8_args, ref_gemm,
     ref_grouped_gemm, sparse_args)
@@ -5373,6 +5402,321 @@ def phase_spec_chunk_smoke() -> None:
                                   "sampled_repeat": repeat}
 
 
+# --------------------------------------------------------------------------
+# Phases 38-39: the accelerator plane and warm-started serving
+# --------------------------------------------------------------------------
+
+#: the quickstart's request: TinyYOLO-V2's conv2 as a GEMM (the paper's
+#: Fig. 22 case-study layer), at the quickstart's default width
+QUICKSTART = KernelRequest("gemm", 43264, 144, 32, name="tinyyolo-v2/conv2")
+#: the paper's suite means (Sec. 5.2-5.3), against which the analytical
+#: model's modeled ratios are printed
+PAPER_SPEEDUP, PAPER_EDP = 4.6, 8.3
+#: the simulator against its CPU run, (dataflow, M, K, N, logical shape)
+SIM_CASES = (("os", 64, 144, 32, None), ("ws", 512, 144, 32, (384, 32)),
+             ("is", 32, 96, 200, None))
+SIM_TOL = 1e-6
+#: `Engine(AnalyticalCostModel()).matmul` against float64, and the SMOKE
+#: forward on the simulator against `torch-ref` (the reference's own
+#: tolerance for its simulator engine)
+ASIC_TOL = 1e-4
+
+
+def _close(got: torch.Tensor, want: torch.Tensor, tol: float) -> dict:
+    """max |got - want| and whether |got - want| <= tol + tol |want|
+    everywhere (rtol = atol = tol)."""
+    got, want = got.double().cpu(), want.double().cpu()
+    diff = (got - want).abs()
+    return {"max_abs_err": diff.max().item(),
+            "ok": bool((diff <= tol + tol * want.abs()).all())}
+
+
+def _geomean(xs) -> float:
+    return math.exp(sum(math.log(x) for x in xs) / len(xs))
+
+
+def phase_plane1() -> None:
+    """The paper's accelerator plane on the card's host and the card:
+    the mapper's pick for the quickstart request on ReDas and on the
+    fixed TPU-like array, the suite's modeled speedups and EDP ratios,
+    the simulator on CUDA tensors against its CPU run, the conv2 GEMM
+    through `Engine(AnalyticalCostModel())` against float64, and qwen2
+    SMOKE's forward with every engine GEMM on the simulator."""
+    out = REPORT["plane1"] = {}
+    # (a) the quickstart request on both specs
+    picks = {}
+    for name in ("redas", "tpu"):
+        dec = AnalyticalCostModel(SPECS[name]).decide(QUICKSTART)
+        meta = dec.meta_dict
+        picks[name] = {"dataflow": dec.dataflow,
+                       "shape": (meta["shape_rows"], meta["shape_cols"]),
+                       "tile": (dec.bm, dec.bk, dec.bn),
+                       "modeled_cycles": meta["cycles"],
+                       "pe_utilization": meta["pe_utilization"]}
+    speedup = picks["tpu"]["modeled_cycles"] / picks["redas"]["modeled_cycles"]
+    print(f"plane 1, {QUICKSTART.name} (modeled by the analytical model for "
+          f"the paper's 128x128 array, not timed): ReDas picks "
+          f"{picks['redas']['dataflow'].upper()} on "
+          f"{picks['redas']['shape'][0]}x{picks['redas']['shape'][1]}, tile "
+          f"{picks['redas']['tile']}, modeled {speedup:.3f}x the fixed array "
+          f"(PE utilization {picks['redas']['pe_utilization']:.4f} against "
+          f"{picks['tpu']['pe_utilization']:.4f})")
+    out["quickstart"] = {"picks": picks, "modeled_speedup": speedup}
+    # (b) the paper's suite on both specs
+    t0 = time.perf_counter()
+    mapped = {(acc, abbr): ReDasMapper(SPECS[acc]).map_model(
+        WORKLOADS[abbr].gemms) for acc in ("redas", "tpu")
+        for abbr in WORKLOADS}
+    map_s = time.perf_counter() - t0
+    suite = {}
+    for abbr, w in WORKLOADS.items():
+        energy = {acc: model_energy(SPECS[acc], mapped[acc, abbr],
+                                    w.vector_elements) for acc in ("redas", "tpu")}
+        suite[abbr] = {
+            "modeled_speedup": (mapped["tpu", abbr].total_cycles
+                                / mapped["redas", abbr].total_cycles),
+            "modeled_edp_ratio": energy["tpu"].edp / energy["redas"].edp}
+    geo_s = _geomean([s["modeled_speedup"] for s in suite.values()])
+    geo_e = _geomean([s["modeled_edp_ratio"] for s in suite.values()])
+    print(f"plane 1, the paper's suite (modeled ReDas over the TPU-like "
+          f"array; {len(WORKLOADS) * 2} map_model calls in {map_s:.3f} s on "
+          f"the host): " + ", ".join(
+              f"{a} {s['modeled_speedup']:.3f}x / EDP {s['modeled_edp_ratio']:.3f}x"
+              for a, s in suite.items()))
+    print(f"  geometric means: modeled speedup {geo_s:.3f}x (paper "
+          f"{PAPER_SPEEDUP}x), modeled EDP ratio {geo_e:.3f}x (paper "
+          f"{PAPER_EDP}x)")
+    check(geo_s > 1.0 and geo_e > 1.0, "the modeled suite shows no gain")
+    out["suite"] = {"workloads": suite, "geomean_modeled_speedup": geo_s,
+                    "geomean_modeled_edp_ratio": geo_e, "map_host_s": map_s}
+    # (c) the simulator on CUDA tensors against its CPU run
+    gen = torch.Generator().manual_seed(SEED)
+    sims = []
+    for df, m, k, n, shape in SIM_CASES:
+        a, b = torch.randn(m, k, generator=gen), torch.randn(k, n, generator=gen)
+        shape = None if shape is None else LogicalShape(*shape)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, cycles = simulator.simulate_gemm(a.cuda(), b.cuda(),
+                                              Dataflow(df), shape)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        want, want_cycles = simulator.simulate_gemm(a, b, Dataflow(df), shape)
+        gap = _close(got, want, SIM_TOL)
+        exact = _close(got, a.double() @ b.double(), ASIC_TOL)
+        sims.append({"case": f"{df} {m}x{k}x{n}", "cycles": cycles,
+                     "wall_ms": ms, **gap, "vs_float64": exact["max_abs_err"]})
+        check(gap["ok"] and exact["ok"] and cycles == want_cycles,
+              f"simulator {df} ({m}, {k}, {n}) on the card: {gap}, cycles "
+              f"{cycles} against {want_cycles}")
+    a = torch.randn(11, 256, 144, generator=gen)
+    b = torch.randn(11, 144, 32, generator=gen)
+    got, cycles = simulator.simulate_gemm_batch(
+        a.cuda(), b.cuda(), Dataflow.WS, LogicalShape(384, 32))
+    want, want_cycles = simulator.simulate_gemm_batch(
+        a, b, Dataflow.WS, LogicalShape(384, 32))
+    gap = _close(got, want, SIM_TOL)
+    sims.append({"case": "ws batch 11 x 256x144x32 on 384x32",
+                 "cycles": cycles, **gap})
+    check(gap["ok"] and cycles == want_cycles,
+          f"simulate_gemm_batch on the card: {gap}, cycles {cycles}")
+    for s in sims:
+        print(f"  simulator on the card, {s['case']}: {s['cycles']} cycles, "
+              f"max |card - CPU| {s['max_abs_err']:.3g} (limit {SIM_TOL})")
+    out["simulator"] = sims
+    # (d) conv2 through the ASIC engine on the card
+    eng = Engine(AnalyticalCostModel())
+    a = torch.randn(QUICKSTART.m, QUICKSTART.k, generator=gen)
+    b = torch.randn(QUICKSTART.k, QUICKSTART.n, generator=gen)
+    ad, bd = a.cuda(), b.cuda()
+    redas_gemm.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = eng.matmul(ad, bd)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    eng.matmul(ad, bd)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    prof = _profile(lambda: eng.matmul(ad, bd))
+    gap = _close(got, a.double() @ b.double(), ASIC_TOL)
+    (req, dec), = eng.plan
+    meta = dec.meta_dict
+    print(f"conv2 {QUICKSTART.m}x{QUICKSTART.k} @ {QUICKSTART.k}x"
+          f"{QUICKSTART.n} f32 on the simulator ({dec.backend}): "
+          f"{dec.dataflow.upper()} on {meta['shape_rows']}x"
+          f"{meta['shape_cols']}, tile ({dec.bm}, {dec.bk}, {dec.bn}), "
+          f"modeled {meta['cycles']:.1f} cycles (the analytical model's); "
+          f"wall {wall_ms:.1f} ms (first call, with the mapping, "
+          f"{first_ms:.1f}), traced wall {prof['wall_ms']:.1f} ms, device "
+          f"busy {prof['device_busy_ms']:.3f} ms, idle share "
+          f"{prof['idle_share']:.3f}; max |err| against float64 "
+          f"{gap['max_abs_err']:.3g}")
+    for k in prof["top"]:
+        print(f"    {k['ms']:9.3f} ms {k['count']:6d} x {k['name']}")
+    check(gap["ok"], f"conv2 on the simulator off float64: {gap}")
+    check(dec.backend == "simulator" and sum(redas_gemm.launches.values()) == 0,
+          "conv2 did not run on the simulator")
+    out["conv2"] = {"decision": {"dataflow": dec.dataflow,
+                                 "shape": (meta["shape_rows"],
+                                           meta["shape_cols"]),
+                                 "tile": (dec.bm, dec.bk, dec.bn),
+                                 "modeled_cycles": meta["cycles"]},
+                    "wall_ms": wall_ms, "first_call_ms": first_ms,
+                    "traced_wall_ms": prof["wall_ms"],
+                    "device_busy_ms": prof["device_busy_ms"],
+                    "idle_share": prof["idle_share"],
+                    "top_kernels": prof["top"], **gap}
+    del ad, bd, got
+    # (e) qwen2 SMOKE forward with every engine GEMM on the simulator
+    cfg = get_config(ARCH, smoke=True)
+    params = T.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(SEED), device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (2, 16), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(SEED + 1))
+    redas_gemm.reset_launches()
+    t0 = time.perf_counter()
+    with torch.inference_mode(), use_engine(Engine(AnalyticalCostModel())) as sim:
+        got, _ = T.forward(params, cfg, tokens, compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    sim_s = time.perf_counter() - t0
+    check(sum(redas_gemm.launches.values()) == 0,
+          "the simulator forward launched the GEMM kernel")
+    with torch.inference_mode(), use_engine(backend="torch-ref"):
+        want, _ = T.forward(params, cfg, tokens, compute_dtype=torch.float32)
+    gap = _close(got, want, ASIC_TOL)
+    calls = sim.plan.hits + sim.plan.misses
+    backends = {d.backend for _, d in sim.plan}
+    print(f"{ARCH} SMOKE forward f32 (2 x 16 tokens) on the card, {calls} "
+          f"engine GEMMs over {len(sim.plan)} decisions all on "
+          f"{sorted(backends)}, in {sim_s:.2f} s: logits max |diff| against "
+          f"torch-ref {gap['max_abs_err']:.3g} (rtol/atol {ASIC_TOL})")
+    check(gap["ok"] and backends == {"simulator"} and calls == 7 * cfg.n_layers,
+          f"the simulator forward: {gap}, {calls} calls on {backends}")
+    out["smoke_forward"] = {"engine_calls": calls, "seconds": sim_s, **gap}
+
+
+#: phase 39's trace, 8 requests over 8 slots on pages of 16
+WARM_TRACE = "256x16*8"
+
+
+def _first_tick_serve(params, cfg, scfg, trace, engine=None) -> dict:
+    """Serve `trace` through a Scheduler tick by tick: the host ms of its
+    first tick (the admit prefill and, on a cold engine, its planning),
+    the serve's seconds, and its tokens per uid."""
+    sched = Scheduler(params, cfg, scfg, engine=engine, prefill_bucket=BUCKET)
+    for r in launch_serve.trace_requests(cfg, trace, SEED):
+        sched.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sched.step()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    ticks = 1
+    while sched.queue or sched.n_active:
+        sched.step()
+        ticks += 1
+        check(ticks < 10_000, "the Scheduler did not drain")
+    torch.cuda.synchronize()
+    return {"sched": sched, "first_tick_ms": first_ms, "ticks": ticks,
+            "seconds": time.perf_counter() - t0,
+            "tokens": {u: c.tokens.tolist()
+                       for u, c in sched.completions.items()}}
+
+
+def phase_warm_start(cfg) -> None:
+    """qwen2-1.5b at full width, bf16 and under --quantize: `plan_arch`
+    for the paged Scheduler posture of WARM_TRACE, saved and loaded
+    through `ServeConfig(plan_path=)`; the warm serve plans nothing and
+    gives the cold serve's tokens per uid.  An AnalyticalCostModel plan
+    loaded into a hopper engine is refused."""
+    params = seeded_params(cfg)
+    trace = launch_serve.parse_trace(WARM_TRACE)
+    max_seq = max(p + g for p, g in trace) + 1
+    widths = tuple(sorted({min(-(-n // BUCKET) * BUCKET, max_seq)
+                           for n in range(1, max_seq + 1)}))
+    out_dir = ROOT / "runs"
+    out_dir.mkdir(exist_ok=True)
+    out = REPORT["warm_start"] = {}
+    for label, quant in (("bf16", False), ("--quantize", True)):
+        kw = dict(max_seq=max_seq, batch=SLOTS, compute_dtype=torch.bfloat16,
+                  cache_dtype=torch.int8 if quant else torch.bfloat16,
+                  kernel_backend="hopper", quantize=quant, device="cuda",
+                  cache_layout="paged", page_size=PAGE)
+        scfg = serve_lib.ServeConfig(**kw)
+        served = quantize_params(params) if quant else params
+        t0 = time.perf_counter()
+        plan = plan_arch(cfg, backend=scfg.kernel_backend, dtype_bytes=2,
+                         decode_batch=SLOTS, admit_widths=widths,
+                         quantized_weights=quant,
+                         paged_pages=scfg.slot_pages, page_size=PAGE)
+        plan_s = time.perf_counter() - t0
+        path = out_dir / f"plan_{'int8' if quant else 'bf16'}.json"
+        plan.save(path)
+        # cold, warm, cold, warm: the first serve also pays the card's and
+        # the allocator's first-use costs, which the second pair does not
+        wscfg = serve_lib.ServeConfig(**kw, plan_path=str(path))
+        serves = []
+        for turn in range(4):
+            if turn % 2 == 0:
+                eng = Engine(backend=scfg.kernel_backend)
+                run = _first_tick_serve(served, cfg, scfg, trace, eng)
+                check(eng.plan.misses > 0, "the cold serve planned nothing")
+            else:
+                serve_lib._ENGINES.pop(wscfg, None)   # load the plan anew
+                eng = serve_lib.warm_start_engine(wscfg)
+                misses = eng.plan.misses
+                run = _first_tick_serve(served, cfg, wscfg, trace)
+                run["new_misses"] = eng.plan.misses - misses
+                check(run["sched"].engine is eng,
+                      "the warm serve did not take the warm-start engine")
+            serves.append(run)
+        cold, warm = serves[0], serves[1]
+        new = max(r["new_misses"] for r in serves[1::2])
+        same = all(r["tokens"] == cold["tokens"] for r in serves)
+        first = [r["first_tick_ms"] for r in serves]
+        print(f"{ARCH} {label} paged warm start ({WARM_TRACE}, {SLOTS} slots, "
+              f"pages of {PAGE}): plan_arch {len(plan)} decisions in "
+              f"{plan_s:.3f} s on the host; warm serves {new} new misses "
+              f"({warm['sched'].engine.plan.hits} hits), tokens "
+              f"{'identical' if same else 'DIFFERENT'} per uid to the cold "
+              f"serves; first tick, in turns cold, warm, cold, warm: "
+              + ", ".join(f"{ms:.2f}" for ms in first) + " ms; serve "
+              + ", ".join(f"{r['seconds']:.3f}" for r in serves)
+              + f" s ({warm['ticks']} ticks)")
+        check(new == 0 and same,
+              f"{label} warm start: {new} new misses, tokens same {same}")
+        out[label] = {"plan_decisions": len(plan), "plan_host_s": plan_s,
+                      "new_misses": new, "tokens_identical": same,
+                      "first_tick_ms_cold_warm_cold_warm": first,
+                      "serve_s_cold_warm_cold_warm": [r["seconds"]
+                                                      for r in serves],
+                      "ticks": warm["ticks"]}
+        del served, serves, cold, warm
+        torch.cuda.empty_cache()
+    # the ASIC guard: a plan of the paper's mapper on a hopper engine
+    t0 = time.perf_counter()
+    asic = plan_arch(cfg, cost_model=AnalyticalCostModel(), dtype_bytes=2,
+                     decode_batch=SLOTS, admit_widths=widths)
+    asic_s = time.perf_counter() - t0
+    path = out_dir / "plan_asic.json"
+    asic.save(path)
+    req, _ = next(iter(asic))
+    try:
+        Engine(backend="hopper", plan=ExecutionPlan.load(path)).decide(req)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    print(f"{ARCH} AnalyticalCostModel plan ({len(asic)} decisions in "
+          f"{asic_s:.3f} s) loaded into a hopper engine: "
+          f"{refused or 'NOT refused'}")
+    check("ASIC cost model" in refused and "re-plan" in refused,
+          "an ASIC plan ran on the hopper backend")
+    out["asic_refusal"] = refused
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -5679,6 +6023,10 @@ def main() -> int:
     run(f"36 {RGEMMA} chunk and spec", phase_rgemma_spec_chunk)
     torch.cuda.empty_cache()
     run("37 spec and chunk SMOKE", phase_spec_chunk_smoke)
+    run("38 accelerator plane", phase_plane1)
+    torch.cuda.empty_cache()
+    run("39 warm start", phase_warm_start, cfg)
+    torch.cuda.empty_cache()
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in seconds.items()))
     lines = [*gemm_lines(rows, REPORT["main_path"], REPORT["paged_serve"],

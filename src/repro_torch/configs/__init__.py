@@ -32,3 +32,7 @@ def get_config(name: str, smoke: bool = False) -> ArchConfig:
         raise KeyError(f"unknown arch {name!r}; choose from {ARCH_NAMES}")
     mod = importlib.import_module(f"{__name__}.{_MODULES[name]}")
     return mod.SMOKE if smoke else mod.CONFIG
+
+
+def all_configs(smoke: bool = False) -> dict[str, ArchConfig]:
+    return {n: get_config(n, smoke) for n in ARCH_NAMES}

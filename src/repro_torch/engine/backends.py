@@ -14,8 +14,10 @@ from __future__ import annotations
 
 import torch
 
+from ..core import simulator
 from ..kernels import (flash_attention, grouped_gemm, paged_attention,
                        quant_gemm, redas_gemm, sparse_gemm)
+from .cost import AnalyticalCostModel
 from .plan import KernelDecision
 
 
@@ -232,7 +234,25 @@ def ref_sparse_gemm(decision: KernelDecision, a, values, indices,
         out_dtype=out_dtype)
 
 
+# --------------------------------------------------------------------------
+# The accelerator plane
+# --------------------------------------------------------------------------
+
+
+def simulator_gemm(decision: KernelDecision, a, b, *, out_dtype=None):
+    """Execute an ASIC-plane decision on the cycle-level simulator
+    (`core.simulator.simulate_mapping`, on the operands' device)."""
+    if "shape_rows" not in decision.meta_dict:
+        raise ValueError(
+            "simulator backend needs an ASIC mapping in decision.meta "
+            "(plan with AnalyticalCostModel, not HopperModel)")
+    cfg = AnalyticalCostModel.mapping_config(decision)
+    out, _ = simulator.simulate_mapping(a, b, cfg)
+    return out.to(out_dtype or a.dtype)
+
+
 def register_into(registry) -> None:
+    registry.register("simulator", "gemm", simulator_gemm)
     registry.register("hopper", "gemm", hopper_gemm)
     registry.register("torch-ref", "gemm", ref_gemm)
     registry.register("hopper", "grouped_gemm", hopper_grouped_gemm)

@@ -9,6 +9,12 @@ a `use_engine` context routes through the engine:
         logits, _ = transformer.forward(params, cfg, tokens)
     eng.plan.stats
 
+    plan = plan_arch(cfg, decode_batch=8, admit_widths=(16, 32))
+    plan.save("plan.json")          # ServeConfig(plan_path=) warm start
+
+    with use_engine(Engine(AnalyticalCostModel())):   # the paper's ASIC,
+        ...                                           # on the simulator
+
 PyTorch runs eagerly, so the engine is consulted on every call (there
 is no trace-time caveat as in the JAX package); a repeated shape costs
 one dict hit.
@@ -29,7 +35,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 
-from .cost import HopperModel
+from .cost import CostModel, HopperModel
 from .plan import ExecutionPlan, KernelDecision, KernelRequest
 from .registry import KernelRegistry, default_registry
 
@@ -104,15 +110,19 @@ def sparse_sibling(backend: str | None) -> str:
 
 
 class Engine:
-    """One (cost model, backend, plan, registry) posture.  `backend`
-    defaults to "hopper": the kernel on CUDA tensors, its plain version
-    on CPU tensors."""
+    """One (cost model, backend, plan, registry) posture.  `backend=None`
+    resolves to the cost model's `default_backend` if it has one (the
+    ASIC plane's "simulator"), else "hopper": the kernel on CUDA tensors,
+    its plain version on CPU tensors."""
 
-    def __init__(self, cost_model=None, *, backend: str | None = None,
+    def __init__(self, cost_model: CostModel | None = None, *,
+                 backend: str | None = None,
                  plan: ExecutionPlan | None = None,
                  registry: KernelRegistry | None = None):
         self.cost_model = cost_model if cost_model is not None else HopperModel()
-        self.backend = backend or "hopper"
+        self.backend = (backend
+                        or getattr(self.cost_model, "default_backend", None)
+                        or "hopper")
         self.registry = registry if registry is not None else default_registry()
         self.plan = plan if plan is not None else ExecutionPlan(
             cost_model=self.cost_model.name, backend=self.backend)
@@ -130,24 +140,50 @@ class Engine:
         (`sparse_matmul` is dispatchable)."""
         return self.backend in SPARSE_BACKENDS
 
-    def _rebind(self, decision: KernelDecision) -> KernelDecision:
+    def _rebind(self, request: KernelRequest,
+                decision: KernelDecision) -> KernelDecision:
         """Execute a decision (possibly from a warm-start plan recorded for
-        another backend) on this engine's backend."""
+        another backend) on this engine's backend.  ASIC-plane schedules
+        (tile dims on no kernel's menu) only execute on the simulator
+        backend: fail with intent, whether the decision came from a
+        warm-start plan or a fresh cost-model search."""
         if decision.backend == self.backend:
             return decision
+        if "shape_rows" in dict(decision.meta) and self.backend != "simulator":
+            raise ValueError(
+                f"decision for {request.key()} was produced by an ASIC "
+                f"cost model ({decision.cost_model!r}); its tile dims are "
+                f"not on the Hopper kernels' menus — re-plan with a Hopper "
+                f"cost model for backend {self.backend!r}")
         return dataclasses.replace(decision, backend=self.backend)
 
     def decide(self, request: KernelRequest) -> KernelDecision:
         """Plan-cache lookup, cost-model search on miss."""
         hit = self.plan.lookup(request)
         if hit is not None:
-            rebound = self._rebind(hit)
+            rebound = self._rebind(request, hit)
             if rebound is not hit:
+                # a warm-start plan recorded for another backend: keep the
+                # schedule, execute on this engine's backend
                 self.plan.add(request, rebound)
             return rebound
-        decision = self._rebind(self.cost_model.decide(request))
+        decision = self._rebind(request, self.cost_model.decide(request))
         self.plan.add(request, decision)
         return decision
+
+    def plan_gemms(self, gemms, *, in_bytes: int = 2,
+                   out_bytes: int | None = None) -> "Engine":
+        """Warm the plan from a GEMM trace (`core.analytical_model.GEMM`
+        or (m, k, n) tuples); repeated shapes dedupe through the cache.
+        `in_bytes` must match the serving dtype (2 = bf16, 4 = f32) or
+        the runtime requests will miss the warm decisions."""
+        out_bytes = out_bytes if out_bytes is not None else in_bytes
+        for g in gemms:
+            m, k, n = (g.M, g.K, g.N) if hasattr(g, "M") else g
+            name = getattr(g, "name", "")
+            self.decide(KernelRequest("gemm", m, k, n, in_bytes=in_bytes,
+                                      out_bytes=out_bytes, name=name))
+        return self
 
     def _resolve(self, key: tuple, op: str, m: int, k: int, n: int,
                  groups: int, item_bytes: int, *, density: float = 1.0,
@@ -287,7 +323,8 @@ def active_engine() -> Engine | None:
 
 @contextlib.contextmanager
 def use_engine(engine: Engine | None = None, *, backend: str | None = None,
-               cost_model=None, plan: ExecutionPlan | None = None):
+               cost_model: CostModel | None = None,
+               plan: ExecutionPlan | None = None):
     """Route every `models.layers.dense` matmul in scope through an
     engine.  Pass an existing `Engine` to share its plan across
     contexts, or kwargs to build a scoped one."""
@@ -300,3 +337,185 @@ def use_engine(engine: Engine | None = None, *, backend: str | None = None,
         yield engine
     finally:
         _STACK.pop()
+
+
+_DEFAULT: Engine | None = None
+
+
+def default_engine() -> Engine:
+    """Process-wide engine backing the module-level `matmul` when no
+    `use_engine` context is active."""
+    global _DEFAULT
+    if _DEFAULT is None:
+        _DEFAULT = Engine()
+    return _DEFAULT
+
+
+def matmul(a, b, *, out_dtype=None):
+    """Module-level sugar: active engine if any, else the default one."""
+    eng = active_engine() or default_engine()
+    return eng.matmul(a, b, out_dtype=out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Ahead-of-time planning over a model's GEMM trace
+# ---------------------------------------------------------------------------
+
+
+def decode_requests(cfg, *, batch: int, dtype_bytes: int = 2,
+                    seq: int = 1, quantized_weights: bool = False,
+                    sparse_weights: bool = False, density: float = 0.5,
+                    out_bytes: int | None = None, paged_pages: int = 0,
+                    page_size: int = 0) -> tuple[KernelRequest, ...]:
+    """The exact engine requests one `models.transformer.decode_step`
+    issues at slot-pool size `batch` (M = batch: one token per slot).
+
+    Unlike `core.workloads.arch_gemms` — the mapper's fused *search*
+    view of a prefill pass — these mirror the runtime
+    `models.layers.dense` / `models.moe` expert calls per projection, so
+    a warm-started serving plan turns first-pass decode planning into
+    pure cache lookups (the continuous-batching scheduler's decode shapes
+    never change, so this one set covers every step it ever takes).  SSM
+    in/out projections and the lm head are raw matmuls (not
+    engine-routed) and do not appear.
+
+    `seq > 1` instead describes one ragged ADMIT prefill at that padded
+    width (M = batch * seq) — the scheduler's other fixed call shape.
+
+    `quantized_weights=True` mirrors a `quant.quantize_params` server:
+    the dense projections dispatch as `gemm_w8` (MoE expert stacks stay
+    float grouped GEMMs — quantize_params skips them).
+    `sparse_weights=True` mirrors a `sparse.prune_params` server the
+    same way: dense projections dispatch as `gemm_sparse` at `density`
+    (N/M of the pruning spec; grouped GEMMs stay dense — prune_params
+    skips expert stacks too), and combined with `quantized_weights=True`
+    the storage is sparse x int8, which the runtime keys at in_bytes=1.
+    `out_bytes` (default: `dtype_bytes`) is the OUTPUT width — on an
+    int8 posture pass dtype_bytes=1, out_bytes=<compute width>,
+    matching how the runtime keys its requests (`Engine._resolve`)."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim_
+    nh, nkv = cfg.n_heads, cfg.n_kv
+    tokens = batch * seq
+    out_b = out_bytes if out_bytes is not None else dtype_bytes
+    dense_in, dense_density = dtype_bytes, 1.0
+    if sparse_weights:
+        dense_op, dense_density = "gemm_sparse", density
+        if quantized_weights:
+            dense_in = 1  # sparse x int8: values move at one byte
+    elif quantized_weights:
+        dense_op = "gemm_w8"
+    else:
+        dense_op = "gemm"
+    reqs: list[KernelRequest] = []
+
+    def gemm(m, k, n, name):
+        reqs.append(KernelRequest(dense_op, m, k, n, in_bytes=dense_in,
+                                  out_bytes=out_b, density=dense_density,
+                                  name=name))
+
+    def mlp_reqs(prefix):
+        if cfg.moe is not None:
+            moe = cfg.moe
+            rows = batch * moe.capacity(seq)  # the expert stack (E, B x C, D)
+            for m, k, n, nm in ((rows, d, f, "expert_up"),
+                                (rows, f, d, "expert_down")):
+                reqs.append(KernelRequest(
+                    "grouped_gemm", m, k, n, groups=moe.n_experts,
+                    in_bytes=dtype_bytes, out_bytes=out_b,
+                    name=f"{prefix}/{nm}"))
+        else:
+            gemm(tokens, d, f, f"{prefix}/ffn_up")  # wi and wg share a shape
+            gemm(tokens, f, d, f"{prefix}/ffn_down")
+
+    for kind in sorted(set(cfg.layer_pattern)):
+        if kind in ("attn", "local"):
+            gemm(tokens, d, nh * hd, f"{kind}/wq")
+            gemm(tokens, d, nkv * hd, f"{kind}/wk")  # wv is the same shape
+            gemm(tokens, nh * hd, d, f"{kind}/wo")
+            mlp_reqs(kind)
+            if kind == "attn" and paged_pages and page_size and seq == 1:
+                # paged decode gather-attention: n = the page span one
+                # block-table row can address — exactly how the runtime
+                # Engine.paged_attention keys its request
+                reqs.append(KernelRequest(
+                    "paged_attention", seq, hd, paged_pages * page_size,
+                    groups=batch * nh, in_bytes=dtype_bytes,
+                    out_bytes=out_b, name="attn/paged"))
+        elif kind == "rglru":
+            w = cfg.rglru_width or d
+            gemm(tokens, d, w, "rglru/lin_x")  # lin_y is the same shape
+            gemm(tokens, w, w, "rglru/gates")  # w_a and w_x
+            gemm(tokens, w, d, "rglru/lin_out")
+            mlp_reqs("rglru")
+        # "ssm": no engine-routed matmuls in the decode path
+    return tuple(reqs)
+
+
+def plan_arch(cfg, *, seq_len: int | None = None, batch: int = 1,
+              cost_model: CostModel | None = None,
+              backend: str | None = None,
+              dtype_bytes: int = 2,
+              decode_batch: int | None = None,
+              admit_widths: tuple[int, ...] = (),
+              quantized_weights: bool = False,
+              sparse_weights: bool = False, sparse_density: float = 0.5,
+              paged_pages: int = 0, page_size: int = 0,
+              verify_k: int = 0, prefill_chunk: int = 0) -> ExecutionPlan:
+    """Plan every GEMM of one `models.config.ArchConfig` prefill pass via
+    the `core.workloads.arch_gemms` lowering and return the warm
+    `ExecutionPlan` (save it for serve warm-start: `ServeConfig(
+    plan_path=)`, the launcher's `--plan`).  `dtype_bytes` is the serving
+    compute dtype width (2 = bf16 default, 4 = f32); on an int8 `backend`
+    the requests' INPUT width is forced to 1 (runtime requests there key
+    at the quantized width, whatever float dtype the tensors carry) while
+    outputs keep the compute width — the int8 kernels rescale to float
+    results.
+    `decode_batch` additionally plans the fixed decode-step shapes for
+    a slot pool of that size (see `decode_requests`) so a continuous-
+    batching server's decode trace re-plans nothing; `admit_widths`
+    does the same for its ragged-prefill admit widths (the scheduler's
+    `prefill_bucket` multiples).  `quantized_weights` plans the decode/
+    admit dense projections as `gemm_w8` (a `quant.quantize_params`
+    server dispatches those instead of `gemm`); `sparse_weights` plans
+    them as `gemm_sparse` at `sparse_density` (a `sparse.prune_params`
+    server — both flags together describe sparse x int8 storage, keyed
+    at in_bytes=1 like the runtime does).  `paged_pages` /
+    `page_size` (a `cache_layout="paged"` server: slot_pages and the
+    page size) additionally plan the paged decode gather-attention
+    shape, so the paged scheduler's steady state also re-plans
+    nothing.  `verify_k` (a `speculate_k=k` server) adds the k+1-wide
+    speculative verify width — the only extra decode shape the
+    speculative tick introduces (the draft's propose steps are the
+    width-1 shapes, its prefill the admit widths; the paged verify
+    bypasses the engine's paged_attention op entirely).  `prefill_chunk`
+    (a `ServeConfig.prefill_chunk` server) adds the chunk width — every
+    chunked-ingestion call is exactly that wide, so it is the ONE extra
+    shape chunking introduces; the scheduler aligns the chunk to
+    `prefill_bucket`, so when `admit_widths` covers the bucket multiples
+    the chunk width is already planned and this kwarg merely makes the
+    posture explicit.  The plan records the resolved backend."""
+    from ..core.workloads import ARCH_TRACE_SEQ, arch_gemms
+
+    in_bytes = backend_in_bytes(backend, dtype_bytes)
+    eng = Engine(cost_model, backend=backend)
+    eng.plan.backend = eng.backend
+    eng.plan_gemms(arch_gemms(cfg, seq_len=seq_len or ARCH_TRACE_SEQ,
+                              batch=batch), in_bytes=in_bytes,
+                   out_bytes=dtype_bytes)
+    if decode_batch:
+        widths = (1,) + tuple(admit_widths)
+        if prefill_chunk and prefill_chunk not in widths:
+            widths = widths + (prefill_chunk,)
+        if verify_k:
+            widths = widths + (verify_k + 1,)
+        for width in widths:
+            for req in decode_requests(cfg, batch=decode_batch,
+                                       dtype_bytes=in_bytes, seq=width,
+                                       quantized_weights=quantized_weights,
+                                       sparse_weights=sparse_weights,
+                                       density=sparse_density,
+                                       out_bytes=dtype_bytes,
+                                       paged_pages=paged_pages,
+                                       page_size=page_size):
+                eng.decide(req)
+    return eng.plan

@@ -38,6 +38,12 @@ wave term over the card's SMs.  A `gemm_sparse` request keyed at
 in_bytes 1 is sparse x int8 storage under float activations (the JAX
 package's key): its values move at 1 byte, while A streams, sits in
 shared memory and is multiplied at the compute width, its `out_bytes`.
+
+`AnalyticalCostModel` is the other plane: the paper's mapper
+(`core.mapper.ReDasMapper` over the Eq. 3-5 `core.analytical_model`)
+as a cost model, whose decisions carry the ASIC mapping in their `meta`
+and execute on the `simulator` backend (`Engine` resolves to it).  Both
+satisfy the `CostModel` protocol.
 """
 
 from __future__ import annotations
@@ -45,7 +51,12 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+from typing import Protocol, runtime_checkable
 
+from ..core.accelerators import REDAS
+from ..core.analytical_model import GEMM, MappingConfig
+from ..core.dataflow import Dataflow, LogicalShape
+from ..core.mapper import ReDasMapper
 from ..kernels import (flash_attention, grouped_gemm, quant_gemm, redas_gemm,
                        sparse_gemm)
 from ..kernels.redas_gemm import DATAFLOWS, SMEM_LIMIT, smem_bytes
@@ -623,6 +634,24 @@ def decide_int8(request: KernelRequest, name: str) -> KernelDecision:
                               if key != "seconds"}}.items())))
 
 
+@runtime_checkable
+class CostModel(Protocol):
+    """What the Engine needs from a decision plane (structural typing:
+    `HopperModel` and `AnalyticalCostModel` satisfy it without inheriting
+    anything)."""
+
+    name: str
+    #: backend the model's decisions execute on when the Engine has no
+    #: override (None -> the Engine's "hopper").
+    default_backend: str | None
+
+    def decide(self, request: KernelRequest) -> KernelDecision:
+        """Search the model's schedule space for `request` and return the
+        chosen schedule (backend field may be left "" for the Engine to
+        fill in)."""
+        ...  # pragma: no cover - protocol
+
+
 @dataclasses.dataclass
 class HopperModel:
     """The decision surface as a cost model: `decide(request)` returns
@@ -634,6 +663,7 @@ class HopperModel:
     an `attention` or `paged_attention` one."""
 
     name: str = "hopper-h100"
+    default_backend: str | None = None  # the Engine resolves "hopper"
 
     def decide(self, request: KernelRequest) -> KernelDecision:
         if request.op in ("attention", "paged_attention"):
@@ -654,3 +684,90 @@ class HopperModel:
                              f"(int8) operands, and gemm also at 2 or 4 "
                              f"bytes, not {request.in_bytes}")
         return decide_int8(request, self.name)
+
+
+# ---------------------------------------------------------------------------
+# Plane 1: the ReDas ASIC (Sec. 4 mapper + Eq. 3-5 analytical model)
+# ---------------------------------------------------------------------------
+
+
+class AnalyticalCostModel:
+    """The paper's mapper as a cost model (the port of the reference's
+    `engine/cost.py::AnalyticalCostModel`).
+
+    One instance owns one `ReDasMapper` (bound to an `AcceleratorSpec`,
+    default the ReDas array itself); `decide` lowers the request to a
+    `core.analytical_model.GEMM`, runs the interval-sampling search, and
+    re-expresses the winning `MappingConfig` as a `KernelDecision` whose
+    meta carries the full ASIC mapping (logical shape, loop order,
+    buffer allocation, modeled cycles) — enough for the `simulator`
+    backend to execute it functionally.  Its cycles and seconds are the
+    analytical model's, for the paper's 700 MHz array, not the card's.
+    """
+
+    default_backend: str | None = "simulator"
+
+    def __init__(self, spec=None, *, array_size: int | None = None, **mapper_kw):
+        self.spec = spec if spec is not None else REDAS
+        self._array_size = array_size
+        self._mapper_kw = mapper_kw
+        self.mapper = ReDasMapper(self.spec, array_size=array_size, **mapper_kw)
+        # word_bytes -> mapper: requests carry their operand width and
+        # the multi-mode buffer holds capacity/word_bytes words, so a
+        # wider dtype halves the tile space the search may allocate.
+        self._mappers = {self.spec.word_bytes: self.mapper}
+        self.name = f"redas-asic/{self.spec.name}"
+
+    def _mapper_for(self, in_bytes: int) -> ReDasMapper:
+        """The mapper sized for `in_bytes`-wide operands (the spec's
+        native width — int8, Table 4 — reuses the primary mapper)."""
+        mapper = self._mappers.get(in_bytes)
+        if mapper is None:
+            spec = dataclasses.replace(self.spec, word_bytes=in_bytes)
+            mapper = ReDasMapper(spec, array_size=self._array_size,
+                                 **self._mapper_kw)
+            self._mappers[in_bytes] = mapper
+        return mapper
+
+    def decide(self, request: KernelRequest) -> KernelDecision:
+        if request.op in ("attention", "paged_attention"):
+            raise ValueError(
+                "the ASIC plane plans GEMMs; lower attention to its "
+                "score/context GEMMs first (core.workloads.arch_gemms)")
+        count = request.groups if request.op == "grouped_gemm" else 1
+        k = request.k
+        if request.op == "gemm_sparse":
+            # effective-FLOPs lowering: the mapper sizes the logical
+            # array for the contraction a sparsity-aware PE grid
+            # actually performs (density x K), so a sparse candidate
+            # ranks above its dense sibling at equal shape.
+            k = max(1, round(k * request.density))
+        gemm = GEMM(request.m, k, request.n, count=count,
+                    name=request.name or "engine")
+        d = self._mapper_for(request.in_bytes).map_gemm(gemm)
+        cfg, rep = d.config, d.report
+        return KernelDecision(
+            op=request.op, dataflow=cfg.dataflow.value,
+            bm=cfg.tile_m, bk=cfg.tile_k, bn=cfg.tile_n,
+            cost_model=self.name,
+            seconds=rep.cycles / self.spec.freq_hz,
+            meta=tuple(sorted(dict(
+                shape_rows=cfg.shape.rows, shape_cols=cfg.shape.cols,
+                loop_order=cfg.loop_order, alloc_input=cfg.alloc[0],
+                alloc_weight=cfg.alloc[1], alloc_output=cfg.alloc[2],
+                cycles=rep.cycles,
+                pe_utilization=rep.pe_utilization).items())))
+
+    @staticmethod
+    def mapping_config(decision: KernelDecision) -> MappingConfig:
+        """Rebuild the ASIC `MappingConfig` a decision encodes (the
+        simulator backend's input)."""
+        meta = decision.meta_dict
+        return MappingConfig(
+            dataflow=Dataflow(decision.dataflow),
+            shape=LogicalShape(int(meta["shape_rows"]), int(meta["shape_cols"])),
+            tile_m=decision.bm, tile_k=decision.bk, tile_n=decision.bn,
+            loop_order=str(meta["loop_order"]),
+            alloc=(float(meta["alloc_input"]), float(meta["alloc_weight"]),
+                   float(meta["alloc_output"])),
+        )

@@ -2,7 +2,7 @@
 port of `repro/engine/registry.py`).
 
 A backend is a name mapping each op to a callable
-``fn(decision, *tensors, **kw) -> tensor``.  The port has six:
+``fn(decision, *tensors, **kw) -> tensor``.  The port has seven:
 
   hopper          — the hand-written Hopper kernels (`gemm`,
                     `grouped_gemm`, `attention`, `paged_attention`):
@@ -21,6 +21,9 @@ A backend is a name mapping each op to a callable
                     `attention`, and the paged kernel for
                     `paged_attention`.
   torch-ref-sparse — the same ops on the plain versions, on any device.
+  simulator       — `gemm` only: an `AnalyticalCostModel` decision (the
+                    paper's ASIC mapping) executed on the cycle-level
+                    simulator, on the operands' device.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from . import backends
 
 #: the backends the default registry holds.
 BACKENDS = ("hopper", "torch-ref", "hopper-int8", "torch-ref-int8",
-            "hopper-sparse", "torch-ref-sparse")
+            "hopper-sparse", "torch-ref-sparse", "simulator")
 
 
 class KernelRegistry:
@@ -45,6 +48,12 @@ class KernelRegistry:
 
     def has(self, backend: str, op: str) -> bool:
         return (backend, op) in self._kernels
+
+    def backends(self) -> tuple[str, ...]:
+        return tuple(sorted({b for b, _ in self._kernels}))
+
+    def ops(self, backend: str) -> tuple[str, ...]:
+        return tuple(sorted(op for b, op in self._kernels if b == backend))
 
     def get(self, backend: str, op: str) -> Callable:
         try:

@@ -180,7 +180,8 @@ def main(argv=None) -> dict:
                          "backend to its sparse sibling; with --quantize "
                          "the kept values are stored int8 (sparse x int8)")
     ap.add_argument("--plan", default=None,
-                    help="ExecutionPlan JSON to warm-start the decision cache")
+                    help="ExecutionPlan JSON to warm-start the decision "
+                         "cache from (see repro_torch.engine.plan_arch)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
     ap.add_argument("--temperature", type=float, default=0.0,

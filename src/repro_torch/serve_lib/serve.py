@@ -244,7 +244,8 @@ def warm_start_engine(scfg: ServeConfig) -> Engine | None:
             warnings.warn(
                 f"warm-start plan {scfg.plan_path!r} holds no decisions for "
                 f"in_bytes={want} (compute_dtype={scfg.compute_dtype}, "
-                f"backend={scfg.kernel_backend!r}); every lookup will miss",
+                f"backend={scfg.kernel_backend!r}); every lookup will miss "
+                f"— re-plan with plan_arch(dtype_bytes={want})",
                 UserWarning, stacklevel=2)
     eng = _ENGINES[scfg] = Engine(backend=scfg.kernel_backend, plan=plan)
     return eng

@@ -37,7 +37,10 @@ mistral-large-123b, gemma3-12b and recurrentgemma-2b (both also under
 --quantize), mamba2-780m and mixtral-8x7b (both MoE dispatches) give the
 CPU plain run's tokens on the card; internvl2-1b's after its prefix
 embeddings too, and hubert-xlarge's forward logits are within 1e-4
-rel-L2 of the CPU's.
+rel-L2 of the CPU's.  The accelerator plane's cycle-level simulator on
+CUDA tensors equals its CPU run within 1e-6 with equal cycles (also
+behind `Engine(AnalyticalCostModel())`), and a SMOKE Scheduler serve
+warm-started from `plan_arch` adds no plan miss on the card.
 """
 
 import dataclasses
@@ -1187,3 +1190,95 @@ def test_embedding_input_archs_on_the_card_equal_the_cpu(cuda, arch):
         assert ((got - want).norm() / want.norm()).item() <= 1e-4
     else:
         assert torch.equal(got, want)
+
+
+# --------------------------------------------------------------------------
+# The accelerator plane and warm-started serving on the card
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("df", ["os", "ws", "is"])
+@pytest.mark.parametrize("m,k,n,shape", [(13, 20, 9, None),
+                                         (30, 17, 24, (40, 32))])
+def test_simulator_on_the_card_equals_the_cpu(cuda, df, m, k, n, shape):
+    """The cycle-level simulator on CUDA tensors: the CPU's output (the
+    same f32 fused multiply-adds in the same order) within 1e-6, equal
+    cycles, and a float64 product within 1e-5; batched too."""
+    from repro_torch.core import simulator as sim
+    from repro_torch.core.dataflow import Dataflow, LogicalShape
+
+    shape = None if shape is None else LogicalShape(*shape)
+    gen = torch.Generator().manual_seed(m * k + n)
+    a, b = torch.randn(3, m, k, generator=gen), torch.randn(3, k, n,
+                                                            generator=gen)
+    for fn, x, y in (("simulate_gemm", a[0], b[0]),
+                     ("simulate_gemm_batch", a, b)):
+        got, cyc = getattr(sim, fn)(x.to(cuda), y.to(cuda), Dataflow(df),
+                                    shape)
+        want, want_cyc = getattr(sim, fn)(x, y, Dataflow(df), shape)
+        assert got.device.type == "cuda" and cyc == want_cyc
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(got.cpu().double(), x.double() @ y.double(),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.card
+def test_simulator_engine_on_the_card(cuda):
+    """`Engine(AnalyticalCostModel()).matmul` on CUDA tensors: the mapper's
+    decision executed on the simulator, equal to the CPU's call."""
+    from repro_torch.engine import AnalyticalCostModel, Engine
+
+    gen = torch.Generator().manual_seed(5)
+    a, b = torch.randn(70, 33, generator=gen), torch.randn(33, 50,
+                                                           generator=gen)
+    eng = Engine(AnalyticalCostModel())
+    got = eng.matmul(a.to(cuda), b.to(cuda))
+    want = eng.matmul(a, b)
+    assert eng.plan.misses == 1 and eng.plan.hits == 1
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got.cpu().double(), a.double() @ b.double(),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_warm_started_smoke_serve_on_the_card_plans_nothing(cuda, layout,
+                                                           tmp_path):
+    """qwen2 SMOKE f32 through the Scheduler on the card, warm-started
+    from `plan_arch` for its posture: no new miss over the serve, the
+    kernels launched, the tokens of the cold serve on the card."""
+    from repro_torch.engine import Engine, plan_arch
+
+    cfg = get_config("qwen2-1.5b", smoke=True)
+    params = T.init_params(cfg, generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda)
+    rng = np.random.default_rng(0)
+    reqs = [(u, rng.integers(0, cfg.vocab, p).astype(np.int32), g)
+            for u, (p, g) in enumerate([(40, 6), (5, 9), (17, 3), (33, 8)])]
+    kw = dict(max_seq=64, batch=4, compute_dtype="float32",
+              cache_dtype="float32", kernel_backend="hopper", device="cuda",
+              cache_layout=layout, page_size=16)
+    plan = plan_arch(cfg, dtype_bytes=4, decode_batch=4,
+                     admit_widths=(16, 32, 48, 64),
+                     paged_pages=4 if layout == "paged" else 0,
+                     page_size=16 if layout == "paged" else 0)
+    plan.save(tmp_path / "plan.json")
+
+    def run(scfg, engine=None):
+        sched = Scheduler(params, cfg, scfg, engine=engine, prefill_bucket=16)
+        return sched, sched.run([Request(uid=u, prompt=p.copy(),
+                                         max_new_tokens=g)
+                                 for u, p, g in reqs])
+
+    scfg = serve.ServeConfig(**kw)
+    _, cold = run(scfg, Engine(backend="hopper"))
+    wscfg = serve.ServeConfig(**kw, plan_path=str(tmp_path / "plan.json"))
+    eng = serve.warm_start_engine(wscfg)
+    misses = eng.plan.misses
+    redas_gemm.reset_launches()
+    sched, warm = run(wscfg)
+    assert sched.engine is eng and eng.plan.misses == misses
+    assert sum(redas_gemm.launches.values()) > 0
+    for uid in cold:
+        np.testing.assert_array_equal(warm[uid].tokens, cold[uid].tokens)

@@ -415,10 +415,14 @@ def test_other_kernels_decisions_are_unchanged_by_the_wave_term():
 def test_registry_holds_both_backends():
     """The float backends and their int8 and sparse siblings; `gemm_w8`
     is an int8 op only and `gemm_sparse` a sparse one, as in the JAX
-    package."""
+    package; the simulator runs `gemm` alone."""
     reg = default_registry()
     ops = ("gemm", "grouped_gemm", "attention", "paged_attention")
-    assert {(b, op): reg.get(b, op).__name__ for b in BACKENDS for op in ops} == {
+    kernel_backends = [b for b in BACKENDS if b != "simulator"]
+    assert reg.ops("simulator") == ("gemm",)
+    assert reg.get("simulator", "gemm").__name__ == "simulator_gemm"
+    assert {(b, op): reg.get(b, op).__name__
+            for b in kernel_backends for op in ops} == {
         ("hopper", "gemm"): "hopper_gemm", ("torch-ref", "gemm"): "ref_gemm",
         ("hopper", "grouped_gemm"): "hopper_grouped_gemm",
         ("torch-ref", "grouped_gemm"): "ref_grouped_gemm",

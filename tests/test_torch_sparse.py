@@ -53,7 +53,7 @@ SPECS = [(1, 2), (2, 4), (1, 4), (4, 8), (3, 7)]
 JAX_NAME = {"hopper": "pallas-tpu", "torch-ref": "xla-einsum",
             "hopper-int8": "pallas-tpu-int8", "torch-ref-int8": "xla-int8",
             "hopper-sparse": "pallas-tpu-sparse",
-            "torch-ref-sparse": "xla-sparse"}
+            "torch-ref-sparse": "xla-sparse", "simulator": "simulator"}
 
 
 def _normal(shape, seed):
@@ -431,7 +431,16 @@ def test_sparse_backends_and_their_names():
 def test_serveconfig_sparsity_upgrades_as_the_reference(given):
     """The port's upgrade of each backend name is the reference's, name
     for name (the reference's None is per host; the port's is the card's
-    kernel)."""
+    kernel).  The simulator has no sparse sibling in either package."""
+    if given == "simulator":
+        with pytest.raises(ValueError, match="cannot upgrade"):
+            serve.ServeConfig(max_seq=8, batch=1, kernel_backend=given,
+                              sparsity="2:4", device="cpu")
+        with pytest.raises(ValueError, match="cannot upgrade"):
+            jax_serve.ServeConfig(max_seq=8, batch=1,
+                                  kernel_backend=JAX_NAME[given],
+                                  sparsity="2:4")
+        return
     scfg = serve.ServeConfig(max_seq=8, batch=1, kernel_backend=given,
                              sparsity="2:4", device="cpu")
     assert scfg.kernel_backend in SPARSE_BACKENDS

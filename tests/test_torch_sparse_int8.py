@@ -54,7 +54,7 @@ SPECS = [(1, 2), (2, 4), (1, 4), (4, 8), (3, 7)]
 JAX_NAME = {"hopper": "pallas-tpu", "torch-ref": "xla-einsum",
             "hopper-int8": "pallas-tpu-int8", "torch-ref-int8": "xla-int8",
             "hopper-sparse": "pallas-tpu-sparse",
-            "torch-ref-sparse": "xla-sparse"}
+            "torch-ref-sparse": "xla-sparse", "simulator": "simulator"}
 
 
 def _normal(shape, seed):
@@ -550,10 +550,10 @@ def test_dense_densifies_int8_storage_off_a_sparse_engine(backend):
 @pytest.mark.parametrize("given_backend", [None, *BACKENDS])
 def test_serveconfig_sparse_int8_upgrades_as_the_reference(given_backend):
     """`sparsity` with `quantize=True`: the int8 upgrade, then the sparse
-    one, name for name as the reference's; a sparse name has no int8
-    sibling, and both raise for it."""
+    one, name for name as the reference's; a sparse name and the
+    simulator have no int8 sibling, and both raise for them."""
     kw = {"max_seq": 8, "batch": 1, "sparsity": "2:4", "quantize": True}
-    if given_backend in SPARSE_BACKENDS:
+    if given_backend in (*SPARSE_BACKENDS, "simulator"):
         with pytest.raises(ValueError, match="cannot upgrade"):
             serve.ServeConfig(kernel_backend=given_backend, device="cpu",
                               **kw)
