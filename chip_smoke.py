@@ -264,7 +264,39 @@ Phases (any failed check exits non-zero; nothing falls back):
      uid; the first tick's host ms of serves in turns cold, warm, cold,
      warm (the first also pays first-use costs); an AnalyticalCostModel
      plan loaded into a hopper engine refused with the ASIC message;
- 28. the kernels line, then the result line.
+ 40. the kernels' VJPs (each engine op's `torch.autograd.Function`) on
+     the kernel backends against autograd of the plain versions on the
+     same CUDA operands, rel-L2 per row within 1e-2 (bf16) and 1e-4
+     (f32): row 1's at qwen2-1.5b's four layer shapes at M = 2048 (bf16;
+     two of them in f32), row 5's at granite's (32, 640, 1024) @ (32,
+     1024, 512), the int8 (and w8) and both sparse GEMMs' at qwen's
+     (2048, 1536) @ (1536, 8960), the pruned positions of dV exactly 0;
+     the backward's launches by route; the flash scan's Function against
+     autograd of its plain loop in f32 within 1e-5, both runs' peak
+     memory;
+ 41. training qwen2-1.5b at full width and depth through
+     `repro_torch.launch.train` (8 x 512 tokens a step in 2 microbatches,
+     bf16, `hopper`), 8 steps: every step's ce and grad_norm finite;
+     every engine GEMM (forward, recompute, and the two backward GEMMs of
+     each) on the hand-written kernels by the route counters (2 x 2 x 196
+     engine calls a step, as many launches again in the backward, all OS
+     on wgmma); ms a step, tokens/s, peak memory; a traced step's idle
+     share and device ms by kernel; one microbatch's gradients on
+     `hopper` no farther from the f32 model's than F32_ANCHOR_LIMIT x the
+     plain bf16 ones; then the launcher's checkpoint restart at
+     RESTART_LAYERS of the 28 layers (a full-depth checkpoint is 28.4 GB,
+     and the restart writes three): 6
+     steps with a checkpoint every 3, `--resume auto` to 8 from step 6,
+     its steps 6-7 within 1e-5 of an uninterrupted run's;
+ 42. one step each of granite-moe-1b-a400m sorted (its experts on row
+     5's Function), qwen2-1.5b under `quantize=True` (int8 forward on row
+     6, float backward on row 1) and under `sparsity="2:4"` (dense
+     weights on the sparse namespace), launches by route, each with the
+     gradients' f32 anchor rule;
+ 43. SMOKE in f32: one step of every arch on `hopper`, card against CPU
+     within rtol/atol 2e-4; qwen2 SMOKE's loss falling by more than 0.3
+     over 20 steps at lr 1e-2 on the card;
+ 44. the kernels line, then the result line.
 
 Every detail also goes to runs/chip_smoke.json.  Exits non-zero
 without a CUDA device, and outside a checkout of the repository.
@@ -274,14 +306,18 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -292,7 +328,8 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.checkpoint import Checkpointer  # noqa: E402
+from repro_torch.configs import ARCH_NAMES, get_config  # noqa: E402
 from repro_torch.core import (SPECS, WORKLOADS, ReDasMapper,  # noqa: E402
                               simulator)
 from repro_torch.core.dataflow import Dataflow, LogicalShape  # noqa: E402
@@ -310,14 +347,19 @@ from repro_torch.engine.cost import (HBM_BW, PEAK_FLOPS_BF16,  # noqa: E402
 from repro_torch.kernels import (_build, flash_attention,  # noqa: E402
                                   grouped_gemm, paged_attention, quant_gemm,
                                   redas_gemm, sparse_gemm)
+from repro_torch.data.pipeline import DataConfig, make_source  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
-from repro_torch.quant import quantize_params, tree_bytes  # noqa: E402
+from repro_torch.optim import AdamWConfig, linear_warmup_cosine  # noqa: E402
+from repro_torch.quant import quantize, quantize_params, tree_bytes  # noqa: E402
 from repro_torch.serve_lib import serve as serve_lib  # noqa: E402
 from repro_torch.serve_lib.paged import PagedKV  # noqa: E402
 from repro_torch.serve_lib.scheduler import Request, Scheduler  # noqa: E402
 from repro_torch.sparse import (SparseTensor, prune_params,  # noqa: E402
                                 sparsify)
+from repro_torch.train_lib import train as train_lib  # noqa: E402
+from repro_torch.tree import flatten_with_path, tree_unflatten  # noqa: E402
 
 ARCH = "qwen2-1.5b"
 BATCH, PROMPT, GEN, SEED = 4, 512, 16, 0
@@ -596,21 +638,25 @@ def check_os_routes(label: str, eng, per_layer: dict, layers: int,
     return wgmma
 
 
-#: the share of a traced run's kernel launches the profiler must show: it
-#: may drop a few records under load (957 of 960 reductions in granite's
-#: 10 traced ticks, NVIDIA H100 80GB HBM3), never add one
-TRACE_KEPT = 0.99
+def traced_within(seen: int, counted: int) -> bool:
+    """A kernel's launches in a profiler trace against the wrapper's exact
+    count over the traced run: shown at least once when counted, never
+    more often than counted.  The profiler may drop records under load
+    (708 of granite's 720 grouped launches in one PR 35 run), so the count
+    that is checked against what the plan implies is the wrapper's, and
+    the trace shows which kernels ran."""
+    return seen <= counted and (seen >= 1 if counted else seen == 0)
 
 
 def check_traced_reductions(label: str, prof: dict, want: int) -> None:
     """The wrapper's reduction count over a traced run equals `want`, and
-    the profiler's count of the reduction kernel shows at least
-    TRACE_KEPT of them and no more."""
+    the profiler shows the reduction kernel within it
+    (`traced_within`)."""
     seen, counted = (prof["matched"][REDUCE_KERNEL]["count"],
                      prof["reduce_launches"])
     print(f"{label}: the trace holds {seen} reduction launches, the wrapper "
           f"counted {counted}, the plan implies {want}")
-    check(counted == want and TRACE_KEPT * counted <= seen <= counted,
+    check(counted == want and traced_within(seen, counted),
           f"{label}: traced {seen} reductions, counted {counted}, want "
           f"{want}")
 
@@ -624,9 +670,9 @@ PAGED_KERNEL = "::paged_decode_kernel<"
 
 def check_traced_grouped(prof: dict, want: int) -> None:
     """A traced run of granite's sorted decode ticks: the wrapper counted
-    `want` grouped calls, all on the wgmma route; the profiler shows at
-    least TRACE_KEPT of them as `grouped_wgmma_kernel` (never more) and
-    no `grouped_os_kernel`.  Prints the ticks' device split."""
+    `want` grouped calls, all on the wgmma route; the profiler shows
+    `grouped_wgmma_kernel` within that count (`traced_within`) and no
+    `grouped_os_kernel`.  Prints the ticks' device split."""
     matched = prof["matched"]
     seen = matched[GROUPED_WGMMA_KERNEL]["count"]
     sync = matched[GROUPED_KERNELS[1]]["count"]
@@ -644,22 +690,24 @@ def check_traced_grouped(prof: dict, want: int) -> None:
           f"device split " + ", ".join(f"{k} {v:.3f} ms"
                                        for k, v in prof["split_ms"].items()))
     check(counted == wgmma == want and sync == 0
-          and TRACE_KEPT * counted <= seen <= counted,
+          and traced_within(seen, counted),
           f"granite's traced ticks: counted {counted} ({wgmma} wgmma), want "
           f"{want}; traced {seen} wgmma and {sync} sync grouped launches")
 
 
 def paged_trace_line(prof: dict, label: str, cfg) -> dict:
-    """The paged kernel's device ms in a trace of 10 decode ticks (one
-    launch a layer a tick; at least TRACE_KEPT of them shown)."""
+    """The paged kernel's device ms in a trace of 10 decode ticks: the
+    wrapper counted one launch a paged layer a tick, and the trace shows
+    the kernel within that count (`traced_within`)."""
     seen = prof["matched"][PAGED_KERNEL]
+    counted = prof["paged_launches"]
     print(f"  the paged kernel in {label} 10 traced ticks: {seen['ms']:.3f} "
-          f"ms of device time in {seen['count']} launches, "
-          f"{seen['ms'] / 10:.3f} ms a tick")
+          f"ms of device time in {seen['count']} traced launches of "
+          f"{counted} counted, {seen['ms'] / 10:.3f} ms a tick")
     want = 10 * paged_layers(cfg)
-    check(TRACE_KEPT * want <= seen["count"] <= want,
-          f"{label} traced ticks show {seen['count']} paged launches, want "
-          f"{want}")
+    check(counted == want and traced_within(seen["count"], counted),
+          f"{label} traced ticks: {counted} paged launches counted, "
+          f"{seen['count']} traced, want {want}")
     return dict(seen)
 
 
@@ -1394,12 +1442,17 @@ def phase_main_path(cfg) -> dict:
                and dec.dataflow == "os")
     seen, sync = (traced[WGMMA_KERNEL]["count"],
                   traced["::os_kernel<"]["count"])
-    print(f"static serve, traced prefill: {seen} os_wgmma_kernel launches "
-          f"({traced[WGMMA_KERNEL]['ms']:.3f} ms), {sync} os_kernel; the "
-          f"plan's OS decisions at prefill make {want} calls")
-    check(TRACE_KEPT * want <= seen <= want and sync == 0,
-          f"the traced prefill ran {seen} wgmma OS GEMMs and {sync} sync "
-          f"ones, want {want} and 0")
+    prof = REPORT["main_path"]["trace_prefill"]
+    counted, wgmma = prof["os_launches"], prof["os_wgmma_launches"]
+    print(f"static serve, traced prefill: {counted} OS GEMMs counted, "
+          f"{wgmma} on wgmma; the trace shows {seen} os_wgmma_kernel "
+          f"launches ({traced[WGMMA_KERNEL]['ms']:.3f} ms) and {sync} "
+          f"os_kernel; the plan's OS decisions at prefill make {want} calls")
+    check(counted == wgmma == want and traced_within(seen, wgmma)
+          and sync == 0,
+          f"the traced prefill: {counted} OS GEMMs counted, {wgmma} on "
+          f"wgmma, {seen} traced wgmma and {sync} traced sync, want {want} "
+          f"and 0")
     return out
 
 
@@ -1464,12 +1517,17 @@ def _replay_and_trace(params, cfg, scfg, eng, trace, tokens: dict,
     probe.step()                                   # admit 8, first tick
     untraced = _untraced_ticks(probe, ticks)
     before = (redas_gemm.reduce_launches, grouped_gemm.launches,
-              grouped_gemm.wgmma_launches)
+              grouped_gemm.wgmma_launches, paged_attention.launches,
+              dict(quant_gemm.path_launches))
     prof = _profile(lambda: _untraced_ticks(probe, ticks), match)
     prof.pop("result")
     prof["reduce_launches"] = redas_gemm.reduce_launches - before[0]
     prof["grouped_launches"] = grouped_gemm.launches - before[1]
     prof["grouped_wgmma_launches"] = grouped_gemm.wgmma_launches - before[2]
+    prof["paged_launches"] = paged_attention.launches - before[3]
+    prof["int8_path_launches"] = {path: quant_gemm.path_launches[path]
+                                  - before[4][path]
+                                  for path in quant_gemm.PATHS}
     prof["untraced_ms"] = untraced
     prof["idle_share_untraced"] = max(0.0, 1.0 - prof["device_busy_ms"]
                                       / untraced)
@@ -1603,7 +1661,10 @@ def _traces(out: dict, prefill_ms: float, decode_ms: float) -> dict:
                                           n, embeds=out.get("embeds"),
                                           engine=out["engine"])
 
+    before = (redas_gemm.launches["os"], redas_gemm.os_wgmma_launches)
     prefill = _profile(run(1), GEMM_KERNELS)
+    prefill["os_launches"] = redas_gemm.launches["os"] - before[0]
+    prefill["os_wgmma_launches"] = redas_gemm.os_wgmma_launches - before[1]
     before = redas_gemm.reduce_launches
     whole = _profile(run(GEN), GEMM_KERNELS)
     whole["reduce_launches"] = redas_gemm.reduce_launches - before
@@ -1813,19 +1874,23 @@ def check_int8_paths(label: str, want: dict) -> dict:
 
 
 def int8_trace_line(prof: dict, label: str, cfg) -> dict:
-    """The int8 kernel's device ms in a trace of 10 decode ticks: 7 decode
-    launches a layer a tick (at least TRACE_KEPT of them shown), no tiled
-    one."""
+    """The int8 kernel's device ms in a trace of 10 decode ticks: the
+    wrapper counted 7 decode-path launches a layer a tick and no tiled
+    one; the trace shows `decode_kernel` within that count
+    (`traced_within`) and no `tiled_kernel`."""
     dec, tiled = (prof["matched"][key] for key in INT8_KERNELS)
+    counted = prof["int8_path_launches"]
     want = 10 * sum(LAYER_GEMMS.values()) * cfg.n_layers
     print(f"  the int8 kernel in {label}10 traced ticks: {dec['ms']:.3f} ms "
           f"of device time in {dec['count']} decode_kernel launches "
           f"({dec['ms'] / 10:.3f} ms a tick; want {want} launches), "
           f"{tiled['count']} tiled_kernel launches; the ticks' device busy "
           f"{prof['device_busy_ms']:.2f} ms")
-    check(TRACE_KEPT * want <= dec["count"] <= want and tiled["count"] == 0,
-          f"{label}traced ticks show {dec['count']} decode and "
-          f"{tiled['count']} tiled int8 launches, want {want} and 0")
+    check(counted == {"decode": want, "tiled": 0}
+          and traced_within(dec["count"], want) and tiled["count"] == 0,
+          f"{label}traced ticks: counted {counted}, traced {dec['count']} "
+          f"decode and {tiled['count']} tiled int8 launches, want {want} "
+          f"and 0")
     return {"decode_kernel": dict(dec), "tiled_kernel": dict(tiled),
             "ms_per_tick": dec["ms"] / 10}
 
@@ -3643,8 +3708,9 @@ MIXTRAL_LAYERS, MIXTRAL_TRACE = 4, "512x16*4,256x24*4"
 #: the static decode, the paged decode and a 2048-row prefill
 DECISION_M = (BATCH, SLOTS, 2048)
 #: granite under --quantize: the paged trace of the sorted dispatch, whose
-#: int8 grouped op loops the int8 GEMM over the experts
-GRANITE_QUANT_TRACE = "256x8*8"
+#: int8 grouped op loops the int8 GEMM over the experts (some 1.75 s a
+#: tick: 4 new tokens a request since PR 36, 8 before)
+GRANITE_QUANT_TRACE = "256x4*8"
 
 
 def layer_gemms(cfg, kind: str = "attn") -> dict:
@@ -5717,6 +5783,571 @@ def phase_warm_start(cfg) -> None:
     out["asic_refusal"] = refused
 
 
+# --------------------------------------------------------------------------
+# Training: the kernels' VJPs, the train launcher, the train step's
+# postures, SMOKE card against CPU (phases 40-43)
+# --------------------------------------------------------------------------
+
+#: the train launcher's full-width run: qwen2-1.5b, 8 x 512 tokens a step
+#: in 2 microbatches, 6 steps with a checkpoint every 3, then 2 more
+#: resumed from the newest checkpoint
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 8, 512, 2
+TRAIN_ARGS = ["--arch", ARCH, "--kernel-backend", "hopper", "--batch",
+              str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--microbatches",
+              str(TRAIN_MICRO), "--seed", str(SEED), "--log-every", "1"]
+#: tokens a microbatch: the M of every engine GEMM in the step
+TRAIN_M = TRAIN_BATCH // TRAIN_MICRO * TRAIN_SEQ
+#: granite's sorted dispatch at one microbatch of 4 x 512 tokens: C =
+#: 4 x capacity(512) rows an expert
+GRANITE_TRAIN_C = 4 * 160
+#: the flash scan's VJP shape (B, S, H, KV, D) and chunk: qwen2's heads
+#: over 2048 keys, 4 chunks
+FLASH_VJP_SHAPE, FLASH_VJP_CHUNK = (2, 2048, 12, 2, 128), 512
+
+
+def _grad_gap(got, ref) -> float:
+    return ((got.float() - ref.float()).norm() / ref.float().norm()
+            .clamp_min(1e-30)).item()
+
+
+def _vjp_rows(label, run, plain, inputs, g, tol, fwd, bwd) -> dict:
+    """Cotangents of `run` (a port op, through its Function) against
+    autograd of `plain` on the same CUDA operands: each within `tol`
+    rel-L2 per output row.  `run`'s forward and backward must make
+    exactly the launches `fwd` and `bwd` name by route (`_counts`' keys,
+    any other 0): a backward on the plain version, or on another route,
+    fails."""
+    grads, launches = [], {}
+    for fn in (run, plain):
+        ts = [t.detach().clone().requires_grad_() for t in inputs]
+        before = _counts()
+        y = fn(*ts)
+        mid = _counts()
+        grads.append(torch.autograd.grad(y, ts, grad_outputs=g))
+        if fn is run:
+            launches = {"forward": {k: mid[k] - before[k] for k in mid},
+                        "backward": _delta(mid)}
+    torch.cuda.synchronize()
+    errs = [row_rel_l2(a, b) for a, b in zip(*grads)]
+    print(f"  {label}: cotangents' row rel-L2 "
+          + ", ".join(f"{e:.2e}" for e in errs) + f" (limit {tol:.0e}); "
+          f"launches {_nonzero(launches['forward'])} forward, "
+          f"{_nonzero(launches['backward'])} backward")
+    check(all(e <= tol for e in errs), f"{label}: cotangent rows {errs}")
+    for part, want in (("forward", fwd), ("backward", bwd)):
+        want = {k: want.get(k, 0) for k in launches[part]}
+        check(launches[part] == want, f"{label}: {part} launches "
+              f"{_nonzero(launches[part])}, expected {_nonzero(want)}")
+    return {"row_rel_l2": errs, "launches": launches}
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _os_launches(n: int, dtype) -> dict:
+    """`n` launches of row 1's OS kernel, on the wgmma route in bf16 (the
+    sync route takes f32: `redas_gemm.shape_route`)."""
+    return {"gemm_os": n,
+            "gemm_os_wgmma": n if dtype == torch.bfloat16 else 0}
+
+
+def _counts() -> dict:
+    return {"gemm_os": redas_gemm.launches["os"],
+            "gemm_os_wgmma": redas_gemm.os_wgmma_launches,
+            "gemm_ws_is": redas_gemm.launches["ws"] + redas_gemm.launches["is"],
+            "grouped": grouped_gemm.launches,
+            "grouped_wgmma": grouped_gemm.wgmma_launches,
+            "int8_decode": quant_gemm.path_launches["decode"],
+            "int8_tiled": quant_gemm.path_launches["tiled"],
+            "sparse": sparse_gemm.launches,
+            "sparse_int8": sparse_gemm.int8_launches}
+
+
+def _delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _counts().items()}
+
+
+def phase_vjps() -> dict:
+    """Phase 40: each VJP Function on the kernel backends against autograd
+    of the plain version at the model's shapes, with the backward's
+    launches by route from the wrappers' counters."""
+    from repro_torch.engine.backends import DiffGemm
+    from repro_torch.models import layers
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rnd = lambda *s, dtype=torch.bfloat16: torch.randn(
+        *s, device="cuda", generator=gen, dtype=dtype)
+    plain = lambda dtype: (lambda a, b: (a.float() @ b.float()).to(dtype))
+    out = {"gemm": {}}
+    eng = Engine(backend="hopper")
+    for dtype, tol, shapes in ((torch.bfloat16, BF16_ROW_TOL, LAYER_GEMMS),
+                               (torch.float32, F32_ROW_TOL,
+                                [(1536, 256), (8960, 1536)])):
+        for k, n in shapes:
+            a, b, g = (rnd(*s, dtype=dtype) for s in
+                       ((TRAIN_M, k), (k, n), (TRAIN_M, n)))
+            y = eng.matmul(a.requires_grad_(), b)
+            check(type(y.grad_fn) is DiffGemm._backward_cls,
+                  "the engine GEMM's output has no DiffGemm grad_fn")
+            size = a.element_size()
+            dec = eng.decide(KernelRequest("gemm", TRAIN_M, k, n,
+                                           in_bytes=size, out_bytes=size))
+            fwd = (_os_launches(1, dtype) if dec.dataflow == "os"
+                   else {"gemm_ws_is": 1})
+            key = f"{TRAIN_M}x{k}x{n} {str(dtype)[6:]}"
+            out["gemm"][key] = _vjp_rows(
+                f"row 1 DiffGemm {key}", eng.matmul, plain(dtype), (a, b), g,
+                tol, fwd, _os_launches(2, dtype))
+    x, w, g = (rnd(*s) for s in ((32, GRANITE_TRAIN_C, 1024), (32, 1024, 512),
+                                 (32, GRANITE_TRAIN_C, 512)))
+    out["grouped"] = _vjp_rows(
+        f"row 5 DiffGrouped (32, {GRANITE_TRAIN_C}, 1024) @ (32, 1024, 512)",
+        eng.grouped_matmul, plain(torch.bfloat16), (x, w), g, BF16_ROW_TOL,
+        {"grouped": 1, "grouped_wgmma": 1},
+        {"grouped": 2, "grouped_wgmma": 2})
+    a, b, g = (rnd(*s) for s in ((TRAIN_M, 1536), (1536, 8960),
+                                 (TRAIN_M, 8960)))
+    ek, ep = Engine(backend="hopper-int8"), Engine(backend="torch-ref-int8")
+    bf16 = torch.bfloat16
+    out["int8"] = _vjp_rows(
+        "row 6 int8 GEMM via DiffGemm (float backward on row 1)", ek.matmul,
+        ep.matmul, (a, b), g, BF16_ROW_TOL, {"int8_tiled": 1},
+        _os_launches(2, bf16))
+    qt = quantize(b)
+    out["int8_w8"] = _vjp_rows(
+        "row 6 DiffQuantGemmW8", lambda x: ek.quant_matmul(x, qt.q, qt.scale),
+        lambda x: ep.quant_matmul(x, qt.q, qt.scale), (a,), g, BF16_ROW_TOL,
+        {"int8_tiled": 1}, _os_launches(1, bf16))
+    sk, sp = Engine(backend="hopper-sparse"), Engine(backend="torch-ref-sparse")
+    st = sparsify(b, 2, 4)
+    kept = sparse_gemm.scatter_dense(torch.ones_like(st.values), st.indices,
+                                     2, 4) != 0
+
+    def on(eng):
+        return lambda x, v: eng.sparse_matmul(
+            x, SparseTensor(v, st.indices, n=2, m=4, k_dense=st.k_dense))
+
+    out["sparse"] = _vjp_rows("row 7 DiffSparseGemm", on(sk), on(sp),
+                              (a, st.values), g, BF16_ROW_TOL, {"sparse": 1},
+                              _os_launches(2, bf16))
+    # the values' cotangent scattered to dense: zero where pruned
+    ts = [a.detach().requires_grad_(), st.values.detach().requires_grad_()]
+    dv = torch.autograd.grad(on(sk)(*ts), ts, grad_outputs=g)[1]
+    dense = sparse_gemm.scatter_dense(dv.float(), st.indices, 2, 4)
+    check(bool((dense[~kept] == 0).all()), "row 7: a pruned position of dV "
+          "is nonzero")
+    sq = sparsify(b, 2, 4, quantize=True)
+    out["sparse_int8"] = _vjp_rows(
+        "row 7 DiffSparseGemmQ", lambda x: sk.sparse_matmul(x, sq),
+        lambda x: sp.sparse_matmul(x, sq), (a,), g, BF16_ROW_TOL,
+        {"sparse_int8": 1}, _os_launches(1, bf16))
+    b_, s_, h, kv, d = FLASH_VJP_SHAPE
+    q, k, v, do = (rnd(b_, s_, n_, d, dtype=torch.float32)
+                   for n_ in (h, kv, kv, h))
+    pos = torch.arange(s_, device="cuda", dtype=torch.int32).expand(b_, s_)
+    kv_len = torch.tensor([s_, s_ - 301], device="cuda", dtype=torch.int32)
+    res = {}
+    for name, fn in (("FlashScan", layers.flash_attention),
+                     ("autograd of the plain loop", layers._flash_scan)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ts = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        o = fn(*ts, pos, kv_len, True, 0, FLASH_VJP_CHUNK)
+        res[name] = torch.autograd.grad(o, ts, grad_outputs=do)
+        torch.cuda.synchronize()
+        res[name + " peak"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        del o, ts
+    gaps = [(x - y).abs().max().item() / max(y.abs().max().item(), 1e-30)
+            for x, y in zip(res["FlashScan"], res["autograd of the plain loop"])]
+    print(f"  the flash scan's VJP {FLASH_VJP_SHAPE} chunk {FLASH_VJP_CHUNK} "
+          f"f32: dq, dk, dv max|diff|/max|ref| "
+          + ", ".join(f"{x:.2e}" for x in gaps)
+          + f" (limit 1e-5); peak MiB above the inputs: FlashScan "
+          f"{res['FlashScan peak']:.1f}, the plain loop under autograd "
+          f"{res['autograd of the plain loop peak']:.1f}")
+    check(all(x <= 1e-5 for x in gaps), f"the flash scan's VJP: {gaps}")
+    out["flash"] = {"max_rel": gaps,
+                    "peak_mib": res["FlashScan peak"],
+                    "plain_peak_mib": res["autograd of the plain loop peak"]}
+    REPORT["vjps"] = out
+    return out
+
+
+def _micro_batch(cfg, step: int, rows: int) -> tuple[dict, torch.Tensor]:
+    """The first `rows` rows of the launcher's batch `step` on the card,
+    split into (inputs, labels)."""
+    batch = make_source(cfg, DataConfig(TRAIN_BATCH, TRAIN_SEQ, SEED)).batch(step)
+    inputs, labels = train_lib._split_batch(
+        train_lib.device_batch(batch, "cuda"), cfg)
+    return {k: v[:rows] for k, v in inputs.items()}, labels[:rows]
+
+
+def _grads(params, cfg, backend: str, dtype, inputs, labels):
+    """(loss, {key path: gradient}) of one microbatch through the train
+    step's loss (`make_loss_fn`) on `backend` in `dtype`, the params cast
+    to it."""
+    tcfg = train_lib.TrainConfig(compute_dtype=dtype, kernel_backend=backend)
+    paths, leaves = zip(*flatten_with_path(params))
+    live = [t.detach().to(dtype).requires_grad_() for t in leaves]
+    eng = Engine(backend=backend)
+    with use_engine(eng):
+        loss, _ = train_lib.make_loss_fn(cfg, tcfg)(
+            tree_unflatten(params, live), inputs, labels)
+        grads = torch.autograd.grad(loss, live)
+    torch.cuda.synchronize()
+    return loss.item(), dict(zip(paths, grads)), eng
+
+
+def anchor_rule(label: str, params, cfg, kernel: str, plain: str,
+                inputs, labels) -> dict:
+    """One microbatch's gradients on the kernel backend in bf16, on the
+    plain backend in bf16 and on the plain backend in f32 (f32 weights):
+    the kernels' bf16 gradients no farther from the f32 ones (rel-L2 over
+    every leaf) than F32_ANCHOR_LIMIT x the plain versions' bf16 ones.
+    Prints the loss gaps and the leaf with the largest ratio."""
+    before = _counts()
+    loss_k, g_k, eng = _grads(params, cfg, kernel, torch.bfloat16, inputs,
+                              labels)
+    launches = _delta(before)
+    calls = eng.plan.hits + eng.plan.misses
+    loss_p, g_p, _ = _grads(params, cfg, plain, torch.bfloat16, inputs,
+                            labels)
+    loss_f, g_f, _ = _grads(params, cfg, plain, torch.float32, inputs,
+                            labels)
+    num_k = num_p = den = 0.0
+    worst = (0.0, "")
+    for key, ref in g_f.items():
+        dk = (g_k[key].float() - ref).square().sum().item()
+        dp = (g_p[key].float() - ref).square().sum().item()
+        num_k, num_p, den = num_k + dk, num_p + dp, den + ref.square().sum().item()
+        worst = max(worst, (math.sqrt(dk / max(dp, 1e-30)), key))
+    del g_k, g_p, g_f
+    gap_k, gap_p = math.sqrt(num_k / den), math.sqrt(num_p / den)
+    ratio = gap_k / gap_p
+    print(f"{label}: one microbatch's gradients against the f32 model's: "
+          f"{kernel} bf16 rel-L2 {gap_k:.4e}, {plain} bf16 {gap_p:.4e}: ratio "
+          f"{ratio:.3f} (limit {F32_ANCHOR_LIMIT}); the largest leaf ratio "
+          f"{worst[0]:.3f} at {worst[1]}; loss {loss_k:.5f} ({kernel}), "
+          f"{loss_p:.5f} ({plain} bf16), {loss_f:.5f} (f32); engine calls "
+          f"{calls}, launches {launches}")
+    check(ratio <= F32_ANCHOR_LIMIT and math.isfinite(loss_k),
+          f"{label}: the kernels' gradients are {ratio:.3f}x as far from the "
+          f"f32 model's as the plain versions'")
+    return {"rel_l2_kernel": gap_k, "rel_l2_plain": gap_p, "ratio": ratio,
+            "worst_leaf": {"ratio": worst[0], "key": worst[1]},
+            "loss": {"kernel": loss_k, "plain_bf16": loss_p, "f32": loss_f},
+            "engine_calls": calls, "launches": launches}
+
+
+def _check_step_launches(label: str, launches: dict, calls: int,
+                         grouped: int = 0) -> None:
+    """A training run's launches: each engine GEMM call (forward and
+    recompute) one launch, its backward two more on row 1's OS wgmma
+    kernel: every GEMM launch on the hand-written kernels, 2 x the engine
+    calls in all (`grouped` of the calls being grouped ones), no OS call
+    on the sync kernel."""
+    gemm = launches["gemm_os"] + launches["gemm_ws_is"]
+    print(f"{label}: {calls} engine calls (forward and recompute); GEMM "
+          f"launches {gemm} ({launches['gemm_os']} OS, "
+          f"{launches['gemm_os_wgmma']} of them on wgmma, "
+          f"{launches['gemm_ws_is']} WS/IS), grouped {launches['grouped']} "
+          f"({launches['grouped_wgmma']} on wgmma)")
+    check(gemm + launches["grouped"] == 2 * calls
+          and launches["grouped"] == 2 * grouped
+          and launches["gemm_os"] == launches["gemm_os_wgmma"]
+          and launches["grouped"] == launches["grouped_wgmma"],
+          f"{label}: launches {launches} for {calls} engine calls "
+          f"({grouped} grouped)")
+
+
+def _launcher_run(label: str, argv: list, cfg) -> dict:
+    """One run of the train launcher: its output, with its ms a step,
+    tokens/s, peak memory and launches by route, each engine GEMM's
+    launches checked (`_check_step_launches`)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = _counts()
+    t0 = time.perf_counter()
+    out = launch_train.main(argv)
+    wall = time.perf_counter() - t0
+    launches = _delta(before)
+    eng = out["engine"]
+    calls = eng.plan.hits + eng.plan.misses
+    ran = out["steps"] - out["start"]
+    check(all(math.isfinite(x) for x in out["ce"] + out["grad_norm"]),
+          f"{label}: non-finite ce or grad_norm")
+    layer_calls = sum(LAYER_GEMMS.values()) * cfg.n_layers
+    check(calls == 2 * TRAIN_MICRO * layer_calls * ran,
+          f"{label}: {calls} engine calls, want "
+          f"{2 * TRAIN_MICRO * layer_calls * ran}")
+    _check_step_launches(label, launches, calls)
+    step_ms = [1e3 * x for x in out["step_seconds"]]
+    steady = statistics.median(step_ms[1:]) if len(step_ms) > 1 else step_ms[0]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{label}: steps {out['start']}..{out['steps'] - 1}, ce "
+          + ", ".join(f"{x:.4f}" for x in out["ce"]) + "; grad_norm "
+          + ", ".join(f"{x:.3f}" for x in out["grad_norm"])
+          + "; ms a step " + ", ".join(f"{x:.1f}" for x in step_ms)
+          + f" (median after the first {steady:.1f}: "
+          f"{TRAIN_BATCH * TRAIN_SEQ / steady * 1e3:.0f} tokens/s); peak "
+          f"{peak:.2f} GiB; wall {wall:.1f} s [{card_line()}]")
+    out["report"] = {"ce": out["ce"], "grad_norm": out["grad_norm"],
+                     "step_ms": step_ms, "median_step_ms": steady,
+                     "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / steady * 1e3,
+                     "peak_gib": peak, "wall_s": wall, "engine_calls": calls,
+                     "launches": launches, "start": out["start"]}
+    return out
+
+
+#: the checkpoint restart's depth: qwen2-1.5b's widths over 4 of its 28
+#: layers.  A full-depth checkpoint is 28.4 GB (the bf16 params written
+#: as f32, the f32 moments and master) and the restart writes three, 85
+#: GB in all; at this depth they are some 10.5 GB each, 31.4 GB in all,
+#: written under runs/ in the checkout
+RESTART_LAYERS = 4
+
+
+@contextlib.contextmanager
+def _launcher_depth(layers: int):
+    """The train launcher's configurations cut to `layers` layers."""
+    real = launch_train.get_config
+    launch_train.get_config = lambda name, smoke=False: dataclasses.replace(
+        real(name, smoke), n_layers=layers)
+    try:
+        yield
+    finally:
+        launch_train.get_config = real
+
+
+def phase_train_qwen(cfg) -> dict:
+    """Phase 41: qwen2-1.5b at full width and depth through the train
+    launcher, 8 steps (ms a step, tokens/s, peak, launches by route), a
+    traced step and the gradients' f32 anchor rule; then the launcher's
+    checkpoint restart at RESTART_LAYERS layers: 6 steps with a
+    checkpoint every 3, `--resume auto` to 8 from step 6, its steps 6-7
+    against an uninterrupted run's."""
+    report = {}
+    out = _launcher_run("qwen2-1.5b training, 28 layers",
+                        TRAIN_ARGS + ["--steps", "8"], cfg)
+    report["full"] = out["report"]
+    state, step_fn = out["state"], out["train_step"]
+    del out
+    batch = train_lib.device_batch(
+        make_source(cfg, DataConfig(TRAIN_BATCH, TRAIN_SEQ, SEED)).batch(8),
+        "cuda")
+    before = _counts()
+    prof = _profile(lambda: step_fn(state, batch)[1]["ce"].item(),
+                    GEMM_KERNELS)
+    counted = _delta(before)
+    seen = prof["matched"][WGMMA_KERNEL]["count"]
+    sync = prof["matched"]["::os_kernel<"]["count"]
+    print(f"qwen2-1.5b traced step: wall {prof['wall_ms']:.1f} ms, device "
+          f"busy {prof['device_busy_ms']:.1f} ms, idle share "
+          f"{prof['idle_share']:.3f}; {counted['gemm_os_wgmma']} wgmma OS "
+          f"GEMMs counted, {seen} traced, {sync} os_kernel traced "
+          f"[{card_line()}]")
+    for k in prof["top"]:
+        print(f"    {k['ms']:9.3f} ms {k['count']:5d} x {k['name']}")
+    check(counted["gemm_os"] == counted["gemm_os_wgmma"] > 0
+          and traced_within(seen, counted["gemm_os_wgmma"]) and sync == 0,
+          f"the traced step: {counted} counted, {seen} wgmma and {sync} sync "
+          f"traced")
+    report["trace"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                            "idle_share", "top", "matched")}
+    params = state["params"]
+    del state, step_fn
+    torch.cuda.empty_cache()
+    inputs, labels = _micro_batch(cfg, 8, TRAIN_BATCH // TRAIN_MICRO)
+    report["anchor"] = anchor_rule("qwen2-1.5b", params, cfg, "hopper",
+                                   "torch-ref", inputs, labels)
+    check(report["anchor"]["engine_calls"]
+          == 2 * sum(LAYER_GEMMS.values()) * cfg.n_layers,
+          "the gradient run's recompute did not take the engine")
+    del params
+    torch.cuda.empty_cache()
+    runs = ROOT / "runs"
+    runs.mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="train_ckpt_", dir=runs)
+    try:
+        report["restart"] = _train_restart(cfg, ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    REPORT["train_qwen"] = report
+    return report
+
+
+def _train_restart(cfg, ckpt_dir: str) -> dict:
+    cut = dataclasses.replace(cfg, n_layers=RESTART_LAYERS)
+    label = f"qwen2-1.5b x {RESTART_LAYERS} layers"
+    report = {}
+    with _launcher_depth(RESTART_LAYERS):
+        for name, argv in (
+                ("first run", ["--steps", "6", "--ckpt-dir", ckpt_dir,
+                               "--ckpt-every", "3"]),
+                ("resumed run", ["--steps", "8", "--ckpt-dir", ckpt_dir,
+                                 "--resume", "auto"]),
+                ("uninterrupted run", ["--steps", "8"])):
+            out = _launcher_run(f"{label}, {name}", TRAIN_ARGS + argv, cut)
+            report[name] = out["report"]
+            if name == "first run":
+                sizes = {s_: os.path.getsize(os.path.join(
+                    ckpt_dir, f"step_{s_:09d}.npz")) / 1e9
+                    for s_ in Checkpointer(ckpt_dir).all_steps()}
+                print("  checkpoints written: " + ", ".join(
+                    f"step {s_} {gb:.2f} GB" for s_, gb in sizes.items()))
+                check(sorted(sizes) == [3, 6], f"checkpoints {sorted(sizes)}")
+                report["checkpoint_gb"] = sizes
+            del out
+            torch.cuda.empty_cache()
+    resumed, straight = report["resumed run"], report["uninterrupted run"]
+    check(resumed["start"] == 6, f"the resume started at {resumed['start']}")
+    pairs = list(zip(resumed["ce"] + resumed["grad_norm"],
+                     straight["ce"][6:] + straight["grad_norm"][6:]))
+    gap = max(abs(a - b) / abs(b) for a, b in pairs)
+    print(f"{label}: steps 6-7 resumed from step 6's checkpoint against the "
+          f"uninterrupted run: ce and grad_norm within {gap:.2e} (limit 1e-5)")
+    check(gap <= 1e-5, f"the resumed steps differ: {pairs}")
+    report["resume_gap"] = gap
+    return report
+
+
+def _posture_step(label: str, cfg, state, tcfg, batch) -> dict:
+    """One train step of a posture from `state`: its ms, ce, grad_norm and
+    launches by route."""
+    step = train_lib.make_train_step(cfg, tcfg)
+    torch.cuda.synchronize()
+    before = _counts()
+    t0 = time.perf_counter()
+    _, metrics = step(state, batch)
+    ce, gn = float(metrics["ce"]), float(metrics["grad_norm"])
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _delta(before)
+    calls = step.engine.plan.hits + step.engine.plan.misses
+    print(f"{label}: one step {ms:.1f} ms (its first: planning and set-up "
+          f"included), ce {ce:.4f}, grad_norm {gn:.3f}; {calls} engine "
+          f"calls; launches {launches}")
+    check(math.isfinite(ce) and math.isfinite(gn), f"{label}: non-finite")
+    return {"ms": ms, "ce": ce, "grad_norm": gn, "engine_calls": calls,
+            "launches": launches}
+
+
+def phase_train_postures(cfg) -> dict:
+    """Phase 42: one step each of granite-moe-1b-a400m with the sorted
+    dispatch (its experts on row 5's Function), qwen2-1.5b under
+    `quantize=True` (int8 forward on row 6, float backward on row 1) and
+    under `sparsity="2:4"` (dense weights on the sparse namespace), each
+    with the gradients' f32 anchor rule."""
+    report = {}
+    gcfg = _sorted(get_config(GRANITE))
+    tcfg = train_lib.TrainConfig(microbatches=TRAIN_MICRO,
+                                 kernel_backend="hopper")
+    state = train_lib.init_state(gcfg, tcfg, generator=torch.Generator(
+        device="cuda").manual_seed(SEED), device="cuda")
+    batch = train_lib.device_batch(make_source(
+        gcfg, DataConfig(TRAIN_BATCH, TRAIN_SEQ, SEED)).batch(0), "cuda")
+    run = _posture_step("granite sorted", gcfg, state, tcfg, batch)
+    grouped = 3 * gcfg.n_layers * 2 * TRAIN_MICRO      # forward + recompute
+    _check_step_launches("granite sorted step", run["launches"],
+                         run["engine_calls"], grouped)
+    params = state["params"]
+    del state
+    torch.cuda.empty_cache()
+    inputs, labels = _micro_batch(gcfg, 0, TRAIN_BATCH // TRAIN_MICRO)
+    run["anchor"] = anchor_rule("granite sorted", params, gcfg, "hopper",
+                                "torch-ref", inputs, labels)
+    report[GRANITE] = run
+    del params
+    torch.cuda.empty_cache()
+
+    state = train_lib.init_state(cfg, tcfg, generator=torch.Generator(
+        device="cuda").manual_seed(SEED), device="cuda")
+    batch = train_lib.device_batch(make_source(
+        cfg, DataConfig(TRAIN_BATCH, TRAIN_SEQ, SEED)).batch(0), "cuda")
+    inputs, labels = _micro_batch(cfg, 0, TRAIN_BATCH // TRAIN_MICRO)
+    layer_calls = sum(LAYER_GEMMS.values()) * cfg.n_layers
+    for name, kw, kernel, plain in (
+            ("quantize", {"quantize": True}, "hopper-int8", "torch-ref-int8"),
+            ("sparsity 2:4", {"sparsity": "2:4"}, "hopper-sparse",
+             "torch-ref-sparse")):
+        ptcfg = train_lib.TrainConfig(microbatches=TRAIN_MICRO,
+                                      kernel_backend="hopper", **kw)
+        check(ptcfg.kernel_backend == kernel, f"{name}: {ptcfg}")
+        run = _posture_step(f"qwen2-1.5b {name}", cfg, state, ptcfg, batch)
+        n = run["launches"]
+        if name == "quantize":
+            # the int8 forward and recompute on row 6 (tiled at M = 2048),
+            # the float backward two OS launches a call on row 1
+            check(n["int8_tiled"] == run["engine_calls"]
+                  and n["int8_decode"] == 0
+                  and n["gemm_os"] == n["gemm_os_wgmma"]
+                  == run["engine_calls"] and n["gemm_ws_is"] == 0,
+                  f"{name}: launches {n}")
+        else:
+            _check_step_launches(f"qwen2-1.5b {name} step", n,
+                                 run["engine_calls"])
+            check(n["sparse"] == n["sparse_int8"] == 0,
+                  f"{name}: dense weights ran on the sparse kernel")
+        check(run["engine_calls"] == 2 * TRAIN_MICRO * layer_calls,
+              f"{name}: {run['engine_calls']} engine calls")
+        run["anchor"] = anchor_rule(f"qwen2-1.5b {name}", state["params"],
+                                    cfg, kernel, plain, inputs, labels)
+        report[name] = run
+        torch.cuda.empty_cache()
+    del state
+    torch.cuda.empty_cache()
+    REPORT["train_postures"] = report
+    return report
+
+
+def phase_train_smoke() -> dict:
+    """Phase 43: one SMOKE f32 step of every arch on "hopper", card against
+    the same step on CPU tensors (the params after it within rtol/atol
+    2e-4), and the reference's `test_loss_decreases` setting on the card:
+    20 steps at lr 1e-2, ce falling by more than 0.3."""
+    report = {}
+    for arch in ARCH_NAMES:
+        cfg = get_config(arch, smoke=True)
+        tcfg = train_lib.TrainConfig(compute_dtype=torch.float32,
+                                     kernel_backend="hopper")
+        batch = make_source(cfg, DataConfig(2, 32)).batch(0)
+        new = {}
+        for dev in ("cpu", "cuda"):
+            state = _to(train_lib.init_state(
+                cfg, tcfg, generator=torch.Generator().manual_seed(SEED)), dev)
+            new[dev], _ = train_lib.make_train_step(cfg, tcfg)(
+                state, train_lib.device_batch(batch, dev))
+        worst = 0.0
+        for (key, got), (_, want) in zip(flatten_with_path(new["cuda"]),
+                                         flatten_with_path(new["cpu"])):
+            gap = ((got.cpu().float() - want.float()).abs()
+                   - 2e-4 * want.float().abs()).max().item()
+            worst = max(worst, gap)
+        print(f"  {arch} SMOKE step, card against CPU: max(|diff| - 2e-4 "
+              f"|cpu|) = {worst:.2e} (limit 2e-4)")
+        check(worst <= 2e-4, f"{arch}: the card's step differs from the CPU's")
+        report[arch] = worst
+    cfg = get_config(ARCH, smoke=True)
+    tcfg = train_lib.TrainConfig(
+        microbatches=2, compute_dtype=torch.float32, kernel_backend="hopper",
+        optimizer=AdamWConfig(lr=linear_warmup_cosine(1e-2, 5, 100)))
+    state = train_lib.init_state(cfg, tcfg, generator=torch.Generator(
+        device="cuda").manual_seed(SEED), device="cuda")
+    step = train_lib.make_train_step(cfg, tcfg)
+    src = make_source(cfg, DataConfig(8, 32))
+    ces = []
+    for s in range(20):
+        state, m = step(state, train_lib.device_batch(src.batch(s), "cuda"))
+        ces.append(float(m["ce"]))
+    print(f"  qwen2-1.5b SMOKE, 20 steps at lr 1e-2 on the card: ce "
+          f"{ces[0]:.4f} -> {ces[-1]:.4f}")
+    check(ces[-1] < ces[0] - 0.3, f"the loss did not fall: {ces}")
+    report["loss_decreases"] = ces
+    REPORT["train_smoke"] = report
+    return report
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -6027,6 +6658,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     run("39 warm start", phase_warm_start, cfg)
     torch.cuda.empty_cache()
+    run("40 VJPs", phase_vjps)
+    torch.cuda.empty_cache()
+    run("41 qwen2 training", phase_train_qwen, cfg)
+    torch.cuda.empty_cache()
+    run("42 training postures", phase_train_postures, cfg)
+    torch.cuda.empty_cache()
+    run("43 training SMOKE", phase_train_smoke)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in seconds.items()))
     lines = [*gemm_lines(rows, REPORT["main_path"], REPORT["paged_serve"],

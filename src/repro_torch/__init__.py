@@ -12,6 +12,14 @@ and grouped GEMMs under their postures; `kernels/csrc/flash_attention.cu`
 sits behind `Engine.attention`.  Importing the package builds nothing;
 the first CUDA tensor that reaches a kernel compiles it.
 
+It trains too: `train_lib.train.make_train_step` (microbatched f32
+gradient accumulation, AdamW from `optim`, per-period rematerialisation)
+over `data`'s synthetic or memmapped batches, with `checkpoint`'s
+async, atomic saves that load across both packages; every engine op and
+the prefill attention scan carry the reference's VJPs as
+`torch.autograd.Function`s, so the backward runs on the same kernels
+(`launch/train.py` on one device).
+
 `core` is the paper's own plane: the ReDas mapper, the Eq. 3-5
 analytical model, the six accelerators, the energy/EDP model, the
 paper's eight workload traces and the cycle-level simulator, which
@@ -28,8 +36,8 @@ import importlib
 
 #: name -> submodule (lazy `repro_torch.<name>` package access)
 _SUBMODULES = (
-    "configs", "core", "engine", "kernels", "launch", "models", "quant",
-    "serve_lib", "sparse",
+    "checkpoint", "configs", "core", "data", "engine", "kernels", "launch",
+    "models", "optim", "quant", "serve_lib", "sparse", "train_lib",
 )
 
 #: name -> "module:attr" (lazy re-exports of the decision-surface API)

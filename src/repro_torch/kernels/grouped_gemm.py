@@ -23,6 +23,10 @@ tensor it returns the plain version `grouped_matmul_reference`, which is
 what the tests compare against the JAX reference.  `launches` counts
 kernel launches on both routes and nothing else, `wgmma_launches` those
 on the wgmma route.
+
+`DiffGrouped` is the port of the reference's `_diff_grouped`
+(`grouped_gemm.py:92`): the engine's grouped entries run through it
+where a gradient is wanted.
 """
 
 from __future__ import annotations
@@ -184,3 +188,29 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
     if route == "wgmma":
         wgmma_launches += 1
     return out
+
+
+class DiffGrouped(torch.autograd.Function):
+    """The grouped GEMM's VJP (the reference's `_diff_grouped`): the
+    forward is `run(x, w)`, the backward two grouped GEMMs on transposed
+    operands, dx = g @ w^T per expert in x's dtype and dw = x^T @ g in
+    w's, through `bwd(x, w, out_dtype)` (the kernel, or the plain
+    version).  The transposes are contiguous copies: the kernels take
+    row-major operands."""
+
+    @staticmethod
+    def forward(ctx, x, w, run, bwd):
+        ctx.save_for_backward(x, w)
+        ctx.bwd = bwd
+        return run(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = ctx.bwd(g, w.transpose(1, 2).contiguous(), x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = ctx.bwd(x.transpose(1, 2).contiguous(), g, w.dtype)
+        return dx, dw, None, None

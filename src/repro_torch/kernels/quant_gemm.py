@@ -31,6 +31,13 @@ is no fallback from one path to the other); on a CPU tensor it returns
 the plain version `gemm_int8_reference`.  `launches` counts kernel
 launches, one per call whatever the path, and `path_launches` splits
 them by path.
+
+`diff_quant_gemm_w8` is the differentiable entry of `quant_gemm_w8`
+(the reference's `_diff_quant_gemm_w8`, `quant_gemm.py:263`): an int8
+forward, a float backward whose cotangent never quantizes, on the
+backward GEMM its caller passes.  `quant_gemm`'s VJP (the reference's
+`_diff_quant_gemm`, `:234`) is the float GEMM's own, `DiffGemm` at the
+dispatch layer (`engine/backends.py`).
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import torch
 from ..quant.quantize import kv_quantize, quantize
 from . import _build
 from .redas_gemm import SMEM_LIMIT
+from .ref import wants_grad
 
 #: the tiled path's CTA tiles (bm, bk, bn); `QUANT_TILES` in
 #: csrc/quant_gemm.cu is the same list.  4 warps (2 x 2) a block: bm a
@@ -303,3 +311,40 @@ def snap_tile(bm: int, bk: int, bn: int,
         return sum(abs(math.log2(x / y)) for x, y in zip(t, (bm, bk, bn)))
 
     return min(tiles, key=dist)
+
+
+# --------------------------------------------------------------------------
+# Dispatch-layer VJP: an int8 forward, a float backward
+# --------------------------------------------------------------------------
+
+
+class DiffQuantGemmW8(torch.autograd.Function):
+    """`quant_gemm_w8`'s VJP (the reference's `_diff_quant_gemm_w8`): the
+    activations' cotangent only, dA = g @ dequant(W)^T in A's dtype; the
+    stored int8 weight is data, not a trainable leaf."""
+
+    @staticmethod
+    def forward(ctx, a, w_q, w_scale, run, bwd):
+        ctx.save_for_backward(w_q, w_scale)
+        ctx.bwd, ctx.a_dtype = bwd, a.dtype
+        return run(a, w_q, w_scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        w_q, w_scale = ctx.saved_tensors
+        dtype = ctx.a_dtype
+        w_f = (w_q.float() * w_scale.reshape(1, -1)).to(dtype)
+        da = ctx.bwd(g.to(dtype).contiguous(), w_f.T.contiguous(), dtype)
+        return da, None, None, None, None
+
+
+def diff_quant_gemm_w8(a, w_q, w_scale, *, bwd, use_kernel: bool = True,
+                       out_dtype=None, **kernel_args):
+    """`quant_gemm_w8`, through `DiffQuantGemmW8` where a gradient is
+    wanted; `bwd(a, b, out_dtype)` is the float GEMM of its backward."""
+    def run(a, w_q, w_scale):
+        return quant_gemm_w8(a, w_q, w_scale, use_kernel=use_kernel,
+                             out_dtype=out_dtype, **kernel_args)
+    if wants_grad(a):
+        return DiffQuantGemmW8.apply(a, w_q, w_scale, run, bwd)
+    return run(a, w_q, w_scale)

@@ -36,6 +36,13 @@ whatever the path (`path_launches` splits them by path), and
 `int8_launches` / `int8_path_launches` the int8-value ones apart;
 `reduce_launches` counts the split-K reduction's launches (either
 variant's).
+
+`diff_sparse_gemm` is the differentiable entry (the reference's
+`_diff_sparse_gemm` and `_diff_sparse_gemm_q`, `sparse_gemm.py:246`,
+`:290`): over float values the activations get the dense cotangent and
+the values the dense weight cotangent gathered at the kept positions
+(pruned positions get exactly zero); over int8 values the activations
+only; the indices never.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ import torch.nn.functional as F
 
 from . import _build
 from .redas_gemm import SMEM_LIMIT
+from .ref import wants_grad
 
 #: the tiled path's CTA tiles (bm, bk, bn); `SPARSE_TILES` in
 #: csrc/sparse_gemm.cu is the same list.  bk = 128 holds at least one
@@ -391,3 +399,94 @@ def sparse_gemm(a: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
     if split_k > 1:                     # out holds the f32 partials
         out = split_reduce(out, written, scale)
     return out if direct else out.to(out_dtype)
+
+
+# --------------------------------------------------------------------------
+# Dispatch-layer VJPs: masked weight cotangents
+# --------------------------------------------------------------------------
+
+
+class DiffSparseGemm(torch.autograd.Function):
+    """The sparse GEMM's VJP over float values (the reference's
+    `_diff_sparse_gemm`): dA = g @ densify(W)^T in A's dtype; dV = the
+    dense dW = A^T @ g (f32), zero-padded to the group-padded K and
+    gathered at the kept positions, in the values' dtype; none to the
+    indices.  Both products on `bwd(a, b, out_dtype)`, the float GEMM the
+    caller passes."""
+
+    @staticmethod
+    def forward(ctx, a, values, indices, run, bwd, n_keep: int,
+                m_group: int):
+        ctx.save_for_backward(a, values, indices)
+        ctx.bwd, ctx.spec = bwd, (n_keep, m_group)
+        return run(a, values, indices)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, values, indices = ctx.saved_tensors
+        n_keep, m_group = ctx.spec
+        k = a.shape[1]
+        k_c, n = values.shape
+        groups = k_c // n_keep
+        k_store = groups * m_group
+        g = g.to(a.dtype).contiguous()
+        da = dv = None
+        if ctx.needs_input_grad[0]:
+            w = scatter_dense(values.float(), indices, n_keep,
+                              m_group).to(a.dtype)
+            da = ctx.bwd(g, w[:k].T.contiguous(), a.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = ctx.bwd(a.T.contiguous(), g, torch.float32)
+            if k_store != k:
+                dw = F.pad(dw, (0, 0, 0, k_store - k))
+            dv = dw.reshape(groups, m_group, n).gather(
+                1, indices.reshape(groups, n_keep, n).long())
+            dv = dv.reshape(k_c, n).to(values.dtype)
+        return da, dv, None, None, None, None, None
+
+
+class DiffSparseGemmQ(torch.autograd.Function):
+    """The sparse x int8 GEMM's VJP (the reference's
+    `_diff_sparse_gemm_q`): the activations' cotangent only, dA = g @
+    (densify(W) * scale)^T in A's dtype, on `bwd` as `DiffSparseGemm`'s."""
+
+    @staticmethod
+    def forward(ctx, a, values, indices, scale, run, bwd, n_keep: int,
+                m_group: int):
+        ctx.save_for_backward(values, indices, scale)
+        ctx.bwd, ctx.spec = bwd, (n_keep, m_group, a.dtype, a.shape[1])
+        return run(a, values, indices)
+
+    @staticmethod
+    def backward(ctx, g):
+        values, indices, scale = ctx.saved_tensors
+        n_keep, m_group, dtype, k = ctx.spec
+        w = (scatter_dense(values.float(), indices, n_keep, m_group)
+             * scale.reshape(1, -1)).to(dtype)
+        da = ctx.bwd(g.to(dtype).contiguous(), w[:k].T.contiguous(), dtype)
+        return da, None, None, None, None, None, None, None
+
+
+def diff_sparse_gemm(a, values, indices, scale=None, *, n_keep: int,
+                     m_group: int, bwd, use_kernel: bool = True,
+                     out_dtype=None, **kernel_args):
+    """`sparse_gemm` (`use_kernel`) or `sparse_gemm_reference`, through
+    `DiffSparseGemm` (float values) or `DiffSparseGemmQ` (int8 values and
+    their scale) where a gradient is wanted; `bwd(a, b, out_dtype)` is the
+    float GEMM of their backward."""
+    def run(a, values, indices):
+        if use_kernel:
+            return sparse_gemm(a, values, indices, scale, n_keep=n_keep,
+                               m_group=m_group, out_dtype=out_dtype,
+                               **kernel_args)
+        return sparse_gemm_reference(a, values, indices, scale,
+                                     n_keep=n_keep, m_group=m_group,
+                                     out_dtype=out_dtype)
+    if scale is not None:
+        if wants_grad(a):
+            return DiffSparseGemmQ.apply(a, values, indices, scale, run, bwd,
+                                         n_keep, m_group)
+    elif wants_grad(a, values):
+        return DiffSparseGemm.apply(a, values, indices, run, bwd, n_keep,
+                                    m_group)
+    return run(a, values, indices)

@@ -5,8 +5,10 @@ dicts.
 Numerics follow the JAX package: RMSNorm scaling by `1 + scale`, rotary
 embeddings over interleaved pairs, grouped-query attention with optional
 QKV bias and qk-norm, SwiGLU MLPs.  Full-sequence attention is the
-chunked online softmax of `_flash_scan` (forward only), or, for causal
-sliding-window ("local") blocks, the exact two-chunk `local_attention`;
+chunked online softmax of `_flash_scan`, whose VJP is the reference's
+(`FlashScan`: the backward recomputes each chunk's probabilities from the
+saved log-sum-exp), or, for causal sliding-window ("local") blocks, the
+exact two-chunk `local_attention` (on autograd, as in the reference);
 decode attention is a plain masked softmax over the cache (or its ring),
 or over the paged pool through the engine's `paged_attention` kernel.
 """
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 
 from ..engine import active_engine
 from ..kernels.paged_attention import paged_attention_reference
+from ..kernels.ref import wants_grad
 from ..quant.quantize import QuantizedTensor
 from ..sparse.nm import SparseTensor
 
@@ -169,7 +172,7 @@ def rotary(x: torch.Tensor, positions: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# Flash attention (chunked online softmax, forward)
+# Flash attention (chunked online softmax, custom VJP)
 # --------------------------------------------------------------------------
 
 
@@ -183,14 +186,12 @@ def _chunk_mask(q_pos, k_pos, kv_len, causal: bool, window: int):
     return m
 
 
-def flash_attention(q, k, v, q_pos, kv_len, causal: bool = True,
-                    window: int = 0, chunk: int = 512) -> torch.Tensor:
-    """Memory-efficient attention (the forward of `_flash_scan`).
-
-    q: (B, Sq, H, D); k, v: (B, Sk, KV, D) with H % KV == 0 (GQA).
-    q_pos: (B, Sq) absolute query positions; kv_len: (B,) valid KV length.
-    f32 inside; the last chunk is sliced short where the JAX scan pads it
-    (its padded keys are masked, so they add exact zeros)."""
+def _flash_scan(q, k, v, q_pos, kv_len, causal: bool, window: int,
+                chunk: int, also_lse: bool = False):
+    """The chunked online softmax: o in q's dtype, and with `also_lse`
+    (o, lse (B, KV, G, Sq) f32).  f32 inside; the last chunk is sliced
+    short where the JAX scan pads it (its padded keys are masked, so they
+    add exact zeros)."""
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -212,8 +213,73 @@ def flash_attention(q, k, v, q_pos, kv_len, causal: bool = True,
         l_run = l_run * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bkgqc,bckd->bkgqd", p, v_ck)
         m_run = m_new
-    o = acc / l_run.clamp_min(1e-30)[..., None]
-    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+    l_safe = l_run.clamp_min(1e-30)
+    o = acc / l_safe[..., None]
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+    return (o, m_run + torch.log(l_safe)) if also_lse else o
+
+
+class FlashScan(torch.autograd.Function):
+    """The chunked scan's VJP (the reference's `_flash_fwd` / `_flash_bwd`,
+    `models/layers.py:225-282`): the forward saves q, k, v, o and the
+    log-sum-exp; the backward recomputes each chunk's probabilities from
+    `lse` and accumulates dq, dk and dv in f32, so no chunk's scores
+    outlive its step (autograd through the loop would keep every chunk's
+    (B, KV, G, Sq, C) scores)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_len, causal: bool, window: int,
+                chunk: int):
+        o, lse = _flash_scan(q, k, v, q_pos, kv_len, causal, window, chunk,
+                             also_lse=True)
+        ctx.save_for_backward(q, k, v, q_pos, kv_len, o, lse)
+        ctx.spec = (causal, window, chunk)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, q_pos, kv_len, o, lse = ctx.saved_tensors
+        causal, window, chunk = ctx.spec
+        b, sq, h, d = q.shape
+        sk, kv = k.shape[1], k.shape[2]
+        g = h // kv
+        scale = 1.0 / math.sqrt(d)
+        qg = (q.reshape(b, sq, kv, g, d) * scale).float()
+        heads = lambda t: t.reshape(b, sq, kv, g, d).permute(0, 2, 3, 1, 4)
+        do_g = heads(do).float()
+        delta = (do_g * heads(o).float()).sum(dim=-1)    # (B, KV, G, Sq)
+        dq = torch.zeros(b, sq, kv, g, d, dtype=torch.float32,
+                         device=q.device)
+        dk = torch.empty(b, sk, kv, d, dtype=torch.float32, device=q.device)
+        dv = torch.empty_like(dk)
+        for c0 in range(0, sk, chunk):
+            k_ck = k[:, c0:c0 + chunk].float()
+            v_ck = v[:, c0:c0 + chunk].float()
+            k_pos = torch.arange(c0, c0 + k_ck.shape[1], device=q.device)
+            s = torch.einsum("bqkgd,bckd->bkgqc", qg, k_ck)
+            mask = _chunk_mask(q_pos, k_pos, kv_len, causal, window)
+            s = torch.where(mask[:, None, None], s, NEG_INF)
+            p = torch.exp(s - lse[..., None])             # (B, KV, G, Sq, C)
+            dv[:, c0:c0 + chunk] = torch.einsum("bkgqc,bkgqd->bckd", p, do_g)
+            dp = torch.einsum("bkgqd,bckd->bkgqc", do_g, v_ck)
+            ds = p * (dp - delta[..., None])
+            dq += torch.einsum("bkgqc,bckd->bqkgd", ds, k_ck)
+            dk[:, c0:c0 + chunk] = torch.einsum("bkgqc,bqkgd->bckd", ds, qg)
+        dq = (dq * scale).reshape(b, sq, h, d).to(q.dtype)
+        return (dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None, None,
+                None)
+
+
+def flash_attention(q, k, v, q_pos, kv_len, causal: bool = True,
+                    window: int = 0, chunk: int = 512) -> torch.Tensor:
+    """Memory-efficient attention (the reference's `flash_attention`).
+
+    q: (B, Sq, H, D); k, v: (B, Sk, KV, D) with H % KV == 0 (GQA).
+    q_pos: (B, Sq) absolute query positions; kv_len: (B,) valid KV length.
+    Through `FlashScan` where a gradient is wanted."""
+    if wants_grad(q, k, v):
+        return FlashScan.apply(q, k, v, q_pos, kv_len, causal, window, chunk)
+    return _flash_scan(q, k, v, q_pos, kv_len, causal, window, chunk)
 
 
 # --------------------------------------------------------------------------

@@ -48,9 +48,11 @@ import dataclasses
 import math
 
 import torch
+import torch.utils.checkpoint
 
 from ..quant.quantize import QuantizedTensor, kv_dequantize, kv_quantize
 from ..sparse.nm import SparseTensor
+from ..tree import tree_leaves
 from . import layers, moe, rglru, ssm
 from .config import ArchConfig
 from .layers import dense, mlp, rms_norm
@@ -162,6 +164,21 @@ def _periods(stack: dict, n_periods: int) -> list[dict]:
     return [_index(stack, i) for i in range(n_periods)]
 
 
+def _unbound_periods(stack, n_periods: int) -> list:
+    """`_periods` for the full-sequence path: each tensor leaf `unbind`s
+    once (views, as `_index` gives).  Under autograd a stacked leaf's
+    gradient then gathers its periods' in one stack, where a select view
+    per period would each add a zero-filled tensor of the whole stack
+    (traffic growing with the square of the depth).  The cache paths keep
+    `_periods`: they write through their views in place."""
+    if isinstance(stack, dict):
+        parts = {k: _unbound_periods(v, n_periods) for k, v in stack.items()}
+        return [{k: parts[k][i] for k in stack} for i in range(n_periods)]
+    if isinstance(stack, torch.Tensor):
+        return list(stack.unbind(0))[:n_periods]
+    return [_index(stack, i) for i in range(n_periods)]
+
+
 # --------------------------------------------------------------------------
 # Full-sequence path
 # --------------------------------------------------------------------------
@@ -208,17 +225,45 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
 
+def _period_apply(cfg: ArchConfig, pp: dict, x, aux, positions):
+    """One period of the stack (its blocks in pattern order): the body of
+    the reference's scan, (x, aux) -> (x, aux)."""
+    for j, kind in enumerate(cfg.layer_pattern):
+        x, a = _block_apply(kind, pp[f"b{j}"], cfg, x, positions)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor | None = None, *,
             embeds=None, compute_dtype=torch.bfloat16):
     """tokens (B, S); embeds (B, P, D) for the VLM prefix or (B, S, D) for
     audio (`embed_inputs`) -> (logits (B, S_total, V), aux scalar): the
-    sum over blocks of the MoE balance loss (0 without MoE)."""
+    sum over blocks of the MoE balance loss (0 without MoE).
+
+    When autograd records a gradient through the stack, each period runs
+    under `torch.utils.checkpoint` (non-reentrant): its activations are
+    recomputed in the backward, as the reference rematerialises its scan
+    body (`jax.checkpoint`, reference `models/transformer.py:181`); the
+    tail blocks are not.  The recompute runs inside the caller's
+    `use_engine` scope, so the caller takes its gradients there."""
     x = _embed_in(params, cfg, tokens, embeds, compute_dtype)
     b, s = x.shape[0], x.shape[1]
     positions = _positions(b, s, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, p in _blocks(cfg, params["stack"], params["tail"]):
-        x, a = _block_apply(kind, p, cfg, x, positions)
+    n_periods, _ = _period_split(cfg)
+    remat = torch.is_grad_enabled() and (x.requires_grad or any(
+        isinstance(t, torch.Tensor) and t.requires_grad
+        for t in tree_leaves(params["stack"])))
+    for pp in _unbound_periods(params["stack"], n_periods):
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                _period_apply, cfg, pp, x, aux, positions,
+                use_reentrant=False)
+        else:
+            x, aux = _period_apply(cfg, pp, x, aux, positions)
+    for t, p in enumerate(params["tail"]):
+        x, a = _block_apply(cfg.layer_pattern[t], p, cfg, x, positions)
         if a is not None:
             aux = aux + a
     return _logits_out(params, cfg, x), aux

@@ -40,7 +40,13 @@ embeddings too, and hubert-xlarge's forward logits are within 1e-4
 rel-L2 of the CPU's.  The accelerator plane's cycle-level simulator on
 CUDA tensors equals its CPU run within 1e-6 with equal cycles (also
 behind `Engine(AnalyticalCostModel())`), and a SMOKE Scheduler serve
-warm-started from `plan_arch` adds no plan miss on the card.
+warm-started from `plan_arch` adds no plan miss on the card.  Each VJP
+Function (the ReDas GEMM's, the grouped GEMM's, the int8 and w8 GEMMs',
+both sparse GEMMs', pruned positions of dV exactly zero) gives autograd
+of its plain version's cotangents at the row tolerances, its backward
+GEMMs launched on the kernels; the flash scan's Function matches
+autograd of its plain loop within 1e-5; a SMOKE train step on the card
+(two microbatches, "hopper") equals the CPU's within rtol/atol 2e-4.
 """
 
 import dataclasses
@@ -1282,3 +1288,149 @@ def test_warm_started_smoke_serve_on_the_card_plans_nothing(cuda, layout,
     assert sum(redas_gemm.launches.values()) > 0
     for uid in cold:
         np.testing.assert_array_equal(warm[uid].tokens, cold[uid].tokens)
+
+
+# --------------------------------------------------------------------------
+# The kernels' VJPs and the train step on the card
+# --------------------------------------------------------------------------
+
+
+def _vjp_pair(run, plain, inputs, g):
+    """Cotangents through the port's Function (`run`) and through autograd
+    of the plain version (`plain`) on the same CUDA operands."""
+    out = []
+    for fn in (run, plain):
+        ts = [t.detach().clone().requires_grad_() for t in inputs]
+        out.append(torch.autograd.grad(fn(*ts), ts, grad_outputs=g))
+    return out
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("shape", [(512, 1536, 256), (96, 1536, 8960),
+                                   (33, 100, 72)])
+def test_gemm_vjp_on_the_card(cuda, dtype, tol, shape):
+    from repro_torch.engine import Engine
+    from repro_torch.engine.backends import DiffGemm
+
+    m, k, n = shape
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    a, b, g = (torch.randn(*s, device=cuda, generator=gen, dtype=dtype)
+               for s in ((m, k), (k, n), (m, n)))
+    eng = Engine(backend="hopper")
+    out = eng.matmul(a.requires_grad_(), b)
+    assert type(out.grad_fn) is DiffGemm._backward_cls
+    before = redas_gemm.launches["os"]
+    got, want = _vjp_pair(eng.matmul, lambda x, y: (x.float() @ y.float())
+                          .to(dtype), (a, b), g)
+    assert redas_gemm.launches["os"] - before >= 2   # dA and dB on row 1
+    for x, y in zip(got, want):
+        assert _row_rel_l2(x, y) <= tol
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_grouped_vjp_on_the_card(cuda, dtype, tol):
+    from repro_torch.engine import Engine
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x, w, g = (torch.randn(*s, device=cuda, generator=gen, dtype=dtype)
+               for s in ((32, 64, 1024), (32, 1024, 512), (32, 64, 512)))
+    before = grouped_gemm.launches
+    got, want = _vjp_pair(Engine(backend="hopper").grouped_matmul,
+                          lambda x, w: (x.float() @ w.float()).to(dtype),
+                          (x, w), g)
+    assert grouped_gemm.launches - before == 3       # forward, dx, dw
+    for p, q in zip(got, want):
+        assert _row_rel_l2(p, q) <= tol
+
+
+@pytest.mark.card
+def test_int8_and_sparse_vjps_on_the_card(cuda):
+    """The int8 GEMM's, the w8 GEMM's and both sparse GEMMs' cotangents on
+    "hopper-*" against the plain backends on the same CUDA operands (the
+    backward is float, row 1); pruned positions of dV exactly 0."""
+    from repro_torch.engine import Engine
+
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    a, b, g = (torch.randn(*s, device=cuda, generator=gen,
+                           dtype=torch.bfloat16)
+               for s in ((256, 1536), (1536, 256), (256, 256)))
+    kern, plain = Engine(backend="hopper-int8"), Engine(backend="torch-ref-int8")
+    got, want = _vjp_pair(kern.matmul, plain.matmul, (a, b), g)
+    for p, q in zip(got, want):
+        assert _row_rel_l2(p, q) <= 1e-2
+    qt = quantize(b)
+    got, want = _vjp_pair(lambda x: kern.quant_matmul(x, qt.q, qt.scale),
+                          lambda x: plain.quant_matmul(x, qt.q, qt.scale),
+                          (a,), g)
+    assert _row_rel_l2(got[0], want[0]) <= 1e-2
+    skern, splain = Engine(backend="hopper-sparse"), Engine(
+        backend="torch-ref-sparse")
+    st = sparsify(b, 2, 4)
+
+    def sparse(eng):
+        return lambda x, v: eng.sparse_matmul(x, sparse_gemm_tensor(st, v))
+
+    got, want = _vjp_pair(sparse(skern), sparse(splain), (a, st.values), g)
+    for p, q in zip(got, want):
+        assert _row_rel_l2(p, q) <= 1e-2
+    dense = sparse_gemm.scatter_dense(got[1].float(), st.indices, 2, 4)
+    kept = sparse_gemm.scatter_dense(torch.ones_like(st.values, dtype=torch.float32),
+                                     st.indices, 2, 4)
+    assert (dense[kept == 0] == 0).all()
+    sq = sparsify(b, 2, 4, quantize=True)
+    got, want = _vjp_pair(lambda x: skern.sparse_matmul(x, sq),
+                          lambda x: splain.sparse_matmul(x, sq), (a,), g)
+    assert _row_rel_l2(got[0], want[0]) <= 1e-2
+
+
+def sparse_gemm_tensor(st, values):
+    from repro_torch.sparse.nm import SparseTensor
+
+    return SparseTensor(values, st.indices, st.scale, n=st.n, m=st.m,
+                        k_dense=st.k_dense)
+
+
+@pytest.mark.card
+def test_flash_scan_vjp_on_the_card(cuda):
+    from repro_torch.models import layers
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn(*s, device=cuda, generator=gen)
+               for s in ((2, 96, 12, 64), (2, 130, 2, 64), (2, 130, 2, 64)))
+    g = torch.randn(2, 96, 12, 64, device=cuda, generator=gen)
+    pos = (torch.arange(34, 130, device=cuda, dtype=torch.int32)
+           .expand(2, 96).contiguous())
+    kv_len = torch.tensor([130, 100], device=cuda, dtype=torch.int32)
+    got, want = _vjp_pair(
+        lambda *t: layers.flash_attention(*t, pos, kv_len, True, 40, 48),
+        lambda *t: layers._flash_scan(*t, pos, kv_len, True, 40, 48),
+        (q, k, v), g)
+    for p, r in zip(got, want):
+        torch.testing.assert_close(p, r, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.card
+def test_smoke_train_step_on_the_card_equals_the_cpu(cuda):
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.train_lib import train as train_lib
+    from repro_torch.tree import flatten_with_path, tree_map
+
+    cfg = get_config("qwen2-1.5b", smoke=True)
+    batch = make_source(cfg, DataConfig(batch=4, seq_len=32)).batch(0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tcfg = train_lib.TrainConfig(microbatches=2,
+                                     compute_dtype=torch.float32,
+                                     kernel_backend="hopper")
+        state = train_lib.init_state(
+            cfg, tcfg, generator=torch.Generator().manual_seed(0))
+        state = tree_map(lambda t: t.to(dev), state)
+        step = train_lib.make_train_step(cfg, tcfg)
+        new, _ = step(state, train_lib.device_batch(batch, dev))
+        out[dev] = dict(flatten_with_path(new))
+    for key, leaf in out["cpu"].items():
+        torch.testing.assert_close(out["cuda"][key].cpu(), leaf, rtol=2e-4,
+                                   atol=2e-4, msg=key)
+

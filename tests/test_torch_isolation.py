@@ -78,3 +78,11 @@ def test_cli_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_serve.main(["--arch", "qwen2-1.5b", "--smoke"])
+
+
+def test_train_cli_defaults_to_the_card(monkeypatch):
+    from repro_torch.launch import train as launch_train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--arch", "qwen2-1.5b", "--smoke"])
