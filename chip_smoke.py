@@ -276,7 +276,8 @@ Phases (any failed check exits non-zero; nothing falls back):
      memory;
  41. training qwen2-1.5b at full width and depth through
      `repro_torch.launch.train` (8 x 512 tokens a step in 2 microbatches,
-     bf16, `hopper`), 8 steps: every step's ce and grad_norm finite;
+     bf16, `hopper`; its state DTensors on the launcher's (1, 1) NCCL
+     mesh), 8 steps: every step's ce and grad_norm finite;
      every engine GEMM (forward, recompute, and the two backward GEMMs of
      each) on the hand-written kernels by the route counters (2 x 2 x 196
      engine calls a step, as many launches again in the backward, all OS
@@ -296,7 +297,22 @@ Phases (any failed check exits non-zero; nothing falls back):
  43. SMOKE in f32: one step of every arch on `hopper`, card against CPU
      within rtol/atol 2e-4; qwen2 SMOKE's loss falling by more than 0.3
      over 20 steps at lr 1e-2 on the card;
- 44. the kernels line, then the result line.
+ 44. the distribution plane: (a) qwen2-1.5b at MESH_LAYERS of its 28
+     layers, 3 steps through the train launcher (since PR 37 its state is
+     DTensors on a (1, 1) mesh over a one-rank NCCL group; phase 41's
+     runs take the same path) against 3 steps of `train_lib` with no mesh:
+     ce and grad_norm bit for bit, ms a step of both; (b) a 4-rank gloo
+     run on the host's CPU (SMOKE qwen2-1.5b and granite-moe-1b-a400m on
+     a (2, 2) mesh, a checkpoint after 3 steps, on to 5), started first
+     and run beside (a); the launcher's `--resume auto` restores each
+     checkpoint onto the card's (1, 1) mesh and takes steps 3-4, whose ce
+     are held to the CPU run's at phase 43's bound; the ranks' host ms to
+     gather the params and to reduce a gradient tree; (c)
+     `run_with_recovery` driving the train step at MESH_LAYERS layers with
+     snapshots in host memory, a RuntimeError at step 3 and a stall past
+     the watchdog's budget at step 4: 2 restarts, ce and grad_norm within
+     1e-5 of an uninterrupted run's;
+ 45. the kernels line, then the result line.
 
 Every detail also goes to runs/chip_smoke.json.  Exits non-zero
 without a CUDA device, and outside a checkout of the repository.
@@ -348,8 +364,12 @@ from repro_torch.kernels import (_build, flash_attention,  # noqa: E402
                                   grouped_gemm, paged_attention, quant_gemm,
                                   redas_gemm, sparse_gemm)
 from repro_torch.data.pipeline import DataConfig, make_source  # noqa: E402
+from repro_torch.dist import reshard  # noqa: E402
+from repro_torch.dist import sharding as shd  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.launch import watchdog  # noqa: E402
+from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.optim import AdamWConfig, linear_warmup_cosine  # noqa: E402
 from repro_torch.quant import quantize, quantize_params, tree_bytes  # noqa: E402
@@ -510,15 +530,17 @@ def device_ms(fn, sets, side: torch.cuda.Stream) -> float:
 
 def host_ms(fn, calls: int = 200) -> float:
     """Wall time (ms) of one of `calls` back-to-back calls of `fn`, the
-    card synchronised before and after: at decode shapes the host's cost
-    of a call (its checks, allocations and launches), which the card's
-    time hides only when it is longer."""
+    card (where the process sees one) synchronised before and after: at
+    decode shapes the host's cost of a call (its checks, allocations and
+    launches), which the card's time hides only when it is longer."""
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (
+        lambda: None)
     fn()
-    torch.cuda.synchronize()
+    sync()
     t0 = time.perf_counter()
     for _ in range(calls):
         fn()
-    torch.cuda.synchronize()
+    sync()
     return (time.perf_counter() - t0) * 1e3 / calls
 
 
@@ -6132,6 +6154,7 @@ def phase_train_qwen(cfg) -> dict:
     out = _launcher_run("qwen2-1.5b training, 28 layers",
                         TRAIN_ARGS + ["--steps", "8"], cfg)
     report["full"] = out["report"]
+    report["mesh"] = check_mesh_state("qwen2-1.5b training", out)
     state, step_fn = out["state"], out["train_step"]
     del out
     batch = train_lib.device_batch(
@@ -6156,7 +6179,7 @@ def phase_train_qwen(cfg) -> dict:
           f"traced")
     report["trace"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms",
                                             "idle_share", "top", "matched")}
-    params = state["params"]
+    params = shd.local_tree(state["params"])
     del state, step_fn
     torch.cuda.empty_cache()
     inputs, labels = _micro_batch(cfg, 8, TRAIN_BATCH // TRAIN_MICRO)
@@ -6345,6 +6368,320 @@ def phase_train_smoke() -> dict:
     check(ces[-1] < ces[0] - 0.3, f"the loss did not fall: {ces}")
     report["loss_decreases"] = ces
     REPORT["train_smoke"] = report
+    return report
+
+
+# --------------------------------------------------------------------------
+# Phase 44: the distribution plane (the launcher on a one-rank NCCL mesh,
+# a 4-rank CPU checkpoint continued on the card, the watchdog)
+# --------------------------------------------------------------------------
+
+#: qwen2-1.5b's widths over this many of its 28 layers in phase 44's card
+#: runs (the launcher's bit-for-bit check and the watchdog)
+MESH_LAYERS = 4
+#: the CPU run that phase 44 continues on the card: 4 gloo ranks on a
+#: (2, 2) mesh, SMOKE in f32 on "hopper" (the plain versions on the CPU),
+#: 8 x 32 tokens a step in 2 microbatches, a checkpoint after FIRST steps,
+#: then on to TOTAL; the card resumes the checkpoint to TOTAL
+CPU_RANKS, CPU_MESH = 4, (2, 2)
+ELASTIC_ARCHS = (ARCH, GRANITE)
+ELASTIC = {"batch": 8, "seq": 32, "micro": 2, "lr": 5e-3, "warmup": 1,
+           "first": 3, "total": 5}
+CPU_RANK_TIMEOUT_S = 300
+
+
+def check_mesh_state(label: str, out: dict) -> dict:
+    """The train launcher's run went through the mesh path: a (1, 1) mesh
+    on the card over a one-rank NCCL group, the state DTensors."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    mesh = out["mesh"]
+    leaves = [leaf for _, leaf in flatten_with_path(out["state"])]
+    backend = dist.get_backend()
+    check(tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda"
+          and backend == "nccl" and dist.get_world_size() == 1
+          and all(isinstance(x, DTensor) for x in leaves),
+          f"{label}: mesh {mesh}, backend {backend}, "
+          f"{sum(isinstance(x, DTensor) for x in leaves)} of {len(leaves)} "
+          f"leaves DTensors")
+    return {"mesh": list(mesh.shape), "backend": backend,
+            "dtensor_leaves": len(leaves)}
+
+
+def _elastic_tcfg(backend: str = "hopper"):
+    """The train launcher's TrainConfig for the ELASTIC run (`--smoke`)."""
+    return train_lib.TrainConfig(
+        microbatches=ELASTIC["micro"], compute_dtype=torch.float32,
+        kernel_backend=backend, optimizer=AdamWConfig(lr=linear_warmup_cosine(
+            ELASTIC["lr"], ELASTIC["warmup"], ELASTIC["total"])))
+
+
+def cpu_rank_main(rank: int, store: str, out: str) -> int:
+    """One rank of phase 44's CPU run (`chip_smoke.py --cpu-rank`): every
+    ELASTIC_ARCHS arch on the CPU_MESH mesh for TOTAL steps, a checkpoint
+    after FIRST; rank 0 writes the ce of every step, and the host ms of
+    gathering the params and of reducing one gradient tree."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Partial
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=CPU_RANKS,
+                            timeout=datetime.timedelta(seconds=120))
+    mesh = make_test_mesh(*CPU_MESH, device="cpu")
+    res = {}
+    for arch in ELASTIC_ARCHS:
+        cfg, tcfg = get_config(arch, smoke=True), _elastic_tcfg()
+        state = train_lib.init_state(
+            cfg, tcfg, generator=torch.Generator().manual_seed(SEED))
+        state = reshard.reshard(state, shd.params_shardings(state, mesh))
+        src = make_source(cfg, DataConfig(ELASTIC["batch"], ELASTIC["seq"],
+                                          SEED))
+        step = train_lib.make_train_step(cfg, tcfg)
+        ckpt = Checkpointer(os.path.join(out, arch))
+        ces = []
+        with shd.use_mesh(mesh):
+            for s in range(ELASTIC["total"]):
+                state, m = step(state, train_lib.device_batch(src.batch(s),
+                                                              "cpu"))
+                ces.append(float(m["ce"]))
+                if s + 1 == ELASTIC["first"]:
+                    ckpt.save(s + 1, state, blocking=True)
+        leaves = [x for _, x in flatten_with_path(state["params"])]
+        partial = [Partial()] * len(CPU_MESH)
+        res[arch] = {
+            "ce": ces,
+            "gather_ms": host_ms(lambda: [x.full_tensor() for x in leaves],
+                                 5),
+            "reduce_ms": host_ms(lambda: [DTensor.from_local(
+                torch.ones(x.shape), mesh, partial, run_check=False)
+                .redistribute(mesh, x.placements).to_local()
+                for x in leaves], 5),
+            "params": sum(x.numel() for x in leaves)}
+    if rank == 0:
+        Path(out, "cpu_ranks.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _start_cpu_ranks(out: str) -> list:
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    return [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--cpu-rank", str(r),
+         os.path.join(out, "store"), out], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(CPU_RANKS)]
+
+
+def _join_cpu_ranks(procs: list, out: str) -> dict:
+    deadline = time.monotonic() + CPU_RANK_TIMEOUT_S
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    for r in bad:
+        print(f"  CPU rank {r} failed:\n{logs[r][-2000:]}")
+    check(not bad, f"CPU ranks {bad} failed")
+    return json.loads(Path(out, "cpu_ranks.json").read_text())
+
+
+def _mesh_vs_plain(cfg) -> dict:
+    """(a): 3 steps through the train launcher on its (1, 1) NCCL mesh
+    against 3 steps of `train_lib` with no mesh from the same seed: ce and
+    grad_norm bit for bit; ms a step of both."""
+    label = f"qwen2-1.5b x {MESH_LAYERS} layers"
+    steps = 3
+    with _launcher_depth(MESH_LAYERS):
+        out = launch_train.main(TRAIN_ARGS + ["--steps", str(steps)])
+    mesh = check_mesh_state(f"{label} through the launcher", out)
+    tcfg, cut = out["train_config"], out["cfg"]
+    got = {"ce": out["ce"], "grad_norm": out["grad_norm"],
+           "step_ms": [1e3 * x for x in out["step_seconds"]]}
+    del out
+    torch.cuda.empty_cache()
+    state = train_lib.init_state(cut, tcfg, generator=torch.Generator(
+        device="cuda").manual_seed(SEED), device="cuda")
+    step = train_lib.make_train_step(cut, tcfg)
+    src = make_source(cut, DataConfig(TRAIN_BATCH, TRAIN_SEQ, SEED))
+    want = {"ce": [], "grad_norm": [], "step_ms": []}
+    for s in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, train_lib.device_batch(src.batch(s), "cuda"))
+        want["ce"].append(float(m["ce"]))
+        want["grad_norm"].append(float(m["grad_norm"]))
+        want["step_ms"].append((time.perf_counter() - t) * 1e3)
+    del state
+    torch.cuda.empty_cache()
+    print(f"{label}: the launcher on its (1, 1) NCCL mesh, ce "
+          + ", ".join(f"{x:.6f}" for x in got["ce"]) + ", grad_norm "
+          + ", ".join(f"{x:.6f}" for x in got["grad_norm"])
+          + "; train_lib with no mesh, ce "
+          + ", ".join(f"{x:.6f}" for x in want["ce"]) + ", grad_norm "
+          + ", ".join(f"{x:.6f}" for x in want["grad_norm"])
+          + "; ms a step (mesh / none) "
+          + ", ".join(f"{a:.1f}/{b:.1f}" for a, b in
+                      zip(got["step_ms"], want["step_ms"]))
+          + f" [{card_line()}]")
+    check(got["ce"] == want["ce"] and got["grad_norm"] == want["grad_norm"],
+          f"{label}: the (1, 1) mesh's steps differ from the unsharded ones")
+    return {"mesh": mesh, "launcher": got, "no_mesh": want}
+
+
+def _elastic_on_card(cpu: dict, ckpt_root: str) -> dict:
+    """(b): the train launcher's `--resume auto` on the card restores the
+    4-rank CPU run's checkpoint onto its (1, 1) mesh and takes the steps
+    FIRST..TOTAL-1; their ce held to the CPU run's own, at phase 43's
+    card-against-CPU bound."""
+    report = {}
+    for arch in ELASTIC_ARCHS:
+        argv = ["--arch", arch, "--smoke", "--kernel-backend", "hopper",
+                "--batch", str(ELASTIC["batch"]), "--seq",
+                str(ELASTIC["seq"]), "--microbatches", str(ELASTIC["micro"]),
+                "--lr", str(ELASTIC["lr"]), "--warmup",
+                str(ELASTIC["warmup"]), "--seed", str(SEED), "--steps",
+                str(ELASTIC["total"]), "--ckpt-dir",
+                os.path.join(ckpt_root, arch), "--resume", "auto",
+                "--log-every", "1"]
+        out = launch_train.main(argv)
+        mesh = check_mesh_state(f"{arch} resumed", out)
+        check(out["start"] == ELASTIC["first"],
+              f"{arch}: resumed at {out['start']}")
+        want = cpu[arch]["ce"][ELASTIC["first"]:]
+        gap = max(abs(a - b) - 2e-4 * abs(b)
+                  for a, b in zip(out["ce"], want, strict=True))
+        print(f"  {arch} SMOKE: the 4-rank CPU (2, 2) run's step-"
+              f"{ELASTIC['first']} checkpoint resumed on the card's (1, 1) "
+              f"mesh: ce " + ", ".join(f"{x:.6f}" for x in out["ce"])
+              + " against the CPU run's " + ", ".join(f"{x:.6f}" for x in want)
+              + f"; max(|diff| - 2e-4 |cpu|) = {gap:.2e} (limit 2e-4)")
+        check(gap <= 2e-4, f"{arch}: the card's continuation differs")
+        report[arch] = {"card_ce": out["ce"], "cpu_ce": want, "gap": gap,
+                        "mesh": mesh}
+    return report
+
+
+def _watchdog_on_card(cfg) -> dict:
+    """(c): `run_with_recovery` over the train step at MESH_LAYERS layers,
+    snapshots in host memory every 2 steps, a RuntimeError injected at
+    step 3 and a stall past the watchdog's budget at step 4: 2 restarts,
+    and ce and grad_norm within 1e-5 of an uninterrupted run's (phase
+    41's restart equality)."""
+    cut = dataclasses.replace(cfg, n_layers=MESH_LAYERS)
+    tcfg = train_lib.TrainConfig(microbatches=TRAIN_MICRO,
+                                 kernel_backend="hopper")
+    src = make_source(cut, DataConfig(TRAIN_BATCH, TRAIN_SEQ, SEED))
+    step_fn = train_lib.make_train_step(cut, tcfg)
+    steps, faults = 5, {3: "crash", 4: "stall"}
+
+    def init():
+        return train_lib.init_state(cut, tcfg, generator=torch.Generator(
+            device="cuda").manual_seed(SEED), device="cuda")
+
+    def one(state, s):
+        state, m = step_fn(state, train_lib.device_batch(src.batch(s),
+                                                         "cuda"))
+        return state, (float(m["ce"]), float(m["grad_norm"]))
+
+    live, snaps, seen = {"state": init()}, {}, {}
+    dog = watchdog.StepWatchdog(timeout_factor=3.0, min_timeout_s=0.5)
+
+    def run_step(s):
+        fault = faults.pop(s, None)
+        if fault == "crash":
+            raise RuntimeError(f"injected failure at step {s}")
+        live["state"], seen[s] = one(live["state"], s)
+        if fault == "stall":
+            time.sleep(1.5 * dog._budget())
+        return seen[s][0]
+
+    def save(s):
+        snaps.clear()              # the newest snapshot only: ~9 GB of host
+        snaps[s] = [x.to("cpu", copy=True)
+                    for _, x in flatten_with_path(live["state"])]
+
+    def restore():
+        if not snaps:
+            live["state"] = init()
+            return 0
+        s, host = next(iter(snaps.items()))
+        live["state"] = tree_unflatten(live["state"],
+                                       [x.to("cuda") for x in host])
+        return s
+
+    t = time.perf_counter()
+    stats = watchdog.run_with_recovery(
+        steps=steps, start_step=0, run_step=run_step, save=save,
+        restore=restore, ckpt_every=2, watchdog=dog)
+    recovered_s = time.perf_counter() - t
+    snaps.clear()
+    straight, want = init(), []
+    for s in range(steps):
+        straight, pair = one(straight, s)
+        want.append(pair)
+    got = [seen[s] for s in range(steps)]
+    gap = max(abs(a - b) / abs(b) for g, w in zip(got, want)
+              for a, b in zip(g, w))
+    bitwise = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        flatten_with_path(live["state"]), flatten_with_path(straight)))
+    print(f"  watchdog over qwen2-1.5b x {MESH_LAYERS} layers: restarts "
+          f"{stats['restarts']}, final step {stats['final_step']}, "
+          f"{recovered_s:.1f} s with recovery; ce and grad_norm within "
+          f"{gap:.2e} of an uninterrupted run (limit 1e-5), final state bit "
+          f"for bit: {bitwise}")
+    check(stats["restarts"] == 2 and stats["final_step"] == steps
+          and gap <= 1e-5, f"the watchdog's recovery: {stats}, gap {gap}")
+    del live, straight
+    torch.cuda.empty_cache()
+    return {"restarts": stats["restarts"], "losses": stats["losses"],
+            "gap": gap, "state_bitwise": bitwise, "seconds": recovered_s}
+
+
+def phase_dist(cfg) -> dict:
+    """Phase 44: the CPU ranks start first and run beside (a) on the card;
+    then (b) and (c).  Each part's seconds go to the report."""
+    report, seconds = {}, {}
+    runs = ROOT / "runs"
+    runs.mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="dist_", dir=runs)
+    try:
+        t = time.perf_counter()
+        procs = _start_cpu_ranks(root)
+        report["mesh_vs_plain"] = _mesh_vs_plain(cfg)
+        seconds["a"] = time.perf_counter() - t
+        t = time.perf_counter()
+        cpu = _join_cpu_ranks(procs, root)
+        seconds["cpu_wait"] = time.perf_counter() - t
+        for arch, r in cpu.items():
+            print(f"  {arch} SMOKE on {CPU_RANKS} CPU ranks {CPU_MESH}: ce "
+                  + ", ".join(f"{x:.6f}" for x in r["ce"])
+                  + f"; host ms a step to gather the params "
+                  f"{r['gather_ms']:.2f}, to reduce one gradient tree "
+                  f"{r['reduce_ms']:.2f} ({r['params']} params)")
+        report["cpu_ranks"] = cpu
+        t = time.perf_counter()
+        report["elastic"] = _elastic_on_card(cpu, root)
+        seconds["b"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    t = time.perf_counter()
+    report["watchdog"] = _watchdog_on_card(cfg)
+    seconds["c"] = time.perf_counter() - t
+    report["seconds"] = seconds
+    print("phase 44 seconds: " + ", ".join(f"{k} {v:.1f}"
+                                           for k, v in seconds.items()))
+    REPORT["dist"] = report
     return report
 
 
@@ -6565,6 +6902,8 @@ def grouped_line(rows: list[dict], granite: dict) -> dict:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--cpu-rank"]:
+        return cpu_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -6665,6 +7004,8 @@ def main() -> int:
     run("42 training postures", phase_train_postures, cfg)
     torch.cuda.empty_cache()
     run("43 training SMOKE", phase_train_smoke)
+    torch.cuda.empty_cache()
+    run("44 distribution plane", phase_dist, cfg)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in seconds.items()))
     lines = [*gemm_lines(rows, REPORT["main_path"], REPORT["paged_serve"],
@@ -6682,6 +7023,10 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1,
                                                         default=str))
+    import torch.distributed as dist
+
+    if dist.is_initialized():          # the launchers' one-rank group
+        dist.destroy_process_group()
     print(f"chip_smoke: all phases passed in {REPORT['seconds']:.1f} s")
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

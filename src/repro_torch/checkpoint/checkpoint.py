@@ -18,6 +18,13 @@ bfloat16: a bf16 leaf is written as float32, which holds it exactly and
 which the reference's `restore` casts back; a bf16 leaf stored raw (the
 reference writes ml_dtypes' bfloat16 as the void type `|V2`) is read by
 its bits.
+
+Under a mesh (a state of DTensors, `dist/`): every rank takes part in
+`save`'s gather (`full_tensor()`, a collective, on the calling thread);
+rank 0 alone writes, in the background as above, and the ranks meet at a
+barrier when the write is waited for.  The file is the same full-array
+npz.  `restore(..., shardings=)` places each leaf by its sharding from the
+full array, which every rank reads, with no broadcast.
 """
 
 from __future__ import annotations
@@ -28,7 +35,10 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from ..dist.reshard import place
 from ..tree import flatten_with_path, tree_unflatten
 
 
@@ -55,13 +65,25 @@ class Checkpointer:
         os.makedirs(directory, exist_ok=True)
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._meet = False      # the last save was a mesh's: barrier on wait
 
     # -- save ---------------------------------------------------------------
 
     def save(self, step: int, state, blocking: bool = False) -> None:
         self.wait()  # at most one async save in flight
-        host = {path: _to_host(leaf)
-                for path, leaf in flatten_with_path(state)}
+        flat = flatten_with_path(state)
+        self._meet = any(isinstance(leaf, DTensor) for _, leaf in flat)
+        writer = not self._meet or dist.get_rank() == 0
+        host = {}
+        for path, leaf in flat:
+            if isinstance(leaf, DTensor):
+                leaf = leaf.full_tensor()       # every rank, this thread
+            if writer:
+                host[path] = _to_host(leaf)
+        if not writer:
+            if blocking:
+                self.wait()             # the barrier with the writer
+            return
 
         def _write():
             tmp = os.path.join(self.dir, f"tmp.{step}.npz")
@@ -78,7 +100,8 @@ class Checkpointer:
                 self._error = err
 
         if blocking:
-            _write()
+            _background()
+            self.wait()
         else:
             self._thread = threading.Thread(target=_background, daemon=True)
             self._thread.start()
@@ -87,6 +110,9 @@ class Checkpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._meet:
+            self._meet = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -110,13 +136,18 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like, device=None):
+    def restore(self, step: int, like, device=None, shardings=None):
         """Rebuild the tree `like` (values ignored; layout, dtypes and
-        devices used) from checkpoint `step`, on `device` if given."""
+        devices used) from checkpoint `step`, on `device` if given.
+        `shardings` (`like`'s layout of `dist.sharding.NamedSharding`)
+        places every leaf on its mesh instead."""
         path = os.path.join(self.dir, f"step_{step:09d}.npz")
         with np.load(path) as zf:
             leaves = [_from_host(zf[key], leaf, device)
                       for key, leaf in flatten_with_path(like)]
+        if shardings is not None:
+            leaves = [place(leaf, where) for leaf, (_, where) in zip(
+                leaves, flatten_with_path(shardings), strict=True)]
         return tree_unflatten(like, leaves)
 
 

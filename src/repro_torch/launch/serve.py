@@ -49,7 +49,9 @@ frame embeddings.
 
 Both run on the card; `--device cpu --smoke` runs the reduced
 configuration on the CPU (there the "hopper" backend takes the kernels'
-plain versions).
+plain versions).  As in the reference, both serve inside
+`make_test_mesh()`: a one-rank mesh, on which `generate` places params
+and cache by the rule tables, every placement `Replicate()`.
 """
 
 from __future__ import annotations
@@ -61,12 +63,14 @@ import numpy as np
 import torch
 
 from ..configs import ARCH_NAMES, get_config
+from ..dist import sharding as shd
 from ..engine import BACKENDS
 from ..models import transformer as T
 from ..quant import quantize_params
 from ..serve_lib import serve as serve_lib
 from ..serve_lib.scheduler import Request, Scheduler
 from ..sparse import parse_sparsity, prune_params
+from .mesh import make_test_mesh
 
 
 def _sync(dev: torch.device) -> None:
@@ -242,6 +246,13 @@ def main(argv=None) -> dict:
         draft=args.draft if args.speculate else None,
         prefill_chunk=args.prefill_chunk)
     dev = serve_lib.resolve_device(scfg)
+    # as the reference serves: inside make_test_mesh() (a one-rank mesh,
+    # so every placement `generate` makes is Replicate())
+    with shd.use_mesh(make_test_mesh(device=args.device)):
+        return _serve(args, cfg, scfg, dev, dtype, trace)
+
+
+def _serve(args, cfg, scfg, dev, dtype, trace) -> dict:
     params = T.init_params(
         cfg, generator=torch.Generator(device=dev).manual_seed(args.seed),
         device=dev, dtype=dtype)

@@ -1,5 +1,4 @@
-"""Training launcher of the port (the port of `repro/launch/train.py`),
-on one device:
+"""Training launcher of the port (the port of `repro/launch/train.py`):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
         --kernel-backend hopper --batch 8 --seq 512 --microbatches 2 \\
@@ -13,20 +12,33 @@ writes the last step twice when it is a multiple of `--ckpt-every`; here
 the periodic save of that step is waited for instead: the same file).
 It runs on the card; `--device cpu --smoke` trains the reduced
 configuration on the CPU (there "hopper" takes the kernels' plain
-versions).  The reference's mesh, sharding rules and reshard-on-restore
-belong to the multi-device launcher, not this one.
+versions).
+
+As the reference's launcher does, it trains inside `make_test_mesh()`
+(here a one-rank process group on `--device`: NCCL on the card, gloo on
+the CPU): the state lives as DTensors placed by the auto rule table
+(`dist.sharding.params_shardings`), and `--resume auto` restores the
+newest checkpoint onto this mesh whatever mesh shape wrote it
+(`dist.reshard.resume_or_init`).  Its mesh is (1, 1), as the
+reference's is, so it refuses a world of more than one rank (torchrun):
+a sharded run drives `train_lib` under a mesh of its own (README).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
-from ..checkpoint.checkpoint import Checkpointer, resume_or_init
+from ..checkpoint.checkpoint import Checkpointer
 from ..configs import ARCH_NAMES, get_config
 from ..data.pipeline import DataConfig, make_source
+from ..dist import reshard
+from ..dist import sharding as shd
+from .mesh import make_test_mesh
 from ..optim.adamw import AdamWConfig
 from ..optim.schedule import linear_warmup_cosine
 from ..train_lib import train as train_lib
@@ -73,6 +85,13 @@ def main(argv=None) -> dict:
         raise RuntimeError(f"--device {args.device!r} but no CUDA device is "
                            f"available; pass --device cpu to train on the "
                            f"CPU")
+    world = max(dist.get_world_size() if dist.is_initialized() else 1,
+                int(os.environ.get("WORLD_SIZE", "1")))
+    if world > 1:
+        raise RuntimeError(
+            f"the train launcher's mesh is (1, 1), as the reference's is, "
+            f"but the world has {world} ranks; shard a run through "
+            f"train_lib under make_test_mesh(data, model) instead")
     cfg = get_config(args.arch, smoke=args.smoke)
     tcfg = train_lib.TrainConfig(
         microbatches=args.microbatches,
@@ -89,20 +108,29 @@ def main(argv=None) -> dict:
         gen = torch.Generator(device=dev).manual_seed(args.seed)
         return train_lib.init_state(cfg, tcfg, generator=gen, device=dev)
 
+    mesh = make_test_mesh(device=args.device)
+    with shd.use_mesh(mesh):
+        return _train(args, cfg, tcfg, source, init_fn, mesh, dev)
+
+
+def _train(args, cfg, tcfg, source, init_fn, mesh, dev) -> dict:
     step_fn = train_lib.make_train_step(cfg, tcfg)
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
     if ckpt and args.resume == "auto":
-        start, state = resume_or_init(ckpt, init_fn)
+        # elastic: the checkpoint may come from any mesh shape; placement
+        # is derived for this mesh
+        start, state = reshard.resume_or_init(ckpt, init_fn, mesh)
     else:
         start, state = 0, init_fn()
     if start:
         print(f"resumed from step {start}")
     out = {"start": start, "engine": step_fn.engine, "cfg": cfg,
-           "train_config": tcfg}
+           "train_config": tcfg, "mesh": mesh}
     if start >= args.steps:
         print(f"checkpoint already at step {start} >= --steps "
               f"{args.steps}; nothing to train")
         return {"final_ce": None, "first_ce": None, "steps": start, **out}
+    state = reshard.reshard(state, shd.params_shardings(state, mesh))
 
     losses, gnorms, seconds = [], [], []
     t0 = time.perf_counter()

@@ -16,7 +16,11 @@ by `cfg.moe.impl` as in the JAX package:
             backend).
 
 The JAX package's `constrain` calls place the buffers on a device mesh;
-on one card they have no meaning and are left out.
+the port computes on local tensors and leaves them out.  Under a
+data-parallel train step the load-balance loss's two per-expert means are
+averaged over the batch ranks (`dist.sharding.batch_mean`) before their
+product, so each rank's aux is the global one; capacity is per sequence,
+so the dispatch needs nothing.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..dist.sharding import batch_mean
 from ..engine import active_engine
 from .layers import dense_init
 
@@ -69,7 +74,10 @@ def _route(p, cfg, x: torch.Tensor):
     gates = torch.softmax(gates, dim=-1)
     probs = torch.softmax(logits, dim=-1)
     one_hot_sel = F.one_hot(sel[..., 0], e).float()
-    aux = e * torch.sum(one_hot_sel.mean(dim=(0, 1)) * probs.mean(dim=(0, 1)))
+    # in a data-parallel step each rank holds a share of (B, S): the two
+    # per-expert means are averaged over the ranks before their product
+    aux = e * torch.sum(batch_mean(one_hot_sel.mean(dim=(0, 1)))
+                        * batch_mean(probs.mean(dim=(0, 1))))
     return gates, sel, aux
 
 

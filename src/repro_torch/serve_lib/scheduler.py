@@ -158,6 +158,7 @@ class Scheduler:
             raise ValueError("draft_params and draft_cfg come together")
         if draft_params is not None and not scfg.speculate_k:
             raise ValueError("draft_params needs ServeConfig(speculate_k>0)")
+        serve_lib.serving_mesh("the Scheduler")
         self.params = params
         self.cfg = cfg
         self.scfg = scfg

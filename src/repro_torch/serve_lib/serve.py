@@ -36,6 +36,8 @@ import warnings
 
 import torch
 
+from ..dist import sharding as shd
+from ..dist.reshard import reshard
 from ..engine import (BACKENDS, Engine, ExecutionPlan, backend_in_bytes,
                       int8_sibling, sparse_sibling, use_engine)
 from ..models import transformer as T
@@ -263,6 +265,21 @@ def init_cache(cfg: ArchConfig, scfg: ServeConfig) -> dict:
                         device=resolve_device(scfg))
 
 
+def serving_mesh(what: str):
+    """The active mesh, if any, for `what` to serve on: a mesh of more
+    than one rank is refused, since sharded serving needs tensor-parallel
+    compute, which the port does not have yet (ROADMAP queue 1, item
+    9c)."""
+    mesh = shd.active_mesh()
+    if mesh is not None and mesh.size() > 1:
+        raise NotImplementedError(
+            f"{what} on a mesh of {mesh.size()} ranks "
+            f"{dict(shd.mesh_sizes(mesh))}: sharded serving needs "
+            f"tensor-parallel compute on the 'model' axis, not ported yet "
+            f"(ROADMAP queue 1, item 9c); serve on a one-rank mesh")
+    return mesh
+
+
 def sample(logits: torch.Tensor, temperature: float,
            generator: torch.Generator | None = None) -> torch.Tensor:
     """(..., V) logits -> (...,) int64 tokens: the argmax at temperature 0,
@@ -319,10 +336,23 @@ def generate(params, cfg: ArchConfig, scfg: ServeConfig, prompt,
     if prompt.dim() != 2 or prompt.shape[0] != scfg.batch:
         raise ValueError(f"prompt {tuple(prompt.shape)} is not "
                          f"(batch={scfg.batch}, S)")
+    mesh = serving_mesh("generate")
+    if mesh is not None:
+        # place params (the auto rule table) and cache (the cache rules),
+        # as the reference does; on a one-rank mesh every placement is
+        # Replicate() and the local tensors are the whole ones
+        if mesh.device_type != where.type:
+            raise ValueError(f"params live on {where} but the active mesh "
+                             f"is on {mesh.device_type!r}")
+        params = shd.local_tree(reshard(params,
+                                        shd.params_shardings(params, mesh)))
     eng = engine if engine is not None else warm_start_engine(scfg)
     scope = use_engine(eng) if eng is not None else contextlib.nullcontext()
     with scope, torch.inference_mode():
         cache = init_cache(cfg, scfg)
+        if mesh is not None:
+            cache = shd.local_tree(reshard(cache,
+                                           shd.cache_shardings(cache, mesh)))
         logits, cache = T.prefill(params, cfg, prompt, cache, embeds=embeds,
                                   compute_dtype=scfg.compute_dtype)
         pick = lambda lg: sample(lg[:, -1], temperature, key)[:, None].to(

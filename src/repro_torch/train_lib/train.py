@@ -13,18 +13,45 @@ microbatched gradient accumulation, AdamW, on one device.
     the step's backward: the checkpointed periods recompute their forward
     inside its `use_engine` scope, on the same kernels.
 
-The reference's `shard_grad_accum` (a GSPMD sharding constraint) has no
-place on one device and is left out.
+Under a mesh (`dist.sharding.use_mesh`, or a state of DTensors) the step
+is sharded:
+
+  * the state (params, mu, nu, master) lives as DTensors placed by
+    `dist.sharding.params_shardings`, the moments taking their parameter's
+    spec by the path suffix, as in the reference;
+  * each step gathers the full params (`full_tensor()`) and computes on
+    plain tensors: no DTensor reaches the engine or a VJP;
+  * each rank takes its share of every global microbatch along
+    `spec(labels.shape, ("batch", None))`, so the microbatches are the
+    reference's; the MoE load-balance means are averaged over those ranks
+    inside the forward (`dist.sharding.batch_mean`);
+  * the gradients are reduced over the batch ranks into each leaf's shard
+    (a `Partial` DTensor redistributed to the leaf's placements) and
+    scaled to the global mean; with `shard_grad_accum` (the default, as
+    in the reference) after every microbatch, into an f32 accumulator
+    that lives in the shard, else once after the last;
+  * AdamW runs on the shards, its clipping norm one all-reduce.
+
+The `"model"` axis shards state only: the ranks along it compute the same
+batch slice.  This is the reference's math at the reference's state
+placement, without its tensor-parallel compute (ROADMAP queue 1, 9c).  A
+data-parallel reduction sums in another order than one device does, so
+the sharded step is not bit for bit the unsharded one, except on a (1, 1)
+mesh, where nothing is reduced.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from .. import engine as engine_mod
+from ..dist import reshard as reshard_mod
+from ..dist import sharding as shd
 from ..models import transformer as T
 from ..models.config import ArchConfig
 from ..optim import adamw
@@ -39,6 +66,10 @@ class TrainConfig:
     compute_dtype: torch.dtype = torch.bfloat16
     aux_weight: float = 0.01          # MoE load-balance loss weight
     optimizer: adamw.AdamWConfig = adamw.AdamWConfig()
+    # under a mesh: reduce each microbatch's gradients into an f32
+    # accumulator that lives in the leaf's shard (the reference's sharding
+    # constraint on its scan carry); False keeps it full until the last
+    shard_grad_accum: bool = True
     # the engine backend every model matmul runs through ("hopper",
     # "torch-ref", ...); None keeps plain `@`
     kernel_backend: str | None = None
@@ -130,7 +161,10 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig):
     def train_step(state: dict, batch: dict):
         scope = (engine_mod.use_engine(eng) if eng is not None
                  else contextlib.nullcontext())
+        mesh = shd.active_mesh() or shd.tree_mesh(state)
         with scope:
+            if mesh is not None:
+                return _sharded_step(state, batch, mesh)
             return _train_step(state, batch)
 
     def _train_step(state: dict, batch: dict):
@@ -171,8 +205,110 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig):
         metrics = {key: val / n_micro for key, val in tot.items()}
         return {"params": new_params, "opt": new_opt}, {**metrics, **om}
 
+    def _sharded_step(state: dict, batch: dict, mesh):
+        _refuse_storage(shd.local_tree(state["params"]))
+        state = reshard_mod.reshard(state,
+                                    shd.params_shardings(state, mesh))
+        params = state["params"]
+        leaves = [leaf for _, leaf in flatten_with_path(params)]
+        full = [leaf.full_tensor() for leaf in leaves]
+        inputs, labels = _split_batch(batch, cfg)
+        n_micro = tcfg.microbatches
+        if labels.shape[0] % n_micro:
+            raise ValueError(f"batch {labels.shape[0]} is not a multiple "
+                             f"of {n_micro} microbatches")
+        rows = labels.shape[0] // n_micro
+        split = _BatchSplit(mesh, (rows,) + tuple(labels.shape[1:]))
+        dev = full[0].device
+        acc = [torch.zeros(leaf.to_local().shape if tcfg.shard_grad_accum
+                           else leaf.shape, dtype=torch.float32, device=dev)
+               for leaf in leaves]
+        zero = lambda: torch.zeros((), dtype=torch.float32, device=dev)
+        tot = {"loss": zero(), "ce": zero(), "aux": zero()}
+        for i in range(n_micro):
+            part = split.rows(i)
+            with torch.enable_grad(), shd.batch_parallel(split.groups):
+                live = [p.detach().requires_grad_() for p in full]
+                loss, (ce, aux) = loss_fn(
+                    tree_unflatten(params, live),
+                    {k: v[part] for k, v in inputs.items()}, labels[part])
+                grads = torch.autograd.grad(loss, live, allow_unused=True)
+            del live
+            for j, g in enumerate(grads):
+                if g is None:
+                    continue
+                acc[j].add_(split.reduce(g.float(), leaves[j])
+                            if tcfg.shard_grad_accum else g)
+            del grads
+            for key, val in (("loss", loss), ("ce", ce), ("aux", aux)):
+                tot[key] = tot[key] + val.detach().float()
+        if not tcfg.shard_grad_accum:
+            acc = [split.reduce(a, leaf) for a, leaf in zip(acc, leaves,
+                                                              strict=True)]
+        grads = []
+        for a, leaf in zip(acc, leaves, strict=True):
+            a.div_(n_micro * split.ranks)
+            grads.append(DTensor.from_local(
+                a, mesh, leaf.placements, run_check=False, shape=leaf.shape,
+                stride=leaf.stride()))
+        new_params, new_opt, om = adamw.apply_updates(
+            tcfg.optimizer, state["opt"], tree_unflatten(params, grads),
+            param_dtype=tcfg.compute_dtype)
+        metrics = split.mean({key: val / n_micro for key, val in tot.items()})
+        return {"params": new_params, "opt": new_opt}, {**metrics, **om}
+
     train_step.engine = eng
     return train_step
+
+
+class _BatchSplit:
+    """This rank's share of each (rows, ...) microbatch on `mesh`: the
+    mesh axes that `spec(shape, ("batch", None))` puts on the rows, the
+    process groups of those axes, and the reductions over them."""
+
+    def __init__(self, mesh, shape: tuple):
+        self.mesh = mesh
+        names = tuple(mesh.mesh_dim_names)
+        entry = shd.spec(shape, ("batch",) + (None,) * (len(shape) - 1),
+                         mesh)[0]
+        self.axes = shd.entry_axes(entry)
+        self.groups = tuple(mesh.get_group(a) for a in self.axes)
+        sizes = shd.mesh_sizes(mesh)
+        self.ranks = math.prod(sizes[a] for a in self.axes)
+        coord = mesh.get_coordinate()
+        index = 0
+        for a in self.axes:                  # mesh order: the first major
+            index = index * sizes[a] + coord[names.index(a)]
+        self.share = shape[0] // self.ranks
+        self.index = index
+        self.rows_each = shape[0]
+        self.grad_placements = tuple(
+            Partial() if a in self.axes else Replicate() for a in names)
+
+    def rows(self, i: int) -> slice:
+        """This rank's rows of microbatch `i`."""
+        start = i * self.rows_each + self.index * self.share
+        return slice(start, start + self.share)
+
+    def reduce(self, g: torch.Tensor, leaf) -> torch.Tensor:
+        """The sum over the batch ranks of each one's full gradient `g`,
+        as this rank's local shard of `leaf`'s placement."""
+        return DTensor.from_local(
+            g, self.mesh, self.grad_placements, run_check=False).redistribute(
+                self.mesh, leaf.placements).to_local()
+
+    def mean(self, metrics: dict) -> dict:
+        """Scalar metrics averaged over the batch ranks."""
+        if self.ranks == 1:
+            return metrics
+        import torch.distributed as dist
+
+        keys = sorted(metrics)
+        vec = torch.stack([metrics[k] for k in keys])
+        for g in self.groups:
+            dist.all_reduce(vec, group=g)
+        vec = vec / self.ranks
+        return {k: vec[i] for i, k in enumerate(keys)}
 
 
 def device_batch(batch: dict, device) -> dict:
